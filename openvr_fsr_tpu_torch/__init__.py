@@ -1,0 +1,23 @@
+"""openvr_fsr_tpu_torch — the PyTorch + CUDA port of openvr_fsr_tpu.
+
+Runs the system's main path, FSR1 (EASU upscale + UNORM8 intermediate +
+RCAS sharpen) with foveated-radius blending over stereo RGBA8 frames, on an
+NVIDIA Hopper GPU through a hand-written CUDA kernel, and on the CPU through
+the same computation in plain torch. The JAX package openvr_fsr_tpu is the
+reference it is held against; this package imports torch and numpy, never
+jax.
+
+Layers (bottom up), mirroring openvr_fsr_tpu:
+  core/     — config & constant derivation (numpy copies of the JAX package's)
+  ops/      — plain torch ops, f32 op for op the NumPy oracle
+  csrc/     — the CUDA C++ kernel sources (built with nvcc at first use)
+  kernels/  — build, launch wrappers and plain versions of the kernels
+  api/      — `upscale()` + stateful `Pipeline`
+  utils/    — frames, timing, logging
+"""
+
+from .version import __version__
+from .core.config import Config, load_config
+from .api.pipeline import Pipeline, upscale
+
+__all__ = ["__version__", "Config", "load_config", "Pipeline", "upscale"]

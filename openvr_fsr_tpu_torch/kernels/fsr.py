@@ -1,0 +1,176 @@
+"""The fused FSR (EASU + RCAS) kernel: build, launch, and its plain version.
+
+`build_fsr_fused` is the port of the JAX package's kernels/fsr.py::
+build_fsr_fused for the 8-bit packed path. Per output pixel of each batch
+entry it computes what the reference does in two dispatches and an
+intermediate texture (src/postprocess/PostProcessor.cpp:385-401, 483-496):
+
+  1. EASU (ffx_fsr1.h:315-437) inside the foveation circle, the bilinear
+     fallback (fsr_easu.hlsl:33-36) outside, alpha 1;
+  2. the UNORM8 round trip of the intermediate (PostProcessor.cpp:527);
+  3. RCAS (ffx_fsr1.h:684-769) with zero out-of-image taps inside the
+     circle, the quantized value times the debug tint outside;
+  4. the packed RGBA8 store with alpha 255.
+
+The returned function launches the CUDA kernel (csrc/fsr_fused.cu) for a
+CUDA tensor and runs `fsr_fused_reference`, the same computation in plain
+torch, for a CPU tensor. Nothing falls back: a CUDA tensor runs the kernel
+or raises.
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..core import constants as C
+from ..ops.bilinear import bilinear_gather
+from ..ops.easu import easu_core, easu_gather
+from ..ops.rcas import rcas
+from ..ops.common import unorm_quantize
+from . import _build
+from ._maps import IN_TILE, TILE, fsr_maps, input_padding
+
+__all__ = ["build_fsr_fused", "fsr_fused_reference", "circle_mask",
+           "unpack_rgb", "pack_rgb"]
+
+F32 = np.float32
+_INV255 = float(F32(1.0) / F32(255.0))
+_ALPHA_255 = -16777216          # 255 << 24 in an int32 view
+
+
+def unpack_rgb(img):
+    """(B, H, W) int32 packed RGBA8 (R in the low byte) -> (B, 3, H, W) f32
+    texels decoded as u * f32(1/255)."""
+    return torch.stack([((img >> (8 * c)) & 255).to(torch.float32)
+                        for c in range(3)], dim=-3) * _INV255
+
+
+def pack_rgb(rgb):
+    """(B, 3, H, W) f32 -> (B, H, W) int32 packed RGBA8 with alpha 255:
+    clamp, *255, round half to even (kernels/_band.py:154-169)."""
+    q = torch.round(torch.clamp(rgb, 0.0, 1.0) * 255.0).to(torch.int32)
+    return q[:, 0] + (q[:, 1] << 8) + (q[:, 2] << 16) + _ALPHA_255
+
+
+def circle_mask(centres, out_h, out_w):
+    """(B, out_h, out_w) bool: the reference's per-16x16-group circle test
+    (fsr_easu.hlsl:41-45; core/foveation.py::tile_mask) from (B, 5) int64
+    centres rows, in int64 on the centres' device."""
+    dev = centres.device
+    gx = torch.div(torch.arange(out_w, device=dev), TILE,
+                   rounding_mode="floor") * TILE + TILE // 2
+    gy = torch.div(torch.arange(out_h, device=dev), TILE,
+                   rounding_mode="floor") * TILE + TILE // 2
+    c = centres[:, :, None, None]
+    d1 = (c[:, 0] - gx) ** 2 + (c[:, 1] - gy[:, None]) ** 2
+    d2 = (c[:, 2] - gx) ** 2 + (c[:, 3] - gy[:, None]) ** 2
+    return (d1 <= c[:, 4]) | (d2 <= c[:, 4])
+
+
+def fsr_fused_reference(img, maps, sharpness_linear, tint):
+    """The fused kernel's computation in plain torch, on img's device.
+
+    img: (B, H, W) or pre-padded (B, HP, WP) int32 packed RGBA8; maps: the
+    build's FsrMaps on img's device; sharpness_linear: RCAS con.x; tint: the
+    out-of-circle G/B multiplier (0.7 in debug mode, else 1). Returns
+    (B, OH, OW) int32 packed RGBA8."""
+    m = maps
+    rgb = unpack_rgb(img[:, :m.in_h, :m.in_w])
+    taps = easu_gather(rgb, m.col_i[0], m.row_i[0])
+    up = easu_core(taps, m.col_f[0][None, :], m.row_f[0][:, None])
+    bil = bilinear_gather(rgb, m.col_i[1], m.col_f[1], m.row_i[1],
+                          m.row_f[1])
+    inside = circle_mask(m.centres, m.out_h, m.out_w)[:, None]
+    q = unorm_quantize(torch.where(inside, up, bil))
+    sharp = rcas(q, sharpness_linear)
+    tint_v = torch.tensor([1.0, float(tint), float(tint)], dtype=torch.float32,
+                          device=img.device)[:, None, None]
+    return pack_rgb(torch.where(inside, sharp, q * tint_v))
+
+
+def _launch_fn():
+    lib = _build.load_library()
+    f = lib.fsr_fused_launch
+    f.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                  + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    f.restype = ctypes.c_int
+    return f
+
+
+def build_fsr_fused(batch, in_h, in_w, out_w, out_h, *, sharpness, centres,
+                    debug=False):
+    """Build the fused stereo FSR kernel for a fixed shape/config.
+
+    Args:
+      batch, in_h, in_w, out_w, out_h: static sizes (out > in: EASU upscales).
+      sharpness: the [0,1] config slider (PostProcessor.cpp:420-421 mapping).
+      centres: (B, 5) int array per batch entry: cx1, cy1, cx2, cy2,
+        radius_sq (core.constants.centres_payload).
+      debug: out-of-radius tint 1-(0, .3, .3) (fsr_rcas.hlsl:46).
+
+    Returns fn(img): img is a contiguous (B, in_h, in_w) int32 tensor, or
+    one pre-padded to the ring pitch fn.pad_to (rows read in place, no
+    copy), holding packed RGBA8 texels (little-endian, R in the low byte);
+    the result is a new (B, out_h, out_w) int32 tensor of packed RGBA8 with
+    alpha 255 on img's device. fn.launches counts CUDA kernel launches;
+    fn.reference(img) runs the plain version on img's device.
+    """
+    B, H, W = int(batch), int(in_h), int(in_w)
+    OH, OW = int(out_h), int(out_w)
+    maps = fsr_maps(B, H, W, OW, OH, centres)
+    sharp = C.fsr_rcas_con(C.rcas_stops_from_slider(sharpness))
+    tint = F32(0.7) if debug else F32(1.0)
+    hp, wp = input_padding(H, W)
+    on_device = {}
+    launch = None            # the ctypes entry point, bound at first launch
+
+    def maps_on(dev):
+        m = on_device.get(dev)
+        if m is None:
+            m = on_device[dev] = maps.to(dev)
+        return m
+
+    def reference(img):
+        """The plain torch version on img's device (any device)."""
+        return fsr_fused_reference(img, maps_on(img.device), sharp, tint)
+
+    def fn(img):
+        nonlocal launch
+        if not isinstance(img, torch.Tensor) or img.dtype != torch.int32:
+            raise TypeError("fused FSR takes an int32 tensor of packed RGBA8 "
+                            f"texels, got {type(img).__name__} "
+                            f"{getattr(img, 'dtype', '')}")
+        if img.ndim != 3 or img.shape[0] != B or \
+                tuple(img.shape[1:]) not in ((H, W), (hp, wp)):
+            raise ValueError(
+                f"frame shape {tuple(img.shape)} matches neither the build "
+                f"shape {(B, H, W)} nor the pre-padded pitch {(B, hp, wp)}")
+        if not img.is_contiguous():
+            raise ValueError("fused FSR takes a contiguous frame tensor")
+        dev = img.device
+        if dev.type == "cpu":
+            return reference(img)
+        if dev.type != "cuda":
+            raise ValueError(f"fused FSR has no path for device {dev}")
+        if launch is None:
+            launch = _launch_fn()
+        m = maps_on(dev)
+        out = torch.empty((B, OH, OW), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            err = launch(
+                img.data_ptr(), out.data_ptr(), m.col_i.data_ptr(),
+                m.col_f.data_ptr(), m.row_i.data_ptr(), m.row_f.data_ptr(),
+                m.tile_x0.data_ptr(), m.tile_y0.data_ptr(),
+                m.centres.data_ptr(), B, H, W, img.shape[1], img.shape[2],
+                OH, OW, float(sharp), float(tint), IN_TILE,
+                torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"fsr_fused_launch failed: cudaError {err}")
+        fn.launches += 1
+        return out
+
+    fn.launches = 0
+    fn.pad_to = (hp, wp)
+    fn.reference = reference
+    return fn

@@ -1,0 +1,211 @@
+"""The port's slice end to end on the CPU: `Pipeline.process` and
+`upscale` against the JAX package's `Pipeline(backend="xla")` and the NumPy
+oracle, over the API surface the slice covers, and the plans it refuses.
+
+Against XLA:CPU (which contracts FMAs) the bar is the JAX package's
+quantized tier: at least 99.9% of texels equal, max 2 LSB. Against the
+oracle the port is bit-exact.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import openvr_fsr_tpu as J  # noqa: E402
+from openvr_fsr_tpu.oracle.pipeline import pipeline_oracle  # noqa: E402
+from openvr_fsr_tpu.utils import frames as JFR  # noqa: E402
+
+import openvr_fsr_tpu_torch as T  # noqa: E402
+
+MAIN = dict(enabled=True, render_scale=0.75, sharpness=0.9, radius=0.5)
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _assert_close(got, ref, frac=0.999, worst=2):
+    got, ref = _np(got), _np(ref)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    d = np.abs(got.view(np.uint8).astype(int) - ref.view(np.uint8).astype(int))
+    assert (d == 0).mean() >= frac, (d == 0).mean()
+    assert d.max() <= worst, d.max()
+
+
+def _stereo(h, w):
+    return np.stack([JFR.zone_plate_frame(h, w), JFR.noise_frame(h, w, seed=3)])
+
+
+def _pair(**kw):
+    return T.Pipeline(T.Config(**kw)), J.Pipeline(J.Config(**kw),
+                                                  backend="xla")
+
+
+class TestAgainstJax:
+    @pytest.mark.parametrize("h,w,kw", [
+        (96, 128, MAIN),
+        (48, 56, dict(MAIN, radius=2.0)),
+        (64, 72, dict(MAIN, render_scale=1.3, radius=0.0)),
+        (48, 56, dict(MAIN, radius=0.3, debug_mode=True)),
+    ])
+    def test_uint8_nhwc(self, h, w, kw):
+        tp, jp = _pair(**kw)
+        frames = _stereo(h, w)
+        got = tp.process(frames)
+        assert isinstance(got, torch.Tensor) and got.dtype == torch.uint8
+        _assert_close(got, jp.process(frames))
+
+    def test_packed_u32_zero_copy(self):
+        tp, jp = _pair(**MAIN)
+        packed = np.ascontiguousarray(_stereo(48, 56)).view(np.uint32)[..., 0]
+        got = tp.process(packed)
+        assert got.dtype == torch.uint32 and got.shape == (2, 64, 74)
+        _assert_close(got, jp.process(packed))
+        # the same texels as the uint8 path, and int32 planes work too
+        u8 = tp.process(_stereo(48, 56))
+        assert np.array_equal(_np(got).view(np.uint8).reshape(u8.shape),
+                              u8.numpy())
+        i32 = tp.process(torch.from_numpy(packed.view(np.int32)))
+        assert i32.dtype == torch.int32
+        assert np.array_equal(i32.numpy().view(np.uint32), _np(got))
+
+    def test_single_frame_and_eyes(self):
+        tp, jp = _pair(**MAIN)
+        frame = JFR.zone_plate_frame(48, 56)
+        for eyes in (None, (1,)):
+            got = tp.process(frame, eyes=eyes)
+            assert got.shape == (64, 74, 4)
+            _assert_close(got, jp.process(frame, eyes=eyes))
+
+    def test_rgb_input_gets_opaque_alpha(self):
+        tp, jp = _pair(**MAIN)
+        rgb = _stereo(48, 56)[..., :3]
+        got = tp.process(rgb)
+        assert (got.numpy()[..., 3] == 255).all()
+        _assert_close(got, jp.process(rgb))
+
+    def test_bounds_switch_layout_and_crop(self):
+        tp, jp = _pair(**MAIN)
+        frames = _stereo(48, 112)
+        half = (0.0, 0.0, 0.5, 1.0)          # double-wide: one eye per half
+        got = tp.process(frames, bounds=half, crop=True)
+        assert not tp.single_eye_per_frame
+        _assert_close(got, jp.process(frames, bounds=half, crop=True))
+        # flipped full bounds switch back to single-eye frames
+        full = [(0.0, 1.0, 1.0, 0.0)] * 2
+        got = tp.process(frames, bounds=full, crop=True)
+        assert tp.single_eye_per_frame
+        _assert_close(got, jp.process(frames, bounds=full, crop=True))
+
+    def test_mutators_and_reset(self):
+        tp, jp = _pair(**MAIN)
+        frames = _stereo(48, 56)
+        tp.process(frames)
+        assert len(tp._cache) == 1 and len(tp.kernels) == 1
+        tp.process(frames)
+        assert len(tp._cache) == 1            # the build cache hit
+        for mutate in (lambda p: p.adjust_sharpness(-0.4),
+                       lambda p: p.adjust_radius(0.5),
+                       lambda p: p.toggle_debug(),
+                       lambda p: p.adjust_radius(-10.0)):
+            mutate(tp)
+            mutate(jp)
+            assert tp._cache == {}
+            assert (tp.config.sharpness, tp.config.radius,
+                    tp.config.debug_mode) == (jp.config.sharpness,
+                                              jp.config.radius,
+                                              jp.config.debug_mode)
+            _assert_close(tp.process(frames), jp.process(frames))
+        tp.reset()
+        assert tp._cache == {}
+
+    def test_upscale(self):
+        frame = JFR.zone_plate_frame(48, 56)
+        got = T.upscale(frame, render_scale=0.75, sharpness=0.9, radius=0.5)
+        _assert_close(got, J.upscale(frame, render_scale=0.75, sharpness=0.9,
+                                     radius=0.5, backend="xla"))
+
+
+class TestAgainstOracle:
+    @pytest.mark.parametrize("radius,debug", [(0.5, False), (0.0, True)])
+    def test_bit_exact(self, radius, debug):
+        frames = _stereo(96, 128)
+        got = T.Pipeline(T.Config(**dict(MAIN, radius=radius,
+                                         debug_mode=debug))).process(frames)
+        want = np.stack([pipeline_oracle(frames[i], 0.75, 0.9, radius=radius,
+                                         debug=debug, eye=i)
+                         for i in range(2)])
+        assert np.array_equal(got.numpy(), want)
+
+
+class TestApi:
+    def test_disabled_returns_input(self):
+        frames = _stereo(48, 56)
+        assert T.Pipeline(T.Config(enabled=False)).process(frames) is frames
+
+    def test_debug_timer_counts(self):
+        tp = T.Pipeline(T.Config(**dict(MAIN, debug_mode=True)))
+        tp.process(_stereo(48, 56))
+        assert tp.timer.count == 1 and tp.timer.summed > 0
+
+    def test_config_from_jax(self):
+        import dataclasses
+        jcfg = J.Config(**MAIN)
+        tp = T.Pipeline(T.Config.config_from_dict(dataclasses.asdict(jcfg)))
+        _assert_close(tp.process(_stereo(48, 56)),
+                      J.Pipeline(jcfg, backend="xla").process(_stereo(48, 56)))
+
+    def test_explicit_cpu_device(self):
+        tp = T.Pipeline(T.Config(**MAIN), device="cpu")
+        out = tp.process(_stereo(48, 56))
+        assert out.device.type == "cpu"
+        assert tp.kernels[0].launches == 0
+
+    def test_cuda_without_gpu_raises(self):
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA GPU is present")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            T.Pipeline(T.Config(**MAIN), device="cuda")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            T.upscale(_stereo(48, 56), render_scale=0.75, device="cuda")
+
+    def test_tensor_on_another_device_raises(self):
+        tp = T.Pipeline(T.Config(**MAIN), device="cpu")
+        with pytest.raises(ValueError, match="device"):
+            tp.process(torch.from_numpy(_stereo(48, 56)).to("meta"))
+
+    @pytest.mark.parametrize("kw,entry", [
+        (dict(MAIN, render_scale=1.0), "B2"),
+        (dict(MAIN, use_nis=True), "item 10"),
+        (dict(MAIN, use_cas=True), "item 11"),
+    ])
+    def test_unported_plans_raise(self, kw, entry):
+        with pytest.raises(NotImplementedError, match=entry):
+            T.Pipeline(T.Config(**kw)).process(_stereo(48, 56))
+
+    def test_toggle_nis_then_process_raises(self):
+        tp = T.Pipeline(T.Config(**MAIN))
+        tp.toggle_nis()
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tp.process(_stereo(48, 56))
+
+    @pytest.mark.parametrize("kw", [dict(color_bits=10),
+                                    dict(precision="half")])
+    def test_unported_options_raise(self, kw):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            T.Pipeline(T.Config(**MAIN), **kw)
+
+    def test_capture_raises(self):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            T.Pipeline(T.Config(**MAIN)).arm_capture("/nonexistent")
+
+    @pytest.mark.parametrize("backend", ["xla", "pallas", "pallas-interpret"])
+    def test_other_backends_raise(self, backend):
+        with pytest.raises(ValueError, match="backend"):
+            T.Pipeline(T.Config(**MAIN), backend=backend)
+
+    def test_other_dtypes_raise(self):
+        with pytest.raises(TypeError):
+            T.Pipeline(T.Config(**MAIN)).process(
+                _stereo(48, 56).astype(np.float32))
