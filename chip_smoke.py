@@ -5,19 +5,30 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-The first run builds the CUDA kernel from openvr_fsr_tpu_torch/csrc with
-nvcc (sm_90a) into openvr_fsr_tpu_torch/_build/. Phases, in order; any
-failure exits non-zero before the result lines:
+The run builds the CUDA kernels from openvr_fsr_tpu_torch/csrc with nvcc
+(sm_90a), one nvcc per source, all at once, into openvr_fsr_tpu_torch/
+_build/. Phases, in order; any failure exits non-zero before the result
+lines:
 
-  1. setup: card, power limit, toolchain versions, the kernel build;
-  2. the kernel against its plain torch version on the card, at the main
-     path's full size (2 x 1683x1869 -> 2 x 2244x2492) for radius 0.5, 2.0
-     and 0.0 and debug, on two frame sets, plus the ring-pitch input, a
-     supersample (rs 1.3) case, and a small case against the CPU path;
-  3. the main path through the public API: a Pipeline processes 20 stereo
-     pairs as uint8 NHWC and as packed frames, plus one upscale() call,
-     with the kernel's launch counts read around the run;
-  4. kernel and plain-version times in ms per stereo pair (CUDA events);
+  1. setup: card, power limit, toolchain versions, the kernel builds;
+  2. each kernel against its plain torch version on the card, at full
+     size, on a zone-plate + noise set and a uniform-random set, both with
+     alpha that is not all 255:
+       fsr_fused    2 x 1683x1869 -> 2 x 2244x2492, radius 0.5, 2.0, 0.0
+                    and 0.5 with debug; plus a supersample (rs 1.3) case;
+       rcas_sharpen 2 x 2244x2492, radius 0.4, 2.0, 0.0 and 0.4 with debug;
+       nis_sharpen  the same, hdr_mode 0, plus radius 2.0 at hdr_mode 1, 2;
+       nis_scaler   2 x 1683x1869 -> 2 x 2244x2492, radius 0.5, 2.0, 0.0
+                    and 0.5 with debug, hdr_mode 0, plus radius 2.0 at
+                    hdr_mode 1 and 2;
+     and for each kernel a ring-pitch input and a small case against the
+     CPU path;
+  3. the plans through the public API, each with the launch counts set to
+     0 just before and read just after: FSR rs 0.75, FSR rs 1, NIS rs 0.75
+     and NIS rs 1 process 10 stereo pairs as uint8 NHWC and as packed
+     frames; toggle_nis() on a live Pipeline; upscale(use_nis=True);
+  4. kernel and plain-version times in ms per stereo pair (CUDA events),
+     and each plain version's peak device memory;
   5. the result lines: the card, the kernels JSON, and {"ok": true, ...}.
 
 Exits non-zero, printing no result, when torch finds no CUDA GPU.
@@ -32,9 +43,12 @@ import numpy as np
 import torch
 
 H, W = 1869, 1683            # per-eye render size at renderScale 0.75
+OH, OW = 2492, 2244          # the headset's per-eye size (renderScale 1)
 SHARPNESS = 0.9
 PARITY_MIN_EQUAL = 0.99999   # fraction of equal texels, kernel vs plain
 PARITY_MAX_LSB = 1
+N_PAIRS = 10                 # stereo pairs per plan through the public API
+CENTRES = ((0.5, 0.5), (0.5, 0.5))
 
 
 def log(*a):
@@ -64,6 +78,21 @@ def lsb_diff(a, b):
     return ne, a.numel(), int(d.max())
 
 
+def time_ms(f, x, n, warmup=3):
+    """CUDA-event ms per call of f(x) over n back-to-back calls."""
+    for _ in range(warmup):
+        f(x)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        f(x)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch finds no CUDA GPU")
@@ -71,6 +100,8 @@ def main():
     from openvr_fsr_tpu_torch.core import constants as C
     from openvr_fsr_tpu_torch.kernels import _build
     from openvr_fsr_tpu_torch.kernels.fsr import build_fsr_fused
+    from openvr_fsr_tpu_torch.kernels.nis import build_nvscaler, build_nvsharpen
+    from openvr_fsr_tpu_torch.kernels.rcas import build_rcas_sharpen
     from openvr_fsr_tpu_torch.utils import frames as FR
 
     dev = torch.device("cuda", 0)
@@ -87,180 +118,275 @@ def main():
     log(f"[setup] device: {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    _build.load_library()
-    log(f"[setup] kernel library {_build.library_path().name} ready in "
+    _build.build()
+    log(f"[setup] kernels {_build.kernel_names()} built in parallel in "
         f"{time.perf_counter() - t0:.1f} s")
-    build_log = _build.library_path().with_suffix(".log")
-    if build_log.exists():
-        for line in build_log.read_text().splitlines()[1:]:   # nvcc output
-            log(f"[setup]   {line.strip()}")
+    for name in _build.kernel_names():
+        build_log = _build.library_path(name).with_suffix(".log")
+        if build_log.exists():
+            for line in build_log.read_text().splitlines()[1:]:  # nvcc output
+                log(f"[setup]   {name}: {line.strip()}")
 
-    cfg = Config(enabled=True, render_scale=0.75, sharpness=SHARPNESS,
-                 radius=0.5)
-    OW, OH = cfg.output_size(W, H)
+    def centres(ow, oh, radius, b=2):
+        return C.centres_payload(ow, oh, radius, CENTRES,
+                                 tuple(i % 2 for i in range(b)))
 
-    def build(b, h, w, ow, oh, radius, debug):
-        cen = C.centres_payload(ow, oh, radius, ((0.5, 0.5), (0.5, 0.5)),
-                                tuple(i % 2 for i in range(b)))
-        return build_fsr_fused(b, h, w, ow, oh, sharpness=SHARPNESS,
-                               centres=cen, debug=debug)
+    def fsr(radius, debug=False, h=H, w=W, rs=0.75):
+        ow, oh = Config(render_scale=rs).output_size(w, h)
+        return build_fsr_fused(2, h, w, ow, oh, sharpness=SHARPNESS,
+                               centres=centres(ow, oh, radius), debug=debug)
+
+    def rcas(radius, debug=False, h=OH, w=OW):
+        return build_rcas_sharpen(2, h, w, sharpness=SHARPNESS,
+                                  centres=centres(w, h, radius), debug=debug)
+
+    def sharpen(radius, debug=False, hdr=0, h=OH, w=OW):
+        cfg = C.nvsharpen_update_config(SHARPNESS, w, h, w, h, hdr_mode=hdr)
+        return build_nvsharpen(2, h, w, nis_cfg=cfg,
+                               centres=centres(w, h, radius), debug=debug)
+
+    def scaler(radius, debug=False, hdr=0, h=H, w=W, rs=0.75):
+        ow, oh = Config(render_scale=rs).output_size(w, h)
+        cfg = C.nvscaler_update_config(SHARPNESS, w, h, w, h, ow, oh, ow, oh,
+                                       hdr_mode=hdr)
+        return build_nvscaler(2, h, w, ow, oh, nis_cfg=cfg,
+                              centres=centres(ow, oh, radius), debug=debug)
+
+    rng = np.random.default_rng(0)
 
     def packed(frames_u8):
         return torch.from_numpy(np.ascontiguousarray(frames_u8)).to(dev) \
             .view(torch.int32)[..., 0].contiguous()
 
-    # ---- 2. kernel vs plain version -----------------------------------------
-    rng = np.random.default_rng(0)
-    frame_sets = {
-        "zone+noise": packed(np.stack([FR.zone_plate_frame(H, W),
-                                       FR.noise_frame(H, W, seed=1)])),
-        "uniform": packed(rng.integers(0, 256, (2, H, W, 4), dtype=np.uint8)),
-    }
+    def frame_sets(h, w):
+        zone = np.stack([FR.zone_plate_frame(h, w),
+                         FR.noise_frame(h, w, seed=1)])
+        zone[..., 3] = rng.integers(0, 256, (2, h, w), dtype=np.uint8)
+        return {"zone+noise": packed(zone),
+                "uniform": packed(rng.integers(0, 256, (2, h, w, 4),
+                                               dtype=np.uint8))}
+
+    # ---- 2. each kernel against its plain version ---------------------------
+    sets = {"in": frame_sets(H, W), "full": frame_sets(OH, OW)}
+    max_lsb = {"fsr_fused": 0, "rcas_sharpen": 0, "nis_sharpen": 0,
+               "nis_scaler": 0}
+
+    def parity(kernel, label, fn, img):
+        got = fn(img)
+        want = fn.reference(img)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.device != img.device:
+            fail(f"{kernel} output {tuple(got.shape)} on {got.device}")
+        ne, n, mx = lsb_diff(got, want)
+        log(f"[parity] {kernel} {label}: unequal {ne} of {n} texels, "
+            f"max {mx} LSB")
+        if mx > PARITY_MAX_LSB or 1.0 - ne / n < PARITY_MIN_EQUAL:
+            fail(f"{kernel} disagrees with its plain version ({ne}, {mx})")
+        max_lsb[kernel] = max(max_lsb[kernel], mx)
+        return got
+
     cases = [(r, False) for r in (0.5, 2.0, 0.0)] + [(0.5, True)]
-    max_lsb, kernel_out = 0, {}
+    sharpen_cases = [(r, False) for r in (0.4, 2.0, 0.0)] + [(0.4, True)]
+    kernel_out = {}
     for radius, debug in cases:
-        fn = build(2, H, W, OW, OH, radius, debug)
-        for name, img in frame_sets.items():
-            got = fn(img)
-            want = fn.reference(img)
-            torch.cuda.synchronize()
-            if got.shape != (2, OH, OW) or got.device != img.device:
-                fail(f"kernel output {tuple(got.shape)} on {got.device}")
-            ne, n, mx = lsb_diff(got, want)
-            log(f"[parity] full 2x{W}x{H}->2x{OW}x{OH} radius={radius} "
-                f"debug={debug} {name}: unequal {ne} of {n} texels, "
-                f"max {mx} LSB")
-            if mx > PARITY_MAX_LSB or 1.0 - ne / n < PARITY_MIN_EQUAL:
-                fail(f"kernel disagrees with its plain version ({ne}, {mx})")
-            max_lsb = max(max_lsb, mx)
-            kernel_out[(radius, debug, name)] = got
-            del want
+        for name, img in sets["in"].items():
+            kernel_out["fsr", radius, debug, name] = parity(
+                "fsr_fused", f"2x{W}x{H}->2x{OW}x{OH} radius={radius} "
+                f"debug={debug} {name}", fsr(radius, debug), img)
+            parity("nis_scaler", f"2x{W}x{H}->2x{OW}x{OH} radius={radius} "
+                   f"debug={debug} hdr=0 {name}", scaler(radius, debug), img)
+    for radius, debug in sharpen_cases:
+        for name, img in sets["full"].items():
+            parity("rcas_sharpen", f"2x{OW}x{OH} radius={radius} "
+                   f"debug={debug} {name}", rcas(radius, debug), img)
+            parity("nis_sharpen", f"2x{OW}x{OH} radius={radius} "
+                   f"debug={debug} hdr=0 {name}", sharpen(radius, debug), img)
+    for hdr in (1, 2):
+        for name in ("zone+noise", "uniform"):
+            parity("nis_scaler", f"2x{W}x{H}->2x{OW}x{OH} radius=2.0 "
+                   f"hdr={hdr} {name}", scaler(2.0, hdr=hdr), sets["in"][name])
+            parity("nis_sharpen", f"2x{OW}x{OH} radius=2.0 hdr={hdr} {name}",
+                   sharpen(2.0, hdr=hdr), sets["full"][name])
+
     # the ring pitch: the same frames pre-padded, read in place
-    fn = build(2, H, W, OW, OH, 0.5, False)
-    hp, wp = fn.pad_to
-    ring = torch.zeros((2, hp, wp), dtype=torch.int32, device=dev)
-    ring[:, :H, :W] = frame_sets["zone+noise"]
-    ne, n, mx = lsb_diff(fn(ring), kernel_out[(0.5, False, "zone+noise")])
-    log(f"[parity] ring pitch {hp}x{wp} vs unpadded: unequal {ne}, max {mx}")
-    if ne:
-        fail("the ring-pitch input changed the output")
+    for kernel, fn, img in (("fsr_fused", fsr(0.5), sets["in"]["zone+noise"]),
+                            ("nis_scaler", scaler(0.5), sets["in"]["zone+noise"]),
+                            ("rcas_sharpen", rcas(0.4), sets["full"]["zone+noise"]),
+                            ("nis_sharpen", sharpen(0.4), sets["full"]["zone+noise"])):
+        hp, wp = fn.pad_to
+        h, w = img.shape[1:]
+        ring = torch.zeros((2, hp, wp), dtype=torch.int32, device=dev)
+        ring[:, :h, :w] = img
+        ne, n, mx = lsb_diff(fn(ring), fn(img))
+        log(f"[parity] {kernel} ring pitch {hp}x{wp} vs unpadded: "
+            f"unequal {ne}, max {mx}")
+        if ne:
+            fail(f"{kernel}: the ring-pitch input changed the output")
     # supersample (rs 1.3) at a small size, and the card against the CPU path
-    for (h, w, rs, radius) in ((360, 320, 1.3, 0.5), (96, 128, 0.75, 0.5)):
-        c = Config(render_scale=rs)
-        ow, oh = c.output_size(w, h)
-        fn = build(2, h, w, ow, oh, radius, False)
-        img = packed(rng.integers(0, 256, (2, h, w, 4), dtype=np.uint8))
+    small = packed(rng.integers(0, 256, (2, 96, 128, 4), dtype=np.uint8))
+    checks = [
+        ("fsr_fused", "2x320x360 rs=1.3", fsr(0.5, h=360, w=320, rs=1.3),
+         packed(rng.integers(0, 256, (2, 360, 320, 4), dtype=np.uint8))),
+        ("fsr_fused", "2x128x96 rs=0.75", fsr(0.5, h=96, w=128), small),
+        ("rcas_sharpen", "2x128x96", rcas(0.4, h=96, w=128), small),
+        ("nis_sharpen", "2x128x96", sharpen(0.4, h=96, w=128), small),
+        ("nis_scaler", "2x128x96 rs=0.75", scaler(0.5, h=96, w=128), small),
+    ]
+    for kernel, label, fn, img in checks:
         got = fn(img)
         for ref_name, want in (("plain cuda", fn.reference(img)),
                                ("plain cpu", fn(img.cpu()).to(dev))):
             ne, n, mx = lsb_diff(got, want)
-            log(f"[parity] 2x{w}x{h}->2x{ow}x{oh} rs={rs} vs {ref_name}: "
-                f"unequal {ne} of {n}, max {mx} LSB")
+            log(f"[parity] {kernel} {label} vs {ref_name}: unequal {ne} of "
+                f"{n}, max {mx} LSB")
             if mx > PARITY_MAX_LSB or 1.0 - ne / n < PARITY_MIN_EQUAL:
-                fail("kernel disagrees with its plain version")
-            max_lsb = max(max_lsb, mx)
+                fail(f"{kernel} disagrees with its plain version")
+            max_lsb[kernel] = max(max_lsb[kernel], mx)
 
-    # ---- 3. the main path through the public API ----------------------------
-    n_pairs = 20
+    # ---- 3. the plans through the public API --------------------------------
     gen = torch.Generator(device=dev).manual_seed(1)
-    pairs_u8 = torch.randint(0, 256, (n_pairs, 2, H, W, 4), dtype=torch.uint8,
-                             device=dev, generator=gen)
-    pairs_u8[0] = frame_sets["zone+noise"].view(torch.uint8) \
-        .view(2, H, W, 4)
-    pairs_packed = pairs_u8.view(torch.int32)[..., 0]
-    pipe = Pipeline(cfg, device="cuda")
-    pipe.process(pairs_u8[0])                       # builds (not counted)
-    pipe.process(pairs_packed[0].contiguous())
-    for k in pipe.kernels:
-        k.launches = 0
-    outs_u8, outs_packed = [], []
-    for i in range(n_pairs):
-        outs_u8.append(pipe.process(pairs_u8[i]))
-        outs_packed.append(pipe.process(pairs_packed[i].contiguous()))
+
+    def pairs_of(h, w, first):
+        u8 = torch.randint(0, 256, (N_PAIRS, 2, h, w, 4), dtype=torch.uint8,
+                           device=dev, generator=gen)
+        u8[0] = first.view(torch.uint8).view(2, h, w, 4)
+        return u8
+
+    plans = {   # kernel -> (config, input pairs, output size)
+        "fsr_fused": (Config(enabled=True, render_scale=0.75,
+                             sharpness=SHARPNESS, radius=0.5),
+                      pairs_of(H, W, sets["in"]["zone+noise"]), (OH, OW)),
+        "rcas_sharpen": (Config(enabled=True, render_scale=1.0,
+                                sharpness=SHARPNESS, radius=0.5),
+                         pairs_of(OH, OW, sets["full"]["zone+noise"]),
+                         (OH, OW)),
+        "nis_scaler": (Config(enabled=True, use_nis=True, render_scale=0.75,
+                              sharpness=SHARPNESS, radius=0.5),
+                       pairs_of(H, W, sets["in"]["zone+noise"]), (OH, OW)),
+        "nis_sharpen": (Config(enabled=True, use_nis=True, render_scale=1.0,
+                               sharpness=SHARPNESS, radius=0.5),
+                        pairs_of(OH, OW, sets["full"]["zone+noise"]),
+                        (OH, OW)),
+    }
+    launches, first_out = {}, {}
+    for kernel, (cfg, pairs_u8, (oh, ow)) in plans.items():
+        pipe = Pipeline(cfg, device="cuda")
+        pairs_packed = pairs_u8.view(torch.int32)[..., 0]
+        pipe.process(pairs_u8[0])                   # builds (not counted)
+        pipe.process(pairs_packed[0].contiguous())
+        for k in pipe.kernels:
+            k.launches = 0
+        outs_u8, outs_packed = [], []
+        for i in range(N_PAIRS):
+            outs_u8.append(pipe.process(pairs_u8[i]))
+            outs_packed.append(pipe.process(pairs_packed[i].contiguous()))
+        torch.cuda.synchronize()
+        counts = [k.launches for k in pipe.kernels]
+        launches[kernel] = sum(counts)
+        log(f"[main] {kernel} plan: Pipeline.process {2 * N_PAIRS} calls, "
+            f"kernel launches {counts}")
+        if counts != [N_PAIRS, N_PAIRS]:
+            fail(f"the {kernel} plan did not launch its kernel once per call")
+        for i, (a, p) in enumerate(zip(outs_u8, outs_packed)):
+            if a.shape != (2, oh, ow, 4) or a.dtype != torch.uint8 \
+                    or not a.is_cuda:
+                fail(f"{kernel} uint8 output {tuple(a.shape)} {a.dtype}")
+            if p.shape != (2, oh, ow) or p.dtype != torch.int32 \
+                    or not p.is_cuda:
+                fail(f"{kernel} packed output {tuple(p.shape)} {p.dtype}")
+            if not torch.equal(a.view(torch.int32)[..., 0], p):
+                fail(f"{kernel} pair {i}: uint8 and packed paths disagree")
+        first_out[kernel] = outs_u8[0]
+        # the plan's output is the kernel's at the same config, and is
+        # sane: finite texels, alpha routed per plan
+        fn = pipe.kernels[1]
+        if not torch.equal(outs_packed[0], fn(pairs_packed[0].contiguous())):
+            fail(f"{kernel}: Pipeline output differs from its kernel's")
+        alphas = outs_u8[0][..., 3].unique().numel()
+        log(f"[main] {kernel} plan: output {tuple(outs_u8[0].shape)}, "
+            f"{alphas} distinct alpha values")
+    want = kernel_out["fsr", 0.5, False, "zone+noise"]
+    if not torch.equal(first_out["fsr_fused"].view(torch.int32)[..., 0], want):
+        fail("the FSR plan differs from the fused kernel at the same config")
+
+    # the NIS hotkey on a live pipeline, and the one-shot API
+    pipe = Pipeline(plans["fsr_fused"][0], device="cuda")
+    x = plans["nis_scaler"][1][0]
+    pipe.process(x)
+    pipe.toggle_nis()
+    got = pipe.process(x)
     torch.cuda.synchronize()
-    launches = sum(k.launches for k in pipe.kernels)
-    log(f"[main] Pipeline.process: {2 * n_pairs} calls, kernel launches "
-        f"{[k.launches for k in pipe.kernels]} (total {launches})")
-    if launches != 2 * n_pairs or any(k.launches != n_pairs
-                                      for k in pipe.kernels):
-        fail("the main path did not launch the kernel once per call")
-    for i, (a, p) in enumerate(zip(outs_u8, outs_packed)):
-        if a.shape != (2, OH, OW, 4) or a.dtype != torch.uint8 \
-                or not a.is_cuda:
-            fail(f"uint8 output {tuple(a.shape)} {a.dtype} {a.device}")
-        if p.shape != (2, OH, OW) or p.dtype != torch.int32 or not p.is_cuda:
-            fail(f"packed output {tuple(p.shape)} {p.dtype} {p.device}")
-        if not torch.equal(a.view(torch.int32)[..., 0], p):
-            fail(f"pair {i}: uint8 and packed paths disagree")
-        if not bool((a[..., 3] == 255).all()):
-            fail(f"pair {i}: alpha is not 255")
-    if not torch.equal(outs_packed[0], kernel_out[(0.5, False, "zone+noise")]):
-        fail("Pipeline output differs from the kernel's at the same config")
-    up = upscale(pairs_u8[0], render_scale=0.75, sharpness=SHARPNESS,
-                 radius=0.5, device="cuda")
+    if [k.launches for k in pipe.kernels] != [1] \
+            or not torch.equal(got, first_out["nis_scaler"]):
+        fail("toggle_nis() did not switch the live pipeline to NVScaler")
+    log("[main] toggle_nis(): the live pipeline now launches NVScaler, "
+        "equal to the NIS plan")
+    up = upscale(x, render_scale=0.75, sharpness=SHARPNESS, radius=0.5,
+                 use_nis=True, device="cuda")
     torch.cuda.synchronize()
-    if not up.is_cuda or not torch.equal(up, outs_u8[0]):
-        fail("upscale() differs from Pipeline.process")
-    log(f"[main] upscale(): {tuple(up.shape)} {up.dtype} on {up.device}, "
-        "equal to Pipeline.process")
-    dbg = Pipeline(cfg.with_(debug_mode=True), device="cuda")
-    dbg.process(pairs_u8[1])
+    if not up.is_cuda or not torch.equal(up, first_out["nis_scaler"]):
+        fail("upscale(use_nis=True) differs from Pipeline.process")
+    log(f"[main] upscale(use_nis=True): {tuple(up.shape)} {up.dtype}, equal "
+        "to Pipeline.process")
+    dbg = Pipeline(plans["nis_sharpen"][0].with_(debug_mode=True),
+                   device="cuda")
+    dbg.process(plans["nis_sharpen"][1][0])
     if dbg.timer.count != 1 or not dbg.timer.summed > 0:
         fail("debug-mode GpuTimer recorded no CUDA time")
-    log(f"[main] debug-mode GpuTimer: {dbg.timer.summed * 1e3:.3f} ms/pair "
-        "(first call)")
 
     # ---- 4. times -----------------------------------------------------------
-    fn = build(2, H, W, OW, OH, 0.5, False)
-    img = frame_sets["zone+noise"]
-
-    def time_ms(f, n, warmup):
-        for _ in range(warmup):
-            f(img)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            f(img)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / n
-
-    rounds = {"kernel": [], "plain": []}
-    for label, f, n in (("kernel", fn, 200), ("plain", fn.reference, 10),
-                        ("kernel", fn, 200), ("plain", fn.reference, 10)):
-        rounds[label].append(time_ms(f, n, warmup=3))
-    ms = float(np.mean(rounds["kernel"]))
-    plain_ms = float(np.mean(rounds["plain"]))
-    mbytes = (2 * H * W + 2 * OH * OW) * 4 / 1e6
+    timed = {   # kernel -> (build at the default config, input)
+        "fsr_fused": (fsr(0.5), sets["in"]["zone+noise"]),
+        "rcas_sharpen": (rcas(0.5), sets["full"]["zone+noise"]),
+        "nis_sharpen": (sharpen(0.5), sets["full"]["zone+noise"]),
+        "nis_scaler": (scaler(0.5), sets["in"]["zone+noise"]),
+    }
+    ms, plain_ms = {}, {}
     log(f"[time] card: {card}")
-    log(f"[time] fused kernel: {rounds['kernel']} ms per stereo pair "
-        f"({mbytes:.1f} MB moved -> {mbytes / ms:.1f} GB/s)")
-    log(f"[time] plain torch : {rounds['plain']} ms per stereo pair")
-    # the share of EASU work: radius 2.0 runs EASU + RCAS on every pixel,
-    # radius 0.0 only the bilinear fallback
+    for kernel, (fn, img) in timed.items():
+        rounds = {"kernel": [], "plain": []}
+        for label, f, n in (("plain", fn.reference, 5), ("kernel", fn, 200),
+                            ("kernel", fn, 200), ("plain", fn.reference, 5)):
+            rounds[label].append(time_ms(f, img, n))
+        ms[kernel] = float(np.mean(rounds["kernel"]))
+        plain_ms[kernel] = float(np.mean(rounds["plain"]))
+        mbytes = (img.numel() + fn(img).numel()) * 4 / 1e6
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn.reference(img)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        log(f"[time] {kernel} radius 0.5: kernel {rounds['kernel']} ms per "
+            f"stereo pair ({mbytes:.1f} MB moved -> "
+            f"{mbytes / ms[kernel]:.1f} GB/s); plain torch "
+            f"{rounds['plain']} ms, peak {peak:.2f} GiB above its input")
     for radius in (2.0, 0.0):
-        t = time_ms(build(2, H, W, OW, OH, radius, False), 200, warmup=3)
-        log(f"[time] fused kernel radius={radius}: {t} ms per stereo pair")
-    torch.cuda.reset_peak_memory_stats()
-    fn.reference(img)
-    torch.cuda.synchronize()
-    log(f"[time] plain torch peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        for kernel, build in (("fsr_fused", fsr), ("rcas_sharpen", rcas),
+                              ("nis_sharpen", sharpen),
+                              ("nis_scaler", scaler)):
+            img = timed[kernel][1]
+            t = time_ms(build(radius), img, 200)
+            log(f"[time] {kernel} radius={radius}: {t} ms per stereo pair")
 
     # ---- 5. result lines ----------------------------------------------------
+    sources = {
+        "fsr_fused": "openvr_fsr_tpu/kernels/fsr.py:191",
+        "rcas_sharpen": "openvr_fsr_tpu/kernels/rcas.py:35",
+        "nis_sharpen": "openvr_fsr_tpu/kernels/nis.py:125",
+        "nis_scaler": "openvr_fsr_tpu/kernels/nis.py:371",
+    }
     log(card)
     log(json.dumps({"kernels": [{
-        "name": "fsr_fused",
+        "name": kernel,
         "route": "cuda",
-        "source": "openvr_fsr_tpu_torch/csrc/fsr_fused.cu",
-        "replaces": "openvr_fsr_tpu/kernels/fsr.py:191",
-        "launches": launches,
-        "max_abs_err": max_lsb,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+        "source": f"openvr_fsr_tpu_torch/csrc/{kernel}.cu",
+        "replaces": replaces,
+        "launches": launches[kernel],
+        "max_abs_err": max_lsb[kernel],
+        "ms": ms[kernel],
+        "plain_ms": plain_ms[kernel],
+    } for kernel, replaces in sources.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

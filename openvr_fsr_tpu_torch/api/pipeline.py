@@ -8,12 +8,15 @@ Reference orchestration being reproduced (src/postprocess/PostProcessor.cpp):
   - lazy per-(shape, config) resource creation = a build cache keyed the
     same way (:136-153); `Reset()` = dropping the cache
 
-This port covers the FSR stage plan with an upscale (renderScale != 1) on
-RGBA8 frames: one fused kernel launch per batch (kernels/fsr.py), the CUDA
-kernel for CUDA tensors and its plain torch version for CPU tensors. The
-signatures are the JAX package's (openvr_fsr_tpu/api/pipeline.py), plus an
-explicit `device`. Every other stage plan or option raises
-NotImplementedError naming the ROADMAP.md entry that ports it.
+This port covers the four stage plans the reference mod ships, on RGBA8
+frames, each one kernel launch per batch: FSR with an upscale (renderScale
+!= 1, kernels/fsr.py), FSR sharpen-only at renderScale 1 (kernels/rcas.py),
+NIS upscale (NVScaler) and NIS at renderScale 1 (NVSharpen, both
+kernels/nis.py, HDR modes 0/1/2). A CUDA tensor runs the CUDA kernel, a CPU
+tensor its plain torch version. The signatures are the JAX package's
+(openvr_fsr_tpu/api/pipeline.py), plus an explicit `device`. CAS and the
+other options raise NotImplementedError naming the ROADMAP.md entry that
+ports them.
 """
 
 import numpy as np
@@ -23,6 +26,8 @@ from ..core.config import Config
 from ..core import constants as C
 from ..core.projection import default_centers
 from ..kernels.fsr import build_fsr_fused
+from ..kernels.nis import build_nvscaler, build_nvsharpen
+from ..kernels.rcas import build_rcas_sharpen
 from ..utils.log import get_logger
 from ..utils.timing import GpuTimer
 
@@ -51,15 +56,18 @@ class Pipeline:
     """Stateful stereo post-processing pipeline.
 
     Args:
-      config: Config (render_scale / sharpness / radius / debug_mode).
+      config: Config (render_scale / sharpness / use_nis / radius /
+        debug_mode).
       eye_centers: ((lx,ly),(rx,ry)) normalized projection centres; defaults to
         image centres (symmetric projection, no cant).
       single_eye_per_frame: True = each batch entry is one eye (the reference's
         textureContainsOnlyOneEye); False = double-wide frames holding both.
       color_bits: None or 8 (RGBA8).
       backend, precision, hdr_mode, cas_max_color_delta: the JAX signature;
-        only "auto" / "full" run here (hdr_mode and cas_max_color_delta act
-        on the NIS and CAS paths, which are not ported yet).
+        only "auto" / "full" run here. hdr_mode is NIS_HDR_MODE (0 none,
+        the mod's shipped build; 1 linear; 2 PQ, NIS_Scaler.h:112-116) and
+        acts on the NIS paths only; cas_max_color_delta acts on the CAS
+        path, which is not ported yet.
       device: where numpy frames are processed; None = the CPU. Tensor
         frames run on their own device, which must match an explicit one.
     """
@@ -82,6 +90,10 @@ class Pipeline:
                 f"precision={precision!r} is not ported yet: ROADMAP.md "
                 "Queue A item 9 (precision='half')")
         self.config = config or Config(enabled=True)
+        self.hdr_mode = int(hdr_mode)
+        if self.hdr_mode not in (0, 1, 2):
+            raise ValueError(f"hdr_mode={hdr_mode!r}: NIS_HDR_MODE is 0 "
+                             "(none), 1 (linear) or 2 (PQ)")
         self.eye_centers = eye_centers or default_centers()
         self.single_eye_per_frame = single_eye_per_frame
         self.device = _resolve_device(device)
@@ -123,8 +135,9 @@ class Pipeline:
 
     @property
     def kernels(self):
-        """The fused-kernel functions built so far; each counts its CUDA
-        launches in `.launches`."""
+        """The kernel functions built so far (fsr_fused, rcas_sharpen,
+        nvscaler or nvsharpen builds); each counts its CUDA launches in
+        `.launches`."""
         return [fn.kernel for fn in self._cache.values()]
 
     def _centres_array(self, out_w, out_h, eyes):
@@ -134,34 +147,51 @@ class Pipeline:
                                  self.eye_centers, eyes,
                                  self.single_eye_per_frame)
 
-    def _build(self, b, h, w, eyes, packed):
+    def _build_kernel(self, b, h, w, eyes):
+        """The kernel of the config's stage plan (the JAX package's
+        Pipeline._build_impl dispatch, PostProcessor.cpp:530-535, 586-594),
+        built for (b, h, w)."""
         cfg = self.config
         if cfg.use_nis and cfg.use_cas:
             raise ValueError("use_nis and use_cas are mutually exclusive")
-        if cfg.use_nis:
-            raise NotImplementedError(
-                "NIS is not ported yet: ROADMAP.md Queue A item 10 "
-                "(kernels B3, B4)")
         if cfg.use_cas:
             raise NotImplementedError(
                 "CAS is not ported yet: ROADMAP.md Queue A item 11 "
                 "(kernels B5, B6)")
         do_up, _ = cfg.stage_plan()
-        if not do_up:
-            raise NotImplementedError(
-                "renderScale == 1 (sharpen only) is not ported yet: "
-                "ROADMAP.md Queue B, B2 (kernels/rcas.py::build_rcas_sharpen)")
         out_w, out_h = cfg.output_size(w, h)
-        fused = build_fsr_fused(
-            b, h, w, out_w, out_h, sharpness=cfg.sharpness,
-            centres=self._centres_array(out_w, out_h, eyes),
-            debug=cfg.debug_mode)
+        centres = self._centres_array(out_w, out_h, eyes)
+        if cfg.use_nis and do_up:           # NIS upscale: NVScaler
+            nis_cfg = C.nvscaler_update_config(
+                cfg.sharpness, w, h, w, h, out_w, out_h, out_w, out_h,
+                hdr_mode=self.hdr_mode)
+            if not nis_cfg.valid:
+                self._log.info(
+                    "NIS scale factor outside the supported 0.5..1.0 window "
+                    "(NIS_Config.h:226) — output follows the reference anyway")
+            return build_nvscaler(b, h, w, out_w, out_h, nis_cfg=nis_cfg,
+                                  centres=centres, debug=cfg.debug_mode)
+        if cfg.use_nis:                     # NIS at renderScale 1: NVSharpen
+            nis_cfg = C.nvsharpen_update_config(cfg.sharpness, w, h, w, h,
+                                                hdr_mode=self.hdr_mode)
+            return build_nvsharpen(b, h, w, nis_cfg=nis_cfg, centres=centres,
+                                   debug=cfg.debug_mode)
+        if do_up:                           # FSR: EASU + RCAS, fused
+            return build_fsr_fused(b, h, w, out_w, out_h,
+                                   sharpness=cfg.sharpness, centres=centres,
+                                   debug=cfg.debug_mode)
+        # FSR at renderScale 1: sharpen only (PostProcessor.cpp:530)
+        return build_rcas_sharpen(b, h, w, sharpness=cfg.sharpness,
+                                  centres=centres, debug=cfg.debug_mode)
+
+    def _build(self, b, h, w, eyes, packed):
+        kern = self._build_kernel(b, h, w, eyes)
 
         if packed:
             # zero-copy packed plane: (B, H, W) uint32/int32 RGBA8 texels,
             # carried through the kernel as an int32 view
             def run(x):
-                return fused(x.view(torch.int32)).view(x.dtype)
+                return kern(x.view(torch.int32)).view(x.dtype)
         else:
             def run(x):
                 if x.shape[-1] == 3:                 # RGB input: opaque alpha
@@ -169,10 +199,10 @@ class Pipeline:
                                                  dtype=x.dtype,
                                                  device=x.device)], dim=-1)
                 plane = x.contiguous().view(torch.int32)[..., 0]
-                return fused(plane)[..., None].view(torch.uint8)
+                return kern(plane)[..., None].view(torch.uint8)
 
-        run.kernel = fused
-        run.pad_to = fused.pad_to
+        run.kernel = kern
+        run.pad_to = kern.pad_to
         return run
 
     def _as_tensor(self, frames):
@@ -268,12 +298,13 @@ class Pipeline:
         else:
             eyes = tuple(int(e) for e in eyes)
         key = (b, h, w, str(x.dtype), eyes, self.config,
-               self.single_eye_per_frame, x.device)
+               self.single_eye_per_frame, self.hdr_mode, x.device)
         fn = self._cache.get(key)
         if fn is None:
             self._log.info(
-                "Creating post-processing resources: %dx%d -> %s (FSR, %s)",
-                w, h, self.config.output_size(w, h), x.device)
+                "Creating post-processing resources: %dx%d -> %s (%s, %s)",
+                w, h, self.config.output_size(w, h),
+                "NIS" if self.config.use_nis else "FSR", x.device)
             fn = self._build(b, h, w, eyes, packed)
             self._cache[key] = fn
         if self.config.debug_mode:
@@ -301,7 +332,8 @@ def upscale(frame, render_scale=None, sharpness=0.9, use_nis=False, radius=0.5,
 
     frame: (H, W, 4) or (B, H, W, 4) uint8 RGBA, or a packed uint32/int32
     plane, as a numpy array or a torch tensor. render_scale: <1 upscales by
-    1/rs; >1 supersamples by rs (1/None = sharpen only, not ported yet).
+    1/rs; >1 supersamples by rs; 1/None = sharpen only. use_nis selects
+    NVIDIA Image Scaling (NVScaler / NVSharpen) instead of FSR.
     bounds: optional VRTextureBounds_t (uMin, vMin, uMax, vMax) — half-width
     bounds select double-wide eye packing (PostProcessor.cpp:146); with
     crop=True only the bounded output region is returned. device: as

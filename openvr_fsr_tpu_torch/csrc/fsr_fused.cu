@@ -25,14 +25,15 @@
 // floor and fraction) and each tile's footprint origin come from the host
 // (kernels/_maps.py), so the device evaluates no coordinate math; the
 // foveation test is the reference's integer test per 16x16 group
-// (fsr_easu.hlsl:41-45). Build with --fmad=false: the bits then match the
-// plain torch version (kernels/fsr.py::fsr_fused_reference).
+// (fsr_easu.hlsl:41-45; csrc/rgba8.cuh). Build with --fmad=false: the bits
+// then match the plain torch version (kernels/fsr.py::fsr_fused_reference).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "ffx_math.cuh"
+#include "rgba8.cuh"
 
 namespace {
 
@@ -55,21 +56,8 @@ struct Params {
   float sharp, tint;
 };
 
-// The reference's per-workgroup circle test (fsr_easu.hlsl:41-45;
-// core/foveation.py::tile_mask): group centre +(8, 8) against both centres.
-__device__ __forceinline__ bool inside_circle(const int64_t* c, int x, int y) {
-  const int64_t gx = (x / kTile) * kTile + kTile / 2;
-  const int64_t gy = (y / kTile) * kTile + kTile / 2;
-  const int64_t dx1 = c[0] - gx, dy1 = c[1] - gy;
-  const int64_t dx2 = c[2] - gx, dy2 = c[3] - gy;
-  return dx1 * dx1 + dy1 * dy1 <= c[4] || dx2 * dx2 + dy2 * dy2 <= c[4];
-}
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
-
-__device__ __forceinline__ float channel(uint32_t texel, int c) {
-  return static_cast<float>((texel >> (8 * c)) & 255u) * ffx::kInv255;
-}
+using rgba8::channel;
+using rgba8::clampi;
 
 __global__ void __launch_bounds__(kThreads) fsr_fused_kernel(Params p) {
   __shared__ uint32_t s_in[kInTile][kInTile];
@@ -97,7 +85,7 @@ __global__ void __launch_bounds__(kThreads) fsr_fused_kernel(Params p) {
     const int oy = oy0 - 1 + ly, ox = ox0 - 1 + lx;
     float rgb[3] = {0.0f, 0.0f, 0.0f};
     if (oy >= 0 && oy < p.out_h && ox >= 0 && ox < p.out_w) {
-      if (inside_circle(cen, ox, oy)) {
+      if (rgba8::inside_circle(cen, ox, oy, kTile, kTile)) {
         const int fx = p.col_i[ox], fy = p.row_i[oy];
         float t[12][3];
 #pragma unroll
@@ -134,7 +122,7 @@ __global__ void __launch_bounds__(kThreads) fsr_fused_kernel(Params p) {
   float e[3], res[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) e[c] = s_q[c][ly + 1][lx + 1];
-  if (inside_circle(cen, ox, oy)) {
+  if (rgba8::inside_circle(cen, ox, oy, kTile, kTile)) {
     float bt[3], dt[3], ft[3], ht[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -149,9 +137,7 @@ __global__ void __launch_bounds__(kThreads) fsr_fused_kernel(Params p) {
     res[1] = e[1] * p.tint;
     res[2] = e[2] * p.tint;
   }
-  const uint32_t packed = static_cast<uint32_t>(ffx::unorm8_round(res[0])) |
-                          (static_cast<uint32_t>(ffx::unorm8_round(res[1])) << 8) |
-                          (static_cast<uint32_t>(ffx::unorm8_round(res[2])) << 16) | 0xff000000u;
+  const uint32_t packed = rgba8::pack(res[0], res[1], res[2], 1.0f);
   p.out[(static_cast<size_t>(b) * p.out_h + oy) * p.out_w + ox] = packed;
 }
 

@@ -19,53 +19,22 @@ or raises.
 """
 
 import ctypes
+import functools
 
-import numpy as np
 import torch
 
 from ..core import constants as C
+from ..core.foveation import TILE_FSR
 from ..ops.bilinear import bilinear_gather
 from ..ops.easu import easu_core, easu_gather
 from ..ops.rcas import rcas
 from ..ops.common import unorm_quantize
 from . import _build
-from ._maps import IN_TILE, TILE, fsr_maps, input_padding
+from ._common import (DeviceTables, circle_mask, debug_tint, kernel_fn,
+                      pack, tint_vector, unpack)
+from ._maps import IN_TILE, fsr_maps, input_padding
 
-__all__ = ["build_fsr_fused", "fsr_fused_reference", "circle_mask",
-           "unpack_rgb", "pack_rgb"]
-
-F32 = np.float32
-_INV255 = float(F32(1.0) / F32(255.0))
-_ALPHA_255 = -16777216          # 255 << 24 in an int32 view
-
-
-def unpack_rgb(img):
-    """(B, H, W) int32 packed RGBA8 (R in the low byte) -> (B, 3, H, W) f32
-    texels decoded as u * f32(1/255)."""
-    return torch.stack([((img >> (8 * c)) & 255).to(torch.float32)
-                        for c in range(3)], dim=-3) * _INV255
-
-
-def pack_rgb(rgb):
-    """(B, 3, H, W) f32 -> (B, H, W) int32 packed RGBA8 with alpha 255:
-    clamp, *255, round half to even (kernels/_band.py:154-169)."""
-    q = torch.round(torch.clamp(rgb, 0.0, 1.0) * 255.0).to(torch.int32)
-    return q[:, 0] + (q[:, 1] << 8) + (q[:, 2] << 16) + _ALPHA_255
-
-
-def circle_mask(centres, out_h, out_w):
-    """(B, out_h, out_w) bool: the reference's per-16x16-group circle test
-    (fsr_easu.hlsl:41-45; core/foveation.py::tile_mask) from (B, 5) int64
-    centres rows, in int64 on the centres' device."""
-    dev = centres.device
-    gx = torch.div(torch.arange(out_w, device=dev), TILE,
-                   rounding_mode="floor") * TILE + TILE // 2
-    gy = torch.div(torch.arange(out_h, device=dev), TILE,
-                   rounding_mode="floor") * TILE + TILE // 2
-    c = centres[:, :, None, None]
-    d1 = (c[:, 0] - gx) ** 2 + (c[:, 1] - gy[:, None]) ** 2
-    d2 = (c[:, 2] - gx) ** 2 + (c[:, 3] - gy[:, None]) ** 2
-    return (d1 <= c[:, 4]) | (d2 <= c[:, 4])
+__all__ = ["build_fsr_fused", "fsr_fused_reference", "circle_mask"]
 
 
 def fsr_fused_reference(img, maps, sharpness_linear, tint):
@@ -76,22 +45,21 @@ def fsr_fused_reference(img, maps, sharpness_linear, tint):
     out-of-circle G/B multiplier (0.7 in debug mode, else 1). Returns
     (B, OH, OW) int32 packed RGBA8."""
     m = maps
-    rgb = unpack_rgb(img[:, :m.in_h, :m.in_w])
+    rgb = unpack(img[:, :m.in_h, :m.in_w], 3)
     taps = easu_gather(rgb, m.col_i[0], m.row_i[0])
     up = easu_core(taps, m.col_f[0][None, :], m.row_f[0][:, None])
     bil = bilinear_gather(rgb, m.col_i[1], m.col_f[1], m.row_i[1],
                           m.row_f[1])
-    inside = circle_mask(m.centres, m.out_h, m.out_w)[:, None]
+    inside = circle_mask(m.centres, m.out_h, m.out_w, TILE_FSR)[:, None]
     q = unorm_quantize(torch.where(inside, up, bil))
     sharp = rcas(q, sharpness_linear)
-    tint_v = torch.tensor([1.0, float(tint), float(tint)], dtype=torch.float32,
-                          device=img.device)[:, None, None]
-    return pack_rgb(torch.where(inside, sharp, q * tint_v))
+    return pack(torch.where(inside, sharp, q * tint_vector(tint, img.device)))
 
 
+@functools.cache
 def _launch_fn():
-    lib = _build.load_library()
-    f = lib.fsr_fused_launch
+    """The ctypes entry point, bound (and built) at the first launch."""
+    f = _build.load_library("fsr_fused").fsr_fused_launch
     f.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     f.restype = ctypes.c_int
@@ -118,59 +86,25 @@ def build_fsr_fused(batch, in_h, in_w, out_w, out_h, *, sharpness, centres,
     """
     B, H, W = int(batch), int(in_h), int(in_w)
     OH, OW = int(out_h), int(out_w)
-    maps = fsr_maps(B, H, W, OW, OH, centres)
+    tables = DeviceTables(fsr_maps(B, H, W, OW, OH, centres))
     sharp = C.fsr_rcas_con(C.rcas_stops_from_slider(sharpness))
-    tint = F32(0.7) if debug else F32(1.0)
-    hp, wp = input_padding(H, W)
-    on_device = {}
-    launch = None            # the ctypes entry point, bound at first launch
-
-    def maps_on(dev):
-        m = on_device.get(dev)
-        if m is None:
-            m = on_device[dev] = maps.to(dev)
-        return m
+    tint = debug_tint(debug)
 
     def reference(img):
         """The plain torch version on img's device (any device)."""
-        return fsr_fused_reference(img, maps_on(img.device), sharp, tint)
+        return fsr_fused_reference(img, tables.on(img.device), sharp, tint)
 
-    def fn(img):
-        nonlocal launch
-        if not isinstance(img, torch.Tensor) or img.dtype != torch.int32:
-            raise TypeError("fused FSR takes an int32 tensor of packed RGBA8 "
-                            f"texels, got {type(img).__name__} "
-                            f"{getattr(img, 'dtype', '')}")
-        if img.ndim != 3 or img.shape[0] != B or \
-                tuple(img.shape[1:]) not in ((H, W), (hp, wp)):
-            raise ValueError(
-                f"frame shape {tuple(img.shape)} matches neither the build "
-                f"shape {(B, H, W)} nor the pre-padded pitch {(B, hp, wp)}")
-        if not img.is_contiguous():
-            raise ValueError("fused FSR takes a contiguous frame tensor")
+    def launch(img):
         dev = img.device
-        if dev.type == "cpu":
-            return reference(img)
-        if dev.type != "cuda":
-            raise ValueError(f"fused FSR has no path for device {dev}")
-        if launch is None:
-            launch = _launch_fn()
-        m = maps_on(dev)
+        m = tables.on(dev)
         out = torch.empty((B, OH, OW), dtype=torch.int32, device=dev)
-        with torch.cuda.device(dev):
-            err = launch(
-                img.data_ptr(), out.data_ptr(), m.col_i.data_ptr(),
-                m.col_f.data_ptr(), m.row_i.data_ptr(), m.row_f.data_ptr(),
-                m.tile_x0.data_ptr(), m.tile_y0.data_ptr(),
-                m.centres.data_ptr(), B, H, W, img.shape[1], img.shape[2],
-                OH, OW, float(sharp), float(tint), IN_TILE,
-                torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"fsr_fused_launch failed: cudaError {err}")
-        fn.launches += 1
-        return out
+        err = _launch_fn()(
+            img.data_ptr(), out.data_ptr(), m.col_i.data_ptr(),
+            m.col_f.data_ptr(), m.row_i.data_ptr(), m.row_f.data_ptr(),
+            m.tile_x0.data_ptr(), m.tile_y0.data_ptr(), m.centres.data_ptr(),
+            B, H, W, img.shape[1], img.shape[2], OH, OW, float(sharp),
+            float(tint), IN_TILE, torch.cuda.current_stream(dev).cuda_stream)
+        return out, err
 
-    fn.launches = 0
-    fn.pad_to = (hp, wp)
-    fn.reference = reference
-    return fn
+    return kernel_fn("fused FSR", B, (H, W), input_padding(H, W), reference,
+                     launch)

@@ -1,8 +1,9 @@
 """Bilinear sampling in torch with static separable index/weight maps.
 
-Implements the linear-clamp sampler of the FSR out-of-radius fallback
-(src/fsr/fsr_easu.hlsl:33-36). Coordinates are axis-separable, so the gather
-is two index_selects and the weights are per-axis vectors.
+Implements the linear-clamp sampler of the out-of-radius fallbacks
+(src/fsr/fsr_easu.hlsl:33-36, src/nis/NIS_Upscale.hlsl:77-90) and of the
+NIS RGBA tap (NIS_Scaler.h:747). Coordinates are axis-separable, so the
+gather is two index_selects and the weights are per-axis vectors.
 """
 
 import numpy as np
@@ -10,17 +11,40 @@ import torch
 
 from .common import F32
 
-__all__ = ["bilinear_axis", "bilinear_gather", "bilinear_fallback_fsr"]
+__all__ = ["bilinear_axis", "bilinear_texel_axis", "bilinear_gather",
+           "bilinear_sample", "bilinear_fallback_fsr"]
+
+
+def bilinear_texel_axis(u, in_n):
+    """Floor indices (int32) and f32 fractions of the texel coordinates
+    t = u*in_n - 0.5 (f32) of normalized coordinates u (numpy, 1-D)."""
+    t = np.asarray(u, np.float32) * F32(in_n) - F32(0.5)
+    i0 = np.floor(t)
+    return i0.astype(np.int32), (t - i0).astype(np.float32)
 
 
 def bilinear_axis(out_n, in_n):
     """Floor indices (int32) and f32 fractions of the fallback's texel
     coordinates t = (i / out_n) * in_n - 0.5 for i in [0, out_n)
     (fsr_easu.hlsl:34; the JAX package's kernels/fsr.py::_bilinear_axis)."""
-    u = np.arange(out_n, dtype=np.float32) / F32(out_n)
-    t = u * F32(in_n) - F32(0.5)
-    i0 = np.floor(t)
-    return i0.astype(np.int32), (t - i0).astype(np.float32)
+    return bilinear_texel_axis(
+        np.arange(out_n, dtype=np.float32) / F32(out_n), in_n)
+
+
+def bilinear_sample(rgba, u_axis, v_axis):
+    """SampleLevel(linear-clamp) at normalized coordinates: rgba (..., C, H,
+    W); u_axis (Wo,) / v_axis (Ho,) numpy f32 per output column / row.
+    Texel space t = u*W - 0.5 in f32, corners clamped to the edge (the JAX
+    package's ops/bilinear.py::bilinear_sample_jax). Returns (..., C, Ho,
+    Wo)."""
+    h, w = rgba.shape[-2:]
+    x0, fx = bilinear_texel_axis(u_axis, w)
+    y0, fy = bilinear_texel_axis(v_axis, h)
+    dev = rgba.device
+    return bilinear_gather(rgba, torch.from_numpy(x0).to(dev),
+                           torch.from_numpy(fx).to(dev),
+                           torch.from_numpy(y0).to(dev),
+                           torch.from_numpy(fy).to(dev))
 
 
 def bilinear_gather(rgb, x0, fx, y0, fy):

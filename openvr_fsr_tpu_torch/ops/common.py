@@ -25,6 +25,7 @@ __all__ = [
     "hlsl_max",
     "min3",
     "max3",
+    "hlsl_lerp",
     "unorm_quantize",
 ]
 
@@ -82,6 +83,12 @@ def min3(x, y, z):
 
 def max3(x, y, z):
     return torch.maximum(x, torch.maximum(y, z))
+
+
+def hlsl_lerp(a, b, s):
+    """HLSL lerp intrinsic in its exact form a + s*(b-a) (two roundings;
+    torch.lerp is another formula and is not used)."""
+    return a + s * (b - a)
 
 
 def unorm_quantize(x, bits=8):

@@ -147,10 +147,86 @@ class TestConstantTables:
             assert _bits_equal(JF.pixel_mask(*args), TF.pixel_mask(*args))
         assert TF.TILE_FSR == JF.TILE_FSR
 
+    @pytest.mark.parametrize("radius", [0.0, 0.4, 2.0])
+    @pytest.mark.parametrize("tile", ["TILE_NIS_SCALER", "TILE_NIS_SHARPEN"])
+    def test_nis_tile_masks(self, radius, tile):
+        assert getattr(TF, tile) == getattr(JF, tile)
+        for w, h, rs in SIZES:
+            ow, oh = J.Config(render_scale=rs).output_size(w, h)
+            fc = JC.foveation_constants(ow, oh, radius, (0.45, 0.5),
+                                        (0.55, 0.5))
+            args = (ow, oh, getattr(TF, tile),
+                    (fc.centre_left, fc.centre_right), fc.radius_sq)
+            assert _bits_equal(JF.tile_mask(*args), TF.tile_mask(*args))
+            assert _bits_equal(JF.pixel_mask(*args), TF.pixel_mask(*args))
+
+    @pytest.mark.parametrize("upscaling", [True, False])
+    @pytest.mark.parametrize("arch", ["nvidia", "amd", "intel"])
+    def test_nis_optimal_block(self, upscaling, arch):
+        assert (TF.nis_optimal_block(upscaling, arch)
+                == JF.nis_optimal_block(upscaling, arch))
+        with pytest.raises(ValueError):
+            TF.nis_optimal_block(upscaling, "other")
+
     def test_projection(self):
         assert TP.default_centers() == JP.default_centers()
         for args in ((-1.2, 1.0, -1.1, 0.9, 0.0), (-1.0, 1.0, -1.0, 1.0, 0.1)):
             assert TP.projection_center(*args) == JP.projection_center(*args)
+
+
+def _nis_cfg_equal(a, b):
+    """Every NisConfig field equal, bit for bit (floats) or by value."""
+    for f in dataclasses.fields(JC.NisConfig):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, (np.floating, float)):
+            assert _bits_equal(np.float32(x), np.float32(y)), f.name
+            assert type(x) is type(y), f.name
+        else:
+            assert x == y, f.name
+
+
+class TestNisConstants:
+    """The copied NVScalerUpdateConfig / NVSharpenUpdateConfig and filter
+    tables: the NIS "weights" of the port."""
+
+    @pytest.mark.parametrize("sharpness", [0.0, 0.3, 0.5, 0.66, 0.9, 1.0,
+                                           1.4, -0.2])
+    @pytest.mark.parametrize("hdr_mode", [0, 1, 2])
+    @pytest.mark.parametrize("w,h,rs", SIZES + [(64, 48, 0.3), (40, 30, 1.0)])
+    def test_nvscaler_update_config(self, sharpness, hdr_mode, w, h, rs):
+        ow, oh = J.Config(render_scale=rs).output_size(w, h)
+        args = (sharpness, w, h, w, h, ow, oh, ow, oh)
+        j = JC.nvscaler_update_config(*args, hdr_mode=hdr_mode)
+        t = TC.nvscaler_update_config(*args, hdr_mode=hdr_mode)
+        _nis_cfg_equal(j, t)
+        assert t.valid == (0.5 <= w / ow <= 1.0 and 0.5 <= h / oh <= 1.0) \
+            or rs == 1.0
+
+    @pytest.mark.parametrize("sharpness", [0.2, 0.5, 0.9])
+    @pytest.mark.parametrize("hdr_mode", [0, 1, 2])
+    def test_nvsharpen_update_config(self, sharpness, hdr_mode):
+        for w, h in ((2244, 2492), (56, 48), (0, 48)):
+            _nis_cfg_equal(
+                JC.nvsharpen_update_config(sharpness, w, h, w, h,
+                                           hdr_mode=hdr_mode),
+                TC.nvsharpen_update_config(sharpness, w, h, w, h,
+                                           hdr_mode=hdr_mode))
+
+    def test_tables_and_sizes(self):
+        from openvr_fsr_tpu.core import nis_tables as JT
+        from openvr_fsr_tpu_torch.core import nis_tables as TT
+        assert _bits_equal(JT.COEF_SCALE, TT.COEF_SCALE)
+        assert _bits_equal(JT.COEF_USM, TT.COEF_USM)
+        assert TT.COEF_SCALE.shape == TT.COEF_USM.shape == (64, 8)
+        assert (TC.NIS_PHASE_COUNT, TC.NIS_FILTER_SIZE) == (
+            JC.NIS_PHASE_COUNT, JC.NIS_FILTER_SIZE)
+
+    def test_use_nis_survives_config_from_dict(self):
+        jcfg = J.Config(enabled=True, use_nis=True, render_scale=0.75)
+        tcfg = T.Config.config_from_dict(dataclasses.asdict(jcfg))
+        assert tcfg.use_nis and tcfg.stage_plan() == jcfg.stage_plan()
+        assert not T.Config.config_from_dict(dataclasses.asdict(
+            jcfg.with_(use_nis=False))).use_nis
 
 
 class TestFrames:

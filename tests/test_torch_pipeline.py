@@ -1,6 +1,7 @@
-"""The port's slice end to end on the CPU: `Pipeline.process` and
-`upscale` against the JAX package's `Pipeline(backend="xla")` and the NumPy
-oracle, over the API surface the slice covers, and the plans it refuses.
+"""The port end to end on the CPU: `Pipeline.process` and `upscale` against
+the JAX package's `Pipeline(backend="xla")` and the NumPy oracle, over the
+four stage plans the port runs (FSR upscale, FSR at renderScale 1, NIS
+upscale, NIS at renderScale 1), and the plans and options it refuses.
 
 Against XLA:CPU (which contracts FMAs) the bar is the JAX package's
 quantized tier: at least 99.9% of texels equal, max 2 LSB. Against the
@@ -19,6 +20,10 @@ from openvr_fsr_tpu.utils import frames as JFR  # noqa: E402
 import openvr_fsr_tpu_torch as T  # noqa: E402
 
 MAIN = dict(enabled=True, render_scale=0.75, sharpness=0.9, radius=0.5)
+# the stage plans beyond the FSR upscale: FSR sharpen-only, NVScaler,
+# NVSharpen
+PLANS = [dict(MAIN, render_scale=1.0), dict(MAIN, use_nis=True),
+         dict(MAIN, use_nis=True, render_scale=1.0)]
 
 
 def _np(x):
@@ -33,13 +38,16 @@ def _assert_close(got, ref, frac=0.999, worst=2):
     assert d.max() <= worst, d.max()
 
 
-def _stereo(h, w):
-    return np.stack([JFR.zone_plate_frame(h, w), JFR.noise_frame(h, w, seed=3)])
+def _stereo(h, w, alpha=None):
+    f = np.stack([JFR.zone_plate_frame(h, w), JFR.noise_frame(h, w, seed=3)])
+    if alpha is not None:
+        f[..., 3] = alpha
+    return f
 
 
-def _pair(**kw):
-    return T.Pipeline(T.Config(**kw)), J.Pipeline(J.Config(**kw),
-                                                  backend="xla")
+def _pair(hdr_mode=0, **kw):
+    return (T.Pipeline(T.Config(**kw), hdr_mode=hdr_mode),
+            J.Pipeline(J.Config(**kw), backend="xla", hdr_mode=hdr_mode))
 
 
 class TestAgainstJax:
@@ -126,6 +134,27 @@ class TestAgainstJax:
         _assert_close(got, J.upscale(frame, render_scale=0.75, sharpness=0.9,
                                      radius=0.5, backend="xla"))
 
+    @pytest.mark.parametrize("kw", PLANS, ids=["rcas", "nvscaler",
+                                               "nvsharpen"])
+    def test_new_plans_uint8_and_packed(self, kw):
+        tp, jp = _pair(**dict(kw, radius=0.4))
+        frames = _stereo(64, 70, alpha=200)
+        got = tp.process(frames)
+        _assert_close(got, jp.process(frames))
+        packed = np.ascontiguousarray(frames).view(np.uint32)[..., 0]
+        got_p = tp.process(packed)
+        assert got_p.dtype == torch.uint32
+        assert np.array_equal(_np(got_p).view(np.uint8).reshape(got.shape),
+                              got.numpy())
+        assert len(tp.kernels) == 2
+
+    @pytest.mark.parametrize("rs", [0.75, None])
+    def test_upscale_nis(self, rs):
+        frame = _stereo(48, 56, alpha=190)[0]
+        got = T.upscale(frame, render_scale=rs, use_nis=True, radius=2.0)
+        _assert_close(got, J.upscale(frame, render_scale=rs, use_nis=True,
+                                     radius=2.0, backend="xla"))
+
 
 class TestAgainstOracle:
     @pytest.mark.parametrize("radius,debug", [(0.5, False), (0.0, True)])
@@ -137,6 +166,52 @@ class TestAgainstOracle:
                                          debug=debug, eye=i)
                          for i in range(2)])
         assert np.array_equal(got.numpy(), want)
+
+    @pytest.mark.parametrize("kw", PLANS, ids=["rcas", "nvscaler",
+                                               "nvsharpen"])
+    @pytest.mark.parametrize("radius,debug,hdr_mode", [(0.5, True, 0),
+                                                       (2.0, False, 1),
+                                                       (2.0, False, 2)])
+    def test_new_plans_bit_exact(self, kw, radius, debug, hdr_mode):
+        frames = _stereo(72, 80, alpha=np.arange(80, dtype=np.uint8))
+        cfg = dict(kw, radius=radius, debug_mode=debug)
+        got = T.Pipeline(T.Config(**cfg), hdr_mode=hdr_mode).process(frames)
+        want = np.stack([pipeline_oracle(
+            frames[i], cfg["render_scale"], 0.9, use_nis=cfg.get(
+                "use_nis", False), radius=radius, debug=debug,
+            hdr_mode=hdr_mode, eye=i) for i in range(2)])
+        assert np.array_equal(got.numpy(), want)
+
+
+class TestHdrMode:
+    """hdr_mode is stored, reaches both NIS configs and keys the build
+    cache (the JAX package's api/pipeline.py:105-107, 241-242, 271-273,
+    594-596)."""
+
+    @pytest.mark.parametrize("rs", [1.0, 0.75])
+    def test_hdr_mode_changes_nis_output(self, rs):
+        cfg = T.Config(**dict(MAIN, use_nis=True, render_scale=rs,
+                              radius=2.0))
+        frames = _stereo(48, 56)
+        sdr = T.Pipeline(cfg).process(frames)
+        pipe = T.Pipeline(cfg, hdr_mode=1)
+        assert pipe.hdr_mode == 1
+        linear = pipe.process(frames)
+        assert not torch.equal(sdr, linear)
+        _assert_close(linear, J.Pipeline(J.Config(**dict(
+            MAIN, use_nis=True, render_scale=rs, radius=2.0)),
+            backend="xla", hdr_mode=1).process(frames))
+        # one pipeline, hdr_mode switched: a cache entry of its own each
+        pipe.hdr_mode = 0
+        assert torch.equal(pipe.process(frames), sdr)
+        assert len(pipe._cache) == 2
+        pipe.hdr_mode = 1
+        assert torch.equal(pipe.process(frames), linear)
+        assert len(pipe._cache) == 2
+
+    def test_hdr_mode_outside_nis_modes_raises(self):
+        with pytest.raises(ValueError, match="hdr_mode"):
+            T.Pipeline(T.Config(**MAIN), hdr_mode=3)
 
 
 class TestApi:
@@ -181,14 +256,31 @@ class TestApi:
         (dict(MAIN, use_cas=True), "item 11"),
     ])
     def test_unported_plans_raise(self, kw, entry):
-        with pytest.raises(NotImplementedError, match=entry):
-            T.Pipeline(T.Config(**kw)).process(_stereo(48, 56))
+        """The plans the first slice refused: FSR at renderScale 1 (B2) and
+        NIS (item 10) now run and match the JAX XLA pipeline; CAS (item
+        11) still raises, naming its ROADMAP entry."""
+        frames = _stereo(48, 56, alpha=180)
+        tp, jp = _pair(**kw)
+        if entry == "item 11":
+            with pytest.raises(NotImplementedError, match=entry):
+                tp.process(frames)
+        else:
+            _assert_close(tp.process(frames), jp.process(frames))
 
     def test_toggle_nis_then_process_raises(self):
-        tp = T.Pipeline(T.Config(**MAIN))
+        """The NIS hotkey on a live pipeline: NVScaler runs (it raised
+        before NIS was ported) and matches the JAX XLA pipeline toggled the
+        same way; toggling back gives the FSR output again."""
+        tp, jp = _pair(**MAIN)
+        frames = _stereo(48, 56, alpha=180)
+        fsr = tp.process(frames)
+        jp.process(frames)
         tp.toggle_nis()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tp.process(_stereo(48, 56))
+        jp.toggle_nis()
+        assert tp._cache == {} and tp.config.use_nis
+        _assert_close(tp.process(frames), jp.process(frames))
+        tp.toggle_nis()
+        assert torch.equal(tp.process(frames), fsr)
 
     @pytest.mark.parametrize("kw", [dict(color_bits=10),
                                     dict(precision="half")])
