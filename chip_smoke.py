@@ -21,12 +21,20 @@ lines:
        nis_scaler   2 x 1683x1869 -> 2 x 2244x2492, radius 0.5, 2.0, 0.0
                     and 0.5 with debug, hdr_mode 0, plus radius 2.0 at
                     hdr_mode 1 and 2;
-     and for each kernel a ring-pitch input and a small case against the
-     CPU path;
+       cas_upscale  2 x 1683x1869 -> 2 x 2244x2492 (sharpness 0.8), radius
+                    0.5, 2.0, 0.0 and 0.5 with debug; plus rs 1.3 and a
+                    scale above CAS's 4x area limit (rs 0.4);
+       cas_sharpen  2 x 2244x2492 (sharpness 0.8), radius 0.4, 2.0, 0.0 and
+                    0.4 with debug; plus max_color_delta 0.05, which must
+                    change the output;
+     and for each kernel a ring-pitch input and small cases (one with a
+     bright border) against the CPU path;
   3. the plans through the public API, each with the launch counts set to
-     0 just before and read just after: FSR rs 0.75, FSR rs 1, NIS rs 0.75
-     and NIS rs 1 process 10 stereo pairs as uint8 NHWC and as packed
-     frames; toggle_nis() on a live Pipeline; upscale(use_nis=True);
+     0 just before and read just after: FSR rs 0.75, FSR rs 1, NIS rs 0.75,
+     NIS rs 1, CasModel() (rs 1) and CasModel(render_scale=0.75) process 10
+     stereo pairs as uint8 NHWC and as packed frames; toggle_nis() on a
+     live Pipeline; upscale(use_nis=True), get_model("cas") and
+     upscale(use_cas=True);
   4. kernel and plain-version times in ms per stereo pair (CUDA events),
      and each plain version's peak device memory;
   5. the result lines: the card, the kernels JSON, and {"ok": true, ...}.
@@ -45,6 +53,7 @@ import torch
 H, W = 1869, 1683            # per-eye render size at renderScale 0.75
 OH, OW = 2492, 2244          # the headset's per-eye size (renderScale 1)
 SHARPNESS = 0.9
+CAS_SHARPNESS = 0.8          # CasModel's default
 PARITY_MIN_EQUAL = 0.99999   # fraction of equal texels, kernel vs plain
 PARITY_MAX_LSB = 1
 N_PAIRS = 10                 # stereo pairs per plan through the public API
@@ -96,9 +105,12 @@ def time_ms(f, x, n, warmup=3):
 def main():
     if not torch.cuda.is_available():
         fail("torch finds no CUDA GPU")
-    from openvr_fsr_tpu_torch import Config, Pipeline, upscale
+    from openvr_fsr_tpu_torch import (CasModel, Config, Pipeline, get_model,
+                                      upscale)
     from openvr_fsr_tpu_torch.core import constants as C
     from openvr_fsr_tpu_torch.kernels import _build
+    from openvr_fsr_tpu_torch.kernels.cas import (build_cas_sharpen,
+                                                  build_cas_upscale)
     from openvr_fsr_tpu_torch.kernels.fsr import build_fsr_fused
     from openvr_fsr_tpu_torch.kernels.nis import build_nvscaler, build_nvsharpen
     from openvr_fsr_tpu_torch.kernels.rcas import build_rcas_sharpen
@@ -152,6 +164,16 @@ def main():
         return build_nvscaler(2, h, w, ow, oh, nis_cfg=cfg,
                               centres=centres(ow, oh, radius), debug=debug)
 
+    def cas_up(radius, debug=False, h=H, w=W, rs=0.75):
+        ow, oh = Config(render_scale=rs).output_size(w, h)
+        return build_cas_upscale(2, h, w, ow, oh, sharpness=CAS_SHARPNESS,
+                                 centres=centres(ow, oh, radius), debug=debug)
+
+    def cas_sh(radius, debug=False, mcd=1.0, h=OH, w=OW):
+        return build_cas_sharpen(2, h, w, sharpness=CAS_SHARPNESS,
+                                 centres=centres(w, h, radius), debug=debug,
+                                 max_color_delta=mcd)
+
     rng = np.random.default_rng(0)
 
     def packed(frames_u8):
@@ -169,7 +191,7 @@ def main():
     # ---- 2. each kernel against its plain version ---------------------------
     sets = {"in": frame_sets(H, W), "full": frame_sets(OH, OW)}
     max_lsb = {"fsr_fused": 0, "rcas_sharpen": 0, "nis_sharpen": 0,
-               "nis_scaler": 0}
+               "nis_scaler": 0, "cas_upscale": 0, "cas_sharpen": 0}
 
     def parity(kernel, label, fn, img):
         got = fn(img)
@@ -195,12 +217,25 @@ def main():
                 f"debug={debug} {name}", fsr(radius, debug), img)
             parity("nis_scaler", f"2x{W}x{H}->2x{OW}x{OH} radius={radius} "
                    f"debug={debug} hdr=0 {name}", scaler(radius, debug), img)
+            kernel_out["cas_up", radius, debug, name] = parity(
+                "cas_upscale", f"2x{W}x{H}->2x{OW}x{OH} radius={radius} "
+                f"debug={debug} {name}", cas_up(radius, debug), img)
     for radius, debug in sharpen_cases:
         for name, img in sets["full"].items():
             parity("rcas_sharpen", f"2x{OW}x{OH} radius={radius} "
                    f"debug={debug} {name}", rcas(radius, debug), img)
             parity("nis_sharpen", f"2x{OW}x{OH} radius={radius} "
                    f"debug={debug} hdr=0 {name}", sharpen(radius, debug), img)
+            kernel_out["cas_sh", radius, debug, name] = parity(
+                "cas_sharpen", f"2x{OW}x{OH} radius={radius} "
+                f"debug={debug} {name}", cas_sh(radius, debug), img)
+    for name, img in sets["full"].items():
+        got = parity("cas_sharpen", f"2x{OW}x{OH} radius=2.0 "
+                     f"max_color_delta=0.05 {name}", cas_sh(2.0, mcd=0.05),
+                     img)
+        if torch.equal(got, kernel_out["cas_sh", 2.0, False, name]):
+            fail("cas_sharpen: max_color_delta 0.05 left the output as it "
+                 "was at 1.0")
     for hdr in (1, 2):
         for name in ("zone+noise", "uniform"):
             parity("nis_scaler", f"2x{W}x{H}->2x{OW}x{OH} radius=2.0 "
@@ -212,7 +247,9 @@ def main():
     for kernel, fn, img in (("fsr_fused", fsr(0.5), sets["in"]["zone+noise"]),
                             ("nis_scaler", scaler(0.5), sets["in"]["zone+noise"]),
                             ("rcas_sharpen", rcas(0.4), sets["full"]["zone+noise"]),
-                            ("nis_sharpen", sharpen(0.4), sets["full"]["zone+noise"])):
+                            ("nis_sharpen", sharpen(0.4), sets["full"]["zone+noise"]),
+                            ("cas_upscale", cas_up(0.5), sets["in"]["zone+noise"]),
+                            ("cas_sharpen", cas_sh(0.4), sets["full"]["zone+noise"])):
         hp, wp = fn.pad_to
         h, w = img.shape[1:]
         ring = torch.zeros((2, hp, wp), dtype=torch.int32, device=dev)
@@ -222,11 +259,30 @@ def main():
             f"unequal {ne}, max {mx}")
         if ne:
             fail(f"{kernel}: the ring-pitch input changed the output")
-    # supersample (rs 1.3) at a small size, and the card against the CPU path
+    # supersample (rs 1.3) and CAS above its 4x area limit (rs 0.4) at
+    # small sizes, and the card against the CPU path, on random frames and
+    # on a bright border around a dark interior (CAS reads 0 outside)
     small = packed(rng.integers(0, 256, (2, 96, 128, 4), dtype=np.uint8))
+    border = np.full((2, 96, 128, 4), 20, np.uint8)
+    border[:, :2], border[:, -2:], border[:, :, :2], border[:, :, -2:] = \
+        250, 240, 230, 245
+    border[..., 3] = rng.integers(0, 256, (2, 96, 128), dtype=np.uint8)
+    border = packed(border)
+    supersample = packed(rng.integers(0, 256, (2, 360, 320, 4),
+                                      dtype=np.uint8))
     checks = [
         ("fsr_fused", "2x320x360 rs=1.3", fsr(0.5, h=360, w=320, rs=1.3),
-         packed(rng.integers(0, 256, (2, 360, 320, 4), dtype=np.uint8))),
+         supersample),
+        ("cas_upscale", "2x320x360 rs=1.3",
+         cas_up(0.5, h=360, w=320, rs=1.3), supersample),
+        ("cas_upscale", "2x128x96 rs=0.4 (above the 4x area limit)",
+         cas_up(2.0, h=96, w=128, rs=0.4), small),
+        ("cas_upscale", "2x128x96 rs=0.75", cas_up(0.5, h=96, w=128), small),
+        ("cas_upscale", "2x128x96 rs=0.75 bright border",
+         cas_up(2.0, h=96, w=128), border),
+        ("cas_sharpen", "2x128x96", cas_sh(0.4, h=96, w=128), small),
+        ("cas_sharpen", "2x128x96 bright border, max_color_delta=0.05",
+         cas_sh(2.0, mcd=0.05, h=96, w=128), border),
         ("fsr_fused", "2x128x96 rs=0.75", fsr(0.5, h=96, w=128), small),
         ("rcas_sharpen", "2x128x96", rcas(0.4, h=96, w=128), small),
         ("nis_sharpen", "2x128x96", sharpen(0.4, h=96, w=128), small),
@@ -252,46 +308,57 @@ def main():
         u8[0] = first.view(torch.uint8).view(2, h, w, 4)
         return u8
 
-    plans = {   # kernel -> (config, input pairs, output size)
-        "fsr_fused": (Config(enabled=True, render_scale=0.75,
-                             sharpness=SHARPNESS, radius=0.5),
-                      pairs_of(H, W, sets["in"]["zone+noise"]), (OH, OW)),
-        "rcas_sharpen": (Config(enabled=True, render_scale=1.0,
-                                sharpness=SHARPNESS, radius=0.5),
-                         pairs_of(OH, OW, sets["full"]["zone+noise"]),
-                         (OH, OW)),
-        "nis_scaler": (Config(enabled=True, use_nis=True, render_scale=0.75,
-                              sharpness=SHARPNESS, radius=0.5),
-                       pairs_of(H, W, sets["in"]["zone+noise"]), (OH, OW)),
-        "nis_sharpen": (Config(enabled=True, use_nis=True, render_scale=1.0,
-                               sharpness=SHARPNESS, radius=0.5),
-                        pairs_of(OH, OW, sets["full"]["zone+noise"]),
-                        (OH, OW)),
+    def plan_of(cfg):
+        pipe = Pipeline(cfg, device="cuda")
+        return pipe.process, pipe
+
+    def model_of(**kw):
+        model = CasModel(device="cuda", **kw)
+        return model, model.pipeline
+
+    pairs_in = pairs_of(H, W, sets["in"]["zone+noise"])
+    pairs_full = pairs_of(OH, OW, sets["full"]["zone+noise"])
+    plans = {   # kernel -> (entry point, its Pipeline), input pairs
+        "fsr_fused": (plan_of(Config(enabled=True, render_scale=0.75,
+                                     sharpness=SHARPNESS, radius=0.5)),
+                      pairs_in),
+        "rcas_sharpen": (plan_of(Config(enabled=True, render_scale=1.0,
+                                        sharpness=SHARPNESS, radius=0.5)),
+                         pairs_full),
+        "nis_scaler": (plan_of(Config(enabled=True, use_nis=True,
+                                      render_scale=0.75, sharpness=SHARPNESS,
+                                      radius=0.5)), pairs_in),
+        "nis_sharpen": (plan_of(Config(enabled=True, use_nis=True,
+                                       render_scale=1.0, sharpness=SHARPNESS,
+                                       radius=0.5)), pairs_full),
+        # the CAS family's own entry point at its defaults (sharpness 0.8,
+        # radius 2.0): rs 1 runs B6, rs 0.75 runs B5
+        "cas_sharpen": (model_of(), pairs_full),
+        "cas_upscale": (model_of(render_scale=0.75), pairs_in),
     }
     launches, first_out = {}, {}
-    for kernel, (cfg, pairs_u8, (oh, ow)) in plans.items():
-        pipe = Pipeline(cfg, device="cuda")
+    for kernel, ((call, pipe), pairs_u8) in plans.items():
         pairs_packed = pairs_u8.view(torch.int32)[..., 0]
-        pipe.process(pairs_u8[0])                   # builds (not counted)
-        pipe.process(pairs_packed[0].contiguous())
+        call(pairs_u8[0])                           # builds (not counted)
+        call(pairs_packed[0].contiguous())
         for k in pipe.kernels:
             k.launches = 0
         outs_u8, outs_packed = [], []
         for i in range(N_PAIRS):
-            outs_u8.append(pipe.process(pairs_u8[i]))
-            outs_packed.append(pipe.process(pairs_packed[i].contiguous()))
+            outs_u8.append(call(pairs_u8[i]))
+            outs_packed.append(call(pairs_packed[i].contiguous()))
         torch.cuda.synchronize()
         counts = [k.launches for k in pipe.kernels]
         launches[kernel] = sum(counts)
-        log(f"[main] {kernel} plan: Pipeline.process {2 * N_PAIRS} calls, "
-            f"kernel launches {counts}")
+        log(f"[main] {kernel} plan: {2 * N_PAIRS} calls, kernel launches "
+            f"{counts}")
         if counts != [N_PAIRS, N_PAIRS]:
             fail(f"the {kernel} plan did not launch its kernel once per call")
         for i, (a, p) in enumerate(zip(outs_u8, outs_packed)):
-            if a.shape != (2, oh, ow, 4) or a.dtype != torch.uint8 \
+            if a.shape != (2, OH, OW, 4) or a.dtype != torch.uint8 \
                     or not a.is_cuda:
                 fail(f"{kernel} uint8 output {tuple(a.shape)} {a.dtype}")
-            if p.shape != (2, oh, ow) or p.dtype != torch.int32 \
+            if p.shape != (2, OH, OW) or p.dtype != torch.int32 \
                     or not p.is_cuda:
                 fail(f"{kernel} packed output {tuple(p.shape)} {p.dtype}")
             if not torch.equal(a.view(torch.int32)[..., 0], p):
@@ -305,13 +372,17 @@ def main():
         alphas = outs_u8[0][..., 3].unique().numel()
         log(f"[main] {kernel} plan: output {tuple(outs_u8[0].shape)}, "
             f"{alphas} distinct alpha values")
-    want = kernel_out["fsr", 0.5, False, "zone+noise"]
-    if not torch.equal(first_out["fsr_fused"].view(torch.int32)[..., 0], want):
-        fail("the FSR plan differs from the fused kernel at the same config")
+    for kernel, key in (("fsr_fused", ("fsr", 0.5, False, "zone+noise")),
+                        ("cas_upscale", ("cas_up", 2.0, False, "zone+noise")),
+                        ("cas_sharpen", ("cas_sh", 2.0, False, "zone+noise"))):
+        if not torch.equal(first_out[kernel].view(torch.int32)[..., 0],
+                           kernel_out[key]):
+            fail(f"the {kernel} plan differs from its kernel at the same "
+                 "config in phase 2")
 
     # the NIS hotkey on a live pipeline, and the one-shot API
-    pipe = Pipeline(plans["fsr_fused"][0], device="cuda")
-    x = plans["nis_scaler"][1][0]
+    pipe = Pipeline(plans["fsr_fused"][0][1].config, device="cuda")
+    x = pairs_in[0]
     pipe.process(x)
     pipe.toggle_nis()
     got = pipe.process(x)
@@ -328,9 +399,26 @@ def main():
         fail("upscale(use_nis=True) differs from Pipeline.process")
     log(f"[main] upscale(use_nis=True): {tuple(up.shape)} {up.dtype}, equal "
         "to Pipeline.process")
-    dbg = Pipeline(plans["nis_sharpen"][0].with_(debug_mode=True),
+    # the CAS family by name, and the one-shot API with use_cas
+    model = get_model("cas", device="cuda")
+    got = model(pairs_full[0])
+    torch.cuda.synchronize()
+    if [k.launches for k in model.pipeline.kernels] != [1] \
+            or not torch.equal(got, first_out["cas_sharpen"]):
+        fail("get_model('cas') differs from CasModel()")
+    for rs, kernel, x in ((None, "cas_sharpen", pairs_full[0]),
+                          (0.75, "cas_upscale", pairs_in[0])):
+        up = upscale(x, render_scale=rs, sharpness=CAS_SHARPNESS, radius=2.0,
+                     use_cas=True, device="cuda")
+        torch.cuda.synchronize()
+        if not up.is_cuda or not torch.equal(up, first_out[kernel]):
+            fail(f"upscale(use_cas=True, render_scale={rs}) differs from "
+                 "Pipeline.process")
+    log("[main] get_model('cas') and upscale(use_cas=True) at rs 1 and 0.75 "
+        "equal the CasModel plans")
+    dbg = Pipeline(plans["nis_sharpen"][0][1].config.with_(debug_mode=True),
                    device="cuda")
-    dbg.process(plans["nis_sharpen"][1][0])
+    dbg.process(pairs_full[0])
     if dbg.timer.count != 1 or not dbg.timer.summed > 0:
         fail("debug-mode GpuTimer recorded no CUDA time")
 
@@ -340,6 +428,8 @@ def main():
         "rcas_sharpen": (rcas(0.5), sets["full"]["zone+noise"]),
         "nis_sharpen": (sharpen(0.5), sets["full"]["zone+noise"]),
         "nis_scaler": (scaler(0.5), sets["in"]["zone+noise"]),
+        "cas_upscale": (cas_up(0.5), sets["in"]["zone+noise"]),
+        "cas_sharpen": (cas_sh(0.5), sets["full"]["zone+noise"]),
     }
     ms, plain_ms = {}, {}
     log(f"[time] card: {card}")
@@ -364,10 +454,16 @@ def main():
     for radius in (2.0, 0.0):
         for kernel, build in (("fsr_fused", fsr), ("rcas_sharpen", rcas),
                               ("nis_sharpen", sharpen),
-                              ("nis_scaler", scaler)):
+                              ("nis_scaler", scaler),
+                              ("cas_upscale", cas_up),
+                              ("cas_sharpen", cas_sh)):
             img = timed[kernel][1]
-            t = time_ms(build(radius), img, 200)
-            log(f"[time] {kernel} radius={radius}: {t} ms per stereo pair")
+            fn = build(radius)
+            t = time_ms(fn, img, 200)
+            plain = (f", plain torch {time_ms(fn.reference, img, 5)} ms"
+                     if kernel.startswith("cas") else "")
+            log(f"[time] {kernel} radius={radius}: {t} ms per stereo "
+                f"pair{plain}")
 
     # ---- 5. result lines ----------------------------------------------------
     sources = {
@@ -375,6 +471,8 @@ def main():
         "rcas_sharpen": "openvr_fsr_tpu/kernels/rcas.py:35",
         "nis_sharpen": "openvr_fsr_tpu/kernels/nis.py:125",
         "nis_scaler": "openvr_fsr_tpu/kernels/nis.py:371",
+        "cas_upscale": "openvr_fsr_tpu/kernels/cas.py:67",
+        "cas_sharpen": "openvr_fsr_tpu/kernels/cas.py:418",
     }
     log(card)
     log(json.dumps({"kernels": [{

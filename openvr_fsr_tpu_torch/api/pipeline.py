@@ -8,15 +8,16 @@ Reference orchestration being reproduced (src/postprocess/PostProcessor.cpp):
   - lazy per-(shape, config) resource creation = a build cache keyed the
     same way (:136-153); `Reset()` = dropping the cache
 
-This port covers the four stage plans the reference mod ships, on RGBA8
-frames, each one kernel launch per batch: FSR with an upscale (renderScale
-!= 1, kernels/fsr.py), FSR sharpen-only at renderScale 1 (kernels/rcas.py),
-NIS upscale (NVScaler) and NIS at renderScale 1 (NVSharpen, both
-kernels/nis.py, HDR modes 0/1/2). A CUDA tensor runs the CUDA kernel, a CPU
-tensor its plain torch version. The signatures are the JAX package's
-(openvr_fsr_tpu/api/pipeline.py), plus an explicit `device`. CAS and the
-other options raise NotImplementedError naming the ROADMAP.md entry that
-ports them.
+This port covers every stage plan of the JAX package on RGBA8 frames, each
+one kernel launch per batch: FSR with an upscale (renderScale != 1,
+kernels/fsr.py), FSR sharpen-only at renderScale 1 (kernels/rcas.py), NIS
+upscale (NVScaler) and NIS at renderScale 1 (NVSharpen, both kernels/nis.py,
+HDR modes 0/1/2), and CAS, one CasFilter pass: sharpen-and-upscale at
+renderScale != 1, sharpen-only with the maxColorDelta clamp at renderScale 1
+(kernels/cas.py). A CUDA tensor runs the CUDA kernel, a CPU tensor its plain
+torch version. The signatures are the JAX package's (openvr_fsr_tpu/api/
+pipeline.py), plus an explicit `device`. The options not ported yet raise
+NotImplementedError naming the ROADMAP.md entry that ports them.
 """
 
 import numpy as np
@@ -25,9 +26,11 @@ import torch
 from ..core.config import Config
 from ..core import constants as C
 from ..core.projection import default_centers
+from ..kernels.cas import build_cas_sharpen, build_cas_upscale
 from ..kernels.fsr import build_fsr_fused
 from ..kernels.nis import build_nvscaler, build_nvsharpen
 from ..kernels.rcas import build_rcas_sharpen
+from ..ops.cas import cas_support_scaling
 from ..utils.log import get_logger
 from ..utils.timing import GpuTimer
 
@@ -56,8 +59,8 @@ class Pipeline:
     """Stateful stereo post-processing pipeline.
 
     Args:
-      config: Config (render_scale / sharpness / use_nis / radius /
-        debug_mode).
+      config: Config (render_scale / sharpness / use_nis / use_cas /
+        radius / debug_mode).
       eye_centers: ((lx,ly),(rx,ry)) normalized projection centres; defaults to
         image centres (symmetric projection, no cant).
       single_eye_per_frame: True = each batch entry is one eye (the reference's
@@ -66,8 +69,10 @@ class Pipeline:
       backend, precision, hdr_mode, cas_max_color_delta: the JAX signature;
         only "auto" / "full" run here. hdr_mode is NIS_HDR_MODE (0 none,
         the mod's shipped build; 1 linear; 2 PQ, NIS_Scaler.h:112-116) and
-        acts on the NIS paths only; cas_max_color_delta acts on the CAS
-        path, which is not ported yet.
+        acts on the NIS paths only; cas_max_color_delta is CasSetup's
+        maxColorDelta (ffx_cas.h:379, 1 = unlimited) and clamps the CAS
+        sharpen-only path only (the scaling path ends at ASat,
+        ffx_cas.h:876-878).
       device: where numpy frames are processed; None = the CPU. Tensor
         frames run on their own device, which must match an explicit one.
     """
@@ -94,6 +99,7 @@ class Pipeline:
         if self.hdr_mode not in (0, 1, 2):
             raise ValueError(f"hdr_mode={hdr_mode!r}: NIS_HDR_MODE is 0 "
                              "(none), 1 (linear) or 2 (PQ)")
+        self.cas_max_color_delta = float(cas_max_color_delta)
         self.eye_centers = eye_centers or default_centers()
         self.single_eye_per_frame = single_eye_per_frame
         self.device = _resolve_device(device)
@@ -136,8 +142,8 @@ class Pipeline:
     @property
     def kernels(self):
         """The kernel functions built so far (fsr_fused, rcas_sharpen,
-        nvscaler or nvsharpen builds); each counts its CUDA launches in
-        `.launches`."""
+        nvscaler, nvsharpen, cas_upscale or cas_sharpen builds); each counts
+        its CUDA launches in `.launches`."""
         return [fn.kernel for fn in self._cache.values()]
 
     def _centres_array(self, out_w, out_h, eyes):
@@ -154,13 +160,22 @@ class Pipeline:
         cfg = self.config
         if cfg.use_nis and cfg.use_cas:
             raise ValueError("use_nis and use_cas are mutually exclusive")
-        if cfg.use_cas:
-            raise NotImplementedError(
-                "CAS is not ported yet: ROADMAP.md Queue A item 11 "
-                "(kernels B5, B6)")
         do_up, _ = cfg.stage_plan()
         out_w, out_h = cfg.output_size(w, h)
         centres = self._centres_array(out_w, out_h, eyes)
+        if cfg.use_cas and do_up:           # CAS: one CasFilter scaling pass
+            if not cas_support_scaling(out_w, out_h, w, h):
+                self._log.info(
+                    "CAS scale factor above the 4x area limit "
+                    "(ffx_cas.h:368-372) — output follows the filter anyway")
+            return build_cas_upscale(b, h, w, out_w, out_h,
+                                     sharpness=cfg.sharpness, centres=centres,
+                                     debug=cfg.debug_mode)
+        if cfg.use_cas:                     # CAS at renderScale 1: noScaling
+            return build_cas_sharpen(
+                b, h, w, sharpness=cfg.sharpness, centres=centres,
+                debug=cfg.debug_mode,
+                max_color_delta=self.cas_max_color_delta)
         if cfg.use_nis and do_up:           # NIS upscale: NVScaler
             nis_cfg = C.nvscaler_update_config(
                 cfg.sharpness, w, h, w, h, out_w, out_h, out_w, out_h,
@@ -298,13 +313,15 @@ class Pipeline:
         else:
             eyes = tuple(int(e) for e in eyes)
         key = (b, h, w, str(x.dtype), eyes, self.config,
-               self.single_eye_per_frame, self.hdr_mode, x.device)
+               self.single_eye_per_frame, self.hdr_mode,
+               self.cas_max_color_delta, x.device)
         fn = self._cache.get(key)
         if fn is None:
             self._log.info(
                 "Creating post-processing resources: %dx%d -> %s (%s, %s)",
                 w, h, self.config.output_size(w, h),
-                "NIS" if self.config.use_nis else "FSR", x.device)
+                "CAS" if self.config.use_cas
+                else "NIS" if self.config.use_nis else "FSR", x.device)
             fn = self._build(b, h, w, eyes, packed)
             self._cache[key] = fn
         if self.config.debug_mode:
@@ -336,9 +353,10 @@ def upscale(frame, render_scale=None, sharpness=0.9, use_nis=False, radius=0.5,
     NVIDIA Image Scaling (NVScaler / NVSharpen) instead of FSR.
     bounds: optional VRTextureBounds_t (uMin, vMin, uMax, vMax) — half-width
     bounds select double-wide eye packing (PostProcessor.cpp:146); with
-    crop=True only the bounded output region is returned. device: as
-    Pipeline's. Other args mirror openvr_mod.cfg keys. Returns processed
-    frame(s) as a tensor.
+    crop=True only the bounded output region is returned. use_cas selects
+    FFX CAS (one CasFilter pass, ffx_cas.h). device: as Pipeline's. Other
+    args mirror openvr_mod.cfg keys. Returns processed frame(s) as a
+    tensor.
     """
     cfg = Config(enabled=True, use_nis=use_nis, use_cas=use_cas,
                  render_scale=1.0 if render_scale is None else float(render_scale),

@@ -13,7 +13,9 @@ evaluating coordinate math on the device. The fused FSR kernel's:
                          16x16 output tile (with its 1-pixel halo) stages
   centres (B, 5) int64   the foveation cbuffer rows (core.constants)
 
-NVScaler's (NisMaps) are set out at nvscaler_maps. The tables depend
+CAS upscale's (cas_upscale_maps) have the same layout, with the CasFilter
+floor and fraction of pp in place of EASU's. NVScaler's (NisMaps) are set
+out at nvscaler_maps. The tables depend
 only on the build's shapes, config and centres, so one build serves every
 frame of a stream.
 """
@@ -27,14 +29,19 @@ from ..core import constants as C
 from ..core.foveation import TILE_NIS_SCALER
 from ..core.nis_tables import COEF_SCALE, COEF_USM
 from ..ops.bilinear import bilinear_axis, bilinear_texel_axis
+from ..ops.cas import cas_upscale_index_maps
 from ..ops.easu import easu_index_maps
 from ..ops.nis import nis_source_maps
 
-__all__ = ["FsrMaps", "fsr_maps", "NisMaps", "nvscaler_maps",
-           "input_padding", "TILE", "IN_TILE", "NIS_IN_TILE"]
+__all__ = ["FsrMaps", "fsr_maps", "cas_upscale_maps", "NisMaps",
+           "nvscaler_maps", "input_padding", "TILE", "IN_TILE",
+           "CAS_IN_TILE", "NIS_IN_TILE"]
 
 TILE = 16      # output tile edge: one CTA per tile, the 16x16 foveation group
 IN_TILE = 24   # staged input footprint edge (csrc/fsr_fused.cu kInTile)
+# CAS upscale's staged footprint edge (csrc/cas_upscale.cu kInTile): out >=
+# in on every path, so 16 outputs span at most 16 input positions + 3 taps
+CAS_IN_TILE = 20
 # NVScaler's staged luma footprint cap, (width, height), per 32x24 output
 # block (csrc/nis_scaler.cu kInW, kInH)
 NIS_IN_TILE = (40, 32)
@@ -79,8 +86,8 @@ class _Tables:
 
 @dataclasses.dataclass(frozen=True)
 class FsrMaps(_Tables):
-    """The fused kernel's tables: numpy arrays from fsr_maps, torch tensors
-    after .to(device)."""
+    """The fused kernel's tables (and CAS upscale's): numpy arrays from
+    fsr_maps or cas_upscale_maps, torch tensors after .to(device)."""
 
     in_h: int
     in_w: int
@@ -121,6 +128,39 @@ def fsr_maps(batch, in_h, in_w, out_w, out_h, centres):
         row_f=np.stack([ppy, fby]),
         tile_x0=_footprint_origins(lo_x, hi_x, TILE, 1, IN_TILE),
         tile_y0=_footprint_origins(lo_y, hi_y, TILE, 1, IN_TILE),
+        centres=np.ascontiguousarray(cen))
+
+
+def cas_upscale_maps(batch, in_h, in_w, out_w, out_h, centres):
+    """CAS upscale's tables for one (shape, centres) configuration: row 0
+    of col_i / col_f / row_i / row_f is the CasFilter floor and fraction of
+    pp (ops/cas.py::cas_upscale_index_maps), row 1 the bilinear fallback's
+    floor and fraction (the JAX package's kernels/cas.py:97-100).
+
+    Unlike EASU's, CAS taps are not clamped into the image: a tap at
+    floor-1 < 0 or floor+2 >= the size reads 0 (CasLoad). So a footprint
+    may start at -2 and the kernel stages zeros there; only the bilinear
+    taps clamp."""
+    H, W, OH, OW = int(in_h), int(in_w), int(out_h), int(out_w)
+    fxi, ppx = cas_upscale_index_maps(W, OW)
+    fyi, ppy = cas_upscale_index_maps(H, OH)
+    bx0, fbx = bilinear_axis(OW, W)
+    by0, fby = bilinear_axis(OH, H)
+    # lowest / highest input index any tap of each output column/row reads:
+    # CAS taps fxi-1 .. fxi+2 as they are, bilinear x0 .. x0+1 edge-clamped
+    lo_x = np.minimum(fxi - 1, np.clip(bx0, 0, W - 1))
+    hi_x = np.maximum(fxi + 2, np.clip(bx0 + 1, 0, W - 1))
+    lo_y = np.minimum(fyi - 1, np.clip(by0, 0, H - 1))
+    hi_y = np.maximum(fyi + 2, np.clip(by0 + 1, 0, H - 1))
+    cen = np.asarray(centres, np.int64).reshape(int(batch), 5)
+    return FsrMaps(
+        in_h=H, in_w=W, out_h=OH, out_w=OW,
+        col_i=np.stack([fxi.astype(np.int32), bx0]),
+        col_f=np.stack([ppx, fbx]),
+        row_i=np.stack([fyi.astype(np.int32), by0]),
+        row_f=np.stack([ppy, fby]),
+        tile_x0=_footprint_origins(lo_x, hi_x, TILE, 0, CAS_IN_TILE),
+        tile_y0=_footprint_origins(lo_y, hi_y, TILE, 0, CAS_IN_TILE),
         centres=np.ascontiguousarray(cen))
 
 

@@ -1,7 +1,7 @@
-"""Plain torch ops: the FSR and NIS math in eager PyTorch, op for op the
+"""Plain torch ops: the FSR, NIS and CAS math in eager PyTorch, op for op the
 NumPy oracle's f32 order. They run on any device and are the plain versions
 the CUDA kernels in ../kernels are held against."""
 
-from . import bilinear, common, easu, nis, rcas
+from . import bilinear, cas, common, easu, nis, rcas
 
-__all__ = ["bilinear", "common", "easu", "nis", "rcas"]
+__all__ = ["bilinear", "cas", "common", "easu", "nis", "rcas"]

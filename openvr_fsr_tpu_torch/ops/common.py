@@ -19,6 +19,7 @@ __all__ = [
     "aprx_lo_rcp",
     "aprx_med_rcp",
     "aprx_lo_rsq",
+    "aprx_lo_sqrt",
     "rcp",
     "sat",
     "hlsl_min",
@@ -55,6 +56,12 @@ def aprx_lo_rsq(a):
     """APrxLoRsqF1: bitcast(0x5f347d74 - (bits(a)>>1)). The shift is
     logical: the int32 arithmetic shift is masked back to 31 bits."""
     return _f32(0x5F347D74 - ((_bits(a) >> 1) & 0x7FFFFFFF))
+
+
+def aprx_lo_sqrt(a):
+    """APrxLoSqrtF1: bitcast((bits(a)>>1) + 0x1fbc4639) (ffx_a.h:1455). The
+    shift is logical, as in aprx_lo_rsq."""
+    return _f32(((_bits(a) >> 1) & 0x7FFFFFFF) + 0x1FBC4639)
 
 
 def rcp(a):

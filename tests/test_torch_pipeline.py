@@ -256,16 +256,12 @@ class TestApi:
         (dict(MAIN, use_cas=True), "item 11"),
     ])
     def test_unported_plans_raise(self, kw, entry):
-        """The plans the first slice refused: FSR at renderScale 1 (B2) and
-        NIS (item 10) now run and match the JAX XLA pipeline; CAS (item
-        11) still raises, naming its ROADMAP entry."""
+        """The plans the first slice refused: FSR at renderScale 1 (B2), NIS
+        (item 10) and CAS (item 11) now run and match the JAX XLA
+        pipeline."""
         frames = _stereo(48, 56, alpha=180)
         tp, jp = _pair(**kw)
-        if entry == "item 11":
-            with pytest.raises(NotImplementedError, match=entry):
-                tp.process(frames)
-        else:
-            _assert_close(tp.process(frames), jp.process(frames))
+        _assert_close(tp.process(frames), jp.process(frames))
 
     def test_toggle_nis_then_process_raises(self):
         """The NIS hotkey on a live pipeline: NVScaler runs (it raised
