@@ -37,15 +37,29 @@ lines:
      upscale(use_cas=True);
   4. kernel and plain-version times in ms per stereo pair (CUDA events),
      and each plain version's peak device memory;
-  5. the result lines: the card, the kernels JSON, and {"ok": true, ...}.
+  5. the measurement path: the DMA floor (csrc/dma_floor.cu) keeps its
+     loads in its SASS, and equals its plain version word for word at the
+     full-size geometry of each of the seven bench paths, on the unpadded
+     and the ring-pitch input; the fused kernel against its plain version
+     at the full supersample size (2 x 2244x2492 -> 2 x 2917x3239); the
+     floor's time at the fsr_fused geometry (also call by call, bench_fn)
+     and the card's pure-read and pure-write rates (hbm_calibration);
+     then the bench entries, bench.main() and tools.bench_paths.main()
+     over all seven paths, in this process, printing their JSON lines;
+     every path's kernel and floor must have launched in that run, and
+     none may read vs_sol above 1.02 (a floor slower than its kernel is a
+     wrong floor);
+  6. the result lines: the card, the kernels JSON, and {"ok": true, ...}.
 
 Exits non-zero, printing no result, when torch finds no CUDA GPU.
 """
 
 import json
+import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -56,6 +70,7 @@ SHARPNESS = 0.9
 CAS_SHARPNESS = 0.8          # CasModel's default
 PARITY_MIN_EQUAL = 0.99999   # fraction of equal texels, kernel vs plain
 PARITY_MAX_LSB = 1
+VS_SOL_MAX = 1.02            # floor / kernel; above it the floor is wrong
 N_PAIRS = 10                 # stereo pairs per plan through the public API
 CENTRES = ((0.5, 0.5), (0.5, 0.5))
 
@@ -85,6 +100,27 @@ def lsb_diff(a, b):
     d = (a.view(torch.uint8).to(torch.int16)
          - b.view(torch.uint8).to(torch.int16)).abs()
     return ne, a.numel(), int(d.max())
+
+
+def sass_counts(lib, nvcc):
+    """{kernel function: [LDG, STS, STG] instruction counts} in the SASS
+    of a built library (cuobjdump beside nvcc), or None without it."""
+    tool = Path(nvcc).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    r = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                       text=True, timeout=120)
+    if r.returncode != 0:
+        fail(f"cuobjdump exited {r.returncode}: {r.stderr.strip()}")
+    counts, fn = {}, None
+    for line in r.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = [0, 0, 0]
+        elif fn:
+            for i, op in enumerate(("LDG", "STS", "STG")):
+                counts[fn][i] += op in line
+    return counts
 
 
 def time_ms(f, x, n, warmup=3):
@@ -465,7 +501,89 @@ def main():
             log(f"[time] {kernel} radius={radius}: {t} ms per stereo "
                 f"pair{plain}")
 
-    # ---- 5. result lines ----------------------------------------------------
+    # ---- 5. the measurement path --------------------------------------------
+    from openvr_fsr_tpu_torch import bench
+    from openvr_fsr_tpu_torch.kernels.sol import build_dma_floor
+    from openvr_fsr_tpu_torch.tools import bench_paths
+    from openvr_fsr_tpu_torch.utils.timing import bench_fn, hbm_calibration
+
+    counts = sass_counts(_build.library_path("dma_floor"), _build._nvcc())
+    if counts is None:
+        log("[floor] cuobjdump not found: SASS not checked")
+    for fn_name, (ldg, sts, stg) in (counts or {}).items():
+        log(f"[floor] SASS {fn_name}: {ldg} LDG, {sts} STS, {stg} STG")
+        if not (ldg and sts and stg):
+            fail(f"dma_floor {fn_name}: the compiler dropped its loads or "
+                 "stores")
+    max_lsb["dma_floor"] = 0
+    for name in bench_paths.PATHS:
+        cfg, h, w = bench_paths.path_config(name)
+        img = sets["in" if (h, w) == (H, W) else "full"]["zone+noise"]
+        fn = Pipeline(cfg, device="cuda")._build(2, h, w, (0, 1), True)
+        floor = build_dma_floor(fn.dma_geometry)
+        want = floor.reference(img)
+        hp, wp = floor.pad_to
+        ring = torch.zeros((2, hp, wp), dtype=torch.int32, device=dev)
+        ring[:, :h, :w] = img
+        for label, x in (("unpadded", img), (f"ring pitch {hp}x{wp}", ring)):
+            got = floor(x)
+            torch.cuda.synchronize()
+            if got.shape != want.shape:
+                fail(f"dma_floor {name}: output {tuple(got.shape)}")
+            ne, n, mx = lsb_diff(got, want)
+            log(f"[floor] dma_floor {name} 2x{w}x{h} -> "
+                f"2x{got.shape[2]}x{got.shape[1]} {label}: unequal {ne} of "
+                f"{n} words (read {floor.read_bytes / 1e6:.1f} MB, "
+                f"{floor.hbm_bytes / 1e6:.1f} MB unique)")
+            if ne:
+                fail(f"dma_floor {name} ({label}) disagrees with its plain "
+                     "version")
+            max_lsb["dma_floor"] = max(max_lsb["dma_floor"], mx)
+    ss_w, ss_h = Config(render_scale=1.3).output_size(OW, OH)
+    parity("fsr_fused", f"2x{OW}x{OH}->2x{ss_w}x{ss_h} rs=1.3 radius=0.5 "
+           "zone+noise", fsr(0.5, h=OH, w=OW, rs=1.3),
+           sets["full"]["zone+noise"])
+    floor = build_dma_floor(timed["fsr_fused"][0].dma_geometry)
+    img = timed["fsr_fused"][1]
+    rounds = {"kernel": [], "plain": []}
+    for label, f, n in (("plain", floor.reference, 5), ("kernel", floor, 200),
+                        ("kernel", floor, 200), ("plain", floor.reference, 5)):
+        rounds[label].append(time_ms(f, img, n))
+    ms["dma_floor"] = float(np.mean(rounds["kernel"]))
+    plain_ms["dma_floor"] = float(np.mean(rounds["plain"]))
+    log(f"[time] dma_floor at the fsr_fused geometry: {rounds['kernel']} ms "
+        f"per stereo pair; plain torch {rounds['plain']} ms")
+    best, avg = bench_fn(floor, img, warmup=3, iters=50)
+    read_bw, write_bw = hbm_calibration(dev)
+    log(f"[time] dma_floor call by call (bench_fn): best {best} ms, average "
+        f"{avg} ms; device memory at the headline shapes (hbm_calibration): "
+        f"pure-read reduce {read_bw / 1e9:.1f} GB/s, pure-write fill "
+        f"{write_bw / 1e9:.1f} GB/s")
+
+    # the bench entries: each builds its pipelines and floors inside the
+    # run, so every launch count starts at 0 there and is read just after
+    bench_record, bench_run = bench.main()
+    paths = bench_paths.main([])
+    records = [bench_record] + [record for record, _ in paths.values()]
+    runs = [bench_run] + [run for _, run in paths.values()]
+    for record, run in zip(records, runs):
+        k, f = run.kernel.launches, run.floor.launches
+        log(f"[bench] {record['metric']}: kernel launches {k}, floor "
+            f"launches {f}, vs_sol {record['vs_sol']}")
+        if not (k > 0 and k == f):
+            fail(f"{record['metric']}: kernel launched {k} times, its floor "
+                 f"{f}")
+        for key in ("value", "hbm_sol_ms", "probe_effective_gbps"):
+            if not (math.isfinite(record[key]) and record[key] > 0):
+                fail(f"{record['metric']}: {key} = {record[key]}")
+        if record["vs_sol"] > VS_SOL_MAX:
+            fail(f"{record['metric']}: vs_sol {record['vs_sol']} > "
+                 f"{VS_SOL_MAX}: the floor is slower than its kernel")
+    if len(paths) != len(bench_paths.PATHS):
+        fail("bench_paths did not measure every path")
+    launches["dma_floor"] = sum(run.floor.launches for run in runs)
+
+    # ---- 6. result lines ----------------------------------------------------
     sources = {
         "fsr_fused": "openvr_fsr_tpu/kernels/fsr.py:191",
         "rcas_sharpen": "openvr_fsr_tpu/kernels/rcas.py:35",
@@ -473,6 +591,7 @@ def main():
         "nis_scaler": "openvr_fsr_tpu/kernels/nis.py:371",
         "cas_upscale": "openvr_fsr_tpu/kernels/cas.py:67",
         "cas_sharpen": "openvr_fsr_tpu/kernels/cas.py:418",
+        "dma_floor": "openvr_fsr_tpu/kernels/sol.py:39",
     }
     log(card)
     log(json.dumps({"kernels": [{

@@ -142,8 +142,11 @@ class Pipeline:
     @property
     def kernels(self):
         """The kernel functions built so far (fsr_fused, rcas_sharpen,
-        nvscaler, nvsharpen, cas_upscale or cas_sharpen builds); each counts
-        its CUDA launches in `.launches`."""
+        nvscaler, nvsharpen, cas_upscale or cas_sharpen builds). Each
+        counts its CUDA launches in `.launches` and publishes `.reference`
+        (its plain torch version), `.pad_to` (the ring pitch) and
+        `.dma_geometry` (what it loads and stores, for
+        kernels/sol.py::build_dma_floor)."""
         return [fn.kernel for fn in self._cache.values()]
 
     def _centres_array(self, out_w, out_h, eyes):
@@ -216,8 +219,11 @@ class Pipeline:
                 plane = x.contiguous().view(torch.int32)[..., 0]
                 return kern(plane)[..., None].view(torch.uint8)
 
+        # the kernel's ring pitch and DMA geometry, as the JAX package's
+        # _packed_run / _jit_io carry them (bench.py reads both)
         run.kernel = kern
         run.pad_to = kern.pad_to
+        run.dma_geometry = kern.dma_geometry
         return run
 
     def _as_tensor(self, frames):

@@ -1,0 +1,203 @@
+"""Canonical benchmark of the port on one NVIDIA GPU: the stereo eye pair
+through the fused FSR kernel at the reference headline config, 1683x1869
+per eye upscaled to 2244x2492 at renderScale 0.75, sharpness 0.9,
+foveated radius 0.5. The port of the repository's root bench.py.
+
+    python3 -m openvr_fsr_tpu_torch.bench
+
+Prints ONE JSON line on stdout:
+  {"metric": "fsr_stereo_eyepair_2244x2492_rs075_ms", "value": <ms per
+   stereo pair>, "unit": "ms", "vs_baseline": <1 ms north star / value>,
+   "sol_probe": "cuda_dma_floor", "probe_effective_gbps": ...,
+   "hbm_sol_ms": <the kernel's DMA floor, ms>, "vs_sol": <floor / value>,
+   "device": "<nvidia-smi name, power limit>"}
+Diagnostics go to stderr.
+
+Methodology, as the root bench.py's (:63-134): the zero-copy packed
+serving input, three rotating stereo frames resident on the card and
+pre-padded to the kernel's ring pitch (fn.pad_to); a warm-up of 5 calls,
+then the best of 3 rounds of 40 back-to-back calls, each round timed with
+one CUDA event pair. The yardstick is the kernel's own DMA floor
+(kernels/sol.py, csrc/dma_floor.cu: its launch shape and loads and stores,
+no compute), timed in the same process over the same frames, in turns with
+the kernel, so vs_sol = floor / kernel <= 1. Three frame pairs (75 MB)
+exceed the H100's 50 MB L2, so no call reads the last call's input from
+L2. probe_effective_gbps is the floor's unique input plane plus its output
+over its time.
+
+With no CUDA GPU, or when the watchdog fires, the line has value null and
+an error, and the exit code is not 0: a CPU number is never a bench result.
+"""
+
+import dataclasses
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+METRIC = "fsr_stereo_eyepair_2244x2492_rs075_ms"
+H_IN, W_IN = 1869, 1683
+CONFIG = dict(render_scale=0.75, sharpness=0.9, radius=0.5)
+SOL_PROBE = "cuda_dma_floor"
+WARMUP, ITERS, ROUNDS = 5, 40, 3
+# a hung bench is worse than a failed one: fail loudly instead
+WATCHDOG_S = 1500
+
+__all__ = ["main", "measure", "ring_frames", "card", "error_record",
+           "require_gpu", "PathRun", "METRIC"]
+
+
+def error_record(metric, error):
+    """The line printed instead of a result."""
+    return {"metric": metric, "value": None, "unit": "ms",
+            "vs_baseline": None, "error": error}
+
+
+def require_gpu(metrics):
+    """Print an error line for each metric and exit 1 unless torch finds a
+    CUDA GPU."""
+    import torch
+    if not torch.cuda.is_available():
+        for metric in metrics:
+            print(json.dumps(error_record(
+                metric, "torch finds no CUDA GPU: the bench measures the "
+                "card only")), flush=True)
+        sys.exit(1)
+
+
+def card():
+    """The card as `nvidia-smi --query-gpu=name,power.limit` names it."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"],
+                       capture_output=True, text=True, timeout=60)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvidia-smi exited {r.returncode}: "
+                           f"{r.stderr.strip()}")
+    return r.stdout.strip().splitlines()[0]
+
+
+def ring_frames(h, w, pad_to, device):
+    """The root bench.py's three stereo frames (:75-81): zone plate + noise,
+    uniform random, gradient + checkerboard, packed to the native u32 plane,
+    padded to the ring pitch `pad_to`, and moved to `device` as int32 views
+    of the u32 words (the port's packed dtype; no converted copy)."""
+    import torch
+
+    from .utils import frames as FR
+    rng = np.random.default_rng(0)
+    hp, wp = pad_to
+    sets = [
+        np.stack([FR.zone_plate_frame(h, w), FR.noise_frame(h, w, seed=1)]),
+        rng.integers(0, 256, (2, h, w, 4)).astype(np.uint8),
+        np.stack([FR.gradient_frame(h, w), FR.checkerboard_frame(h, w)])]
+    out = []
+    for u8 in sets:
+        packed = np.ascontiguousarray(u8).view(np.uint32)[..., 0]
+        ring = np.pad(packed, ((0, 0), (0, hp - h), (0, wp - w)))
+        out.append(torch.from_numpy(ring.view(np.int32)).to(device))
+    return out
+
+
+@dataclasses.dataclass
+class PathRun:
+    """One path measured: its kernel and DMA floor (each counting its
+    launches), their ms per stereo pair, and the build seconds."""
+
+    kernel: object
+    floor: object
+    ms: float
+    sol_ms: float
+    compile_s: float
+    out_w: int
+    out_h: int
+
+    @property
+    def vs_sol(self):
+        return self.sol_ms / self.ms
+
+    @property
+    def probe_effective_gbps(self):
+        return self.floor.hbm_bytes / 1e9 / (self.sol_ms / 1000.0)
+
+
+def measure(config, h, w, *, iters=ITERS, rounds=ROUNDS, warmup=WARMUP,
+            device="cuda"):
+    """Time one plan's kernel and its DMA floor on the card, in turns, over
+    the three ring frames of (h, w) stereo pairs. compile_s is the build
+    (host tables, and nvcc where the library is not built yet) plus the
+    first launch."""
+    import torch
+
+    from .api.pipeline import Pipeline
+    from .kernels.sol import build_dma_floor
+    from .utils.timing import rotation_ms
+
+    pipe = Pipeline(config, device=device)
+    out_w, out_h = pipe.output_size(w, h)
+    t0 = time.perf_counter()
+    fn = pipe._build(2, h, w, (0, 1), True)
+    build_s = time.perf_counter() - t0
+    inputs = ring_frames(h, w, fn.pad_to, device)
+    t0 = time.perf_counter()
+    fn(inputs[0])
+    torch.cuda.synchronize()
+    compile_s = build_s + time.perf_counter() - t0
+    floor = build_dma_floor(fn.dma_geometry)
+    floor(inputs[0])
+    for f in (fn, floor):
+        rotation_ms(f, inputs, warmup)
+    ms, sol_ms = [], []
+    for _ in range(rounds):
+        ms.append(rotation_ms(fn, inputs, iters))
+        sol_ms.append(rotation_ms(floor, inputs, iters))
+    return PathRun(fn.kernel, floor, min(ms), min(sol_ms), compile_s, out_w,
+                   out_h)
+
+
+def _watchdog(signum, frame):
+    print(json.dumps(error_record(
+        METRIC, f"watchdog: no result in {WATCHDOG_S} s")), flush=True)
+    os._exit(2)
+
+
+def main():
+    """Measure the headline config, print its JSON line and return
+    (the line as a dict, the PathRun)."""
+    if hasattr(signal, "SIGALRM"):
+        signal.signal(signal.SIGALRM, _watchdog)
+        signal.alarm(WATCHDOG_S)
+    try:
+        require_gpu([METRIC])
+        from .core.config import Config
+        run = measure(Config(enabled=True, **CONFIG), H_IN, W_IN)
+        device = card()
+    finally:
+        if hasattr(signal, "SIGALRM"):
+            signal.alarm(0)
+    out_mpix = 2 * run.out_w * run.out_h / 1e6
+    print(f"[bench] {device}: {run.ms} ms/stereo-pair "
+          f"({out_mpix / (run.ms / 1000.0):.0f} Mpix/s); DMA floor "
+          f"{run.sol_ms} ms for {run.floor.hbm_bytes / 1e6:.1f} MB "
+          f"({run.probe_effective_gbps:.0f} GB/s effective), kernel at "
+          f"{run.vs_sol * 100:.0f}% of it", file=sys.stderr, flush=True)
+    record = {
+        "metric": METRIC,
+        "value": run.ms,
+        "unit": "ms",
+        "vs_baseline": 1.0 / run.ms,
+        "sol_probe": SOL_PROBE,
+        "probe_effective_gbps": run.probe_effective_gbps,
+        "hbm_sol_ms": run.sol_ms,
+        "vs_sol": run.vs_sol,
+        "device": device,
+    }
+    print(json.dumps(record), flush=True)
+    return record, run
+
+
+if __name__ == "__main__":
+    main()

@@ -7,6 +7,8 @@ launch wrappers, and the plain torch version of each:
            build_nvsharpen     NIS at renderScale 1: NVSharpen (nis_sharpen.cu)
   cas.py   build_cas_upscale   CAS upscale: CasFilter scaling (cas_upscale.cu)
            build_cas_sharpen   CAS at renderScale 1: noScaling (cas_sharpen.cu)
+  sol.py   build_dma_floor     the DMA floor of any of them: its loads and
+                               stores, no compute (dma_floor.cu)
 
 Nothing here builds or loads a kernel when imported: the first launch on a
 CUDA tensor does (or kernels._build.build(), which builds them all at
@@ -18,3 +20,4 @@ from .fsr import build_fsr_fused, fsr_fused_reference  # noqa: F401
 from .nis import (build_nvscaler, build_nvsharpen,  # noqa: F401
                   nvscaler_reference, nvsharpen_reference)
 from .rcas import build_rcas_sharpen, rcas_sharpen_reference  # noqa: F401
+from .sol import build_dma_floor, dma_floor_reference  # noqa: F401

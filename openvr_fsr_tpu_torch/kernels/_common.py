@@ -89,7 +89,7 @@ def centres_table(batch, centres):
         np.asarray(centres, np.int64).reshape(int(batch), 5)))
 
 
-def kernel_fn(name, batch, shape, pad_to, reference, launch):
+def kernel_fn(name, batch, shape, pad_to, reference, launch, geometry=None):
     """The function a kernel build returns.
 
     fn(img) takes a contiguous (batch, *shape) int32 tensor, or one
@@ -97,7 +97,10 @@ def kernel_fn(name, batch, shape, pad_to, reference, launch):
     runs `reference(img)`, the plain torch version; a CUDA tensor runs
     `launch(img)`, which returns (out, cudaError), and raises if the error
     is not 0. Nothing falls back. fn.launches counts CUDA launches;
-    fn.reference and fn.pad_to are published."""
+    fn.reference and fn.pad_to are published, and fn.dma_geometry when
+    `geometry` (kernels/_maps.py::dma_geometry) is given: that dict with
+    batch, in_h, in_w and the ring pitch hp, wp added, which
+    kernels/sol.py::build_dma_floor consumes."""
     B, (H, W), pad_to = int(batch), tuple(shape), tuple(pad_to)
 
     def fn(img):
@@ -127,4 +130,7 @@ def kernel_fn(name, batch, shape, pad_to, reference, launch):
     fn.launches = 0
     fn.pad_to = pad_to
     fn.reference = reference
+    if geometry is not None:
+        fn.dma_geometry = dict(geometry, batch=B, in_h=H, in_w=W,
+                               hp=pad_to[0], wp=pad_to[1])
     return fn

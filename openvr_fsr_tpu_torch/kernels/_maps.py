@@ -18,6 +18,11 @@ floor and fraction of pp in place of EASU's. NVScaler's (NisMaps) are set
 out at nvscaler_maps. The tables depend
 only on the build's shapes, config and centres, so one build serves every
 frame of a stream.
+
+Every build also publishes its DMA geometry (dma_geometry,
+sharpen_geometry): what its CUDA kernel loads from the frame and stores,
+which kernels/sol.py::build_dma_floor turns into the kernel's
+zero-compute floor.
 """
 
 import dataclasses
@@ -34,9 +39,11 @@ from ..ops.easu import easu_index_maps
 from ..ops.nis import nis_source_maps
 
 __all__ = ["FsrMaps", "fsr_maps", "cas_upscale_maps", "NisMaps",
-           "nvscaler_maps", "input_padding", "TILE", "IN_TILE",
-           "CAS_IN_TILE", "NIS_IN_TILE"]
+           "nvscaler_maps", "input_padding", "dma_geometry",
+           "sharpen_geometry", "TILE", "IN_TILE", "CAS_IN_TILE",
+           "NIS_IN_TILE", "THREADS"]
 
+THREADS = 256  # threads per CTA of every kernel (csrc/*.cu kThreads)
 TILE = 16      # output tile edge: one CTA per tile, the 16x16 foveation group
 IN_TILE = 24   # staged input footprint edge (csrc/fsr_fused.cu kInTile)
 # CAS upscale's staged footprint edge (csrc/cas_upscale.cu kInTile): out >=
@@ -228,3 +235,53 @@ def nvscaler_maps(batch, in_h, in_w, out_w, out_h, nis_cfg, centres):
         centres=np.ascontiguousarray(cen),
         coef=np.ascontiguousarray(np.stack([COEF_SCALE, COEF_USM]),
                                   np.float32))
+
+
+def dma_geometry(out_h, out_w, tile, window, tile_x0, tile_y0, centres, *,
+                 oob, stage, tap_x, tap_y, quad_x=None, quad_y=None):
+    """What one CUDA kernel loads from the frame and stores, for its DMA
+    floor (kernels/sol.py::build_dma_floor; the counterpart of the JAX
+    package's fn.dma_geometry, kernels/_band.py::make_io_fn). kernel_fn adds
+    batch, in_h, in_w and the ring pitch hp, wp.
+
+      out_h, out_w      the output plane; every output word is stored once
+      tile              (width, height) output block of one CTA of THREADS
+      window            (width, height) of the window a staging CTA loads
+                        into shared memory, one word per position
+      tile_x0, tile_y0  window origin per tile column / tile row (int32)
+      oob               "zero": window words outside the image are staged
+                        as 0 and not loaded; "clamp": loaded edge-clamped
+      stage             "all": every CTA stages; "circle": only CTAs whose
+                        tile passes the foveation test, the others load
+                        their outputs' words directly
+      centres           (B, 5) int64 foveation rows of the circle test
+      tap_x, tap_y      per output column / row, the in-image input index
+                        of the output's own tap (the clamped floor of its
+                        sample position): inside every window of its tile
+      quad_x, quad_y    None, or (2, out_w) / (2, out_h) floors of four
+                        bilinear taps each output loads from device memory
+                        (edge-clamped): row 0 in a staging CTA, row 1 in
+                        the others (NVScaler's RGBA tap and DirectCopy)
+    """
+    def ints(a):
+        return None if a is None else np.ascontiguousarray(a, np.int32)
+
+    return dict(out_h=int(out_h), out_w=int(out_w), tile=tuple(tile),
+                threads=THREADS, window=tuple(window),
+                tile_x0=ints(tile_x0), tile_y0=ints(tile_y0), oob=oob,
+                stage=stage,
+                centres=np.ascontiguousarray(np.asarray(centres, np.int64)
+                                             .reshape(-1, 5)),
+                tap_x=ints(tap_x), tap_y=ints(tap_y), quad_x=ints(quad_x),
+                quad_y=ints(quad_y))
+
+
+def sharpen_geometry(h, w, tile, halo, centres, oob):
+    """The DMA geometry of a renderScale-1 kernel (RCAS, NVSharpen, CAS
+    sharpen): a CTA inside the circle stages its (tile + 2 halo)-square
+    window at (t * tile - halo); the others copy their own texels."""
+    return dma_geometry(
+        h, w, (tile, tile), (tile + 2 * halo,) * 2,
+        np.arange(-(-w // tile)) * tile - halo,
+        np.arange(-(-h // tile)) * tile - halo, centres, oob=oob,
+        stage="circle", tap_x=np.arange(w), tap_y=np.arange(h))

@@ -22,6 +22,7 @@ a CPU tensor. Nothing falls back.
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from ..core.foveation import TILE_FSR
@@ -32,7 +33,8 @@ from ..ops.common import F32
 from . import _build
 from ._common import (DeviceTables, centres_table, circle_mask, debug_tint,
                       kernel_fn, pack, tint_vector, unpack)
-from ._maps import CAS_IN_TILE, cas_upscale_maps, input_padding
+from ._maps import (CAS_IN_TILE, TILE, cas_upscale_maps, dma_geometry,
+                    input_padding, sharpen_geometry)
 
 __all__ = ["build_cas_upscale", "build_cas_sharpen", "cas_upscale_reference",
            "cas_sharpen_reference"]
@@ -111,7 +113,8 @@ def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
     pre-padded to the ring pitch fn.pad_to; the result is a new (B, out_h,
     out_w) int32 tensor of packed RGBA8 with alpha 255 on img's device.
     fn.launches counts CUDA launches; fn.reference(img) runs the plain
-    version on img's device.
+    version on img's device; fn.dma_geometry is what the kernel loads and
+    stores (kernels/sol.py).
     """
     B, H, W = int(batch), int(in_h), int(in_w)
     OH, OW = int(out_h), int(out_w)
@@ -136,8 +139,16 @@ def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
             torch.cuda.current_stream(dev).cuda_stream)
         return out, err
 
+    # every CTA stages its 20x20 window, which may start at -2, 0 outside
+    # the image; an output's own tap is its clamped CasFilter floor
+    m = tables.host
+    geometry = dma_geometry(
+        OH, OW, (TILE, TILE), (CAS_IN_TILE, CAS_IN_TILE), m.tile_x0,
+        m.tile_y0, m.centres, oob="zero", stage="all",
+        tap_x=np.clip(m.col_i[0], 0, W - 1),
+        tap_y=np.clip(m.row_i[0], 0, H - 1))
     return kernel_fn("CAS upscale", B, (H, W), input_padding(H, W),
-                     reference, launch)
+                     reference, launch, geometry)
 
 
 def build_cas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
@@ -176,5 +187,8 @@ def build_cas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
             float(tint), torch.cuda.current_stream(dev).cuda_stream)
         return out, err
 
+    # as RCAS sharpen: 18x18 haloed tiles inside the circle, 0 outside the
+    # image; the others copy their texels
     return kernel_fn("CAS sharpen", B, (H, W), input_padding(H, W),
-                     reference, launch)
+                     reference, launch,
+                     sharpen_geometry(H, W, TILE, 1, cen.host, "zero"))

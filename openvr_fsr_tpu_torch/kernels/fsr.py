@@ -21,6 +21,7 @@ or raises.
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from ..core import constants as C
@@ -32,7 +33,7 @@ from ..ops.common import unorm_quantize
 from . import _build
 from ._common import (DeviceTables, circle_mask, debug_tint, kernel_fn,
                       pack, tint_vector, unpack)
-from ._maps import IN_TILE, fsr_maps, input_padding
+from ._maps import IN_TILE, TILE, dma_geometry, fsr_maps, input_padding
 
 __all__ = ["build_fsr_fused", "fsr_fused_reference", "circle_mask"]
 
@@ -82,7 +83,8 @@ def build_fsr_fused(batch, in_h, in_w, out_w, out_h, *, sharpness, centres,
     copy), holding packed RGBA8 texels (little-endian, R in the low byte);
     the result is a new (B, out_h, out_w) int32 tensor of packed RGBA8 with
     alpha 255 on img's device. fn.launches counts CUDA kernel launches;
-    fn.reference(img) runs the plain version on img's device.
+    fn.reference(img) runs the plain version on img's device;
+    fn.dma_geometry is what the kernel loads and stores (kernels/sol.py).
     """
     B, H, W = int(batch), int(in_h), int(in_w)
     OH, OW = int(out_h), int(out_w)
@@ -106,5 +108,13 @@ def build_fsr_fused(batch, in_h, in_w, out_w, out_h, *, sharpness, centres,
             float(tint), IN_TILE, torch.cuda.current_stream(dev).cuda_stream)
         return out, err
 
+    # every CTA stages its 24x24 window, 0 outside the image (fsr_fused.cu
+    # step 1); an output's own tap is its clamped EASU floor
+    m = tables.host
+    geometry = dma_geometry(
+        OH, OW, (TILE, TILE), (IN_TILE, IN_TILE), m.tile_x0, m.tile_y0,
+        m.centres, oob="zero", stage="all",
+        tap_x=np.clip(m.col_i[0], 0, W - 1),
+        tap_y=np.clip(m.row_i[0], 0, H - 1))
     return kernel_fn("fused FSR", B, (H, W), input_padding(H, W), reference,
-                     launch)
+                     launch, geometry)

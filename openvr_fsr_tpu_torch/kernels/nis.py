@@ -33,7 +33,8 @@ from ..ops.nis import KHDR_COMPRESSION, NIS_SCALE_FLOAT, nvscaler, nvsharpen
 from . import _build
 from ._common import (DeviceTables, centres_table, circle_mask, debug_tint,
                       kernel_fn, pack, tint_vector, unpack)
-from ._maps import NIS_IN_TILE, input_padding, nvscaler_maps
+from ._maps import (NIS_IN_TILE, dma_geometry, input_padding,
+                    nvscaler_maps, sharpen_geometry)
 
 __all__ = ["build_nvsharpen", "build_nvscaler", "nvsharpen_reference",
            "nvscaler_reference"]
@@ -123,7 +124,8 @@ def build_nvsharpen(batch, h, w, *, nis_cfg: NisConfig, centres, debug=False):
     pre-padded to the ring pitch fn.pad_to, of packed RGBA8 texels; the
     result is a new (B, h, w) int32 tensor of packed RGBA8 on img's device.
     fn.launches counts CUDA launches; fn.reference(img) runs the plain
-    version on img's device.
+    version on img's device; fn.dma_geometry is what the kernel loads and
+    stores (kernels/sol.py).
     """
     B, H, W = int(batch), int(h), int(w)
     cen = centres_table(B, centres)
@@ -145,8 +147,11 @@ def build_nvsharpen(batch, h, w, *, nis_cfg: NisConfig, centres, debug=False):
             torch.cuda.current_stream(dev).cuda_stream)
         return out, err
 
+    # a block inside the circle stages its 36x36 edge-clamped tile; the
+    # others copy their texels
     return kernel_fn("NVSharpen", B, (H, W), input_padding(H, W), reference,
-                     launch)
+                     launch, sharpen_geometry(H, W, TILE_NIS_SHARPEN[0], 2,
+                                              cen.host, "clamp"))
 
 
 def build_nvscaler(batch, in_h, in_w, out_w, out_h, *, nis_cfg: NisConfig,
@@ -192,5 +197,15 @@ def build_nvscaler(batch, in_h, in_w, out_w, out_h, *, nis_cfg: NisConfig,
             torch.cuda.current_stream(dev).cuda_stream)
         return out, err
 
+    # a block inside the circle stages its 40x32 edge-clamped luma window
+    # and loads each pixel's RGBA tap; the others load the four DirectCopy
+    # taps of each pixel
+    m = tables.host
+    geometry = dma_geometry(
+        OH, OW, TILE_NIS_SCALER, NIS_IN_TILE, m.tile_x0, m.tile_y0,
+        m.centres, oob="clamp", stage="circle",
+        tap_x=np.clip(m.col_i[0], 0, W - 1),
+        tap_y=np.clip(m.row_i[0], 0, H - 1),
+        quad_x=m.col_i[2:4], quad_y=m.row_i[2:4])
     return kernel_fn("NVScaler", B, (H, W), input_padding(H, W), reference,
-                     launch)
+                     launch, geometry)

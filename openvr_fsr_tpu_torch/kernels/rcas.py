@@ -25,7 +25,7 @@ from ..ops.rcas import rcas
 from . import _build
 from ._common import (centres_table, circle_mask, debug_tint, kernel_fn,
                       pack, tint_vector, unpack)
-from ._maps import input_padding
+from ._maps import TILE, input_padding, sharpen_geometry
 
 __all__ = ["build_rcas_sharpen", "rcas_sharpen_reference"]
 
@@ -70,7 +70,8 @@ def build_rcas_sharpen(batch, h, w, *, sharpness, centres, debug=False):
     pre-padded to the ring pitch fn.pad_to, of packed RGBA8 texels; the
     result is a new (B, h, w) int32 tensor of packed RGBA8 on img's device.
     fn.launches counts CUDA launches; fn.reference(img) runs the plain
-    version on img's device.
+    version on img's device; fn.dma_geometry is what the kernel loads and
+    stores (kernels/sol.py).
     """
     B, H, W = int(batch), int(h), int(w)
     cen = centres_table(B, centres)
@@ -91,5 +92,8 @@ def build_rcas_sharpen(batch, h, w, *, sharpness, centres, debug=False):
             torch.cuda.current_stream(dev).cuda_stream)
         return out, err
 
+    # a tile inside the circle stages its 18x18 haloed tile, 0 outside the
+    # image; the others copy their texels
     return kernel_fn("RCAS sharpen", B, (H, W), input_padding(H, W),
-                     reference, launch)
+                     reference, launch,
+                     sharpen_geometry(H, W, TILE, 1, cen.host, "zero"))

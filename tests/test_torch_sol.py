@@ -1,0 +1,213 @@
+"""The DMA floor (kernels/sol.py, csrc/dma_floor.cu) and the DMA geometry
+every kernel build publishes, on the CPU.
+
+Each of the six kernel builds is built through Pipeline._build at two small
+shapes (one not a multiple of any tile) and radius 0.5, 2.0 and 0.0, and
+its geometry is held against:
+  - the JAX package's: the same build through its Pipeline in Pallas
+    interpret mode, and its own build_dma_floor over it (batch, out_h,
+    out_w, the ring pitch hp/wp and write_bytes are equal; read_bytes
+    differ by design, band windows against tile windows, so the port's is
+    held against the words its own windows load);
+  - a numpy statement of the floor kernel, CTA by CTA: the windows it
+    stages, the words it loads, the word each output stores.
+
+The CUDA kernel itself runs only on the card: `python3 chip_smoke.py`
+holds it against dma_floor_reference there, word for word.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from openvr_fsr_tpu import Config as JConfig  # noqa: E402
+from openvr_fsr_tpu import Pipeline as JPipeline  # noqa: E402
+from openvr_fsr_tpu.kernels import sol as jsol  # noqa: E402
+
+from openvr_fsr_tpu_torch import Config, Pipeline  # noqa: E402
+from openvr_fsr_tpu_torch.core import constants as C  # noqa: E402
+from openvr_fsr_tpu_torch.kernels import _maps  # noqa: E402
+from openvr_fsr_tpu_torch.kernels import sol  # noqa: E402
+
+PLANS = {
+    "fsr_fused": dict(render_scale=0.75),
+    "rcas_sharpen": dict(render_scale=1.0),
+    "nvscaler": dict(render_scale=0.75, use_nis=True),
+    "nvsharpen": dict(render_scale=1.0, use_nis=True),
+    "cas_upscale": dict(render_scale=0.75, use_cas=True),
+    "cas_sharpen": dict(render_scale=1.0, use_cas=True),
+}
+SHAPES = [(72, 96), (45, 61)]
+RADII = [0.5, 2.0, 0.0]
+CASES = [(p, h, w, r) for p in PLANS for h, w in SHAPES for r in RADII]
+IDS = [f"{p}-{h}x{w}-r{r}" for p, h, w, r in CASES]
+
+
+def _config(cls, plan, radius):
+    return cls(enabled=True, sharpness=0.9, radius=radius, **PLANS[plan])
+
+
+def _geometry(plan, h, w, radius):
+    pipe = Pipeline(_config(Config, plan, radius))
+    return pipe._build(2, h, w, (0, 1), True).dma_geometry
+
+
+def _frames(h, w, seed=0):
+    rng = np.random.default_rng(seed + h * w)
+    return rng.integers(0, 2**32, (2, h, w), dtype=np.uint64) \
+        .astype(np.uint32).view(np.int32)
+
+
+def _emulate(img, g):
+    """The floor kernel in numpy, CTA by CTA: (output, words loaded).
+    Asserts that every staged read lies inside the CTA's window."""
+    B, H, W = g["batch"], g["in_h"], g["in_w"]
+    OH, OW = g["out_h"], g["out_w"]
+    (tw, th), (ww, wh) = g["tile"], g["window"]
+    quad = g["quad_x"] is not None
+    out = np.zeros((B, OH, OW), np.int32)
+    loads = 0
+    for b in range(B):
+        c = g["centres"][b]
+        for ty in range(-(-OH // th)):
+            oy = np.arange(ty * th, min(ty * th + th, OH))
+            for tx in range(-(-OW // tw)):
+                ox = np.arange(tx * tw, min(tx * tw + tw, OW))
+                n = len(oy) * len(ox)
+                gx, gy = tx * tw + tw // 2, ty * th + th // 2
+                inside = ((c[0] - gx) ** 2 + (c[1] - gy) ** 2 <= c[4]
+                          or (c[2] - gx) ** 2 + (c[3] - gy) ** 2 <= c[4])
+                if g["stage"] == "all" or inside:
+                    y = g["tile_y0"][ty] + np.arange(wh)
+                    x = g["tile_x0"][tx] + np.arange(ww)
+                    win = img[b][np.ix_(np.clip(y, 0, H - 1),
+                                        np.clip(x, 0, W - 1))]
+                    if g["oob"] == "zero":
+                        valid = (((y >= 0) & (y < H))[:, None]
+                                 & ((x >= 0) & (x < W))[None, :])
+                        win = np.where(valid, win, 0)
+                        loads += int(valid.sum())
+                    else:
+                        loads += ww * wh
+                    ry = g["tap_y"][oy] - y[0]
+                    rx = g["tap_x"][ox] - x[0]
+                    assert ry.min() >= 0 and ry.max() < wh
+                    assert rx.min() >= 0 and rx.max() < ww
+                    out[b][np.ix_(oy, ox)] = win[np.ix_(ry, rx)]
+                    loads += 4 * n if quad else 0
+                elif quad:
+                    qy = np.clip(g["quad_y"][1][oy], 0, H - 1)
+                    qx = np.clip(g["quad_x"][1][ox], 0, W - 1)
+                    out[b][np.ix_(oy, ox)] = img[b][np.ix_(qy, qx)]
+                    loads += 4 * n
+                else:
+                    out[b][np.ix_(oy, ox)] = \
+                        img[b][np.ix_(g["tap_y"][oy], g["tap_x"][ox])]
+                    loads += n
+    return out, loads
+
+
+@pytest.mark.parametrize("plan,h,w,radius", CASES, ids=IDS)
+class TestGeometry:
+    def test_matches_the_jax_package(self, plan, h, w, radius):
+        g = _geometry(plan, h, w, radius)
+        jpipe = JPipeline(_config(JConfig, plan, radius),
+                          backend="pallas-interpret")
+        jfn = jpipe._build(2, h, w, (0, 1))
+        jg = jfn.dma_geometry
+        for key in ("batch", "out_h", "out_w", "hp", "wp"):
+            assert g[key] == jg[key], key
+        assert tuple(jfn.pad_to) == (g["hp"], g["wp"])
+        jfloor = jsol.build_dma_floor(jg, interpret=True)
+        floor = sol.build_dma_floor(g)
+        assert floor.write_bytes == jfloor.write_bytes
+        assert floor.pad_to == tuple(jfloor.pad_to)
+        # read_bytes: the JAX floor counts row-band windows, the port's the
+        # CUDA kernel's tile windows; each equals the words its own loads
+        _, loads = _emulate(_frames(h, w), g)
+        assert floor.read_bytes == 4 * loads
+        assert floor.hbm_bytes == 4 * 2 * h * w + floor.write_bytes
+
+    def test_reference_is_the_numpy_statement(self, plan, h, w, radius):
+        g = _geometry(plan, h, w, radius)
+        img = _frames(h, w)
+        want, _ = _emulate(img, g)
+        got = sol.dma_floor_reference(torch.from_numpy(img), g)
+        assert got.dtype == torch.int32 and got.shape == want.shape
+        assert np.array_equal(got.numpy(), want)
+
+    def test_ring_pitch_equals_unpadded(self, plan, h, w, radius):
+        g = _geometry(plan, h, w, radius)
+        floor = sol.build_dma_floor(g)
+        img = _frames(h, w, seed=1)
+        hp, wp = floor.pad_to
+        ring = np.full((2, hp, wp), -1, np.int32)   # junk in the padding
+        ring[:, :h, :w] = img
+        a = floor(torch.from_numpy(img))
+        b = floor(torch.from_numpy(ring))
+        assert torch.equal(a, b) and floor.launches == 0
+
+    def test_windows_cover_the_taps_of_their_tiles(self, plan, h, w, radius):
+        g = _geometry(plan, h, w, radius)
+        sol.check_geometry(g)
+        for tile, win, origins, taps in (
+                (g["tile"][0], g["window"][0], g["tile_x0"], g["tap_x"]),
+                (g["tile"][1], g["window"][1], g["tile_y0"], g["tap_y"])):
+            assert len(origins) == -(-len(taps) // tile)
+            for t, o in enumerate(origins):
+                seg = taps[t * tile:(t + 1) * tile]
+                assert o <= seg.min() and seg.max() < o + win
+        # the tables are the ones the kernel launches with
+        ow, oh = _config(Config, plan, radius).output_size(w, h)
+        cen = C.centres_payload(ow, oh, radius, Pipeline().eye_centers,
+                                (0, 1))
+        assert np.array_equal(g["centres"], np.asarray(cen).reshape(2, 5))
+        if plan in ("fsr_fused", "cas_upscale"):
+            maps = (_maps.fsr_maps if plan == "fsr_fused"
+                    else _maps.cas_upscale_maps)(2, h, w, ow, oh, cen)
+            assert np.array_equal(g["tile_x0"], maps.tile_x0)
+            assert np.array_equal(g["tile_y0"], maps.tile_y0)
+            assert np.array_equal(g["tap_x"], np.clip(maps.col_i[0], 0, w - 1))
+            assert g["stage"] == "all" and g["oob"] == "zero"
+        elif plan == "nvscaler":
+            cfg = C.nvscaler_update_config(0.9, w, h, w, h, ow, oh, ow, oh)
+            maps = _maps.nvscaler_maps(2, h, w, ow, oh, cfg, cen)
+            assert np.array_equal(g["tile_x0"], maps.tile_x0)
+            assert np.array_equal(g["quad_y"], maps.row_i[2:4])
+            assert (g["stage"], g["oob"]) == ("circle", "clamp")
+        else:
+            tile, halo = (32, 2) if plan == "nvsharpen" else (16, 1)
+            assert g["tile"] == (tile, tile)
+            assert g["tile_x0"][1] == tile - halo
+            assert np.array_equal(g["tap_y"], np.arange(h))
+            assert g["oob"] == ("clamp" if plan == "nvsharpen" else "zero")
+
+
+def test_full_size_geometries_fit_the_floor():
+    """The seven bench paths' geometries at full size pass the floor's own
+    check (host tables only; nothing runs)."""
+    from openvr_fsr_tpu_torch.tools.bench_paths import PATHS, path_config
+    for name in PATHS:
+        cfg, h, w = path_config(name)
+        g = Pipeline(cfg)._build(2, h, w, (0, 1), True).dma_geometry
+        floor = sol.build_dma_floor(g)
+        assert floor.write_bytes == 2 * g["out_h"] * g["out_w"] * 4
+        assert floor.read_bytes >= 2 * h * w * 4 or g["stage"] == "circle"
+
+
+def test_tap_outside_its_window_is_refused():
+    g = _geometry("fsr_fused", 72, 96, 0.5)
+    bad = dict(g, tap_x=g["tap_x"] + _maps.IN_TILE)
+    with pytest.raises(ValueError, match="outside"):
+        sol.build_dma_floor(bad)
+    with pytest.raises(ValueError, match="threads"):
+        sol.build_dma_floor(dict(g, threads=128))
+
+
+@pytest.mark.parametrize("name", ["build_vpu_rate", "build_vmem_rate",
+                                  "build_mxu_rate"])
+def test_rate_probes_raise_naming_roadmap(name):
+    assert name in sol.__all__
+    with pytest.raises(NotImplementedError, match="B8"):
+        getattr(sol, name)(4)
