@@ -34,7 +34,9 @@ lines:
      NIS rs 1, CasModel() (rs 1) and CasModel(render_scale=0.75) process 10
      stereo pairs as uint8 NHWC and as packed frames; toggle_nis() on a
      live Pipeline; upscale(use_nis=True), get_model("cas") and
-     upscale(use_cas=True);
+     upscale(use_cas=True); Pipeline(cfg), upscale(frame) and FsrModel() on
+     numpy frames. No entry point is given a device: each must default to
+     the card and launch its CUDA kernel;
   4. kernel and plain-version times in ms per stereo pair (CUDA events),
      and each plain version's peak device memory;
   5. the measurement path: the DMA floor (csrc/dma_floor.cu) keeps its
@@ -49,7 +51,19 @@ lines:
      every path's kernel and floor must have launched in that run, and
      none may read vs_sol above 1.02 (a floor slower than its kernel is a
      wrong floor);
-  6. the result lines: the card, the kernels JSON, and {"ok": true, ...}.
+  6. the rate probes (B8) and the audit: each probe (csrc/vpu_rate.cu,
+     vmem_rate.cu, mxu_rate.cu) against its plain version at the audit's
+     full k and steps (FP32 and shared-memory probes: 0 unequal; the
+     tensor-core probe within kernels/sol.py::MXU_TOLERANCE, also at small
+     k, where its values have not underflowed); the SASS of each keeps
+     what it meters (FP32 arithmetic per cycle, LDS in the plane loop, HMMA per
+     round); each probe's and its plain version's time, and torch.matmul
+     on one round's bf16 operands beside the tensor-core probe; then
+     tools.vpu_audit.main() and main(["--nis", "--quick"]) in this process,
+     failing on a missing launch, a rate that is not finite, a pair spread
+     above 1.5, a rate above 1.05 x its bound, or a kernel row whose bound
+     is above 1.05 x its time;
+  7. the result lines: the card, the kernels JSON, and {"ok": true, ...}.
 
 Exits non-zero, printing no result, when torch finds no CUDA GPU.
 """
@@ -71,6 +85,11 @@ CAS_SHARPNESS = 0.8          # CasModel's default
 PARITY_MIN_EQUAL = 0.99999   # fraction of equal texels, kernel vs plain
 PARITY_MAX_LSB = 1
 VS_SOL_MAX = 1.02            # floor / kernel; above it the floor is wrong
+RATE_MAX = 1.05              # a measured rate over its bound
+SHARE_MAX = 1.05             # an audit row's bound over its time
+HBM_PEAK = 3.35e12           # H100 SXM, bytes/s (the data sheet, 700 W)
+FP32_PEAK = 67e12            # FP32 outside the tensor cores, ops/s
+BF16_PEAK = 989.4e12         # dense bf16 tensor cores, FLOP/s
 N_PAIRS = 10                 # stereo pairs per plan through the public API
 CENTRES = ((0.5, 0.5), (0.5, 0.5))
 
@@ -105,22 +124,12 @@ def lsb_diff(a, b):
 def sass_counts(lib, nvcc):
     """{kernel function: [LDG, STS, STG] instruction counts} in the SASS
     of a built library (cuobjdump beside nvcc), or None without it."""
-    tool = Path(nvcc).with_name("cuobjdump")
-    if not tool.exists():
+    from openvr_fsr_tpu_torch.tools import sass
+    text = sass.disassemble(lib, nvcc)
+    if text is None:
         return None
-    r = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                       text=True, timeout=120)
-    if r.returncode != 0:
-        fail(f"cuobjdump exited {r.returncode}: {r.stderr.strip()}")
-    counts, fn = {}, None
-    for line in r.stdout.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            counts[fn] = [0, 0, 0]
-        elif fn:
-            for i, op in enumerate(("LDG", "STS", "STG")):
-                counts[fn][i] += op in line
-    return counts
+    return {fn: [ops["LDG"], ops["STS"], ops["STG"]]
+            for fn, ops in sass.function_counts(text).items()}
 
 
 def time_ms(f, x, n, warmup=3):
@@ -141,8 +150,8 @@ def time_ms(f, x, n, warmup=3):
 def main():
     if not torch.cuda.is_available():
         fail("torch finds no CUDA GPU")
-    from openvr_fsr_tpu_torch import (CasModel, Config, Pipeline, get_model,
-                                      upscale)
+    from openvr_fsr_tpu_torch import (CasModel, Config, FsrModel, Pipeline,
+                                      get_model, upscale)
     from openvr_fsr_tpu_torch.core import constants as C
     from openvr_fsr_tpu_torch.kernels import _build
     from openvr_fsr_tpu_torch.kernels.cas import (build_cas_sharpen,
@@ -345,11 +354,11 @@ def main():
         return u8
 
     def plan_of(cfg):
-        pipe = Pipeline(cfg, device="cuda")
+        pipe = Pipeline(cfg)                        # the card by default
         return pipe.process, pipe
 
     def model_of(**kw):
-        model = CasModel(device="cuda", **kw)
+        model = CasModel(**kw)
         return model, model.pipeline
 
     pairs_in = pairs_of(H, W, sets["in"]["zone+noise"])
@@ -417,7 +426,7 @@ def main():
                  "config in phase 2")
 
     # the NIS hotkey on a live pipeline, and the one-shot API
-    pipe = Pipeline(plans["fsr_fused"][0][1].config, device="cuda")
+    pipe = Pipeline(plans["fsr_fused"][0][1].config)
     x = pairs_in[0]
     pipe.process(x)
     pipe.toggle_nis()
@@ -429,14 +438,14 @@ def main():
     log("[main] toggle_nis(): the live pipeline now launches NVScaler, "
         "equal to the NIS plan")
     up = upscale(x, render_scale=0.75, sharpness=SHARPNESS, radius=0.5,
-                 use_nis=True, device="cuda")
+                 use_nis=True)
     torch.cuda.synchronize()
     if not up.is_cuda or not torch.equal(up, first_out["nis_scaler"]):
         fail("upscale(use_nis=True) differs from Pipeline.process")
     log(f"[main] upscale(use_nis=True): {tuple(up.shape)} {up.dtype}, equal "
         "to Pipeline.process")
     # the CAS family by name, and the one-shot API with use_cas
-    model = get_model("cas", device="cuda")
+    model = get_model("cas")
     got = model(pairs_full[0])
     torch.cuda.synchronize()
     if [k.launches for k in model.pipeline.kernels] != [1] \
@@ -445,18 +454,39 @@ def main():
     for rs, kernel, x in ((None, "cas_sharpen", pairs_full[0]),
                           (0.75, "cas_upscale", pairs_in[0])):
         up = upscale(x, render_scale=rs, sharpness=CAS_SHARPNESS, radius=2.0,
-                     use_cas=True, device="cuda")
+                     use_cas=True)
         torch.cuda.synchronize()
         if not up.is_cuda or not torch.equal(up, first_out[kernel]):
             fail(f"upscale(use_cas=True, render_scale={rs}) differs from "
                  "Pipeline.process")
     log("[main] get_model('cas') and upscale(use_cas=True) at rs 1 and 0.75 "
         "equal the CasModel plans")
-    dbg = Pipeline(plans["nis_sharpen"][0][1].config.with_(debug_mode=True),
-                   device="cuda")
+    dbg = Pipeline(plans["nis_sharpen"][0][1].config.with_(debug_mode=True))
     dbg.process(pairs_full[0])
     if dbg.timer.count != 1 or not dbg.timer.summed > 0:
         fail("debug-mode GpuTimer recorded no CUDA time")
+    # numpy frames through the entry points with no device: the card
+    frame_np = pairs_in[0].cpu().numpy()
+    fsr_cfg = plans["fsr_fused"][0][1].config
+    pipe = Pipeline(fsr_cfg)
+    model = FsrModel(render_scale=fsr_cfg.render_scale,
+                     sharpness=fsr_cfg.sharpness, radius=fsr_cfg.radius)
+    for label, call, kernels in (
+            ("Pipeline(cfg).process", pipe.process, lambda: pipe.kernels),
+            ("FsrModel()", model, lambda: model.pipeline.kernels),
+            ("upscale()", lambda f: upscale(
+                f, render_scale=fsr_cfg.render_scale,
+                sharpness=fsr_cfg.sharpness, radius=fsr_cfg.radius), None)):
+        got = call(frame_np)
+        torch.cuda.synchronize()
+        if not got.is_cuda or not torch.equal(got, first_out["fsr_fused"]):
+            fail(f"{label} on a numpy frame with no device did not run the "
+                 "FSR kernel on the card")
+        if kernels is not None and [k.launches for k in kernels()] != [1]:
+            fail(f"{label} did not launch its CUDA kernel")
+    log("[main] Pipeline(cfg), FsrModel() and upscale() with no device, on "
+        "numpy frames: on the card, the CUDA kernel launched, equal to the "
+        "FSR plan")
 
     # ---- 4. times -----------------------------------------------------------
     timed = {   # kernel -> (build at the default config, input)
@@ -583,7 +613,134 @@ def main():
         fail("bench_paths did not measure every path")
     launches["dma_floor"] = sum(run.floor.launches for run in runs)
 
-    # ---- 6. result lines ----------------------------------------------------
+    # ---- 6. the rate probes and the audit -----------------------------------
+    from openvr_fsr_tpu_torch.kernels import sol
+    from openvr_fsr_tpu_torch.tools import sass, vpu_audit
+
+    loops = sass.probe_loops()
+    if loops is None:
+        log("[probe] cuobjdump not found: SASS not checked")
+    else:
+        log(f"[probe] SASS of the metering loops: {loops}")
+        if not (loops["vpu_rate"]["fp32_per_cycle"] >= 20
+                and loops["vmem_rate"]["lds_in_loop"] >= 1
+                and (loops["vmem_rate"]["words_per_lds"] or 99) <= 4
+                and loops["mxu_rate"]["hmma_per_round"] >= 128):
+            fail(f"a rate probe lost the work it meters: {loops}")
+        for name in ("fsr_fused", "rcas_sharpen", "nis_scaler", "nis_sharpen",
+                     "cas_upscale", "cas_sharpen"):
+            text = sass.disassemble(_build.library_path(name), _build._nvcc())
+            for fn_name, ops in sass.function_counts(text).items():
+                log(f"[probe] SASS {name}: {ops['LDS']} LDS in "
+                    f"{fn_name[-40:]} (math reads "
+                    f"{vpu_audit.SMEM_WORDS[name]} words per output, inside "
+                    "and fallback)")
+    (vk, vsteps), (mk, msteps), (xk, xsteps) = (
+        vpu_audit.PROBES[n][0][1:] for n in ("vpu", "vmem", "mxu"))
+    seed = torch.from_numpy(rng.random((130, 128), np.float32)).to(dev)
+    planes = torch.from_numpy(rng.random((mk, 130, 128), np.float32)).to(dev)
+    mx = torch.from_numpy(rng.random((128, 128), np.float32)).to(dev)
+    mw = torch.from_numpy(rng.random((128, 128), np.float32) * 0.1).to(dev)
+    probes = {   # name -> (build at the audit's full k and steps, inputs)
+        "vpu_rate": (sol.build_vpu_rate(vk, steps=vsteps), (seed,)),
+        "vmem_rate": (sol.build_vmem_rate(mk, steps=msteps), (planes,)),
+        "mxu_rate": (sol.build_mxu_rate(xk, steps=xsteps), (mx, mw)),
+    }
+    checks = [(name, fn, args) for name, (fn, args) in probes.items()]
+    checks += [("mxu_rate", sol.build_mxu_rate(k, steps=n), (mx, mw))
+               for k, n in ((1, 1), (2, 4), (8, 16))]
+    for name, fn, args in checks:
+        got, want = fn(*args), fn.reference(*args)
+        torch.cuda.synchronize()
+        ne = int((got != want).sum())
+        err = float((got - want).abs().max())
+        top = float(want.abs().max())
+        log(f"[probe] {name} k={fn.k} steps={fn.steps}: unequal {ne} of "
+            f"{got.numel()}, max abs err {err} (max |plain| {top})")
+        if not bool(torch.isfinite(got).all()) or got.shape != (8, 128):
+            fail(f"{name}: output {tuple(got.shape)} not finite")
+        if name == "mxu_rate":
+            if err > sol.MXU_TOLERANCE * top:
+                fail(f"mxu_rate: {err} above {sol.MXU_TOLERANCE} x {top}")
+        elif ne:
+            fail(f"{name} disagrees with its plain version")
+        max_lsb[name] = max(max_lsb.get(name, 0.0), err)
+    for name, (fn, args) in probes.items():
+        rounds = {"kernel": [], "plain": []}
+        for label, f, n in (("plain", fn.reference, 1), ("kernel", fn, 5),
+                            ("kernel", fn, 5), ("plain", fn.reference, 1)):
+            rounds[label].append(time_ms(lambda a: f(*a), args, n, warmup=1))
+        ms[name] = float(np.mean(rounds["kernel"]))
+        plain_ms[name] = float(np.mean(rounds["plain"]))
+        log(f"[time] {name} k={fn.k} steps={fn.steps}: kernel "
+            f"{rounds['kernel']} ms, plain torch {rounds['plain']} ms")
+    # the yardstick beside the tensor-core probe: one round's bf16 product
+    a16 = torch.rand((8 * 128, 128), device=dev).to(torch.bfloat16)
+    w16 = mw.to(torch.bfloat16)
+    library_ms = {"mxu_rate": time_ms(lambda a: torch.matmul(a, w16), a16,
+                                      200)}
+    log(f"[time] torch.matmul bf16 (1024, 128) @ (128, 128): "
+        f"{library_ms['mxu_rate']} ms (one probe round of one step)")
+
+    # the audit, in this process: the probes it builds count from 0
+    audit, audit_probes = vpu_audit.main([])
+    nis_audit, nis_probes = vpu_audit.main(["--nis", "--quick"])
+    for i, name in enumerate(probes):    # the audit's lo and hi builds
+        launches[name] = sum(f.launches for f in audit_probes[2 * i:2 * i + 2])
+    for res, built in ((audit, audit_probes), (nis_audit, nis_probes)):
+        if any(f.launches == 0 for f in built):
+            fail("an audit probe was never launched")
+        r = res["rates"]
+        for name, rate, bound in (
+                ("fp32", r["fp32"]["instruction_rate"], r["fp32"]["bound"]),
+                ("smem", r["smem"]["rate"], r["smem"]["bound"]),
+                ("tensor", r["tensor"]["rate"], r["tensor"]["bound"])):
+            log(f"[audit] {name}: {rate:.6g} /s (net of side work "
+                f"{r[name].get('net_rate')}), spread {r[name]['spread']:.3f}, "
+                f"bound {bound:.6g}")
+            if not (math.isfinite(rate) and rate > 0):
+                fail(f"audit {name} rate {rate}")
+            if r[name]["spread"] > vpu_audit.MAX_SPREAD:
+                fail(f"audit {name} spread {r[name]['spread']}")
+            if rate > RATE_MAX * bound:
+                fail(f"audit {name} rate {rate} above {RATE_MAX} x its bound "
+                     f"{bound}: a wrong count or rate")
+        for row in res["kernels"]:
+            if row["launches"] == 0 or not row["share"] <= SHARE_MAX:
+                fail(f"audit row {row['kernel']} radius {row['radius']}: "
+                     f"share {row['share']}, launches {row['launches']}")
+
+    # the least time the card could take for each timed call: its unique
+    # bytes over the memory rate, or its ops over the peak rate of their
+    # type (the guide's table), whichever is larger
+    def bound(nbytes, ops, peak=FP32_PEAK):
+        t_bytes, t_ops = nbytes / HBM_PEAK * 1e3, ops / peak * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                            "operations")
+
+    bounds = {}
+    for kernel, (fn, img) in timed.items():
+        g = fn.dma_geometry
+        inside, fallback = vpu_audit.inside_pixels(g)
+        per_px = vpu_audit.path_ops(
+            kernel, in_per_out=g["in_h"] * g["in_w"] / (g["out_h"] * g["out_w"]),
+            sharpness=CAS_SHARPNESS if kernel.startswith("cas") else SHARPNESS)
+        bounds[kernel] = bound(
+            (img.numel() + 2 * g["out_h"] * g["out_w"]) * 4,
+            inside * per_px[0] + fallback * per_px[1])
+    bounds["dma_floor"] = bound(floor.hbm_bytes, 0)
+    fn = probes["vpu_rate"][0]
+    bounds["vpu_rate"] = bound((fn.elems + 8 * 128) * 4,
+                               fn.k * vpu_audit.vpu_cycle_ops() * fn.elems
+                               * fn.steps)
+    fn = probes["vmem_rate"][0]
+    bounds["vmem_rate"] = bound(fn.bytes_per_step + 8 * 128 * 4,
+                                2 * fn.bytes_per_step // 4 * fn.steps)
+    fn = probes["mxu_rate"][0]
+    bounds["mxu_rate"] = bound(3 * 128 * 128 * 4, 2 * fn.macs, BF16_PEAK)
+    log(f"[bound] {bounds}")
+
+    # ---- 7. result lines ----------------------------------------------------
     sources = {
         "fsr_fused": "openvr_fsr_tpu/kernels/fsr.py:191",
         "rcas_sharpen": "openvr_fsr_tpu/kernels/rcas.py:35",
@@ -592,6 +749,9 @@ def main():
         "cas_upscale": "openvr_fsr_tpu/kernels/cas.py:67",
         "cas_sharpen": "openvr_fsr_tpu/kernels/cas.py:418",
         "dma_floor": "openvr_fsr_tpu/kernels/sol.py:39",
+        "vpu_rate": "openvr_fsr_tpu/kernels/sol.py:133",
+        "vmem_rate": "openvr_fsr_tpu/kernels/sol.py:202",
+        "mxu_rate": "openvr_fsr_tpu/kernels/sol.py:276",
     }
     log(card)
     log(json.dumps({"kernels": [{
@@ -603,6 +763,9 @@ def main():
         "max_abs_err": max_lsb[kernel],
         "ms": ms[kernel],
         "plain_ms": plain_ms[kernel],
+        "bound_ms": bounds[kernel][0],
+        "bound_by": bounds[kernel][1],
+        "library_ms": library_ms.get(kernel),
     } for kernel, replaces in sources.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,8 +16,9 @@ HDR modes 0/1/2), and CAS, one CasFilter pass: sharpen-and-upscale at
 renderScale != 1, sharpen-only with the maxColorDelta clamp at renderScale 1
 (kernels/cas.py). A CUDA tensor runs the CUDA kernel, a CPU tensor its plain
 torch version. The signatures are the JAX package's (openvr_fsr_tpu/api/
-pipeline.py), plus an explicit `device`. The options not ported yet raise
-NotImplementedError naming the ROADMAP.md entry that ports them.
+pipeline.py), plus `device`: the card unless the caller asks for the CPU
+(device="cpu"). The options not ported yet raise NotImplementedError naming
+the ROADMAP.md entry that ports them.
 """
 
 import numpy as np
@@ -41,15 +42,16 @@ _PACKED = (torch.uint32, torch.int32)   # packed RGBA8 plane dtypes
 
 
 def _resolve_device(device):
-    """torch.device for an explicit device argument (None stays None). A
-    CUDA device without a usable GPU raises here, never later."""
-    if device is None:
-        return None
-    dev = torch.device(device)
+    """torch.device for a device argument; None is the current CUDA device
+    (the card unless the caller asks for the CPU). A CUDA device without a
+    usable GPU raises here, never later."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError(f"device {device!r} requested but torch finds "
-                               "no CUDA GPU")
+            raise RuntimeError(f"device {str(dev)!r} requested"
+                               f"{' by default' if device is None else ''} "
+                               "but torch finds no CUDA GPU: pass "
+                               "device='cpu' for the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
@@ -73,8 +75,10 @@ class Pipeline:
         maxColorDelta (ffx_cas.h:379, 1 = unlimited) and clamps the CAS
         sharpen-only path only (the scaling path ends at ASat,
         ffx_cas.h:876-878).
-      device: where numpy frames are processed; None = the CPU. Tensor
-        frames run on their own device, which must match an explicit one.
+      device: where frames are processed; None = the current CUDA device
+        (raises at construction without a GPU), "cpu" = the plain torch
+        versions on the CPU. Numpy frames are moved there; a tensor on
+        another device raises.
     """
 
     def __init__(self, config: Config = None, eye_centers=None,
@@ -230,12 +234,11 @@ class Pipeline:
         """Frames as a tensor on the pipeline's device. A tensor elsewhere
         raises: nothing moves between devices behind the caller's back."""
         if isinstance(frames, torch.Tensor):
-            if self.device is not None and frames.device != self.device:
+            if frames.device != self.device:
                 raise ValueError(f"frames are on {frames.device}, the "
                                  f"pipeline's device is {self.device}")
             return frames
-        x = torch.from_numpy(np.ascontiguousarray(frames))
-        return x if self.device is None else x.to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
 
     def _apply_bounds_layout(self, bounds):
         """The reference's per-Submit layout detection (PostProcessor.cpp:

@@ -3,7 +3,8 @@ models/families.py, with its defaults).
 
 Each family is a thin, stateful facade with the family's own knobs; the
 work (build cache, kernel selection, foveation, formats) stays in
-api.Pipeline, CAS included (`Config.use_cas`).
+api.Pipeline, CAS included (`Config.use_cas`). A family runs on the card
+unless it is given device="cpu" (Pipeline's `device`).
 """
 
 from ..api.pipeline import Pipeline

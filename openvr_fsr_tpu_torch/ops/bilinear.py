@@ -11,8 +11,8 @@ import torch
 
 from .common import F32
 
-__all__ = ["bilinear_axis", "bilinear_texel_axis", "bilinear_gather",
-           "bilinear_sample", "bilinear_fallback_fsr"]
+__all__ = ["bilinear_axis", "bilinear_texel_axis", "bilerp",
+           "bilinear_gather", "bilinear_sample", "bilinear_fallback_fsr"]
 
 
 def bilinear_texel_axis(u, in_n):
@@ -47,6 +47,15 @@ def bilinear_sample(rgba, u_axis, v_axis):
                            torch.from_numpy(fy).to(dev))
 
 
+def bilerp(c00, c10, c01, c11, fx, fy):
+    """The lerp of four gathered corners: c00*(1-fx) + c10*fx, the same in
+    the next row, then in y (ops/bilinear.py:51-53; csrc/ffx_math.cuh::
+    bilerp)."""
+    top = c00 * (1.0 - fx) + c10 * fx
+    bot = c01 * (1.0 - fx) + c11 * fx
+    return top * (1.0 - fy) + bot * fy
+
+
 def bilinear_gather(rgb, x0, fx, y0, fy):
     """rgb: (..., C, H, W). x0/fx: (Wo,) floor index (any int dtype) and
     fraction per output column; y0/fy the same per output row. Corners clamp
@@ -61,11 +70,7 @@ def bilinear_gather(rgb, x0, fx, y0, fy):
     rows1 = rgb.index_select(-2, y1c)
     c00, c10 = rows0.index_select(-1, x0c), rows0.index_select(-1, x1c)
     c01, c11 = rows1.index_select(-1, x0c), rows1.index_select(-1, x1c)
-    fx = fx[None, :]
-    fy = fy[:, None]
-    top = c00 * (1.0 - fx) + c10 * fx
-    bot = c01 * (1.0 - fx) + c11 * fx
-    return top * (1.0 - fy) + bot * fy
+    return bilerp(c00, c10, c01, c11, fx[None, :], fy[:, None])
 
 
 def bilinear_fallback_fsr(rgb, out_w, out_h):

@@ -145,7 +145,8 @@ def _equal(a, b):
     dict(render_scale=0.75, use_cas=True),
     dict(render_scale=1.0, use_cas=True)])
 def test_pipeline_build_carries_its_kernels_geometry(kw):
-    pipe = Pipeline(Config(enabled=True, sharpness=0.9, radius=0.5, **kw))
+    pipe = Pipeline(Config(enabled=True, sharpness=0.9, radius=0.5, **kw),
+                    device="cpu")
     for packed in (True, False):
         fn = pipe._build(2, 40, 52, (0, 1), packed)
         assert fn.dma_geometry is fn.kernel.dma_geometry

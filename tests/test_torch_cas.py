@@ -457,7 +457,7 @@ class TestPipelineAndModels:
     def test_uint8_and_packed_match_jax(self, rs, radius, debug, single_eye):
         kw = dict(CAS, render_scale=rs, radius=radius, debug_mode=debug)
         tp = T.Pipeline(T.Config(**kw), eye_centers=CENTERS,
-                        single_eye_per_frame=single_eye)
+                        single_eye_per_frame=single_eye, device="cpu")
         jp = J.Pipeline(J.Config(**kw), eye_centers=CENTERS,
                         single_eye_per_frame=single_eye, backend="xla")
         frames = _stereo(48, 56)
@@ -474,22 +474,24 @@ class TestPipelineAndModels:
     def test_upscale_use_cas(self, rs):
         frame = _stereo(48, 56)[0]
         got = T.upscale(frame, render_scale=rs, sharpness=0.9, radius=2.0,
-                        use_cas=True)
+                        use_cas=True, device="cpu")
         _assert_close(got, J.upscale(frame, render_scale=rs, sharpness=0.9,
                                      radius=2.0, use_cas=True, backend="xla"))
         pipe = T.Pipeline(T.Config(**dict(
-            CAS, sharpness=0.9, render_scale=rs or 1.0, radius=2.0)))
+            CAS, sharpness=0.9, render_scale=rs or 1.0, radius=2.0)),
+            device="cpu")
         assert torch.equal(got, pipe.process(frame))
 
     def test_max_color_delta_clamps_and_keys_the_cache(self):
         kw = dict(CAS, render_scale=1.0, sharpness=1.0, radius=2.0)
         frames = _stereo(48, 56)
-        tp = T.Pipeline(T.Config(**kw), cas_max_color_delta=0.05)
+        tp = T.Pipeline(T.Config(**kw), cas_max_color_delta=0.05,
+                        device="cpu")
         clamped = tp.process(frames)
         _assert_close(clamped, J.Pipeline(J.Config(**kw), backend="xla",
                                           cas_max_color_delta=0.05)
                       .process(frames))
-        full = T.Pipeline(T.Config(**kw)).process(frames)
+        full = T.Pipeline(T.Config(**kw), device="cpu").process(frames)
         assert not torch.equal(clamped, full)
         d = np.abs(clamped.numpy()[..., :3].astype(int)
                    - frames[..., :3].astype(int))
@@ -501,12 +503,14 @@ class TestPipelineAndModels:
     def test_scale_above_the_area_limit_logs_and_runs(self, caplog):
         frames = _stereo(40, 45)
         with caplog.at_level(logging.INFO, logger="openvr_fsr_tpu_torch"):
-            T.Pipeline(T.Config(**dict(CAS, render_scale=0.75))).process(
+            T.Pipeline(T.Config(**dict(CAS, render_scale=0.75)),
+                       device="cpu").process(
                 frames)
         assert "4x area limit" not in caplog.text
         assert "(CAS, cpu)" in caplog.text
         with caplog.at_level(logging.INFO, logger="openvr_fsr_tpu_torch"):
-            out = T.Pipeline(T.Config(**dict(CAS, render_scale=0.4))) \
+            out = T.Pipeline(T.Config(**dict(CAS, render_scale=0.4)),
+                             device="cpu") \
                 .process(frames)
         assert ("CAS scale factor above the 4x area limit (ffx_cas.h:368-372)"
                 " — output follows the filter anyway") in caplog.text
@@ -514,7 +518,8 @@ class TestPipelineAndModels:
 
     def test_config_from_jax(self):
         jcfg = J.Config(**dict(CAS, render_scale=0.75, radius=0.5))
-        tp = T.Pipeline(T.Config.config_from_dict(dataclasses.asdict(jcfg)))
+        tp = T.Pipeline(T.Config.config_from_dict(dataclasses.asdict(jcfg)),
+                        device="cpu")
         frames = _stereo(48, 56)
         _assert_close(tp.process(frames),
                       J.Pipeline(jcfg, backend="xla").process(frames))
@@ -523,7 +528,7 @@ class TestPipelineAndModels:
                                     dict(max_color_delta=0.05, sharpness=0.9)])
     def test_cas_model_matches_jax(self, kw):
         frames = _stereo(48, 56)
-        model = T.CasModel(**kw)
+        model = T.CasModel(device="cpu", **kw)
         assert model.config.use_cas and model.config.radius == 2.0
         _assert_close(model(frames),
                       J.CasModel(backend="xla", **kw)(frames))
@@ -532,7 +537,7 @@ class TestPipelineAndModels:
                                           ("nis", "NisModel"),
                                           ("CAS", "CasModel")])
     def test_get_model(self, name, cls):
-        model = T.get_model(name)
+        model = T.get_model(name, device="cpu")
         assert type(model) is getattr(T, cls)
         frames = _stereo(48, 56)
         _assert_close(model(frames), J.get_model(name, backend="xla")(frames))
@@ -544,19 +549,20 @@ class TestPipelineAndModels:
         assert m.pipeline.device == torch.device("cpu")
         assert (m.config.render_scale, m.config.sharpness, m.config.radius,
                 m.pipeline.cas_max_color_delta) == (1.0, 0.8, 2.0, 1.0)
-        f = T.FsrModel()
+        f = T.FsrModel(device="cpu")
         assert (f.config.render_scale, f.config.sharpness, f.config.radius,
                 f.config.use_nis, f.config.use_cas) == (0.77, 0.9, 0.5,
                                                         False, False)
-        assert T.NisModel().config.use_nis
+        assert T.NisModel(device="cpu").config.use_nis
 
     @pytest.mark.parametrize("cls", ["FsrModel", "NisModel", "CasModel"])
     def test_sharded_raises_naming_roadmap(self, cls):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A "
                                                       "item 13"):
-            getattr(T, cls)().sharded()
+            getattr(T, cls)(device="cpu").sharded()
 
     def test_nis_and_cas_together_raise(self):
         with pytest.raises(ValueError, match="mutually exclusive"):
-            T.Pipeline(T.Config(**dict(CAS, use_nis=True))).process(
+            T.Pipeline(T.Config(**dict(CAS, use_nis=True)),
+                       device="cpu").process(
                 _stereo(32, 32))

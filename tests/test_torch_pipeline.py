@@ -46,7 +46,7 @@ def _stereo(h, w, alpha=None):
 
 
 def _pair(hdr_mode=0, **kw):
-    return (T.Pipeline(T.Config(**kw), hdr_mode=hdr_mode),
+    return (T.Pipeline(T.Config(**kw), hdr_mode=hdr_mode, device="cpu"),
             J.Pipeline(J.Config(**kw), backend="xla", hdr_mode=hdr_mode))
 
 
@@ -130,7 +130,8 @@ class TestAgainstJax:
 
     def test_upscale(self):
         frame = JFR.zone_plate_frame(48, 56)
-        got = T.upscale(frame, render_scale=0.75, sharpness=0.9, radius=0.5)
+        got = T.upscale(frame, render_scale=0.75, sharpness=0.9, radius=0.5,
+                        device="cpu")
         _assert_close(got, J.upscale(frame, render_scale=0.75, sharpness=0.9,
                                      radius=0.5, backend="xla"))
 
@@ -151,7 +152,8 @@ class TestAgainstJax:
     @pytest.mark.parametrize("rs", [0.75, None])
     def test_upscale_nis(self, rs):
         frame = _stereo(48, 56, alpha=190)[0]
-        got = T.upscale(frame, render_scale=rs, use_nis=True, radius=2.0)
+        got = T.upscale(frame, render_scale=rs, use_nis=True, radius=2.0,
+                        device="cpu")
         _assert_close(got, J.upscale(frame, render_scale=rs, use_nis=True,
                                      radius=2.0, backend="xla"))
 
@@ -161,7 +163,8 @@ class TestAgainstOracle:
     def test_bit_exact(self, radius, debug):
         frames = _stereo(96, 128)
         got = T.Pipeline(T.Config(**dict(MAIN, radius=radius,
-                                         debug_mode=debug))).process(frames)
+                                         debug_mode=debug)),
+                         device="cpu").process(frames)
         want = np.stack([pipeline_oracle(frames[i], 0.75, 0.9, radius=radius,
                                          debug=debug, eye=i)
                          for i in range(2)])
@@ -175,7 +178,8 @@ class TestAgainstOracle:
     def test_new_plans_bit_exact(self, kw, radius, debug, hdr_mode):
         frames = _stereo(72, 80, alpha=np.arange(80, dtype=np.uint8))
         cfg = dict(kw, radius=radius, debug_mode=debug)
-        got = T.Pipeline(T.Config(**cfg), hdr_mode=hdr_mode).process(frames)
+        got = T.Pipeline(T.Config(**cfg), hdr_mode=hdr_mode,
+                         device="cpu").process(frames)
         want = np.stack([pipeline_oracle(
             frames[i], cfg["render_scale"], 0.9, use_nis=cfg.get(
                 "use_nis", False), radius=radius, debug=debug,
@@ -193,8 +197,8 @@ class TestHdrMode:
         cfg = T.Config(**dict(MAIN, use_nis=True, render_scale=rs,
                               radius=2.0))
         frames = _stereo(48, 56)
-        sdr = T.Pipeline(cfg).process(frames)
-        pipe = T.Pipeline(cfg, hdr_mode=1)
+        sdr = T.Pipeline(cfg, device="cpu").process(frames)
+        pipe = T.Pipeline(cfg, hdr_mode=1, device="cpu")
         assert pipe.hdr_mode == 1
         linear = pipe.process(frames)
         assert not torch.equal(sdr, linear)
@@ -211,23 +215,25 @@ class TestHdrMode:
 
     def test_hdr_mode_outside_nis_modes_raises(self):
         with pytest.raises(ValueError, match="hdr_mode"):
-            T.Pipeline(T.Config(**MAIN), hdr_mode=3)
+            T.Pipeline(T.Config(**MAIN), hdr_mode=3, device="cpu")
 
 
 class TestApi:
     def test_disabled_returns_input(self):
         frames = _stereo(48, 56)
-        assert T.Pipeline(T.Config(enabled=False)).process(frames) is frames
+        assert T.Pipeline(T.Config(enabled=False),
+                          device="cpu").process(frames) is frames
 
     def test_debug_timer_counts(self):
-        tp = T.Pipeline(T.Config(**dict(MAIN, debug_mode=True)))
+        tp = T.Pipeline(T.Config(**dict(MAIN, debug_mode=True)), device="cpu")
         tp.process(_stereo(48, 56))
         assert tp.timer.count == 1 and tp.timer.summed > 0
 
     def test_config_from_jax(self):
         import dataclasses
         jcfg = J.Config(**MAIN)
-        tp = T.Pipeline(T.Config.config_from_dict(dataclasses.asdict(jcfg)))
+        tp = T.Pipeline(T.Config.config_from_dict(dataclasses.asdict(jcfg)),
+                        device="cpu")
         _assert_close(tp.process(_stereo(48, 56)),
                       J.Pipeline(jcfg, backend="xla").process(_stereo(48, 56)))
 
@@ -282,18 +288,19 @@ class TestApi:
                                     dict(precision="half")])
     def test_unported_options_raise(self, kw):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.Pipeline(T.Config(**MAIN), **kw)
+            T.Pipeline(T.Config(**MAIN), device="cpu", **kw)
 
     def test_capture_raises(self):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.Pipeline(T.Config(**MAIN)).arm_capture("/nonexistent")
+            T.Pipeline(T.Config(**MAIN), device="cpu").arm_capture(
+                "/nonexistent")
 
     @pytest.mark.parametrize("backend", ["xla", "pallas", "pallas-interpret"])
     def test_other_backends_raise(self, backend):
         with pytest.raises(ValueError, match="backend"):
-            T.Pipeline(T.Config(**MAIN), backend=backend)
+            T.Pipeline(T.Config(**MAIN), backend=backend, device="cpu")
 
     def test_other_dtypes_raise(self):
         with pytest.raises(TypeError):
-            T.Pipeline(T.Config(**MAIN)).process(
+            T.Pipeline(T.Config(**MAIN), device="cpu").process(
                 _stereo(48, 56).astype(np.float32))

@@ -49,7 +49,7 @@ def _config(cls, plan, radius):
 
 
 def _geometry(plan, h, w, radius):
-    pipe = Pipeline(_config(Config, plan, radius))
+    pipe = Pipeline(_config(Config, plan, radius), device="cpu")
     return pipe._build(2, h, w, (0, 1), True).dma_geometry
 
 
@@ -160,7 +160,7 @@ class TestGeometry:
                 assert o <= seg.min() and seg.max() < o + win
         # the tables are the ones the kernel launches with
         ow, oh = _config(Config, plan, radius).output_size(w, h)
-        cen = C.centres_payload(ow, oh, radius, Pipeline().eye_centers,
+        cen = C.centres_payload(ow, oh, radius, Pipeline(device="cpu").eye_centers,
                                 (0, 1))
         assert np.array_equal(g["centres"], np.asarray(cen).reshape(2, 5))
         if plan in ("fsr_fused", "cas_upscale"):
@@ -190,7 +190,7 @@ def test_full_size_geometries_fit_the_floor():
     from openvr_fsr_tpu_torch.tools.bench_paths import PATHS, path_config
     for name in PATHS:
         cfg, h, w = path_config(name)
-        g = Pipeline(cfg)._build(2, h, w, (0, 1), True).dma_geometry
+        g = Pipeline(cfg, device="cpu")._build(2, h, w, (0, 1), True).dma_geometry
         floor = sol.build_dma_floor(g)
         assert floor.write_bytes == 2 * g["out_h"] * g["out_w"] * 4
         assert floor.read_bytes >= 2 * h * w * 4 or g["stage"] == "circle"
@@ -203,11 +203,3 @@ def test_tap_outside_its_window_is_refused():
         sol.build_dma_floor(bad)
     with pytest.raises(ValueError, match="threads"):
         sol.build_dma_floor(dict(g, threads=128))
-
-
-@pytest.mark.parametrize("name", ["build_vpu_rate", "build_vmem_rate",
-                                  "build_mxu_rate"])
-def test_rate_probes_raise_naming_roadmap(name):
-    assert name in sol.__all__
-    with pytest.raises(NotImplementedError, match="B8"):
-        getattr(sol, name)(4)
