@@ -10,12 +10,18 @@ The run builds the CUDA kernels from openvr_fsr_tpu_torch/csrc with nvcc
 _build/. Phases, in order; any failure exits non-zero before the result
 lines:
 
-  1. setup: card, power limit, toolchain versions, the kernel builds;
+  1. setup: card, power limit, toolchain versions, the kernel builds, and
+     the registers, spills and CTAs per SM of fsr_fused's two class
+     kernels (the bilinear pass outside the foveation circle and the
+     persistent EASU + RCAS kernel inside it);
   2. each kernel against its plain torch version on the card, at full
      size, on a zone-plate + noise set and a uniform-random set, both with
      alpha that is not all 255:
        fsr_fused    2 x 1683x1869 -> 2 x 2244x2492, radius 0.5, 2.0, 0.0
-                    and 0.5 with debug; plus a supersample (rs 1.3) case;
+                    and 0.5 with debug; two off-centre eyes at radius 0.3
+                    (circle edges through many tiles); batch 4 (both sets
+                    in one batch); plus a supersample (rs 1.3) case; 0
+                    unequal texels, every case;
        rcas_sharpen 2 x 2244x2492, radius 0.4, 2.0, 0.0 and 0.4 with debug;
        nis_sharpen  the same, hdr_mode 0, plus radius 2.0 at hdr_mode 1, 2;
        nis_scaler   2 x 1683x1869 -> 2 x 2244x2492, radius 0.5, 2.0, 0.0
@@ -38,12 +44,15 @@ lines:
      numpy frames. No entry point is given a device: each must default to
      the card and launch its CUDA kernel;
   4. kernel and plain-version times in ms per stereo pair (CUDA events),
-     and each plain version's peak device memory;
+     and each plain version's peak device memory; fsr_fused also at rs 1.3;
   5. the measurement path: the DMA floor (csrc/dma_floor.cu) keeps its
      loads in its SASS, and equals its plain version word for word at the
      full-size geometry of each of the seven bench paths, on the unpadded
-     and the ring-pitch input; the fused kernel against its plain version
-     at the full supersample size (2 x 2244x2492 -> 2 x 2917x3239); the
+     and the ring-pitch input, and at fsr_fused's geometry at radius 0.0
+     and 2.0; the fused kernel against its plain version at the full
+     supersample size (2 x 2244x2492 -> 2 x 2917x3239); fsr_fused and its
+     floor timed in turns (bench.measure) at radius 0.0, 0.5 and 2.0 and
+     at rs 1.3, with their vs_sol; the
      floor's time at the fsr_fused geometry (also call by call, bench_fn)
      and the card's pure-read and pure-write rates (hbm_calibration);
      then the bench entries, bench.main() and tools.bench_paths.main()
@@ -92,6 +101,7 @@ FP32_PEAK = 67e12            # FP32 outside the tensor cores, ops/s
 BF16_PEAK = 989.4e12         # dense bf16 tensor cores, FLOP/s
 N_PAIRS = 10                 # stereo pairs per plan through the public API
 CENTRES = ((0.5, 0.5), (0.5, 0.5))
+OFF_CENTRE = ((0.3, 0.6), (0.7, 0.4))   # eyes whose circles cut many tiles
 
 
 def log(*a):
@@ -157,8 +167,10 @@ def main():
     from openvr_fsr_tpu_torch.kernels.cas import (build_cas_sharpen,
                                                   build_cas_upscale)
     from openvr_fsr_tpu_torch.kernels.fsr import build_fsr_fused
+    from openvr_fsr_tpu_torch.kernels.fsr import occupancy as fsr_occupancy
     from openvr_fsr_tpu_torch.kernels.nis import build_nvscaler, build_nvsharpen
     from openvr_fsr_tpu_torch.kernels.rcas import build_rcas_sharpen
+    from openvr_fsr_tpu_torch.tools import sass
     from openvr_fsr_tpu_torch.utils import frames as FR
 
     dev = torch.device("cuda", 0)
@@ -183,15 +195,30 @@ def main():
         if build_log.exists():
             for line in build_log.read_text().splitlines()[1:]:  # nvcc output
                 log(f"[setup]   {name}: {line.strip()}")
+    usage = sass.ptxas_usage(_build.library_path("fsr_fused")
+                             .with_suffix(".log").read_text())
+    per_sm = fsr_occupancy()
+    for cls in ("outside", "inside"):
+        u = [v for fn, v in usage.items() if f"fsr_{cls}_kernel" in fn]
+        if len(u) != 1 or per_sm[cls] < 1:
+            fail(f"fsr_fused {cls} kernel: ptxas {u}, {per_sm[cls]} CTAs "
+                 "per SM")
+        u = u[0]
+        smem = (f"{per_sm['inside_smem']} B dynamic smem" if cls == "inside"
+                else f"{u['smem']} B static smem")
+        log(f"[setup] fsr_fused {cls} kernel: {u['registers']} registers, "
+            f"{u['spill_stores']} B spill stores, {u['spill_loads']} B spill "
+            f"loads, {smem}, {per_sm[cls]} CTAs per SM")
 
-    def centres(ow, oh, radius, b=2):
-        return C.centres_payload(ow, oh, radius, CENTRES,
+    def centres(ow, oh, radius, b=2, eyes=CENTRES):
+        return C.centres_payload(ow, oh, radius, eyes,
                                  tuple(i % 2 for i in range(b)))
 
-    def fsr(radius, debug=False, h=H, w=W, rs=0.75):
+    def fsr(radius, debug=False, h=H, w=W, rs=0.75, b=2, eyes=CENTRES):
         ow, oh = Config(render_scale=rs).output_size(w, h)
-        return build_fsr_fused(2, h, w, ow, oh, sharpness=SHARPNESS,
-                               centres=centres(ow, oh, radius), debug=debug)
+        return build_fsr_fused(b, h, w, ow, oh, sharpness=SHARPNESS,
+                               centres=centres(ow, oh, radius, b, eyes),
+                               debug=debug)
 
     def rcas(radius, debug=False, h=OH, w=OW):
         return build_rcas_sharpen(2, h, w, sharpness=SHARPNESS,
@@ -247,7 +274,8 @@ def main():
         ne, n, mx = lsb_diff(got, want)
         log(f"[parity] {kernel} {label}: unequal {ne} of {n} texels, "
             f"max {mx} LSB")
-        if mx > PARITY_MAX_LSB or 1.0 - ne / n < PARITY_MIN_EQUAL:
+        if mx > PARITY_MAX_LSB or 1.0 - ne / n < PARITY_MIN_EQUAL \
+                or (kernel == "fsr_fused" and ne):
             fail(f"{kernel} disagrees with its plain version ({ne}, {mx})")
         max_lsb[kernel] = max(max_lsb[kernel], mx)
         return got
@@ -281,6 +309,13 @@ def main():
         if torch.equal(got, kernel_out["cas_sh", 2.0, False, name]):
             fail("cas_sharpen: max_color_delta 0.05 left the output as it "
                  "was at 1.0")
+    # fsr_fused at class borders: off-centre eyes, and a batch of 4
+    for name, img in sets["in"].items():
+        parity("fsr_fused", f"2x{W}x{H}->2x{OW}x{OH} radius=0.3 eyes "
+               f"{OFF_CENTRE} {name}", fsr(0.3, eyes=OFF_CENTRE), img)
+    parity("fsr_fused", f"4x{W}x{H}->4x{OW}x{OH} radius=0.5 batch 4 (both "
+           "sets)", fsr(0.5, b=4),
+           torch.cat([sets["in"]["zone+noise"], sets["in"]["uniform"]]))
     for hdr in (1, 2):
         for name in ("zone+noise", "uniform"):
             parity("nis_scaler", f"2x{W}x{H}->2x{OW}x{OH} radius=2.0 "
@@ -340,7 +375,8 @@ def main():
             ne, n, mx = lsb_diff(got, want)
             log(f"[parity] {kernel} {label} vs {ref_name}: unequal {ne} of "
                 f"{n}, max {mx} LSB")
-            if mx > PARITY_MAX_LSB or 1.0 - ne / n < PARITY_MIN_EQUAL:
+            if mx > PARITY_MAX_LSB or 1.0 - ne / n < PARITY_MIN_EQUAL \
+                    or (kernel == "fsr_fused" and ne):
                 fail(f"{kernel} disagrees with its plain version")
             max_lsb[kernel] = max(max_lsb[kernel], mx)
 
@@ -530,6 +566,9 @@ def main():
                      if kernel.startswith("cas") else "")
             log(f"[time] {kernel} radius={radius}: {t} ms per stereo "
                 f"pair{plain}")
+    log(f"[time] fsr_fused rs=1.3 2x{OW}x{OH} radius=0.5: "
+        f"{time_ms(fsr(0.5, h=OH, w=OW, rs=1.3), sets['full']['zone+noise'], 200)}"
+        " ms per stereo pair")
 
     # ---- 5. the measurement path --------------------------------------------
     from openvr_fsr_tpu_torch import bench
@@ -546,8 +585,12 @@ def main():
             fail(f"dma_floor {fn_name}: the compiler dropped its loads or "
                  "stores")
     max_lsb["dma_floor"] = 0
-    for name in bench_paths.PATHS:
-        cfg, h, w = bench_paths.path_config(name)
+    geometries = [(name, *bench_paths.path_config(name))
+                  for name in bench_paths.PATHS]
+    geometries += [(f"fsr_fused radius {r}", cfg.with_(radius=r), h, w)
+                   for r in (0.0, 2.0)
+                   for cfg, h, w in [bench_paths.path_config("fsr_fused")]]
+    for name, cfg, h, w in geometries:
         img = sets["in" if (h, w) == (H, W) else "full"]["zone+noise"]
         fn = Pipeline(cfg, device="cuda")._build(2, h, w, (0, 1), True)
         floor = build_dma_floor(fn.dma_geometry)
@@ -583,6 +626,17 @@ def main():
     plain_ms["dma_floor"] = float(np.mean(rounds["plain"]))
     log(f"[time] dma_floor at the fsr_fused geometry: {rounds['kernel']} ms "
         f"per stereo pair; plain torch {rounds['plain']} ms")
+    # fsr_fused and its floor in turns over the bench's ring frames, at the
+    # three radii of the main path and at the supersample
+    for label, (cfg, h, w) in (
+            *((f"radius {r}", (Config(enabled=True, render_scale=0.75,
+                                      sharpness=SHARPNESS, radius=r), H, W))
+              for r in (0.0, 0.5, 2.0)),
+            ("rs 1.3 radius 0.5", bench_paths.path_config("fsr_supersample"))):
+        run = bench.measure(cfg, h, w)
+        log(f"[b1] fsr_fused {label}: {run.ms} ms per stereo pair, its DMA "
+            f"floor {run.sol_ms} ms, vs_sol {run.vs_sol}, floor "
+            f"{run.probe_effective_gbps:.1f} GB/s over the unique bytes")
     best, avg = bench_fn(floor, img, warmup=3, iters=50)
     read_bw, write_bw = hbm_calibration(dev)
     log(f"[time] dma_floor call by call (bench_fn): best {best} ms, average "
@@ -635,6 +689,25 @@ def main():
                     f"{fn_name[-40:]} (math reads "
                     f"{vpu_audit.SMEM_WORDS[name]} words per output, inside "
                     "and fallback)")
+        # what fsr_fused's class kernels issue: the inside kernel's stage-1
+        # loop (one EASU or bilinear position per pass; EASU's rcp is the
+        # only MUFU) and the whole outside kernel (4 outputs per thread)
+        text = sass.disassemble(_build.library_path("fsr_fused"),
+                                _build._nvcc())
+        stage1 = sass.innermost_loop(text, "fsr_inside_kernel", "FMUL",
+                                     "STS", "MUFU")
+        outside = [ops for fn, ops in sass.function_counts(text).items()
+                   if "fsr_outside_kernel" in fn]
+        for label, ops in (("inside kernel, stage-1 loop", stage1),
+                           ("outside kernel", outside[0] if outside
+                            else None)):
+            if ops is None:
+                log(f"[probe] SASS fsr_fused {label}: not found")
+                continue
+            log(f"[probe] SASS fsr_fused {label}: {sum(ops.values())} "
+                f"instructions, conversions I2F {ops['I2F']} F2I "
+                f"{ops['F2I']} FRND {ops['FRND']}; "
+                f"{dict(ops.most_common(14))}")
     (vk, vsteps), (mk, msteps), (xk, xsteps) = (
         vpu_audit.PROBES[n][0][1:] for n in ("vpu", "vmem", "mxu"))
     seed = torch.from_numpy(rng.random((130, 128), np.float32)).to(dev)

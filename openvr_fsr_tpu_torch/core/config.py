@@ -9,9 +9,12 @@ Hotkey key-codes are retained for config-file compatibility; the interactive
 demo maps them to terminal keys (there is no Win32 GetAsyncKeyState here).
 
 A copy of openvr_fsr_tpu/core/config.py (the port cannot import that
-package: its __init__ imports jax). Two differences: the cfg text is parsed
-by Python's json on a comment-stripped source only (the JAX package first
-tries its native C++ scanner, with the same silent-fallback contract), and
+package: its __init__ imports jax). The cfg text is read as the JAX package
+reads it when its native library is built: first by the scanner of
+native/src/ovrfsr_native.cc:47-164 (here in pure Python, `scan_cfg`; the
+GPU machine has no native build), whose flat key=value lines go through the
+JAX converter, where any value left as a string is a parse error; if the
+scanner fails, by Python's json on the comment-stripped text. One addition:
 `Config.config_from_dict` rebuilds a Config from `dataclasses.asdict`.
 """
 
@@ -20,8 +23,8 @@ import re
 from dataclasses import dataclass, field, replace
 from pathlib import Path
 
-__all__ = ["Config", "Hotkeys", "load_config", "strip_json_comments",
-           "AMD_PRESETS"]
+__all__ = ["Config", "Hotkeys", "load_config", "scan_cfg",
+           "strip_json_comments", "AMD_PRESETS"]
 
 # The AMD FSR1 quality presets documented in the reference cfg
 # (src/openvr_mod.cfg:17-21): preset name -> renderScale.
@@ -130,8 +133,223 @@ def strip_json_comments(text):
     return _LINE_COMMENT.sub(lambda m: m.group(1) or "", text)
 
 
+_WS = " \t\r\n,"          # skip_ws: commas count as whitespace (:73)
+_BARE_END = ",}\n\r\t "    # a bare value runs up to one of these (:111)
+_CFG_CAP = 1 << 16        # native_rt.parse_cfg_native's output buffer
+
+
+def _strip_comments_scanner(src):
+    """strip_comments (ovrfsr_native.cc:47-71): // and /* */ removed outside
+    string literals; a // comment keeps its newline."""
+    out, in_str, esc, i, n = [], False, False, 0, len(src)
+    while i < n:
+        ch = src[i]
+        if in_str:
+            out.append(ch)
+            if esc:
+                esc = False
+            elif ch == "\\":
+                esc = True
+            elif ch == '"':
+                in_str = False
+        elif ch == '"':
+            in_str = True
+            out.append(ch)
+        elif src.startswith("//", i):
+            while i < n and src[i] != "\n":
+                i += 1
+            if i == n:
+                break
+            out.append("\n")
+        elif src.startswith("/*", i):
+            i += 2
+            while i < n and not src.startswith("*/", i):
+                i += 1
+            if i == n:
+                break
+            i += 1
+        else:
+            out.append(ch)
+        i += 1
+    return "".join(out)
+
+
+class _Scanner:
+    """The scanner's cursor over the comment-stripped text; `at` is '' at
+    the end, as *p is NUL there."""
+
+    def __init__(self, text):
+        self.s, self.p = text, 0
+
+    @property
+    def at(self):
+        return self.s[self.p] if self.p < len(self.s) else ""
+
+    def skip_ws(self):
+        while self.at and self.at in _WS:
+            self.p += 1
+
+    def bare(self, stops):
+        start = self.p
+        while self.at and self.at not in stops:
+            self.p += 1
+        return self.s[start:self.p]
+
+    def string(self):
+        """parse_string (:75-84): backslash takes the next char as is.
+        None where the C function returns false."""
+        if self.at != '"':
+            return None
+        out = []
+        self.p += 1
+        while self.at and self.at != '"':
+            if self.at == "\\" and self.p + 1 < len(self.s):
+                self.p += 1
+            out.append(self.at)
+            self.p += 1
+        if self.at != '"':
+            return None
+        self.p += 1
+        return "".join(out)
+
+    def emit_object(self, prefix, out):
+        """emit_object (:88-115): scalar members as prefix+key=value lines,
+        nested objects flattened, arrays skipped."""
+        if self.at != "{":
+            return False
+        self.p += 1
+        while True:
+            self.skip_ws()
+            if self.at == "}":
+                self.p += 1
+                return True
+            key = self.string()
+            if key is None:
+                return False
+            self.skip_ws()
+            if self.at != ":":
+                return False
+            self.p += 1
+            self.skip_ws()
+            if self.at == "{":
+                if not self.emit_object(prefix + key + ".", out):
+                    return False
+            elif self.at == "[":
+                if not self.skip_value():
+                    return False
+            elif self.at == '"':
+                v = self.string()
+                if v is None:
+                    return False
+                out.append(f"{prefix}{key}={v}\n")
+            else:
+                out.append(f"{prefix}{key}={self.bare(_BARE_END)}\n")
+
+    def skip_value(self):
+        """skip_value (:117-137)."""
+        self.skip_ws()
+        if self.at in ("{", "["):
+            open_, close = self.at, "}" if self.at == "{" else "]"
+            depth, in_str, esc = 0, False, False
+            while self.at:
+                ch = self.at
+                self.p += 1
+                if in_str:
+                    if esc:
+                        esc = False
+                    elif ch == "\\":
+                        esc = True
+                    elif ch == '"':
+                        in_str = False
+                elif ch == '"':
+                    in_str = True
+                elif ch == open_:
+                    depth += 1
+                elif ch == close:
+                    depth -= 1
+                    if depth == 0:
+                        return True
+            return False
+        if self.at == '"':
+            return self.string() is not None
+        self.bare(",}]\n\r\t ")
+        return True
+
+
+def scan_cfg(text):
+    """ovrfsr_parse_cfg (ovrfsr_native.cc:139-164) and the line split of
+    native_rt.parse_cfg_native: the root object's "fsr" members as a dict
+    of key -> raw string ("hotkeys.<key>" for the nested object), or None
+    where the scanner fails (returns -1)."""
+    try:
+        text.encode()                      # what the native call is given
+    except UnicodeError:
+        return None
+    text = text.split("\0", 1)[0]          # the C string ends at a NUL
+    sc = _Scanner(_strip_comments_scanner(text))
+    sc.skip_ws()
+    if sc.at != "{":
+        return None
+    sc.p += 1
+    out = []
+    while True:
+        sc.skip_ws()
+        if sc.at in ("}", ""):
+            break
+        key = sc.string()
+        if key is None:
+            return None
+        sc.skip_ws()
+        if sc.at != ":":
+            return None
+        sc.p += 1
+        sc.skip_ws()
+        if key == "fsr" and sc.at == "{":
+            if not sc.emit_object("", out):
+                return None
+        elif not sc.skip_value():
+            return None
+    result = "".join(out)
+    if len(result.encode()) >= _CFG_CAP:
+        return None
+    flat = {}
+    for line in result.splitlines():
+        k, _, v = line.partition("=")
+        flat[k] = v
+    return flat
+
+
+def _conv(v):
+    """The JAX converter of one raw value (core/config.py:129-138)."""
+    if v in ("true", "false"):
+        return v == "true"
+    try:
+        return int(v)
+    except ValueError:
+        try:
+            return float(v)
+        except ValueError:
+            return v
+
+
 def _parse_fsr_object(text):
-    """The 'fsr' object + nested hotkeys as plain dicts."""
+    """The 'fsr' object + nested hotkeys as plain dicts: the scanner's flat
+    values through the JAX converter; Python json on the comment-stripped
+    source where the scanner fails."""
+    flat = scan_cfg(text)
+    if flat is not None:
+        fsr = {k: _conv(v) for k, v in flat.items() if "." not in k}
+        fsr["hotkeys"] = {k.split(".", 1)[1]: _conv(v)
+                          for k, v in flat.items() if k.startswith("hotkeys.")}
+        # jsoncpp rejects bare non-JSON tokens ("renderScale": abc); the
+        # scanner passes them through as raw strings and the cfg schema has
+        # no string-typed keys, so a surviving string is a parse error
+        # (the JAX package's core/config.py:142-150)
+        if any(isinstance(v, str)
+               for v in [*fsr.values(), *fsr["hotkeys"].values()]
+               if not isinstance(v, dict)):
+            raise ValueError("malformed scalar in cfg")
+        return fsr
     root = json.loads(strip_json_comments(text))
     return root.get("fsr", {})
 

@@ -13,10 +13,12 @@
 // __launch_bounds__, the same (win_w x win_h) window staged into shared
 // memory at the same per-tile origins, with out-of-image words loaded
 // edge-clamped or staged as 0 without a load, by the same CTAs (every CTA,
-// or only those inside the foveation circle); a CTA that does not stage
-// loads what the compute kernel loads there (one texel per output, or the
-// four DirectCopy bilinear taps of NVScaler), and NVScaler's staging CTAs
-// also load each pixel's four RGBA taps. Every output word is stored once.
+// only those inside the foveation circle, or those a host table marks: the
+// tiles on the fused FSR kernel's inside list); a CTA that does not stage
+// loads what the compute kernel loads there (one texel per output, or four
+// bilinear taps: NVScaler's DirectCopy, the fused FSR kernel's outside
+// pass), and NVScaler's staging CTAs also load each pixel's four RGBA taps.
+// Every output word is stored once.
 //
 // What bounds it: only bytes, by construction. Nothing may be elided: the
 // staged words go to shared memory, each output is the staged word at its
@@ -39,6 +41,8 @@ namespace {
 
 constexpr int kThreads = 256;   // every compute kernel's threads per CTA
 
+enum Stage { kCircle = 0, kAll = 1, kList = 2 };   // kernels/sol.py _STAGES
+
 struct Params {
   const uint32_t* img;      // (B, rows, pitch) packed RGBA8
   uint32_t* out;            // (B, out_h, out_w)
@@ -49,8 +53,10 @@ struct Params {
   const int32_t* quad_x;    // (2, out_w) four-tap floors (staging, other CTAs) or null
   const int32_t* quad_y;    // (2, out_h)
   const int64_t* centres;   // (B, 5): cx1, cy1, cx2, cy2, radius_sq
+  const uint8_t* staged;    // (B, tiles_y, tiles_x) for kList: 1 = the CTA stages
   int in_h, in_w, rows, pitch, out_h, out_w;
-  int stage_all;            // 1: every CTA stages; 0: only CTAs inside the circle
+  int stage;                // Stage: which CTAs stage their window
+  int stage_quads;          // 1: staging CTAs also load four taps per output (quad row 0)
   int clamp;                // 1: out-of-image window words load clamped; 0: staged as 0
   uint32_t mask;            // 0 at run time
 };
@@ -81,7 +87,31 @@ __global__ void __launch_bounds__(kThreads) dma_floor_kernel(Params p) {
   const uint32_t* img = p.img + static_cast<size_t>(b) * p.rows * p.pitch;
   uint32_t* out = p.out + static_cast<size_t>(b) * p.out_h * p.out_w;
 
-  if (!p.stage_all && !rgba8::inside_circle(p.centres + 5 * b, ox0, oy0, TW, TH)) {
+  const bool stages =
+      p.stage == kAll ||
+      (p.stage == kList
+           ? p.staged[(static_cast<size_t>(b) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] != 0
+           : rgba8::inside_circle(p.centres + 5 * b, ox0, oy0, TW, TH));
+  if (!stages) {
+    if constexpr (TW * TH == 4 * kThreads) {
+      if (p.stage == kList) {   // the fused FSR kernel's outside pass: 4 outputs of one
+        constexpr int kRun = 4;   // row per thread, one 16-byte store where aligned
+        const int oy = oy0 + tid / (TW / kRun), ox = ox0 + (tid % (TW / kRun)) * kRun;
+        if (oy >= p.out_h || ox >= p.out_w) return;
+        const int n = min(kRun, p.out_w - ox);
+        uint32_t v[kRun];
+#pragma unroll
+        for (int j = 0; j < kRun; ++j)
+          if (j < n) v[j] = quad(img, p, p.quad_x[p.out_w + ox + j], p.quad_y[p.out_h + oy]);
+        uint32_t* dst = out + static_cast<size_t>(oy) * p.out_w + ox;
+        if (n == kRun && (reinterpret_cast<uintptr_t>(dst) & 15u) == 0) {
+          *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+        } else {
+          for (int j = 0; j < n; ++j) dst[j] = v[j];
+        }
+        return;
+      }
+    }
     for (int i = tid; i < TW * TH; i += kThreads) {
       const int ox = ox0 + i % TW, oy = oy0 + i / TW;
       if (ox >= p.out_w || oy >= p.out_h) continue;
@@ -109,7 +139,7 @@ __global__ void __launch_bounds__(kThreads) dma_floor_kernel(Params p) {
     const int ox = ox0 + i % TW, oy = oy0 + i / TW;
     if (ox >= p.out_w || oy >= p.out_h) continue;
     uint32_t v = s_win[tap(p.tap_y, oy) - wy0][tap(p.tap_x, ox) - wx0];
-    if (p.quad_x) v |= quad(img, p, p.quad_x[ox], p.quad_y[oy]) & p.mask;
+    if (p.quad_x && p.stage_quads) v |= quad(img, p, p.quad_x[ox], p.quad_y[oy]) & p.mask;
     out[static_cast<size_t>(oy) * p.out_w + ox] = v;
   }
 }
@@ -125,17 +155,21 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 
 // Launch on `stream`; returns the launch's cudaError_t (0 = launched). The
 // caller (kernels/sol.py) has checked the geometry: every tap lies inside
-// every window of its tile. (tile_w, tile_h, win_w, win_h) must be one of
-// the compute kernels' shapes and threads must be 256.
+// every window of its tile, and a kList table has the grid's shape. kList
+// (with its four-tap direct path) runs the fused FSR kernel's shape only.
+// (tile_w, tile_h, win_w, win_h) must be one of the compute kernels' shapes
+// and threads must be 256.
 extern "C" int dma_floor_launch(const void* img, void* out, const void* tile_x0,
                                 const void* tile_y0, const void* tap_x, const void* tap_y,
                                 const void* quad_x, const void* quad_y, const void* centres,
-                                int batch, int in_h, int in_w, int rows, int pitch, int out_h,
-                                int out_w, int tile_w, int tile_h, int win_w, int win_h,
-                                int threads, int stage_all, int clamp, unsigned int mask,
-                                void* stream) {
+                                const void* staged, int batch, int in_h, int in_w, int rows,
+                                int pitch, int out_h, int out_w, int tile_w, int tile_h, int win_w,
+                                int win_h, int threads, int stage, int stage_quads, int clamp,
+                                unsigned int mask, void* stream) {
   if (threads != kThreads || batch <= 0 || in_h <= 0 || in_w <= 0 || out_h <= 0 || out_w <= 0 ||
-      in_h > rows || in_w > pitch || (quad_x == nullptr) != (quad_y == nullptr))
+      in_h > rows || in_w > pitch || (quad_x == nullptr) != (quad_y == nullptr) || stage < kCircle ||
+      stage > kList || (stage == kList) != (staged != nullptr) ||
+      (stage == kList && (tile_w != 32 || tile_h != 32 || quad_x == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.img = static_cast<const uint32_t*>(img);
@@ -147,18 +181,20 @@ extern "C" int dma_floor_launch(const void* img, void* out, const void* tile_x0,
   p.quad_x = static_cast<const int32_t*>(quad_x);
   p.quad_y = static_cast<const int32_t*>(quad_y);
   p.centres = static_cast<const int64_t*>(centres);
+  p.staged = static_cast<const uint8_t*>(staged);
   p.in_h = in_h;
   p.in_w = in_w;
   p.rows = rows;
   p.pitch = pitch;
   p.out_h = out_h;
   p.out_w = out_w;
-  p.stage_all = stage_all;
+  p.stage = stage;
+  p.stage_quads = stage_quads;
   p.clamp = clamp;
   p.mask = mask;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile_w == 16 && tile_h == 16 && win_w == 24 && win_h == 24)   // fsr_fused
-    return launch<16, 16, 24, 24>(p, batch, s);
+  if (tile_w == 32 && tile_h == 32 && win_w == 40 && win_h == 40)   // fsr_fused
+    return launch<32, 32, 40, 40>(p, batch, s);
   if (tile_w == 16 && tile_h == 16 && win_w == 20 && win_h == 20)   // cas_upscale
     return launch<16, 16, 20, 20>(p, batch, s);
   if (tile_w == 16 && tile_h == 16 && win_w == 18 && win_h == 18)   // rcas_sharpen, cas_sharpen

@@ -9,24 +9,45 @@
 // inside the circle and the quantized value times the debug tint outside
 // (fsr_rcas.hlsl:46), stored as packed RGBA8 with alpha 255.
 //
-// What bounds it: bytes moved. At the full main-path size (2 x 1683x1869 ->
-// 2 x 2244x2492, u32 in and out) one stereo pair reads about 25 MB and
-// writes about 45 MB, while the math is a few hundred f32 ops per output
-// pixel. The simple design keeps every intermediate on chip: one CTA per
-// 16x16 output tile and batch entry (one thread per output pixel) stages the
-// tile's input footprint once from the packed u32 plane into shared memory,
-// computes stage 1 for the 18x18 haloed tile into shared memory as quantized
-// f32, and runs RCAS from there; device memory sees each input texel about
-// once per tile that covers it and each output texel exactly once. The
-// one-hot matrix gathers, DMA ring and band machinery of the TPU kernel have
-// no counterpart: a GPU thread gathers directly.
+// What bounds it: operations inside the circle (EASU + RCAS are about 650
+// f32 ops per output pixel), bytes outside it (the fallback is about 44 ops
+// per pixel over 4 input and 4 output bytes). At the full main-path size (2
+// x 1683x1869 -> 2 x 2244x2492, u32 in and out) one stereo pair reads about
+// 25 MB and writes about 45 MB.
 //
-// The per-column and per-row sample maps (EASU floor and fraction, bilinear
-// floor and fraction) and each tile's footprint origin come from the host
-// (kernels/_maps.py), so the device evaluates no coordinate math; the
-// foveation test is the reference's integer test per 16x16 group
-// (fsr_easu.hlsl:41-45; csrc/rgba8.cuh). Build with --fmad=false: the bits
-// then match the plain torch version (kernels/fsr.py::fsr_fused_reference).
+// The design, per output tile of 32x32 pixels (2x2 foveation groups of
+// 16x16; the reference's circle test is per group, fsr_easu.hlsl:41-45):
+//   - the host (kernels/_maps.py) evaluates the circle test once per build
+//     and per group, and splits the tiles into two lists: inside (any group
+//     inside the circle) and outside (none). No int64 arithmetic and no
+//     foveation test runs here; the inside kernel reads the classes of the
+//     tile's groups and of their neighbours from a per-group table.
+//   - fsr_outside_kernel runs the outside list: one CTA per tile, each
+//     thread 4 neighbouring outputs of one row, bilinear straight from
+//     device memory (four taps per output, which L1 serves), quantized,
+//     tinted and stored with one 16-byte store where the row start allows
+//     it. No shared memory, no barrier.
+//   - fsr_inside_kernel walks the inside list with persistent CTAs (about
+//     SMs x CTAs per SM, tile i, i + grid, ...). Each tile's 40x40 input
+//     window, the sample maps of its 34 haloed columns and rows, and the
+//     classes of the 4x4 groups around it are copied into a two-slot ring
+//     in shared memory with cp.async, so the next tile's copies are in
+//     flight while this one computes. The window is decoded once into f32
+//     RGB (one 16-byte load per tap afterwards, where each stage-1
+//     position would decode 12 texels). Stage 1 (EASU or bilinear by each
+//     position's own group class, then UNORM8) runs over the 34x34 haloed
+//     tile, 1156 positions spread evenly over 256 threads, into shared
+//     memory as f32; then each thread runs RCAS (or the tint) for 4 outputs
+//     of one column and stores them, a warp writing whole rows. Three
+//     barriers per tile; the loads of the next tile cross all three.
+// Both launch on the caller's stream; an empty list launches nothing.
+//
+// A window is staged edge-clamped (its origin may lie left of or above the
+// image), so it holds every tap at its unclamped position with the
+// clamped texel's value, as the reference's clamped sampler reads it.
+// Build with --fmad=false:
+// the bits then match the plain torch version
+// (kernels/fsr.py::fsr_fused_reference).
 
 #include <cuda_runtime.h>
 
@@ -37,122 +58,314 @@
 
 namespace {
 
-constexpr int kTile = 16;             // output tile edge = the 16x16 foveation group
+constexpr int kGroup = 16;            // the foveation group edge
+constexpr int kTile = 32;             // CTA output tile edge (kernels/_maps.py FSR_TILE)
 constexpr int kHalo = kTile + 2;      // stage-1 tile with the RCAS halo
-constexpr int kInTile = 24;           // staged input footprint edge (kernels/_maps.py IN_TILE)
-constexpr int kThreads = kTile * kTile;
+constexpr int kWin = 40;              // staged input window edge (kernels/_maps.py IN_TILE)
+constexpr int kNbr = kTile / kGroup + 2;   // group neighbourhood edge of a haloed tile
+constexpr int kThreads = 256;
+constexpr int kRun = kTile * kTile / kThreads;   // outputs per thread (4)
+constexpr int kInsideCtasPerSm = 2;   // __launch_bounds__ minimum of the inside kernel
 
 struct Params {
-  const uint32_t* img;      // (B, in_rows, pitch) packed RGBA8, R in the low byte
-  uint32_t* out;            // (B, out_h, out_w) packed RGBA8
-  const int32_t* col_i;     // (2, out_w): EASU floor fxi, bilinear x0
-  const float* col_f;       // (2, out_w): EASU fraction ppx, bilinear fx
-  const int32_t* row_i;     // (2, out_h): EASU floor fyi, bilinear y0
-  const float* row_f;       // (2, out_h): EASU fraction ppy, bilinear fy
-  const int32_t* tile_x0;   // (tiles_x,): first staged input column per tile column
-  const int32_t* tile_y0;   // (tiles_y,): first staged input row per tile row
-  const int64_t* centres;   // (B, 5): cx1, cy1, cx2, cy2, radius_sq
+  const uint32_t* img;        // (B, in_rows, pitch) packed RGBA8, R in the low byte
+  uint32_t* out;              // (B, out_h, out_w) packed RGBA8
+  const int32_t* col_i;       // (2, out_w): EASU floor fxi, bilinear x0
+  const float* col_f;         // (2, out_w): EASU fraction ppx, bilinear fx
+  const int32_t* row_i;       // (2, out_h): EASU floor fyi, bilinear y0
+  const float* row_f;         // (2, out_h): EASU fraction ppy, bilinear fy
+  const int32_t* tile_x0;     // (tiles_x,): first staged input column per tile column
+  const int32_t* tile_y0;     // (tiles_y,): first staged input row per tile row
+  const int32_t* group_cls;   // (B, groups_y, groups_x): 1 inside the circle
+  const int32_t* tiles;       // this launch's tile ids: b * tiles_y * tiles_x + ty * tiles_x + tx
+  int n_tiles;
   int in_h, in_w, in_rows, pitch, out_h, out_w;
+  int tiles_x, tiles_y, groups_x, groups_y;
   float sharp, tint;
 };
 
 using rgba8::channel;
 using rgba8::clampi;
 
-__global__ void __launch_bounds__(kThreads) fsr_fused_kernel(Params p) {
-  __shared__ uint32_t s_in[kInTile][kInTile];
-  __shared__ float s_q[3][kHalo][kHalo];
+// ---- the asynchronous copy: the only inline PTX of this file ---------------
+// One 4-byte word from global to shared memory, cached in L1 (cp.async.ca);
+// with valid false nothing is read and the word is zero-filled (src-size 0).
+__device__ __forceinline__ void copy_word(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+// Wait for every group this thread committed but the newest.
+__device__ __forceinline__ void copy_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+// -----------------------------------------------------------------------------
+
+struct Tile {
+  int b, tx, ty, ox0, oy0;
+};
+
+__device__ __forceinline__ Tile tile_at(const Params& p, int id) {
+  Tile t;
+  const int per = p.tiles_x * p.tiles_y;
+  t.b = id / per;
+  const int rem = id - t.b * per;
+  t.ty = rem / p.tiles_x;
+  t.tx = rem - t.ty * p.tiles_x;
+  t.ox0 = t.tx * kTile;
+  t.oy0 = t.ty * kTile;
+  return t;
+}
+
+// One ring slot: what the copies of one tile bring.
+struct Slot {
+  uint32_t win[kWin][kWin];   // input window at (tile_x0[tx], tile_y0[ty])
+  // sample maps of haloed column / row j (output ox0 - 1 + j, oy0 - 1 + j):
+  // 0 EASU floor, 1 bilinear floor (int32 bits), 2 EASU fraction, 3
+  // bilinear fraction (f32 bits); columns in 0-3, rows in 4-7
+  uint32_t maps[8][kHalo];
+  int32_t cls[kNbr][kNbr];    // classes of groups (2 ty - 1 + i, 2 tx - 1 + j)
+};
+
+// The inside kernel's shared memory (dynamic: above the 48 KB of static).
+struct Smem {
+  Slot slot[2];               // the ring
+  float4 win[kWin][kWin];     // this tile's window decoded: R, G, B in [0, 1]
+  float q[3][kHalo][kHalo];   // stage 1 of the haloed tile, UNORM8-quantized
+};
+
+// Issue the copies of tile t into slot s (every thread its share).
+__device__ __forceinline__ void stage_tile(const Params& p, const Tile& t, Slot& s, int tid) {
+  const uint32_t* img = p.img + static_cast<size_t>(t.b) * p.in_rows * p.pitch;
+  const int wx0 = p.tile_x0[t.tx], wy0 = p.tile_y0[t.ty];
+  for (int i = tid; i < kWin * kWin; i += kThreads) {
+    const int y = clampi(wy0 + i / kWin, 0, p.in_h - 1), x = clampi(wx0 + i % kWin, 0, p.in_w - 1);
+    copy_word(&s.win[i / kWin][i % kWin], img + static_cast<size_t>(y) * p.pitch + x, true);
+  }
+  for (int i = tid; i < 8 * kHalo; i += kThreads) {
+    const int k = i / kHalo, j = i % kHalo;
+    const bool col = k < 4;
+    const int n = col ? p.out_w : p.out_h;
+    const int o = (col ? t.ox0 : t.oy0) - 1 + j;
+    const int row = k & 1;   // row of the (2, n) map
+    const void* base = (k & 2) ? static_cast<const void*>(col ? p.col_f : p.row_f)
+                               : static_cast<const void*>(col ? p.col_i : p.row_i);
+    const bool ok = o >= 0 && o < n;
+    copy_word(&s.maps[k][j], static_cast<const uint32_t*>(base) + row * n + (ok ? o : 0), ok);
+  }
+  if (tid < kNbr * kNbr) {
+    const int gy = 2 * t.ty - 1 + tid / kNbr, gx = 2 * t.tx - 1 + tid % kNbr;
+    const bool ok = gy >= 0 && gy < p.groups_y && gx >= 0 && gx < p.groups_x;
+    copy_word(&s.cls[tid / kNbr][tid % kNbr],
+              p.group_cls + (static_cast<size_t>(t.b) * p.groups_y + (ok ? gy : 0)) * p.groups_x +
+                  (ok ? gx : 0),
+              ok);
+  }
+}
+
+// Stage 1 of haloed position (ly, lx) of tile t from its slot s and its
+// decoded window: EASU or the bilinear fallback by the position's own group
+// class, UNORM8; 0 outside the image (the RCAS Load() rule). The window
+// holds the edge-clamped texels of every unclamped tap position, so a tap
+// at a constant offset from the sample's floor needs no clamp.
+__device__ __forceinline__ void stage1(const Params& p, const Tile& t, const Slot& s,
+                                       const float4 (*win)[kWin], int ly, int lx, float rgb[3]) {
+  rgb[0] = rgb[1] = rgb[2] = 0.0f;
+  const int oy = t.oy0 - 1 + ly, ox = t.ox0 - 1 + lx;
+  if (oy < 0 || oy >= p.out_h || ox < 0 || ox >= p.out_w) return;
+  const int wx0 = p.tile_x0[t.tx], wy0 = p.tile_y0[t.ty];
+  if (s.cls[(oy >> 4) - 2 * t.ty + 1][(ox >> 4) - 2 * t.tx + 1]) {
+    const float4* at =
+        &win[static_cast<int>(s.maps[4][ly]) - wy0][static_cast<int>(s.maps[0][lx]) - wx0];
+    float tap[12][3];
+#pragma unroll
+    for (int k = 0; k < 12; ++k) {
+      const float4 texel = at[ffx::tap_dy(k) * kWin + ffx::tap_dx(k)];
+      tap[k][0] = texel.x;
+      tap[k][1] = texel.y;
+      tap[k][2] = texel.z;
+    }
+    ffx::easu(tap, __uint_as_float(s.maps[2][lx]), __uint_as_float(s.maps[6][ly]), rgb);
+  } else {
+    const float4* at =
+        &win[static_cast<int>(s.maps[5][ly]) - wy0][static_cast<int>(s.maps[1][lx]) - wx0];
+    const float fxw = __uint_as_float(s.maps[3][lx]), fyw = __uint_as_float(s.maps[7][ly]);
+    const float4 c00 = at[0], c10 = at[1], c01 = at[kWin], c11 = at[kWin + 1];
+    rgb[0] = ffx::bilerp(c00.x, c10.x, c01.x, c11.x, fxw, fyw);
+    rgb[1] = ffx::bilerp(c00.y, c10.y, c01.y, c11.y, fxw, fyw);
+    rgb[2] = ffx::bilerp(c00.z, c10.z, c01.z, c11.z, fxw, fyw);
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) rgb[c] = ffx::unorm8_roundtrip(rgb[c]);
+}
+
+__global__ void __launch_bounds__(kThreads, kInsideCtasPerSm) fsr_inside_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  Slot* s_slot = sm.slot;
+  float (*s_q)[kHalo][kHalo] = sm.q;
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.z;
-  const int ox0 = blockIdx.x * kTile, oy0 = blockIdx.y * kTile;
-  const int wx0 = p.tile_x0[blockIdx.x], wy0 = p.tile_y0[blockIdx.y];
-  const uint32_t* img = p.img + static_cast<size_t>(b) * p.in_rows * p.pitch;
-  const int64_t* cen = p.centres + 5 * b;
+  int i = blockIdx.x;
+  if (i >= p.n_tiles) return;
+  Tile cur = tile_at(p, p.tiles[i]);
+  stage_tile(p, cur, s_slot[0], tid);
+  copy_commit();
+  // this thread's outputs in RCAS: column lx, rows ly0 .. ly0 + kRun - 1,
+  // all in one group row (kRun divides kGroup)
+  const int lx = tid % kTile, ly0 = (tid / kTile) * kRun;
+  for (int k = 0; i < p.n_tiles; ++k, i += gridDim.x) {
+    const Slot& s = s_slot[k & 1];
+    Tile next = cur;
+    if (i + static_cast<int>(gridDim.x) < p.n_tiles) {
+      next = tile_at(p, p.tiles[i + gridDim.x]);
+      stage_tile(p, next, s_slot[(k + 1) & 1], tid);   // read by stage 1 of tile k - 1, done
+    }
+    copy_commit();      // possibly empty: the wait below then still covers tile k
+    copy_wait_prior();
+    __syncthreads();    // slot k & 1 has landed; RCAS of tile k - 1 is done with s_q
 
-  // 1. the tile's input footprint, once, from the packed plane
-  for (int i = tid; i < kInTile * kInTile; i += kThreads) {
-    const int ly = i / kInTile, lx = i % kInTile;
-    const int y = wy0 + ly, x = wx0 + lx;
-    s_in[ly][lx] = (y < p.in_h && x < p.in_w) ? img[static_cast<size_t>(y) * p.pitch + x] : 0u;
-  }
-  __syncthreads();
+    // decode the window once: stage 1 reads each texel up to 16 times
+    for (int j = tid; j < kWin * kWin; j += kThreads) {
+      const uint32_t texel = s.win[j / kWin][j % kWin];
+      sm.win[j / kWin][j % kWin] =
+          make_float4(channel(texel, 0), channel(texel, 1), channel(texel, 2), 0.0f);
+    }
+    __syncthreads();
 
-  // 2. stage 1 on the 18x18 haloed tile, quantized to UNORM8; texels outside
-  //    the image are 0 (the RCAS Load() rule)
-  for (int i = tid; i < kHalo * kHalo; i += kThreads) {
-    const int ly = i / kHalo, lx = i % kHalo;
-    const int oy = oy0 - 1 + ly, ox = ox0 - 1 + lx;
-    float rgb[3] = {0.0f, 0.0f, 0.0f};
-    if (oy >= 0 && oy < p.out_h && ox >= 0 && ox < p.out_w) {
-      if (rgba8::inside_circle(cen, ox, oy, kTile, kTile)) {
-        const int fx = p.col_i[ox], fy = p.row_i[oy];
-        float t[12][3];
+    for (int j = tid; j < kHalo * kHalo; j += kThreads) {
+      const int ly = j / kHalo, lxh = j % kHalo;
+      float rgb[3];
+      stage1(p, cur, s, sm.win, ly, lxh, rgb);
 #pragma unroll
-        for (int k = 0; k < 12; ++k) {
-          const int sx = clampi(fx + ffx::tap_dx(k), 0, p.in_w - 1) - wx0;
-          const int sy = clampi(fy + ffx::tap_dy(k), 0, p.in_h - 1) - wy0;
-          const uint32_t texel = s_in[sy][sx];
+      for (int c = 0; c < 3; ++c) s_q[c][ly][lxh] = rgb[c];
+    }
+    // the class of this thread's outputs, read before the slot is reused
+    const bool inside = s.cls[(ly0 >> 4) + 1][(lx >> 4) + 1] != 0;
+    __syncthreads();
+
+    const int ox = cur.ox0 + lx;
+    uint32_t* out = p.out + static_cast<size_t>(cur.b) * p.out_h * p.out_w;
 #pragma unroll
-          for (int c = 0; c < 3; ++c) t[k][c] = channel(texel, c);
+    for (int r = 0; r < kRun; ++r) {
+      const int ly = ly0 + r, oy = cur.oy0 + ly;
+      if (ox >= p.out_w || oy >= p.out_h) break;
+      float e[3], res[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) e[c] = s_q[c][ly + 1][lx + 1];
+      if (inside) {
+        float bt[3], dt[3], ft[3], ht[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          bt[c] = s_q[c][ly][lx + 1];
+          dt[c] = s_q[c][ly + 1][lx];
+          ft[c] = s_q[c][ly + 1][lx + 2];
+          ht[c] = s_q[c][ly + 2][lx + 1];
         }
-        ffx::easu(t, p.col_f[ox], p.row_f[oy], rgb);
+        ffx::rcas(bt, dt, e, ft, ht, p.sharp, res);
       } else {
-        const int x0 = p.col_i[p.out_w + ox], y0 = p.row_i[p.out_h + oy];
-        const int sx0 = clampi(x0, 0, p.in_w - 1) - wx0, sx1 = clampi(x0 + 1, 0, p.in_w - 1) - wx0;
-        const int sy0 = clampi(y0, 0, p.in_h - 1) - wy0, sy1 = clampi(y0 + 1, 0, p.in_h - 1) - wy0;
-        const float fxw = p.col_f[p.out_w + ox], fyw = p.row_f[p.out_h + oy];
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          rgb[c] = ffx::bilerp(channel(s_in[sy0][sx0], c), channel(s_in[sy0][sx1], c),
-                               channel(s_in[sy1][sx0], c), channel(s_in[sy1][sx1], c), fxw, fyw);
+        res[0] = e[0];
+        res[1] = e[1] * p.tint;
+        res[2] = e[2] * p.tint;
       }
-#pragma unroll
-      for (int c = 0; c < 3; ++c) rgb[c] = ffx::unorm8_roundtrip(rgb[c]);
+      out[static_cast<size_t>(oy) * p.out_w + ox] = rgba8::pack(res[0], res[1], res[2], 1.0f);
     }
-#pragma unroll
-    for (int c = 0; c < 3; ++c) s_q[c][ly][lx] = rgb[c];
+    cur = next;
   }
-  __syncthreads();
+}
 
-  // 3. RCAS inside the circle, tinted pass-through outside; packed store
-  const int lx = tid % kTile, ly = tid / kTile;
-  const int ox = ox0 + lx, oy = oy0 + ly;
-  if (ox >= p.out_w || oy >= p.out_h) return;
-  float e[3], res[3];
+__global__ void __launch_bounds__(kThreads) fsr_outside_kernel(Params p) {
+  const Tile t = tile_at(p, p.tiles[blockIdx.x]);
+  const int oy = t.oy0 + threadIdx.x / (kTile / kRun);
+  const int ox = t.ox0 + (threadIdx.x % (kTile / kRun)) * kRun;
+  if (oy >= p.out_h || ox >= p.out_w) return;
+  const uint32_t* img = p.img + static_cast<size_t>(t.b) * p.in_rows * p.pitch;
+  const int y0 = p.row_i[p.out_h + oy];
+  const float fy = p.row_f[p.out_h + oy];
+  const uint32_t* r0 = img + static_cast<size_t>(clampi(y0, 0, p.in_h - 1)) * p.pitch;
+  const uint32_t* r1 = img + static_cast<size_t>(clampi(y0 + 1, 0, p.in_h - 1)) * p.pitch;
+  const int n = min(kRun, p.out_w - ox);
+  uint32_t v[kRun];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) e[c] = s_q[c][ly + 1][lx + 1];
-  if (rgba8::inside_circle(cen, ox, oy, kTile, kTile)) {
-    float bt[3], dt[3], ft[3], ht[3];
+  for (int j = 0; j < kRun; ++j) {
+    if (j >= n) break;
+    const int x0 = p.col_i[p.out_w + ox + j];
+    const float fx = p.col_f[p.out_w + ox + j];
+    const int sx0 = clampi(x0, 0, p.in_w - 1), sx1 = clampi(x0 + 1, 0, p.in_w - 1);
+    const uint32_t c00 = r0[sx0], c10 = r0[sx1], c01 = r1[sx0], c11 = r1[sx1];
+    float q[3];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      bt[c] = s_q[c][ly][lx + 1];
-      dt[c] = s_q[c][ly + 1][lx];
-      ft[c] = s_q[c][ly + 1][lx + 2];
-      ht[c] = s_q[c][ly + 2][lx + 1];
-    }
-    ffx::rcas(bt, dt, e, ft, ht, p.sharp, res);
-  } else {
-    res[0] = e[0];
-    res[1] = e[1] * p.tint;
-    res[2] = e[2] * p.tint;
+    for (int c = 0; c < 3; ++c)
+      q[c] = ffx::unorm8_roundtrip(
+          ffx::bilerp(channel(c00, c), channel(c10, c), channel(c01, c), channel(c11, c), fx, fy));
+    v[j] = rgba8::pack(q[0], q[1] * p.tint, q[2] * p.tint, 1.0f);
   }
-  const uint32_t packed = rgba8::pack(res[0], res[1], res[2], 1.0f);
-  p.out[(static_cast<size_t>(b) * p.out_h + oy) * p.out_w + ox] = packed;
+  uint32_t* dst = p.out + (static_cast<size_t>(t.b) * p.out_h + oy) * p.out_w + ox;
+  if (n == kRun && (reinterpret_cast<uintptr_t>(dst) & 15u) == 0) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+  } else {
+    for (int j = 0; j < n; ++j) dst[j] = v[j];
+  }
+}
+
+// CTAs per SM of the outside and inside kernels on the current device, as
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them, after allowing
+// the inside kernel its dynamic shared memory. Returns the first non-zero
+// cudaError_t.
+int occupancy(int* outside, int* inside) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fsr_inside_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(outside, fsr_outside_kernel, kThreads, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, fsr_inside_kernel, kThreads,
+                                                        sizeof(Smem));
+  return static_cast<int>(err);
+}
+
+// The inside kernel's persistent grid on the current device: SMs x the CTAs
+// of it one SM holds, queried once per device and process (0 on an error).
+int inside_grid() {
+  constexpr int kMaxDevices = 64;
+  static int grid[kMaxDevices] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 0;
+  if (grid[dev] == 0) {
+    int sms = 0, outside = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        occupancy(&outside, &per_sm) != cudaSuccess)
+      return 0;
+    grid[dev] = sms * per_sm;
+  }
+  return grid[dev];
 }
 
 }  // namespace
 
-// Launch on `stream`; returns the launch's cudaError_t (0 = launched). The
-// caller (kernels/fsr.py) has checked shapes, dtypes, devices and that every
-// tile footprint fits kInTile; in_tile must equal kInTile.
+// CTAs per SM of the outside and inside kernels on the current device, and
+// the inside kernel's dynamic shared memory per CTA in bytes.
+extern "C" int fsr_fused_occupancy(int* outside, int* inside, int* inside_smem) {
+  *inside_smem = static_cast<int>(sizeof(Smem));
+  return occupancy(outside, inside);
+}
+
+// Launch on `stream`: the outside pass over outside_tiles, then the inside
+// kernel over inside_tiles (an empty list launches nothing). Returns the
+// first non-zero cudaError_t (0 = launched). The caller (kernels/fsr.py) has
+// checked shapes, dtypes and devices, that every tile's window fits kWin and
+// that the lists partition the tiles; tile and window must equal kTile and
+// kWin.
 extern "C" int fsr_fused_launch(const void* img, void* out, const void* col_i, const void* col_f,
                                 const void* row_i, const void* row_f, const void* tile_x0,
-                                const void* tile_y0, const void* centres, int batch, int in_h,
+                                const void* tile_y0, const void* group_cls,
+                                const void* inside_tiles, int n_inside,
+                                const void* outside_tiles, int n_outside, int batch, int in_h,
                                 int in_w, int in_rows, int pitch, int out_h, int out_w,
-                                float sharp, float tint, int in_tile, void* stream) {
-  if (in_tile != kInTile || batch <= 0 || out_h <= 0 || out_w <= 0 || in_h > in_rows ||
-      in_w > pitch)
+                                float sharp, float tint, int tile, int window, void* stream) {
+  if (tile != kTile || window != kWin || batch <= 0 || out_h <= 0 || out_w <= 0 ||
+      in_h > in_rows || in_w > pitch || n_inside < 0 || n_outside < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.img = static_cast<const uint32_t*>(img);
@@ -163,16 +376,34 @@ extern "C" int fsr_fused_launch(const void* img, void* out, const void* col_i, c
   p.row_f = static_cast<const float*>(row_f);
   p.tile_x0 = static_cast<const int32_t*>(tile_x0);
   p.tile_y0 = static_cast<const int32_t*>(tile_y0);
-  p.centres = static_cast<const int64_t*>(centres);
+  p.group_cls = static_cast<const int32_t*>(group_cls);
   p.in_h = in_h;
   p.in_w = in_w;
   p.in_rows = in_rows;
   p.pitch = pitch;
   p.out_h = out_h;
   p.out_w = out_w;
+  p.tiles_x = (out_w + kTile - 1) / kTile;
+  p.tiles_y = (out_h + kTile - 1) / kTile;
+  p.groups_x = (out_w + kGroup - 1) / kGroup;
+  p.groups_y = (out_h + kGroup - 1) / kGroup;
   p.sharp = sharp;
   p.tint = tint;
-  const dim3 grid((out_w + kTile - 1) / kTile, (out_h + kTile - 1) / kTile, batch);
-  fsr_fused_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_outside > 0) {
+    p.tiles = static_cast<const int32_t*>(outside_tiles);
+    p.n_tiles = n_outside;
+    fsr_outside_kernel<<<n_outside, kThreads, 0, s>>>(p);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (n_inside > 0) {
+    const int grid = inside_grid();
+    if (grid <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    p.tiles = static_cast<const int32_t*>(inside_tiles);
+    p.n_tiles = n_inside;
+    fsr_inside_kernel<<<grid < n_inside ? grid : n_inside, kThreads, sizeof(Smem), s>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return 0;
 }

@@ -9,12 +9,23 @@ evaluating coordinate math on the device. The fused FSR kernel's:
   col_f (2, OW) float32  EASU fraction ppx, bilinear fx
   row_i (2, OH) int32    EASU floor fyi, bilinear floor y0   per output row
   row_f (2, OH) float32  EASU fraction ppy, bilinear fy
-  tile_x0 / tile_y0      first input column / row of the footprint each
-                         16x16 output tile (with its 1-pixel halo) stages
+  tile_x0 / tile_y0      first input column / row (before the edge clamp;
+                         may be -1 or -2) of the window each 32x32 output
+                         tile (with its 1-pixel halo) stages, edge-clamped
   centres (B, 5) int64   the foveation cbuffer rows (core.constants)
+  group_cls (B, GY, GX)  int32 1 where the 16x16 foveation group passes the
+                         reference's circle test, else 0
+  inside_tiles           int32 ids b * TY * TX + ty * TX + tx of the 32x32
+                         tiles with an output inside the circle; the EASU
+                         kernel walks them
+  outside_tiles          the other tiles (every output outside), in the
+                         same order; the bilinear pass runs them
 
-CAS upscale's (cas_upscale_maps) have the same layout, with the CasFilter
-floor and fraction of pp in place of EASU's. NVScaler's (NisMaps) are set
+The foveation test is evaluated here, once per build, in int64 from the
+same rows as the plain version's (kernels/_common.py::circle_mask), so the
+device does no int64 arithmetic. CAS upscale's (cas_upscale_maps) have the
+layout of the first seven, with the CasFilter floor and fraction of pp in
+place of EASU's. NVScaler's (NisMaps) are set
 out at nvscaler_maps. The tables depend
 only on the build's shapes, config and centres, so one build serves every
 frame of a stream.
@@ -38,14 +49,19 @@ from ..ops.cas import cas_upscale_index_maps
 from ..ops.easu import easu_index_maps
 from ..ops.nis import nis_source_maps
 
-__all__ = ["FsrMaps", "fsr_maps", "cas_upscale_maps", "NisMaps",
-           "nvscaler_maps", "input_padding", "dma_geometry",
-           "sharpen_geometry", "TILE", "IN_TILE", "CAS_IN_TILE",
+__all__ = ["FsrMaps", "FsrFusedMaps", "fsr_maps", "cas_upscale_maps",
+           "NisMaps", "nvscaler_maps", "input_padding", "dma_geometry",
+           "sharpen_geometry", "TILE", "FSR_TILE", "IN_TILE", "CAS_IN_TILE",
            "NIS_IN_TILE", "THREADS"]
 
 THREADS = 256  # threads per CTA of every kernel (csrc/*.cu kThreads)
-TILE = 16      # output tile edge: one CTA per tile, the 16x16 foveation group
-IN_TILE = 24   # staged input footprint edge (csrc/fsr_fused.cu kInTile)
+TILE = 16      # the 16x16 foveation group; one CTA per such tile in B2, B5, B6
+# the fused FSR kernel's CTA output tile edge (2x2 foveation groups) and
+# its staged input window edge (csrc/fsr_fused.cu kTile, kWin): 34 haloed
+# outputs span at most 34 inputs + 3 taps + 1 when out >= in, as on every
+# FSR path
+FSR_TILE = 32
+IN_TILE = 40
 # CAS upscale's staged footprint edge (csrc/cas_upscale.cu kInTile): out >=
 # in on every path, so 16 outputs span at most 16 input positions + 3 taps
 CAS_IN_TILE = 20
@@ -112,30 +128,83 @@ class FsrMaps(_Tables):
                "centres")
 
 
+@dataclasses.dataclass(frozen=True)
+class FsrFusedMaps(FsrMaps):
+    """The fused kernel's tables: FsrMaps plus the foveation classes."""
+
+    group_cls: object
+    inside_tiles: object
+    outside_tiles: object
+
+    _ARRAYS = FsrMaps._ARRAYS + ("group_cls", "inside_tiles",
+                                 "outside_tiles")
+
+    @property
+    def tile_inside(self):
+        """(B, TY, TX) bool: the tiles the EASU kernel runs."""
+        b = self.group_cls.shape[0]
+        ty, tx = len(self.tile_y0), len(self.tile_x0)
+        flags = np.zeros(b * ty * tx, bool)
+        flags[np.asarray(self.inside_tiles)] = True
+        return flags.reshape(b, ty, tx)
+
+
+def group_classes(centres, out_h, out_w, group=(TILE, TILE)):
+    """(B, GY, GX) bool: the reference's circle test per (width, height)
+    group (fsr_easu.hlsl:41-45; kernels/_common.py::circle_mask at one
+    pixel of each group), in int64 from the (B, 5) centres rows."""
+    (tw, th), c = group, np.asarray(centres, np.int64)[:, :, None, None]
+    gx = np.arange(-(-int(out_w) // tw), dtype=np.int64) * tw + tw // 2
+    gy = np.arange(-(-int(out_h) // th), dtype=np.int64) * th + th // 2
+    d1 = (c[:, 0] - gx) ** 2 + (c[:, 1] - gy[:, None]) ** 2
+    d2 = (c[:, 2] - gx) ** 2 + (c[:, 3] - gy[:, None]) ** 2
+    return (d1 <= c[:, 4]) | (d2 <= c[:, 4])
+
+
+def tile_lists(cls, out_h, out_w):
+    """(inside, outside) int32 tile ids b * TY * TX + ty * TX + tx of the
+    FSR_TILE-square tiles: inside where any of the tile's groups passes the
+    circle test, outside where none does."""
+    k = FSR_TILE // TILE
+    b, gy, gx = cls.shape
+    ty, tx = -(-int(out_h) // FSR_TILE), -(-int(out_w) // FSR_TILE)
+    pad = np.zeros((b, ty * k, tx * k), bool)
+    pad[:, :gy, :gx] = cls
+    inside = pad.reshape(b, ty, k, tx, k).any(axis=(2, 4)).ravel()
+    return (np.flatnonzero(inside).astype(np.int32),
+            np.flatnonzero(~inside).astype(np.int32))
+
+
 def fsr_maps(batch, in_h, in_w, out_w, out_h, centres):
-    """Build the tables for one (shape, centres) configuration."""
+    """Build the fused kernel's tables for one (shape, centres)
+    configuration."""
     H, W, OH, OW = int(in_h), int(in_w), int(out_h), int(out_w)
     con = C.fsr_easu_con(W, H, W, H, OW, OH)
     fxi, fyi, ppx, ppy = easu_index_maps(W, H, OW, OH,
                                          np.asarray(con[0], np.float32))
     bx0, fbx = bilinear_axis(OW, W)
     by0, fby = bilinear_axis(OH, H)
-    # lowest / highest input index any tap of each output column/row reads:
-    # EASU taps fxi-1 .. fxi+2, bilinear x0 .. x0+1, all edge-clamped
-    lo_x = np.minimum(np.clip(fxi - 1, 0, W - 1), np.clip(bx0, 0, W - 1))
-    hi_x = np.maximum(np.clip(fxi + 2, 0, W - 1), np.clip(bx0 + 1, 0, W - 1))
-    lo_y = np.minimum(np.clip(fyi - 1, 0, H - 1), np.clip(by0, 0, H - 1))
-    hi_y = np.maximum(np.clip(fyi + 2, 0, H - 1), np.clip(by0 + 1, 0, H - 1))
+    # lowest / highest input index any tap of each output column/row reads
+    # before its edge clamp: EASU taps fxi-1 .. fxi+2, bilinear x0 .. x0+1
+    # (the kernel stages its windows edge-clamped and reads them unclamped)
+    lo_x = np.minimum(fxi - 1, bx0)
+    hi_x = np.maximum(fxi + 2, bx0 + 1)
+    lo_y = np.minimum(fyi - 1, by0)
+    hi_y = np.maximum(fyi + 2, by0 + 1)
     cen = np.asarray(centres, np.int64).reshape(int(batch), 5)
-    return FsrMaps(
+    cls = group_classes(cen, OH, OW)
+    inside, outside = tile_lists(cls, OH, OW)
+    return FsrFusedMaps(
         in_h=H, in_w=W, out_h=OH, out_w=OW,
         col_i=np.stack([fxi.astype(np.int32), bx0]),
         col_f=np.stack([ppx, fbx]),
         row_i=np.stack([fyi.astype(np.int32), by0]),
         row_f=np.stack([ppy, fby]),
-        tile_x0=_footprint_origins(lo_x, hi_x, TILE, 1, IN_TILE),
-        tile_y0=_footprint_origins(lo_y, hi_y, TILE, 1, IN_TILE),
-        centres=np.ascontiguousarray(cen))
+        tile_x0=_footprint_origins(lo_x, hi_x, FSR_TILE, 1, IN_TILE),
+        tile_y0=_footprint_origins(lo_y, hi_y, FSR_TILE, 1, IN_TILE),
+        centres=np.ascontiguousarray(cen),
+        group_cls=cls.astype(np.int32), inside_tiles=inside,
+        outside_tiles=outside)
 
 
 def cas_upscale_maps(batch, in_h, in_w, out_w, out_h, centres):
@@ -238,7 +307,8 @@ def nvscaler_maps(batch, in_h, in_w, out_w, out_h, nis_cfg, centres):
 
 
 def dma_geometry(out_h, out_w, tile, window, tile_x0, tile_y0, centres, *,
-                 oob, stage, tap_x, tap_y, quad_x=None, quad_y=None):
+                 oob, stage, tap_x, tap_y, quad_x=None, quad_y=None,
+                 group=None, staged=None, stage_quads=True):
     """What one CUDA kernel loads from the frame and stores, for its DMA
     floor (kernels/sol.py::build_dma_floor; the counterpart of the JAX
     package's fn.dma_geometry, kernels/_band.py::make_io_fn). kernel_fn adds
@@ -252,24 +322,33 @@ def dma_geometry(out_h, out_w, tile, window, tile_x0, tile_y0, centres, *,
       oob               "zero": window words outside the image are staged
                         as 0 and not loaded; "clamp": loaded edge-clamped
       stage             "all": every CTA stages; "circle": only CTAs whose
-                        tile passes the foveation test, the others load
-                        their outputs' words directly
+                        tile passes the foveation test; "list": only the
+                        CTAs `staged` marks; the others load their outputs'
+                        words directly
       centres           (B, 5) int64 foveation rows of the circle test
       tap_x, tap_y      per output column / row, the in-image input index
                         of the output's own tap (the clamped floor of its
                         sample position): inside every window of its tile
       quad_x, quad_y    None, or (2, out_w) / (2, out_h) floors of four
                         bilinear taps each output loads from device memory
-                        (edge-clamped): row 0 in a staging CTA, row 1 in
-                        the others (NVScaler's RGBA tap and DirectCopy)
+                        (edge-clamped): row 0 in a staging CTA (where
+                        stage_quads), row 1 in the others (NVScaler's RGBA
+                        tap and DirectCopy; the fused FSR kernel's outside
+                        pass)
+      group             (width, height) of the foveation group the circle
+                        test classes (default: the tile)
+      staged            for stage "list": (B, tiles_y, tiles_x) bool
     """
     def ints(a):
         return None if a is None else np.ascontiguousarray(a, np.int32)
 
     return dict(out_h=int(out_h), out_w=int(out_w), tile=tuple(tile),
+                group=tuple(tile if group is None else group),
                 threads=THREADS, window=tuple(window),
                 tile_x0=ints(tile_x0), tile_y0=ints(tile_y0), oob=oob,
-                stage=stage,
+                stage=stage, stage_quads=bool(stage_quads),
+                staged=None if staged is None else np.ascontiguousarray(
+                    staged, bool),
                 centres=np.ascontiguousarray(np.asarray(centres, np.int64)
                                              .reshape(-1, 5)),
                 tap_x=ints(tap_x), tap_y=ints(tap_y), quad_x=ints(quad_x),

@@ -12,9 +12,11 @@ intermediate texture (src/postprocess/PostProcessor.cpp:385-401, 483-496):
      circle, the quantized value times the debug tint outside;
   4. the packed RGBA8 store with alpha 255.
 
-The returned function launches the CUDA kernel (csrc/fsr_fused.cu) for a
+The returned function launches the CUDA kernels (csrc/fsr_fused.cu: the
+bilinear pass over the 32x32 tiles outside the foveation circle and the
+EASU + RCAS kernel over those inside, both from one C entry point) for a
 CUDA tensor and runs `fsr_fused_reference`, the same computation in plain
-torch, for a CPU tensor. Nothing falls back: a CUDA tensor runs the kernel
+torch, for a CPU tensor. Nothing falls back: a CUDA tensor runs the kernels
 or raises.
 """
 
@@ -33,9 +35,11 @@ from ..ops.common import unorm_quantize
 from . import _build
 from ._common import (DeviceTables, circle_mask, debug_tint, kernel_fn,
                       pack, tint_vector, unpack)
-from ._maps import IN_TILE, TILE, dma_geometry, fsr_maps, input_padding
+from ._maps import (FSR_TILE, IN_TILE, TILE, dma_geometry, fsr_maps,
+                    input_padding)
 
-__all__ = ["build_fsr_fused", "fsr_fused_reference", "circle_mask"]
+__all__ = ["build_fsr_fused", "fsr_fused_reference", "circle_mask",
+           "occupancy"]
 
 
 def fsr_fused_reference(img, maps, sharpness_linear, tint):
@@ -61,10 +65,28 @@ def fsr_fused_reference(img, maps, sharpness_linear, tint):
 def _launch_fn():
     """The ctypes entry point, bound (and built) at the first launch."""
     f = _build.load_library("fsr_fused").fsr_fused_launch
-    f.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                  + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    f.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
+                  + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
+                  + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     f.restype = ctypes.c_int
     return f
+
+
+def occupancy():
+    """{"outside": n, "inside": n, "inside_smem": bytes}: the CTAs per SM
+    of the two class kernels on the current CUDA device
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor at 256 threads; the
+    inside kernel's persistent grid is SMs x its n) and the inside kernel's
+    dynamic shared memory per CTA."""
+    f = _build.load_library("fsr_fused").fsr_fused_occupancy
+    f.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    f.restype = ctypes.c_int
+    vals = [ctypes.c_int() for _ in range(3)]
+    err = f(*map(ctypes.byref, vals))
+    if err != 0:
+        raise RuntimeError(f"fsr_fused_occupancy failed: cudaError {err}")
+    return dict(zip(("outside", "inside", "inside_smem"),
+                    (v.value for v in vals)))
 
 
 def build_fsr_fused(batch, in_h, in_w, out_w, out_h, *, sharpness, centres,
@@ -82,9 +104,11 @@ def build_fsr_fused(batch, in_h, in_w, out_w, out_h, *, sharpness, centres,
     one pre-padded to the ring pitch fn.pad_to (rows read in place, no
     copy), holding packed RGBA8 texels (little-endian, R in the low byte);
     the result is a new (B, out_h, out_w) int32 tensor of packed RGBA8 with
-    alpha 255 on img's device. fn.launches counts CUDA kernel launches;
-    fn.reference(img) runs the plain version on img's device;
-    fn.dma_geometry is what the kernel loads and stores (kernels/sol.py).
+    alpha 255 on img's device. fn.launches counts calls that launched the
+    CUDA kernels (one per call: the outside pass and the inside kernel,
+    each only where its tile list is not empty); fn.reference(img) runs the
+    plain version on img's device; fn.dma_geometry is what the kernels load
+    and store (kernels/sol.py).
     """
     B, H, W = int(batch), int(in_h), int(in_w)
     OH, OW = int(out_h), int(out_w)
@@ -103,18 +127,24 @@ def build_fsr_fused(batch, in_h, in_w, out_w, out_h, *, sharpness, centres,
         err = _launch_fn()(
             img.data_ptr(), out.data_ptr(), m.col_i.data_ptr(),
             m.col_f.data_ptr(), m.row_i.data_ptr(), m.row_f.data_ptr(),
-            m.tile_x0.data_ptr(), m.tile_y0.data_ptr(), m.centres.data_ptr(),
-            B, H, W, img.shape[1], img.shape[2], OH, OW, float(sharp),
-            float(tint), IN_TILE, torch.cuda.current_stream(dev).cuda_stream)
+            m.tile_x0.data_ptr(), m.tile_y0.data_ptr(),
+            m.group_cls.data_ptr(), m.inside_tiles.data_ptr(), n_inside,
+            m.outside_tiles.data_ptr(), n_outside, B, H, W, img.shape[1],
+            img.shape[2], OH, OW, float(sharp), float(tint), FSR_TILE,
+            IN_TILE, torch.cuda.current_stream(dev).cuda_stream)
         return out, err
 
-    # every CTA stages its 24x24 window, 0 outside the image (fsr_fused.cu
-    # step 1); an output's own tap is its clamped EASU floor
+    # the inside tiles stage their 40x40 window edge-clamped; an output's
+    # own tap there is its clamped EASU floor. The outside tiles load each
+    # output's four bilinear taps (fsr_outside_kernel).
     m = tables.host
+    n_inside, n_outside = len(m.inside_tiles), len(m.outside_tiles)
     geometry = dma_geometry(
-        OH, OW, (TILE, TILE), (IN_TILE, IN_TILE), m.tile_x0, m.tile_y0,
-        m.centres, oob="zero", stage="all",
+        OH, OW, (FSR_TILE, FSR_TILE), (IN_TILE, IN_TILE), m.tile_x0,
+        m.tile_y0, m.centres, oob="clamp", stage="list",
+        staged=m.tile_inside, stage_quads=False, group=(TILE, TILE),
         tap_x=np.clip(m.col_i[0], 0, W - 1),
-        tap_y=np.clip(m.row_i[0], 0, H - 1))
+        tap_y=np.clip(m.row_i[0], 0, H - 1),
+        quad_x=m.col_i[[1, 1]], quad_y=m.row_i[[1, 1]])
     return kernel_fn("fused FSR", B, (H, W), input_padding(H, W), reference,
                      launch, geometry)

@@ -35,7 +35,7 @@ import torch
 
 from . import _build
 from ._common import DeviceTables, kernel_fn
-from ._maps import THREADS, _Tables
+from ._maps import THREADS, _Tables, group_classes
 
 __all__ = ["build_dma_floor", "dma_floor_reference", "check_geometry",
            "vpu_cycle", "build_vpu_rate", "vpu_rate_reference",
@@ -45,18 +45,14 @@ __all__ = ["build_dma_floor", "dma_floor_reference", "check_geometry",
 
 def staged_ctas(geom):
     """(B, tiles_y, tiles_x) bool: the CTAs that stage their window (every
-    CTA, or those whose tile passes the foveation circle test,
-    csrc/rgba8.cuh::inside_circle)."""
+    CTA, those whose tile passes the foveation circle test,
+    csrc/rgba8.cuh::inside_circle, or those the geometry's `staged`
+    table marks)."""
     g = geom
-    (tw, th), B = g["tile"], g["batch"]
-    gx = np.arange(-(-g["out_w"] // tw)) * tw + tw // 2
-    gy = np.arange(-(-g["out_h"] // th)) * th + th // 2
-    if g["stage"] == "all":
-        return np.ones((B, len(gy), len(gx)), bool)
-    c = g["centres"][:, :, None, None]
-    d1 = (c[:, 0] - gx) ** 2 + (c[:, 1] - gy[:, None]) ** 2
-    d2 = (c[:, 2] - gx) ** 2 + (c[:, 3] - gy[:, None]) ** 2
-    return (d1 <= c[:, 4]) | (d2 <= c[:, 4])
+    if g["stage"] == "list":
+        return g["staged"]
+    cls = group_classes(g["centres"], g["out_h"], g["out_w"], g["tile"])
+    return np.ones_like(cls) if g["stage"] == "all" else cls
 
 
 def floor_loads(geom):
@@ -64,7 +60,7 @@ def floor_loads(geom):
     staging CTA's window (its in-image words where out-of-image words are
     staged as 0 without a load), plus one word per output of a CTA that
     does not stage, or four per output where the kernel loads four
-    bilinear taps."""
+    bilinear taps (in a staging CTA too where stage_quads)."""
     g = geom
     (tw, th), (ww, wh) = g["tile"], g["window"]
     H, W, OH, OW = g["in_h"], g["in_w"], g["out_h"], g["out_w"]
@@ -79,17 +75,22 @@ def floor_loads(geom):
         win = ny[:, None] * nx[None, :]
     quad = g["quad_x"] is not None
     staged = staged_ctas(g)
-    return int(np.where(staged, win + (4 * outs if quad else 0),
+    staged_quads = quad and g["stage_quads"]
+    return int(np.where(staged, win + (4 * outs if staged_quads else 0),
                         (4 if quad else 1) * outs).sum())
 
 
 def check_geometry(geom):
     """Raise ValueError unless the floor can run `geom`: 256 threads per
-    CTA, and every output's tap inside the window of its tile."""
+    CTA, a staged table of the grid's shape for stage "list", and every
+    output's tap inside the window of its tile."""
     g = geom
     if g["threads"] != THREADS:
         raise ValueError(f"the DMA floor runs {THREADS} threads per CTA, "
                          f"the geometry {g['threads']}")
+    grid = (g["batch"], len(g["tile_y0"]), len(g["tile_x0"]))
+    if g["stage"] == "list" and np.shape(g["staged"]) != grid:
+        raise ValueError(f"stage 'list' needs a staged table of shape {grid}")
     for axis, tile, win, origins, taps in (
             ("column", g["tile"][0], g["window"][0], g["tile_x0"],
              g["tap_x"]),
@@ -130,7 +131,7 @@ def dma_floor_reference(img, geom):
 @dataclasses.dataclass(frozen=True)
 class _FloorTables(_Tables):
     """The floor's device tables; an empty array stands for a null
-    pointer (identity taps, no four-tap loads)."""
+    pointer (identity taps, no four-tap loads, no staged table)."""
 
     tile_x0: object
     tile_y0: object
@@ -139,16 +140,17 @@ class _FloorTables(_Tables):
     quad_x: object
     quad_y: object
     centres: object
+    staged: object
 
     _ARRAYS = ("tile_x0", "tile_y0", "tap_x", "tap_y", "quad_x", "quad_y",
-               "centres")
+               "centres", "staged")
 
 
 @functools.cache
 def _launch_fn():
     """The ctypes entry point, bound (and built) at the first launch."""
     f = _build.load_library("dma_floor").dma_floor_launch
-    f.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 14
+    f.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 15
                   + [ctypes.c_uint, ctypes.c_void_p])
     f.restype = ctypes.c_int
     return f
@@ -156,6 +158,10 @@ def _launch_fn():
 
 def _ptr(t):
     return t.data_ptr() if t.numel() else None
+
+
+# csrc/dma_floor.cu Stage: which CTAs stage their window
+_STAGES = {"circle": 0, "all": 1, "list": 2}
 
 
 def build_dma_floor(geom):
@@ -189,8 +195,10 @@ def build_dma_floor(geom):
     taps = (none, none) if identity else (g["tap_x"], g["tap_y"])
     quads = (none, none) if g["quad_x"] is None else (g["quad_x"],
                                                       g["quad_y"])
+    staged = (np.zeros(0, np.uint8) if g["stage"] != "list"
+              else np.ascontiguousarray(g["staged"], np.uint8))
     tables = DeviceTables(_FloorTables(
-        g["tile_x0"], g["tile_y0"], *taps, *quads, g["centres"]))
+        g["tile_x0"], g["tile_y0"], *taps, *quads, g["centres"], staged))
     (tw, th), (ww, wh) = g["tile"], g["window"]
 
     def reference(img):
@@ -204,10 +212,11 @@ def build_dma_floor(geom):
         err = _launch_fn()(
             img.data_ptr(), out.data_ptr(), m.tile_x0.data_ptr(),
             m.tile_y0.data_ptr(), _ptr(m.tap_x), _ptr(m.tap_y),
-            _ptr(m.quad_x), _ptr(m.quad_y), m.centres.data_ptr(), B, H, W,
-            img.shape[1], img.shape[2], OH, OW, tw, th, ww, wh,
-            g["threads"], int(g["stage"] == "all"), int(g["oob"] == "clamp"),
-            0, torch.cuda.current_stream(dev).cuda_stream)
+            _ptr(m.quad_x), _ptr(m.quad_y), m.centres.data_ptr(),
+            _ptr(m.staged), B, H, W, img.shape[1], img.shape[2], OH, OW, tw,
+            th, ww, wh, g["threads"], _STAGES[g["stage"]],
+            int(g["stage_quads"]), int(g["oob"] == "clamp"), 0,
+            torch.cuda.current_stream(dev).cuda_stream)
         return out, err
 
     fn = kernel_fn("DMA floor", B, (H, W), (g["hp"], g["wp"]), reference,

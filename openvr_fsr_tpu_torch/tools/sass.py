@@ -1,5 +1,6 @@
 """What a built kernel library's SASS shows: instruction counts per
-function and per loop, read with `cuobjdump -sass` (beside nvcc).
+function and per loop, read with `cuobjdump -sass` (beside nvcc); and what
+ptxas reported for each kernel when it was built (ptxas_usage).
 
 chip_smoke.py checks with it that each kernel kept its work (the DMA
 floor its loads and stores, each rate probe the instructions it meters),
@@ -14,10 +15,38 @@ import subprocess
 from pathlib import Path
 
 __all__ = ["disassemble", "function_counts", "loops", "innermost_loop",
-           "probe_loops"]
+           "probe_loops", "ptxas_usage"]
 
 _INSN = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _BRANCH = re.compile(r"\bBRA\s+0x([0-9a-f]+)")
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def ptxas_usage(log):
+    """{kernel function: {"registers", "spill_stores", "spill_loads",
+    "smem"}} from the `nvcc -Xptxas -v` output of one build (the .log
+    beside each library of kernels/_build.py)."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {"registers": None, "spill_stores": 0,
+                       "spill_loads": 0, "smem": 0}
+            continue
+        if fn is None:
+            continue
+        if (m := _SPILL.search(line)):
+            out[fn]["spill_stores"] = int(m.group(1))
+            out[fn]["spill_loads"] = int(m.group(2))
+        if (m := _USED.search(line)):
+            out[fn]["registers"] = int(m.group(1))
+            sm = _SMEM.search(line)
+            out[fn]["smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def disassemble(lib, nvcc):

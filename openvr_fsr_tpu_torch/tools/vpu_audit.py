@@ -26,7 +26,7 @@ bounds its math. It
       bound_ms is the largest of the four, never their sum, and share =
       bound / ms.
 The ops counted are the algorithm's per output pixel: a kernel's
-recomputed halo (B1 computes stage 1 on 18x18 pixels per 16x16 tile) is
+recomputed halo (B1 computes stage 1 on 34x34 pixels per 32x32 tile) is
 its loss, not its bound, and the texel decode and pack are not counted, so
 every floor is a lower bound.
 
@@ -76,9 +76,11 @@ LANES_PER_SM = 128          # FP32 lanes, and shared-memory bytes per clock
 # its source (staging stores and recomputed halos not counted), inside the
 # circle and on the fallback:
 SMEM_WORDS = {
-    # fsr_fused.cu:95 12 texels for EASU, :129-132 + :124 15 f32 for RCAS;
-    # fallback :107-108 4 texels, :124 3 f32
-    "fsr_fused": (27, 7),
+    # fsr_fused.cu:179 the group class, :181 + :190 4 map words and :185
+    # 12 decoded taps of 16 bytes (48 words) for EASU, :257 + :262-265 15
+    # f32 for RCAS; fallback: the outside pass (fsr_outside_kernel) reads no
+    # shared memory
+    "fsr_fused": (68, 0),
     # rcas_sharpen.cu:79-85 the 5 cross taps x 3 channels; fallback reads
     # device memory only
     "rcas_sharpen": (15, 0),
@@ -510,12 +512,13 @@ def _kernel_build(kernel, radius, dev):
 
 
 def inside_pixels(geom):
-    """Output pixels inside the foveation circle by the kernel's own tile
-    test (csrc/rgba8.cuh::inside_circle over its CTA tiles), and the
-    fallback pixels."""
+    """Output pixels inside the foveation circle by the kernel's own test
+    (the reference's, per foveation group: csrc/rgba8.cuh::inside_circle
+    over the CTA tiles, or the host's per-group classes of the fused FSR
+    kernel), and the fallback pixels."""
     from ..kernels._common import circle_mask
     mask = circle_mask(torch.as_tensor(geom["centres"]), geom["out_h"],
-                       geom["out_w"], tuple(geom["tile"]))
+                       geom["out_w"], tuple(geom["group"]))
     inside = int(mask.sum())
     return inside, mask.numel() - inside
 

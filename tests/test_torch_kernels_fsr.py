@@ -18,7 +18,8 @@ from openvr_fsr_tpu.utils import frames as JFR  # noqa: E402
 
 from openvr_fsr_tpu_torch.core import constants as C  # noqa: E402
 from openvr_fsr_tpu_torch.kernels import _build  # noqa: E402
-from openvr_fsr_tpu_torch.kernels._maps import IN_TILE, TILE, fsr_maps  # noqa: E402
+from openvr_fsr_tpu_torch.kernels._maps import (FSR_TILE, IN_TILE,  # noqa: E402
+                                                fsr_maps)
 from openvr_fsr_tpu_torch.kernels.fsr import (build_fsr_fused,  # noqa: E402
                                               circle_mask)
 
@@ -151,17 +152,22 @@ class TestBuild:
 class TestMaps:
     @pytest.mark.parametrize("h,w,rs", [(96, 128, 0.75), (48, 56, 0.75),
                                         (64, 72, 1.3), (1869, 1683, 0.75),
-                                        (100, 100, 0.99), (60, 90, 0.5)])
+                                        (100, 100, 0.99), (60, 90, 0.5),
+                                        (2492, 2244, 1.3), (1246, 1122, 0.5),
+                                        (1470, 1324, 0.59), (1669, 1503, 0.67),
+                                        (1918, 1727, 0.77), (45, 61, 0.75)])
     def test_footprints_cover_every_tap(self, h, w, rs):
         """Every texel a tile's pixels (halo included) read lies inside the
-        IN_TILE x IN_TILE window the kernel stages for that tile."""
+        IN_TILE x IN_TILE window the inside kernel stages for that tile, at
+        the main path, the supersample, the AMD presets and small shapes."""
         ow, oh = _out_size(h, w, rs)
         m = fsr_maps(1, h, w, ow, oh, np.zeros((1, 5), np.int64))
         for axis_i, origins, n_out, n_in in ((m.col_i, m.tile_x0, ow, w),
                                              (m.row_i, m.tile_y0, oh, h)):
             fi, b0 = axis_i
             for t, o in enumerate(origins):
-                lo, hi = max(t * TILE - 1, 0), min(t * TILE + TILE, n_out - 1)
+                lo = max(t * FSR_TILE - 1, 0)
+                hi = min(t * FSR_TILE + FSR_TILE, n_out - 1)
                 idx = np.concatenate([
                     np.clip(fi[lo:hi + 1, None] + np.arange(-1, 3), 0,
                             n_in - 1).ravel(),
@@ -181,3 +187,128 @@ class TestMaps:
                                  ((cen[b, 0], cen[b, 1]),
                                   (cen[b, 2], cen[b, 3])), int(cen[b, 4]))
             assert np.array_equal(got[b], want)
+
+
+# the foveation tables of the redesigned kernel: (in_h, in_w, rs) at the
+# main path, the supersample, the AMD presets at the headset's output, and
+# small shapes; (radius, eyes) centred and off-centre
+TABLE_SHAPES = [(1869, 1683, 0.75), (2492, 2244, 1.3), (1246, 1122, 0.5),
+                (1470, 1324, 0.59), (1669, 1503, 0.67), (1918, 1727, 0.77),
+                (96, 128, 0.75), (45, 61, 0.75), (64, 72, 1.3)]
+TABLE_CIRCLES = [(0.0, CENTERS), (0.3, ((0.3, 0.6), (0.7, 0.4))),
+                 (0.5, CENTERS), (2.0, CENTERS)]
+
+
+@pytest.mark.parametrize("batch", [2, 4])
+@pytest.mark.parametrize("radius,eyes", TABLE_CIRCLES,
+                         ids=[f"r{r}" for r, _ in TABLE_CIRCLES])
+@pytest.mark.parametrize("h,w,rs", TABLE_SHAPES,
+                         ids=[f"{w}x{h}-rs{rs}" for h, w, rs in TABLE_SHAPES])
+def test_foveation_tables(h, w, rs, radius, eyes, batch):
+    """The host's class table and tile lists (kernels/_maps.py::fsr_maps):
+    the class bits are the reference's circle test sampled per 16x16
+    group; the inside and outside lists partition the 32x32 tiles, a tile
+    inside where any of its outputs is; every tile's window fits its cap
+    and holds its haloed outputs' taps before their edge clamp (the kernel
+    stages windows edge-clamped)."""
+    ow, oh = _out_size(h, w, rs)
+    cen = C.centres_payload(ow, oh, radius, eyes,
+                            tuple(i % 2 for i in range(batch)))
+    m = fsr_maps(batch, h, w, ow, oh, cen)
+    mask = circle_mask(torch.from_numpy(cen), oh, ow).numpy()
+    assert m.group_cls.dtype == np.int32
+    assert np.array_equal(m.group_cls, mask[:, ::16, ::16].astype(np.int32))
+    ty, tx = -(-oh // FSR_TILE), -(-ow // FSR_TILE)
+    pad = np.zeros((batch, ty * FSR_TILE, tx * FSR_TILE), bool)
+    pad[:, :oh, :ow] = mask
+    any_inside = pad.reshape(batch, ty, FSR_TILE, tx, FSR_TILE).any(
+        axis=(2, 4)).ravel()
+    ids = np.arange(batch * ty * tx)
+    assert m.inside_tiles.dtype == m.outside_tiles.dtype == np.int32
+    assert np.array_equal(m.inside_tiles, ids[any_inside])
+    assert np.array_equal(m.outside_tiles, ids[~any_inside])
+    assert np.array_equal(m.tile_inside.ravel(), any_inside)
+    for (fi, b0), origins, n_out, n_in in ((m.col_i, m.tile_x0, ow, w),
+                                           (m.row_i, m.tile_y0, oh, h)):
+        out = np.arange(n_out)
+        first = np.maximum(out // FSR_TILE * FSR_TILE - 1, 0)
+        last = np.minimum(out // FSR_TILE * FSR_TILE + FSR_TILE, n_out - 1)
+        taps = np.concatenate([fi[:, None] + np.arange(-1, 3),
+                               b0[:, None] + np.arange(2)], axis=1)
+        lo, hi = taps.min(axis=1), taps.max(axis=1)
+        assert lo.min() >= -2 and hi.max() <= n_in + 1
+        for t, o in enumerate(origins):
+            seg = slice(first[t * FSR_TILE], last[t * FSR_TILE] + 1)
+            assert lo[seg].min() >= o and hi[seg].max() < o + IN_TILE
+
+
+def test_ptxas_usage_reads_a_build_log():
+    from openvr_fsr_tpu_torch.tools.sass import ptxas_usage
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117fsr_inside_kernelENS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117fsr_inside_kernelENS_6ParamsE
+    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 28976 bytes smem, 480 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118fsr_outside_kernelENS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118fsr_outside_kernelENS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 38 registers, 480 bytes cmem[0]
+"""
+    u = ptxas_usage(log)
+    assert list(u) == ["_ZN12_GLOBAL__N_117fsr_inside_kernelENS_6ParamsE",
+                       "_ZN12_GLOBAL__N_118fsr_outside_kernelENS_6ParamsE"]
+    assert list(u.values()) == [
+        {"registers": 96, "spill_stores": 8, "spill_loads": 12,
+         "smem": 28976},
+        {"registers": 38, "spill_stores": 0, "spill_loads": 0, "smem": 0}]
+
+
+def test_ab_tool_without_a_gpu_fails(tmp_path):
+    """tools/ab_fused.py: no CUDA GPU, one error line and a non-zero exit,
+    before anything is built; jax never imported."""
+    import json
+    import os
+    import subprocess
+    import sys
+    code = ("import runpy, sys\n"
+            "sys.argv = ['ab_fused', '--parent', 'absent.cu']\n"
+            "try:\n"
+            "    runpy.run_module('openvr_fsr_tpu_torch.tools.ab_fused', "
+            "run_name='__main__')\n"
+            "finally:\n"
+            "    bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'openvr_fsr_tpu'))\n"
+            "    print('imported:', bad, file=sys.stderr)\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                       env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+                       capture_output=True, text=True, timeout=180)
+    assert r.returncode != 0 and "imported: []" in r.stderr, r.stderr
+    (line,) = r.stdout.splitlines()
+    rec = json.loads(line)
+    assert rec["metric"] == "ab_fused" and rec["value"] is None
+    assert "no CUDA GPU" in rec["error"]
+
+
+def test_parent_tables_are_the_16x16_kernels(monkeypatch):
+    """The A/B tool drives the earlier kernel with 24x24 windows per 16x16
+    tile, each holding its haloed tile's taps."""
+    from openvr_fsr_tpu_torch.tools import ab_fused
+    h, w, rs = 96, 128, 0.75
+    ow, oh = _out_size(h, w, rs)
+    m = fsr_maps(2, h, w, ow, oh, C.centres_payload(ow, oh, 0.5, CENTERS,
+                                                    (0, 1)))
+    seen = {}
+
+    def entry(*args):
+        seen["args"] = args
+        return 0
+    run = ab_fused.parent_launcher(entry, m, 2, 0.5, 1.0, torch.device("cpu"))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: type(
+        "S", (), {"cuda_stream": 0})())
+    out = run(torch.zeros((2, h, w), dtype=torch.int32))
+    assert out.shape == (2, oh, ow)
+    args = seen["args"]
+    assert len(args) == len(ab_fused.PARENT_ARGTYPES)
+    assert args[9:16] == (2, h, w, h, w, oh, ow)
+    assert args[18] == ab_fused.PARENT_WINDOW == 24

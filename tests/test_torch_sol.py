@@ -76,8 +76,11 @@ def _emulate(img, g):
                 ox = np.arange(tx * tw, min(tx * tw + tw, OW))
                 n = len(oy) * len(ox)
                 gx, gy = tx * tw + tw // 2, ty * th + th // 2
-                inside = ((c[0] - gx) ** 2 + (c[1] - gy) ** 2 <= c[4]
-                          or (c[2] - gx) ** 2 + (c[3] - gy) ** 2 <= c[4])
+                if g["stage"] == "list":
+                    inside = g["staged"][b, ty, tx]
+                else:
+                    inside = ((c[0] - gx) ** 2 + (c[1] - gy) ** 2 <= c[4]
+                              or (c[2] - gx) ** 2 + (c[3] - gy) ** 2 <= c[4])
                 if g["stage"] == "all" or inside:
                     y = g["tile_y0"][ty] + np.arange(wh)
                     x = g["tile_x0"][tx] + np.arange(ww)
@@ -95,7 +98,7 @@ def _emulate(img, g):
                     assert ry.min() >= 0 and ry.max() < wh
                     assert rx.min() >= 0 and rx.max() < ww
                     out[b][np.ix_(oy, ox)] = win[np.ix_(ry, rx)]
-                    loads += 4 * n if quad else 0
+                    loads += 4 * n if quad and g["stage_quads"] else 0
                 elif quad:
                     qy = np.clip(g["quad_y"][1][oy], 0, H - 1)
                     qx = np.clip(g["quad_x"][1][ox], 0, W - 1)
@@ -169,7 +172,17 @@ class TestGeometry:
             assert np.array_equal(g["tile_x0"], maps.tile_x0)
             assert np.array_equal(g["tile_y0"], maps.tile_y0)
             assert np.array_equal(g["tap_x"], np.clip(maps.col_i[0], 0, w - 1))
-            assert g["stage"] == "all" and g["oob"] == "zero"
+            assert g["oob"] == ("clamp" if plan == "fsr_fused" else "zero")
+        if plan == "fsr_fused":
+            # the inside tiles stage, the outside ones load four bilinear
+            # taps per output, and only those
+            assert g["stage"] == "list" and not g["stage_quads"]
+            assert np.array_equal(g["staged"], maps.tile_inside)
+            assert np.array_equal(g["quad_x"][1], maps.col_i[1])
+            assert np.array_equal(g["quad_y"][1], maps.row_i[1])
+            assert g["tile"] == (32, 32) and g["group"] == (16, 16)
+        elif plan == "cas_upscale":
+            assert g["stage"] == "all"
         elif plan == "nvscaler":
             cfg = C.nvscaler_update_config(0.9, w, h, w, h, ow, oh, ow, oh)
             maps = _maps.nvscaler_maps(2, h, w, ow, oh, cfg, cen)
@@ -203,3 +216,51 @@ def test_tap_outside_its_window_is_refused():
         sol.build_dma_floor(bad)
     with pytest.raises(ValueError, match="threads"):
         sol.build_dma_floor(dict(g, threads=128))
+
+
+FUSED_SHAPES = [(1869, 1683, 0.75), (2492, 2244, 1.3), (1246, 1122, 0.5),
+                (96, 128, 0.75), (45, 61, 0.75)]
+FUSED_CIRCLES = [(0.0, ((0.5, 0.5), (0.5, 0.5))),
+                 (0.3, ((0.3, 0.6), (0.7, 0.4))),
+                 (0.5, ((0.5, 0.5), (0.5, 0.5))),
+                 (2.0, ((0.5, 0.5), (0.5, 0.5)))]
+
+
+@pytest.mark.parametrize("batch", [2, 4])
+@pytest.mark.parametrize("radius,eyes", FUSED_CIRCLES,
+                         ids=[f"r{r}" for r, _ in FUSED_CIRCLES])
+@pytest.mark.parametrize("h,w,rs", FUSED_SHAPES,
+                         ids=[f"{w}x{h}-rs{rs}" for h, w, rs in FUSED_SHAPES])
+def test_fused_geometry_is_the_two_kernels(h, w, rs, radius, eyes, batch):
+    """B1's DMA geometry against a numpy statement of what its two kernels
+    load and store (csrc/fsr_fused.cu): a 32x32 tile with an output inside
+    the circle stages its 40x40 window, every word loaded edge-clamped;
+    every other tile loads four bilinear taps per output from device
+    memory; every output word is stored once."""
+    from openvr_fsr_tpu_torch.kernels.fsr import build_fsr_fused
+    from openvr_fsr_tpu_torch.kernels._common import circle_mask
+    ow, oh = Config(render_scale=rs).output_size(w, h)
+    cen = C.centres_payload(ow, oh, radius, eyes,
+                            tuple(i % 2 for i in range(batch)))
+    g = build_fsr_fused(batch, h, w, ow, oh, sharpness=0.9,
+                        centres=cen).dma_geometry
+    m = _maps.fsr_maps(batch, h, w, ow, oh, cen)
+    ty, tx = -(-oh // 32), -(-ow // 32)
+    mask = np.zeros((batch, ty * 32, tx * 32), bool)
+    mask[:, :oh, :ow] = circle_mask(torch.from_numpy(cen), oh, ow).numpy()
+    inside = mask.reshape(batch, ty, 32, tx, 32).any(axis=(2, 4))
+    outs = (np.minimum(32, oh - np.arange(ty) * 32)[:, None]
+            * np.minimum(32, ow - np.arange(tx) * 32)[None, :])
+    loads = int(np.where(inside, 40 * 40, 4 * outs).sum())
+    assert (g["tile"], g["window"], g["group"]) == ((32, 32), (40, 40),
+                                                    (16, 16))
+    assert (g["stage"], g["stage_quads"], g["oob"]) == ("list", False,
+                                                       "clamp")
+    assert np.array_equal(g["staged"], inside)
+    assert np.array_equal(g["quad_x"][1], m.col_i[1])
+    assert np.array_equal(g["quad_y"][1], m.row_i[1])
+    assert np.array_equal(g["tap_x"], np.clip(m.col_i[0], 0, w - 1))
+    assert np.array_equal(g["tap_y"], np.clip(m.row_i[0], 0, h - 1))
+    floor = sol.build_dma_floor(g)
+    assert floor.read_bytes == 4 * loads
+    assert floor.write_bytes == 4 * batch * oh * ow
