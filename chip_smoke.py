@@ -11,9 +11,9 @@ _build/. Phases, in order; any failure exits non-zero before the result
 lines:
 
   1. setup: card, power limit, toolchain versions, the kernel builds, and
-     the registers, spills and CTAs per SM of fsr_fused's two class
-     kernels (the bilinear pass outside the foveation circle and the
-     persistent EASU + RCAS kernel inside it);
+     the registers, spills and CTAs per SM of the two class kernels of each
+     upscaler (fsr_fused, nis_scaler, cas_upscale: the shared bilinear pass
+     outside the foveation circle, and the kernel inside it);
   2. each kernel against its plain torch version on the card, at full
      size, on a zone-plate + noise set and a uniform-random set, both with
      alpha that is not all 255:
@@ -26,15 +26,20 @@ lines:
        nis_sharpen  the same, hdr_mode 0, plus radius 2.0 at hdr_mode 1, 2;
        nis_scaler   2 x 1683x1869 -> 2 x 2244x2492, radius 0.5, 2.0, 0.0
                     and 0.5 with debug, hdr_mode 0, plus radius 2.0 at
-                    hdr_mode 1 and 2;
+                    hdr_mode 1 and 2; off-centre eyes at radius 0.3 (hdr 0,
+                    1, 2) and batch 4; 0 unequal texels, every case;
        cas_upscale  2 x 1683x1869 -> 2 x 2244x2492 (sharpness 0.8), radius
-                    0.5, 2.0, 0.0 and 0.5 with debug; plus rs 1.3 and a
-                    scale above CAS's 4x area limit (rs 0.4);
+                    0.5, 2.0, 0.0 and 0.5 with debug; off-centre eyes at
+                    radius 0.3 and batch 4; the full-size supersample (rs
+                    1.3); plus rs 1.3 and a scale above CAS's 4x area limit
+                    (rs 0.4) small; 0 unequal texels, every case;
        cas_sharpen  2 x 2244x2492 (sharpness 0.8), radius 0.4, 2.0, 0.0 and
                     0.4 with debug; plus max_color_delta 0.05, which must
                     change the output;
      and for each kernel a ring-pitch input and small cases (one with a
-     bright border) against the CPU path;
+     bright border) against the CPU path; and, in a fresh process, a first
+     NVScaler call on a side stream (torch.cuda.Stream()), 0 unequal
+     texels: nothing the kernel reads may be ordered on another stream;
   3. the plans through the public API, each with the launch counts set to
      0 just before and read just after: FSR rs 0.75, FSR rs 1, NIS rs 0.75,
      NIS rs 1, CasModel() (rs 1) and CasModel(render_scale=0.75) process 10
@@ -48,11 +53,12 @@ lines:
   5. the measurement path: the DMA floor (csrc/dma_floor.cu) keeps its
      loads in its SASS, and equals its plain version word for word at the
      full-size geometry of each of the seven bench paths, on the unpadded
-     and the ring-pitch input, and at fsr_fused's geometry at radius 0.0
-     and 2.0; the fused kernel against its plain version at the full
-     supersample size (2 x 2244x2492 -> 2 x 2917x3239); fsr_fused and its
-     floor timed in turns (bench.measure) at radius 0.0, 0.5 and 2.0 and
-     at rs 1.3, with their vs_sol; the
+     and the ring-pitch input, and at the three upscalers' geometries at
+     radius 0.0 and 2.0; the fused kernel against its plain version at the
+     full supersample size (2 x 2244x2492 -> 2 x 2917x3239); fsr_fused and
+     its floor timed in turns (bench.measure) at radius 0.0, 0.5 and 2.0
+     and at rs 1.3 ([b1] lines), nis_scaler and cas_upscale with theirs at
+     radius 0.0, 0.5 and 2.0 ([b3], [b5] lines), with their vs_sol; the
      floor's time at the fsr_fused geometry (also call by call, bench_fn)
      and the card's pure-read and pure-write rates (hbm_calibration);
      then the bench entries, bench.main() and tools.bench_paths.main()
@@ -93,6 +99,7 @@ SHARPNESS = 0.9
 CAS_SHARPNESS = 0.8          # CasModel's default
 PARITY_MIN_EQUAL = 0.99999   # fraction of equal texels, kernel vs plain
 PARITY_MAX_LSB = 1
+EXACT = ("fsr_fused", "nis_scaler", "cas_upscale")   # held to 0 unequal texels
 VS_SOL_MAX = 1.02            # floor / kernel; above it the floor is wrong
 RATE_MAX = 1.05              # a measured rate over its bound
 SHARE_MAX = 1.05             # an audit row's bound over its time
@@ -102,6 +109,26 @@ BF16_PEAK = 989.4e12         # dense bf16 tensor cores, FLOP/s
 N_PAIRS = 10                 # stereo pairs per plan through the public API
 CENTRES = ((0.5, 0.5), (0.5, 0.5))
 OFF_CENTRE = ((0.3, 0.6), (0.7, 0.4))   # eyes whose circles cut many tiles
+# A fresh process whose first NVScaler launch is on a side stream; prints
+# the unequal texels against the plain version and the launch count.
+SIDE_STREAM = """
+import sys, torch
+from openvr_fsr_tpu_torch.core import constants as C
+from openvr_fsr_tpu_torch.kernels.nis import build_nvscaler
+h, w, oh, ow = map(int, sys.argv[1:5])
+cfg = C.nvscaler_update_config(0.9, w, h, w, h, ow, oh, ow, oh)
+fn = build_nvscaler(2, h, w, ow, oh, nis_cfg=cfg, centres=C.centres_payload(
+    ow, oh, 2.0, ((0.5, 0.5), (0.5, 0.5)), (0, 1)))
+gen = torch.Generator(device="cuda").manual_seed(3)
+img = torch.randint(0, 256, (2, h, w, 4), dtype=torch.uint8, device="cuda",
+                    generator=gen).view(torch.int32)[..., 0].contiguous()
+torch.cuda.synchronize()
+side = torch.cuda.Stream()
+with torch.cuda.stream(side):
+    got = fn(img)
+side.synchronize()
+print(int((got != fn.reference(img)).sum()), fn.launches)
+"""
 
 
 def log(*a):
@@ -164,10 +191,10 @@ def main():
                                       get_model, upscale)
     from openvr_fsr_tpu_torch.core import constants as C
     from openvr_fsr_tpu_torch.kernels import _build
+    from openvr_fsr_tpu_torch.kernels._common import occupancy
     from openvr_fsr_tpu_torch.kernels.cas import (build_cas_sharpen,
                                                   build_cas_upscale)
     from openvr_fsr_tpu_torch.kernels.fsr import build_fsr_fused
-    from openvr_fsr_tpu_torch.kernels.fsr import occupancy as fsr_occupancy
     from openvr_fsr_tpu_torch.kernels.nis import build_nvscaler, build_nvsharpen
     from openvr_fsr_tpu_torch.kernels.rcas import build_rcas_sharpen
     from openvr_fsr_tpu_torch.tools import sass
@@ -195,20 +222,23 @@ def main():
         if build_log.exists():
             for line in build_log.read_text().splitlines()[1:]:  # nvcc output
                 log(f"[setup]   {name}: {line.strip()}")
-    usage = sass.ptxas_usage(_build.library_path("fsr_fused")
-                             .with_suffix(".log").read_text())
-    per_sm = fsr_occupancy()
-    for cls in ("outside", "inside"):
-        u = [v for fn, v in usage.items() if f"fsr_{cls}_kernel" in fn]
-        if len(u) != 1 or per_sm[cls] < 1:
-            fail(f"fsr_fused {cls} kernel: ptxas {u}, {per_sm[cls]} CTAs "
-                 "per SM")
-        u = u[0]
-        smem = (f"{per_sm['inside_smem']} B dynamic smem" if cls == "inside"
-                else f"{u['smem']} B static smem")
-        log(f"[setup] fsr_fused {cls} kernel: {u['registers']} registers, "
-            f"{u['spill_stores']} B spill stores, {u['spill_loads']} B spill "
-            f"loads, {smem}, {per_sm[cls]} CTAs per SM")
+    for kernel, prefix in (("fsr_fused", "fsr"), ("nis_scaler", "nis"),
+                           ("cas_upscale", "cas")):
+        usage = sass.ptxas_usage(_build.library_path(kernel)
+                                 .with_suffix(".log").read_text())
+        per_sm = occupancy(kernel)
+        for cls in ("outside", "inside"):
+            u = [v for fn, v in usage.items()
+                 if f"{prefix}_{cls}_kernel" in fn]
+            if len(u) != 1 or per_sm[cls] < 1:
+                fail(f"{kernel} {cls} kernel: ptxas {u}, {per_sm[cls]} CTAs "
+                     "per SM")
+            u = u[0]
+            smem = (f"{per_sm['inside_smem']} B smem" if cls == "inside"
+                    else f"{u['smem']} B static smem")
+            log(f"[setup] {kernel} {cls} kernel: {u['registers']} registers, "
+                f"{u['spill_stores']} B spill stores, {u['spill_loads']} B "
+                f"spill loads, {smem}, {per_sm[cls]} CTAs per SM")
 
     def centres(ow, oh, radius, b=2, eyes=CENTRES):
         return C.centres_payload(ow, oh, radius, eyes,
@@ -229,17 +259,20 @@ def main():
         return build_nvsharpen(2, h, w, nis_cfg=cfg,
                                centres=centres(w, h, radius), debug=debug)
 
-    def scaler(radius, debug=False, hdr=0, h=H, w=W, rs=0.75):
+    def scaler(radius, debug=False, hdr=0, h=H, w=W, rs=0.75, b=2,
+               eyes=CENTRES):
         ow, oh = Config(render_scale=rs).output_size(w, h)
         cfg = C.nvscaler_update_config(SHARPNESS, w, h, w, h, ow, oh, ow, oh,
                                        hdr_mode=hdr)
-        return build_nvscaler(2, h, w, ow, oh, nis_cfg=cfg,
-                              centres=centres(ow, oh, radius), debug=debug)
+        return build_nvscaler(b, h, w, ow, oh, nis_cfg=cfg,
+                              centres=centres(ow, oh, radius, b, eyes),
+                              debug=debug)
 
-    def cas_up(radius, debug=False, h=H, w=W, rs=0.75):
+    def cas_up(radius, debug=False, h=H, w=W, rs=0.75, b=2, eyes=CENTRES):
         ow, oh = Config(render_scale=rs).output_size(w, h)
-        return build_cas_upscale(2, h, w, ow, oh, sharpness=CAS_SHARPNESS,
-                                 centres=centres(ow, oh, radius), debug=debug)
+        return build_cas_upscale(b, h, w, ow, oh, sharpness=CAS_SHARPNESS,
+                                 centres=centres(ow, oh, radius, b, eyes),
+                                 debug=debug)
 
     def cas_sh(radius, debug=False, mcd=1.0, h=OH, w=OW):
         return build_cas_sharpen(2, h, w, sharpness=CAS_SHARPNESS,
@@ -275,7 +308,7 @@ def main():
         log(f"[parity] {kernel} {label}: unequal {ne} of {n} texels, "
             f"max {mx} LSB")
         if mx > PARITY_MAX_LSB or 1.0 - ne / n < PARITY_MIN_EQUAL \
-                or (kernel == "fsr_fused" and ne):
+                or (kernel in EXACT and ne):
             fail(f"{kernel} disagrees with its plain version ({ne}, {mx})")
         max_lsb[kernel] = max(max_lsb[kernel], mx)
         return got
@@ -309,13 +342,19 @@ def main():
         if torch.equal(got, kernel_out["cas_sh", 2.0, False, name]):
             fail("cas_sharpen: max_color_delta 0.05 left the output as it "
                  "was at 1.0")
-    # fsr_fused at class borders: off-centre eyes, and a batch of 4
-    for name, img in sets["in"].items():
-        parity("fsr_fused", f"2x{W}x{H}->2x{OW}x{OH} radius=0.3 eyes "
-               f"{OFF_CENTRE} {name}", fsr(0.3, eyes=OFF_CENTRE), img)
-    parity("fsr_fused", f"4x{W}x{H}->4x{OW}x{OH} radius=0.5 batch 4 (both "
-           "sets)", fsr(0.5, b=4),
-           torch.cat([sets["in"]["zone+noise"], sets["in"]["uniform"]]))
+    # the upscalers at class borders: off-centre eyes, and a batch of 4
+    both = torch.cat([sets["in"]["zone+noise"], sets["in"]["uniform"]])
+    for kernel, build in (("fsr_fused", fsr), ("nis_scaler", scaler),
+                          ("cas_upscale", cas_up)):
+        for name, img in sets["in"].items():
+            parity(kernel, f"2x{W}x{H}->2x{OW}x{OH} radius=0.3 eyes "
+                   f"{OFF_CENTRE} {name}", build(0.3, eyes=OFF_CENTRE), img)
+        parity(kernel, f"4x{W}x{H}->4x{OW}x{OH} radius=0.5 batch 4 (both "
+               "sets)", build(0.5, b=4), both)
+    for hdr in (1, 2):
+        parity("nis_scaler", f"2x{W}x{H}->2x{OW}x{OH} radius=0.3 eyes "
+               f"{OFF_CENTRE} hdr={hdr} uniform",
+               scaler(0.3, hdr=hdr, eyes=OFF_CENTRE), sets["in"]["uniform"])
     for hdr in (1, 2):
         for name in ("zone+noise", "uniform"):
             parity("nis_scaler", f"2x{W}x{H}->2x{OW}x{OH} radius=2.0 "
@@ -376,9 +415,22 @@ def main():
             log(f"[parity] {kernel} {label} vs {ref_name}: unequal {ne} of "
                 f"{n}, max {mx} LSB")
             if mx > PARITY_MAX_LSB or 1.0 - ne / n < PARITY_MIN_EQUAL \
-                    or (kernel == "fsr_fused" and ne):
+                    or (kernel in EXACT and ne):
                 fail(f"{kernel} disagrees with its plain version")
             max_lsb[kernel] = max(max_lsb[kernel], mx)
+
+    # NVScaler's first launch in a fresh process, on a side stream
+    r = subprocess.run([sys.executable, "-c", SIDE_STREAM, str(H), str(W),
+                        str(OH), str(OW)], cwd=Path(__file__).resolve().parent,
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        fail(f"nis_scaler on a side stream: exit {r.returncode}\n{r.stderr}")
+    ne, n_launch = map(int, r.stdout.split())
+    log(f"[parity] nis_scaler 2x{W}x{H}->2x{OW}x{OH} radius=2.0, a fresh "
+        f"process's first call on a side stream: unequal {ne} texels, "
+        f"{n_launch} launch")
+    if ne or n_launch != 1:
+        fail("nis_scaler disagrees with its plain version on a side stream")
 
     # ---- 3. the plans through the public API --------------------------------
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -587,9 +639,10 @@ def main():
     max_lsb["dma_floor"] = 0
     geometries = [(name, *bench_paths.path_config(name))
                   for name in bench_paths.PATHS]
-    geometries += [(f"fsr_fused radius {r}", cfg.with_(radius=r), h, w)
+    geometries += [(f"{path} radius {r}", cfg.with_(radius=r), h, w)
+                   for path in ("fsr_fused", "nvscaler", "cas_upscale")
                    for r in (0.0, 2.0)
-                   for cfg, h, w in [bench_paths.path_config("fsr_fused")]]
+                   for cfg, h, w in [bench_paths.path_config(path)]]
     for name, cfg, h, w in geometries:
         img = sets["in" if (h, w) == (H, W) else "full"]["zone+noise"]
         fn = Pipeline(cfg, device="cuda")._build(2, h, w, (0, 1), True)
@@ -613,9 +666,10 @@ def main():
                      "version")
             max_lsb["dma_floor"] = max(max_lsb["dma_floor"], mx)
     ss_w, ss_h = Config(render_scale=1.3).output_size(OW, OH)
-    parity("fsr_fused", f"2x{OW}x{OH}->2x{ss_w}x{ss_h} rs=1.3 radius=0.5 "
-           "zone+noise", fsr(0.5, h=OH, w=OW, rs=1.3),
-           sets["full"]["zone+noise"])
+    for kernel, build in (("fsr_fused", fsr), ("cas_upscale", cas_up)):
+        parity(kernel, f"2x{OW}x{OH}->2x{ss_w}x{ss_h} rs=1.3 radius=0.5 "
+               "zone+noise", build(0.5, h=OH, w=OW, rs=1.3),
+               sets["full"]["zone+noise"])
     floor = build_dma_floor(timed["fsr_fused"][0].dma_geometry)
     img = timed["fsr_fused"][1]
     rounds = {"kernel": [], "plain": []}
@@ -637,6 +691,16 @@ def main():
         log(f"[b1] fsr_fused {label}: {run.ms} ms per stereo pair, its DMA "
             f"floor {run.sol_ms} ms, vs_sol {run.vs_sol}, floor "
             f"{run.probe_effective_gbps:.1f} GB/s over the unique bytes")
+    # nis_scaler and cas_upscale with their floors, the same way
+    for tag, path in (("b3", "nvscaler"), ("b5", "cas_upscale")):
+        cfg, h, w = bench_paths.path_config(path)
+        for r in (0.0, 0.5, 2.0):
+            run = bench.measure(cfg.with_(radius=r), h, w)
+            log(f"[{tag}] {path} radius {r}: {run.ms} ms per stereo pair, "
+                f"its DMA floor {run.sol_ms} ms, vs_sol {run.vs_sol}, floor "
+                f"{run.probe_effective_gbps:.1f} GB/s over the unique bytes")
+            if run.vs_sol > VS_SOL_MAX:
+                fail(f"{path} radius {r}: vs_sol {run.vs_sol} > {VS_SOL_MAX}")
     best, avg = bench_fn(floor, img, warmup=3, iters=50)
     read_bw, write_bw = hbm_calibration(dev)
     log(f"[time] dma_floor call by call (bench_fn): best {best} ms, average "
@@ -708,6 +772,18 @@ def main():
                 f"instructions, conversions I2F {ops['I2F']} F2I "
                 f"{ops['F2I']} FRND {ops['FRND']}; "
                 f"{dict(ops.most_common(14))}")
+        # B3's run loop (one output per pass: its longest loop) and B5's
+        # whole inside kernel (4 outputs per thread, unrolled)
+        for name, part in (("nis_scaler", "nis_inside_kernel"),
+                           ("cas_upscale", "cas_inside_kernel")):
+            text = sass.disassemble(_build.library_path(name), _build._nvcc())
+            for fn_name, found in sass.loops(text).items():
+                if part in fn_name and found:
+                    ops = found[-1][3]
+                    log(f"[probe] SASS {name} {part}: longest loop "
+                        f"{sum(ops.values())} instructions, LDS {ops['LDS']}, "
+                        f"LDC {ops['LDC']}, MUFU {ops['MUFU']}; whole kernel "
+                        f"{sum(sass.function_counts(text)[fn_name].values())}")
     (vk, vsteps), (mk, msteps), (xk, xsteps) = (
         vpu_audit.PROBES[n][0][1:] for n in ("vpu", "vmem", "mxu"))
     seed = torch.from_numpy(rng.random((130, 128), np.float32)).to(dev)

@@ -9,113 +9,185 @@
 // (fsr_easu.hlsl:33-36) times the debug tint (kernels/cas.py:345-348); stored
 // as packed RGBA8 with alpha 255.
 //
-// What bounds it: bytes moved. At the full size (2 x 1683x1869 -> 2 x
-// 2244x2492, u32 in and out) one stereo pair reads 25.2 MB and writes
-// 44.7 MB, while the filter is about a hundred f32 ops per output pixel.
-// The simple design: one CTA per 16x16 output tile (the foveation group)
-// and batch entry, one thread per output pixel. The tile's input footprint
-// (at most 20x20, as out >= in; sized on the host, kernels/_maps.py::
-// cas_upscale_maps) is staged once from the packed plane into shared
-// memory, with 0 at positions outside the image, so a CAS tap reads the
-// window as it is and a bilinear tap clamps its index into the image first.
-// The circle test is per tile, so the branch is uniform in a CTA. The TPU
-// kernel's one-hot gather matmuls, derived-rows prologue and DMA ring have
-// no counterpart. Build with --fmad=false: the bits then match the plain
-// torch version (kernels/cas.py::cas_upscale_reference).
+// What bounds it: bytes outside the circle (four taps and one 4-byte store
+// per output), and inside it the filter's issue: about a hundred f32 ops per
+// output, plus its taps. At the full size (2 x 1683x1869 -> 2 x 2244x2492,
+// u32 in and out) one stereo pair reads 25.2 MB and writes 44.7 MB.
+//
+// The design, per output tile of 32x32 pixels (2x2 foveation groups of
+// 16x16, the reference's circle test being per group):
+//   - the host (kernels/_maps.py::cas_upscale_maps) evaluates the circle
+//     test once per build and per group and splits the tiles into an inside
+//     list (any group inside) and an outside list, as for the fused FSR
+//     kernel. No foveation test and no int64 arithmetic runs here.
+//   - cas_outside_kernel runs the outside list: the shared bilinear pass
+//     (bilinear_pass.cuh, no round trip): 4 outputs of one row per thread
+//     straight from device memory, 16-byte stores, no shared memory, no
+//     barrier.
+//   - cas_inside_kernel runs the inside list, one CTA per tile: the tile's
+//     36x36 window (0 outside the image, so a CAS tap reads it as it is) is
+//     loaded once and decoded into three f32 planes in shared memory, one
+//     barrier; then each thread takes 4 outputs of one column (a warp
+//     stores whole rows), unrolled so their loads and math overlap, each
+//     reading its 12 taps from the planes (no conversion per tap). An
+//     output whose own 16x16 group lies outside the circle takes the
+//     bilinear fallback from the decoded planes (its taps are clamped into
+//     the image first), so bits never depend on the tile a group sits in.
+//     Sliding the tap window down a column's run in registers did not pay,
+//     and a cp.async ring could hide only the staging, a small part of the
+//     time at radius 0.5: the filter's own instructions take the rest
+//     (PERF.md §6).
+// Both launch on the caller's stream; an empty list launches nothing. Build
+// with --fmad=false: the bits then match the plain torch version
+// (kernels/cas.py::cas_upscale_reference).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "bilinear_pass.cuh"
 #include "cas_math.cuh"
 #include "ffx_math.cuh"
 #include "rgba8.cuh"
 
 namespace {
 
-constexpr int kTile = 16;     // output tile edge = the 16x16 foveation group
-constexpr int kInTile = 20;   // staged input footprint edge (kernels/_maps.py CAS_IN_TILE)
-constexpr int kThreads = kTile * kTile;
+constexpr int kGroup = 16;     // the foveation group edge
+constexpr int kTile = 32;      // CTA output tile edge (kernels/_maps.py FSR_TILE)
+constexpr int kWin = 36;       // staged input window edge (kernels/_maps.py CAS_IN_TILE)
+constexpr int kThreads = 256;
+constexpr int kRun = kTile * kTile / kThreads;   // outputs per thread (4), one column
 
 struct Params {
-  const uint32_t* img;      // (B, in_rows, pitch) packed RGBA8, R in the low byte
-  uint32_t* out;            // (B, out_h, out_w) packed RGBA8
-  const int32_t* col_i;     // (2, out_w): CAS floor fx, bilinear x0
-  const float* col_f;       // (2, out_w): CAS fraction ppx, bilinear fx
-  const int32_t* row_i;     // (2, out_h): CAS floor fy, bilinear y0
-  const float* row_f;       // (2, out_h): CAS fraction ppy, bilinear fy
-  const int32_t* tile_x0;   // (tiles_x,): first staged input column (may be < 0)
-  const int32_t* tile_y0;   // (tiles_y,): first staged input row (may be < 0)
-  const int64_t* centres;   // (B, 5): cx1, cy1, cx2, cy2, radius_sq
+  const uint32_t* img;        // (B, in_rows, pitch) packed RGBA8, R in the low byte
+  uint32_t* out;              // (B, out_h, out_w) packed RGBA8
+  const int32_t* col_i;       // (2, out_w): CAS floor fx, bilinear x0
+  const float* col_f;         // (2, out_w): CAS fraction ppx, bilinear fx
+  const int32_t* row_i;       // (2, out_h): CAS floor fy, bilinear y0
+  const float* row_f;         // (2, out_h): CAS fraction ppy, bilinear fy
+  const int32_t* tile_x0;     // (tiles_x,): first staged input column (may be < 0)
+  const int32_t* tile_y0;     // (tiles_y,): first staged input row (may be < 0)
+  const int32_t* group_cls;   // (B, groups_y, groups_x): 1 inside the circle
+  const int32_t* tiles;       // the inside list: b * tiles_y * tiles_x + ty * tiles_x + tx
   int in_h, in_w, in_rows, pitch, out_h, out_w;
+  int tiles_x, tiles_y, groups_x, groups_y;
   float sharp, tint;
 };
 
 using rgba8::channel;
 using rgba8::clampi;
 
-__global__ void __launch_bounds__(kThreads) cas_upscale_kernel(Params p) {
-  __shared__ uint32_t s_in[kInTile][kInTile];
+// The inside kernel's shared memory: the window decoded into R, G, B planes.
+struct Smem {
+  float c[3][kWin][kWin];
+};
+
+__global__ void __launch_bounds__(kThreads) cas_inside_kernel(Params p) {
+  __shared__ Smem s;
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.z;
-  const int ox0 = blockIdx.x * kTile, oy0 = blockIdx.y * kTile;
-  const int wx0 = p.tile_x0[blockIdx.x], wy0 = p.tile_y0[blockIdx.y];
+  const int id = p.tiles[blockIdx.x];
+  const int per = p.tiles_x * p.tiles_y;
+  const int b = id / per;
+  const int ty = (id - b * per) / p.tiles_x;
+  const int tx = id - b * per - ty * p.tiles_x;
+  const int wx0 = p.tile_x0[tx], wy0 = p.tile_y0[ty];
   const uint32_t* img = p.img + static_cast<size_t>(b) * p.in_rows * p.pitch;
 
-  // the tile's input footprint, once; texels outside the image are 0
-  for (int i = tid; i < kInTile * kInTile; i += kThreads) {
-    const int ly = i / kInTile, lx = i % kInTile;
+  // the window, once, decoded; texels outside the image are 0
+  for (int i = tid; i < kWin * kWin; i += kThreads) {
+    const int ly = i / kWin, lx = i % kWin;
     const int y = wy0 + ly, x = wx0 + lx;
-    s_in[ly][lx] = (y >= 0 && y < p.in_h && x >= 0 && x < p.in_w)
-                       ? img[static_cast<size_t>(y) * p.pitch + x]
-                       : 0u;
+    const uint32_t t = (y >= 0 && y < p.in_h && x >= 0 && x < p.in_w)
+                           ? img[static_cast<size_t>(y) * p.pitch + x]
+                           : 0u;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) s.c[c][ly][lx] = channel(t, c);
   }
   __syncthreads();
 
-  const int ox = ox0 + tid % kTile, oy = oy0 + tid / kTile;
-  if (ox >= p.out_w || oy >= p.out_h) return;
-  float rgb[3];
-  if (rgba8::inside_circle(p.centres + 5 * b, ox0, oy0, kTile, kTile)) {
-    const int sx = p.col_i[ox] - 1 - wx0, sy = p.row_i[oy] - 1 - wy0;
-    float win[4][4][3];
+  // this thread's outputs: column ox, rows oy0 .. oy0 + kRun - 1, all in
+  // one group row (kRun divides kGroup)
+  const int ox = tx * kTile + tid % kTile, oy0 = ty * kTile + (tid / kTile) * kRun;
+  if (ox >= p.out_w || oy0 >= p.out_h) return;
+  uint32_t* out = p.out + static_cast<size_t>(b) * p.out_h * p.out_w;
+  if (p.group_cls[(b * p.groups_y + oy0 / kGroup) * p.groups_x + ox / kGroup]) {
+    const int sx = p.col_i[ox] - 1 - wx0;
+    const float ppx = p.col_f[ox];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < kRun; ++r) {
+      const int oy = oy0 + r;
+      if (oy >= p.out_h) break;
+      const int sy = p.row_i[oy] - 1 - wy0;
+      float w[4][4][3];   // the 4x4 window around floor(pp); the corners are not read
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const uint32_t texel = s_in[sy + r][sx + q];
+      for (int k = 0; k < 4; ++k)
 #pragma unroll
-        for (int c = 0; c < 3; ++c) win[r][q][c] = channel(texel, c);
-      }
-    cas::upscale(win, p.col_f[ox], p.row_f[oy], p.sharp, rgb);
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            w[k][q][c] = ((k == 0 || k == 3) && (q == 0 || q == 3)) ? 0.0f : s.c[c][sy + k][sx + q];
+      float rgb[3];
+      cas::upscale(w, ppx, p.row_f[oy], p.sharp, rgb);
+      out[static_cast<size_t>(oy) * p.out_w + ox] = rgba8::pack(rgb[0], rgb[1], rgb[2], 1.0f);
+    }
   } else {
-    const int x0 = p.col_i[p.out_w + ox], y0 = p.row_i[p.out_h + oy];
+    const int x0 = p.col_i[p.out_w + ox];
     const int sx0 = clampi(x0, 0, p.in_w - 1) - wx0, sx1 = clampi(x0 + 1, 0, p.in_w - 1) - wx0;
-    const int sy0 = clampi(y0, 0, p.in_h - 1) - wy0, sy1 = clampi(y0 + 1, 0, p.in_h - 1) - wy0;
-    const float fxw = p.col_f[p.out_w + ox], fyw = p.row_f[p.out_h + oy];
+    const float fxw = p.col_f[p.out_w + ox];
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      rgb[c] = ffx::bilerp(channel(s_in[sy0][sx0], c), channel(s_in[sy0][sx1], c),
-                           channel(s_in[sy1][sx0], c), channel(s_in[sy1][sx1], c), fxw, fyw);
-    rgb[1] = rgb[1] * p.tint;
-    rgb[2] = rgb[2] * p.tint;
+    for (int r = 0; r < kRun; ++r) {
+      const int oy = oy0 + r;
+      if (oy >= p.out_h) break;
+      const int y0 = p.row_i[p.out_h + oy];
+      const int sy0 = clampi(y0, 0, p.in_h - 1) - wy0, sy1 = clampi(y0 + 1, 0, p.in_h - 1) - wy0;
+      const float fyw = p.row_f[p.out_h + oy];
+      float rgb[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        rgb[c] = ffx::bilerp(s.c[c][sy0][sx0], s.c[c][sy0][sx1], s.c[c][sy1][sx0],
+                             s.c[c][sy1][sx1], fxw, fyw);
+      out[static_cast<size_t>(oy) * p.out_w + ox] =
+          rgba8::pack(rgb[0], rgb[1] * p.tint, rgb[2] * p.tint, 1.0f);
+    }
   }
-  p.out[(static_cast<size_t>(b) * p.out_h + oy) * p.out_w + ox] =
-      rgba8::pack(rgb[0], rgb[1], rgb[2], 1.0f);
+}
+
+// The outside list: the shared bilinear pass, no round trip.
+__global__ void __launch_bounds__(bilinear_pass::kThreads)
+    cas_outside_kernel(bilinear_pass::Args a) {
+  bilinear_pass::run<kTile, kTile, false>(a);
 }
 
 }  // namespace
 
-// Launch on `stream`; returns the launch's cudaError_t (0 = launched). The
-// caller (kernels/cas.py) has checked shapes, dtypes, devices and that every
-// tile footprint fits kInTile; in_tile must equal kInTile.
+// CTAs per SM of the outside and inside kernels on the current device
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the inside kernel's
+// shared memory per CTA in bytes. Returns the first non-zero cudaError_t.
+extern "C" int cas_upscale_occupancy(int* outside, int* inside, int* inside_smem) {
+  *inside_smem = static_cast<int>(sizeof(Smem));
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      outside, cas_outside_kernel, bilinear_pass::kThreads, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, cas_inside_kernel, kThreads, 0);
+  return static_cast<int>(err);
+}
+
+// Launch on `stream`: the outside pass over outside_tiles, then the inside
+// kernel over inside_tiles (an empty list launches nothing). Returns the
+// first non-zero cudaError_t (0 = launched). The caller (kernels/cas.py) has
+// checked shapes, dtypes and devices, that every tile's window fits kWin and
+// that the lists partition the tiles; tile and window must equal kTile and
+// kWin.
 extern "C" int cas_upscale_launch(const void* img, void* out, const void* col_i,
                                   const void* col_f, const void* row_i, const void* row_f,
-                                  const void* tile_x0, const void* tile_y0, const void* centres,
-                                  int batch, int in_h, int in_w, int in_rows, int pitch, int out_h,
-                                  int out_w, float sharp, float tint, int in_tile, void* stream) {
-  if (in_tile != kInTile || batch <= 0 || in_h <= 0 || in_w <= 0 || out_h <= 0 || out_w <= 0 ||
-      in_h > in_rows || in_w > pitch)
+                                  const void* tile_x0, const void* tile_y0, const void* group_cls,
+                                  const void* inside_tiles, int n_inside,
+                                  const void* outside_tiles, int n_outside, int batch, int in_h,
+                                  int in_w, int in_rows, int pitch, int out_h, int out_w,
+                                  float sharp, float tint, int tile, int window, void* stream) {
+  if (tile != kTile || window != kWin || batch <= 0 || in_h <= 0 || in_w <= 0 || out_h <= 0 ||
+      out_w <= 0 || in_h > in_rows || in_w > pitch || n_inside < 0 || n_outside < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.img = static_cast<const uint32_t*>(img);
@@ -126,16 +198,33 @@ extern "C" int cas_upscale_launch(const void* img, void* out, const void* col_i,
   p.row_f = static_cast<const float*>(row_f);
   p.tile_x0 = static_cast<const int32_t*>(tile_x0);
   p.tile_y0 = static_cast<const int32_t*>(tile_y0);
-  p.centres = static_cast<const int64_t*>(centres);
+  p.group_cls = static_cast<const int32_t*>(group_cls);
+  p.tiles = static_cast<const int32_t*>(inside_tiles);
   p.in_h = in_h;
   p.in_w = in_w;
   p.in_rows = in_rows;
   p.pitch = pitch;
   p.out_h = out_h;
   p.out_w = out_w;
+  p.tiles_x = (out_w + kTile - 1) / kTile;
+  p.tiles_y = (out_h + kTile - 1) / kTile;
+  p.groups_x = (out_w + kGroup - 1) / kGroup;
+  p.groups_y = (out_h + kGroup - 1) / kGroup;
   p.sharp = sharp;
   p.tint = tint;
-  const dim3 grid((out_w + kTile - 1) / kTile, (out_h + kTile - 1) / kTile, batch);
-  cas_upscale_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_outside > 0) {
+    const bilinear_pass::Args a = {p.img, p.out, p.col_i + out_w, p.col_f + out_w,
+                                   p.row_i + out_h, p.row_f + out_h,
+                                   static_cast<const int32_t*>(outside_tiles), in_h, in_w,
+                                   in_rows, pitch, out_h, out_w, p.tiles_x, p.tiles_y, tint};
+    cas_outside_kernel<<<n_outside, bilinear_pass::kThreads, 0, s>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (n_inside > 0) {
+    cas_inside_kernel<<<n_inside, kThreads, 0, s>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return 0;
 }

@@ -12,12 +12,15 @@
 // output blocks per batch entry, the same 256 threads per CTA and
 // __launch_bounds__, the same (win_w x win_h) window staged into shared
 // memory at the same per-tile origins, with out-of-image words loaded
-// edge-clamped or staged as 0 without a load, by the same CTAs (every CTA,
-// only those inside the foveation circle, or those a host table marks: the
-// tiles on the fused FSR kernel's inside list); a CTA that does not stage
-// loads what the compute kernel loads there (one texel per output, or four
-// bilinear taps: NVScaler's DirectCopy, the fused FSR kernel's outside
-// pass), and NVScaler's staging CTAs also load each pixel's four RGBA taps.
+// edge-clamped or staged as 0 without a load, by the same CTAs, in one of two
+// forms:
+//   kCircle  the sharpen-only kernels: the CTAs inside the foveation circle
+//            stage; the others copy one texel per output;
+//   kList    the upscalers: the CTAs a host table marks (the inside list)
+//            stage; the others run the shared outside pass's loads, four
+//            bilinear taps per output, 4 outputs of one row per thread
+//            (bilinear_pass.cuh); NVScaler's staging CTAs also load each
+//            pixel's four RGBA taps (stage_quads).
 // Every output word is stored once.
 //
 // What bounds it: only bytes, by construction. Nothing may be elided: the
@@ -25,7 +28,8 @@
 // own tap (a runtime index into the window), and the words of the four-tap
 // loads enter the output through `mask`, which is 0 at run time but unknown
 // to the compiler. So the output is deterministic: the input word at each
-// output's tap (or at its first DirectCopy tap), which is what the plain
+// output's tap (or, in a kList CTA that does not stage, at its first outside
+// tap), which is what the plain
 // torch version (kernels/sol.py::dma_floor_reference) computes.
 //
 // The compute kernels' tile and window shapes are the template instances
@@ -41,7 +45,7 @@ namespace {
 
 constexpr int kThreads = 256;   // every compute kernel's threads per CTA
 
-enum Stage { kCircle = 0, kAll = 1, kList = 2 };   // kernels/sol.py _STAGES
+enum Stage { kCircle = 0, kList = 1 };   // kernels/sol.py _STAGES
 
 struct Params {
   const uint32_t* img;      // (B, rows, pitch) packed RGBA8
@@ -50,13 +54,13 @@ struct Params {
   const int32_t* tile_y0;   // (tiles_y,): window origin per tile row
   const int32_t* tap_x;     // (out_w,): each output column's tap; null = the column itself
   const int32_t* tap_y;     // (out_h,): each output row's tap; null = the row itself
-  const int32_t* quad_x;    // (2, out_w) four-tap floors (staging, other CTAs) or null
+  const int32_t* quad_x;    // (2, out_w) for kList: four-tap floors (staging, other CTAs)
   const int32_t* quad_y;    // (2, out_h)
-  const int64_t* centres;   // (B, 5): cx1, cy1, cx2, cy2, radius_sq
+  const int64_t* centres;   // (B, 5) for kCircle: cx1, cy1, cx2, cy2, radius_sq
   const uint8_t* staged;    // (B, tiles_y, tiles_x) for kList: 1 = the CTA stages
   int in_h, in_w, rows, pitch, out_h, out_w;
   int stage;                // Stage: which CTAs stage their window
-  int stage_quads;          // 1: staging CTAs also load four taps per output (quad row 0)
+  int stage_quads;          // kList, 1: staging CTAs also load four taps per output (quad row 0)
   int clamp;                // 1: out-of-image window words load clamped; 0: staged as 0
   uint32_t mask;            // 0 at run time
 };
@@ -88,16 +92,16 @@ __global__ void __launch_bounds__(kThreads) dma_floor_kernel(Params p) {
   uint32_t* out = p.out + static_cast<size_t>(b) * p.out_h * p.out_w;
 
   const bool stages =
-      p.stage == kAll ||
-      (p.stage == kList
-           ? p.staged[(static_cast<size_t>(b) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] != 0
-           : rgba8::inside_circle(p.centres + 5 * b, ox0, oy0, TW, TH));
+      p.stage == kList
+          ? p.staged[(static_cast<size_t>(b) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] != 0
+          : rgba8::inside_circle(p.centres + 5 * b, ox0, oy0, TW, TH);
   if (!stages) {
-    if constexpr (TW * TH == 4 * kThreads) {
-      if (p.stage == kList) {   // the fused FSR kernel's outside pass: 4 outputs of one
-        constexpr int kRun = 4;   // row per thread, one 16-byte store where aligned
-        const int oy = oy0 + tid / (TW / kRun), ox = ox0 + (tid % (TW / kRun)) * kRun;
-        if (oy >= p.out_h || ox >= p.out_w) return;
+    if (p.stage == kList) {   // the upscalers' outside pass (bilinear_pass.cuh): 4
+      constexpr int kRun = 4;   // outputs of one row per thread, 16-byte stores where aligned
+      static_assert(TW % kRun == 0, "a tile row holds whole runs");
+      for (int r = tid; r < TW * TH / kRun; r += kThreads) {
+        const int oy = oy0 + r / (TW / kRun), ox = ox0 + (r % (TW / kRun)) * kRun;
+        if (oy >= p.out_h || ox >= p.out_w) continue;
         const int n = min(kRun, p.out_w - ox);
         uint32_t v[kRun];
 #pragma unroll
@@ -109,15 +113,14 @@ __global__ void __launch_bounds__(kThreads) dma_floor_kernel(Params p) {
         } else {
           for (int j = 0; j < n; ++j) dst[j] = v[j];
         }
-        return;
       }
+      return;
     }
-    for (int i = tid; i < TW * TH; i += kThreads) {
+    for (int i = tid; i < TW * TH; i += kThreads) {   // the sharpen-only copy
       const int ox = ox0 + i % TW, oy = oy0 + i / TW;
       if (ox >= p.out_w || oy >= p.out_h) continue;
       out[static_cast<size_t>(oy) * p.out_w + ox] =
-          p.quad_x ? quad(img, p, p.quad_x[p.out_w + ox], p.quad_y[p.out_h + oy])
-                   : img[static_cast<size_t>(tap(p.tap_y, oy)) * p.pitch + tap(p.tap_x, ox)];
+          img[static_cast<size_t>(tap(p.tap_y, oy)) * p.pitch + tap(p.tap_x, ox)];
     }
     return;
   }
@@ -139,7 +142,7 @@ __global__ void __launch_bounds__(kThreads) dma_floor_kernel(Params p) {
     const int ox = ox0 + i % TW, oy = oy0 + i / TW;
     if (ox >= p.out_w || oy >= p.out_h) continue;
     uint32_t v = s_win[tap(p.tap_y, oy) - wy0][tap(p.tap_x, ox) - wx0];
-    if (p.quad_x && p.stage_quads) v |= quad(img, p, p.quad_x[ox], p.quad_y[oy]) & p.mask;
+    if (p.stage_quads) v |= quad(img, p, p.quad_x[ox], p.quad_y[oy]) & p.mask;
     out[static_cast<size_t>(oy) * p.out_w + ox] = v;
   }
 }
@@ -156,7 +159,8 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 // Launch on `stream`; returns the launch's cudaError_t (0 = launched). The
 // caller (kernels/sol.py) has checked the geometry: every tap lies inside
 // every window of its tile, and a kList table has the grid's shape. kList
-// (with its four-tap direct path) runs the fused FSR kernel's shape only.
+// takes the four-tap floors and the staged table; kCircle takes neither,
+// nor stage_quads.
 // (tile_w, tile_h, win_w, win_h) must be one of the compute kernels' shapes
 // and threads must be 256.
 extern "C" int dma_floor_launch(const void* img, void* out, const void* tile_x0,
@@ -167,9 +171,9 @@ extern "C" int dma_floor_launch(const void* img, void* out, const void* tile_x0,
                                 int win_h, int threads, int stage, int stage_quads, int clamp,
                                 unsigned int mask, void* stream) {
   if (threads != kThreads || batch <= 0 || in_h <= 0 || in_w <= 0 || out_h <= 0 || out_w <= 0 ||
-      in_h > rows || in_w > pitch || (quad_x == nullptr) != (quad_y == nullptr) || stage < kCircle ||
-      stage > kList || (stage == kList) != (staged != nullptr) ||
-      (stage == kList && (tile_w != 32 || tile_h != 32 || quad_x == nullptr)))
+      in_h > rows || in_w > pitch || stage < kCircle || stage > kList ||
+      (stage == kList) != (staged != nullptr) || (stage == kList) != (quad_x != nullptr) ||
+      (stage == kList) != (quad_y != nullptr) || (stage != kList && stage_quads))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.img = static_cast<const uint32_t*>(img);
@@ -195,13 +199,11 @@ extern "C" int dma_floor_launch(const void* img, void* out, const void* tile_x0,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile_w == 32 && tile_h == 32 && win_w == 40 && win_h == 40)   // fsr_fused
     return launch<32, 32, 40, 40>(p, batch, s);
-  if (tile_w == 16 && tile_h == 16 && win_w == 20 && win_h == 20)   // cas_upscale
-    return launch<16, 16, 20, 20>(p, batch, s);
   if (tile_w == 16 && tile_h == 16 && win_w == 18 && win_h == 18)   // rcas_sharpen, cas_sharpen
     return launch<16, 16, 18, 18>(p, batch, s);
-  if (tile_w == 32 && tile_h == 32 && win_w == 36 && win_h == 36)   // nis_sharpen
+  if (tile_w == 32 && tile_h == 32 && win_w == 36 && win_h == 36)   // nis_sharpen, cas_upscale
     return launch<32, 32, 36, 36>(p, batch, s);
-  if (tile_w == 32 && tile_h == 24 && win_w == 40 && win_h == 32)   // nis_scaler
-    return launch<32, 24, 40, 32>(p, batch, s);
+  if (tile_w == 32 && tile_h == 48 && win_w == 40 && win_h == 56)   // nis_scaler
+    return launch<32, 48, 40, 56>(p, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -22,8 +22,9 @@
 //     inside the circle) and outside (none). No int64 arithmetic and no
 //     foveation test runs here; the inside kernel reads the classes of the
 //     tile's groups and of their neighbours from a per-group table.
-//   - fsr_outside_kernel runs the outside list: one CTA per tile, each
-//     thread 4 neighbouring outputs of one row, bilinear straight from
+//   - fsr_outside_kernel runs the outside list: the shared bilinear pass
+//     (bilinear_pass.cuh, with the UNORM8 round trip): one CTA per tile,
+//     each thread 4 neighbouring outputs of one row, bilinear straight from
 //     device memory (four taps per output, which L1 serves), quantized,
 //     tinted and stored with one 16-byte store where the row start allows
 //     it. No shared memory, no barrier.
@@ -53,6 +54,7 @@
 
 #include <cstdint>
 
+#include "bilinear_pass.cuh"
 #include "ffx_math.cuh"
 #include "rgba8.cuh"
 
@@ -276,38 +278,10 @@ __global__ void __launch_bounds__(kThreads, kInsideCtasPerSm) fsr_inside_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kThreads) fsr_outside_kernel(Params p) {
-  const Tile t = tile_at(p, p.tiles[blockIdx.x]);
-  const int oy = t.oy0 + threadIdx.x / (kTile / kRun);
-  const int ox = t.ox0 + (threadIdx.x % (kTile / kRun)) * kRun;
-  if (oy >= p.out_h || ox >= p.out_w) return;
-  const uint32_t* img = p.img + static_cast<size_t>(t.b) * p.in_rows * p.pitch;
-  const int y0 = p.row_i[p.out_h + oy];
-  const float fy = p.row_f[p.out_h + oy];
-  const uint32_t* r0 = img + static_cast<size_t>(clampi(y0, 0, p.in_h - 1)) * p.pitch;
-  const uint32_t* r1 = img + static_cast<size_t>(clampi(y0 + 1, 0, p.in_h - 1)) * p.pitch;
-  const int n = min(kRun, p.out_w - ox);
-  uint32_t v[kRun];
-#pragma unroll
-  for (int j = 0; j < kRun; ++j) {
-    if (j >= n) break;
-    const int x0 = p.col_i[p.out_w + ox + j];
-    const float fx = p.col_f[p.out_w + ox + j];
-    const int sx0 = clampi(x0, 0, p.in_w - 1), sx1 = clampi(x0 + 1, 0, p.in_w - 1);
-    const uint32_t c00 = r0[sx0], c10 = r0[sx1], c01 = r1[sx0], c11 = r1[sx1];
-    float q[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      q[c] = ffx::unorm8_roundtrip(
-          ffx::bilerp(channel(c00, c), channel(c10, c), channel(c01, c), channel(c11, c), fx, fy));
-    v[j] = rgba8::pack(q[0], q[1] * p.tint, q[2] * p.tint, 1.0f);
-  }
-  uint32_t* dst = p.out + (static_cast<size_t>(t.b) * p.out_h + oy) * p.out_w + ox;
-  if (n == kRun && (reinterpret_cast<uintptr_t>(dst) & 15u) == 0) {
-    *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
-  } else {
-    for (int j = 0; j < n; ++j) dst[j] = v[j];
-  }
+// The outside list: the shared bilinear pass with the UNORM8 round trip.
+__global__ void __launch_bounds__(bilinear_pass::kThreads)
+    fsr_outside_kernel(bilinear_pass::Args a) {
+  bilinear_pass::run<kTile, kTile, true>(a);
 }
 
 // CTAs per SM of the outside and inside kernels on the current device, as
@@ -318,7 +292,8 @@ int occupancy(int* outside, int* inside) {
   cudaError_t err = cudaFuncSetAttribute(
       fsr_inside_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Smem));
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(outside, fsr_outside_kernel, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(outside, fsr_outside_kernel,
+                                                        bilinear_pass::kThreads, 0);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, fsr_inside_kernel, kThreads,
                                                         sizeof(Smem));
@@ -391,9 +366,11 @@ extern "C" int fsr_fused_launch(const void* img, void* out, const void* col_i, c
   p.tint = tint;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_outside > 0) {
-    p.tiles = static_cast<const int32_t*>(outside_tiles);
-    p.n_tiles = n_outside;
-    fsr_outside_kernel<<<n_outside, kThreads, 0, s>>>(p);
+    const bilinear_pass::Args a = {p.img, p.out, p.col_i + out_w, p.col_f + out_w,
+                                   p.row_i + out_h, p.row_f + out_h,
+                                   static_cast<const int32_t*>(outside_tiles), in_h, in_w,
+                                   in_rows, pitch, out_h, out_w, p.tiles_x, p.tiles_y, tint};
+    fsr_outside_kernel<<<n_outside, bilinear_pass::kThreads, 0, s>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -7,11 +7,13 @@ the CUDA kernels do (u * f32(1/255)) and encode with clamp, *255 and round
 half to even, as the reference's UNORM store does.
 """
 
+import ctypes
+
 import numpy as np
 import torch
 
 __all__ = ["unpack", "pack", "circle_mask", "debug_tint", "tint_vector",
-           "DeviceTables", "centres_table", "kernel_fn"]
+           "DeviceTables", "centres_table", "kernel_fn", "occupancy"]
 
 F32 = np.float32
 _INV255 = float(F32(1.0) / F32(255.0))
@@ -134,3 +136,21 @@ def kernel_fn(name, batch, shape, pad_to, reference, launch, geometry=None):
         fn.dma_geometry = dict(geometry, batch=B, in_h=H, in_w=W,
                                hp=pad_to[0], wp=pad_to[1])
     return fn
+
+
+def occupancy(name):
+    """{"outside": n, "inside": n, "inside_smem": bytes} of the upscaler
+    `name` (fsr_fused, nis_scaler, cas_upscale): the CTAs per SM of its two
+    class kernels on the current CUDA device (cudaOccupancyMaxActiveBlocks
+    PerMultiprocessor at 256 threads) and the inside kernel's shared memory
+    per CTA, from its <name>_occupancy entry point."""
+    from . import _build
+    f = getattr(_build.load_library(name), f"{name}_occupancy")
+    f.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    f.restype = ctypes.c_int
+    vals = [ctypes.c_int() for _ in range(3)]
+    err = f(*map(ctypes.byref, vals))
+    if err != 0:
+        raise RuntimeError(f"{name}_occupancy failed: cudaError {err}")
+    return dict(zip(("outside", "inside", "inside_smem"),
+                    (v.value for v in vals)))

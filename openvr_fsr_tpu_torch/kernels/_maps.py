@@ -24,9 +24,9 @@ evaluating coordinate math on the device. The fused FSR kernel's:
 The foveation test is evaluated here, once per build, in int64 from the
 same rows as the plain version's (kernels/_common.py::circle_mask), so the
 device does no int64 arithmetic. CAS upscale's (cas_upscale_maps) have the
-layout of the first seven, with the CasFilter floor and fraction of pp in
-place of EASU's. NVScaler's (NisMaps) are set
-out at nvscaler_maps. The tables depend
+same layout, with the CasFilter floor and fraction of pp in place of
+EASU's, 36x36 windows and the same classes and tile lists. NVScaler's
+(NisMaps) are set out at nvscaler_maps. The tables depend
 only on the build's shapes, config and centres, so one build serves every
 frame of a stream.
 
@@ -49,25 +49,31 @@ from ..ops.cas import cas_upscale_index_maps
 from ..ops.easu import easu_index_maps
 from ..ops.nis import nis_source_maps
 
-__all__ = ["FsrMaps", "FsrFusedMaps", "fsr_maps", "cas_upscale_maps",
+__all__ = ["FsrMaps", "fsr_maps", "cas_upscale_maps",
            "NisMaps", "nvscaler_maps", "input_padding", "dma_geometry",
-           "sharpen_geometry", "TILE", "FSR_TILE", "IN_TILE", "CAS_IN_TILE",
-           "NIS_IN_TILE", "THREADS"]
+           "sharpen_geometry", "group_classes", "tile_lists", "TILE",
+           "FSR_TILE", "IN_TILE", "CAS_IN_TILE", "NIS_TILE", "NIS_IN_TILE",
+           "NIS_EDGE_TILE", "THREADS"]
 
 THREADS = 256  # threads per CTA of every kernel (csrc/*.cu kThreads)
-TILE = 16      # the 16x16 foveation group; one CTA per such tile in B2, B5, B6
+TILE = 16      # the 16x16 foveation group; one CTA per such tile in B2, B6
 # the fused FSR kernel's CTA output tile edge (2x2 foveation groups) and
 # its staged input window edge (csrc/fsr_fused.cu kTile, kWin): 34 haloed
 # outputs span at most 34 inputs + 3 taps + 1 when out >= in, as on every
 # FSR path
 FSR_TILE = 32
 IN_TILE = 40
-# CAS upscale's staged footprint edge (csrc/cas_upscale.cu kInTile): out >=
-# in on every path, so 16 outputs span at most 16 input positions + 3 taps
-CAS_IN_TILE = 20
-# NVScaler's staged luma footprint cap, (width, height), per 32x24 output
-# block (csrc/nis_scaler.cu kInW, kInH)
-NIS_IN_TILE = (40, 32)
+# CAS upscale's staged window edge per FSR_TILE output tile (csrc/
+# cas_upscale.cu kWin): out >= in on every path, so 32 outputs span at most
+# 32 input positions + 3 taps + 1
+CAS_IN_TILE = 36
+# NVScaler's CTA output tile, two stacked 32x24 foveation blocks, (width,
+# height) (csrc/nis_scaler.cu kTileW, kTileH); its staged luma window cap
+# (kWinW, kWinH: at a scale <= 1, 48 rows span at most 47 + 6 inputs); and
+# the cap of the edge-map extent its 2x2 edge taps read (kEdgeW, kEdgeH)
+NIS_TILE = (32, 48)
+NIS_IN_TILE = (40, 56)
+NIS_EDGE_TILE = (36, 52)
 ROW_ALIGN = 8  # ring-pitch row alignment (kernels/_band.py ROW_ALIGN)
 
 
@@ -77,23 +83,29 @@ def input_padding(h, w):
     return -(-int(h) // ROW_ALIGN) * ROW_ALIGN, -(-int(w) // 128) * 128
 
 
-def _footprint_origins(lo, hi, tile, halo, cap):
-    """Per-tile first input index of the footprint of output indices
-    [t*tile - halo, t*tile + tile - 1 + halo], from per-output lowest /
-    highest input index lo / hi. Raises if a footprint exceeds `cap`."""
+def _footprints(lo, hi, tile, halo, cap, what="input footprint"):
+    """Per-tile (first, last) input index, (2, n_tiles) int32, of the
+    footprint of output indices [t*tile - halo, t*tile + tile - 1 + halo],
+    from per-output lowest / highest input index lo / hi. Raises if a
+    footprint exceeds `cap`."""
     n_out = len(lo)
     n_tiles = -(-n_out // tile)
-    origins = np.empty(n_tiles, np.int32)
+    out = np.empty((2, n_tiles), np.int32)
     for t in range(n_tiles):
         a = max(t * tile - halo, 0)
         b = min(t * tile + tile - 1 + halo, n_out - 1)
         first, last = int(lo[a:b + 1].min()), int(hi[a:b + 1].max())
         if last - first + 1 > cap:
             raise ValueError(
-                f"tile {t}: input footprint {last - first + 1} exceeds the "
+                f"tile {t}: {what} {last - first + 1} exceeds the "
                 f"kernel's {cap}")
-        origins[t] = first
-    return origins
+        out[:, t] = first, last
+    return out
+
+
+def _footprint_origins(lo, hi, tile, halo, cap):
+    """Per-tile first input index of _footprints."""
+    return _footprints(lo, hi, tile, halo, cap)[0]
 
 
 class _Tables:
@@ -109,7 +121,7 @@ class _Tables:
 
 @dataclasses.dataclass(frozen=True)
 class FsrMaps(_Tables):
-    """The fused kernel's tables (and CAS upscale's): numpy arrays from
+    """The fused kernel's tables and CAS upscale's: numpy arrays from
     fsr_maps or cas_upscale_maps, torch tensors after .to(device)."""
 
     in_h: int
@@ -123,36 +135,25 @@ class FsrMaps(_Tables):
     tile_x0: object
     tile_y0: object
     centres: object
-
-    _ARRAYS = ("col_i", "col_f", "row_i", "row_f", "tile_x0", "tile_y0",
-               "centres")
-
-
-@dataclasses.dataclass(frozen=True)
-class FsrFusedMaps(FsrMaps):
-    """The fused kernel's tables: FsrMaps plus the foveation classes."""
-
     group_cls: object
     inside_tiles: object
     outside_tiles: object
 
-    _ARRAYS = FsrMaps._ARRAYS + ("group_cls", "inside_tiles",
-                                 "outside_tiles")
+    _ARRAYS = ("col_i", "col_f", "row_i", "row_f", "tile_x0", "tile_y0",
+               "centres", "group_cls", "inside_tiles", "outside_tiles")
 
     @property
     def tile_inside(self):
-        """(B, TY, TX) bool: the tiles the EASU kernel runs."""
-        b = self.group_cls.shape[0]
-        ty, tx = len(self.tile_y0), len(self.tile_x0)
-        flags = np.zeros(b * ty * tx, bool)
-        flags[np.asarray(self.inside_tiles)] = True
-        return flags.reshape(b, ty, tx)
+        """(B, TY, TX) bool: the tiles the inside kernel runs."""
+        return _tile_flags(self.inside_tiles, (
+            self.group_cls.shape[0], len(self.tile_y0), len(self.tile_x0)))
 
 
 def group_classes(centres, out_h, out_w, group=(TILE, TILE)):
     """(B, GY, GX) bool: the reference's circle test per (width, height)
-    group (fsr_easu.hlsl:41-45; kernels/_common.py::circle_mask at one
-    pixel of each group), in int64 from the (B, 5) centres rows."""
+    group (fsr_easu.hlsl:41-45, NIS_Upscale.hlsl:95-107; kernels/_common.py::
+    circle_mask at one pixel of each group), in int64 from the (B, 5)
+    centres rows."""
     (tw, th), c = group, np.asarray(centres, np.int64)[:, :, None, None]
     gx = np.arange(-(-int(out_w) // tw), dtype=np.int64) * tw + tw // 2
     gy = np.arange(-(-int(out_h) // th), dtype=np.int64) * th + th // 2
@@ -161,18 +162,28 @@ def group_classes(centres, out_h, out_w, group=(TILE, TILE)):
     return (d1 <= c[:, 4]) | (d2 <= c[:, 4])
 
 
-def tile_lists(cls, out_h, out_w):
+def tile_lists(cls, out_h, out_w, tile=(FSR_TILE, FSR_TILE),
+               group=(TILE, TILE)):
     """(inside, outside) int32 tile ids b * TY * TX + ty * TX + tx of the
-    FSR_TILE-square tiles: inside where any of the tile's groups passes the
-    circle test, outside where none does."""
-    k = FSR_TILE // TILE
+    (width, height) `tile`s, each a whole number of `group`s: inside where
+    any of the tile's groups passes the circle test (cls, from
+    group_classes at `group`), outside where none does."""
+    (tw, th), (gw, gh) = tile, group
+    kx, ky = tw // gw, th // gh
     b, gy, gx = cls.shape
-    ty, tx = -(-int(out_h) // FSR_TILE), -(-int(out_w) // FSR_TILE)
-    pad = np.zeros((b, ty * k, tx * k), bool)
+    ty, tx = -(-int(out_h) // th), -(-int(out_w) // tw)
+    pad = np.zeros((b, ty * ky, tx * kx), bool)
     pad[:, :gy, :gx] = cls
-    inside = pad.reshape(b, ty, k, tx, k).any(axis=(2, 4)).ravel()
+    inside = pad.reshape(b, ty, ky, tx, kx).any(axis=(2, 4)).ravel()
     return (np.flatnonzero(inside).astype(np.int32),
             np.flatnonzero(~inside).astype(np.int32))
+
+
+def _tile_flags(ids, shape):
+    """(B, TY, TX) bool: True at the tile ids `ids`."""
+    flags = np.zeros(int(np.prod(shape)), bool)
+    flags[np.asarray(ids)] = True
+    return flags.reshape(shape)
 
 
 def fsr_maps(batch, in_h, in_w, out_w, out_h, centres):
@@ -194,7 +205,7 @@ def fsr_maps(batch, in_h, in_w, out_w, out_h, centres):
     cen = np.asarray(centres, np.int64).reshape(int(batch), 5)
     cls = group_classes(cen, OH, OW)
     inside, outside = tile_lists(cls, OH, OW)
-    return FsrFusedMaps(
+    return FsrMaps(
         in_h=H, in_w=W, out_h=OH, out_w=OW,
         col_i=np.stack([fxi.astype(np.int32), bx0]),
         col_f=np.stack([ppx, fbx]),
@@ -211,10 +222,12 @@ def cas_upscale_maps(batch, in_h, in_w, out_w, out_h, centres):
     """CAS upscale's tables for one (shape, centres) configuration: row 0
     of col_i / col_f / row_i / row_f is the CasFilter floor and fraction of
     pp (ops/cas.py::cas_upscale_index_maps), row 1 the bilinear fallback's
-    floor and fraction (the JAX package's kernels/cas.py:97-100).
+    floor and fraction (the JAX package's kernels/cas.py:97-100); the
+    foveation classes and tile lists are fsr_maps' (CAS's group is FSR's
+    16x16), with CAS_IN_TILE windows per FSR_TILE tile.
 
     Unlike EASU's, CAS taps are not clamped into the image: a tap at
-    floor-1 < 0 or floor+2 >= the size reads 0 (CasLoad). So a footprint
+    floor-1 < 0 or floor+2 >= the size reads 0 (CasLoad). So a window
     may start at -2 and the kernel stages zeros there; only the bilinear
     taps clamp."""
     H, W, OH, OW = int(in_h), int(in_w), int(out_h), int(out_w)
@@ -229,15 +242,19 @@ def cas_upscale_maps(batch, in_h, in_w, out_w, out_h, centres):
     lo_y = np.minimum(fyi - 1, np.clip(by0, 0, H - 1))
     hi_y = np.maximum(fyi + 2, np.clip(by0 + 1, 0, H - 1))
     cen = np.asarray(centres, np.int64).reshape(int(batch), 5)
+    cls = group_classes(cen, OH, OW)
+    inside, outside = tile_lists(cls, OH, OW)
     return FsrMaps(
         in_h=H, in_w=W, out_h=OH, out_w=OW,
         col_i=np.stack([fxi.astype(np.int32), bx0]),
         col_f=np.stack([ppx, fbx]),
         row_i=np.stack([fyi.astype(np.int32), by0]),
         row_f=np.stack([ppy, fby]),
-        tile_x0=_footprint_origins(lo_x, hi_x, TILE, 0, CAS_IN_TILE),
-        tile_y0=_footprint_origins(lo_y, hi_y, TILE, 0, CAS_IN_TILE),
-        centres=np.ascontiguousarray(cen))
+        tile_x0=_footprint_origins(lo_x, hi_x, FSR_TILE, 0, CAS_IN_TILE),
+        tile_y0=_footprint_origins(lo_y, hi_y, FSR_TILE, 0, CAS_IN_TILE),
+        centres=np.ascontiguousarray(cen),
+        group_cls=cls.astype(np.int32), inside_tiles=inside,
+        outside_tiles=outside)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,9 +268,20 @@ class NisMaps(_Tables):
                              u = x/OW (NIS_Upscale.hlsl:77-90)
       col_f (3, OW) float32  fx, RGBA-tap fraction, DirectCopy fraction
       row_i / row_f          the same per output row
-      tile_x0 / tile_y0      first input column / row of the luma footprint
-                             (6x6 taps) of each 32x24 output block
+      tile_x0 / tile_y0      first input column / row of the luma window
+                             (the 6x6 taps and the edge map's 3x3s) of
+                             each NIS_TILE output tile
+      edge_x / edge_y (2, n) int32 first and last input column / row the
+                             2x2 edge taps of each tile's outputs read,
+                             clip(pxi .. pxi + 1): where the kernel
+                             computes the edge map
       centres (B, 5) int64   the foveation cbuffer rows
+      block_cls (B, BY, BX)  int32 1 where the 32x24 block passes the
+                             reference's circle test (NIS_Upscale.hlsl:
+                             95-107), else 0
+      inside_tiles           int32 ids b * TY * TX + ty * TX + tx of the
+                             NIS_TILE tiles with a block inside the circle
+      outside_tiles          the others, for the DirectCopy pass
       coef (2, 64, 8) f32    COEF_SCALE, COEF_USM (core/nis_tables.py)
     """
 
@@ -267,25 +295,44 @@ class NisMaps(_Tables):
     row_f: object
     tile_x0: object
     tile_y0: object
+    edge_x: object
+    edge_y: object
     centres: object
+    block_cls: object
+    inside_tiles: object
+    outside_tiles: object
     coef: object
 
     _ARRAYS = ("col_i", "col_f", "row_i", "row_f", "tile_x0", "tile_y0",
-               "centres", "coef")
+               "edge_x", "edge_y", "centres", "block_cls", "inside_tiles",
+               "outside_tiles", "coef")
+
+    @property
+    def tile_inside(self):
+        """(B, TY, TX) bool: the tiles the inside kernel runs."""
+        return _tile_flags(self.inside_tiles, (
+            self.block_cls.shape[0], len(self.tile_y0), len(self.tile_x0)))
 
 
-def _nis_axis(src_i, frac, u_tap, n_out, n_in, tile, cap):
-    """One axis of NVScaler's maps: (int rows, float rows, footprint
-    origins), sized from the maps themselves, so any scale the config
-    admits (valid or not) runs or raises here."""
+def _nis_axis(src_i, frac, u_tap, n_out, n_in, tile, cap, edge_cap):
+    """One axis of NVScaler's maps: (int rows, float rows, window origins,
+    edge extents), sized from the maps themselves, so any scale the config
+    admits (valid or not) runs or raises here. The window holds the 6x6
+    taps clip(src - 2 .. src + 3) and the edge map's 3x3s at the 2x2 edge
+    taps, clip(clip(src .. src + 1) +- 1)."""
     phase = (frac * np.float32(64)).astype(np.int32)
     t0, tf = bilinear_texel_axis(u_tap, n_in)
     b0, bf = bilinear_axis(n_out, n_in)
     ints = np.stack([src_i.astype(np.int32), phase, t0, b0])
     floats = np.stack([frac, tf, bf]).astype(np.float32)
-    lo = np.clip(src_i - 2, 0, n_in - 1)
-    hi = np.clip(src_i + 3, 0, n_in - 1)
-    return ints, floats, _footprint_origins(lo, hi, tile, 0, cap)
+    e0 = np.clip(src_i, 0, n_in - 1)
+    e1 = np.clip(src_i + 1, 0, n_in - 1)
+    lo = np.minimum(np.clip(src_i - 2, 0, n_in - 1),
+                    np.clip(e0 - 1, 0, n_in - 1))
+    hi = np.maximum(np.clip(src_i + 3, 0, n_in - 1),
+                    np.clip(e1 + 1, 0, n_in - 1))
+    return (ints, floats, _footprint_origins(lo, hi, tile, 0, cap),
+            _footprints(e0, e1, tile, 0, edge_cap, "edge-map extent"))
 
 
 def nvscaler_maps(batch, in_h, in_w, out_w, out_h, nis_cfg, centres):
@@ -294,21 +341,28 @@ def nvscaler_maps(batch, in_h, in_w, out_w, out_h, nis_cfg, centres):
     pxi, pyi, fx, fy = nis_source_maps(OW, OH, nis_cfg)
     u = (np.arange(OW, dtype=np.float32) + np.float32(0.5)) * nis_cfg.kDstNormX
     v = (np.arange(OH, dtype=np.float32) + np.float32(0.5)) * nis_cfg.kDstNormY
-    (tw, th), (cap_w, cap_h) = TILE_NIS_SCALER, NIS_IN_TILE
-    col_i, col_f, tile_x0 = _nis_axis(pxi, fx, u, OW, W, tw, cap_w)
-    row_i, row_f, tile_y0 = _nis_axis(pyi, fy, v, OH, H, th, cap_h)
+    (tw, th), (cap_w, cap_h), (ecap_w, ecap_h) = (NIS_TILE, NIS_IN_TILE,
+                                                  NIS_EDGE_TILE)
+    col_i, col_f, tile_x0, edge_x = _nis_axis(pxi, fx, u, OW, W, tw, cap_w,
+                                              ecap_w)
+    row_i, row_f, tile_y0, edge_y = _nis_axis(pyi, fy, v, OH, H, th, cap_h,
+                                              ecap_h)
     cen = np.asarray(centres, np.int64).reshape(int(batch), 5)
+    cls = group_classes(cen, OH, OW, TILE_NIS_SCALER)
+    inside, outside = tile_lists(cls, OH, OW, NIS_TILE, TILE_NIS_SCALER)
     return NisMaps(
         in_h=H, in_w=W, out_h=OH, out_w=OW, col_i=col_i, col_f=col_f,
         row_i=row_i, row_f=row_f, tile_x0=tile_x0, tile_y0=tile_y0,
-        centres=np.ascontiguousarray(cen),
+        edge_x=edge_x, edge_y=edge_y, centres=np.ascontiguousarray(cen),
+        block_cls=cls.astype(np.int32), inside_tiles=inside,
+        outside_tiles=outside,
         coef=np.ascontiguousarray(np.stack([COEF_SCALE, COEF_USM]),
                                   np.float32))
 
 
 def dma_geometry(out_h, out_w, tile, window, tile_x0, tile_y0, centres, *,
                  oob, stage, tap_x, tap_y, quad_x=None, quad_y=None,
-                 group=None, staged=None, stage_quads=True):
+                 group=None, staged=None, stage_quads=False):
     """What one CUDA kernel loads from the frame and stores, for its DMA
     floor (kernels/sol.py::build_dma_floor; the counterpart of the JAX
     package's fn.dma_geometry, kernels/_band.py::make_io_fn). kernel_fn adds
@@ -321,20 +375,20 @@ def dma_geometry(out_h, out_w, tile, window, tile_x0, tile_y0, centres, *,
       tile_x0, tile_y0  window origin per tile column / tile row (int32)
       oob               "zero": window words outside the image are staged
                         as 0 and not loaded; "clamp": loaded edge-clamped
-      stage             "all": every CTA stages; "circle": only CTAs whose
-                        tile passes the foveation test; "list": only the
-                        CTAs `staged` marks; the others load their outputs'
-                        words directly
+      stage             "circle" (the sharpen-only kernels): only CTAs
+                        whose tile passes the foveation test stage, the
+                        others copy their outputs' own texels; "list" (the
+                        upscalers): only the CTAs `staged` marks stage, the
+                        others load four bilinear taps per output
       centres           (B, 5) int64 foveation rows of the circle test
       tap_x, tap_y      per output column / row, the in-image input index
                         of the output's own tap (the clamped floor of its
                         sample position): inside every window of its tile
-      quad_x, quad_y    None, or (2, out_w) / (2, out_h) floors of four
-                        bilinear taps each output loads from device memory
-                        (edge-clamped): row 0 in a staging CTA (where
-                        stage_quads), row 1 in the others (NVScaler's RGBA
-                        tap and DirectCopy; the fused FSR kernel's outside
-                        pass)
+      quad_x, quad_y    for stage "list", (2, out_w) / (2, out_h) floors
+                        of four bilinear taps each output loads from device
+                        memory (edge-clamped): row 0 in a staging CTA (where
+                        stage_quads: NVScaler's RGBA tap), row 1 in the
+                        others (the upscalers' shared outside pass)
       group             (width, height) of the foveation group the circle
                         test classes (default: the tile)
       staged            for stage "list": (B, tiles_y, tiles_x) bool

@@ -8,7 +8,10 @@ CasFilter pass per plan (Config.stage_plan):
   build_cas_upscale   renderScale != 1: CasFilter scaling (ffx_cas.h:
                       552-892) inside the foveation circle, the bilinear
                       fallback (fsr_easu.hlsl:33-36) times the debug tint
-                      outside, alpha 1 (csrc/cas_upscale.cu);
+                      outside, alpha 1 (csrc/cas_upscale.cu: a bilinear
+                      pass over the 32x32 tiles outside the circle and a
+                      CasFilter kernel over those inside, from one C entry
+                      point);
   build_cas_sharpen   renderScale 1: CasFilter noScaling (ffx_cas.h:
                       430-552) with the maxColorDelta clamp inside, alpha 1;
                       the source colour times the tint with the source's
@@ -33,8 +36,8 @@ from ..ops.common import F32
 from . import _build
 from ._common import (DeviceTables, centres_table, circle_mask, debug_tint,
                       kernel_fn, pack, tint_vector, unpack)
-from ._maps import (CAS_IN_TILE, TILE, cas_upscale_maps, dma_geometry,
-                    input_padding, sharpen_geometry)
+from ._maps import (CAS_IN_TILE, FSR_TILE, TILE, cas_upscale_maps,
+                    dma_geometry, input_padding, sharpen_geometry)
 
 __all__ = ["build_cas_upscale", "build_cas_sharpen", "cas_upscale_reference",
            "cas_sharpen_reference"]
@@ -79,8 +82,9 @@ def cas_sharpen_reference(img, centres, sharp, max_color_delta, tint):
 def _upscale_launch_fn():
     """The ctypes entry point, bound (and built) at the first launch."""
     f = _build.load_library("cas_upscale").cas_upscale_launch
-    f.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                  + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    f.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
+                  + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
+                  + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     f.restype = ctypes.c_int
     return f
 
@@ -112,9 +116,11 @@ def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
     contiguous (B, in_h, in_w) int32 tensor of packed RGBA8, or one
     pre-padded to the ring pitch fn.pad_to; the result is a new (B, out_h,
     out_w) int32 tensor of packed RGBA8 with alpha 255 on img's device.
-    fn.launches counts CUDA launches; fn.reference(img) runs the plain
-    version on img's device; fn.dma_geometry is what the kernel loads and
-    stores (kernels/sol.py).
+    fn.launches counts calls that launched the CUDA kernels (one per call:
+    the outside pass and the inside kernel, each only where its tile list
+    is not empty); fn.reference(img) runs the plain version on img's
+    device; fn.dma_geometry is what the kernels load and store
+    (kernels/sol.py).
     """
     B, H, W = int(batch), int(in_h), int(in_w)
     OH, OW = int(out_h), int(out_w)
@@ -133,20 +139,25 @@ def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
         err = _upscale_launch_fn()(
             img.data_ptr(), out.data_ptr(), m.col_i.data_ptr(),
             m.col_f.data_ptr(), m.row_i.data_ptr(), m.row_f.data_ptr(),
-            m.tile_x0.data_ptr(), m.tile_y0.data_ptr(), m.centres.data_ptr(),
-            B, H, W, img.shape[1], img.shape[2], OH, OW, float(sharp),
-            float(tint), CAS_IN_TILE,
-            torch.cuda.current_stream(dev).cuda_stream)
+            m.tile_x0.data_ptr(), m.tile_y0.data_ptr(),
+            m.group_cls.data_ptr(), m.inside_tiles.data_ptr(), n_inside,
+            m.outside_tiles.data_ptr(), n_outside, B, H, W, img.shape[1],
+            img.shape[2], OH, OW, float(sharp), float(tint), FSR_TILE,
+            CAS_IN_TILE, torch.cuda.current_stream(dev).cuda_stream)
         return out, err
 
-    # every CTA stages its 20x20 window, which may start at -2, 0 outside
-    # the image; an output's own tap is its clamped CasFilter floor
+    # the inside tiles stage their 36x36 window, which may start at -2, 0
+    # outside the image; an output's own tap there is its clamped CasFilter
+    # floor. The outside tiles load each output's four bilinear taps.
     m = tables.host
+    n_inside, n_outside = len(m.inside_tiles), len(m.outside_tiles)
     geometry = dma_geometry(
-        OH, OW, (TILE, TILE), (CAS_IN_TILE, CAS_IN_TILE), m.tile_x0,
-        m.tile_y0, m.centres, oob="zero", stage="all",
+        OH, OW, (FSR_TILE, FSR_TILE), (CAS_IN_TILE, CAS_IN_TILE), m.tile_x0,
+        m.tile_y0, m.centres, oob="zero", stage="list",
+        staged=m.tile_inside, stage_quads=False, group=(TILE, TILE),
         tap_x=np.clip(m.col_i[0], 0, W - 1),
-        tap_y=np.clip(m.row_i[0], 0, H - 1))
+        tap_y=np.clip(m.row_i[0], 0, H - 1),
+        quad_x=m.col_i[[1, 1]], quad_y=m.row_i[[1, 1]])
     return kernel_fn("CAS upscale", B, (H, W), input_padding(H, W),
                      reference, launch, geometry)
 

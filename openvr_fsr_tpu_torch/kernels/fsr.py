@@ -38,8 +38,7 @@ from ._common import (DeviceTables, circle_mask, debug_tint, kernel_fn,
 from ._maps import (FSR_TILE, IN_TILE, TILE, dma_geometry, fsr_maps,
                     input_padding)
 
-__all__ = ["build_fsr_fused", "fsr_fused_reference", "circle_mask",
-           "occupancy"]
+__all__ = ["build_fsr_fused", "fsr_fused_reference", "circle_mask"]
 
 
 def fsr_fused_reference(img, maps, sharpness_linear, tint):
@@ -70,23 +69,6 @@ def _launch_fn():
                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     f.restype = ctypes.c_int
     return f
-
-
-def occupancy():
-    """{"outside": n, "inside": n, "inside_smem": bytes}: the CTAs per SM
-    of the two class kernels on the current CUDA device
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor at 256 threads; the
-    inside kernel's persistent grid is SMs x its n) and the inside kernel's
-    dynamic shared memory per CTA."""
-    f = _build.load_library("fsr_fused").fsr_fused_occupancy
-    f.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
-    f.restype = ctypes.c_int
-    vals = [ctypes.c_int() for _ in range(3)]
-    err = f(*map(ctypes.byref, vals))
-    if err != 0:
-        raise RuntimeError(f"fsr_fused_occupancy failed: cudaError {err}")
-    return dict(zip(("outside", "inside", "inside_smem"),
-                    (v.value for v in vals)))
 
 
 def build_fsr_fused(batch, in_h, in_w, out_w, out_h, *, sharpness, centres,

@@ -14,8 +14,10 @@ pipeline (api/pipeline.py:419-476 of the JAX package):
     DirectCopy bilinear tap at (x/OW, y/OH) times the tint with alpha 1
     (NIS_Upscale.hlsl:77-90).
 
-The returned functions launch the CUDA kernels (csrc/nis_sharpen.cu,
-csrc/nis_scaler.cu) for a CUDA tensor and run `nvsharpen_reference` /
+The returned functions launch the CUDA kernels (csrc/nis_sharpen.cu;
+csrc/nis_scaler.cu, a DirectCopy pass over the 32x48 tiles outside the
+circle and an NVScaler kernel over those inside, from one C entry point)
+for a CUDA tensor and run `nvsharpen_reference` /
 `nvscaler_reference`, the same computations in plain torch (ops/nis.py),
 for a CPU tensor. Nothing falls back.
 """
@@ -33,8 +35,8 @@ from ..ops.nis import KHDR_COMPRESSION, NIS_SCALE_FLOAT, nvscaler, nvsharpen
 from . import _build
 from ._common import (DeviceTables, centres_table, circle_mask, debug_tint,
                       kernel_fn, pack, tint_vector, unpack)
-from ._maps import (NIS_IN_TILE, dma_geometry, input_padding,
-                    nvscaler_maps, sharpen_geometry)
+from ._maps import (NIS_EDGE_TILE, NIS_IN_TILE, NIS_TILE, dma_geometry,
+                    input_padding, nvscaler_maps, sharpen_geometry)
 
 __all__ = ["build_nvsharpen", "build_nvscaler", "nvsharpen_reference",
            "nvscaler_reference"]
@@ -103,8 +105,9 @@ def _sharpen_fn():
 def _scaler_fn():
     """NVScaler's ctypes entry point, bound (and built) at first launch."""
     f = _build.load_library("nis_scaler").nis_scaler_launch
-    f.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
-                  + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    f.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int, ctypes.c_void_p]
+                  + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 9
+                  + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     f.restype = ctypes.c_int
     return f
 
@@ -167,9 +170,11 @@ def build_nvscaler(batch, in_h, in_w, out_w, out_h, *, nis_cfg: NisConfig,
         centres_payload at the output size).
       debug: out-of-radius tint 1-(0, .3, .3).
 
-    Returns fn(img) as build_nvsharpen's, with a (B, out_h, out_w) result.
-    Raises ValueError here if a block's luma footprint exceeds the kernel's
-    shared-memory tile.
+    Returns fn(img) as build_nvsharpen's, with a (B, out_h, out_w) result;
+    fn.launches counts calls that launched the CUDA kernels (one per call:
+    the DirectCopy pass and the inside kernel, each only where its tile
+    list is not empty). Raises ValueError here if a tile's luma window or
+    edge-map extent exceeds the kernel's shared-memory caps.
     """
     B, H, W = int(batch), int(in_h), int(in_w)
     OH, OW = int(out_h), int(out_w)
@@ -190,21 +195,25 @@ def build_nvscaler(batch, in_h, in_w, out_w, out_h, *, nis_cfg: NisConfig,
         err = _scaler_fn()(
             img.data_ptr(), out.data_ptr(), m.col_i.data_ptr(),
             m.col_f.data_ptr(), m.row_i.data_ptr(), m.row_f.data_ptr(),
-            m.tile_x0.data_ptr(), m.tile_y0.data_ptr(), m.centres.data_ptr(),
-            m.coef.data_ptr(), consts.ctypes.data, consts.size, B, H, W,
-            img.shape[1], img.shape[2], OH, OW, int(nis_cfg.hdr_mode),
-            float(tint), *NIS_IN_TILE,
-            torch.cuda.current_stream(dev).cuda_stream)
+            m.tile_x0.data_ptr(), m.tile_y0.data_ptr(), m.edge_x.data_ptr(),
+            m.edge_y.data_ptr(), m.block_cls.data_ptr(), m.coef.data_ptr(),
+            m.inside_tiles.data_ptr(), n_inside,
+            m.outside_tiles.data_ptr(), n_outside, consts.ctypes.data,
+            consts.size, B, H, W, img.shape[1], img.shape[2], OH, OW,
+            int(nis_cfg.hdr_mode), float(tint), *NIS_TILE, *NIS_IN_TILE,
+            *NIS_EDGE_TILE, torch.cuda.current_stream(dev).cuda_stream)
         return out, err
 
-    # a block inside the circle stages its 40x32 edge-clamped luma window
-    # and loads each pixel's RGBA tap; the others load the four DirectCopy
-    # taps of each pixel
+    # a 32x48 tile with a block inside the circle stages its 40x56
+    # edge-clamped luma window and loads each pixel's RGBA tap (its blocks
+    # outside load the four DirectCopy taps instead: the same count); the
+    # other tiles load the four DirectCopy taps of each pixel
     m = tables.host
+    n_inside, n_outside = len(m.inside_tiles), len(m.outside_tiles)
     geometry = dma_geometry(
-        OH, OW, TILE_NIS_SCALER, NIS_IN_TILE, m.tile_x0, m.tile_y0,
-        m.centres, oob="clamp", stage="circle",
-        tap_x=np.clip(m.col_i[0], 0, W - 1),
+        OH, OW, NIS_TILE, NIS_IN_TILE, m.tile_x0, m.tile_y0, m.centres,
+        oob="clamp", stage="list", staged=m.tile_inside, stage_quads=True,
+        group=TILE_NIS_SCALER, tap_x=np.clip(m.col_i[0], 0, W - 1),
         tap_y=np.clip(m.row_i[0], 0, H - 1),
         quad_x=m.col_i[2:4], quad_y=m.row_i[2:4])
     return kernel_fn("NVScaler", B, (H, W), input_padding(H, W), reference,

@@ -44,23 +44,22 @@ __all__ = ["build_dma_floor", "dma_floor_reference", "check_geometry",
 
 
 def staged_ctas(geom):
-    """(B, tiles_y, tiles_x) bool: the CTAs that stage their window (every
-    CTA, those whose tile passes the foveation circle test,
-    csrc/rgba8.cuh::inside_circle, or those the geometry's `staged`
-    table marks)."""
+    """(B, tiles_y, tiles_x) bool: the CTAs that stage their window: for
+    stage "circle", those whose tile passes the foveation circle test
+    (csrc/rgba8.cuh::inside_circle); for "list", those the geometry's
+    `staged` table marks."""
     g = geom
     if g["stage"] == "list":
         return g["staged"]
-    cls = group_classes(g["centres"], g["out_h"], g["out_w"], g["tile"])
-    return np.ones_like(cls) if g["stage"] == "all" else cls
+    return group_classes(g["centres"], g["out_h"], g["out_w"], g["tile"])
 
 
 def floor_loads(geom):
     """Words one launch loads from the frame, overlaps included: each
     staging CTA's window (its in-image words where out-of-image words are
-    staged as 0 without a load), plus one word per output of a CTA that
-    does not stage, or four per output where the kernel loads four
-    bilinear taps (in a staging CTA too where stage_quads)."""
+    staged as 0 without a load), plus, per output of a CTA that does not
+    stage, one word (stage "circle") or four bilinear taps ("list"), and
+    four per output of a staging CTA where stage_quads."""
     g = geom
     (tw, th), (ww, wh) = g["tile"], g["window"]
     H, W, OH, OW = g["in_h"], g["in_w"], g["out_h"], g["out_w"]
@@ -73,24 +72,32 @@ def floor_loads(geom):
         nx = np.clip(x0 + ww, 0, W) - np.clip(x0, 0, W)
         ny = np.clip(y0 + wh, 0, H) - np.clip(y0, 0, H)
         win = ny[:, None] * nx[None, :]
-    quad = g["quad_x"] is not None
-    staged = staged_ctas(g)
-    staged_quads = quad and g["stage_quads"]
-    return int(np.where(staged, win + (4 * outs if staged_quads else 0),
-                        (4 if quad else 1) * outs).sum())
+    listed = g["stage"] == "list"
+    return int(np.where(staged_ctas(g),
+                        win + (4 * outs if g["stage_quads"] else 0),
+                        (4 if listed else 1) * outs).sum())
 
 
 def check_geometry(geom):
     """Raise ValueError unless the floor can run `geom`: 256 threads per
-    CTA, a staged table of the grid's shape for stage "list", and every
+    CTA; stage "circle" with no four-tap floors and no stage_quads, or
+    "list" with the floors and a staged table of the grid's shape; every
     output's tap inside the window of its tile."""
     g = geom
     if g["threads"] != THREADS:
         raise ValueError(f"the DMA floor runs {THREADS} threads per CTA, "
                          f"the geometry {g['threads']}")
     grid = (g["batch"], len(g["tile_y0"]), len(g["tile_x0"]))
-    if g["stage"] == "list" and np.shape(g["staged"]) != grid:
-        raise ValueError(f"stage 'list' needs a staged table of shape {grid}")
+    if g["stage"] == "list":
+        if np.shape(g["staged"]) != grid or g["quad_x"] is None:
+            raise ValueError(f"stage 'list' needs a staged table of shape "
+                             f"{grid} and the four-tap floors")
+    elif g["stage"] == "circle":
+        if g["quad_x"] is not None or g["stage_quads"]:
+            raise ValueError("stage 'circle' copies one texel per output: "
+                             "no four-tap floors")
+    else:
+        raise ValueError(f"no floor form for stage {g['stage']!r}")
     for axis, tile, win, origins, taps in (
             ("column", g["tile"][0], g["window"][0], g["tile_x0"],
              g["tap_x"]),
@@ -104,9 +111,9 @@ def check_geometry(geom):
 
 def dma_floor_reference(img, geom):
     """The floor's output in plain torch, on img's device: each output word
-    is the input word at its tap (tap_y, tap_x); where a CTA does not
-    stage and the kernel loads four bilinear taps instead, the first of
-    those, edge-clamped. img: (B, H, W) or ring-pitch (B, hp, wp) int32.
+    is the input word at its tap (tap_y, tap_x); in a CTA of stage "list"
+    that does not stage, the first of the four bilinear taps it loads
+    instead, edge-clamped. img: (B, H, W) or ring-pitch (B, hp, wp) int32.
     Returns (B, out_h, out_w) int32."""
     g = geom
     H, W, OH, OW = g["in_h"], g["in_w"], g["out_h"], g["out_w"]
@@ -118,7 +125,7 @@ def dma_floor_reference(img, geom):
         return x[:, ys][:, :, xs]
 
     out = gather(g["tap_y"], g["tap_x"])
-    if g["quad_x"] is not None:
+    if g["stage"] == "list":
         tw, th = g["tile"]
         staged = torch.as_tensor(staged_ctas(g), device=img.device)
         staged = staged.repeat_interleave(th, 1).repeat_interleave(tw, 2)
@@ -161,7 +168,7 @@ def _ptr(t):
 
 
 # csrc/dma_floor.cu Stage: which CTAs stage their window
-_STAGES = {"circle": 0, "all": 1, "list": 2}
+_STAGES = {"circle": 0, "list": 1}
 
 
 def build_dma_floor(geom):

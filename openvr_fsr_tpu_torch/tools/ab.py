@@ -1,0 +1,341 @@
+"""Same-process A/B of one upscaler kernel (B1 csrc/fsr_fused.cu, B3
+csrc/nis_scaler.cu or B5 csrc/cas_upscale.cu) against an earlier source of
+it, or against the current source with one part taken out, on one NVIDIA
+GPU.
+
+    python3 -m openvr_fsr_tpu_torch.tools.ab --kernel KERNEL
+        (--parent FILE | --ablate NAME) [--iters N] [--out FILE]
+
+FILE is the kernel's source as the previous commit has it (`git show
+HEAD~1:openvr_fsr_tpu_torch/csrc/<kernel>.cu`), with the entry point that
+source was written for:
+  fsr_fused    the two class kernels' fsr_fused_launch (the current one);
+  nis_scaler   one CTA per 32x24 block, nis_scaler_launch with 11 pointers
+               and 40x32 luma windows;
+  cas_upscale  one CTA per 16x16 tile, cas_upscale_launch with 9 pointers
+               and 20x20 windows.
+It is built with the port's nvcc flags into a temporary directory and
+driven with the tables it was written for, made from the same sample maps
+and centres as the current build's.
+
+NAME is one of ABLATIONS[KERNEL]: the current source with one edit, built
+the same way and driven through the current wrapper with its own entry
+point swapped in. It answers what a part of the kernel costs:
+  nis_scaler   noslide  the luma support and edge weights no longer slide
+                        down a run: every new source row reloads them (the
+                        same bits);
+  cas_upscale  nostage  no window is staged: the filter reads a window
+                        never written (other bits: a time only);
+               noload   the window's texels are made from their index
+                        instead of loaded; the decode and its shared stores
+                        stay (other bits: a time only).
+
+Cases, sharpness 0.9, centred eyes, at 2 x 1683x1869 -> 2 x 2244x2492 (rs
+0.75): radius 0.0, 0.5 and 2.0; then NVScaler at hdr_mode 1 and the others
+at the supersample (2 x 2244x2492 -> 2 x 2917x3239, rs 1.3), radius 0.5. In
+each, both kernels' outputs must equal the plain version's on the first
+frame (else it exits 1); then they are timed in turns, parent, current,
+current, parent, each round the best of 3 rotations of `iters`
+back-to-back calls over the bench's three ring frames (CUDA events). An
+ablation that keeps the bits is held to the plain version too; one that
+does not is only timed. Prints one JSON line: the card, each build's ptxas
+registers, spills and shared memory per kernel, the current class kernels'
+CTAs per SM, and per case both rounds of each and parent / current (the
+ablated build stands in the parent's place).
+"""
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+__all__ = ["main", "build_parent", "parent_launcher", "ablated_source",
+           "CASES", "KERNELS", "PARENT_ARGTYPES", "ABLATIONS"]
+
+KERNELS = ("fsr_fused", "nis_scaler", "cas_upscale")
+_MAIN = [(f"rs0.75 radius {r}", 1869, 1683, 0.75, r, 0)
+         for r in (0.0, 0.5, 2.0)]
+# kernel -> [(label, in_h, in_w, render_scale, radius, hdr_mode)]
+CASES = {
+    "fsr_fused": _MAIN + [("rs1.3 radius 0.5", 2492, 2244, 1.3, 0.5, 0)],
+    "nis_scaler": _MAIN + [("rs0.75 radius 0.5 hdr 1", 1869, 1683, 0.75,
+                            0.5, 1)],
+    "cas_upscale": _MAIN + [("rs1.3 radius 0.5", 2492, 2244, 1.3, 0.5, 0)],
+}
+SHARPNESS = 0.9
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+PARENT_ARGTYPES = {
+    "fsr_fused": [_P] * 10 + [_I, _P] + [_I] * 8 + [_F] * 2 + [_I] * 2 + [_P],
+    "nis_scaler": [_P] * 11 + [_I] * 9 + [_F] + [_I] * 2 + [_P],
+    "cas_upscale": [_P] * 9 + [_I] * 7 + [_F] * 2 + [_I, _P],
+}
+# the earlier sources' tile and window shapes, (width, height)
+NIS_PARENT_TILE, NIS_PARENT_WINDOW = (32, 24), (40, 32)
+CAS_PARENT_TILE, CAS_PARENT_WINDOW = 16, 20
+# kernel -> ablation -> (keeps the bits, [(text of csrc/<kernel>.cu, what
+# replaces it)]); each text occurs once in the source
+ABLATIONS = {
+    "nis_scaler": {
+        "noslide": (True, [("if (pyi == cur + 1) {", "if (false) {")]),
+    },
+    "cas_upscale": {
+        "nostage": (False, [("for (int i = tid; i < kWin * kWin; "
+                             "i += kThreads) {",
+                             "for (int i = tid; i < 0; i += kThreads) {")]),
+        "noload": (False, [("? img[static_cast<size_t>(y) * p.pitch + x]",
+                            "? static_cast<uint32_t>(i) * 2654435761u")]),
+    },
+}
+# kernel -> the name of its wrapper module's entry-point getter
+_ENTRIES = {"nis_scaler": "_scaler_fn", "cas_upscale": "_upscale_launch_fn"}
+
+
+def _wrapper_module(kernel):
+    from ..kernels import cas, nis
+    return {"nis_scaler": nis, "cas_upscale": cas}[kernel]
+
+
+def build_parent(kernel, source, argtypes=None):
+    """(the parent's ctypes entry point, its ptxas usage) from its source,
+    built into a temporary directory with the port's flags and headers;
+    bound with `argtypes` (default: the earlier source's,
+    PARENT_ARGTYPES)."""
+    from ..kernels import _build
+    from . import sass
+
+    lib = Path(tempfile.mkdtemp(prefix=f"{kernel}_parent_")) / "lib.so"
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+           str(lib), str(source)]
+    r = subprocess.run(cmd, capture_output=True, text=True,
+                       timeout=_build.NVCC_TIMEOUT_S)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc exited {r.returncode}:\n{r.stdout}{r.stderr}")
+    f = getattr(ctypes.CDLL(str(lib)), f"{kernel}_launch")
+    f.argtypes = PARENT_ARGTYPES[kernel] if argtypes is None else argtypes
+    f.restype = ctypes.c_int
+    return f, sass.ptxas_usage(r.stdout + r.stderr)
+
+
+def ablated_source(kernel, name, text):
+    """The source text of csrc/<kernel>.cu with ablation `name` applied;
+    raises ValueError if an edit's text does not occur exactly once."""
+    for old, new in ABLATIONS[kernel][name][1]:
+        if text.count(old) != 1:
+            raise ValueError(f"{kernel} {name}: {old!r} occurs "
+                             f"{text.count(old)} times in the source")
+        text = text.replace(old, new)
+    return text
+
+
+def _build_ablated(kernel, name):
+    """(the ablated build's entry point bound like the current one, its
+    ptxas usage)."""
+    from ..kernels import _build
+
+    current = getattr(_wrapper_module(kernel), _ENTRIES[kernel])()
+    src = Path(tempfile.mkdtemp(prefix=f"{kernel}_{name}_")) / f"{kernel}.cu"
+    src.write_text(ablated_source(kernel, name, (
+        _build.CSRC / f"{kernel}.cu").read_text()))
+    return build_parent(kernel, src, current.argtypes)
+
+
+def _through_entry(kernel, entry, fn):
+    """fn(img) with the wrapper's entry point swapped for `entry` during
+    the call."""
+    module, getter = _wrapper_module(kernel), _ENTRIES[kernel]
+
+    def run(img):
+        saved = getattr(module, getter)
+        setattr(module, getter, lambda: entry)
+        try:
+            return fn(img)
+        finally:
+            setattr(module, getter, saved)
+    return run
+
+
+def _build_current(kernel, batch, h, w, ow, oh, cen, hdr):
+    """(the current kernel function, its host tables, the constants the
+    parent takes)."""
+    from ..core import constants as C
+    from ..kernels import cas, fsr, nis
+    from ..kernels._maps import cas_upscale_maps, fsr_maps, nvscaler_maps
+
+    if kernel == "fsr_fused":
+        fn = fsr.build_fsr_fused(batch, h, w, ow, oh, sharpness=SHARPNESS,
+                                 centres=cen)
+        return fn, fsr_maps(batch, h, w, ow, oh, cen), dict(
+            sharp=C.fsr_rcas_con(C.rcas_stops_from_slider(SHARPNESS)))
+    if kernel == "cas_upscale":
+        fn = cas.build_cas_upscale(batch, h, w, ow, oh, sharpness=SHARPNESS,
+                                   centres=cen)
+        return fn, cas_upscale_maps(batch, h, w, ow, oh, cen), dict(
+            sharp=cas.cas_setup(SHARPNESS))
+    cfg = C.nvscaler_update_config(SHARPNESS, w, h, w, h, ow, oh, ow, oh,
+                                   hdr_mode=hdr)
+    fn = nis.build_nvscaler(batch, h, w, ow, oh, nis_cfg=cfg, centres=cen)
+    return fn, nvscaler_maps(batch, h, w, ow, oh, cfg, cen), dict(
+        consts=nis._consts(cfg), hdr_mode=hdr)
+
+
+def _parent_origins(kernel, m):
+    """Per-tile window origins (x, y) of the earlier source's shapes, from
+    the current maps: NVScaler's 6x6 luma taps per 32x24 block, CAS's taps
+    and clamped bilinear taps per 16x16 tile."""
+    from ..kernels._maps import _footprint_origins
+
+    axes = ((m.col_i, m.in_w), (m.row_i, m.in_h))
+    if kernel == "nis_scaler":
+        return [_footprint_origins(np.clip(i[0] - 2, 0, n - 1),
+                                   np.clip(i[0] + 3, 0, n - 1), tile, 0, cap)
+                for (i, n), tile, cap in zip(axes, NIS_PARENT_TILE,
+                                             NIS_PARENT_WINDOW)]
+    return [_footprint_origins(
+        np.minimum(i[0] - 1, np.clip(i[1], 0, n - 1)),
+        np.maximum(i[0] + 2, np.clip(i[1] + 1, 0, n - 1)),
+        CAS_PARENT_TILE, 0, CAS_PARENT_WINDOW) for i, n in axes]
+
+
+def parent_launcher(kernel, entry, maps, batch, device, sharp=None,
+                    consts=None, hdr_mode=0, tint=1.0):
+    """fn(img) running the parent kernel `entry` with the tables it was
+    written for, made from `maps` (the current build's host tables)."""
+    from ..kernels._maps import FSR_TILE, IN_TILE
+
+    m = maps
+    H, W, OH, OW = m.in_h, m.in_w, m.out_h, m.out_w
+    d = m.to(device)
+    if kernel != "fsr_fused":
+        x0, y0 = (torch.as_tensor(o, device=device)
+                  for o in _parent_origins(kernel, m))
+
+    def stream():
+        return torch.cuda.current_stream(device).cuda_stream
+
+    def run(img):
+        out = torch.empty((batch, OH, OW), dtype=torch.int32, device=device)
+        maps_ptrs = (img.data_ptr(), out.data_ptr(), d.col_i.data_ptr(),
+                     d.col_f.data_ptr(), d.row_i.data_ptr(),
+                     d.row_f.data_ptr())
+        rows, pitch = img.shape[1:]
+        if kernel == "fsr_fused":
+            err = entry(*maps_ptrs, d.tile_x0.data_ptr(),
+                        d.tile_y0.data_ptr(), d.group_cls.data_ptr(),
+                        d.inside_tiles.data_ptr(), len(m.inside_tiles),
+                        d.outside_tiles.data_ptr(), len(m.outside_tiles),
+                        batch, H, W, rows, pitch, OH, OW, float(sharp),
+                        float(tint), FSR_TILE, IN_TILE, stream())
+        elif kernel == "nis_scaler":
+            err = entry(*maps_ptrs, x0.data_ptr(), y0.data_ptr(),
+                        d.centres.data_ptr(), d.coef.data_ptr(),
+                        consts.ctypes.data, consts.size, batch, H, W, rows,
+                        pitch, OH, OW, int(hdr_mode), float(tint),
+                        *NIS_PARENT_WINDOW, stream())
+        else:
+            err = entry(*maps_ptrs, x0.data_ptr(), y0.data_ptr(),
+                        d.centres.data_ptr(), batch, H, W, rows, pitch, OH,
+                        OW, float(sharp), float(tint), CAS_PARENT_WINDOW,
+                        stream())
+        if err != 0:
+            raise RuntimeError(f"parent {kernel}_launch: cudaError {err}")
+        return out
+    return run
+
+
+def _best_ms(fn, inputs, iters):
+    from ..utils.timing import rotation_ms
+    rotation_ms(fn, inputs, 5)
+    return min(rotation_ms(fn, inputs, iters) for _ in range(3))
+
+
+def main(argv=None):
+    """Run the A/B, print its JSON line and return the record."""
+    from .. import bench
+    from ..api.pipeline import Pipeline
+    from ..core import constants as C
+    from ..core.config import Config
+    from ..kernels import _build
+    from ..kernels._common import occupancy
+    from . import sass
+
+    ap = argparse.ArgumentParser(
+        prog="python3 -m openvr_fsr_tpu_torch.tools.ab",
+        description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=KERNELS, default="fsr_fused")
+    ap.add_argument("--parent", default=None,
+                    help="the earlier csrc/<kernel>.cu to compare with")
+    ap.add_argument("--ablate", default=None,
+                    choices=sorted({n for a in ABLATIONS.values() for n in a}),
+                    help="compare with the current source less one part")
+    ap.add_argument("--iters", type=int, default=30)
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args(argv)
+    kernel = args.kernel
+    if (args.parent is None) == (args.ablate is None):
+        ap.error("give one of --parent FILE and --ablate NAME")
+    if args.ablate and args.ablate not in ABLATIONS.get(kernel, {}):
+        ap.error(f"{kernel} has no ablation {args.ablate!r}")
+    bench.require_gpu(["ab"])
+    dev = torch.device("cuda", torch.cuda.current_device())
+    card = bench.card()
+    _build.build([kernel])
+    if args.ablate:
+        entry, parent_usage = _build_ablated(kernel, args.ablate)
+        exact = ABLATIONS[kernel][args.ablate][0]
+    else:
+        entry, parent_usage = build_parent(kernel, args.parent)
+        exact = True
+    usage = sass.ptxas_usage(
+        _build.library_path(kernel).with_suffix(".log").read_text())
+    rec = {"metric": "ab", "kernel": kernel, "device": card,
+           "iters": args.iters, "parent": str(args.parent or
+                                              f"ablate {args.ablate}"),
+           "ptxas_parent": parent_usage, "ptxas_current": usage,
+           "ctas_per_sm_current": occupancy(kernel), "cases": []}
+    print(f"[ab] {kernel} on {card}; parent {parent_usage}; current {usage}, "
+          f"CTAs per SM {rec['ctas_per_sm_current']}", file=sys.stderr,
+          flush=True)
+    for label, h, w, rs, radius, hdr in CASES[kernel]:
+        ow, oh = Config(render_scale=rs).output_size(w, h)
+        cen = C.centres_payload(ow, oh, radius, Pipeline(device="cpu")
+                                .eye_centers, (0, 1))
+        new, maps, kw = _build_current(kernel, 2, h, w, ow, oh, cen, hdr)
+        old = (_through_entry(kernel, entry, new) if args.ablate else
+               parent_launcher(kernel, entry, maps, 2, dev, **kw))
+        inputs = bench.ring_frames(h, w, new.pad_to, dev)
+        want = new.reference(inputs[0])
+        for name, fn in (("parent", old), ("current", new)):
+            if name == "parent" and not exact:
+                continue
+            ne = int((fn(inputs[0]) != want).sum())
+            if ne:
+                print(json.dumps({"metric": "ab", "kernel": kernel, "error":
+                                  f"{label}: {name} kernel {ne} texels "
+                                  "unequal to the plain version"}))
+                sys.exit(1)
+        rounds = {"parent": [], "current": []}
+        for name, fn in (("parent", old), ("current", new),
+                         ("current", new), ("parent", old)):
+            rounds[name].append(_best_ms(fn, inputs, args.iters))
+        case = {"case": label, "parent_ms": rounds["parent"],
+                "current_ms": rounds["current"],
+                "parent_over_current": float(np.mean(rounds["parent"])
+                                             / np.mean(rounds["current"]))}
+        rec["cases"].append(case)
+        print(f"[ab] {kernel} {label}: {case}", file=sys.stderr, flush=True)
+    line = json.dumps(rec)
+    print(line, flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    return rec
+
+
+if __name__ == "__main__":
+    main()

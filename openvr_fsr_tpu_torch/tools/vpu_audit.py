@@ -76,22 +76,31 @@ LANES_PER_SM = 128          # FP32 lanes, and shared-memory bytes per clock
 # its source (staging stores and recomputed halos not counted), inside the
 # circle and on the fallback:
 SMEM_WORDS = {
-    # fsr_fused.cu:179 the group class, :181 + :190 4 map words and :185
-    # 12 decoded taps of 16 bytes (48 words) for EASU, :257 + :262-265 15
-    # f32 for RCAS; fallback: the outside pass (fsr_outside_kernel) reads no
+    # fsr_fused.cu:181 the group class, :183 + :192 4 map words and :187
+    # 12 decoded taps of 16 bytes (48 words) for EASU, :259 + :264-267 15
+    # f32 for RCAS; fallback: the outside pass (bilinear_pass.cuh) reads no
     # shared memory
     "fsr_fused": (68, 0),
     # rcas_sharpen.cu:79-85 the 5 cross taps x 3 channels; fallback reads
     # device memory only
     "rcas_sharpen": (15, 0),
-    # nis_scaler.cu:187 36 lumas, :243-244 16 edge weights, 48 distinct
-    # COEF_SCALE / COEF_USM words (rows fy, fx and the two diagonal
-    # phases, 6 taps each; FilterNormal reads the fy and fx rows again)
-    "nis_scaler": (100, 0),
+    # nis_scaler.cu, per output of a run of 6 in one column: :321 + :331
+    # the two diagonal phases' COEF_SCALE / COEF_USM rows (24 words); per
+    # run :244-245 the fx rows (12); on a reload :274 36 lumas (:158) and
+    # :278 two rows of 2 float4 edge weights (16), on a step of one row
+    # :266 6 lumas and :270 one edge row (8); the fy rows come from constant
+    # memory (:289). Averaged over the main path's runs (416 reloads, 1,661
+    # one-row steps per 2,492 rows): 44.0 (78 if every output reloaded, the
+    # ablation `tools/ab.py --ablate noslide`). Fallback: DirectCopy reads
+    # device memory only
+    "nis_scaler": (44, 0),
     # nis_sharpen.cu:93 the 5x5 lumas
     "nis_sharpen": (25, 0),
-    # cas_upscale.cu:86 the 4x4 window; fallback :98-99 4 texels
-    "cas_upscale": (16, 4),
+    # cas_upscale.cu:129 the 12 taps of the 4x4 window x 3 f32 planes;
+    # fallback: the outside pass reads device memory only (an output of an
+    # outside group in an inside tile reads 12, :148; not counted, so the
+    # floor stays a lower bound)
+    "cas_upscale": (36, 0),
     # cas_sharpen.cu:83 the 3x3 taps x 3 channels
     "cas_sharpen": (27, 0),
 }
@@ -209,7 +218,7 @@ def _nis_input_pixel(z, cfg):
 
 def _nis_scaler_stages(z, cfg):
     """NVScaler's per-output-pixel math (NIS_Scaler.h:589-770, ops/nis.py::
-    nvscaler, csrc/nis_scaler.cu:176-272) on planes, stage by stage:
+    nvscaler, csrc/nis_scaler.cu:237-367) on planes, stage by stage:
     {stage: closure}."""
     from ..ops import nis as N
     from ..ops.bilinear import bilerp
@@ -390,10 +399,14 @@ def kernel_floors(inside_px, fallback_px, ops, smem_words, unique_bytes,
 
 # ---- (b) the rates on the card ----------------------------------------------
 
-def _event_ms(fn, args, iters):
-    """CUDA-event ms per call of iters back-to-back calls fn(*args)."""
+def _event_ms(fn, args, iters, rounds=3):
+    """CUDA-event ms per call of iters back-to-back calls fn(*args), the
+    best of `rounds`: a host stall between launches lengthens a round's
+    events and never shortens them, and would otherwise set one pair's
+    slope apart from the others'."""
     from ..utils.timing import rotation_ms
-    return rotation_ms(lambda _: fn(*args), args[:1], iters)
+    return min(rotation_ms(lambda _: fn(*args), args[:1], iters)
+               for _ in range(rounds))
 
 
 def _measure_rate(builds, args_of, work, side_ops=None, fp32_rate=None,

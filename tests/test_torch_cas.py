@@ -35,7 +35,7 @@ from openvr_fsr_tpu.utils import frames as JFR  # noqa: E402
 
 import openvr_fsr_tpu_torch as T  # noqa: E402
 from openvr_fsr_tpu_torch.core import constants as C  # noqa: E402
-from openvr_fsr_tpu_torch.kernels._maps import (CAS_IN_TILE, TILE,  # noqa: E402
+from openvr_fsr_tpu_torch.kernels._maps import (CAS_IN_TILE, FSR_TILE,  # noqa: E402
                                                 cas_upscale_maps)
 from openvr_fsr_tpu_torch.kernels.cas import (build_cas_sharpen,  # noqa: E402
                                               build_cas_upscale)
@@ -274,7 +274,7 @@ class TestTables:
             assert np.array_equal(ints[0], fi) and _bitwise(floats[0], fr)
             assert np.array_equal(ints[1], b0) and _bitwise(floats[1], bf)
             for t, o in enumerate(origins):
-                sl = slice(t * TILE, (t + 1) * TILE)
+                sl = slice(t * FSR_TILE, (t + 1) * FSR_TILE)
                 taps = np.concatenate([
                     (ints[0][sl, None] + np.arange(-1, 3)).ravel(),
                     np.clip(ints[1][sl, None] + np.arange(0, 2), 0,

@@ -269,15 +269,18 @@ class TestGpuTimer:
 def test_port_never_imports_jax():
     """`import openvr_fsr_tpu_torch` (the GPU machine has no jax) pulls in
     neither jax nor the JAX package, with every submodule imported,
-    the DMA floor, the rate probes, the two bench entries and the audit
-    included."""
+    the DMA floor, the rate probes, the two bench entries, the audit and
+    the A/B tool included."""
     code = ("import sys, openvr_fsr_tpu_torch, openvr_fsr_tpu_torch.kernels, "
             "openvr_fsr_tpu_torch.kernels._build, openvr_fsr_tpu_torch.ops, "
             "openvr_fsr_tpu_torch.utils, openvr_fsr_tpu_torch.api, "
             "openvr_fsr_tpu_torch.kernels.sol, openvr_fsr_tpu_torch.bench, "
             "openvr_fsr_tpu_torch.tools.bench_paths, "
             "openvr_fsr_tpu_torch.tools.vpu_audit, "
-            "openvr_fsr_tpu_torch.tools.sass;"
+            "openvr_fsr_tpu_torch.tools.sass, openvr_fsr_tpu_torch.tools.ab, "
+            "openvr_fsr_tpu_torch.kernels.cas, "
+            "openvr_fsr_tpu_torch.kernels.nis, "
+            "openvr_fsr_tpu_torch.kernels.fsr;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'openvr_fsr_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")

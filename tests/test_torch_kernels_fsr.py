@@ -264,16 +264,17 @@ ptxas info    : Used 38 registers, 480 bytes cmem[0]
 
 
 def test_ab_tool_without_a_gpu_fails(tmp_path):
-    """tools/ab_fused.py: no CUDA GPU, one error line and a non-zero exit,
+    """tools/ab.py: no CUDA GPU, one error line and a non-zero exit,
     before anything is built; jax never imported."""
     import json
     import os
     import subprocess
     import sys
     code = ("import runpy, sys\n"
-            "sys.argv = ['ab_fused', '--parent', 'absent.cu']\n"
+            "sys.argv = ['ab', '--kernel', 'nis_scaler', '--parent', "
+            "'absent.cu']\n"
             "try:\n"
-            "    runpy.run_module('openvr_fsr_tpu_torch.tools.ab_fused', "
+            "    runpy.run_module('openvr_fsr_tpu_torch.tools.ab', "
             "run_name='__main__')\n"
             "finally:\n"
             "    bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -286,29 +287,126 @@ def test_ab_tool_without_a_gpu_fails(tmp_path):
     assert r.returncode != 0 and "imported: []" in r.stderr, r.stderr
     (line,) = r.stdout.splitlines()
     rec = json.loads(line)
-    assert rec["metric"] == "ab_fused" and rec["value"] is None
+    assert rec["metric"] == "ab" and rec["value"] is None
     assert "no CUDA GPU" in rec["error"]
 
 
-def test_parent_tables_are_the_16x16_kernels(monkeypatch):
-    """The A/B tool drives the earlier kernel with 24x24 windows per 16x16
-    tile, each holding its haloed tile's taps."""
-    from openvr_fsr_tpu_torch.tools import ab_fused
-    h, w, rs = 96, 128, 0.75
+@pytest.mark.parametrize("argv", [
+    ["--kernel", "nis_scaler"],
+    ["--kernel", "nis_scaler", "--parent", "p.cu", "--ablate", "noslide"],
+    ["--kernel", "fsr_fused", "--ablate", "noslide"],
+    ["--kernel", "nis_scaler", "--ablate", "nostage"],
+], ids=["neither", "both", "fsr-has-none", "not-this-kernels"])
+def test_ab_tool_takes_one_comparison(argv, capsys):
+    """tools/ab.py compares with an earlier source or with one ablation of
+    the current source, one of them, and only the kernel's own ablations;
+    it refuses anything else before it looks for a GPU."""
+    from openvr_fsr_tpu_torch.tools import ab
+    with pytest.raises(SystemExit) as e:
+        ab.main(argv)
+    assert e.value.code == 2
+    assert "no CUDA GPU" not in capsys.readouterr().out
+
+
+ABLATED = [("cas_upscale", "noload"), ("cas_upscale", "nostage"),
+           ("nis_scaler", "noslide")]
+
+
+@pytest.mark.parametrize("kernel,name", ABLATED)
+def test_ablations_edit_the_current_source(kernel, name):
+    """Each ablation's edits find their text once in csrc/<kernel>.cu (a
+    source change that moves it fails here, not on the card), change only
+    those lines, and keep the entry point."""
+    from openvr_fsr_tpu_torch.kernels import _build
+    from openvr_fsr_tpu_torch.tools import ab
+    assert sorted((k, n) for k, v in ab.ABLATIONS.items() for n in v) \
+        == ABLATED
+    src = (_build.CSRC / f"{kernel}.cu").read_text()
+    out = ab.ablated_source(kernel, name, src)
+    changed = [(a, b) for a, b in zip(src.splitlines(), out.splitlines())
+               if a != b]
+    edits = ab.ABLATIONS[kernel][name][1]
+    assert len(out.splitlines()) == len(src.splitlines())
+    assert len(changed) == len(edits)
+    for (old, new), (a, b) in zip(edits, changed):
+        assert old in a and new in b
+    assert f"{kernel}_launch" in out
+    with pytest.raises(ValueError, match="occurs 2 times"):
+        ab.ablated_source(kernel, name, src + edits[0][0])
+
+
+def _parent_call(kernel, h, w, rs, monkeypatch):
+    """(the arguments the A/B tool passes to the parent entry point, the
+    current build's host tables) at one small shape."""
+    from openvr_fsr_tpu_torch.tools import ab
     ow, oh = _out_size(h, w, rs)
-    m = fsr_maps(2, h, w, ow, oh, C.centres_payload(ow, oh, 0.5, CENTERS,
-                                                    (0, 1)))
+    cen = C.centres_payload(ow, oh, 0.5, CENTERS, (0, 1))
+    _, maps, kw = ab._build_current(kernel, 2, h, w, ow, oh, cen, 1)
     seen = {}
 
     def entry(*args):
         seen["args"] = args
         return 0
-    run = ab_fused.parent_launcher(entry, m, 2, 0.5, 1.0, torch.device("cpu"))
+    run = ab.parent_launcher(kernel, entry, maps, 2, torch.device("cpu"),
+                             **kw)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: type(
         "S", (), {"cuda_stream": 0})())
     out = run(torch.zeros((2, h, w), dtype=torch.int32))
     assert out.shape == (2, oh, ow)
-    args = seen["args"]
-    assert len(args) == len(ab_fused.PARENT_ARGTYPES)
-    assert args[9:16] == (2, h, w, h, w, oh, ow)
-    assert args[18] == ab_fused.PARENT_WINDOW == 24
+    assert len(seen["args"]) == len(ab.PARENT_ARGTYPES[kernel])
+    return seen["args"], maps
+
+
+def _holds(origins, taps, tile, window):
+    """Every tile's window [origin, origin + window) holds its outputs'
+    taps (taps: (n_out, k) input indices)."""
+    for t, o in enumerate(origins):
+        seg = taps[t * tile:(t + 1) * tile]
+        assert o <= seg.min() and seg.max() < o + window
+
+
+def test_parent_tables_are_the_16x16_kernels(monkeypatch):
+    """The A/B tool drives the earlier CAS upscale kernel, one CTA per 16x16
+    tile, with 20x20 windows that hold each tile's CAS taps and clamped
+    bilinear taps."""
+    from openvr_fsr_tpu_torch.tools import ab
+    h, w = 96, 128
+    args, m = _parent_call("cas_upscale", h, w, 0.75, monkeypatch)
+    assert args[9:16] == (2, h, w, h, w, m.out_h, m.out_w)
+    assert args[18] == ab.CAS_PARENT_WINDOW == 20
+    assert ab.CAS_PARENT_TILE == 16
+    x0, y0 = ab._parent_origins("cas_upscale", m)
+    for (fi, b0), origins, n in ((m.col_i, x0, w), (m.row_i, y0, h)):
+        taps = np.concatenate([fi[:, None] + np.arange(-1, 3),
+                               np.clip(b0[:, None] + np.arange(2), 0, n - 1)],
+                              axis=1)
+        _holds(origins, taps, 16, 20)
+
+
+@pytest.mark.parametrize("h,w,rs", [(96, 128, 0.75), (45, 61, 0.75),
+                                    (40, 45, 1.3), (1869, 1683, 0.75)])
+@pytest.mark.parametrize("kernel", ["fsr_fused", "nis_scaler"])
+def test_parent_tables_hold_the_parent_kernels_taps(kernel, h, w, rs,
+                                                    monkeypatch):
+    """B1's parent takes the current entry point's arguments; B3's (the
+    earlier source: one CTA per 32x24 block) 40x32 luma windows that hold
+    each block's 6x6 taps and the 3x3s of its 2x2 edge taps, with the
+    hdr_mode asked for."""
+    from openvr_fsr_tpu_torch.tools import ab
+    args, m = _parent_call(kernel, h, w, rs, monkeypatch)
+    if kernel == "fsr_fused":
+        assert args[10] == len(m.inside_tiles)
+        assert args[12] == len(m.outside_tiles)
+        assert args[-3:-1] == (FSR_TILE, IN_TILE)
+        return
+    assert args[11] == 16 and args[19] == 1          # constants, hdr_mode
+    assert args[12:19] == (2, h, w, h, w, m.out_h, m.out_w)
+    assert args[21:23] == ab.NIS_PARENT_WINDOW == (40, 32)
+    x0, y0 = ab._parent_origins("nis_scaler", m)
+    for src, origins, tile, win, n in (
+            (m.col_i[0], x0, 32, 40, w), (m.row_i[0], y0, 24, 32, h)):
+        taps = np.clip(src[:, None] + np.arange(-2, 4), 0, n - 1)
+        edges = np.clip(np.clip(src[:, None] + np.arange(2), 0, n - 1)
+                        [..., None] + np.arange(-1, 2), 0, n - 1)
+        _holds(origins, taps, tile, win)
+        _holds(origins, edges.reshape(len(src), -1), tile, win)

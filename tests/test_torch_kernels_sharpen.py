@@ -26,7 +26,7 @@ from openvr_fsr_tpu.utils import frames as JFR  # noqa: E402
 
 from openvr_fsr_tpu_torch.core import constants as C  # noqa: E402
 from openvr_fsr_tpu_torch.kernels._maps import (NIS_IN_TILE,  # noqa: E402
-                                                nvscaler_maps)
+                                                NIS_TILE, nvscaler_maps)
 from openvr_fsr_tpu_torch.kernels.nis import (build_nvscaler,  # noqa: E402
                                               build_nvsharpen)
 from openvr_fsr_tpu_torch.kernels.rcas import build_rcas_sharpen  # noqa: E402
@@ -253,8 +253,8 @@ class TestScalerMaps:
             assert np.array_equal(ints[3], b0) and np.array_equal(
                 floats[2], bf)
         for src, origins, tile, n_in, cap in (
-                (m.col_i[0], m.tile_x0, 32, w, NIS_IN_TILE[0]),
-                (m.row_i[0], m.tile_y0, 24, h, NIS_IN_TILE[1])):
+                (m.col_i[0], m.tile_x0, NIS_TILE[0], w, NIS_IN_TILE[0]),
+                (m.row_i[0], m.tile_y0, NIS_TILE[1], h, NIS_IN_TILE[1])):
             for t, o in enumerate(origins):
                 taps = np.clip(src[t * tile:(t + 1) * tile, None]
                                + np.arange(-2, 4), 0, n_in - 1)

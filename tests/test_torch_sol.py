@@ -65,7 +65,6 @@ def _emulate(img, g):
     B, H, W = g["batch"], g["in_h"], g["in_w"]
     OH, OW = g["out_h"], g["out_w"]
     (tw, th), (ww, wh) = g["tile"], g["window"]
-    quad = g["quad_x"] is not None
     out = np.zeros((B, OH, OW), np.int32)
     loads = 0
     for b in range(B):
@@ -81,7 +80,7 @@ def _emulate(img, g):
                 else:
                     inside = ((c[0] - gx) ** 2 + (c[1] - gy) ** 2 <= c[4]
                               or (c[2] - gx) ** 2 + (c[3] - gy) ** 2 <= c[4])
-                if g["stage"] == "all" or inside:
+                if inside:
                     y = g["tile_y0"][ty] + np.arange(wh)
                     x = g["tile_x0"][tx] + np.arange(ww)
                     win = img[b][np.ix_(np.clip(y, 0, H - 1),
@@ -98,8 +97,8 @@ def _emulate(img, g):
                     assert ry.min() >= 0 and ry.max() < wh
                     assert rx.min() >= 0 and rx.max() < ww
                     out[b][np.ix_(oy, ox)] = win[np.ix_(ry, rx)]
-                    loads += 4 * n if quad and g["stage_quads"] else 0
-                elif quad:
+                    loads += 4 * n if g["stage_quads"] else 0
+                elif g["stage"] == "list":
                     qy = np.clip(g["quad_y"][1][oy], 0, H - 1)
                     qx = np.clip(g["quad_x"][1][ox], 0, W - 1)
                     out[b][np.ix_(oy, ox)] = img[b][np.ix_(qy, qx)]
@@ -173,7 +172,7 @@ class TestGeometry:
             assert np.array_equal(g["tile_y0"], maps.tile_y0)
             assert np.array_equal(g["tap_x"], np.clip(maps.col_i[0], 0, w - 1))
             assert g["oob"] == ("clamp" if plan == "fsr_fused" else "zero")
-        if plan == "fsr_fused":
+        if plan in ("fsr_fused", "cas_upscale"):
             # the inside tiles stage, the outside ones load four bilinear
             # taps per output, and only those
             assert g["stage"] == "list" and not g["stage_quads"]
@@ -181,14 +180,19 @@ class TestGeometry:
             assert np.array_equal(g["quad_x"][1], maps.col_i[1])
             assert np.array_equal(g["quad_y"][1], maps.row_i[1])
             assert g["tile"] == (32, 32) and g["group"] == (16, 16)
-        elif plan == "cas_upscale":
-            assert g["stage"] == "all"
+            assert g["window"] == ((40, 40) if plan == "fsr_fused"
+                                   else (36, 36))
         elif plan == "nvscaler":
             cfg = C.nvscaler_update_config(0.9, w, h, w, h, ow, oh, ow, oh)
             maps = _maps.nvscaler_maps(2, h, w, ow, oh, cfg, cen)
             assert np.array_equal(g["tile_x0"], maps.tile_x0)
             assert np.array_equal(g["quad_y"], maps.row_i[2:4])
-            assert (g["stage"], g["oob"]) == ("circle", "clamp")
+            # the inside tiles stage and load each pixel's RGBA tap
+            assert (g["stage"], g["oob"]) == ("list", "clamp")
+            assert g["stage_quads"]
+            assert np.array_equal(g["staged"], maps.tile_inside)
+            assert (g["tile"], g["window"], g["group"]) == (
+                (32, 48), (40, 56), (32, 24))
         else:
             tile, halo = (32, 2) if plan == "nvsharpen" else (16, 1)
             assert g["tile"] == (tile, tile)
@@ -216,6 +220,26 @@ def test_tap_outside_its_window_is_refused():
         sol.build_dma_floor(bad)
     with pytest.raises(ValueError, match="threads"):
         sol.build_dma_floor(dict(g, threads=128))
+
+
+@pytest.mark.parametrize("plan,change,match", [
+    ("rcas_sharpen", dict(stage="all"), "no floor form"),
+    ("rcas_sharpen", dict(stage_quads=True), "one texel per output"),
+    ("nvsharpen", "quads", "one texel per output"),
+    ("fsr_fused", dict(quad_x=None, quad_y=None), "four-tap floors"),
+    ("cas_upscale", dict(staged=None), "staged table"),
+], ids=["all", "circle-stage-quads", "circle-quads", "list-no-quads",
+        "list-no-table"])
+def test_floor_has_two_forms(plan, change, match):
+    """The floor runs two forms: "circle" (the sharpen-only kernels, one
+    texel per output outside) and "list" (the upscalers, four bilinear taps
+    per output outside); any other is refused on the host."""
+    g = _geometry(plan, 45, 61, 0.5)
+    if change == "quads":
+        change = dict(quad_x=np.zeros((2, g["out_w"]), np.int32),
+                      quad_y=np.zeros((2, g["out_h"]), np.int32))
+    with pytest.raises(ValueError, match=match):
+        sol.build_dma_floor(dict(g, **change))
 
 
 FUSED_SHAPES = [(1869, 1683, 0.75), (2492, 2244, 1.3), (1246, 1122, 0.5),

@@ -199,6 +199,32 @@ def test_path_ops_per_pixel(kernel):
     assert inside > fallback > 0
 
 
+def test_smem_words_recounted_from_the_sources():
+    """The redesigned kernels' shared words per inside pixel: B5 reads its
+    12 taps from three f32 planes; B3 the two diagonal phases' table rows
+    per output, the fx rows per run of 6, and on each reload / one-row
+    step of the source row 52 / 14 words (lumas and edge weights). Its
+    average over the main path's runs is the pinned 44, within 50."""
+    from openvr_fsr_tpu_torch.core import constants as C
+    from openvr_fsr_tpu_torch.kernels._maps import nvscaler_maps
+    assert A.SMEM_WORDS["nis_scaler"] == (44, 0)
+    assert A.SMEM_WORDS["cas_upscale"] == (36, 0)
+    assert A.SMEM_WORDS["fsr_fused"] == (68, 0)
+    cfg = C.nvscaler_update_config(A.NIS_SHARPNESS, 1683, 1869, 1683, 1869,
+                                   2244, 2492, 2244, 2492)
+    m = nvscaler_maps(2, 1869, 1683, 2244, 2492, cfg,
+                      np.zeros((2, 5), np.int64))
+    pyi, words = m.row_i[0], 0
+    for oy0 in range(0, len(pyi), 6):     # a run: 6 rows of one tile
+        words += 12
+        cur = None
+        for p in pyi[oy0:oy0 + 6]:
+            step = None if cur is None else p - cur
+            words += 24 + (0 if step == 0 else 14 if step == 1 else 52)
+            cur = p
+    assert round(words / len(pyi)) == A.SMEM_WORDS["nis_scaler"][0] <= 50
+
+
 def test_nis_stage_ops_add_up():
     stages = A.nis_stage_ops()
     per_out = sum(v for k, v in stages.items() if k != "luma_and_edge_map_"
