@@ -13,7 +13,9 @@ lines:
   1. setup: card, power limit, toolchain versions, the kernel builds, and
      the registers, spills and CTAs per SM of the two class kernels of each
      upscaler (fsr_fused, nis_scaler, cas_upscale: the shared bilinear pass
-     outside the foveation circle, and the kernel inside it);
+     outside the foveation circle, and the kernel inside it) and of
+     nis_sharpen and cas_sharpen (the shared copy pass outside, the kernel
+     inside);
   2. each kernel against its plain torch version on the card, at full
      size, on a zone-plate + noise set and a uniform-random set, both with
      alpha that is not all 255:
@@ -23,7 +25,9 @@ lines:
                     in one batch); plus a supersample (rs 1.3) case; 0
                     unequal texels, every case;
        rcas_sharpen 2 x 2244x2492, radius 0.4, 2.0, 0.0 and 0.4 with debug;
-       nis_sharpen  the same, hdr_mode 0, plus radius 2.0 at hdr_mode 1, 2;
+       nis_sharpen  the same, hdr_mode 0, plus radius 0.5 and 2.0 at
+                    hdr_mode 1 and 2; off-centre eyes at radius 0.3 and
+                    batch 4; 0 unequal texels, every case;
        nis_scaler   2 x 1683x1869 -> 2 x 2244x2492, radius 0.5, 2.0, 0.0
                     and 0.5 with debug, hdr_mode 0, plus radius 2.0 at
                     hdr_mode 1 and 2; off-centre eyes at radius 0.3 (hdr 0,
@@ -34,8 +38,10 @@ lines:
                     1.3); plus rs 1.3 and a scale above CAS's 4x area limit
                     (rs 0.4) small; 0 unequal texels, every case;
        cas_sharpen  2 x 2244x2492 (sharpness 0.8), radius 0.4, 2.0, 0.0 and
-                    0.4 with debug; plus max_color_delta 0.05, which must
-                    change the output;
+                    0.4 with debug; off-centre eyes at radius 0.3 (circle
+                    edges through many 32x32 tiles of 16x16 groups) and
+                    batch 4; plus max_color_delta 0.05, which must change
+                    the output; 0 unequal texels, every case;
      and for each kernel a ring-pitch input and small cases (one with a
      bright border) against the CPU path; and, in a fresh process, a first
      NVScaler call on a side stream (torch.cuda.Stream()), 0 unequal
@@ -53,16 +59,18 @@ lines:
   5. the measurement path: the DMA floor (csrc/dma_floor.cu) keeps its
      loads in its SASS, and equals its plain version word for word at the
      full-size geometry of each of the seven bench paths, on the unpadded
-     and the ring-pitch input, and at the three upscalers' geometries at
-     radius 0.0 and 2.0; the fused kernel against its plain version at the
-     full supersample size (2 x 2244x2492 -> 2 x 2917x3239); fsr_fused and
-     its floor timed in turns (bench.measure) at radius 0.0, 0.5 and 2.0
-     and at rs 1.3 ([b1] lines), nis_scaler and cas_upscale with theirs at
-     radius 0.0, 0.5 and 2.0 ([b3], [b5] lines), with their vs_sol; the
-     floor's time at the fsr_fused geometry (also call by call, bench_fn)
-     and the card's pure-read and pure-write rates (hbm_calibration);
-     then the bench entries, bench.main() and tools.bench_paths.main()
-     over all seven paths, in this process, printing their JSON lines;
+     and the ring-pitch input, and at the geometries of the three upscalers
+     and of nis_sharpen and cas_sharpen at radius 0.0 and 2.0; the fused
+     kernel against its plain version at the full supersample size (2 x
+     2244x2492 -> 2 x 2917x3239); fsr_fused and its floor timed in turns
+     (bench.measure) at radius 0.0, 0.5 and 2.0 and at rs 1.3 ([b1]
+     lines), nis_scaler, cas_upscale, nis_sharpen and cas_sharpen with
+     theirs at radius 0.0, 0.5 and 2.0 ([b3], [b5], [b4], [b6] lines),
+     with their vs_sol; the floor's time at the fsr_fused geometry (also
+     call by call, bench_fn) and the card's pure-read and pure-write rates
+     (hbm_calibration); then the bench entries, bench.main() and
+     tools.bench_paths.main() over all seven paths, in this process,
+     printing their JSON lines;
      every path's kernel and floor must have launched in that run, and
      none may read vs_sol above 1.02 (a floor slower than its kernel is a
      wrong floor);
@@ -71,9 +79,11 @@ lines:
      full k and steps (FP32 and shared-memory probes: 0 unequal; the
      tensor-core probe within kernels/sol.py::MXU_TOLERANCE, also at small
      k, where its values have not underflowed); the SASS of each keeps
-     what it meters (FP32 arithmetic per cycle, LDS in the plane loop, HMMA per
-     round); each probe's and its plain version's time, and torch.matmul
-     on one round's bf16 operands beside the tensor-core probe; then
+     what it meters (FP32 arithmetic per cycle, LDS in the plane loop, HMMA
+     per round), and the instruction counts of the inside kernels of B1,
+     B3, B4, B5 and B6; each probe's and its plain version's time, and
+     torch.matmul on one round's bf16 operands beside the tensor-core
+     probe; then
      tools.vpu_audit.main() and main(["--nis", "--quick"]) in this process,
      failing on a missing launch, a rate that is not finite, a pair spread
      above 1.5, a rate above 1.05 x its bound, or a kernel row whose bound
@@ -99,7 +109,8 @@ SHARPNESS = 0.9
 CAS_SHARPNESS = 0.8          # CasModel's default
 PARITY_MIN_EQUAL = 0.99999   # fraction of equal texels, kernel vs plain
 PARITY_MAX_LSB = 1
-EXACT = ("fsr_fused", "nis_scaler", "cas_upscale")   # held to 0 unequal texels
+EXACT = ("fsr_fused", "nis_scaler", "cas_upscale", "nis_sharpen",
+         "cas_sharpen")      # held to 0 unequal texels
 VS_SOL_MAX = 1.02            # floor / kernel; above it the floor is wrong
 RATE_MAX = 1.05              # a measured rate over its bound
 SHARE_MAX = 1.05             # an audit row's bound over its time
@@ -223,7 +234,9 @@ def main():
             for line in build_log.read_text().splitlines()[1:]:  # nvcc output
                 log(f"[setup]   {name}: {line.strip()}")
     for kernel, prefix in (("fsr_fused", "fsr"), ("nis_scaler", "nis"),
-                           ("cas_upscale", "cas")):
+                           ("cas_upscale", "cas"),
+                           ("nis_sharpen", "nis_sharpen"),
+                           ("cas_sharpen", "cas_sharpen")):
         usage = sass.ptxas_usage(_build.library_path(kernel)
                                  .with_suffix(".log").read_text())
         per_sm = occupancy(kernel)
@@ -254,10 +267,11 @@ def main():
         return build_rcas_sharpen(2, h, w, sharpness=SHARPNESS,
                                   centres=centres(w, h, radius), debug=debug)
 
-    def sharpen(radius, debug=False, hdr=0, h=OH, w=OW):
+    def sharpen(radius, debug=False, hdr=0, h=OH, w=OW, b=2, eyes=CENTRES):
         cfg = C.nvsharpen_update_config(SHARPNESS, w, h, w, h, hdr_mode=hdr)
-        return build_nvsharpen(2, h, w, nis_cfg=cfg,
-                               centres=centres(w, h, radius), debug=debug)
+        return build_nvsharpen(b, h, w, nis_cfg=cfg,
+                               centres=centres(w, h, radius, b, eyes),
+                               debug=debug)
 
     def scaler(radius, debug=False, hdr=0, h=H, w=W, rs=0.75, b=2,
                eyes=CENTRES):
@@ -274,10 +288,10 @@ def main():
                                  centres=centres(ow, oh, radius, b, eyes),
                                  debug=debug)
 
-    def cas_sh(radius, debug=False, mcd=1.0, h=OH, w=OW):
-        return build_cas_sharpen(2, h, w, sharpness=CAS_SHARPNESS,
-                                 centres=centres(w, h, radius), debug=debug,
-                                 max_color_delta=mcd)
+    def cas_sh(radius, debug=False, mcd=1.0, h=OH, w=OW, b=2, eyes=CENTRES):
+        return build_cas_sharpen(b, h, w, sharpness=CAS_SHARPNESS,
+                                 centres=centres(w, h, radius, b, eyes),
+                                 debug=debug, max_color_delta=mcd)
 
     rng = np.random.default_rng(0)
 
@@ -355,12 +369,23 @@ def main():
         parity("nis_scaler", f"2x{W}x{H}->2x{OW}x{OH} radius=0.3 eyes "
                f"{OFF_CENTRE} hdr={hdr} uniform",
                scaler(0.3, hdr=hdr, eyes=OFF_CENTRE), sets["in"]["uniform"])
+    # the sharpen-only class kernels at class borders, the same way
+    both_full = torch.cat([sets["full"]["zone+noise"],
+                           sets["full"]["uniform"]])
+    for kernel, build in (("nis_sharpen", sharpen), ("cas_sharpen", cas_sh)):
+        for name, img in sets["full"].items():
+            parity(kernel, f"2x{OW}x{OH} radius=0.3 eyes {OFF_CENTRE} "
+                   f"{name}", build(0.3, eyes=OFF_CENTRE), img)
+        parity(kernel, f"4x{OW}x{OH} radius=0.5 batch 4 (both sets)",
+               build(0.5, b=4), both_full)
     for hdr in (1, 2):
         for name in ("zone+noise", "uniform"):
             parity("nis_scaler", f"2x{W}x{H}->2x{OW}x{OH} radius=2.0 "
                    f"hdr={hdr} {name}", scaler(2.0, hdr=hdr), sets["in"][name])
-            parity("nis_sharpen", f"2x{OW}x{OH} radius=2.0 hdr={hdr} {name}",
-                   sharpen(2.0, hdr=hdr), sets["full"][name])
+            for radius in (0.5, 2.0):
+                parity("nis_sharpen", f"2x{OW}x{OH} radius={radius} "
+                       f"hdr={hdr} {name}", sharpen(radius, hdr=hdr),
+                       sets["full"][name])
 
     # the ring pitch: the same frames pre-padded, read in place
     for kernel, fn, img in (("fsr_fused", fsr(0.5), sets["in"]["zone+noise"]),
@@ -405,6 +430,8 @@ def main():
         ("fsr_fused", "2x128x96 rs=0.75", fsr(0.5, h=96, w=128), small),
         ("rcas_sharpen", "2x128x96", rcas(0.4, h=96, w=128), small),
         ("nis_sharpen", "2x128x96", sharpen(0.4, h=96, w=128), small),
+        ("nis_sharpen", "2x128x96 bright border, hdr=1",
+         sharpen(2.0, hdr=1, h=96, w=128), border),
         ("nis_scaler", "2x128x96 rs=0.75", scaler(0.5, h=96, w=128), small),
     ]
     for kernel, label, fn, img in checks:
@@ -640,7 +667,8 @@ def main():
     geometries = [(name, *bench_paths.path_config(name))
                   for name in bench_paths.PATHS]
     geometries += [(f"{path} radius {r}", cfg.with_(radius=r), h, w)
-                   for path in ("fsr_fused", "nvscaler", "cas_upscale")
+                   for path in ("fsr_fused", "nvscaler", "cas_upscale",
+                                "nvsharpen", "cas_sharpen")
                    for r in (0.0, 2.0)
                    for cfg, h, w in [bench_paths.path_config(path)]]
     for name, cfg, h, w in geometries:
@@ -691,8 +719,10 @@ def main():
         log(f"[b1] fsr_fused {label}: {run.ms} ms per stereo pair, its DMA "
             f"floor {run.sol_ms} ms, vs_sol {run.vs_sol}, floor "
             f"{run.probe_effective_gbps:.1f} GB/s over the unique bytes")
-    # nis_scaler and cas_upscale with their floors, the same way
-    for tag, path in (("b3", "nvscaler"), ("b5", "cas_upscale")):
+    # nis_scaler, cas_upscale, nis_sharpen and cas_sharpen with their
+    # floors, the same way
+    for tag, path in (("b3", "nvscaler"), ("b5", "cas_upscale"),
+                      ("b4", "nvsharpen"), ("b6", "cas_sharpen")):
         cfg, h, w = bench_paths.path_config(path)
         for r in (0.0, 0.5, 2.0):
             run = bench.measure(cfg.with_(radius=r), h, w)
@@ -772,18 +802,23 @@ def main():
                 f"instructions, conversions I2F {ops['I2F']} F2I "
                 f"{ops['F2I']} FRND {ops['FRND']}; "
                 f"{dict(ops.most_common(14))}")
-        # B3's run loop (one output per pass: its longest loop) and B5's
-        # whole inside kernel (4 outputs per thread, unrolled)
+        # B3's run loop (one output per pass: its longest loop), B5's whole
+        # inside kernel (4 outputs per thread, unrolled), and B4's and B6's
+        # inside kernels (4 outputs per thread: the first peeled, a loop of
+        # one sliding step per output)
         for name, part in (("nis_scaler", "nis_inside_kernel"),
-                           ("cas_upscale", "cas_inside_kernel")):
+                           ("cas_upscale", "cas_inside_kernel"),
+                           ("nis_sharpen", "nis_sharpen_inside_kernel"),
+                           ("cas_sharpen", "cas_sharpen_inside_kernel")):
             text = sass.disassemble(_build.library_path(name), _build._nvcc())
             for fn_name, found in sass.loops(text).items():
                 if part in fn_name and found:
                     ops = found[-1][3]
+                    whole = sass.function_counts(text)[fn_name]
                     log(f"[probe] SASS {name} {part}: longest loop "
                         f"{sum(ops.values())} instructions, LDS {ops['LDS']}, "
                         f"LDC {ops['LDC']}, MUFU {ops['MUFU']}; whole kernel "
-                        f"{sum(sass.function_counts(text)[fn_name].values())}")
+                        f"{sum(whole.values())}, {dict(whole.most_common(8))}")
     (vk, vsteps), (mk, msteps), (xk, xsteps) = (
         vpu_audit.PROBES[n][0][1:] for n in ("vpu", "vmem", "mxu"))
     seed = torch.from_numpy(rng.random((130, 128), np.float32)).to(dev)

@@ -12,10 +12,15 @@
 // output blocks per batch entry, the same 256 threads per CTA and
 // __launch_bounds__, the same (win_w x win_h) window staged into shared
 // memory at the same per-tile origins, with out-of-image words loaded
-// edge-clamped or staged as 0 without a load, by the same CTAs, in one of two
-// forms:
-//   kCircle  the sharpen-only kernels: the CTAs inside the foveation circle
-//            stage; the others copy one texel per output;
+// edge-clamped or staged as 0 without a load, by the same CTAs, in one of
+// three forms:
+//   kCircle  RCAS sharpen: the CTAs inside the foveation circle stage; the
+//            others copy one texel per output, one per thread;
+//   kCopy    the sharpen-only class kernels (CAS sharpen, NVSharpen): the
+//            CTAs a host table marks (the inside list) stage; the others
+//            copy their own texels as the copy pass does (copy_pass.cuh), 4
+//            of one row per thread with 16-byte loads and stores where
+//            aligned;
 //   kList    the upscalers: the CTAs a host table marks (the inside list)
 //            stage; the others run the shared outside pass's loads, four
 //            bilinear taps per output, 4 outputs of one row per thread
@@ -45,7 +50,7 @@ namespace {
 
 constexpr int kThreads = 256;   // every compute kernel's threads per CTA
 
-enum Stage { kCircle = 0, kList = 1 };   // kernels/sol.py _STAGES
+enum Stage { kCircle = 0, kList = 1, kCopy = 2 };   // kernels/sol.py _STAGES
 
 struct Params {
   const uint32_t* img;      // (B, rows, pitch) packed RGBA8
@@ -57,7 +62,7 @@ struct Params {
   const int32_t* quad_x;    // (2, out_w) for kList: four-tap floors (staging, other CTAs)
   const int32_t* quad_y;    // (2, out_h)
   const int64_t* centres;   // (B, 5) for kCircle: cx1, cy1, cx2, cy2, radius_sq
-  const uint8_t* staged;    // (B, tiles_y, tiles_x) for kList: 1 = the CTA stages
+  const uint8_t* staged;    // (B, tiles_y, tiles_x) for kList and kCopy: 1 = the CTA stages
   int in_h, in_w, rows, pitch, out_h, out_w;
   int stage;                // Stage: which CTAs stage their window
   int stage_quads;          // kList, 1: staging CTAs also load four taps per output (quad row 0)
@@ -92,21 +97,32 @@ __global__ void __launch_bounds__(kThreads) dma_floor_kernel(Params p) {
   uint32_t* out = p.out + static_cast<size_t>(b) * p.out_h * p.out_w;
 
   const bool stages =
-      p.stage == kList
-          ? p.staged[(static_cast<size_t>(b) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] != 0
-          : rgba8::inside_circle(p.centres + 5 * b, ox0, oy0, TW, TH);
+      p.stage == kCircle
+          ? rgba8::inside_circle(p.centres + 5 * b, ox0, oy0, TW, TH)
+          : p.staged[(static_cast<size_t>(b) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] != 0;
   if (!stages) {
-    if (p.stage == kList) {   // the upscalers' outside pass (bilinear_pass.cuh): 4
-      constexpr int kRun = 4;   // outputs of one row per thread, 16-byte stores where aligned
+    if (p.stage != kCircle) {   // the outside passes (bilinear_pass.cuh, copy_pass.cuh):
+      constexpr int kRun = 4;   // 4 outputs of one row per thread, 16-byte stores where aligned
       static_assert(TW % kRun == 0, "a tile row holds whole runs");
       for (int r = tid; r < TW * TH / kRun; r += kThreads) {
         const int oy = oy0 + r / (TW / kRun), ox = ox0 + (r % (TW / kRun)) * kRun;
         if (oy >= p.out_h || ox >= p.out_w) continue;
         const int n = min(kRun, p.out_w - ox);
-        uint32_t v[kRun];
+        uint32_t v[kRun] = {0u, 0u, 0u, 0u};
+        const uint32_t* src = img + static_cast<size_t>(oy) * p.pitch + ox;
+        if (p.stage == kCopy && n == kRun && (reinterpret_cast<uintptr_t>(src) & 15u) == 0) {
+          const uint4 q = *reinterpret_cast<const uint4*>(src);
+          v[0] = q.x;
+          v[1] = q.y;
+          v[2] = q.z;
+          v[3] = q.w;
+        } else if (p.stage == kCopy) {
+          for (int j = 0; j < n; ++j) v[j] = src[j];
+        } else {
 #pragma unroll
-        for (int j = 0; j < kRun; ++j)
-          if (j < n) v[j] = quad(img, p, p.quad_x[p.out_w + ox + j], p.quad_y[p.out_h + oy]);
+          for (int j = 0; j < kRun; ++j)
+            if (j < n) v[j] = quad(img, p, p.quad_x[p.out_w + ox + j], p.quad_y[p.out_h + oy]);
+        }
         uint32_t* dst = out + static_cast<size_t>(oy) * p.out_w + ox;
         if (n == kRun && (reinterpret_cast<uintptr_t>(dst) & 15u) == 0) {
           *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
@@ -116,7 +132,7 @@ __global__ void __launch_bounds__(kThreads) dma_floor_kernel(Params p) {
       }
       return;
     }
-    for (int i = tid; i < TW * TH; i += kThreads) {   // the sharpen-only copy
+    for (int i = tid; i < TW * TH; i += kThreads) {   // RCAS sharpen's copy
       const int ox = ox0 + i % TW, oy = oy0 + i / TW;
       if (ox >= p.out_w || oy >= p.out_h) continue;
       out[static_cast<size_t>(oy) * p.out_w + ox] =
@@ -158,9 +174,10 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 
 // Launch on `stream`; returns the launch's cudaError_t (0 = launched). The
 // caller (kernels/sol.py) has checked the geometry: every tap lies inside
-// every window of its tile, and a kList table has the grid's shape. kList
-// takes the four-tap floors and the staged table; kCircle takes neither,
-// nor stage_quads.
+// every window of its tile, and a kList or kCopy table has the grid's
+// shape. kList takes the four-tap floors and the staged table; kCopy the
+// table and identity taps (null); kCircle neither table nor floors; only
+// kList takes stage_quads.
 // (tile_w, tile_h, win_w, win_h) must be one of the compute kernels' shapes
 // and threads must be 256.
 extern "C" int dma_floor_launch(const void* img, void* out, const void* tile_x0,
@@ -171,9 +188,10 @@ extern "C" int dma_floor_launch(const void* img, void* out, const void* tile_x0,
                                 int win_h, int threads, int stage, int stage_quads, int clamp,
                                 unsigned int mask, void* stream) {
   if (threads != kThreads || batch <= 0 || in_h <= 0 || in_w <= 0 || out_h <= 0 || out_w <= 0 ||
-      in_h > rows || in_w > pitch || stage < kCircle || stage > kList ||
-      (stage == kList) != (staged != nullptr) || (stage == kList) != (quad_x != nullptr) ||
-      (stage == kList) != (quad_y != nullptr) || (stage != kList && stage_quads))
+      in_h > rows || in_w > pitch || stage < kCircle || stage > kCopy ||
+      (stage != kCircle) != (staged != nullptr) || (stage == kList) != (quad_x != nullptr) ||
+      (stage == kList) != (quad_y != nullptr) || (stage != kList && stage_quads) ||
+      (stage == kCopy && (tap_x != nullptr || tap_y != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.img = static_cast<const uint32_t*>(img);
@@ -199,8 +217,10 @@ extern "C" int dma_floor_launch(const void* img, void* out, const void* tile_x0,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile_w == 32 && tile_h == 32 && win_w == 40 && win_h == 40)   // fsr_fused
     return launch<32, 32, 40, 40>(p, batch, s);
-  if (tile_w == 16 && tile_h == 16 && win_w == 18 && win_h == 18)   // rcas_sharpen, cas_sharpen
+  if (tile_w == 16 && tile_h == 16 && win_w == 18 && win_h == 18)   // rcas_sharpen
     return launch<16, 16, 18, 18>(p, batch, s);
+  if (tile_w == 32 && tile_h == 32 && win_w == 34 && win_h == 34)   // cas_sharpen
+    return launch<32, 32, 34, 34>(p, batch, s);
   if (tile_w == 32 && tile_h == 32 && win_w == 36 && win_h == 36)   // nis_sharpen, cas_upscale
     return launch<32, 32, 36, 36>(p, batch, s);
   if (tile_w == 32 && tile_h == 48 && win_w == 40 && win_h == 56)   // nis_scaler

@@ -26,7 +26,9 @@ same rows as the plain version's (kernels/_common.py::circle_mask), so the
 device does no int64 arithmetic. CAS upscale's (cas_upscale_maps) have the
 same layout, with the CasFilter floor and fraction of pp in place of
 EASU's, 36x36 windows and the same classes and tile lists. NVScaler's
-(NisMaps) are set out at nvscaler_maps. The tables depend
+(NisMaps) are set out at nvscaler_maps. The sharpen-only class kernels
+(CAS sharpen, NVSharpen: SharpenMaps) need only the classes and the lists
+of their 32x32 tiles (sharpen_maps). The tables depend
 only on the build's shapes, config and centres, so one build serves every
 frame of a stream.
 
@@ -50,13 +52,15 @@ from ..ops.easu import easu_index_maps
 from ..ops.nis import nis_source_maps
 
 __all__ = ["FsrMaps", "fsr_maps", "cas_upscale_maps",
-           "NisMaps", "nvscaler_maps", "input_padding", "dma_geometry",
-           "sharpen_geometry", "group_classes", "tile_lists", "TILE",
-           "FSR_TILE", "IN_TILE", "CAS_IN_TILE", "NIS_TILE", "NIS_IN_TILE",
-           "NIS_EDGE_TILE", "THREADS"]
+           "NisMaps", "nvscaler_maps", "SharpenMaps", "sharpen_maps",
+           "input_padding", "dma_geometry", "sharpen_geometry",
+           "group_classes", "tile_lists", "TILE", "FSR_TILE", "IN_TILE",
+           "CAS_IN_TILE", "NIS_TILE", "NIS_IN_TILE", "NIS_EDGE_TILE",
+           "SHARPEN_TILE", "CAS_SHARPEN_IN_TILE", "NIS_SHARPEN_IN_TILE",
+           "THREADS"]
 
 THREADS = 256  # threads per CTA of every kernel (csrc/*.cu kThreads)
-TILE = 16      # the 16x16 foveation group; one CTA per such tile in B2, B6
+TILE = 16      # the 16x16 foveation group; one CTA per such tile in B2
 # the fused FSR kernel's CTA output tile edge (2x2 foveation groups) and
 # its staged input window edge (csrc/fsr_fused.cu kTile, kWin): 34 haloed
 # outputs span at most 34 inputs + 3 taps + 1 when out >= in, as on every
@@ -74,6 +78,12 @@ CAS_IN_TILE = 36
 NIS_TILE = (32, 48)
 NIS_IN_TILE = (40, 56)
 NIS_EDGE_TILE = (36, 52)
+# the sharpen-only class kernels' CTA tile edge (csrc/cas_sharpen.cu kTile,
+# nis_sharpen.cu kBlock) and their staged windows' edges (kWin): CAS's 3x3
+# taps, NVSharpen's +-2 luma support
+SHARPEN_TILE = 32
+CAS_SHARPEN_IN_TILE = SHARPEN_TILE + 2
+NIS_SHARPEN_IN_TILE = SHARPEN_TILE + 4
 ROW_ALIGN = 8  # ring-pitch row alignment (kernels/_band.py ROW_ALIGN)
 
 
@@ -360,6 +370,52 @@ def nvscaler_maps(batch, in_h, in_w, out_w, out_h, nis_cfg, centres):
                                   np.float32))
 
 
+@dataclasses.dataclass(frozen=True)
+class SharpenMaps(_Tables):
+    """The sharpen-only class kernels' tables (CAS sharpen, NVSharpen):
+    numpy arrays from sharpen_maps, torch tensors after .to(device).
+
+      centres (B, 5) int64   the foveation cbuffer rows
+      group_cls (B, GY, GX)  int32 1 where the foveation group passes the
+                             reference's circle test, else 0
+      inside_tiles           int32 ids b * TY * TX + ty * TX + tx of the
+                             SHARPEN_TILE tiles with a group inside the
+                             circle; the inside kernel walks them
+      outside_tiles          the others, for the copy pass
+    """
+
+    h: int
+    w: int
+    centres: object
+    group_cls: object
+    inside_tiles: object
+    outside_tiles: object
+
+    _ARRAYS = ("centres", "group_cls", "inside_tiles", "outside_tiles")
+
+    @property
+    def tile_inside(self):
+        """(B, TY, TX) bool: the tiles the inside kernel runs."""
+        return _tile_flags(self.inside_tiles, (
+            self.group_cls.shape[0], -(-self.h // SHARPEN_TILE),
+            -(-self.w // SHARPEN_TILE)))
+
+
+def sharpen_maps(batch, h, w, centres, group):
+    """The sharpen-only class kernels' tables for one (shape, centres):
+    the circle test per (width, height) foveation `group` (CAS's 16x16,
+    NVSharpen's 32x32 block) and the inside and outside lists of the
+    SHARPEN_TILE tiles."""
+    H, W = int(h), int(w)
+    cen = np.asarray(centres, np.int64).reshape(int(batch), 5)
+    cls = group_classes(cen, H, W, group)
+    inside, outside = tile_lists(cls, H, W, (SHARPEN_TILE, SHARPEN_TILE),
+                                 group)
+    return SharpenMaps(h=H, w=W, centres=np.ascontiguousarray(cen),
+                       group_cls=cls.astype(np.int32), inside_tiles=inside,
+                       outside_tiles=outside)
+
+
 def dma_geometry(out_h, out_w, tile, window, tile_x0, tile_y0, centres, *,
                  oob, stage, tap_x, tap_y, quad_x=None, quad_y=None,
                  group=None, staged=None, stage_quads=False):
@@ -375,9 +431,12 @@ def dma_geometry(out_h, out_w, tile, window, tile_x0, tile_y0, centres, *,
       tile_x0, tile_y0  window origin per tile column / tile row (int32)
       oob               "zero": window words outside the image are staged
                         as 0 and not loaded; "clamp": loaded edge-clamped
-      stage             "circle" (the sharpen-only kernels): only CTAs
-                        whose tile passes the foveation test stage, the
-                        others copy their outputs' own texels; "list" (the
+      stage             "circle" (RCAS sharpen): only CTAs whose tile
+                        passes the foveation test stage, the others copy
+                        their outputs' own texels, one per thread; "copy"
+                        (CAS sharpen, NVSharpen): only the CTAs `staged`
+                        marks stage, the others copy their own texels, 4
+                        of one row per thread (copy_pass.cuh); "list" (the
                         upscalers): only the CTAs `staged` marks stage, the
                         others load four bilinear taps per output
       centres           (B, 5) int64 foveation rows of the circle test
@@ -391,7 +450,8 @@ def dma_geometry(out_h, out_w, tile, window, tile_x0, tile_y0, centres, *,
                         others (the upscalers' shared outside pass)
       group             (width, height) of the foveation group the circle
                         test classes (default: the tile)
-      staged            for stage "list": (B, tiles_y, tiles_x) bool
+      staged            for stage "list" and "copy": (B, tiles_y, tiles_x)
+                        bool
     """
     def ints(a):
         return None if a is None else np.ascontiguousarray(a, np.int32)
@@ -409,12 +469,17 @@ def dma_geometry(out_h, out_w, tile, window, tile_x0, tile_y0, centres, *,
                 quad_y=ints(quad_y))
 
 
-def sharpen_geometry(h, w, tile, halo, centres, oob):
+def sharpen_geometry(h, w, tile, halo, centres, oob, staged=None,
+                     group=None):
     """The DMA geometry of a renderScale-1 kernel (RCAS, NVSharpen, CAS
-    sharpen): a CTA inside the circle stages its (tile + 2 halo)-square
-    window at (t * tile - halo); the others copy their own texels."""
+    sharpen): a staging CTA stages its (tile + 2 halo)-square window at
+    (t * tile - halo); the others copy their own texels. Without `staged`
+    (RCAS), a CTA stages where its tile passes the circle test (stage
+    "circle"); with it (the class kernels' tile_inside), where it marks
+    (stage "copy"). group: the foveation group (default: the tile)."""
     return dma_geometry(
         h, w, (tile, tile), (tile + 2 * halo,) * 2,
         np.arange(-(-w // tile)) * tile - halo,
         np.arange(-(-h // tile)) * tile - halo, centres, oob=oob,
-        stage="circle", tap_x=np.arange(w), tap_y=np.arange(h))
+        stage="circle" if staged is None else "copy", staged=staged,
+        group=group, tap_x=np.arange(w), tap_y=np.arange(h))

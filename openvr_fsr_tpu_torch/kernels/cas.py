@@ -15,7 +15,9 @@ CasFilter pass per plan (Config.stage_plan):
   build_cas_sharpen   renderScale 1: CasFilter noScaling (ffx_cas.h:
                       430-552) with the maxColorDelta clamp inside, alpha 1;
                       the source colour times the tint with the source's
-                      alpha outside (csrc/cas_sharpen.cu).
+                      alpha outside (csrc/cas_sharpen.cu: the copy pass over
+                      the 32x32 tiles outside the circle and a CasFilter
+                      kernel over those inside, from one C entry point).
 
 Each returned function launches its CUDA kernel for a CUDA tensor and runs
 the plain torch version (cas_upscale_reference, cas_sharpen_reference) for
@@ -34,10 +36,11 @@ from ..ops.cas import (cas_core, cas_setup, cas_sharpen_taps,
                        cas_upscale_core, cas_upscale_gather)
 from ..ops.common import F32
 from . import _build
-from ._common import (DeviceTables, centres_table, circle_mask, debug_tint,
-                      kernel_fn, pack, tint_vector, unpack)
-from ._maps import (CAS_IN_TILE, FSR_TILE, TILE, cas_upscale_maps,
-                    dma_geometry, input_padding, sharpen_geometry)
+from ._common import (DeviceTables, circle_mask, debug_tint, kernel_fn, pack,
+                      tint_vector, unpack)
+from ._maps import (CAS_IN_TILE, CAS_SHARPEN_IN_TILE, FSR_TILE, SHARPEN_TILE,
+                    TILE, cas_upscale_maps, dma_geometry, input_padding,
+                    sharpen_geometry, sharpen_maps)
 
 __all__ = ["build_cas_upscale", "build_cas_sharpen", "cas_upscale_reference",
            "cas_sharpen_reference"]
@@ -89,12 +92,19 @@ def _upscale_launch_fn():
     return f
 
 
+# csrc/cas_sharpen.cu cas_sharpen_launch: img, out, group_cls, the inside
+# list and its length, the outside list and its length, batch, h, w, rows,
+# pitch, sharp, mcd, tint, tile, window, stream
+SHARPEN_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+                    + [ctypes.c_int] * 6 + [ctypes.c_float] * 3
+                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
 @functools.cache
 def _sharpen_launch_fn():
     """The ctypes entry point, bound (and built) at the first launch."""
     f = _build.load_library("cas_sharpen").cas_sharpen_launch
-    f.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                  + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    f.argtypes = SHARPEN_ARGTYPES
     f.restype = ctypes.c_int
     return f
 
@@ -179,27 +189,36 @@ def build_cas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
     rcas.py::build_rcas_sharpen).
     """
     B, H, W = int(batch), int(h), int(w)
-    cen = centres_table(B, centres)
+    tables = DeviceTables(sharpen_maps(B, H, W, centres, (TILE, TILE)))
     sharp = cas_setup(sharpness)
     mcd = F32(max_color_delta)
     tint = debug_tint(debug)
 
     def reference(img):
         """The plain torch version on img's device (any device)."""
-        return cas_sharpen_reference(img[:, :H, :W], cen.on(img.device),
-                                     sharp, mcd, tint)
+        return cas_sharpen_reference(img[:, :H, :W],
+                                     tables.on(img.device).centres, sharp,
+                                     mcd, tint)
 
     def launch(img):
         dev = img.device
+        m = tables.on(dev)
         out = torch.empty((B, H, W), dtype=torch.int32, device=dev)
         err = _sharpen_launch_fn()(
-            img.data_ptr(), out.data_ptr(), cen.on(dev).data_ptr(), B, H,
-            W, img.shape[1], img.shape[2], float(sharp), float(mcd),
-            float(tint), torch.cuda.current_stream(dev).cuda_stream)
+            img.data_ptr(), out.data_ptr(), m.group_cls.data_ptr(),
+            m.inside_tiles.data_ptr(), n_inside, m.outside_tiles.data_ptr(),
+            n_outside, B, H, W, img.shape[1], img.shape[2], float(sharp),
+            float(mcd), float(tint), SHARPEN_TILE, CAS_SHARPEN_IN_TILE,
+            torch.cuda.current_stream(dev).cuda_stream)
         return out, err
 
-    # as RCAS sharpen: 18x18 haloed tiles inside the circle, 0 outside the
-    # image; the others copy their texels
+    # an inside tile stages its 34x34 window, 0 outside the image; the
+    # outside tiles copy their texels (so does a run of an outside group in
+    # an inside tile, from device memory: not counted, the floor stays below)
+    m = tables.host
+    n_inside, n_outside = len(m.inside_tiles), len(m.outside_tiles)
     return kernel_fn("CAS sharpen", B, (H, W), input_padding(H, W),
                      reference, launch,
-                     sharpen_geometry(H, W, TILE, 1, cen.host, "zero"))
+                     sharpen_geometry(H, W, SHARPEN_TILE, 1, m.centres,
+                                      "zero", staged=m.tile_inside,
+                                      group=(TILE, TILE)))

@@ -14,9 +14,11 @@ pipeline (api/pipeline.py:419-476 of the JAX package):
     DirectCopy bilinear tap at (x/OW, y/OH) times the tint with alpha 1
     (NIS_Upscale.hlsl:77-90).
 
-The returned functions launch the CUDA kernels (csrc/nis_sharpen.cu;
-csrc/nis_scaler.cu, a DirectCopy pass over the 32x48 tiles outside the
-circle and an NVScaler kernel over those inside, from one C entry point)
+The returned functions launch the CUDA kernels (csrc/nis_sharpen.cu, the
+copy pass over the 32x32 blocks outside the circle and an NVSharpen kernel
+over those inside; csrc/nis_scaler.cu, a DirectCopy pass over the 32x48
+tiles outside the circle and an NVScaler kernel over those inside; each
+from one C entry point)
 for a CUDA tensor and run `nvsharpen_reference` /
 `nvscaler_reference`, the same computations in plain torch (ops/nis.py),
 for a CPU tensor. Nothing falls back.
@@ -33,10 +35,11 @@ from ..core.foveation import TILE_NIS_SCALER, TILE_NIS_SHARPEN
 from ..ops.bilinear import bilinear_fallback_fsr
 from ..ops.nis import KHDR_COMPRESSION, NIS_SCALE_FLOAT, nvscaler, nvsharpen
 from . import _build
-from ._common import (DeviceTables, centres_table, circle_mask, debug_tint,
-                      kernel_fn, pack, tint_vector, unpack)
-from ._maps import (NIS_EDGE_TILE, NIS_IN_TILE, NIS_TILE, dma_geometry,
-                    input_padding, nvscaler_maps, sharpen_geometry)
+from ._common import (DeviceTables, circle_mask, debug_tint, kernel_fn, pack,
+                      tint_vector, unpack)
+from ._maps import (NIS_EDGE_TILE, NIS_IN_TILE, NIS_SHARPEN_IN_TILE,
+                    NIS_TILE, SHARPEN_TILE, dma_geometry, input_padding,
+                    nvscaler_maps, sharpen_geometry, sharpen_maps)
 
 __all__ = ["build_nvsharpen", "build_nvscaler", "nvsharpen_reference",
            "nvscaler_reference"]
@@ -91,12 +94,20 @@ def nvscaler_reference(img, centres, out_w, out_h, nis_cfg, tint):
     return pack(rgb, torch.where(inside, up[:, 3], 1.0))
 
 
+# csrc/nis_sharpen.cu nis_sharpen_launch: img, out, the inside list and its
+# length, the outside list and its length, consts and their count, batch, h,
+# w, rows, pitch, hdr_mode, tint, tile, window, stream
+SHARPEN_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
+                                             ctypes.c_int, ctypes.c_void_p]
+                    + [ctypes.c_int] * 7 + [ctypes.c_float]
+                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
 @functools.cache
 def _sharpen_fn():
     """NVSharpen's ctypes entry point, bound (and built) at first launch."""
     f = _build.load_library("nis_sharpen").nis_sharpen_launch
-    f.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                  + [ctypes.c_float, ctypes.c_void_p])
+    f.argtypes = SHARPEN_ARGTYPES
     f.restype = ctypes.c_int
     return f
 
@@ -131,30 +142,36 @@ def build_nvsharpen(batch, h, w, *, nis_cfg: NisConfig, centres, debug=False):
     stores (kernels/sol.py).
     """
     B, H, W = int(batch), int(h), int(w)
-    cen = centres_table(B, centres)
+    tables = DeviceTables(sharpen_maps(B, H, W, centres, TILE_NIS_SHARPEN))
     consts = _consts(nis_cfg)
     tint = debug_tint(debug)
 
     def reference(img):
         """The plain torch version on img's device (any device)."""
-        return nvsharpen_reference(img[:, :H, :W], cen.on(img.device),
-                                   nis_cfg, tint)
+        return nvsharpen_reference(img[:, :H, :W],
+                                   tables.on(img.device).centres, nis_cfg,
+                                   tint)
 
     def launch(img):
         dev = img.device
+        m = tables.on(dev)
         out = torch.empty((B, H, W), dtype=torch.int32, device=dev)
         err = _sharpen_fn()(
-            img.data_ptr(), out.data_ptr(), cen.on(dev).data_ptr(),
+            img.data_ptr(), out.data_ptr(), m.inside_tiles.data_ptr(),
+            n_inside, m.outside_tiles.data_ptr(), n_outside,
             consts.ctypes.data, consts.size, B, H, W, img.shape[1],
-            img.shape[2], int(nis_cfg.hdr_mode), float(tint),
-            torch.cuda.current_stream(dev).cuda_stream)
+            img.shape[2], int(nis_cfg.hdr_mode), float(tint), SHARPEN_TILE,
+            NIS_SHARPEN_IN_TILE, torch.cuda.current_stream(dev).cuda_stream)
         return out, err
 
-    # a block inside the circle stages its 36x36 edge-clamped tile; the
+    # a block inside the circle stages its 36x36 edge-clamped window; the
     # others copy their texels
+    m = tables.host
+    n_inside, n_outside = len(m.inside_tiles), len(m.outside_tiles)
     return kernel_fn("NVSharpen", B, (H, W), input_padding(H, W), reference,
-                     launch, sharpen_geometry(H, W, TILE_NIS_SHARPEN[0], 2,
-                                              cen.host, "clamp"))
+                     launch, sharpen_geometry(H, W, SHARPEN_TILE, 2,
+                                              m.centres, "clamp",
+                                              staged=m.tile_inside))
 
 
 def build_nvscaler(batch, in_h, in_w, out_w, out_h, *, nis_cfg: NisConfig,

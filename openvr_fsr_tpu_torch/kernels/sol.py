@@ -46,10 +46,10 @@ __all__ = ["build_dma_floor", "dma_floor_reference", "check_geometry",
 def staged_ctas(geom):
     """(B, tiles_y, tiles_x) bool: the CTAs that stage their window: for
     stage "circle", those whose tile passes the foveation circle test
-    (csrc/rgba8.cuh::inside_circle); for "list", those the geometry's
-    `staged` table marks."""
+    (csrc/rgba8.cuh::inside_circle); for "list" and "copy", those the
+    geometry's `staged` table marks."""
     g = geom
-    if g["stage"] == "list":
+    if g["stage"] != "circle":
         return g["staged"]
     return group_classes(g["centres"], g["out_h"], g["out_w"], g["tile"])
 
@@ -58,8 +58,8 @@ def floor_loads(geom):
     """Words one launch loads from the frame, overlaps included: each
     staging CTA's window (its in-image words where out-of-image words are
     staged as 0 without a load), plus, per output of a CTA that does not
-    stage, one word (stage "circle") or four bilinear taps ("list"), and
-    four per output of a staging CTA where stage_quads."""
+    stage, one word (stage "circle" and "copy") or four bilinear taps
+    ("list"), and four per output of a staging CTA where stage_quads."""
     g = geom
     (tw, th), (ww, wh) = g["tile"], g["window"]
     H, W, OH, OW = g["in_h"], g["in_w"], g["out_h"], g["out_w"]
@@ -80,8 +80,9 @@ def floor_loads(geom):
 
 def check_geometry(geom):
     """Raise ValueError unless the floor can run `geom`: 256 threads per
-    CTA; stage "circle" with no four-tap floors and no stage_quads, or
-    "list" with the floors and a staged table of the grid's shape; every
+    CTA; stage "circle" with no four-tap floors and no stage_quads; "copy"
+    the same, with a staged table of the grid's shape and each output's
+    tap its own texel; or "list" with the floors and a staged table; every
     output's tap inside the window of its tile."""
     g = geom
     if g["threads"] != THREADS:
@@ -92,10 +93,16 @@ def check_geometry(geom):
         if np.shape(g["staged"]) != grid or g["quad_x"] is None:
             raise ValueError(f"stage 'list' needs a staged table of shape "
                              f"{grid} and the four-tap floors")
-    elif g["stage"] == "circle":
+    elif g["stage"] in ("circle", "copy"):
         if g["quad_x"] is not None or g["stage_quads"]:
-            raise ValueError("stage 'circle' copies one texel per output: "
-                             "no four-tap floors")
+            raise ValueError(f"stage {g['stage']!r} copies one texel per "
+                             "output: no four-tap floors")
+        if g["stage"] == "copy" and np.shape(g["staged"]) != grid:
+            raise ValueError(f"stage 'copy' needs a staged table of shape "
+                             f"{grid}")
+        if g["stage"] == "copy" and not _identity_taps(g):
+            raise ValueError("stage 'copy' copies each output's own texel: "
+                             "the taps must be the identity")
     else:
         raise ValueError(f"no floor form for stage {g['stage']!r}")
     for axis, tile, win, origins, taps in (
@@ -107,6 +114,11 @@ def check_geometry(geom):
         if rel.min() < 0 or rel.max() >= win:
             raise ValueError(f"an output {axis}'s tap lies outside the "
                              f"{win}-wide window of its tile")
+
+
+def _identity_taps(g):
+    return (np.array_equal(g["tap_x"], np.arange(g["out_w"]))
+            and np.array_equal(g["tap_y"], np.arange(g["out_h"])))
 
 
 def dma_floor_reference(img, geom):
@@ -168,7 +180,7 @@ def _ptr(t):
 
 
 # csrc/dma_floor.cu Stage: which CTAs stage their window
-_STAGES = {"circle": 0, "list": 1}
+_STAGES = {"circle": 0, "list": 1, "copy": 2}
 
 
 def build_dma_floor(geom):
@@ -197,12 +209,10 @@ def build_dma_floor(geom):
     B, H, W = g["batch"], g["in_h"], g["in_w"]
     OH, OW = g["out_h"], g["out_w"]
     none = np.zeros(0, np.int32)
-    identity = (np.array_equal(g["tap_x"], np.arange(OW))
-                and np.array_equal(g["tap_y"], np.arange(OH)))
-    taps = (none, none) if identity else (g["tap_x"], g["tap_y"])
+    taps = (none, none) if _identity_taps(g) else (g["tap_x"], g["tap_y"])
     quads = (none, none) if g["quad_x"] is None else (g["quad_x"],
                                                       g["quad_y"])
-    staged = (np.zeros(0, np.uint8) if g["stage"] != "list"
+    staged = (np.zeros(0, np.uint8) if g["stage"] == "circle"
               else np.ascontiguousarray(g["staged"], np.uint8))
     tables = DeviceTables(_FloorTables(
         g["tile_x0"], g["tile_y0"], *taps, *quads, g["centres"], staged))

@@ -1,7 +1,7 @@
-"""Same-process A/B of one upscaler kernel (B1 csrc/fsr_fused.cu, B3
-csrc/nis_scaler.cu or B5 csrc/cas_upscale.cu) against an earlier source of
-it, or against the current source with one part taken out, on one NVIDIA
-GPU.
+"""Same-process A/B of one redesigned kernel (B1 csrc/fsr_fused.cu, B3
+csrc/nis_scaler.cu, B5 csrc/cas_upscale.cu, B4 csrc/nis_sharpen.cu or B6
+csrc/cas_sharpen.cu) against an earlier source of it, or against the
+current source with one part taken out, on one NVIDIA GPU.
 
     python3 -m openvr_fsr_tpu_torch.tools.ab --kernel KERNEL
         (--parent FILE | --ablate NAME) [--iters N] [--out FILE]
@@ -13,7 +13,13 @@ source was written for:
   nis_scaler   one CTA per 32x24 block, nis_scaler_launch with 11 pointers
                and 40x32 luma windows;
   cas_upscale  one CTA per 16x16 tile, cas_upscale_launch with 9 pointers
-               and 20x20 windows.
+               and 20x20 windows;
+  nis_sharpen  one CTA per 32x32 block with its own circle test,
+               nis_sharpen_launch(img, out, centres, consts, n_consts,
+               batch, h, w, rows, pitch, hdr_mode, tint, stream);
+  cas_sharpen  one CTA per 16x16 tile with its own circle test,
+               cas_sharpen_launch(img, out, centres, batch, h, w, rows,
+               pitch, sharp, mcd, tint, stream).
 It is built with the port's nvcc flags into a temporary directory and
 driven with the tables it was written for, made from the same sample maps
 and centres as the current build's.
@@ -24,6 +30,11 @@ point swapped in. It answers what a part of the kernel costs:
   nis_scaler   noslide  the luma support and edge weights no longer slide
                         down a run: every new source row reloads them (the
                         same bits);
+  nis_sharpen  noslide  every output of a run reloads its 5x5 lumas (the
+                        same bits);
+  cas_sharpen  noslide  every output of a run reloads its 3x3x3 taps (the
+                        same bits);
+               nostage  no window is staged (other bits: a time only);
   cas_upscale  nostage  no window is staged: the filter reads a window
                         never written (other bits: a time only);
                noload   the window's texels are made from their index
@@ -31,8 +42,11 @@ point swapped in. It answers what a part of the kernel costs:
                         stay (other bits: a time only).
 
 Cases, sharpness 0.9, centred eyes, at 2 x 1683x1869 -> 2 x 2244x2492 (rs
-0.75): radius 0.0, 0.5 and 2.0; then NVScaler at hdr_mode 1 and the others
-at the supersample (2 x 2244x2492 -> 2 x 2917x3239, rs 1.3), radius 0.5. In
+0.75; the sharpen-only kernels at 2 x 2244x2492, rs 1): radius 0.0, 0.5
+and 2.0; then NVScaler at hdr_mode 1 and the other upscalers at the
+supersample (2 x 2244x2492 -> 2 x 2917x3239, rs 1.3), radius 0.5;
+NVSharpen at hdr_mode 1, radius 0.5; CAS sharpen at max_color_delta 0.05,
+radius 2.0. In
 each, both kernels' outputs must equal the plain version's on the first
 frame (else it exits 1); then they are timed in turns, parent, current,
 current, parent, each round the best of 3 rotations of `iters`
@@ -58,15 +72,25 @@ import torch
 __all__ = ["main", "build_parent", "parent_launcher", "ablated_source",
            "CASES", "KERNELS", "PARENT_ARGTYPES", "ABLATIONS"]
 
-KERNELS = ("fsr_fused", "nis_scaler", "cas_upscale")
-_MAIN = [(f"rs0.75 radius {r}", 1869, 1683, 0.75, r, 0)
+KERNELS = ("fsr_fused", "nis_scaler", "cas_upscale", "nis_sharpen",
+           "cas_sharpen")
+SHARPEN_KERNELS = ("nis_sharpen", "cas_sharpen")
+_MAIN = [(f"rs0.75 radius {r}", 1869, 1683, 0.75, r, 0, 1.0)
          for r in (0.0, 0.5, 2.0)]
-# kernel -> [(label, in_h, in_w, render_scale, radius, hdr_mode)]
+_SHARPEN = [(f"rs1 radius {r}", 2492, 2244, 1.0, r, 0, 1.0)
+            for r in (0.0, 0.5, 2.0)]
+# kernel -> [(label, in_h, in_w, render_scale, radius, hdr_mode,
+# max_color_delta)]
 CASES = {
-    "fsr_fused": _MAIN + [("rs1.3 radius 0.5", 2492, 2244, 1.3, 0.5, 0)],
+    "fsr_fused": _MAIN + [("rs1.3 radius 0.5", 2492, 2244, 1.3, 0.5, 0, 1.0)],
     "nis_scaler": _MAIN + [("rs0.75 radius 0.5 hdr 1", 1869, 1683, 0.75,
-                            0.5, 1)],
-    "cas_upscale": _MAIN + [("rs1.3 radius 0.5", 2492, 2244, 1.3, 0.5, 0)],
+                            0.5, 1, 1.0)],
+    "cas_upscale": _MAIN + [("rs1.3 radius 0.5", 2492, 2244, 1.3, 0.5, 0,
+                             1.0)],
+    "nis_sharpen": _SHARPEN + [("rs1 radius 0.5 hdr 1", 2492, 2244, 1.0,
+                                0.5, 1, 1.0)],
+    "cas_sharpen": _SHARPEN + [("rs1 radius 2.0 max_color_delta 0.05", 2492,
+                                2244, 1.0, 2.0, 0, 0.05)],
 }
 SHARPNESS = 0.9
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -74,6 +98,8 @@ PARENT_ARGTYPES = {
     "fsr_fused": [_P] * 10 + [_I, _P] + [_I] * 8 + [_F] * 2 + [_I] * 2 + [_P],
     "nis_scaler": [_P] * 11 + [_I] * 9 + [_F] + [_I] * 2 + [_P],
     "cas_upscale": [_P] * 9 + [_I] * 7 + [_F] * 2 + [_I, _P],
+    "nis_sharpen": [_P] * 4 + [_I] * 7 + [_F, _P],
+    "cas_sharpen": [_P] * 3 + [_I] * 5 + [_F] * 3 + [_P],
 }
 # the earlier sources' tile and window shapes, (width, height)
 NIS_PARENT_TILE, NIS_PARENT_WINDOW = (32, 24), (40, 32)
@@ -91,14 +117,24 @@ ABLATIONS = {
         "noload": (False, [("? img[static_cast<size_t>(y) * p.pitch + x]",
                             "? static_cast<uint32_t>(i) * 2654435761u")]),
     },
+    "nis_sharpen": {
+        "noslide": (True, [("i = (r == 0 ? 0 : 4)", "i = 0")]),
+    },
+    "cas_sharpen": {
+        "noslide": (True, [("k = (r == 0 ? 0 : 2)", "k = 0")]),
+        "nostage": (False, [("for (int i = tid; i < kWin * kWin; "
+                             "i += kThreads) {",
+                             "for (int i = tid; i < 0; i += kThreads) {")]),
+    },
 }
 # kernel -> the name of its wrapper module's entry-point getter
-_ENTRIES = {"nis_scaler": "_scaler_fn", "cas_upscale": "_upscale_launch_fn"}
+_ENTRIES = {"nis_scaler": "_scaler_fn", "cas_upscale": "_upscale_launch_fn",
+            "nis_sharpen": "_sharpen_fn", "cas_sharpen": "_sharpen_launch_fn"}
 
 
 def _wrapper_module(kernel):
     from ..kernels import cas, nis
-    return {"nis_scaler": nis, "cas_upscale": cas}[kernel]
+    return cas if kernel.startswith("cas") else nis
 
 
 def build_parent(kernel, source, argtypes=None):
@@ -160,12 +196,25 @@ def _through_entry(kernel, entry, fn):
     return run
 
 
-def _build_current(kernel, batch, h, w, ow, oh, cen, hdr):
+def _build_current(kernel, batch, h, w, ow, oh, cen, hdr, mcd=1.0):
     """(the current kernel function, its host tables, the constants the
     parent takes)."""
     from ..core import constants as C
+    from ..core.foveation import TILE_FSR, TILE_NIS_SHARPEN
     from ..kernels import cas, fsr, nis
-    from ..kernels._maps import cas_upscale_maps, fsr_maps, nvscaler_maps
+    from ..kernels._maps import (cas_upscale_maps, fsr_maps, nvscaler_maps,
+                                 sharpen_maps)
+
+    if kernel == "cas_sharpen":
+        fn = cas.build_cas_sharpen(batch, h, w, sharpness=SHARPNESS,
+                                   centres=cen, max_color_delta=mcd)
+        return fn, sharpen_maps(batch, h, w, cen, TILE_FSR), dict(
+            sharp=cas.cas_setup(SHARPNESS), mcd=mcd)
+    if kernel == "nis_sharpen":
+        cfg = C.nvsharpen_update_config(SHARPNESS, w, h, w, h, hdr_mode=hdr)
+        fn = nis.build_nvsharpen(batch, h, w, nis_cfg=cfg, centres=cen)
+        return fn, sharpen_maps(batch, h, w, cen, TILE_NIS_SHARPEN), dict(
+            consts=nis._consts(cfg), hdr_mode=hdr)
 
     if kernel == "fsr_fused":
         fn = fsr.build_fsr_fused(batch, h, w, ow, oh, sharpness=SHARPNESS,
@@ -203,20 +252,39 @@ def _parent_origins(kernel, m):
 
 
 def parent_launcher(kernel, entry, maps, batch, device, sharp=None,
-                    consts=None, hdr_mode=0, tint=1.0):
+                    consts=None, hdr_mode=0, tint=1.0, mcd=1.0):
     """fn(img) running the parent kernel `entry` with the tables it was
     written for, made from `maps` (the current build's host tables)."""
     from ..kernels._maps import FSR_TILE, IN_TILE
 
     m = maps
-    H, W, OH, OW = m.in_h, m.in_w, m.out_h, m.out_w
     d = m.to(device)
-    if kernel != "fsr_fused":
-        x0, y0 = (torch.as_tensor(o, device=device)
-                  for o in _parent_origins(kernel, m))
 
     def stream():
         return torch.cuda.current_stream(device).cuda_stream
+
+    if kernel in SHARPEN_KERNELS:   # the centres; each CTA tests its tile
+        def run_sharpen(img):
+            out = torch.empty((batch, m.h, m.w), dtype=torch.int32,
+                              device=device)
+            head = (img.data_ptr(), out.data_ptr(), d.centres.data_ptr())
+            rows, pitch = img.shape[1:]
+            if kernel == "cas_sharpen":
+                err = entry(*head, batch, m.h, m.w, rows, pitch, float(sharp),
+                            float(mcd), float(tint), stream())
+            else:
+                err = entry(*head, consts.ctypes.data, consts.size, batch,
+                            m.h, m.w, rows, pitch, int(hdr_mode), float(tint),
+                            stream())
+            if err != 0:
+                raise RuntimeError(f"parent {kernel}_launch: cudaError {err}")
+            return out
+        return run_sharpen
+
+    H, W, OH, OW = m.in_h, m.in_w, m.out_h, m.out_w
+    if kernel != "fsr_fused":
+        x0, y0 = (torch.as_tensor(o, device=device)
+                  for o in _parent_origins(kernel, m))
 
     def run(img):
         out = torch.empty((batch, OH, OW), dtype=torch.int32, device=device)
@@ -301,11 +369,12 @@ def main(argv=None):
     print(f"[ab] {kernel} on {card}; parent {parent_usage}; current {usage}, "
           f"CTAs per SM {rec['ctas_per_sm_current']}", file=sys.stderr,
           flush=True)
-    for label, h, w, rs, radius, hdr in CASES[kernel]:
+    for label, h, w, rs, radius, hdr, mcd in CASES[kernel]:
         ow, oh = Config(render_scale=rs).output_size(w, h)
         cen = C.centres_payload(ow, oh, radius, Pipeline(device="cpu")
                                 .eye_centers, (0, 1))
-        new, maps, kw = _build_current(kernel, 2, h, w, ow, oh, cen, hdr)
+        new, maps, kw = _build_current(kernel, 2, h, w, ow, oh, cen, hdr,
+                                       mcd)
         old = (_through_entry(kernel, entry, new) if args.ablate else
                parent_launcher(kernel, entry, maps, 2, dev, **kw))
         inputs = bench.ring_frames(h, w, new.pad_to, dev)

@@ -94,15 +94,24 @@ SMEM_WORDS = {
     # ablation `tools/ab.py --ablate noslide`). Fallback: DirectCopy reads
     # device memory only
     "nis_scaler": (44, 0),
-    # nis_sharpen.cu:93 the 5x5 lumas
-    "nis_sharpen": (25, 0),
+    # nis_sharpen.cu, per output of a run of 4 in one column: :118 the 5x5
+    # lumas at the first, one new row of 5 (:116) at each later one (10),
+    # and :145 the staged centre texel (1); fallback: the copy pass
+    # (copy_pass.cuh) reads device memory only. 25 + 1 if every output
+    # reloaded (`tools/ab.py --ablate noslide`)
+    "nis_sharpen": (11, 0),
     # cas_upscale.cu:129 the 12 taps of the 4x4 window x 3 f32 planes;
     # fallback: the outside pass reads device memory only (an output of an
     # outside group in an inside tile reads 12, :148; not counted, so the
     # floor stays a lower bound)
     "cas_upscale": (36, 0),
-    # cas_sharpen.cu:83 the 3x3 taps x 3 channels
-    "cas_sharpen": (27, 0),
+    # cas_sharpen.cu, per output of a run of 4 in one column: :125 the 3x3
+    # taps x 3 f32 planes at the first (27), one new row (:121) of 9 at
+    # each later one: 13.5; fallback: the copy pass reads device memory
+    # only (so does a run of an outside group in an inside tile: not
+    # counted, so the floor stays a lower bound). 27 if every output
+    # reloaded (`--ablate noslide`)
+    "cas_sharpen": (13.5, 0),
 }
 # the six kernels' bench paths (tools/bench_paths.py::PATHS)
 KERNEL_PATHS = {"fsr_fused": "fsr_fused", "rcas_sharpen": "rcas_only",

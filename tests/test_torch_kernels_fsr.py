@@ -308,8 +308,10 @@ def test_ab_tool_takes_one_comparison(argv, capsys):
     assert "no CUDA GPU" not in capsys.readouterr().out
 
 
-ABLATED = [("cas_upscale", "noload"), ("cas_upscale", "nostage"),
-           ("nis_scaler", "noslide")]
+ABLATED = [("cas_sharpen", "noslide"), ("cas_sharpen", "nostage"),
+           ("cas_upscale", "noload"),
+           ("cas_upscale", "nostage"), ("nis_scaler", "noslide"),
+           ("nis_sharpen", "noslide")]
 
 
 @pytest.mark.parametrize("kernel,name", ABLATED)

@@ -1,0 +1,276 @@
+"""The host tables of the redesigned sharpen-only kernels, B6 CAS sharpen
+(csrc/cas_sharpen.cu) and B4 NVSharpen (csrc/nis_sharpen.cu), their entry
+points and the DMA geometries they publish, on the CPU.
+
+Each kernel launches two class kernels from host tile lists
+(kernels/_maps.py::sharpen_maps): the shared copy pass (csrc/copy_pass.cuh)
+over the 32x32 tiles outside the foveation circle and the inside kernel
+over the others. Held here:
+  - the classes are the reference's circle test (kernels/_common.py::
+    circle_mask, the plain versions' select) read at every pixel, per 16x16
+    group (B6) and per 32x32 block (B4), and the lists partition the tiles;
+  - each geometry is a numpy statement of what the two kernels load and
+    store, and the DMA floor's own check passes;
+  - the wrappers pass the lists to one C entry point whose ctypes argtypes
+    are its prototype in the source;
+  - the shared words per inside pixel the audit prices are the sources'.
+
+The CUDA kernels run only on the card: `python3 chip_smoke.py` holds them
+against their plain versions there, texel for texel.
+"""
+
+import ctypes
+import re
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from openvr_fsr_tpu_torch.core import constants as C  # noqa: E402
+from openvr_fsr_tpu_torch.kernels import _build, _maps, cas, nis, sol  # noqa: E402
+from openvr_fsr_tpu_torch.kernels._common import circle_mask  # noqa: E402
+from openvr_fsr_tpu_torch.tools import ab  # noqa: E402
+from openvr_fsr_tpu_torch.tools import vpu_audit as A  # noqa: E402
+
+CENTRED = ((0.5, 0.5), (0.5, 0.5))
+OFF_CENTRE = ((0.3, 0.6), (0.7, 0.4))
+SHAPES = [(45, 61), (96, 128), (2492, 2244)]
+CIRCLES = [(0.0, CENTRED), (0.3, OFF_CENTRE), (0.5, CENTRED),
+           (2.0, CENTRED)]
+SHAPE_IDS = [f"{w}x{h}" for h, w in SHAPES]
+CIRCLE_IDS = [f"r{r}" for r, _ in CIRCLES]
+# kernel -> (foveation group, staged window edge, out-of-image words)
+KERNELS = {"cas_sharpen": ((16, 16), 34, "zero"),
+           "nis_sharpen": ((32, 32), 36, "clamp")}
+
+
+def _centres(h, w, radius, eyes, batch):
+    return C.centres_payload(w, h, radius, eyes,
+                             tuple(i % 2 for i in range(batch)))
+
+
+def _build_kernel(kernel, batch, h, w, cen, hdr=0):
+    if kernel == "cas_sharpen":
+        return cas.build_cas_sharpen(batch, h, w, sharpness=0.8, centres=cen)
+    cfg = C.nvsharpen_update_config(0.9, w, h, w, h, hdr_mode=hdr)
+    return nis.build_nvsharpen(batch, h, w, nis_cfg=cfg, centres=cen)
+
+
+def _tiles_any(mask, tile):
+    """(B, TY, TX) bool: a tile-square tile holds a True pixel."""
+    b, oh, ow = mask.shape
+    ty, tx = -(-oh // tile), -(-ow // tile)
+    pad = np.zeros((b, ty * tile, tx * tile), bool)
+    pad[:, :oh, :ow] = mask
+    return pad.reshape(b, ty, tile, tx, tile).any(axis=(2, 4))
+
+
+@pytest.mark.parametrize("batch", [2, 4])
+@pytest.mark.parametrize("radius,eyes", CIRCLES, ids=CIRCLE_IDS)
+@pytest.mark.parametrize("h,w", SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("kernel", list(KERNELS))
+def test_classes_and_lists_are_the_circle_test(kernel, h, w, radius, eyes,
+                                               batch):
+    """The group classes are the circle test read at every pixel of each
+    group; the lists partition the 32x32 tiles, a tile inside where any of
+    its outputs is, in order."""
+    group = KERNELS[kernel][0]
+    cen = _centres(h, w, radius, eyes, batch)
+    m = _maps.sharpen_maps(batch, h, w, cen, group)
+    mask = circle_mask(torch.from_numpy(cen), h, w, group).numpy()
+    gw, gh = group
+    assert m.group_cls.dtype == np.int32
+    assert m.group_cls.shape == (batch, -(-h // gh), -(-w // gw))
+    per_pixel = np.repeat(np.repeat(m.group_cls.astype(bool), gh, 1), gw, 2)
+    assert np.array_equal(per_pixel[:, :h, :w], mask)
+    flags = _tiles_any(mask, _maps.SHARPEN_TILE)
+    ids = np.arange(flags.size)
+    assert m.inside_tiles.dtype == m.outside_tiles.dtype == np.int32
+    assert np.array_equal(m.inside_tiles, ids[flags.ravel()])
+    assert np.array_equal(m.outside_tiles, ids[~flags.ravel()])
+    assert np.array_equal(m.tile_inside, flags)
+    assert np.array_equal(m.centres, np.asarray(cen).reshape(batch, 5))
+    if radius == 2.0:
+        assert len(m.outside_tiles) == 0
+    if radius == 0.0:
+        assert len(m.inside_tiles) == 0
+
+
+@pytest.mark.parametrize("batch", [2, 4])
+@pytest.mark.parametrize("radius,eyes", CIRCLES, ids=CIRCLE_IDS)
+@pytest.mark.parametrize("h,w", SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("kernel", list(KERNELS))
+def test_geometry_is_the_two_kernels(kernel, h, w, radius, eyes, batch):
+    """B6's and B4's DMA geometries against a numpy statement of what their
+    two kernels load and store: an inside tile stages its window at
+    (32 t - halo) (B6: 34x34, the words outside the image staged as 0
+    without a load; B4: 36x36 edge-clamped, its centre texels from the
+    window too); every other tile copies its own texels; every output word
+    is stored once."""
+    group, win, oob = KERNELS[kernel]
+    halo = (win - 32) // 2
+    cen = _centres(h, w, radius, eyes, batch)
+    g = _build_kernel(kernel, batch, h, w, cen).dma_geometry
+    m = _maps.sharpen_maps(batch, h, w, cen, group)
+    sol.check_geometry(g)
+    assert (g["tile"], g["window"], g["group"]) == ((32, 32), (win, win),
+                                                    group)
+    assert (g["stage"], g["oob"], g["stage_quads"]) == ("copy", oob, False)
+    assert g["quad_x"] is None and g["quad_y"] is None
+    assert np.array_equal(g["staged"], m.tile_inside)
+    ty, tx = m.tile_inside.shape[1:]
+    assert np.array_equal(g["tile_x0"], np.arange(tx) * 32 - halo)
+    assert np.array_equal(g["tile_y0"], np.arange(ty) * 32 - halo)
+    assert np.array_equal(g["tap_x"], np.arange(w))
+    assert np.array_equal(g["tap_y"], np.arange(h))
+    outs = (np.minimum(32, h - np.arange(ty) * 32)[:, None]
+            * np.minimum(32, w - np.arange(tx) * 32)[None, :])
+    if oob == "clamp":
+        stage = np.full(outs.shape, win * win)
+    else:
+        nx = np.clip(g["tile_x0"] + win, 0, w) - np.clip(g["tile_x0"], 0, w)
+        ny = np.clip(g["tile_y0"] + win, 0, h) - np.clip(g["tile_y0"], 0, h)
+        stage = ny[:, None] * nx[None, :]
+    floor = sol.build_dma_floor(g)
+    assert floor.read_bytes == 4 * int(np.where(m.tile_inside, stage,
+                                                outs).sum())
+    assert floor.write_bytes == floor.hbm_bytes - 4 * batch * h * w \
+        == 4 * batch * h * w
+
+
+def _prototype_argtypes(kernel, entry):
+    """The ctypes types of the C prototype `entry` in csrc/<kernel>.cu:
+    pointers as c_void_p, int as c_int, float as c_float."""
+    text = (_build.CSRC / f"{kernel}.cu").read_text()
+    (params,) = re.findall(rf'extern "C" int {entry}\((.*?)\)\s*\{{', text,
+                           re.S)
+    types = []
+    for p in params.split(","):
+        p = " ".join(p.split())
+        types.append(ctypes.c_void_p if "*" in p else
+                     {"int": ctypes.c_int, "float": ctypes.c_float}[p.split()[0]])
+    return types
+
+
+@pytest.mark.parametrize("kernel,module", [("cas_sharpen", cas),
+                                           ("nis_sharpen", nis)])
+def test_argtypes_are_the_prototype(kernel, module):
+    """The wrapper binds the entry point with the types of its prototype,
+    one per parameter (a pointer bound as c_int would be cut to 32 bits)."""
+    assert module.SHARPEN_ARGTYPES == _prototype_argtypes(
+        kernel, f"{kernel}_launch")
+
+
+def _conforms(args, argtypes):
+    """Each argument is a Python value ctypes converts to its type."""
+    assert len(args) == len(argtypes)
+    for a, t in zip(args, argtypes):
+        if t is ctypes.c_float:
+            assert isinstance(a, float), (a, t)
+        elif t is ctypes.c_int:
+            assert isinstance(a, int) and not isinstance(a, bool), (a, t)
+        else:
+            assert a is None or isinstance(a, int), (a, t)
+
+
+def _launch_closure(fn):
+    cells = dict(zip(fn.__code__.co_freevars,
+                     (c.cell_contents for c in fn.__closure__)))
+    return cells["launch"]
+
+
+@pytest.mark.parametrize("radius", [0.0, 0.5, 2.0])
+@pytest.mark.parametrize("kernel", list(KERNELS))
+def test_launch_passes_the_lists(kernel, radius, monkeypatch):
+    """The launch hands the entry point the inside and outside lists with
+    their lengths, the 32x32 tile and the window edge, the frame's pitch,
+    and nothing the prototype does not take."""
+    h, w, hp, wp = 70, 75, 72, 128
+    cen = _centres(h, w, radius, CENTRED, 2)
+    fn = _build_kernel(kernel, 2, h, w, cen, hdr=2)
+    m = _maps.sharpen_maps(2, h, w, cen, KERNELS[kernel][0])
+    seen = {}
+
+    def entry(*args):
+        seen["args"] = args
+        return 0
+    module, getter = (cas, "_sharpen_launch_fn") if kernel == "cas_sharpen" \
+        else (nis, "_sharpen_fn")
+    monkeypatch.setattr(module, getter, lambda: entry)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: type(
+        "S", (), {"cuda_stream": 0})())
+    out, err = _launch_closure(fn)(torch.zeros((2, hp, wp), dtype=torch.int32))
+    assert err == 0 and out.shape == (2, h, w)
+    args = seen["args"]
+    _conforms(args, module.SHARPEN_ARGTYPES)
+    win = KERNELS[kernel][1]
+    assert args[-3:-1] == (_maps.SHARPEN_TILE, win)
+    n_in, n_out = len(m.inside_tiles), len(m.outside_tiles)
+    if kernel == "cas_sharpen":
+        assert (args[4], args[6]) == (n_in, n_out)
+        assert args[7:12] == (2, h, w, hp, wp)
+        assert args[13] == np.float32(1.0)            # max_color_delta
+    else:
+        assert (args[3], args[5]) == (n_in, n_out)
+        assert args[7:14] == (16, 2, h, w, hp, wp, 2)   # consts, hdr_mode
+    assert n_in + n_out == 2 * 3 * 3
+
+
+@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("kernel", list(ab.SHARPEN_KERNELS))
+def test_parent_launchers_take_the_earlier_entry_points(kernel, case,
+                                                        monkeypatch):
+    """The A/B tool drives the earlier sharpen kernels (one CTA per tile
+    with its own circle test) with the centres and the constants each case
+    asks for, in the types of their argtypes."""
+    label, h, w, rs, radius, hdr, mcd = ab.CASES[kernel][case]
+    assert (h, w, rs) == (2492, 2244, 1.0)
+    h, w = 45, 61
+    cen = _centres(h, w, radius, CENTRED, 2)
+    fn, maps, kw = ab._build_current(kernel, 2, h, w, w, h, cen, hdr, mcd)
+    seen = {}
+
+    def entry(*args):
+        seen["args"] = args
+        return 0
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: type(
+        "S", (), {"cuda_stream": 0})())
+    run = ab.parent_launcher(kernel, entry, maps, 2, torch.device("cpu"),
+                             **kw)
+    assert run(torch.zeros((2, h, w), dtype=torch.int32)).shape == (2, h, w)
+    args = seen["args"]
+    _conforms(args, ab.PARENT_ARGTYPES[kernel])
+    assert np.array_equal(maps.centres, np.asarray(cen).reshape(2, 5))
+    if kernel == "cas_sharpen":
+        assert args[3:8] == (2, h, w, h, w)
+        assert args[8:10] == (float(cas.cas_setup(ab.SHARPNESS)), mcd)
+    else:
+        assert args[4:12] == (16, 2, h, w, h, w, hdr, 1.0)
+    assert fn.dma_geometry["stage"] == "copy"
+
+
+def _constant(text, name):
+    return int(re.search(rf"constexpr int {name} = (\w+)", text).group(1))
+
+
+@pytest.mark.parametrize("kernel,edge,support", [("cas_sharpen", "kTile", 3),
+                                                 ("nis_sharpen", "kBlock", 5)])
+def test_smem_words_recounted_from_the_sources(kernel, edge, support):
+    """A thread's run of outputs down one column reads its support's rows
+    (3 rows of 3 taps x 3 planes for B6, 5 rows of 5 lumas for B4) at the
+    first output and one new row at each later one; B4 also reads its
+    staged centre texel. The audit's words per inside pixel are that
+    average: 13.5 and 11."""
+    text = (_build.CSRC / f"{kernel}.cu").read_text()
+    tile = _constant(text, edge)
+    run = tile * tile // _constant(text, "kThreads")
+    assert (tile, run) == (_maps.SHARPEN_TILE, 4)
+    row = support * (3 if kernel == "cas_sharpen" else 1)
+    words = (support * row + (run - 1) * row) / run
+    words += 0 if kernel == "cas_sharpen" else 1
+    assert A.SMEM_WORDS[kernel] == (words, 0)
+    assert words == {"cas_sharpen": 13.5, "nis_sharpen": 11}[kernel]
+    # the slide is the one text the ablation edits
+    old, new = ab.ABLATIONS[kernel]["noslide"][1][0]
+    assert text.count(old) == 1

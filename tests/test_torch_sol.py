@@ -75,7 +75,7 @@ def _emulate(img, g):
                 ox = np.arange(tx * tw, min(tx * tw + tw, OW))
                 n = len(oy) * len(ox)
                 gx, gy = tx * tw + tw // 2, ty * th + th // 2
-                if g["stage"] == "list":
+                if g["stage"] in ("list", "copy"):
                     inside = g["staged"][b, ty, tx]
                 else:
                     inside = ((c[0] - gx) ** 2 + (c[1] - gy) ** 2 <= c[4]
@@ -194,11 +194,22 @@ class TestGeometry:
             assert (g["tile"], g["window"], g["group"]) == (
                 (32, 48), (40, 56), (32, 24))
         else:
-            tile, halo = (32, 2) if plan == "nvsharpen" else (16, 1)
+            tile, halo = {"nvsharpen": (32, 2), "cas_sharpen": (32, 1),
+                          "rcas_sharpen": (16, 1)}[plan]
             assert g["tile"] == (tile, tile)
             assert g["tile_x0"][1] == tile - halo
             assert np.array_equal(g["tap_y"], np.arange(h))
             assert g["oob"] == ("clamp" if plan == "nvsharpen" else "zero")
+            if plan == "rcas_sharpen":
+                assert g["stage"] == "circle" and g["staged"] is None
+            else:
+                # the class kernels: the host's inside tiles stage, the
+                # others copy their texels (copy_pass.cuh)
+                group = (16, 16) if plan == "cas_sharpen" else (32, 32)
+                maps = _maps.sharpen_maps(2, h, w, cen, group)
+                assert (g["stage"], g["group"]) == ("copy", group)
+                assert np.array_equal(g["staged"], maps.tile_inside)
+                assert g["quad_x"] is None and not g["stage_quads"]
 
 
 def test_full_size_geometries_fit_the_floor():
@@ -225,19 +236,28 @@ def test_tap_outside_its_window_is_refused():
 @pytest.mark.parametrize("plan,change,match", [
     ("rcas_sharpen", dict(stage="all"), "no floor form"),
     ("rcas_sharpen", dict(stage_quads=True), "one texel per output"),
-    ("nvsharpen", "quads", "one texel per output"),
+    ("rcas_sharpen", "quads", "one texel per output"),
     ("fsr_fused", dict(quad_x=None, quad_y=None), "four-tap floors"),
     ("cas_upscale", dict(staged=None), "staged table"),
+    ("nvsharpen", "quads", "one texel per output"),
+    ("cas_sharpen", dict(stage_quads=True), "one texel per output"),
+    ("cas_sharpen", dict(staged=None), "staged table"),
+    ("nvsharpen", "shifted", "identity"),
 ], ids=["all", "circle-stage-quads", "circle-quads", "list-no-quads",
-        "list-no-table"])
+        "list-no-table", "copy-quads", "copy-stage-quads", "copy-no-table",
+        "copy-not-own-texel"])
 def test_floor_has_two_forms(plan, change, match):
-    """The floor runs two forms: "circle" (the sharpen-only kernels, one
-    texel per output outside) and "list" (the upscalers, four bilinear taps
-    per output outside); any other is refused on the host."""
+    """The floor runs three forms: "circle" (RCAS sharpen, one texel per
+    output outside), "copy" (the sharpen-only class kernels: a staged
+    table, each output's own texel outside) and "list" (the upscalers, four
+    bilinear taps per output outside); any other is refused on the
+    host."""
     g = _geometry(plan, 45, 61, 0.5)
     if change == "quads":
         change = dict(quad_x=np.zeros((2, g["out_w"]), np.int32),
                       quad_y=np.zeros((2, g["out_h"]), np.int32))
+    elif change == "shifted":
+        change = dict(tap_x=np.clip(g["tap_x"] + 1, 0, g["in_w"] - 1))
     with pytest.raises(ValueError, match=match):
         sol.build_dma_floor(dict(g, **change))
 
