@@ -14,8 +14,8 @@ lines:
      the registers, spills and CTAs per SM of the two class kernels of each
      upscaler (fsr_fused, nis_scaler, cas_upscale: the shared bilinear pass
      outside the foveation circle, and the kernel inside it) and of
-     nis_sharpen and cas_sharpen (the shared copy pass outside, the kernel
-     inside);
+     nis_sharpen, cas_sharpen and rcas_sharpen (the shared copy pass
+     outside, the kernel inside);
   2. each kernel against its plain torch version on the card, at full
      size, on a zone-plate + noise set and a uniform-random set, both with
      alpha that is not all 255:
@@ -25,6 +25,9 @@ lines:
                     in one batch); plus a supersample (rs 1.3) case; 0
                     unequal texels, every case;
        rcas_sharpen 2 x 2244x2492, radius 0.4, 2.0, 0.0 and 0.4 with debug;
+                    off-centre eyes at radius 0.3 (circle edges through
+                    many 32x32 tiles of 16x16 groups) and batch 4; 0
+                    unequal texels, every case;
        nis_sharpen  the same, hdr_mode 0, plus radius 0.5 and 2.0 at
                     hdr_mode 1 and 2; off-centre eyes at radius 0.3 and
                     batch 4; 0 unequal texels, every case;
@@ -60,13 +63,14 @@ lines:
      loads in its SASS, and equals its plain version word for word at the
      full-size geometry of each of the seven bench paths, on the unpadded
      and the ring-pitch input, and at the geometries of the three upscalers
-     and of nis_sharpen and cas_sharpen at radius 0.0 and 2.0; the fused
-     kernel against its plain version at the full supersample size (2 x
-     2244x2492 -> 2 x 2917x3239); fsr_fused and its floor timed in turns
-     (bench.measure) at radius 0.0, 0.5 and 2.0 and at rs 1.3 ([b1]
-     lines), nis_scaler, cas_upscale, nis_sharpen and cas_sharpen with
-     theirs at radius 0.0, 0.5 and 2.0 ([b3], [b5], [b4], [b6] lines),
-     with their vs_sol; the floor's time at the fsr_fused geometry (also
+     and of nis_sharpen, cas_sharpen and rcas_sharpen at radius 0.0 and 2.0;
+     the fused kernel against its plain version at the full supersample
+     size (2 x 2244x2492 -> 2 x 2917x3239); fsr_fused and its floor timed in
+     turns (bench.measure, the best of B_ROUNDS rounds each) at radius 0.0,
+     0.5 and 2.0 and at rs 1.3 ([b1] lines), nis_scaler, cas_upscale,
+     nis_sharpen, cas_sharpen and rcas_sharpen with theirs at radius 0.0,
+     0.5 and 2.0 ([b3], [b5], [b4], [b6], [b2] lines), with their vs_sol;
+     the floor's time at the fsr_fused geometry (also
      call by call, bench_fn) and the card's pure-read and pure-write rates
      (hbm_calibration); then the bench entries, bench.main() and
      tools.bench_paths.main() over all seven paths, in this process,
@@ -80,15 +84,21 @@ lines:
      tensor-core probe within kernels/sol.py::MXU_TOLERANCE, also at small
      k, where its values have not underflowed); the SASS of each keeps
      what it meters (FP32 arithmetic per cycle, LDS in the plane loop, HMMA
-     per round), and the instruction counts of the inside kernels of B1,
-     B3, B4, B5 and B6; each probe's and its plain version's time, and
+     per round), the shared-memory probe's loops, and the instruction
+     counts of the inside kernels of B1-B6; each probe's and its plain
+     version's time, and
      torch.matmul on one round's bf16 operands beside the tensor-core
      probe; then
      tools.vpu_audit.main() and main(["--nis", "--quick"]) in this process,
      failing on a missing launch, a rate that is not finite, a pair spread
      above 1.5, a rate above 1.05 x its bound, or a kernel row whose bound
      is above 1.05 x its time;
-  7. the result lines: the card, the kernels JSON, and {"ok": true, ...}.
+  7. the result lines: the card, the kernels JSON (each bound the largest
+     of its unique bytes over 3.35 TB/s, its operations over the data
+     sheet's peak for their type and, for the shared-memory probe, the
+     plane bytes it reads over SMs x 128 B x the max SM clock:
+     tools/vpu_audit.py::roofline_bound, probe_bounds), and
+     {"ok": true, ...}.
 
 Exits non-zero, printing no result, when torch finds no CUDA GPU.
 """
@@ -110,14 +120,15 @@ CAS_SHARPNESS = 0.8          # CasModel's default
 PARITY_MIN_EQUAL = 0.99999   # fraction of equal texels, kernel vs plain
 PARITY_MAX_LSB = 1
 EXACT = ("fsr_fused", "nis_scaler", "cas_upscale", "nis_sharpen",
-         "cas_sharpen")      # held to 0 unequal texels
+         "cas_sharpen", "rcas_sharpen")   # held to 0 unequal texels
 VS_SOL_MAX = 1.02            # floor / kernel; above it the floor is wrong
 RATE_MAX = 1.05              # a measured rate over its bound
 SHARE_MAX = 1.05             # an audit row's bound over its time
-HBM_PEAK = 3.35e12           # H100 SXM, bytes/s (the data sheet, 700 W)
-FP32_PEAK = 67e12            # FP32 outside the tensor cores, ops/s
-BF16_PEAK = 989.4e12         # dense bf16 tensor cores, FLOP/s
 N_PAIRS = 10                 # stereo pairs per plan through the public API
+# the [bN] lines of phase 5: rounds of calls, kernel and floor in turns, the
+# best of each; at radius 0.0 a sharpen-only kernel and its floor run the
+# same copy, so vs_sol is 1 up to the noise that more rounds narrow
+B_ROUNDS = 10
 CENTRES = ((0.5, 0.5), (0.5, 0.5))
 OFF_CENTRE = ((0.3, 0.6), (0.7, 0.4))   # eyes whose circles cut many tiles
 # A fresh process whose first NVScaler launch is on a side stream; prints
@@ -236,7 +247,8 @@ def main():
     for kernel, prefix in (("fsr_fused", "fsr"), ("nis_scaler", "nis"),
                            ("cas_upscale", "cas"),
                            ("nis_sharpen", "nis_sharpen"),
-                           ("cas_sharpen", "cas_sharpen")):
+                           ("cas_sharpen", "cas_sharpen"),
+                           ("rcas_sharpen", "rcas_sharpen")):
         usage = sass.ptxas_usage(_build.library_path(kernel)
                                  .with_suffix(".log").read_text())
         per_sm = occupancy(kernel)
@@ -263,9 +275,10 @@ def main():
                                centres=centres(ow, oh, radius, b, eyes),
                                debug=debug)
 
-    def rcas(radius, debug=False, h=OH, w=OW):
-        return build_rcas_sharpen(2, h, w, sharpness=SHARPNESS,
-                                  centres=centres(w, h, radius), debug=debug)
+    def rcas(radius, debug=False, h=OH, w=OW, b=2, eyes=CENTRES):
+        return build_rcas_sharpen(b, h, w, sharpness=SHARPNESS,
+                                  centres=centres(w, h, radius, b, eyes),
+                                  debug=debug)
 
     def sharpen(radius, debug=False, hdr=0, h=OH, w=OW, b=2, eyes=CENTRES):
         cfg = C.nvsharpen_update_config(SHARPNESS, w, h, w, h, hdr_mode=hdr)
@@ -372,7 +385,8 @@ def main():
     # the sharpen-only class kernels at class borders, the same way
     both_full = torch.cat([sets["full"]["zone+noise"],
                            sets["full"]["uniform"]])
-    for kernel, build in (("nis_sharpen", sharpen), ("cas_sharpen", cas_sh)):
+    for kernel, build in (("nis_sharpen", sharpen), ("cas_sharpen", cas_sh),
+                          ("rcas_sharpen", rcas)):
         for name, img in sets["full"].items():
             parity(kernel, f"2x{OW}x{OH} radius=0.3 eyes {OFF_CENTRE} "
                    f"{name}", build(0.3, eyes=OFF_CENTRE), img)
@@ -668,7 +682,7 @@ def main():
                   for name in bench_paths.PATHS]
     geometries += [(f"{path} radius {r}", cfg.with_(radius=r), h, w)
                    for path in ("fsr_fused", "nvscaler", "cas_upscale",
-                                "nvsharpen", "cas_sharpen")
+                                "nvsharpen", "cas_sharpen", "rcas_only")
                    for r in (0.0, 2.0)
                    for cfg, h, w in [bench_paths.path_config(path)]]
     for name, cfg, h, w in geometries:
@@ -715,17 +729,18 @@ def main():
                                       sharpness=SHARPNESS, radius=r), H, W))
               for r in (0.0, 0.5, 2.0)),
             ("rs 1.3 radius 0.5", bench_paths.path_config("fsr_supersample"))):
-        run = bench.measure(cfg, h, w)
+        run = bench.measure(cfg, h, w, rounds=B_ROUNDS)
         log(f"[b1] fsr_fused {label}: {run.ms} ms per stereo pair, its DMA "
             f"floor {run.sol_ms} ms, vs_sol {run.vs_sol}, floor "
             f"{run.probe_effective_gbps:.1f} GB/s over the unique bytes")
-    # nis_scaler, cas_upscale, nis_sharpen and cas_sharpen with their
-    # floors, the same way
+    # nis_scaler, cas_upscale, nis_sharpen, cas_sharpen and rcas_sharpen
+    # with their floors, the same way
     for tag, path in (("b3", "nvscaler"), ("b5", "cas_upscale"),
-                      ("b4", "nvsharpen"), ("b6", "cas_sharpen")):
+                      ("b4", "nvsharpen"), ("b6", "cas_sharpen"),
+                      ("b2", "rcas_only")):
         cfg, h, w = bench_paths.path_config(path)
         for r in (0.0, 0.5, 2.0):
-            run = bench.measure(cfg.with_(radius=r), h, w)
+            run = bench.measure(cfg.with_(radius=r), h, w, rounds=B_ROUNDS)
             log(f"[{tag}] {path} radius {r}: {run.ms} ms per stereo pair, "
                 f"its DMA floor {run.sol_ms} ms, vs_sol {run.vs_sol}, floor "
                 f"{run.probe_effective_gbps:.1f} GB/s over the unique bytes")
@@ -803,22 +818,35 @@ def main():
                 f"{ops['F2I']} FRND {ops['FRND']}; "
                 f"{dict(ops.most_common(14))}")
         # B3's run loop (one output per pass: its longest loop), B5's whole
-        # inside kernel (4 outputs per thread, unrolled), and B4's and B6's
-        # inside kernels (4 outputs per thread: the first peeled, a loop of
-        # one sliding step per output)
+        # inside kernel (4 outputs per thread, unrolled), and B4's, B6's and
+        # B2's inside kernels (4 outputs per thread: the first peeled, a
+        # loop of one sliding step per output, or unrolled)
         for name, part in (("nis_scaler", "nis_inside_kernel"),
                            ("cas_upscale", "cas_inside_kernel"),
                            ("nis_sharpen", "nis_sharpen_inside_kernel"),
-                           ("cas_sharpen", "cas_sharpen_inside_kernel")):
+                           ("cas_sharpen", "cas_sharpen_inside_kernel"),
+                           ("rcas_sharpen", "rcas_sharpen_inside_kernel")):
             text = sass.disassemble(_build.library_path(name), _build._nvcc())
-            for fn_name, found in sass.loops(text).items():
-                if part in fn_name and found:
-                    ops = found[-1][3]
-                    whole = sass.function_counts(text)[fn_name]
-                    log(f"[probe] SASS {name} {part}: longest loop "
-                        f"{sum(ops.values())} instructions, LDS {ops['LDS']}, "
-                        f"LDC {ops['LDC']}, MUFU {ops['MUFU']}; whole kernel "
-                        f"{sum(whole.values())}, {dict(whole.most_common(8))}")
+            found_loops = sass.loops(text)
+            for fn_name, whole in sass.function_counts(text).items():
+                if part not in fn_name:
+                    continue
+                found = found_loops[fn_name]
+                ops = found[-1][3] if found else None
+                longest = (f"longest loop {sum(ops.values())} instructions, "
+                           f"LDS {ops['LDS']}, LDC {ops['LDC']}, MUFU "
+                           f"{ops['MUFU']}" if ops else "no loop")
+                log(f"[probe] SASS {name} {part}: {longest}; whole kernel "
+                    f"{sum(whole.values())}, {dict(whole.most_common(8))}")
+        # the shared-memory probe's loops: the staging, the unrolled blocks
+        # of 8 planes and their remainder, the predicated tail, the fold
+        text = sass.disassemble(_build.library_path("vmem_rate"),
+                                _build._nvcc())
+        log("[probe] SASS vmem_rate_kernel loops (instructions, LDS, FMUL), "
+            "shortest first: " + str(
+                [(sum(o.values()), o["LDS"], o["FMUL"])
+                 for fn, found in sass.loops(text).items()
+                 if "vmem_rate_kernel" in fn for *_, o in found]))
     (vk, vsteps), (mk, msteps), (xk, xsteps) = (
         vpu_audit.PROBES[n][0][1:] for n in ("vpu", "vmem", "mxu"))
     seed = torch.from_numpy(rng.random((130, 128), np.float32)).to(dev)
@@ -895,13 +923,10 @@ def main():
                      f"share {row['share']}, launches {row['launches']}")
 
     # the least time the card could take for each timed call: its unique
-    # bytes over the memory rate, or its ops over the peak rate of their
-    # type (the guide's table), whichever is larger
-    def bound(nbytes, ops, peak=FP32_PEAK):
-        t_bytes, t_ops = nbytes / HBM_PEAK * 1e3, ops / peak * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
-                                                            "operations")
-
+    # bytes over the memory rate, its ops over the peak rate of their type
+    # (the guide's table) and, for the shared-memory probe, the plane bytes
+    # it reads over the card's shared-memory bound, whichever is largest
+    bound = vpu_audit.roofline_bound
     bounds = {}
     for kernel, (fn, img) in timed.items():
         g = fn.dma_geometry
@@ -913,15 +938,9 @@ def main():
             (img.numel() + 2 * g["out_h"] * g["out_w"]) * 4,
             inside * per_px[0] + fallback * per_px[1])
     bounds["dma_floor"] = bound(floor.hbm_bytes, 0)
-    fn = probes["vpu_rate"][0]
-    bounds["vpu_rate"] = bound((fn.elems + 8 * 128) * 4,
-                               fn.k * vpu_audit.vpu_cycle_ops() * fn.elems
-                               * fn.steps)
-    fn = probes["vmem_rate"][0]
-    bounds["vmem_rate"] = bound(fn.bytes_per_step + 8 * 128 * 4,
-                                2 * fn.bytes_per_step // 4 * fn.steps)
-    fn = probes["mxu_rate"][0]
-    bounds["mxu_rate"] = bound(3 * 128 * 128 * 4, 2 * fn.macs, BF16_PEAK)
+    bounds.update(vpu_audit.probe_bounds(
+        *(probes[n][0] for n in ("vpu_rate", "vmem_rate", "mxu_rate")),
+        audit["rates"]["sms"], audit["rates"]["max_sm_clock_hz"]))
     log(f"[bound] {bounds}")
 
     # ---- 7. result lines ----------------------------------------------------

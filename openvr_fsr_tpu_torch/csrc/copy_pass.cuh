@@ -1,13 +1,13 @@
 // copy_pass.cuh — the sharpen-only kernels' foveation fallback outside the
-// circle: one barrier-free pass that cas_sharpen.cu (B6) and nis_sharpen.cu
-// (B4) share, the counterpart of the upscalers' bilinear_pass.cuh.
+// circle: one barrier-free pass that cas_sharpen.cu (B6), nis_sharpen.cu
+// (B4) and rcas_sharpen.cu (B2) share, the counterpart of the upscalers'
+// bilinear_pass.cuh.
 //
 // At renderScale 1 the output outside the circle is the source texel itself:
 // R, G times the debug tint, B times the tint, stored as packed RGBA8. The
-// kernels differ only in the alpha (kKeepAlpha): CAS sharpen keeps the
-// source's (JAX kernels/cas.py:483-490), NVSharpen writes 1 (kernels/nis.py:
-// 238-241); and RCAS sharpen, which keeps the source's, is the next to take
-// this pass.
+// kernels differ only in the alpha (kKeepAlpha): CAS sharpen and RCAS
+// sharpen keep the source's (JAX kernels/cas.py:483-490, kernels/rcas.py:
+// 112-115), NVSharpen writes 1 (kernels/nis.py:238-241).
 //
 // What bounds it: bytes, one 4-byte load and one 4-byte store per output.
 // So each CTA takes one tile of the host's outside list; each of its 256

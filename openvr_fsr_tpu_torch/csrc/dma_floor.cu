@@ -9,18 +9,15 @@
 //
 // What it mirrors, from the compute kernel's published DMA geometry
 // (kernels/_maps.py::dma_geometry): the same grid of (tile_w x tile_h)
-// output blocks per batch entry, the same 256 threads per CTA and
-// __launch_bounds__, the same (win_w x win_h) window staged into shared
-// memory at the same per-tile origins, with out-of-image words loaded
-// edge-clamped or staged as 0 without a load, by the same CTAs, in one of
-// three forms:
-//   kCircle  RCAS sharpen: the CTAs inside the foveation circle stage; the
-//            others copy one texel per output, one per thread;
-//   kCopy    the sharpen-only class kernels (CAS sharpen, NVSharpen): the
-//            CTAs a host table marks (the inside list) stage; the others
-//            copy their own texels as the copy pass does (copy_pass.cuh), 4
-//            of one row per thread with 16-byte loads and stores where
-//            aligned;
+// output blocks per batch entry, the same 256 threads per CTA, the same
+// (win_w x win_h) window staged into shared memory at the same per-tile
+// origins, with out-of-image words loaded edge-clamped or staged as 0
+// without a load, by the same CTAs, in one of two forms:
+//   kCopy    the sharpen-only class kernels (RCAS sharpen, CAS sharpen,
+//            NVSharpen): the CTAs a host table marks (the inside list)
+//            stage; the others copy their own texels as the copy pass does
+//            (copy_pass.cuh), 4 of one row per thread with 16-byte loads
+//            and stores where aligned;
 //   kList    the upscalers: the CTAs a host table marks (the inside list)
 //            stage; the others run the shared outside pass's loads, four
 //            bilinear taps per output, 4 outputs of one row per thread
@@ -49,8 +46,13 @@
 namespace {
 
 constexpr int kThreads = 256;   // every compute kernel's threads per CTA
+// CTAs per SM the register budget must allow: a CTA that does not stage
+// runs the copy pass's or the bilinear pass's loads, and those passes run
+// 8 CTAs per SM (about 30 registers); a floor held to fewer would be slower
+// than a kernel whose tiles are all outside the circle
+constexpr int kMinCtas = 8;
 
-enum Stage { kCircle = 0, kList = 1, kCopy = 2 };   // kernels/sol.py _STAGES
+enum Stage { kList = 0, kCopy = 1 };   // kernels/sol.py _STAGES
 
 struct Params {
   const uint32_t* img;      // (B, rows, pitch) packed RGBA8
@@ -61,8 +63,7 @@ struct Params {
   const int32_t* tap_y;     // (out_h,): each output row's tap; null = the row itself
   const int32_t* quad_x;    // (2, out_w) for kList: four-tap floors (staging, other CTAs)
   const int32_t* quad_y;    // (2, out_h)
-  const int64_t* centres;   // (B, 5) for kCircle: cx1, cy1, cx2, cy2, radius_sq
-  const uint8_t* staged;    // (B, tiles_y, tiles_x) for kList and kCopy: 1 = the CTA stages
+  const uint8_t* staged;    // (B, tiles_y, tiles_x): 1 = the CTA stages
   int in_h, in_w, rows, pitch, out_h, out_w;
   int stage;                // Stage: which CTAs stage their window
   int stage_quads;          // kList, 1: staging CTAs also load four taps per output (quad row 0)
@@ -87,7 +88,7 @@ __device__ __forceinline__ uint32_t quad(const uint32_t* img, const Params& p, i
 }
 
 template <int TW, int TH, int WW, int WH>
-__global__ void __launch_bounds__(kThreads) dma_floor_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads, kMinCtas) dma_floor_kernel(Params p) {
   __shared__ uint32_t s_win[WH][WW];
 
   const int tid = threadIdx.x;
@@ -96,47 +97,36 @@ __global__ void __launch_bounds__(kThreads) dma_floor_kernel(Params p) {
   const uint32_t* img = p.img + static_cast<size_t>(b) * p.rows * p.pitch;
   uint32_t* out = p.out + static_cast<size_t>(b) * p.out_h * p.out_w;
 
-  const bool stages =
-      p.stage == kCircle
-          ? rgba8::inside_circle(p.centres + 5 * b, ox0, oy0, TW, TH)
-          : p.staged[(static_cast<size_t>(b) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] != 0;
-  if (!stages) {
-    if (p.stage != kCircle) {   // the outside passes (bilinear_pass.cuh, copy_pass.cuh):
-      constexpr int kRun = 4;   // 4 outputs of one row per thread, 16-byte stores where aligned
-      static_assert(TW % kRun == 0, "a tile row holds whole runs");
-      for (int r = tid; r < TW * TH / kRun; r += kThreads) {
-        const int oy = oy0 + r / (TW / kRun), ox = ox0 + (r % (TW / kRun)) * kRun;
-        if (oy >= p.out_h || ox >= p.out_w) continue;
-        const int n = min(kRun, p.out_w - ox);
-        uint32_t v[kRun] = {0u, 0u, 0u, 0u};
-        const uint32_t* src = img + static_cast<size_t>(oy) * p.pitch + ox;
-        if (p.stage == kCopy && n == kRun && (reinterpret_cast<uintptr_t>(src) & 15u) == 0) {
-          const uint4 q = *reinterpret_cast<const uint4*>(src);
-          v[0] = q.x;
-          v[1] = q.y;
-          v[2] = q.z;
-          v[3] = q.w;
-        } else if (p.stage == kCopy) {
-          for (int j = 0; j < n; ++j) v[j] = src[j];
-        } else {
+  if (!p.staged[(static_cast<size_t>(b) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x]) {
+    // the outside passes (bilinear_pass.cuh, copy_pass.cuh): 4 outputs of
+    // one row per thread, 16-byte stores where aligned
+    constexpr int kRun = 4;
+    static_assert(TW % kRun == 0, "a tile row holds whole runs");
+    for (int r = tid; r < TW * TH / kRun; r += kThreads) {
+      const int oy = oy0 + r / (TW / kRun), ox = ox0 + (r % (TW / kRun)) * kRun;
+      if (oy >= p.out_h || ox >= p.out_w) continue;
+      const int n = min(kRun, p.out_w - ox);
+      uint32_t v[kRun] = {0u, 0u, 0u, 0u};
+      const uint32_t* src = img + static_cast<size_t>(oy) * p.pitch + ox;
+      if (p.stage == kCopy && n == kRun && (reinterpret_cast<uintptr_t>(src) & 15u) == 0) {
+        const uint4 q = *reinterpret_cast<const uint4*>(src);
+        v[0] = q.x;
+        v[1] = q.y;
+        v[2] = q.z;
+        v[3] = q.w;
+      } else if (p.stage == kCopy) {
+        for (int j = 0; j < n; ++j) v[j] = src[j];
+      } else {
 #pragma unroll
-          for (int j = 0; j < kRun; ++j)
-            if (j < n) v[j] = quad(img, p, p.quad_x[p.out_w + ox + j], p.quad_y[p.out_h + oy]);
-        }
-        uint32_t* dst = out + static_cast<size_t>(oy) * p.out_w + ox;
-        if (n == kRun && (reinterpret_cast<uintptr_t>(dst) & 15u) == 0) {
-          *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
-        } else {
-          for (int j = 0; j < n; ++j) dst[j] = v[j];
-        }
+        for (int j = 0; j < kRun; ++j)
+          if (j < n) v[j] = quad(img, p, p.quad_x[p.out_w + ox + j], p.quad_y[p.out_h + oy]);
       }
-      return;
-    }
-    for (int i = tid; i < TW * TH; i += kThreads) {   // RCAS sharpen's copy
-      const int ox = ox0 + i % TW, oy = oy0 + i / TW;
-      if (ox >= p.out_w || oy >= p.out_h) continue;
-      out[static_cast<size_t>(oy) * p.out_w + ox] =
-          img[static_cast<size_t>(tap(p.tap_y, oy)) * p.pitch + tap(p.tap_x, ox)];
+      uint32_t* dst = out + static_cast<size_t>(oy) * p.out_w + ox;
+      if (n == kRun && (reinterpret_cast<uintptr_t>(dst) & 15u) == 0) {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+      } else {
+        for (int j = 0; j < n; ++j) dst[j] = v[j];
+      }
     }
     return;
   }
@@ -174,22 +164,21 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 
 // Launch on `stream`; returns the launch's cudaError_t (0 = launched). The
 // caller (kernels/sol.py) has checked the geometry: every tap lies inside
-// every window of its tile, and a kList or kCopy table has the grid's
-// shape. kList takes the four-tap floors and the staged table; kCopy the
-// table and identity taps (null); kCircle neither table nor floors; only
-// kList takes stage_quads.
+// every window of its tile, and the staged table has the grid's shape.
+// kList takes the four-tap floors; kCopy identity taps (null) and no
+// floors; only kList takes stage_quads.
 // (tile_w, tile_h, win_w, win_h) must be one of the compute kernels' shapes
 // and threads must be 256.
 extern "C" int dma_floor_launch(const void* img, void* out, const void* tile_x0,
                                 const void* tile_y0, const void* tap_x, const void* tap_y,
-                                const void* quad_x, const void* quad_y, const void* centres,
-                                const void* staged, int batch, int in_h, int in_w, int rows,
+                                const void* quad_x, const void* quad_y, const void* staged,
+                                int batch, int in_h, int in_w, int rows,
                                 int pitch, int out_h, int out_w, int tile_w, int tile_h, int win_w,
                                 int win_h, int threads, int stage, int stage_quads, int clamp,
                                 unsigned int mask, void* stream) {
   if (threads != kThreads || batch <= 0 || in_h <= 0 || in_w <= 0 || out_h <= 0 || out_w <= 0 ||
-      in_h > rows || in_w > pitch || stage < kCircle || stage > kCopy ||
-      (stage != kCircle) != (staged != nullptr) || (stage == kList) != (quad_x != nullptr) ||
+      in_h > rows || in_w > pitch || (stage != kList && stage != kCopy) || staged == nullptr ||
+      (stage == kList) != (quad_x != nullptr) ||
       (stage == kList) != (quad_y != nullptr) || (stage != kList && stage_quads) ||
       (stage == kCopy && (tap_x != nullptr || tap_y != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -202,7 +191,6 @@ extern "C" int dma_floor_launch(const void* img, void* out, const void* tile_x0,
   p.tap_y = static_cast<const int32_t*>(tap_y);
   p.quad_x = static_cast<const int32_t*>(quad_x);
   p.quad_y = static_cast<const int32_t*>(quad_y);
-  p.centres = static_cast<const int64_t*>(centres);
   p.staged = static_cast<const uint8_t*>(staged);
   p.in_h = in_h;
   p.in_w = in_w;
@@ -217,9 +205,7 @@ extern "C" int dma_floor_launch(const void* img, void* out, const void* tile_x0,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile_w == 32 && tile_h == 32 && win_w == 40 && win_h == 40)   // fsr_fused
     return launch<32, 32, 40, 40>(p, batch, s);
-  if (tile_w == 16 && tile_h == 16 && win_w == 18 && win_h == 18)   // rcas_sharpen
-    return launch<16, 16, 18, 18>(p, batch, s);
-  if (tile_w == 32 && tile_h == 32 && win_w == 34 && win_h == 34)   // cas_sharpen
+  if (tile_w == 32 && tile_h == 32 && win_w == 34 && win_h == 34)   // cas_sharpen, rcas_sharpen
     return launch<32, 32, 34, 34>(p, batch, s);
   if (tile_w == 32 && tile_h == 32 && win_w == 36 && win_h == 36)   // nis_sharpen, cas_upscale
     return launch<32, 32, 36, 36>(p, batch, s);

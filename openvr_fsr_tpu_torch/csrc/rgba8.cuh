@@ -1,5 +1,6 @@
 // rgba8.cuh — what every kernel of the port shares: the packed RGBA8 texel
-// codec, an integer clamp, and the reference's foveation circle test.
+// codec, an integer clamp and the bilinear tap. (The reference's foveation
+// circle test runs on the host: kernels/_maps.py::group_classes.)
 //
 // A texel is a uint32 with R in the low byte. The decode multiplies by the
 // f32 reciprocal of 255 (utils/frames.py, kernels/_common.py::unpack); the
@@ -13,19 +14,6 @@
 #include "ffx_math.cuh"
 
 namespace rgba8 {
-
-// The reference's per-workgroup circle test (fsr_easu.hlsl:41-45,
-// NIS_Upscale.hlsl:95-107, NIS_Sharpen.hlsl:93-105; core/foveation.py::
-// tile_mask): the centre of the (tw x th) tile holding (x, y), +(tw/2, th/2),
-// against both eye centres of the cbuffer row c = (cx1, cy1, cx2, cy2,
-// radius_sq).
-__device__ __forceinline__ bool inside_circle(const int64_t* c, int x, int y, int tw, int th) {
-  const int64_t gx = (x / tw) * tw + tw / 2;
-  const int64_t gy = (y / th) * th + th / 2;
-  const int64_t dx1 = c[0] - gx, dy1 = c[1] - gy;
-  const int64_t dx2 = c[2] - gx, dy2 = c[3] - gy;
-  return dx1 * dx1 + dy1 * dy1 <= c[4] || dx2 * dx2 + dy2 * dy2 <= c[4];
-}
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
 

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 __all__ = ["unpack", "pack", "circle_mask", "debug_tint", "tint_vector",
-           "DeviceTables", "centres_table", "kernel_fn", "occupancy"]
+           "DeviceTables", "kernel_fn", "occupancy"]
 
 F32 = np.float32
 _INV255 = float(F32(1.0) / F32(255.0))
@@ -85,12 +85,6 @@ class DeviceTables:
         return t
 
 
-def centres_table(batch, centres):
-    """The (batch, 5) int64 foveation rows of a build, per device."""
-    return DeviceTables(np.ascontiguousarray(
-        np.asarray(centres, np.int64).reshape(int(batch), 5)))
-
-
 def kernel_fn(name, batch, shape, pad_to, reference, launch, geometry=None):
     """The function a kernel build returns.
 
@@ -139,8 +133,9 @@ def kernel_fn(name, batch, shape, pad_to, reference, launch, geometry=None):
 
 
 def occupancy(name):
-    """{"outside": n, "inside": n, "inside_smem": bytes} of the upscaler
-    `name` (fsr_fused, nis_scaler, cas_upscale): the CTAs per SM of its two
+    """{"outside": n, "inside": n, "inside_smem": bytes} of the class
+    kernels `name` (fsr_fused, nis_scaler, cas_upscale, nis_sharpen,
+    cas_sharpen, rcas_sharpen): the CTAs per SM of its two
     class kernels on the current CUDA device (cudaOccupancyMaxActiveBlocks
     PerMultiprocessor at 256 threads) and the inside kernel's shared memory
     per CTA, from its <name>_occupancy entry point."""

@@ -27,10 +27,10 @@ device does no int64 arithmetic. CAS upscale's (cas_upscale_maps) have the
 same layout, with the CasFilter floor and fraction of pp in place of
 EASU's, 36x36 windows and the same classes and tile lists. NVScaler's
 (NisMaps) are set out at nvscaler_maps. The sharpen-only class kernels
-(CAS sharpen, NVSharpen: SharpenMaps) need only the classes and the lists
-of their 32x32 tiles (sharpen_maps). The tables depend
-only on the build's shapes, config and centres, so one build serves every
-frame of a stream.
+(RCAS sharpen, CAS sharpen, NVSharpen: SharpenMaps) need only the classes
+and the lists of their 32x32 tiles (sharpen_maps). The tables depend only
+on the build's shapes, config and centres, so one build serves every frame
+of a stream.
 
 Every build also publishes its DMA geometry (dma_geometry,
 sharpen_geometry): what its CUDA kernel loads from the frame and stores,
@@ -60,7 +60,7 @@ __all__ = ["FsrMaps", "fsr_maps", "cas_upscale_maps",
            "THREADS"]
 
 THREADS = 256  # threads per CTA of every kernel (csrc/*.cu kThreads)
-TILE = 16      # the 16x16 foveation group; one CTA per such tile in B2
+TILE = 16      # the 16x16 foveation group of FSR and CAS
 # the fused FSR kernel's CTA output tile edge (2x2 foveation groups) and
 # its staged input window edge (csrc/fsr_fused.cu kTile, kWin): 34 haloed
 # outputs span at most 34 inputs + 3 taps + 1 when out >= in, as on every
@@ -372,8 +372,9 @@ def nvscaler_maps(batch, in_h, in_w, out_w, out_h, nis_cfg, centres):
 
 @dataclasses.dataclass(frozen=True)
 class SharpenMaps(_Tables):
-    """The sharpen-only class kernels' tables (CAS sharpen, NVSharpen):
-    numpy arrays from sharpen_maps, torch tensors after .to(device).
+    """The sharpen-only class kernels' tables (RCAS sharpen, CAS sharpen,
+    NVSharpen): numpy arrays from sharpen_maps, torch tensors after
+    .to(device).
 
       centres (B, 5) int64   the foveation cbuffer rows
       group_cls (B, GY, GX)  int32 1 where the foveation group passes the
@@ -403,8 +404,8 @@ class SharpenMaps(_Tables):
 
 def sharpen_maps(batch, h, w, centres, group):
     """The sharpen-only class kernels' tables for one (shape, centres):
-    the circle test per (width, height) foveation `group` (CAS's 16x16,
-    NVSharpen's 32x32 block) and the inside and outside lists of the
+    the circle test per (width, height) foveation `group` (RCAS's and CAS's
+    16x16, NVSharpen's 32x32 block) and the inside and outside lists of the
     SHARPEN_TILE tiles."""
     H, W = int(h), int(w)
     cen = np.asarray(centres, np.int64).reshape(int(batch), 5)
@@ -431,14 +432,12 @@ def dma_geometry(out_h, out_w, tile, window, tile_x0, tile_y0, centres, *,
       tile_x0, tile_y0  window origin per tile column / tile row (int32)
       oob               "zero": window words outside the image are staged
                         as 0 and not loaded; "clamp": loaded edge-clamped
-      stage             "circle" (RCAS sharpen): only CTAs whose tile
-                        passes the foveation test stage, the others copy
-                        their outputs' own texels, one per thread; "copy"
-                        (CAS sharpen, NVSharpen): only the CTAs `staged`
-                        marks stage, the others copy their own texels, 4
-                        of one row per thread (copy_pass.cuh); "list" (the
-                        upscalers): only the CTAs `staged` marks stage, the
-                        others load four bilinear taps per output
+      stage             "copy" (the sharpen-only kernels): only the CTAs
+                        `staged` marks stage, the others copy their own
+                        texels, 4 of one row per thread (copy_pass.cuh);
+                        "list" (the upscalers): only the CTAs `staged`
+                        marks stage, the others load four bilinear taps per
+                        output
       centres           (B, 5) int64 foveation rows of the circle test
       tap_x, tap_y      per output column / row, the in-image input index
                         of the output's own tap (the clamped floor of its
@@ -450,8 +449,7 @@ def dma_geometry(out_h, out_w, tile, window, tile_x0, tile_y0, centres, *,
                         others (the upscalers' shared outside pass)
       group             (width, height) of the foveation group the circle
                         test classes (default: the tile)
-      staged            for stage "list" and "copy": (B, tiles_y, tiles_x)
-                        bool
+      staged            (B, tiles_y, tiles_x) bool: the CTAs that stage
     """
     def ints(a):
         return None if a is None else np.ascontiguousarray(a, np.int32)
@@ -469,17 +467,15 @@ def dma_geometry(out_h, out_w, tile, window, tile_x0, tile_y0, centres, *,
                 quad_y=ints(quad_y))
 
 
-def sharpen_geometry(h, w, tile, halo, centres, oob, staged=None,
-                     group=None):
-    """The DMA geometry of a renderScale-1 kernel (RCAS, NVSharpen, CAS
-    sharpen): a staging CTA stages its (tile + 2 halo)-square window at
-    (t * tile - halo); the others copy their own texels. Without `staged`
-    (RCAS), a CTA stages where its tile passes the circle test (stage
-    "circle"); with it (the class kernels' tile_inside), where it marks
-    (stage "copy"). group: the foveation group (default: the tile)."""
+def sharpen_geometry(h, w, tile, halo, centres, oob, staged, group=None):
+    """The DMA geometry of a renderScale-1 class kernel (RCAS, NVSharpen,
+    CAS sharpen; stage "copy"): the CTAs `staged` marks (its tile_inside)
+    stage their (tile + 2 halo)-square window at (t * tile - halo); the
+    others copy their own texels. group: the foveation group (default: the
+    tile)."""
     return dma_geometry(
         h, w, (tile, tile), (tile + 2 * halo,) * 2,
         np.arange(-(-w // tile)) * tile - halo,
         np.arange(-(-h // tile)) * tile - halo, centres, oob=oob,
-        stage="circle" if staged is None else "copy", staged=staged,
-        group=group, tap_x=np.arange(w), tap_y=np.arange(h))
+        stage="copy", staged=staged, group=group, tap_x=np.arange(w),
+        tap_y=np.arange(h))

@@ -9,9 +9,12 @@ out-of-image taps (fsr_rcas.hlsl:18) inside the foveation circle, alpha 1
 there; outside, the source colour times the debug tint with the source's
 own alpha (fsr_rcas.hlsl:23-55; kernels/rcas.py:112-115).
 
-The returned function launches the CUDA kernel (csrc/rcas_sharpen.cu) for
-a CUDA tensor and runs `rcas_sharpen_reference`, the same computation in
-plain torch, for a CPU tensor. Nothing falls back.
+The returned function launches the CUDA kernels (csrc/rcas_sharpen.cu: the
+copy pass over the 32x32 tiles outside the circle and an RCAS kernel over
+those inside, from one C entry point and the host's tile lists,
+kernels/_maps.py::sharpen_maps) for a CUDA tensor and runs
+`rcas_sharpen_reference`, the same computation in plain torch, for a CPU
+tensor. Nothing falls back.
 """
 
 import ctypes
@@ -23,9 +26,10 @@ from ..core import constants as C
 from ..core.foveation import TILE_FSR
 from ..ops.rcas import rcas
 from . import _build
-from ._common import (centres_table, circle_mask, debug_tint, kernel_fn,
-                      pack, tint_vector, unpack)
-from ._maps import TILE, input_padding, sharpen_geometry
+from ._common import (DeviceTables, circle_mask, debug_tint, kernel_fn, pack,
+                      tint_vector, unpack)
+from ._maps import (CAS_SHARPEN_IN_TILE, SHARPEN_TILE, TILE, input_padding,
+                    sharpen_geometry, sharpen_maps)
 
 __all__ = ["build_rcas_sharpen", "rcas_sharpen_reference"]
 
@@ -46,12 +50,19 @@ def rcas_sharpen_reference(img, centres, sharpness_linear, tint):
     return pack(out_rgb, torch.where(inside, 1.0, alpha))
 
 
+# csrc/rcas_sharpen.cu rcas_sharpen_launch: img, out, group_cls, the inside
+# list and its length, the outside list and its length, batch, h, w, rows,
+# pitch, sharp, tint, tile, window, stream
+SHARPEN_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+                    + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
+                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
 @functools.cache
 def _launch_fn():
     """The ctypes entry point, bound (and built) at the first launch."""
     f = _build.load_library("rcas_sharpen").rcas_sharpen_launch
-    f.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                  + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    f.argtypes = SHARPEN_ARGTYPES
     f.restype = ctypes.c_int
     return f
 
@@ -69,31 +80,41 @@ def build_rcas_sharpen(batch, h, w, *, sharpness, centres, debug=False):
     Returns fn(img): img is a contiguous (B, h, w) int32 tensor, or one
     pre-padded to the ring pitch fn.pad_to, of packed RGBA8 texels; the
     result is a new (B, h, w) int32 tensor of packed RGBA8 on img's device.
-    fn.launches counts CUDA launches; fn.reference(img) runs the plain
-    version on img's device; fn.dma_geometry is what the kernel loads and
-    stores (kernels/sol.py).
+    fn.launches counts calls that launched the CUDA kernels (one per call:
+    the copy pass and the inside kernel, each only where its tile list is
+    not empty); fn.reference(img) runs the plain version on img's device;
+    fn.dma_geometry is what the kernels load and store (kernels/sol.py).
     """
     B, H, W = int(batch), int(h), int(w)
-    cen = centres_table(B, centres)
+    tables = DeviceTables(sharpen_maps(B, H, W, centres, (TILE, TILE)))
     sharp = C.fsr_rcas_con(C.rcas_stops_from_slider(sharpness))
     tint = debug_tint(debug)
 
     def reference(img):
         """The plain torch version on img's device (any device)."""
-        return rcas_sharpen_reference(img[:, :H, :W], cen.on(img.device),
-                                      sharp, tint)
+        return rcas_sharpen_reference(img[:, :H, :W],
+                                      tables.on(img.device).centres, sharp,
+                                      tint)
 
     def launch(img):
         dev = img.device
+        m = tables.on(dev)
         out = torch.empty((B, H, W), dtype=torch.int32, device=dev)
         err = _launch_fn()(
-            img.data_ptr(), out.data_ptr(), cen.on(dev).data_ptr(), B, H,
-            W, img.shape[1], img.shape[2], float(sharp), float(tint),
+            img.data_ptr(), out.data_ptr(), m.group_cls.data_ptr(),
+            m.inside_tiles.data_ptr(), n_inside, m.outside_tiles.data_ptr(),
+            n_outside, B, H, W, img.shape[1], img.shape[2], float(sharp),
+            float(tint), SHARPEN_TILE, CAS_SHARPEN_IN_TILE,
             torch.cuda.current_stream(dev).cuda_stream)
         return out, err
 
-    # a tile inside the circle stages its 18x18 haloed tile, 0 outside the
-    # image; the others copy their texels
+    # an inside tile stages its 34x34 window, 0 outside the image; the
+    # outside tiles copy their texels (so does a run of an outside group in
+    # an inside tile, from device memory: not counted, the floor stays below)
+    m = tables.host
+    n_inside, n_outside = len(m.inside_tiles), len(m.outside_tiles)
     return kernel_fn("RCAS sharpen", B, (H, W), input_padding(H, W),
                      reference, launch,
-                     sharpen_geometry(H, W, TILE, 1, cen.host, "zero"))
+                     sharpen_geometry(H, W, SHARPEN_TILE, 1, m.centres,
+                                      "zero", staged=m.tile_inside,
+                                      group=(TILE, TILE)))

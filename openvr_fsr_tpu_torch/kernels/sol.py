@@ -35,7 +35,7 @@ import torch
 
 from . import _build
 from ._common import DeviceTables, kernel_fn
-from ._maps import THREADS, _Tables, group_classes
+from ._maps import THREADS, _Tables
 
 __all__ = ["build_dma_floor", "dma_floor_reference", "check_geometry",
            "vpu_cycle", "build_vpu_rate", "vpu_rate_reference",
@@ -43,23 +43,12 @@ __all__ = ["build_dma_floor", "dma_floor_reference", "check_geometry",
            "mxu_rate_reference", "MXU_TOLERANCE"]
 
 
-def staged_ctas(geom):
-    """(B, tiles_y, tiles_x) bool: the CTAs that stage their window: for
-    stage "circle", those whose tile passes the foveation circle test
-    (csrc/rgba8.cuh::inside_circle); for "list" and "copy", those the
-    geometry's `staged` table marks."""
-    g = geom
-    if g["stage"] != "circle":
-        return g["staged"]
-    return group_classes(g["centres"], g["out_h"], g["out_w"], g["tile"])
-
-
 def floor_loads(geom):
     """Words one launch loads from the frame, overlaps included: each
     staging CTA's window (its in-image words where out-of-image words are
     staged as 0 without a load), plus, per output of a CTA that does not
-    stage, one word (stage "circle" and "copy") or four bilinear taps
-    ("list"), and four per output of a staging CTA where stage_quads."""
+    stage, one word (stage "copy") or four bilinear taps ("list"), and four
+    per output of a staging CTA where stage_quads."""
     g = geom
     (tw, th), (ww, wh) = g["tile"], g["window"]
     H, W, OH, OW = g["in_h"], g["in_w"], g["out_h"], g["out_w"]
@@ -73,17 +62,17 @@ def floor_loads(geom):
         ny = np.clip(y0 + wh, 0, H) - np.clip(y0, 0, H)
         win = ny[:, None] * nx[None, :]
     listed = g["stage"] == "list"
-    return int(np.where(staged_ctas(g),
+    return int(np.where(g["staged"],
                         win + (4 * outs if g["stage_quads"] else 0),
                         (4 if listed else 1) * outs).sum())
 
 
 def check_geometry(geom):
     """Raise ValueError unless the floor can run `geom`: 256 threads per
-    CTA; stage "circle" with no four-tap floors and no stage_quads; "copy"
-    the same, with a staged table of the grid's shape and each output's
-    tap its own texel; or "list" with the floors and a staged table; every
-    output's tap inside the window of its tile."""
+    CTA; stage "copy" with no four-tap floors, no stage_quads, a staged
+    table of the grid's shape and each output's tap its own texel, or
+    "list" with the floors and a staged table; every output's tap inside
+    the window of its tile."""
     g = geom
     if g["threads"] != THREADS:
         raise ValueError(f"the DMA floor runs {THREADS} threads per CTA, "
@@ -93,14 +82,14 @@ def check_geometry(geom):
         if np.shape(g["staged"]) != grid or g["quad_x"] is None:
             raise ValueError(f"stage 'list' needs a staged table of shape "
                              f"{grid} and the four-tap floors")
-    elif g["stage"] in ("circle", "copy"):
+    elif g["stage"] == "copy":
         if g["quad_x"] is not None or g["stage_quads"]:
-            raise ValueError(f"stage {g['stage']!r} copies one texel per "
-                             "output: no four-tap floors")
-        if g["stage"] == "copy" and np.shape(g["staged"]) != grid:
+            raise ValueError("stage 'copy' copies one texel per output: no "
+                             "four-tap floors")
+        if np.shape(g["staged"]) != grid:
             raise ValueError(f"stage 'copy' needs a staged table of shape "
                              f"{grid}")
-        if g["stage"] == "copy" and not _identity_taps(g):
+        if not _identity_taps(g):
             raise ValueError("stage 'copy' copies each output's own texel: "
                              "the taps must be the identity")
     else:
@@ -139,7 +128,7 @@ def dma_floor_reference(img, geom):
     out = gather(g["tap_y"], g["tap_x"])
     if g["stage"] == "list":
         tw, th = g["tile"]
-        staged = torch.as_tensor(staged_ctas(g), device=img.device)
+        staged = torch.as_tensor(g["staged"], device=img.device)
         staged = staged.repeat_interleave(th, 1).repeat_interleave(tw, 2)
         direct = gather(np.clip(g["quad_y"][1], 0, H - 1),
                         np.clip(g["quad_x"][1], 0, W - 1))
@@ -150,7 +139,7 @@ def dma_floor_reference(img, geom):
 @dataclasses.dataclass(frozen=True)
 class _FloorTables(_Tables):
     """The floor's device tables; an empty array stands for a null
-    pointer (identity taps, no four-tap loads, no staged table)."""
+    pointer (identity taps, no four-tap loads)."""
 
     tile_x0: object
     tile_y0: object
@@ -158,18 +147,17 @@ class _FloorTables(_Tables):
     tap_y: object
     quad_x: object
     quad_y: object
-    centres: object
     staged: object
 
     _ARRAYS = ("tile_x0", "tile_y0", "tap_x", "tap_y", "quad_x", "quad_y",
-               "centres", "staged")
+               "staged")
 
 
 @functools.cache
 def _launch_fn():
     """The ctypes entry point, bound (and built) at the first launch."""
     f = _build.load_library("dma_floor").dma_floor_launch
-    f.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 15
+    f.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 15
                   + [ctypes.c_uint, ctypes.c_void_p])
     f.restype = ctypes.c_int
     return f
@@ -179,8 +167,8 @@ def _ptr(t):
     return t.data_ptr() if t.numel() else None
 
 
-# csrc/dma_floor.cu Stage: which CTAs stage their window
-_STAGES = {"circle": 0, "list": 1, "copy": 2}
+# csrc/dma_floor.cu Stage: what the CTAs that do not stage load
+_STAGES = {"list": 0, "copy": 1}
 
 
 def build_dma_floor(geom):
@@ -212,10 +200,9 @@ def build_dma_floor(geom):
     taps = (none, none) if _identity_taps(g) else (g["tap_x"], g["tap_y"])
     quads = (none, none) if g["quad_x"] is None else (g["quad_x"],
                                                       g["quad_y"])
-    staged = (np.zeros(0, np.uint8) if g["stage"] == "circle"
-              else np.ascontiguousarray(g["staged"], np.uint8))
     tables = DeviceTables(_FloorTables(
-        g["tile_x0"], g["tile_y0"], *taps, *quads, g["centres"], staged))
+        g["tile_x0"], g["tile_y0"], *taps, *quads,
+        np.ascontiguousarray(g["staged"], np.uint8)))
     (tw, th), (ww, wh) = g["tile"], g["window"]
 
     def reference(img):
@@ -229,9 +216,9 @@ def build_dma_floor(geom):
         err = _launch_fn()(
             img.data_ptr(), out.data_ptr(), m.tile_x0.data_ptr(),
             m.tile_y0.data_ptr(), _ptr(m.tap_x), _ptr(m.tap_y),
-            _ptr(m.quad_x), _ptr(m.quad_y), m.centres.data_ptr(),
-            _ptr(m.staged), B, H, W, img.shape[1], img.shape[2], OH, OW, tw,
-            th, ww, wh, g["threads"], _STAGES[g["stage"]],
+            _ptr(m.quad_x), _ptr(m.quad_y), m.staged.data_ptr(), B, H, W,
+            img.shape[1], img.shape[2], OH, OW, tw, th, ww, wh, g["threads"],
+            _STAGES[g["stage"]],
             int(g["stage_quads"]), int(g["oob"] == "clamp"), 0,
             torch.cuda.current_stream(dev).cuda_stream)
         return out, err
@@ -253,6 +240,7 @@ _MXU_SCALE = float(F32(1e-3))
 SMEM_MAX = 232448           # shared memory one block may use (H100)
 SM_SMEM = 233472            # shared memory of one SM, 1 KB per block reserved
 SMS = 132                   # an H100 SXM's SMs
+VMEM_THREADS = 544          # csrc/vmem_rate.cu kMaxThreads: groups x th_e
 STEP_CHUNK = 512            # steps per vectorised block of the plain versions
 # mxu_rate against its plain version: max |kernel - plain| over max |plain|.
 # Both multiply the same bf16 operands exactly and accumulate in f32, in
@@ -331,18 +319,27 @@ def vpu_rate_reference(x, k, steps):
     return _sum_in_order(reds)
 
 
+def vmem_rate_groups(th_e):
+    """csrc/vmem_rate.cu::groups_of: the step groups (shares) one CTA of the
+    shared-memory probe runs over its staged column."""
+    return VMEM_THREADS // th_e
+
+
 def vmem_rate_shares(k, th_e=130, chunk=128, steps=256):
     """How many contiguous ranges the shared-memory probe splits its steps
-    into: as many CTAs of one column as fit on the card's SMS SMs at once
-    (by shared memory and threads), at least 1 and at most `steps`."""
+    into: the groups of as many CTAs of one column as fit on the card's SMS
+    SMs at once (by shared memory and threads), at least 1 and at most
+    `steps`."""
+    groups = vmem_rate_groups(th_e)
     smem = _vmem_smem_bytes(k, th_e)
-    per_sm = min(SM_SMEM // (smem + 1024), 2048 // (32 * -(-th_e // 32)), 32)
-    return max(1, min(steps, SMS * per_sm // chunk))
+    warps = -(-groups * th_e // 32)
+    per_sm = min(SM_SMEM // (smem + 1024), 2048 // (32 * warps), 32)
+    return max(1, min(steps, SMS * per_sm // chunk * groups))
 
 
 def _vmem_smem_bytes(k, th_e):
     """csrc/vmem_rate.cu::vmem_rate_smem_bytes."""
-    return (-(-k // 4) * 4 * th_e + th_e) * 4
+    return (-(-k // 4) * 4 * th_e + 2 * vmem_rate_groups(th_e) * th_e) * 4
 
 
 def vmem_rate_reference(x, steps, shares=1):
@@ -487,16 +484,17 @@ def build_vmem_rate(k, th_e=130, chunk=128, steps=256, dtype=torch.float32,
     vmem_rate_shares(k, ...); 1 keeps the JAX probe's summation order).
     Published as the JAX builder's (sol.py:270-272): bytes_per_step (the
     plane bytes one step reads), steps, k; plus shares, smem_bytes (per
-    CTA), launches and reference. Only float32 planes are ported."""
+    CTA), launches and reference. Only float32 planes are ported, and at
+    most VMEM_THREADS rows."""
     k, th_e, chunk, steps = int(k), int(th_e), int(chunk), int(steps)
     if dtype != torch.float32:
         raise NotImplementedError("the shared-memory probe is ported for "
                                   "float32 planes only")
     shares = int(shares or vmem_rate_shares(k, th_e, chunk, steps))
-    if not (8 <= th_e <= 1024 and 1 <= chunk <= 65535 and k >= 1
+    if not (8 <= th_e <= VMEM_THREADS and 1 <= chunk <= 65535 and k >= 1
             and 1 <= shares <= min(steps, 65535)):
-        raise ValueError("the shared-memory probe takes 8 <= th_e <= 1024, "
-                         "k >= 1 and 1 <= shares <= steps")
+        raise ValueError(f"the shared-memory probe takes 8 <= th_e <= "
+                         f"{VMEM_THREADS}, k >= 1 and 1 <= shares <= steps")
     smem = _vmem_smem_bytes(k, th_e)
     if smem > SMEM_MAX:
         raise ValueError(f"k={k} planes of {th_e} rows need {smem} bytes of "

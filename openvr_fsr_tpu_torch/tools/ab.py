@@ -1,14 +1,18 @@
 """Same-process A/B of one redesigned kernel (B1 csrc/fsr_fused.cu, B3
-csrc/nis_scaler.cu, B5 csrc/cas_upscale.cu, B4 csrc/nis_sharpen.cu or B6
-csrc/cas_sharpen.cu) against an earlier source of it, or against the
-current source with one part taken out, on one NVIDIA GPU.
+csrc/nis_scaler.cu, B5 csrc/cas_upscale.cu, B4 csrc/nis_sharpen.cu, B6
+csrc/cas_sharpen.cu, B2 csrc/rcas_sharpen.cu or the shared-memory rate
+probe B8b csrc/vmem_rate.cu) against an earlier source of it, or against
+the current source with one part taken out, on one NVIDIA GPU.
 
     python3 -m openvr_fsr_tpu_torch.tools.ab --kernel KERNEL
         (--parent FILE | --ablate NAME) [--iters N] [--out FILE]
 
 FILE is the kernel's source as the previous commit has it (`git show
-HEAD~1:openvr_fsr_tpu_torch/csrc/<kernel>.cu`), with the entry point that
-source was written for:
+HEAD~1:openvr_fsr_tpu_torch/csrc/<kernel>.cu`); a header of csrc/ that
+source needs in its earlier form goes beside it (its own directory is
+searched first: the earlier rcas_sharpen.cu needs the earlier rgba8.cuh,
+which still held the circle test). It is driven through the entry point
+that source was written for:
   fsr_fused    the two class kernels' fsr_fused_launch (the current one);
   nis_scaler   one CTA per 32x24 block, nis_scaler_launch with 11 pointers
                and 40x32 luma windows;
@@ -19,7 +23,13 @@ source was written for:
                batch, h, w, rows, pitch, hdr_mode, tint, stream);
   cas_sharpen  one CTA per 16x16 tile with its own circle test,
                cas_sharpen_launch(img, out, centres, batch, h, w, rows,
-               pitch, sharp, mcd, tint, stream).
+               pitch, sharp, mcd, tint, stream);
+  rcas_sharpen one CTA per 16x16 tile with its own circle test,
+               rcas_sharpen_launch(img, out, centres, batch, h, w, rows,
+               pitch, sharp, tint, stream);
+  vmem_rate    the current vmem_rate_launch, one 130-thread CTA per
+               (column, share), driven with the shares its source was
+               written for (PARENT_VMEM_SHARES).
 It is built with the port's nvcc flags into a temporary directory and
 driven with the tables it was written for, made from the same sample maps
 and centres as the current build's.
@@ -35,6 +45,15 @@ point swapped in. It answers what a part of the kernel costs:
   cas_sharpen  noslide  every output of a run reloads its 3x3x3 taps (the
                         same bits);
                nostage  no window is staged (other bits: a time only);
+  rcas_sharpen noslide  every output of a run reloads its 5 cross taps (the
+                        same bits);
+  vmem_rate    onegroup one step group per CTA, driven with the parent's
+                        shares: its 130 threads hold a warp of 2 live lanes,
+                        and 3 CTAs per SM 15 warps (the same bits);
+               predicated  every plane goes through the predicated loop of
+                        two loads per trip, not unrolled (the same bits);
+               nounroll the loop of blocks of 8 planes not unrolled (the
+                        same bits).
   cas_upscale  nostage  no window is staged: the filter reads a window
                         never written (other bits: a time only);
                noload   the window's texels are made from their index
@@ -46,7 +65,7 @@ Cases, sharpness 0.9, centred eyes, at 2 x 1683x1869 -> 2 x 2244x2492 (rs
 and 2.0; then NVScaler at hdr_mode 1 and the other upscalers at the
 supersample (2 x 2244x2492 -> 2 x 2917x3239, rs 1.3), radius 0.5;
 NVSharpen at hdr_mode 1, radius 0.5; CAS sharpen at max_color_delta 0.05,
-radius 2.0. In
+radius 2.0; RCAS sharpen at radius 0.3. In
 each, both kernels' outputs must equal the plain version's on the first
 frame (else it exits 1); then they are timed in turns, parent, current,
 current, parent, each round the best of 3 rotations of `iters`
@@ -56,6 +75,14 @@ does not is only timed. Prints one JSON line: the card, each build's ptxas
 registers, spills and shared memory per kernel, the current class kernels'
 CTAs per SM, and per case both rounds of each and parent / current (the
 ablated build stands in the parent's place).
+
+For vmem_rate the case is the audit's full probe (tools/vpu_audit.py
+PROBES["vmem"]: k 16 and 112, 4,096 steps): both builds' hi calls must
+equal the plain version bit for bit; then each one's rate is measured as
+the audit measures it (paired slopes over the two k) in turns, parent,
+current, current, parent, and given as TB/s and as a share of SMs x 128 B
+x the max SM clock; the line also holds the loops of both builds' SASS
+(instructions and LDS per loop).
 """
 
 import argparse
@@ -73,8 +100,8 @@ __all__ = ["main", "build_parent", "parent_launcher", "ablated_source",
            "CASES", "KERNELS", "PARENT_ARGTYPES", "ABLATIONS"]
 
 KERNELS = ("fsr_fused", "nis_scaler", "cas_upscale", "nis_sharpen",
-           "cas_sharpen")
-SHARPEN_KERNELS = ("nis_sharpen", "cas_sharpen")
+           "cas_sharpen", "rcas_sharpen", "vmem_rate")
+SHARPEN_KERNELS = ("nis_sharpen", "cas_sharpen", "rcas_sharpen")
 _MAIN = [(f"rs0.75 radius {r}", 1869, 1683, 0.75, r, 0, 1.0)
          for r in (0.0, 0.5, 2.0)]
 _SHARPEN = [(f"rs1 radius {r}", 2492, 2244, 1.0, r, 0, 1.0)
@@ -91,6 +118,8 @@ CASES = {
                                 0.5, 1, 1.0)],
     "cas_sharpen": _SHARPEN + [("rs1 radius 2.0 max_color_delta 0.05", 2492,
                                 2244, 1.0, 2.0, 0, 0.05)],
+    "rcas_sharpen": _SHARPEN + [("rs1 radius 0.3", 2492, 2244, 1.0, 0.3, 0,
+                                 1.0)],
 }
 SHARPNESS = 0.9
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -100,7 +129,12 @@ PARENT_ARGTYPES = {
     "cas_upscale": [_P] * 9 + [_I] * 7 + [_F] * 2 + [_I, _P],
     "nis_sharpen": [_P] * 4 + [_I] * 7 + [_F, _P],
     "cas_sharpen": [_P] * 3 + [_I] * 5 + [_F] * 3 + [_P],
+    "rcas_sharpen": [_P] * 3 + [_I] * 5 + [_F] * 2 + [_P],
+    "vmem_rate": [_P] * 3 + [_I] * 5 + [_P],
 }
+# the earlier vmem_rate source's shares at the audit's k and steps: as many
+# 130-thread CTAs of one column (58 KB at k 112) as fit on 132 SMs at once
+PARENT_VMEM_SHARES = 3
 # the earlier sources' tile and window shapes, (width, height)
 NIS_PARENT_TILE, NIS_PARENT_WINDOW = (32, 24), (40, 32)
 CAS_PARENT_TILE, CAS_PARENT_WINDOW = 16, 20
@@ -126,22 +160,34 @@ ABLATIONS = {
                              "i += kThreads) {",
                              "for (int i = tid; i < 0; i += kThreads) {")]),
     },
+    "rcas_sharpen": {
+        "noslide": (True, [("const bool reload = r == 0;",
+                            "const bool reload = true;")]),
+    },
+    "vmem_rate": {
+        "onegroup": (True, [("return kMaxThreads / th_e;", "return 1;")]),
+        "predicated": (True, [("const int pairs = k / 8;",
+                               "const int pairs = 0;")]),
+        "nounroll": (True, [("#pragma unroll 4", "#pragma unroll 1")]),
+    },
 }
 # kernel -> the name of its wrapper module's entry-point getter
 _ENTRIES = {"nis_scaler": "_scaler_fn", "cas_upscale": "_upscale_launch_fn",
-            "nis_sharpen": "_sharpen_fn", "cas_sharpen": "_sharpen_launch_fn"}
+            "nis_sharpen": "_sharpen_fn", "cas_sharpen": "_sharpen_launch_fn",
+            "rcas_sharpen": "_launch_fn", "vmem_rate": "_probe_launch"}
 
 
 def _wrapper_module(kernel):
-    from ..kernels import cas, nis
-    return cas if kernel.startswith("cas") else nis
+    from ..kernels import cas, nis, rcas, sol
+    return {"rcas_sharpen": rcas, "vmem_rate": sol}.get(
+        kernel, cas if kernel.startswith("cas") else nis)
 
 
 def build_parent(kernel, source, argtypes=None):
-    """(the parent's ctypes entry point, its ptxas usage) from its source,
-    built into a temporary directory with the port's flags and headers;
-    bound with `argtypes` (default: the earlier source's,
-    PARENT_ARGTYPES)."""
+    """(the parent's ctypes entry point, its ptxas usage, the library's
+    path) from its source, built into a temporary directory with the port's
+    flags and headers; bound with `argtypes` (default: the earlier
+    source's, PARENT_ARGTYPES)."""
     from ..kernels import _build
     from . import sass
 
@@ -155,7 +201,7 @@ def build_parent(kernel, source, argtypes=None):
     f = getattr(ctypes.CDLL(str(lib)), f"{kernel}_launch")
     f.argtypes = PARENT_ARGTYPES[kernel] if argtypes is None else argtypes
     f.restype = ctypes.c_int
-    return f, sass.ptxas_usage(r.stdout + r.stderr)
+    return f, sass.ptxas_usage(r.stdout + r.stderr), lib
 
 
 def ablated_source(kernel, name, text):
@@ -171,10 +217,12 @@ def ablated_source(kernel, name, text):
 
 def _build_ablated(kernel, name):
     """(the ablated build's entry point bound like the current one, its
-    ptxas usage)."""
+    ptxas usage, the library's path)."""
     from ..kernels import _build
 
-    current = getattr(_wrapper_module(kernel), _ENTRIES[kernel])()
+    getter = getattr(_wrapper_module(kernel), _ENTRIES[kernel])
+    current = (getter("vmem_rate", 3, 5) if kernel == "vmem_rate"
+               else getter())
     src = Path(tempfile.mkdtemp(prefix=f"{kernel}_{name}_")) / f"{kernel}.cu"
     src.write_text(ablated_source(kernel, name, (
         _build.CSRC / f"{kernel}.cu").read_text()))
@@ -182,15 +230,15 @@ def _build_ablated(kernel, name):
 
 
 def _through_entry(kernel, entry, fn):
-    """fn(img) with the wrapper's entry point swapped for `entry` during
+    """fn(*args) with the wrapper's entry point swapped for `entry` during
     the call."""
     module, getter = _wrapper_module(kernel), _ENTRIES[kernel]
 
-    def run(img):
+    def run(*args):
         saved = getattr(module, getter)
-        setattr(module, getter, lambda: entry)
+        setattr(module, getter, lambda *_: entry)
         try:
-            return fn(img)
+            return fn(*args)
         finally:
             setattr(module, getter, saved)
     return run
@@ -201,7 +249,7 @@ def _build_current(kernel, batch, h, w, ow, oh, cen, hdr, mcd=1.0):
     parent takes)."""
     from ..core import constants as C
     from ..core.foveation import TILE_FSR, TILE_NIS_SHARPEN
-    from ..kernels import cas, fsr, nis
+    from ..kernels import cas, fsr, nis, rcas
     from ..kernels._maps import (cas_upscale_maps, fsr_maps, nvscaler_maps,
                                  sharpen_maps)
 
@@ -210,6 +258,11 @@ def _build_current(kernel, batch, h, w, ow, oh, cen, hdr, mcd=1.0):
                                    centres=cen, max_color_delta=mcd)
         return fn, sharpen_maps(batch, h, w, cen, TILE_FSR), dict(
             sharp=cas.cas_setup(SHARPNESS), mcd=mcd)
+    if kernel == "rcas_sharpen":
+        fn = rcas.build_rcas_sharpen(batch, h, w, sharpness=SHARPNESS,
+                                     centres=cen)
+        return fn, sharpen_maps(batch, h, w, cen, TILE_FSR), dict(
+            sharp=C.fsr_rcas_con(C.rcas_stops_from_slider(SHARPNESS)))
     if kernel == "nis_sharpen":
         cfg = C.nvsharpen_update_config(SHARPNESS, w, h, w, h, hdr_mode=hdr)
         fn = nis.build_nvsharpen(batch, h, w, nis_cfg=cfg, centres=cen)
@@ -272,6 +325,9 @@ def parent_launcher(kernel, entry, maps, batch, device, sharp=None,
             if kernel == "cas_sharpen":
                 err = entry(*head, batch, m.h, m.w, rows, pitch, float(sharp),
                             float(mcd), float(tint), stream())
+            elif kernel == "rcas_sharpen":
+                err = entry(*head, batch, m.h, m.w, rows, pitch, float(sharp),
+                            float(tint), stream())
             else:
                 err = entry(*head, consts.ctypes.data, consts.size, batch,
                             m.h, m.w, rows, pitch, int(hdr_mode), float(tint),
@@ -322,6 +378,61 @@ def _best_ms(fn, inputs, iters):
     return min(rotation_ms(fn, inputs, iters) for _ in range(3))
 
 
+def _sass_loops(lib):
+    """[(instructions, LDS)] of each loop of vmem_rate_kernel in a built
+    library's SASS, shortest first, or None without cuobjdump."""
+    from ..kernels import _build
+    from . import sass
+    text = sass.disassemble(lib, _build._nvcc())
+    if text is None:
+        return None
+    return [(sum(ops.values()), ops["LDS"])
+            for fn, found in sass.loops(text).items()
+            if "vmem_rate_kernel" in fn for _, _, _, ops in found]
+
+
+def _vmem_rates(entry, shares, dev, iters):
+    """The vmem_rate A/B at the audit's full probe: {"parent": [rates],
+    "current": [rates]} in bytes/s, each from the audit's paired slopes,
+    timed in turns parent, current, current, parent; `entry` (the parent
+    or ablated vmem_rate_launch) runs with `shares`. Exits 1 if either
+    build's hi call is not bit-equal to the plain version."""
+    from ..kernels import sol
+    from . import vpu_audit
+
+    k_lo, k_hi, steps = vpu_audit.PROBES["vmem"][0]
+    rng = np.random.default_rng(0)
+    planes = torch.from_numpy(rng.random((k_hi, 130, 128),
+                                         np.float32)).to(dev)
+    args = {k_lo: (planes[:k_lo].contiguous(),), k_hi: (planes,)}
+
+    def through(fn):          # fn with its launch through `entry`
+        run = _through_entry("vmem_rate", entry, fn)
+        run.k, run.steps = fn.k, fn.steps
+        run.bytes_per_step, run.reference = fn.bytes_per_step, fn.reference
+        return run
+
+    builds = {
+        "parent": [through(sol.build_vmem_rate(k, steps=steps, shares=shares))
+                   for k in (k_lo, k_hi)],
+        "current": [sol.build_vmem_rate(k, steps=steps) for k in (k_lo, k_hi)],
+    }
+    for name, (_, hi) in builds.items():
+        ne = int((hi(planes) != hi.reference(planes)).sum())
+        if ne:
+            print(json.dumps({"metric": "ab", "kernel": "vmem_rate", "error":
+                              f"{name} probe: {ne} of 1024 outputs unequal "
+                              "to the plain version"}))
+            sys.exit(1)
+    rounds = {"parent": [], "current": []}
+    for name in ("parent", "current", "current", "parent"):
+        rec = vpu_audit._measure_rate(
+            builds[name], lambda f: args[f.k],
+            lambda f: f.bytes_per_step * f.steps, iters=iters)
+        rounds[name].append(rec)
+    return rounds
+
+
 def main(argv=None):
     """Run the A/B, print its JSON line and return the record."""
     from .. import bench
@@ -354,10 +465,10 @@ def main(argv=None):
     card = bench.card()
     _build.build([kernel])
     if args.ablate:
-        entry, parent_usage = _build_ablated(kernel, args.ablate)
+        entry, parent_usage, parent_lib = _build_ablated(kernel, args.ablate)
         exact = ABLATIONS[kernel][args.ablate][0]
     else:
-        entry, parent_usage = build_parent(kernel, args.parent)
+        entry, parent_usage, parent_lib = build_parent(kernel, args.parent)
         exact = True
     usage = sass.ptxas_usage(
         _build.library_path(kernel).with_suffix(".log").read_text())
@@ -365,7 +476,35 @@ def main(argv=None):
            "iters": args.iters, "parent": str(args.parent or
                                               f"ablate {args.ablate}"),
            "ptxas_parent": parent_usage, "ptxas_current": usage,
-           "ctas_per_sm_current": occupancy(kernel), "cases": []}
+           "cases": []}
+    if kernel == "vmem_rate":
+        from . import vpu_audit
+        from ..kernels import sol
+        _, k_hi, steps = vpu_audit.PROBES["vmem"][0]
+        shares = (sol.vmem_rate_shares(k_hi, steps=steps)
+                  if args.ablate and args.ablate != "onegroup"
+                  else PARENT_VMEM_SHARES)
+        bound = vpu_audit.smem_bytes_per_s(
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            float(vpu_audit._smi("clocks.max.sm") or "nan") * 1e6)
+        rounds = _vmem_rates(entry, shares, dev, iters=5)
+        rate = {n: [r["rate"] for r in rs] for n, rs in rounds.items()}
+        rec.update(
+            parent_shares=shares, bound=bound,
+            sass_loops_parent=_sass_loops(parent_lib),
+            sass_loops_current=_sass_loops(_build.library_path(kernel)),
+            parent_rate=rate["parent"], current_rate=rate["current"],
+            parent_share_of_bound=[r / bound for r in rate["parent"]],
+            current_share_of_bound=[r / bound for r in rate["current"]],
+            parent_hi_ms=[r["hi_ms"] for r in rounds["parent"]],
+            current_hi_ms=[r["hi_ms"] for r in rounds["current"]],
+            spreads={n: [r["spread"] for r in rs]
+                     for n, rs in rounds.items()},
+            current_over_parent=float(np.mean(rate["current"])
+                                      / np.mean(rate["parent"])))
+        rec.pop("cases")
+        return _emit(rec, args.out)
+    rec["ctas_per_sm_current"] = occupancy(kernel)
     print(f"[ab] {kernel} on {card}; parent {parent_usage}; current {usage}, "
           f"CTAs per SM {rec['ctas_per_sm_current']}", file=sys.stderr,
           flush=True)
@@ -398,10 +537,15 @@ def main(argv=None):
                                              / np.mean(rounds["current"]))}
         rec["cases"].append(case)
         print(f"[ab] {kernel} {label}: {case}", file=sys.stderr, flush=True)
+    return _emit(rec, args.out)
+
+
+def _emit(rec, out):
+    """Print the record's JSON line, also write it to `out`, return it."""
     line = json.dumps(rec)
     print(line, flush=True)
-    if args.out:
-        with open(args.out, "w") as f:
+    if out:
+        with open(out, "w") as f:
             f.write(line + "\n")
     return rec
 

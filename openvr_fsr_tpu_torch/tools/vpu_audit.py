@@ -49,8 +49,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 __all__ = ["count_ops", "count_macs", "paired_slope", "rate_from_slopes",
-           "path_ops", "kernel_floors", "main", "ELEMWISE_SKIP",
-           "SMEM_WORDS", "MAX_SPREAD"]
+           "path_ops", "kernel_floors", "roofline_bound", "probe_bounds",
+           "main", "ELEMWISE_SKIP", "SMEM_WORDS", "MAX_SPREAD"]
 
 # layout, index, creation and conversion ops: the meter skips them, as the
 # JAX tool's ELEMWISE_SKIP skips broadcasts, converts and layout ops
@@ -69,7 +69,13 @@ ELEMWISE_SKIP = frozenset({
 _MATMUL = frozenset({"mm", "bmm", "addmm", "baddbmm", "matmul", "dot", "mv"})
 MAX_SPREAD = 1.5            # largest / smallest pair slope a rate may show
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA's data sheet)
-TENSOR_MACS_PER_S = 989.4e12 / 2   # dense bf16 at 700 W (the data sheet)
+# FP32 outside the tensor cores at 700 W (the data sheet): it counts an FFMA
+# as two operations, while the port builds with --fmad=false (one rounded
+# FMUL or FADD per issue slot and lane), so it is twice what the kernels
+# can issue
+FP32_OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989.4e12  # dense bf16 tensor cores at 700 W (the data sheet)
+TENSOR_MACS_PER_S = BF16_FLOPS_PER_S / 2
 LANES_PER_SM = 128          # FP32 lanes, and shared-memory bytes per clock
 
 # The shared-memory words each kernel's math reads per output pixel, from
@@ -81,9 +87,14 @@ SMEM_WORDS = {
     # f32 for RCAS; fallback: the outside pass (bilinear_pass.cuh) reads no
     # shared memory
     "fsr_fused": (68, 0),
-    # rcas_sharpen.cu:79-85 the 5 cross taps x 3 channels; fallback reads
-    # device memory only
-    "rcas_sharpen": (15, 0),
+    # rcas_sharpen.cu, per output of a run of 4 in one column: :120-121 +
+    # :126-128 the 5 cross taps x 3 f32 planes at the first (15), at each
+    # later one only the new left, right and bottom taps (:126-128, 9; the
+    # top and centre slide down from the last row): 10.5; fallback: the
+    # copy pass reads device memory only (so does a run of an outside group
+    # in an inside tile, :106: not counted, so the floor stays a lower
+    # bound). 15 if every output reloaded (`--ablate noslide`)
+    "rcas_sharpen": (10.5, 0),
     # nis_scaler.cu, per output of a run of 6 in one column: :321 + :331
     # the two diagonal phases' COEF_SCALE / COEF_USM rows (24 words); per
     # run :244-245 the fx rows (12); on a reload :274 36 lumas (:158) and
@@ -406,6 +417,50 @@ def kernel_floors(inside_px, fallback_px, ops, smem_words, unique_bytes,
             "share": floors[bound_by] / ms}
 
 
+def roofline_bound(nbytes, ops, peak=FP32_OPS_PER_S, smem_bytes=0,
+                   smem_rate=None):
+    """(ms, bound_by): the least time the card could take for one call, the
+    largest of its unique device-memory bytes over HBM_BYTES_PER_S
+    ("bytes"), its operations over the peak rate of their type
+    ("operations") and, for work that is shared-memory reads by definition
+    (the shared-memory probe), those bytes over smem_rate ("smem")."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": ops / peak * 1e3}
+    if smem_bytes:
+        terms["smem"] = smem_bytes / smem_rate * 1e3
+    by = max(terms, key=terms.get)
+    return terms[by], by
+
+
+def smem_bytes_per_s(sms, clock_hz):
+    """The shared-memory bound: SMs x 128 B per clock x the SM clock."""
+    return sms * LANES_PER_SM * clock_hz
+
+
+def probe_bounds(vpu, vmem, mxu, sms, clock_hz):
+    """{probe name: (bound ms, bound_by)} of the three rate-probe builds
+    (kernels/sol.py), each a roofline_bound: the FP32 probe its meter ops
+    over FP32_OPS_PER_S; the shared-memory probe the plane bytes its step
+    loop reads (bytes_per_step x steps) over smem_bytes_per_s(sms,
+    clock_hz), the bound measure_rates states for the smem rate, beside its
+    Horner ops (an FMUL and an FADD per word); the tensor-core probe its
+    MACs as two bf16 operations each. Each also has its input and output
+    bytes over HBM_BYTES_PER_S."""
+    out = (8 * 128) * 4      # every probe's (8, 128) f32 result
+    plane_bytes = vmem.bytes_per_step * vmem.steps
+    return {
+        "vpu_rate": roofline_bound(
+            vpu.elems * 4 + out,
+            vpu.k * vpu_cycle_ops() * vpu.elems * vpu.steps),
+        "vmem_rate": roofline_bound(
+            vmem.bytes_per_step + out, 2 * plane_bytes // 4,
+            smem_bytes=plane_bytes,
+            smem_rate=smem_bytes_per_s(sms, clock_hz)),
+        "mxu_rate": roofline_bound(3 * mxu.tile ** 2 * 4, 2 * mxu.macs,
+                                   BF16_FLOPS_PER_S),
+    }
+
+
 # ---- (b) the rates on the card ----------------------------------------------
 
 def _event_ms(fn, args, iters, rounds=3):
@@ -495,7 +550,7 @@ def measure_rates(dev, quick=False):
     smem.update(unit="bytes/s", side_ops_per_word=horner, shares=shares,
                 plane_words_per_lds=loops["vmem_rate"]["words_per_lds"]
                 if loops else None,
-                bound=sms * LANES_PER_SM * clock_hz,
+                bound=smem_bytes_per_s(sms, clock_hz),
                 bound_unit="bytes/s (SMs x 128 B per clock x max SM clock)")
 
     k_lo, k_hi, steps = PROBES["mxu"][sel]
@@ -535,9 +590,9 @@ def _kernel_build(kernel, radius, dev):
 
 def inside_pixels(geom):
     """Output pixels inside the foveation circle by the kernel's own test
-    (the reference's, per foveation group: csrc/rgba8.cuh::inside_circle
-    over the CTA tiles, or the host's per-group classes of the fused FSR
-    kernel), and the fallback pixels."""
+    (the reference's, per foveation group, as the host's per-group classes
+    give it to every kernel: kernels/_maps.py::group_classes), and the
+    fallback pixels."""
     from ..kernels._common import circle_mask
     mask = circle_mask(torch.as_tensor(geom["centres"]), geom["out_h"],
                        geom["out_w"], tuple(geom["group"]))

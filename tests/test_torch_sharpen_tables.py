@@ -1,6 +1,7 @@
 """The host tables of the redesigned sharpen-only kernels, B6 CAS sharpen
-(csrc/cas_sharpen.cu) and B4 NVSharpen (csrc/nis_sharpen.cu), their entry
-points and the DMA geometries they publish, on the CPU.
+(csrc/cas_sharpen.cu), B4 NVSharpen (csrc/nis_sharpen.cu) and B2 RCAS
+sharpen (csrc/rcas_sharpen.cu), their entry points and the DMA geometries
+they publish, on the CPU.
 
 Each kernel launches two class kernels from host tile lists
 (kernels/_maps.py::sharpen_maps): the shared copy pass (csrc/copy_pass.cuh)
@@ -8,7 +9,8 @@ over the 32x32 tiles outside the foveation circle and the inside kernel
 over the others. Held here:
   - the classes are the reference's circle test (kernels/_common.py::
     circle_mask, the plain versions' select) read at every pixel, per 16x16
-    group (B6) and per 32x32 block (B4), and the lists partition the tiles;
+    group (B6, B2) and per 32x32 block (B4), and the lists partition the
+    tiles;
   - each geometry is a numpy statement of what the two kernels load and
     store, and the DMA floor's own check passes;
   - the wrappers pass the lists to one C entry point whose ctypes argtypes
@@ -28,7 +30,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from openvr_fsr_tpu_torch.core import constants as C  # noqa: E402
-from openvr_fsr_tpu_torch.kernels import _build, _maps, cas, nis, sol  # noqa: E402
+from openvr_fsr_tpu_torch.kernels import (  # noqa: E402
+    _build, _maps, cas, nis, rcas, sol)
 from openvr_fsr_tpu_torch.kernels._common import circle_mask  # noqa: E402
 from openvr_fsr_tpu_torch.tools import ab  # noqa: E402
 from openvr_fsr_tpu_torch.tools import vpu_audit as A  # noqa: E402
@@ -42,7 +45,12 @@ SHAPE_IDS = [f"{w}x{h}" for h, w in SHAPES]
 CIRCLE_IDS = [f"r{r}" for r, _ in CIRCLES]
 # kernel -> (foveation group, staged window edge, out-of-image words)
 KERNELS = {"cas_sharpen": ((16, 16), 34, "zero"),
-           "nis_sharpen": ((32, 32), 36, "clamp")}
+           "nis_sharpen": ((32, 32), 36, "clamp"),
+           "rcas_sharpen": ((16, 16), 34, "zero")}
+# kernel -> (its wrapper module, the module's entry-point getter)
+ENTRIES = {"cas_sharpen": (cas, "_sharpen_launch_fn"),
+           "nis_sharpen": (nis, "_sharpen_fn"),
+           "rcas_sharpen": (rcas, "_launch_fn")}
 
 
 def _centres(h, w, radius, eyes, batch):
@@ -53,6 +61,9 @@ def _centres(h, w, radius, eyes, batch):
 def _build_kernel(kernel, batch, h, w, cen, hdr=0):
     if kernel == "cas_sharpen":
         return cas.build_cas_sharpen(batch, h, w, sharpness=0.8, centres=cen)
+    if kernel == "rcas_sharpen":
+        return rcas.build_rcas_sharpen(batch, h, w, sharpness=0.9,
+                                       centres=cen)
     cfg = C.nvsharpen_update_config(0.9, w, h, w, h, hdr_mode=hdr)
     return nis.build_nvsharpen(batch, h, w, nis_cfg=cfg, centres=cen)
 
@@ -102,9 +113,9 @@ def test_classes_and_lists_are_the_circle_test(kernel, h, w, radius, eyes,
 @pytest.mark.parametrize("h,w", SHAPES, ids=SHAPE_IDS)
 @pytest.mark.parametrize("kernel", list(KERNELS))
 def test_geometry_is_the_two_kernels(kernel, h, w, radius, eyes, batch):
-    """B6's and B4's DMA geometries against a numpy statement of what their
-    two kernels load and store: an inside tile stages its window at
-    (32 t - halo) (B6: 34x34, the words outside the image staged as 0
+    """B6's, B4's and B2's DMA geometries against a numpy statement of what
+    their two kernels load and store: an inside tile stages its window at
+    (32 t - halo) (B6, B2: 34x34, the words outside the image staged as 0
     without a load; B4: 36x36 edge-clamped, its centre texels from the
     window too); every other tile copies its own texels; every output word
     is stored once."""
@@ -139,10 +150,20 @@ def test_geometry_is_the_two_kernels(kernel, h, w, radius, eyes, batch):
         == 4 * batch * h * w
 
 
-def _prototype_argtypes(kernel, entry):
-    """The ctypes types of the C prototype `entry` in csrc/<kernel>.cu:
-    pointers as c_void_p, int as c_int, float as c_float."""
-    text = (_build.CSRC / f"{kernel}.cu").read_text()
+# the entry point of the earlier RCAS sharpen source (one CTA per 16x16
+# tile with its own circle test), which tools/ab.py drives as the parent
+PARENT_RCAS_PROTOTYPE = """
+extern "C" int rcas_sharpen_launch(const void* img, void* out, const void* centres, int batch,
+                                   int h, int w, int rows, int pitch, float sharp, float tint,
+                                   void* stream) {
+"""
+
+
+def _prototype_argtypes(kernel, entry, text=None):
+    """The ctypes types of the C prototype `entry` in csrc/<kernel>.cu (or
+    in `text`): pointers as c_void_p, int as c_int, float as c_float."""
+    if text is None:
+        text = (_build.CSRC / f"{kernel}.cu").read_text()
     (params,) = re.findall(rf'extern "C" int {entry}\((.*?)\)\s*\{{', text,
                            re.S)
     types = []
@@ -154,7 +175,8 @@ def _prototype_argtypes(kernel, entry):
 
 
 @pytest.mark.parametrize("kernel,module", [("cas_sharpen", cas),
-                                           ("nis_sharpen", nis)])
+                                           ("nis_sharpen", nis),
+                                           ("rcas_sharpen", rcas)])
 def test_argtypes_are_the_prototype(kernel, module):
     """The wrapper binds the entry point with the types of its prototype,
     one per parameter (a pointer bound as c_int would be cut to 32 bits)."""
@@ -195,8 +217,7 @@ def test_launch_passes_the_lists(kernel, radius, monkeypatch):
     def entry(*args):
         seen["args"] = args
         return 0
-    module, getter = (cas, "_sharpen_launch_fn") if kernel == "cas_sharpen" \
-        else (nis, "_sharpen_fn")
+    module, getter = ENTRIES[kernel]
     monkeypatch.setattr(module, getter, lambda: entry)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: type(
         "S", (), {"cuda_stream": 0})())
@@ -211,6 +232,11 @@ def test_launch_passes_the_lists(kernel, radius, monkeypatch):
         assert (args[4], args[6]) == (n_in, n_out)
         assert args[7:12] == (2, h, w, hp, wp)
         assert args[13] == np.float32(1.0)            # max_color_delta
+    elif kernel == "rcas_sharpen":
+        assert (args[4], args[6]) == (n_in, n_out)
+        assert args[7:12] == (2, h, w, hp, wp)
+        assert args[12:14] == (float(C.fsr_rcas_con(
+            C.rcas_stops_from_slider(0.9))), 1.0)    # sharp, tint
     else:
         assert (args[3], args[5]) == (n_in, n_out)
         assert args[7:14] == (16, 2, h, w, hp, wp, 2)   # consts, hdr_mode
@@ -224,6 +250,9 @@ def test_parent_launchers_take_the_earlier_entry_points(kernel, case,
     """The A/B tool drives the earlier sharpen kernels (one CTA per tile
     with its own circle test) with the centres and the constants each case
     asks for, in the types of their argtypes."""
+    if kernel == "rcas_sharpen" and case == 0:
+        assert ab.PARENT_ARGTYPES[kernel] == _prototype_argtypes(
+            "rcas_sharpen", "rcas_sharpen_launch", PARENT_RCAS_PROTOTYPE)
     label, h, w, rs, radius, hdr, mcd = ab.CASES[kernel][case]
     assert (h, w, rs) == (2492, 2244, 1.0)
     h, w = 45, 61
@@ -245,6 +274,10 @@ def test_parent_launchers_take_the_earlier_entry_points(kernel, case,
     if kernel == "cas_sharpen":
         assert args[3:8] == (2, h, w, h, w)
         assert args[8:10] == (float(cas.cas_setup(ab.SHARPNESS)), mcd)
+    elif kernel == "rcas_sharpen":
+        assert args[3:8] == (2, h, w, h, w)
+        assert args[8:10] == (float(C.fsr_rcas_con(
+            C.rcas_stops_from_slider(ab.SHARPNESS))), 1.0)
     else:
         assert args[4:12] == (16, 2, h, w, h, w, hdr, 1.0)
     assert fn.dma_geometry["stage"] == "copy"
@@ -254,23 +287,44 @@ def _constant(text, name):
     return int(re.search(rf"constexpr int {name} = (\w+)", text).group(1))
 
 
-@pytest.mark.parametrize("kernel,edge,support", [("cas_sharpen", "kTile", 3),
-                                                 ("nis_sharpen", "kBlock", 5)])
-def test_smem_words_recounted_from_the_sources(kernel, edge, support):
-    """A thread's run of outputs down one column reads its support's rows
-    (3 rows of 3 taps x 3 planes for B6, 5 rows of 5 lumas for B4) at the
-    first output and one new row at each later one; B4 also reads its
-    staged centre texel. The audit's words per inside pixel are that
-    average: 13.5 and 11."""
+@pytest.mark.parametrize("kernel,edge,first,later", [
+    ("cas_sharpen", "kTile", (3, 3, 3), (1, 3, 3)),
+    ("nis_sharpen", "kBlock", (5, 5, 1), (1, 5, 1)),
+    ("rcas_sharpen", "kTile", (1, 5, 3), (1, 3, 3))])
+def test_smem_words_recounted_from_the_sources(kernel, edge, first, later):
+    """A thread's run of outputs down one column reads its taps at the
+    first output, (rows, taps per row, planes): B6 3 rows of 3 taps x 3
+    f32 planes, B4 5 rows of 5 lumas, B2 the 5 taps of the cross x 3
+    planes; and at each later one only what slides in: B6 and B4 one new
+    row, B2 its new left, right and bottom taps (the top and centre are
+    the last row's centre and bottom). B4 also reads its staged centre
+    texel. The audit's words per inside pixel are that average: 13.5, 11
+    and 10.5."""
     text = (_build.CSRC / f"{kernel}.cu").read_text()
     tile = _constant(text, edge)
     run = tile * tile // _constant(text, "kThreads")
     assert (tile, run) == (_maps.SHARPEN_TILE, 4)
-    row = support * (3 if kernel == "cas_sharpen" else 1)
-    words = (support * row + (run - 1) * row) / run
-    words += 0 if kernel == "cas_sharpen" else 1
+    words = (np.prod(first) + (run - 1) * np.prod(later)) / run
+    words += 1 if kernel == "nis_sharpen" else 0
     assert A.SMEM_WORDS[kernel] == (words, 0)
-    assert words == {"cas_sharpen": 13.5, "nis_sharpen": 11}[kernel]
+    assert words == {"cas_sharpen": 13.5, "nis_sharpen": 11,
+                     "rcas_sharpen": 10.5}[kernel]
     # the slide is the one text the ablation edits
     old, new = ab.ABLATIONS[kernel]["noslide"][1][0]
     assert text.count(old) == 1
+
+
+@pytest.mark.parametrize("radius,eyes", CIRCLES, ids=CIRCLE_IDS)
+def test_rcas_reference_selects_by_the_group_classes(radius, eyes):
+    """rcas_sharpen_reference's select (sharpened, alpha 1, inside; the
+    source's alpha outside) is the per-pixel expansion of the 16x16 group
+    classes that the class kernels launch from."""
+    h, w = 45, 61
+    cen = _centres(h, w, radius, eyes, 2)
+    m = _maps.sharpen_maps(2, h, w, cen, (16, 16))
+    img = torch.zeros((2, h, w), dtype=torch.int32)   # alpha 0 everywhere
+    out = rcas.rcas_sharpen_reference(img, torch.from_numpy(m.centres), 0.5,
+                                      1.0)
+    alpha = (out.numpy().view(np.uint32) >> 24).astype(np.int64)
+    per_pixel = np.repeat(np.repeat(m.group_cls, 16, 1), 16, 2)[:, :h, :w]
+    assert np.array_equal(alpha, per_pixel * 255)

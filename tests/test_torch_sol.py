@@ -68,19 +68,12 @@ def _emulate(img, g):
     out = np.zeros((B, OH, OW), np.int32)
     loads = 0
     for b in range(B):
-        c = g["centres"][b]
         for ty in range(-(-OH // th)):
             oy = np.arange(ty * th, min(ty * th + th, OH))
             for tx in range(-(-OW // tw)):
                 ox = np.arange(tx * tw, min(tx * tw + tw, OW))
                 n = len(oy) * len(ox)
-                gx, gy = tx * tw + tw // 2, ty * th + th // 2
-                if g["stage"] in ("list", "copy"):
-                    inside = g["staged"][b, ty, tx]
-                else:
-                    inside = ((c[0] - gx) ** 2 + (c[1] - gy) ** 2 <= c[4]
-                              or (c[2] - gx) ** 2 + (c[3] - gy) ** 2 <= c[4])
-                if inside:
+                if g["staged"][b, ty, tx]:
                     y = g["tile_y0"][ty] + np.arange(wh)
                     x = g["tile_x0"][tx] + np.arange(ww)
                     win = img[b][np.ix_(np.clip(y, 0, H - 1),
@@ -194,22 +187,18 @@ class TestGeometry:
             assert (g["tile"], g["window"], g["group"]) == (
                 (32, 48), (40, 56), (32, 24))
         else:
-            tile, halo = {"nvsharpen": (32, 2), "cas_sharpen": (32, 1),
-                          "rcas_sharpen": (16, 1)}[plan]
-            assert g["tile"] == (tile, tile)
-            assert g["tile_x0"][1] == tile - halo
+            halo = 2 if plan == "nvsharpen" else 1
+            assert g["tile"] == (32, 32)
+            assert g["tile_x0"][1] == 32 - halo
             assert np.array_equal(g["tap_y"], np.arange(h))
             assert g["oob"] == ("clamp" if plan == "nvsharpen" else "zero")
-            if plan == "rcas_sharpen":
-                assert g["stage"] == "circle" and g["staged"] is None
-            else:
-                # the class kernels: the host's inside tiles stage, the
-                # others copy their texels (copy_pass.cuh)
-                group = (16, 16) if plan == "cas_sharpen" else (32, 32)
-                maps = _maps.sharpen_maps(2, h, w, cen, group)
-                assert (g["stage"], g["group"]) == ("copy", group)
-                assert np.array_equal(g["staged"], maps.tile_inside)
-                assert g["quad_x"] is None and not g["stage_quads"]
+            # the class kernels: the host's inside tiles stage, the others
+            # copy their texels (copy_pass.cuh)
+            group = (32, 32) if plan == "nvsharpen" else (16, 16)
+            maps = _maps.sharpen_maps(2, h, w, cen, group)
+            assert (g["stage"], g["group"]) == ("copy", group)
+            assert np.array_equal(g["staged"], maps.tile_inside)
+            assert g["quad_x"] is None and not g["stage_quads"]
 
 
 def test_full_size_geometries_fit_the_floor():
@@ -221,7 +210,7 @@ def test_full_size_geometries_fit_the_floor():
         g = Pipeline(cfg, device="cpu")._build(2, h, w, (0, 1), True).dma_geometry
         floor = sol.build_dma_floor(g)
         assert floor.write_bytes == 2 * g["out_h"] * g["out_w"] * 4
-        assert floor.read_bytes >= 2 * h * w * 4 or g["stage"] == "circle"
+        assert floor.read_bytes >= 2 * h * w * 4
 
 
 def test_tap_outside_its_window_is_refused():
@@ -235,6 +224,7 @@ def test_tap_outside_its_window_is_refused():
 
 @pytest.mark.parametrize("plan,change,match", [
     ("rcas_sharpen", dict(stage="all"), "no floor form"),
+    ("rcas_sharpen", dict(stage="circle"), "no floor form"),
     ("rcas_sharpen", dict(stage_quads=True), "one texel per output"),
     ("rcas_sharpen", "quads", "one texel per output"),
     ("fsr_fused", dict(quad_x=None, quad_y=None), "four-tap floors"),
@@ -243,15 +233,15 @@ def test_tap_outside_its_window_is_refused():
     ("cas_sharpen", dict(stage_quads=True), "one texel per output"),
     ("cas_sharpen", dict(staged=None), "staged table"),
     ("nvsharpen", "shifted", "identity"),
-], ids=["all", "circle-stage-quads", "circle-quads", "list-no-quads",
-        "list-no-table", "copy-quads", "copy-stage-quads", "copy-no-table",
-        "copy-not-own-texel"])
+], ids=["all", "circle", "rcas-copy-stage-quads", "rcas-copy-quads",
+        "list-no-quads", "list-no-table", "copy-quads", "copy-stage-quads",
+        "copy-no-table", "copy-not-own-texel"])
 def test_floor_has_two_forms(plan, change, match):
-    """The floor runs three forms: "circle" (RCAS sharpen, one texel per
-    output outside), "copy" (the sharpen-only class kernels: a staged
-    table, each output's own texel outside) and "list" (the upscalers, four
-    bilinear taps per output outside); any other is refused on the
-    host."""
+    """The floor runs two forms: "copy" (the sharpen-only class kernels,
+    RCAS sharpen among them: a staged table, each output's own texel
+    outside) and "list" (the upscalers, four bilinear taps per output
+    outside); any other is refused on the host, the "circle" form of the
+    earlier one-CTA-per-16x16-tile RCAS kernel among them."""
     g = _geometry(plan, 45, 61, 0.5)
     if change == "quads":
         change = dict(quad_x=np.zeros((2, g["out_w"]), np.int32),

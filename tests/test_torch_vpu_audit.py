@@ -122,14 +122,69 @@ def _vmem_numpy(x, steps, shares):
     return out
 
 
-@pytest.mark.parametrize("k,steps,shares", [(2, 4, 1), (8, 16, 3),
-                                            (13, 9, 2)])
+@pytest.mark.parametrize("k,steps,shares", [
+    (2, 4, 1), (8, 16, 3), (13, 9, 2), (16, 24, 12), (20, 10, 7),
+    (112, 6, 4), (48, 13, 12)])
 def test_vmem_rate_plain_is_the_kernel_order(k, steps, shares):
+    """The kernel's order at any shares (each of a CTA's step groups runs
+    one contiguous range of steps), k a multiple of 8 (the unrolled loop
+    only) or not (13, 20: the predicated tail too)."""
     x = _rand(k, k, 130, 128)
     fn = sol.build_vmem_rate(k, steps=steps, shares=shares)
     assert fn.shares == shares
     got = fn(torch.from_numpy(x)).numpy()
     assert np.array_equal(got, _vmem_numpy(x, steps, shares))
+
+
+def _vmem_constant(name):
+    import re
+    from openvr_fsr_tpu_torch.kernels import _build
+    text = (_build.CSRC / "vmem_rate.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+@pytest.mark.parametrize("k,steps,want", [(112, 4096, 12), (16, 4096, 12),
+                                          (48, 1024, 12), (8, 16, 12),
+                                          (16, 4, 4)])
+def test_vmem_rate_shares_fill_the_card(k, steps, want):
+    """The probe's CTA holds kMaxThreads / th_e step groups over one staged
+    column (4 full-warp groups of 130 rows, 17 warps); at the audit's k,
+    shared memory and threads let 3 CTAs of a column share an SM, so the
+    132 SMs run 3 CTAs of each of the 128 columns at once: 12 shares."""
+    assert sol.VMEM_THREADS == _vmem_constant("kMaxThreads") == 544
+    assert sol.vmem_rate_groups(130) == 4
+    assert _vmem_constant("kMinCtas") == 3
+    assert sol.vmem_rate_shares(k, steps=steps) == want
+    smem = sol.build_vmem_rate(k, steps=min(steps, 16)).smem_bytes
+    assert smem == (-(-k // 4) * 4 * 130 + 2 * 4 * 130) * 4
+    if k == 112:
+        assert 3 * (smem + 1024) <= sol.SM_SMEM < 4 * (smem + 1024)
+
+
+def test_probe_bounds():
+    """Each probe's bound is the largest of its terms: the shared-memory
+    probe's is the plane bytes its step loop reads over SMs x 128 B x the
+    max SM clock (0.913 ms at the audit's k 112 and 4,096 steps on 132 SMs
+    at 1980 MHz), far above its Horner ops over the data sheet's FP32 rate;
+    the FP32 and tensor-core probes are bound by their operations."""
+    b = A.probe_bounds(sol.build_vpu_rate(144, steps=1024),
+                       sol.build_vmem_rate(112, steps=4096),
+                       sol.build_mxu_rate(64, steps=264), 132, 1980e6)
+    ms, by = b["vmem_rate"]
+    assert by == "smem"
+    assert ms == pytest.approx(112 * 130 * 128 * 4 * 4096
+                               / (132 * 128 * 1980e6) * 1e3)
+    assert round(ms, 3) == 0.913
+    assert b["vpu_rate"][1] == b["mxu_rate"][1] == "operations"
+    assert b["vpu_rate"][0] == pytest.approx(
+        144 * 30 * 130 * 128 * 1024 / A.FP32_OPS_PER_S * 1e3)
+    assert b["mxu_rate"][0] == pytest.approx(
+        2 * 64 * 264 * 8 * 128 ** 3 / A.BF16_FLOPS_PER_S * 1e3)
+    # without its smem term the shared-memory probe would read "operations"
+    assert A.roofline_bound(112 * 130 * 128 * 4, 2 * 112 * 130 * 128 * 4096
+                            )[1] == "operations"
+    assert A.roofline_bound(1e9, 0) == pytest.approx(
+        (1e9 / A.HBM_BYTES_PER_S * 1e3, "bytes"))
 
 
 def test_probes_publish_the_jax_attributes():
@@ -336,3 +391,23 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
         calls[entry]()
     out = calls[entry](device="cpu")
     assert out.device.type == "cpu" and out.dtype == torch.uint8
+
+
+def test_ab_drives_the_probe_through_another_entry():
+    """tools/ab.py --kernel vmem_rate runs the earlier or ablated build
+    through the probe's own wrapper with its entry point swapped in for the
+    call (and restored after), at the shares the earlier source filled the
+    card with: 130-thread CTAs of 58 KB at the audit's k, 3 per SM, on 132
+    SMs over 128 columns."""
+    from openvr_fsr_tpu_torch.tools import ab
+    original = sol._probe_launch
+    seen = []
+    run = ab._through_entry("vmem_rate", "entry",
+                            lambda x: seen.append(
+                                (x, sol._probe_launch("vmem_rate", 3, 5))))
+    run(7)
+    assert seen == [(7, "entry")] and sol._probe_launch is original
+    k_lo, k_hi, steps = A.PROBES["vmem"][0]
+    smem = (-(-k_hi // 4) * 4 * 130 + 130) * 4
+    per_sm = min(sol.SM_SMEM // (smem + 1024), 2048 // (32 * 5), 32)
+    assert ab.PARENT_VMEM_SHARES == sol.SMS * per_sm // 128 == 3
