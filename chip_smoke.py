@@ -57,20 +57,25 @@ lines:
      upscale(use_cas=True); Pipeline(cfg), upscale(frame) and FsrModel() on
      numpy frames. No entry point is given a device: each must default to
      the card and launch its CUDA kernel;
-  4. kernel and plain-version times in ms per stereo pair (CUDA events),
+  4. kernel and plain-version times in ms per stereo pair (CUDA events;
+     a kernel's calls replayed from one CUDA graph, device time alone),
      and each plain version's peak device memory; fsr_fused also at rs 1.3;
   5. the measurement path: the DMA floor (csrc/dma_floor.cu) keeps its
-     loads in its SASS, and equals its plain version word for word at the
-     full-size geometry of each of the seven bench paths, on the unpadded
-     and the ring-pitch input, and at the geometries of the three upscalers
-     and of nis_sharpen, cas_sharpen and rcas_sharpen at radius 0.0 and 2.0;
+     TMA loads, shared reads and stores in its SASS, and equals its plain
+     version word for word at the full-size geometry of each of the seven
+     bench paths, on the ring-pitch input and on the unpadded one where its
+     row pitch is a multiple of 16 bytes (the floor refuses any other with
+     a ValueError, as it publishes: fn.pitch_words), and at the geometries
+     of the three upscalers and of nis_sharpen, cas_sharpen and
+     rcas_sharpen at radius 0.0 and 2.0;
      the fused kernel against its plain version at the full supersample
      size (2 x 2244x2492 -> 2 x 2917x3239); fsr_fused and its floor timed in
-     turns (bench.measure, the best of B_ROUNDS rounds each) at radius 0.0,
+     turns (bench.measure: each from its CUDA graph, the best of B_ROUNDS
+     replays, device time alone) at radius 0.0,
      0.5 and 2.0 and at rs 1.3 ([b1] lines), nis_scaler, cas_upscale,
      nis_sharpen, cas_sharpen and rcas_sharpen with theirs at radius 0.0,
      0.5 and 2.0 ([b3], [b5], [b4], [b6], [b2] lines), with their vs_sol;
-     the floor's time at the fsr_fused geometry (also
+     the floor's time at the fsr_fused geometry on a ring-pitch frame (also
      call by call, bench_fn) and the card's pure-read and pure-write rates
      (hbm_calibration); then the bench entries, bench.main() and
      tools.bench_paths.main() over all seven paths, in this process,
@@ -83,21 +88,26 @@ lines:
      full k and steps (FP32 and shared-memory probes: 0 unequal; the
      tensor-core probe within kernels/sol.py::MXU_TOLERANCE, also at small
      k, where its values have not underflowed); the SASS of each keeps
-     what it meters (FP32 arithmetic per cycle, LDS in the plane loop, HMMA
-     per round), the shared-memory probe's loops, and the instruction
-     counts of the inside kernels of B1-B6; each probe's and its plain
+     what it meters (FP32 arithmetic per cycle, LDS in the plane loop, 8
+     HGMMA per round), the shared-memory probe's loops, the instruction
+     counts of the inside kernels of B1-B6, and each one's float
+     instructions per inside output beside the op meter's count that
+     prices its f32 work (tools/sass.py::inside_float_per_output); each
+     probe's and its plain
      version's time, and
      torch.matmul on one round's bf16 operands beside the tensor-core
-     probe; then
+     probe, and cuBLAS's MAC rate on one (8192, 8192) bf16 product; then
      tools.vpu_audit.main() and main(["--nis", "--quick"]) in this process,
      failing on a missing launch, a rate that is not finite, a pair spread
      above 1.5, a rate above 1.05 x its bound, or a kernel row whose bound
      is above 1.05 x its time;
   7. the result lines: the card, the kernels JSON (each bound the largest
-     of its unique bytes over 3.35 TB/s, its operations over the data
-     sheet's peak for their type and, for the shared-memory probe, the
-     plane bytes it reads over SMs x 128 B x the max SM clock:
-     tools/vpu_audit.py::roofline_bound, probe_bounds), and
+     of its unique bytes over 3.35 TB/s, its operations over the peak for
+     their type: f32 work, the FP32 probe's as the FP32 instructions its
+     SASS keeps per cycle, at the FP32 issue bound SMs x 128 lanes x the
+     max SM clock, bf16 MACs at SMs x 2,048 x the max SM clock, and, for the
+     shared-memory probe, the plane bytes it reads over SMs x 128 B x the
+     max SM clock: tools/vpu_audit.py::roofline_bound, probe_bounds), and
      {"ok": true, ...}.
 
 Exits non-zero, printing no result, when torch finds no CUDA GPU.
@@ -125,9 +135,8 @@ VS_SOL_MAX = 1.02            # floor / kernel; above it the floor is wrong
 RATE_MAX = 1.05              # a measured rate over its bound
 SHARE_MAX = 1.05             # an audit row's bound over its time
 N_PAIRS = 10                 # stereo pairs per plan through the public API
-# the [bN] lines of phase 5: rounds of calls, kernel and floor in turns, the
-# best of each; at radius 0.0 a sharpen-only kernel and its floor run the
-# same copy, so vs_sol is 1 up to the noise that more rounds narrow
+# the [bN] lines of phase 5: rounds of graph replays, kernel and floor in
+# turns, the best of each
 B_ROUNDS = 10
 CENTRES = ((0.5, 0.5), (0.5, 0.5))
 OFF_CENTRE = ((0.3, 0.6), (0.7, 0.4))   # eyes whose circles cut many tiles
@@ -181,14 +190,22 @@ def lsb_diff(a, b):
 
 
 def sass_counts(lib, nvcc):
-    """{kernel function: [LDG, STS, STG] instruction counts} in the SASS
-    of a built library (cuobjdump beside nvcc), or None without it."""
+    """{kernel function: [UTMALDG, LDS, STG] instruction counts} in the
+    SASS of a built library (cuobjdump beside nvcc), or None without it."""
     from openvr_fsr_tpu_torch.tools import sass
     text = sass.disassemble(lib, nvcc)
     if text is None:
         return None
-    return {fn: [ops["LDG"], ops["STS"], ops["STG"]]
+    return {fn: [ops["UTMALDG"], ops["LDS"], ops["STG"]]
             for fn, ops in sass.function_counts(text).items()}
+
+
+def graph_ms(f, x, n):
+    """Device ms per call of f(x) over n calls replayed from one CUDA graph
+    (no host launch between them; utils/timing.py), the best of 3 replays."""
+    from openvr_fsr_tpu_torch.utils.timing import replay_ms, rotation_graph
+    graph = rotation_graph(f, [x], n)
+    return min(replay_ms(graph, n) for _ in range(3))
 
 
 def time_ms(f, x, n, warmup=3):
@@ -632,7 +649,8 @@ def main():
         rounds = {"kernel": [], "plain": []}
         for label, f, n in (("plain", fn.reference, 5), ("kernel", fn, 200),
                             ("kernel", fn, 200), ("plain", fn.reference, 5)):
-            rounds[label].append(time_ms(f, img, n))
+            rounds[label].append((graph_ms if label == "kernel" else time_ms)(
+                f, img, n))
         ms[kernel] = float(np.mean(rounds["kernel"]))
         plain_ms[kernel] = float(np.mean(rounds["plain"]))
         mbytes = (img.numel() + fn(img).numel()) * 4 / 1e6
@@ -654,13 +672,13 @@ def main():
                               ("cas_sharpen", cas_sh)):
             img = timed[kernel][1]
             fn = build(radius)
-            t = time_ms(fn, img, 200)
+            t = graph_ms(fn, img, 200)
             plain = (f", plain torch {time_ms(fn.reference, img, 5)} ms"
                      if kernel.startswith("cas") else "")
             log(f"[time] {kernel} radius={radius}: {t} ms per stereo "
                 f"pair{plain}")
     log(f"[time] fsr_fused rs=1.3 2x{OW}x{OH} radius=0.5: "
-        f"{time_ms(fsr(0.5, h=OH, w=OW, rs=1.3), sets['full']['zone+noise'], 200)}"
+        f"{graph_ms(fsr(0.5, h=OH, w=OW, rs=1.3), sets['full']['zone+noise'], 200)}"
         " ms per stereo pair")
 
     # ---- 5. the measurement path --------------------------------------------
@@ -672,11 +690,11 @@ def main():
     counts = sass_counts(_build.library_path("dma_floor"), _build._nvcc())
     if counts is None:
         log("[floor] cuobjdump not found: SASS not checked")
-    for fn_name, (ldg, sts, stg) in (counts or {}).items():
-        log(f"[floor] SASS {fn_name}: {ldg} LDG, {sts} STS, {stg} STG")
-        if not (ldg and sts and stg):
-            fail(f"dma_floor {fn_name}: the compiler dropped its loads or "
-                 "stores")
+    for fn_name, (tma, lds, stg) in (counts or {}).items():
+        log(f"[floor] SASS {fn_name}: {tma} UTMALDG, {lds} LDS, {stg} STG")
+        if not (tma and lds and stg):
+            fail(f"dma_floor {fn_name}: the compiler dropped its TMA loads, "
+                 "its shared reads or its stores")
     max_lsb["dma_floor"] = 0
     geometries = [(name, *bench_paths.path_config(name))
                   for name in bench_paths.PATHS]
@@ -694,6 +712,19 @@ def main():
         ring = torch.zeros((2, hp, wp), dtype=torch.int32, device=dev)
         ring[:, :h, :w] = img
         for label, x in (("unpadded", img), (f"ring pitch {hp}x{wp}", ring)):
+            if x.shape[2] % floor.pitch_words:
+                # TMA takes a row pitch of a multiple of 16 bytes: the
+                # floor refuses this one, as it publishes, and launches
+                # nothing
+                try:
+                    floor(x)
+                except ValueError as e:
+                    log(f"[floor] dma_floor {name} 2x{w}x{h} {label}: "
+                        f"refused as published ({e})")
+                    continue
+                fail(f"dma_floor {name} ({label}): a {x.shape[2]}-word "
+                     f"pitch is not a multiple of {floor.pitch_words} and "
+                     "was not refused")
             got = floor(x)
             torch.cuda.synchronize()
             if got.shape != want.shape:
@@ -713,11 +744,14 @@ def main():
                "zone+noise", build(0.5, h=OH, w=OW, rs=1.3),
                sets["full"]["zone+noise"])
     floor = build_dma_floor(timed["fsr_fused"][0].dma_geometry)
-    img = timed["fsr_fused"][1]
+    hp, wp = floor.pad_to         # the floor's TMA runs the ring pitch
+    img = torch.zeros((2, hp, wp), dtype=torch.int32, device=dev)
+    img[:, :H, :W] = timed["fsr_fused"][1]
     rounds = {"kernel": [], "plain": []}
     for label, f, n in (("plain", floor.reference, 5), ("kernel", floor, 200),
                         ("kernel", floor, 200), ("plain", floor.reference, 5)):
-        rounds[label].append(time_ms(f, img, n))
+        rounds[label].append((graph_ms if label == "kernel" else time_ms)(
+            f, img, n))
     ms["dma_floor"] = float(np.mean(rounds["kernel"]))
     plain_ms["dma_floor"] = float(np.mean(rounds["plain"]))
     log(f"[time] dma_floor at the fsr_fused geometry: {rounds['kernel']} ms "
@@ -788,7 +822,7 @@ def main():
         if not (loops["vpu_rate"]["fp32_per_cycle"] >= 20
                 and loops["vmem_rate"]["lds_in_loop"] >= 1
                 and (loops["vmem_rate"]["words_per_lds"] or 99) <= 4
-                and loops["mxu_rate"]["hmma_per_round"] >= 128):
+                and loops["mxu_rate"]["hgmma_per_round"] >= 8):
             fail(f"a rate probe lost the work it meters: {loops}")
         for name in ("fsr_fused", "rcas_sharpen", "nis_scaler", "nis_sharpen",
                      "cas_upscale", "cas_sharpen"):
@@ -838,6 +872,24 @@ def main():
                            f"{ops['MUFU']}" if ops else "no loop")
                 log(f"[probe] SASS {name} {part}: {longest}; whole kernel "
                     f"{sum(whole.values())}, {dict(whole.most_common(8))}")
+        # one inside output's float instructions in each inside kernel's
+        # SASS (static: tools/sass.py::inside_float_per_output) beside the
+        # meter's ops, which price B1-B6's f32 work in the kernels line
+        for name, (fn, _) in timed.items():
+            g = fn.dma_geometry
+            in_per_out = g["in_h"] * g["in_w"] / (g["out_h"] * g["out_w"])
+            meter = vpu_audit.path_ops(
+                name, in_per_out=in_per_out,
+                sharpness=CAS_SHARPNESS if name.startswith("cas")
+                else SHARPNESS)[0]
+            got = sass.inside_float_per_output(
+                sass.disassemble(_build.library_path(name), _build._nvcc()),
+                name, in_per_out)
+            log(f"[probe] SASS {name} inside output: " + (
+                f"{got[0]:.2f} arithmetic + {got[1]:.2f} compare/select "
+                f"float instructions = {sum(got):.2f}; meter {meter:.2f} "
+                f"ops (SASS / meter {sum(got) / meter:.3f})" if got else
+                f"its loops not found; meter {meter:.2f} ops"))
         # the shared-memory probe's loops: the staging, the unrolled blocks
         # of 8 planes and their remainder, the predicated tail, the fold
         text = sass.disassemble(_build.library_path("vmem_rate"),
@@ -893,6 +945,13 @@ def main():
                                       200)}
     log(f"[time] torch.matmul bf16 (1024, 128) @ (128, 128): "
         f"{library_ms['mxu_rate']} ms (one probe round of one step)")
+    # what a library reaches on this card: cuBLAS on a compute-bound bf16
+    # product (a yardstick beside the probe's rate, not a gate)
+    big = torch.rand((8192, 8192), device=dev).to(torch.bfloat16)
+    big_ms = time_ms(lambda a: torch.matmul(a, a), big, 20)
+    log(f"[time] torch.matmul bf16 (8192, 8192) @ (8192, 8192): {big_ms} ms, "
+        f"{8192 ** 3 / big_ms / 1e9:.6g} TMAC/s (card: {card})")
+    del big
 
     # the audit, in this process: the probes it builds count from 0
     audit, audit_probes = vpu_audit.main([])
@@ -924,9 +983,12 @@ def main():
 
     # the least time the card could take for each timed call: its unique
     # bytes over the memory rate, its ops over the peak rate of their type
-    # (the guide's table) and, for the shared-memory probe, the plane bytes
-    # it reads over the card's shared-memory bound, whichever is largest
+    # (f32 ops at the FP32 issue bound, SMs x 128 lanes x the max SM clock,
+    # as the audit's floors; bf16 MACs at SMs x 2,048 x the same clock) and,
+    # for the shared-memory probe, the plane bytes it reads over the card's
+    # shared-memory bound, whichever is largest
     bound = vpu_audit.roofline_bound
+    issue = audit["rates"]["fp32"]["bound"]
     bounds = {}
     for kernel, (fn, img) in timed.items():
         g = fn.dma_geometry
@@ -936,11 +998,12 @@ def main():
             sharpness=CAS_SHARPNESS if kernel.startswith("cas") else SHARPNESS)
         bounds[kernel] = bound(
             (img.numel() + 2 * g["out_h"] * g["out_w"]) * 4,
-            inside * per_px[0] + fallback * per_px[1])
-    bounds["dma_floor"] = bound(floor.hbm_bytes, 0)
+            inside * per_px[0] + fallback * per_px[1], issue)
+    bounds["dma_floor"] = bound(floor.hbm_bytes, 0, issue)
     bounds.update(vpu_audit.probe_bounds(
         *(probes[n][0] for n in ("vpu_rate", "vmem_rate", "mxu_rate")),
-        audit["rates"]["sms"], audit["rates"]["max_sm_clock_hz"]))
+        audit["rates"]["sms"], audit["rates"]["max_sm_clock_hz"],
+        audit["rates"]["fp32"]["fp32_instructions_per_cycle"]))
     log(f"[bound] {bounds}")
 
     # ---- 7. result lines ----------------------------------------------------

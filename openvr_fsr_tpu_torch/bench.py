@@ -16,11 +16,14 @@ Diagnostics go to stderr.
 Methodology, as the root bench.py's (:63-134): the zero-copy packed
 serving input, three rotating stereo frames resident on the card and
 pre-padded to the kernel's ring pitch (fn.pad_to); a warm-up of 5 calls,
-then the best of 3 rounds of 40 back-to-back calls, each round timed with
-one CUDA event pair. The yardstick is the kernel's own DMA floor
-(kernels/sol.py, csrc/dma_floor.cu: its launch shape and loads and stores,
-no compute), timed in the same process over the same frames, in turns with
-the kernel, so vs_sol = floor / kernel <= 1. Three frame pairs (75 MB)
+then 40 calls over the frames captured in one CUDA graph, and the best of 3
+rounds of one replay, each timed with one CUDA event pair: device time
+alone, with no host launch between the calls (the floor's device time is
+near the host's cost of a call). The yardstick is the kernel's own DMA
+floor (kernels/sol.py, csrc/dma_floor.cu: its loads and stores with
+perfect overlap, no compute), timed the same way in the same process over
+the same frames, in turns with the kernel, so vs_sol = floor / kernel <=
+1. Three frame pairs (75 MB)
 exceed the H100's 50 MB L2, so no call reads the last call's input from
 L2. probe_effective_gbps is the floor's unique input plane plus its output
 over its time.
@@ -127,14 +130,15 @@ class PathRun:
 def measure(config, h, w, *, iters=ITERS, rounds=ROUNDS, warmup=WARMUP,
             device="cuda"):
     """Time one plan's kernel and its DMA floor on the card, in turns, over
-    the three ring frames of (h, w) stereo pairs. compile_s is the build
+    the three ring frames of (h, w) stereo pairs, each from its CUDA graph
+    of `iters` calls. compile_s is the build
     (host tables, and nvcc where the library is not built yet) plus the
     first launch."""
     import torch
 
     from .api.pipeline import Pipeline
     from .kernels.sol import build_dma_floor
-    from .utils.timing import rotation_ms
+    from .utils.timing import replay_ms, rotation_graph, rotation_ms
 
     pipe = Pipeline(config, device=device)
     out_w, out_h = pipe.output_size(w, h)
@@ -150,10 +154,11 @@ def measure(config, h, w, *, iters=ITERS, rounds=ROUNDS, warmup=WARMUP,
     floor(inputs[0])
     for f in (fn, floor):
         rotation_ms(f, inputs, warmup)
+    graphs = [rotation_graph(f, inputs, iters) for f in (fn, floor)]
     ms, sol_ms = [], []
     for _ in range(rounds):
-        ms.append(rotation_ms(fn, inputs, iters))
-        sol_ms.append(rotation_ms(floor, inputs, iters))
+        ms.append(replay_ms(graphs[0], iters))
+        sol_ms.append(replay_ms(graphs[1], iters))
     return PathRun(fn.kernel, floor, min(ms), min(sol_ms), compile_s, out_w,
                    out_h)
 

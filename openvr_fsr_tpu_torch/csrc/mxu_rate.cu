@@ -8,29 +8,34 @@
 // over two k is the card's sustained rate for chained bf16 products of this
 // shape (tools/vpu_audit.py).
 //
-// What bounds it: the tensor cores, then the shared-memory reads of W. Each
-// round is mma.sync.aligned.m16n8k16 (bf16 x bf16 -> f32) in inline PTX: a
-// warp chains its 16-row slice of one stream through the k rounds, 16 n8
-// tiles x 8 k16 steps = 128 mma per round. The accumulators of two
-// neighbouring n8 tiles are, element for element, the A fragment of one k16
-// step, so each round's result is scaled by 1e-3, rounded to bf16 and fed to
-// the next round in registers (the TPU probe rounds s every round,
-// sol.py:299). W is rounded to bf16 once per step (sol.py:294) into shared
-// memory, transposed and padded so that ldmatrix reads its B fragments
-// without bank conflicts, every round (W does not fit in registers). The
-// x1e-3 and the conversion are side work of each round that
-// tools/vpu_audit.py counts and prices at the FP32 rate. mma.sync does not
-// reach Hopper's full tensor rate (that takes wgmma); this is the simple
-// form, and its time stands beside the datasheet bound.
+// What bounds it: the tensor cores. Each round is 8 warpgroup products
+// wgmma.mma_async m64n128k16 (bf16 x bf16 -> f32) in inline PTX per 64-row
+// half of a stream, A from registers, B = W^T from shared memory through a
+// matrix descriptor: the only way to Hopper's full tensor rate (mma.sync
+// reaches about half of it). W is rounded to bf16 once per step (sol.py:294)
+// and staged once per CTA as W^T in the K-major layout with the 128-byte
+// swizzle (wt_offset; kernels/sol.py::wt_swizzle_offset states it), so each
+// k16 product reads B once per 64 rows, 4x fewer shared bytes per MAC than
+// ldmatrix per 16 rows. The accumulators of one warp are, element for
+// element, the m16n8 layout of mma.sync: two neighbouring n8 columns are the
+// A fragment of one k16 step, so each round's result is scaled by 1e-3,
+// rounded to bf16 and fed to the next round in registers (the TPU probe
+// rounds s every round, sol.py:299). The chain forces a wait every round:
+// wgmma.fence (A was just written), 8 products, commit, wait. The x1e-3 and
+// the conversion are side work that tools/vpu_audit.py counts and prices at
+// the FP32 rate.
 //
-// Parallel form of the sequential grid: one CTA per step, 8 warps (one per
-// 16-row slice) that run the 8 streams one after another and add them in
-// stream order; the CTA adds the two 8-row halves of each slice, then the
-// slices in order, into its (8, 128) partial, and a second pass (rates.cuh)
-// adds the steps in order. The plain version (kernels/sol.py::
-// mxu_rate_reference) does the same with a float32 matrix product of the
-// bf16-rounded operands; the mma's summation order inside a product is
-// unspecified, so the two agree to a stated tolerance, not bit for bit.
+// Parallel form of the sequential grid: one CTA per step, two warpgroups
+// (one per 64-row half), two CTAs per SM, so four independent chains hide
+// each other's waits. Each warpgroup runs the 8 streams one after another
+// and adds them in stream order into a per-thread sum in shared memory
+// (registers hold the 64 accumulators and 32 A words); the CTA adds the two
+// 8-row halves of each 16-row slice (one warp each), then the slices in
+// order, into its (8, 128) partial, and a second pass (rates.cuh) adds the
+// steps in order. The plain version (kernels/sol.py::mxu_rate_reference)
+// does the same with a float32 matrix product of the bf16-rounded operands;
+// the tensor cores' summation order inside a product is their own, so the
+// two agree to a stated tolerance, not bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,9 +47,14 @@
 namespace {
 
 constexpr int kTile = 128;
-constexpr int kPitch = kTile + 8;     // bf16 per shared row of W^T (16 B of padding)
-constexpr int kWarps = kTile / 16;    // one warp per 16-row slice
-constexpr int kThreads = 32 * kWarps;
+constexpr int kGroups = 2;                 // warpgroups per CTA: the two 64-row halves
+constexpr int kThreads = 128 * kGroups;
+constexpr int kMinCtas = 2;                // CTAs per SM: four chains
+constexpr int kAcc = 64;                   // f32 accumulators per thread (m64n128)
+constexpr int kWtBytes = kTile * kTile * 2;                  // W^T in bf16
+constexpr int kSumBytes = kGroups * kAcc * 128 * 4;          // the stream sums
+constexpr int kSwizzle = 1024;             // the 128-byte swizzle's atom: 8 rows of 128 B
+constexpr int kSmemBytes = kWtBytes + kSumBytes + kSwizzle;  // + the alignment slack
 constexpr float kScale = 1e-3f;
 constexpr float kStepScale = 9.5367431640625e-07f;   // 2^-20
 
@@ -53,43 +63,87 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Byte offset of W^T element (n, k) in the K-major tile with the 128-byte
+// swizzle: two 16 KB atoms along K (k < 64, k >= 64), each 128 rows of 64
+// bf16 (128 B) in blocks of 8 rows (1 KB), the 16-byte chunk k / 8 of row n
+// stored at chunk (k / 8) ^ (n % 8).
+__device__ __forceinline__ int wt_offset(int n, int k) {
+  return (k / 64) * (kTile * 128) + (n / 8) * 1024 + (n % 8) * 128 +
+         (((k % 64) / 8) ^ (n % 8)) * 16 + (k % 8) * 2;
 }
 
-// Four 8x8 bf16 matrices of W^T from shared memory: the B fragments (k16 x
-// n8) of the n8 tiles at n0 and n0 + 8 for the k16 step at k0.
-__device__ __forceinline__ void load_b(const uint16_t* s_wt, int n0, int k0, int lane,
-                                       uint32_t b[4]) {
-  const int m = lane / 8, r = lane % 8;
-  const uint16_t* p = s_wt + (n0 + (m / 2) * 8 + r) * kPitch + k0 + (m % 2) * 8;
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
-               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-               : "r"(addr));
+// The descriptor of W^T for the k16 step kk: the atom of its K, 32 B per
+// k16 step inside it; leading offset unused for a swizzled K-major operand
+// (1), stride 1024 B between blocks of 8 rows, the 128-byte swizzle.
+__device__ __forceinline__ uint64_t wt_desc(uint32_t wt_addr, int kk) {
+  const uint32_t addr = wt_addr + (kk / 4) * (kTile * 128) + (kk % 4) * 32;
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
-__global__ void __launch_bounds__(kThreads, 1) mxu_rate_kernel(const float* __restrict__ x,
-                                                               const float* __restrict__ w,
-                                                               float* __restrict__ partials,
-                                                               int k) {
-  // W^T in bf16 during the rounds; then the slices' (8, 128) row sums in f32
-  __shared__ __align__(16) uint16_t s_wt[kTile * kPitch];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+// d (+)= a @ B for one k16 step: m64n128k16, A (this warp's 16 rows) from
+// registers, B from shared memory; accumulate = false overwrites d.
+__device__ __forceinline__ void wgmma_k16(float (&d)[kAcc], const uint32_t (&a)[4], uint64_t desc,
+                                          bool accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %68, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %69, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(static_cast<int>(accumulate)), "l"(desc));
+}
+
+// Keep the compiler from moving reads or writes of these registers across
+// the wgmma fence and wait around them (the products read and write them
+// asynchronously).
+__device__ __forceinline__ void pin(float (&d)[kAcc]) {
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t (&a)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i])::"memory");
+}
+
+__global__ void __launch_bounds__(kThreads, kMinCtas) mxu_rate_kernel(const float* __restrict__ x,
+                                                                      const float* __restrict__ w,
+                                                                      float* __restrict__ partials,
+                                                                      int k) {
+  extern __shared__ uint8_t s_dyn[];
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(s_dyn));
+  uint8_t* s_wt = s_dyn + (kSwizzle - base % kSwizzle) % kSwizzle;   // the atoms' alignment
+  const uint32_t wt_addr = static_cast<uint32_t>(__cvta_generic_to_shared(s_wt));
+  const int tid = threadIdx.x, group = tid / 128, gtid = tid % 128;
+  const int warp = tid / 32, lane = tid % 32;   // warp = the 16-row slice
   const int g = lane / 4, t = lane % 4;
+  // this thread's 64 stream sums, element i at i * 128 + gtid
+  float* s_sum = reinterpret_cast<float*>(s_wt + kWtBytes) + group * kAcc * 128 + gtid;
   const int step = blockIdx.x;
   const float step_f = static_cast<float>(step) * kStepScale;
 
-  for (int i = tid; i < kTile * kTile; i += kThreads)
-    s_wt[(i % kTile) * kPitch + i / kTile] = __bfloat16_as_ushort(__float2bfloat16_rn(w[i]));
+  for (int i = tid; i < kTile * kTile; i += kThreads)   // i = k * 128 + n: W[k][n]
+    *reinterpret_cast<__nv_bfloat16*>(s_wt + wt_offset(i % kTile, i / kTile)) =
+        __float2bfloat16_rn(w[i]);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to wgmma
   __syncthreads();
 
-  const int r0 = 16 * warp + g, r1 = r0 + 8;   // this thread's rows of the slice
-  float acc[16][4];
+  const int r0 = 16 * warp + g, r1 = r0 + 8;   // this thread's rows of the step's tile
 #pragma unroll 1
   for (int j = 0; j < 8; ++j) {
     const float cj = 0.125f * static_cast<float>(j + 1);
@@ -104,51 +158,46 @@ __global__ void __launch_bounds__(kThreads, 1) mxu_rate_kernel(const float* __re
       a[kk][2] = pack_bf16((x0[c1] + step_f) * cj, (x0[c1 + 1] + step_f) * cj);
       a[kk][3] = pack_bf16((x1[c1] + step_f) * cj, (x1[c1 + 1] + step_f) * cj);
     }
-    float cf[16][4];
+    float d[kAcc];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) d[i] = 0.0f;
 #pragma unroll 1
     for (int r = 0; r < k; ++r) {
+      pin(a);
+      pin(d);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int nt = 0; nt < 16; ++nt) cf[nt][0] = cf[nt][1] = cf[nt][2] = cf[nt][3] = 0.0f;
+      for (int kk = 0; kk < 8; ++kk) wgmma_k16(d, a[kk], wt_desc(wt_addr, kk), kk > 0);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      pin(d);
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int i = 0; i < kAcc; ++i) d[i] = d[i] * kScale;
 #pragma unroll
-        for (int np = 0; np < 8; ++np) {
-          uint32_t b[4];
-          load_b(s_wt, 16 * np, 16 * kk, lane, b);
-          mma_bf16(cf[2 * np], a[kk], b[0], b[1]);
-          mma_bf16(cf[2 * np + 1], a[kk], b[2], b[3]);
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < 16; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) cf[nt][i] = cf[nt][i] * kScale;
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {   // the next round's A: two n8 tiles per k16 step
-        a[kk][0] = pack_bf16(cf[2 * kk][0], cf[2 * kk][1]);
-        a[kk][1] = pack_bf16(cf[2 * kk][2], cf[2 * kk][3]);
-        a[kk][2] = pack_bf16(cf[2 * kk + 1][0], cf[2 * kk + 1][1]);
-        a[kk][3] = pack_bf16(cf[2 * kk + 1][2], cf[2 * kk + 1][3]);
+      for (int kk = 0; kk < 8; ++kk) {   // the next round's A: two n8 columns per k16 step
+        a[kk][0] = pack_bf16(d[8 * kk], d[8 * kk + 1]);
+        a[kk][1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+        a[kk][2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+        a[kk][3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
       }
     }
 #pragma unroll
-    for (int nt = 0; nt < 16; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[nt][i] = j == 0 ? cf[nt][i] : acc[nt][i] + cf[nt][i];
+    for (int i = 0; i < kAcc; ++i) s_sum[i * 128] = j == 0 ? d[i] : s_sum[i * 128] + d[i];
   }
-  __syncthreads();   // every warp is done with W
+  __syncthreads();   // every warpgroup is done with W^T
 
-  float* s_red = reinterpret_cast<float*>(s_wt);   // (kWarps, 8, 128)
+  float* s_red = reinterpret_cast<float*>(s_wt);   // (8 slices, 8, 128)
 #pragma unroll
-  for (int nt = 0; nt < 16; ++nt) {
+  for (int nt = 0; nt < 16; ++nt) {   // accumulators 4 nt .. 4 nt + 3: rows g, g + 8
     const int col = 8 * nt + 2 * t;
-    s_red[(warp * 8 + g) * kTile + col] = acc[nt][0] + acc[nt][2];
-    s_red[(warp * 8 + g) * kTile + col + 1] = acc[nt][1] + acc[nt][3];
+    s_red[(warp * 8 + g) * kTile + col] = s_sum[(4 * nt) * 128] + s_sum[(4 * nt + 2) * 128];
+    s_red[(warp * 8 + g) * kTile + col + 1] =
+        s_sum[(4 * nt + 1) * 128] + s_sum[(4 * nt + 3) * 128];
   }
   __syncthreads();
   for (int i = tid; i < 8 * kTile; i += kThreads) {
     float red = s_red[i];
-    for (int s = 1; s < kWarps; ++s) red = red + s_red[s * 8 * kTile + i];
+    for (int s = 1; s < kTile / 16; ++s) red = red + s_red[s * 8 * kTile + i];
     partials[static_cast<size_t>(step) * 8 * kTile + i] = red;
   }
 }
@@ -162,10 +211,13 @@ extern "C" int mxu_rate_launch(const void* x, const void* w, void* partials, voi
                                int tile, int k, int steps, void* stream) {
   if (tile != kTile || k < 1 || steps < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  mxu_rate_kernel<<<steps, kThreads, 0, s>>>(static_cast<const float*>(x),
-                                             static_cast<const float*>(w),
-                                             static_cast<float*>(partials), k);
-  const cudaError_t err = cudaGetLastError();
+  cudaError_t err = cudaFuncSetAttribute(mxu_rate_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mxu_rate_kernel<<<steps, kThreads, kSmemBytes, s>>>(static_cast<const float*>(x),
+                                                      static_cast<const float*>(w),
+                                                      static_cast<float*>(partials), k);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   rates::sum_partials(static_cast<const float*>(partials), static_cast<float*>(out), steps,
                       8 * kTile, s);

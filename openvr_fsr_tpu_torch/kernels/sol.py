@@ -4,17 +4,20 @@ kernel, as a CUDA kernel (csrc/dma_floor.cu), and its plain version.
 The port of the JAX package's kernels/sol.py::build_dma_floor.
 `build_dma_floor` consumes the DMA geometry a kernel build publishes
 (`fn.dma_geometry`, kernels/_maps.py::dma_geometry) and builds a kernel
-with that kernel's grid, threads per CTA and launch bounds, which stages
-the same windows into shared memory by the same CTAs, makes the same
-direct loads where a CTA does not stage, stores every output word once,
-and computes nothing. Its time is the time this card needs to move that
-kernel's exact device-memory traffic, so vs_sol = floor / kernel <= 1 when
-both are timed in one process over the same frames (bench.py,
+that moves the words that kernel moves and computes nothing, with perfect
+overlap: per output tile the window of a tile the kernel stages, or what
+its outside pass reads there (the footprint of its four bilinear taps),
+loaded by TMA as one box by persistent CTAs, or its own texels, copied
+straight in spans of neighbouring tiles, a CTA each; every output word
+stored once.
+Its time is the least time this card needs to move the kernel's exact
+words, so vs_sol = floor / kernel <= 1
+when both are timed in one process over the same frames (bench.py,
 tools/bench_paths.py).
 
 What it describes is the CUDA kernel's own traffic, not the TPU kernel's:
 the TPU floor DMAs one row band per grid step (its read_bytes count band
-windows); this one loads tile windows, overlaps included.
+windows); this one loads tile boxes, overlaps included.
 
 The rate probes (B8) follow: the FP32 rate (build_vpu_rate,
 csrc/vpu_rate.cu), the shared-memory rate (build_vmem_rate,
@@ -38,45 +41,157 @@ from ._common import DeviceTables, kernel_fn
 from ._maps import THREADS, _Tables
 
 __all__ = ["build_dma_floor", "dma_floor_reference", "check_geometry",
+           "floor_tiles", "floor_boxes", "floor_loads", "wt_swizzle_offset",
            "vpu_cycle", "build_vpu_rate", "vpu_rate_reference",
            "build_vmem_rate", "vmem_rate_reference", "build_mxu_rate",
-           "mxu_rate_reference", "MXU_TOLERANCE"]
+           "mxu_rate_reference", "MXU_TOLERANCE", "PITCH_WORDS"]
+
+# csrc/dma_floor.cu: TMA boxes are at most BOX_MAX words on a side, their
+# rows start and end on 16-byte boundaries (multiples of BOX_ALIGN words),
+# and the frame's row pitch is a multiple of PITCH_WORDS words (16 bytes);
+# a tile row is one warp
+BOX_MAX = 256
+BOX_ALIGN = 4
+PITCH_WORDS = 4
+FLOOR_STAGES = 4            # boxes in flight per CTA (kStages)
+FLOOR_SPAN = 4              # outside tiles per span item of the copy form
+FLOOR_TILE_W = 32
 
 
-def floor_loads(geom):
-    """Words one launch loads from the frame, overlaps included: each
-    staging CTA's window (its in-image words where out-of-image words are
-    staged as 0 without a load), plus, per output of a CTA that does not
-    stage, one word (stage "copy") or four bilinear taps ("list"), and four
-    per output of a staging CTA where stage_quads."""
+def floor_tiles(geom):
+    """The floor's item list: (n, 4) int32 rows (b, ty, tx, kind), each
+    (b, ty, tx) in exactly one item, the span items first (one CTA each),
+    then the box items (the persistent CTAs'), each part in (b, ty, tx)
+    order. kind 1: a tile the compute kernel stages (its window's box); 0:
+    another tile of stage "list" (its footprint's box); -n: in stage
+    "copy" with output rows of whole 16-byte units, a span of n <=
+    FLOOR_SPAN neighbouring outside tiles of one tile row from tx, copied
+    straight."""
+    staged = np.asarray(geom["staged"], bool)
+    spans = geom["stage"] == "copy" and geom["out_w"] % BOX_ALIGN == 0
+    items = []
+    for b, ty, tx in np.ndindex(staged.shape):
+        if staged[b, ty, tx] or not spans:
+            items.append([b, ty, tx, int(staged[b, ty, tx])])
+        elif (items and items[-1][:2] == [b, ty] and items[-1][3] < 0
+              and items[-1][2] - items[-1][3] == tx
+              and items[-1][3] > -FLOOR_SPAN):
+            items[-1][3] -= 1
+        else:
+            items.append([b, ty, tx, -1])
+    items = np.array(items, np.int32).reshape(-1, 4)
+    return items[np.argsort(items[:, 3] >= 0, kind="stable")]
+
+
+@dataclasses.dataclass(frozen=True)
+class FloorBoxes:
+    """The box each tile loads, per class (0: a tile that does not stage,
+    1: a staging tile): box[c] its (width, height) in words; x0[c] / y0[c]
+    its origin per tile column / row (may lie outside the image, whose
+    words read as 0); rel_x[c] / rel_y[c] each output column's / row's tap
+    as a box column / row, padded to whole tiles with 0."""
+
+    box: tuple
+    x0: np.ndarray
+    y0: np.ndarray
+    rel_x: np.ndarray
+    rel_y: np.ndarray
+
+
+def _rel(origins, taps, tile):
+    """taps - the origin of their tile, padded to whole tiles with 0."""
+    rel = np.zeros(len(origins) * tile, np.int64)
+    rel[:len(taps)] = taps - np.repeat(origins, tile)[:len(taps)]
+    return rel
+
+
+def _spans(lo, hi, tile):
+    """Per tile, the first of lo and the last of hi."""
+    starts = range(0, len(lo), tile)
+    return (np.array([lo[a:a + tile].min() for a in starts]),
+            np.array([hi[a:a + tile].max() for a in starts]))
+
+
+def _box(first, last, align):
+    """One axis of a class's boxes over per-tile spans [first, last]: the
+    origins, first rounded down to a multiple of `align` words (TMA starts
+    a box's rows on a 16-byte boundary), and the one extent, the largest
+    span from its origin rounded up to a multiple of `align`."""
+    start = first // align * align
+    return start, -(-int((last - start).max() + 1) // align) * align
+
+
+def floor_boxes(geom):
+    """The boxes of the floor's two tile classes (FloorBoxes). A staging
+    tile loads its window; another tile of stage "copy" its own texels (the
+    tile), of stage "list" the footprint of its four edge-clamped bilinear
+    taps (quad row 1). Each class's box starts its rows on a 16-byte
+    boundary (the origin's column rounded down to BOX_ALIGN words) and is
+    as wide as the widest span from there, rounded up to BOX_ALIGN words,
+    and as high as the highest; the words that adds are loaded too. Raises
+    ValueError on a box beyond BOX_MAX or a ring beyond shared memory."""
     g = geom
     (tw, th), (ww, wh) = g["tile"], g["window"]
-    H, W, OH, OW = g["in_h"], g["in_w"], g["out_h"], g["out_w"]
-    outs = (np.minimum(th, OH - np.arange(-(-OH // th)) * th)[:, None]
-            * np.minimum(tw, OW - np.arange(-(-OW // tw)) * tw)[None, :])
-    if g["oob"] == "clamp":
-        win = np.full(outs.shape, ww * wh)
-    else:
-        x0, y0 = g["tile_x0"].astype(np.int64), g["tile_y0"].astype(np.int64)
-        nx = np.clip(x0 + ww, 0, W) - np.clip(x0, 0, W)
-        ny = np.clip(y0 + wh, 0, H) - np.clip(y0, 0, H)
-        win = ny[:, None] * nx[None, :]
-    listed = g["stage"] == "list"
-    return int(np.where(g["staged"],
-                        win + (4 * outs if g["stage_quads"] else 0),
-                        (4 if listed else 1) * outs).sum())
+    axes = []
+    for tile, win, n_in, origins, taps, quad, align in (
+            (tw, ww, g["in_w"], g["tile_x0"], g["tap_x"], g["quad_x"],
+             BOX_ALIGN),
+            (th, wh, g["in_h"], g["tile_y0"], g["tap_y"], g["quad_y"], 1)):
+        origins = origins.astype(np.int64)
+        if g["stage"] == "list":
+            q = quad[1].astype(np.int64)
+            outside_taps = np.clip(q, 0, n_in - 1)
+            spans = _spans(outside_taps, np.clip(q + 1, 0, n_in - 1), tile)
+        else:
+            outside_taps = np.arange(len(taps))
+            spans = _spans(outside_taps, outside_taps, tile)
+        boxes = [_box(*spans, align), _box(origins, origins + win - 1, align)]
+        exts = tuple(ext for _, ext in boxes)
+        if max(exts) > BOX_MAX:
+            raise ValueError(f"a floor box of {max(exts)} words exceeds "
+                             f"TMA's {BOX_MAX}")
+        axes.append((exts, np.stack([start for start, _ in boxes]).astype(
+            np.int32), np.stack([_rel(boxes[0][0], outside_taps, tile),
+                                 _rel(boxes[1][0], taps, tile)]).astype(
+            np.int32)))
+    (ex, x0, rel_x), (ey, y0, rel_y) = axes
+    ring = FLOOR_STAGES * max(ex[0] * ey[0], ex[1] * ey[1]) * 4
+    if ring > SMEM_MAX - 256:
+        raise ValueError(f"{FLOOR_STAGES} floor boxes take {ring} bytes of "
+                         f"shared memory, above {SMEM_MAX - 256}")
+    return FloorBoxes(((ex[0], ey[0]), (ex[1], ey[1])), x0, y0, rel_x, rel_y)
+
+
+def floor_loads(geom, boxes=None):
+    """Words one launch loads from the frame, overlaps included: per tile,
+    the in-image words of its box (TMA reads no word outside the image);
+    a span item's tiles read the same words, their own texels."""
+    g = geom
+    b = floor_boxes(g) if boxes is None else boxes
+    (bw0, bh0), (bw1, bh1) = b.box
+    x0, y0 = b.x0.astype(np.int64), b.y0.astype(np.int64)
+    nx = (np.clip(x0 + np.array([[bw0], [bw1]]), 0, g["in_w"])
+          - np.clip(x0, 0, g["in_w"]))
+    ny = (np.clip(y0 + np.array([[bh0], [bh1]]), 0, g["in_h"])
+          - np.clip(y0, 0, g["in_h"]))
+    words = ny[:, :, None] * nx[:, None, :]          # (2, tiles_y, tiles_x)
+    return int(np.where(g["staged"], words[1], words[0]).sum())
 
 
 def check_geometry(geom):
     """Raise ValueError unless the floor can run `geom`: 256 threads per
-    CTA; stage "copy" with no four-tap floors, no stage_quads, a staged
-    table of the grid's shape and each output's tap its own texel, or
-    "list" with the floors and a staged table; every output's tap inside
-    the window of its tile."""
+    CTA and tiles 32 wide; stage "copy" with no
+    four-tap floors, no stage_quads, a staged table of the grid's shape and
+    each output's tap its own texel, or "list" with the floors and a staged
+    table; every output's tap inside the window of its tile, and where
+    stage_quads every RGBA tap (quad row 0, edge-clamped) too."""
     g = geom
     if g["threads"] != THREADS:
         raise ValueError(f"the DMA floor runs {THREADS} threads per CTA, "
                          f"the geometry {g['threads']}")
+    if g["tile"][0] != FLOOR_TILE_W:
+        raise ValueError(f"the DMA floor takes tiles {FLOOR_TILE_W} wide, not "
+                         f"{g['tile']}")
     grid = (g["batch"], len(g["tile_y0"]), len(g["tile_x0"]))
     if g["stage"] == "list":
         if np.shape(g["staged"]) != grid or g["quad_x"] is None:
@@ -94,15 +209,22 @@ def check_geometry(geom):
                              "the taps must be the identity")
     else:
         raise ValueError(f"no floor form for stage {g['stage']!r}")
-    for axis, tile, win, origins, taps in (
+    for axis, tile, win, origins, taps, quad, n_in in (
             ("column", g["tile"][0], g["window"][0], g["tile_x0"],
-             g["tap_x"]),
-            ("row", g["tile"][1], g["window"][1], g["tile_y0"],
-             g["tap_y"])):
-        rel = taps - np.repeat(origins, tile)[:len(taps)]
+             g["tap_x"], g["quad_x"], g["in_w"]),
+            ("row", g["tile"][1], g["window"][1], g["tile_y0"], g["tap_y"],
+             g["quad_y"], g["in_h"])):
+        first = np.repeat(origins, tile)[:len(taps)]
+        rel = taps - first
         if rel.min() < 0 or rel.max() >= win:
             raise ValueError(f"an output {axis}'s tap lies outside the "
                              f"{win}-wide window of its tile")
+        if g["stage_quads"]:
+            q = quad[0].astype(np.int64)
+            if (np.clip(q, 0, n_in - 1) < first).any() or \
+                    (np.clip(q + 1, 0, n_in - 1) >= first + win).any():
+                raise ValueError(f"an output {axis}'s RGBA tap lies outside "
+                                 f"the {win}-wide window of its tile")
 
 
 def _identity_taps(g):
@@ -112,9 +234,9 @@ def _identity_taps(g):
 
 def dma_floor_reference(img, geom):
     """The floor's output in plain torch, on img's device: each output word
-    is the input word at its tap (tap_y, tap_x); in a CTA of stage "list"
-    that does not stage, the first of the four bilinear taps it loads
-    instead, edge-clamped. img: (B, H, W) or ring-pitch (B, hp, wp) int32.
+    is the input word at its tap (tap_y, tap_x); in a tile of stage "list"
+    that does not stage, the first of its four bilinear taps instead,
+    edge-clamped. img: (B, H, W) or ring-pitch (B, hp, wp) int32.
     Returns (B, out_h, out_w) int32."""
     g = geom
     H, W, OH, OW = g["in_h"], g["in_w"], g["out_h"], g["out_w"]
@@ -138,37 +260,32 @@ def dma_floor_reference(img, geom):
 
 @dataclasses.dataclass(frozen=True)
 class _FloorTables(_Tables):
-    """The floor's device tables; an empty array stands for a null
-    pointer (identity taps, no four-tap loads)."""
+    """The floor's device tables: the item list and the boxes' origins and
+    box-relative taps."""
 
-    tile_x0: object
-    tile_y0: object
-    tap_x: object
-    tap_y: object
-    quad_x: object
-    quad_y: object
-    staged: object
+    tiles: object
+    rel_x: object
+    rel_y: object
+    x0: object
+    y0: object
 
-    _ARRAYS = ("tile_x0", "tile_y0", "tap_x", "tap_y", "quad_x", "quad_y",
-               "staged")
+    _ARRAYS = ("tiles", "rel_x", "rel_y", "x0", "y0")
+
+
+# csrc/dma_floor.cu dma_floor_launch: img, out, tiles, n_tiles, n_spans,
+# rel_x, rel_y, box_x0, box_y0, 13 ints, stream
+FLOOR_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                  + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13
+                  + [ctypes.c_void_p])
 
 
 @functools.cache
 def _launch_fn():
     """The ctypes entry point, bound (and built) at the first launch."""
     f = _build.load_library("dma_floor").dma_floor_launch
-    f.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 15
-                  + [ctypes.c_uint, ctypes.c_void_p])
+    f.argtypes = FLOOR_ARGTYPES
     f.restype = ctypes.c_int
     return f
-
-
-def _ptr(t):
-    return t.data_ptr() if t.numel() else None
-
-
-# csrc/dma_floor.cu Stage: what the CTAs that do not stage load
-_STAGES = {"list": 0, "copy": 1}
 
 
 def build_dma_floor(geom):
@@ -179,16 +296,23 @@ def build_dma_floor(geom):
     plane, or one pre-padded to the ring pitch fn.pad_to, that the compute
     kernel takes; the result is a new (B, out_h, out_w) int32 tensor, the
     input word at each output's tap (dma_floor_reference). A CUDA tensor
-    launches csrc/dma_floor.cu, a CPU tensor runs the plain version.
+    launches csrc/dma_floor.cu, whose TMA loads take a row pitch of a
+    multiple of fn.pitch_words words: any other CUDA frame (the unpadded
+    1683-word rows of the upscalers' input among them) raises ValueError,
+    and the ring pitch always runs. A CPU tensor runs the plain version.
     Published:
       launches, pad_to, reference   as every kernel build's;
+      pitch_words   the row pitch the CUDA path takes a multiple of;
+      tiles         the item list (floor_tiles), its first n_spans items
+                    the span items;
+      boxes         each class's box (floor_boxes);
       read_bytes    the bytes the floor loads, overlaps included
                     (floor_loads; the JAX floor's read_bytes, sol.py:101,
                     counts its band windows the same way);
       write_bytes   B * out_h * out_w * 4, as sol.py:102;
       hbm_bytes     the unique input plane plus the output: the bytes that
                     must cross device memory. Effective GB/s is taken over
-                    these, not read_bytes: a word that overlapping windows
+                    these, not read_bytes: a word that overlapping boxes
                     load again is served by L2, not by HBM.
     Raises ValueError if the geometry is one the floor cannot run.
     """
@@ -196,36 +320,41 @@ def build_dma_floor(geom):
     check_geometry(g)
     B, H, W = g["batch"], g["in_h"], g["in_w"]
     OH, OW = g["out_h"], g["out_w"]
-    none = np.zeros(0, np.int32)
-    taps = (none, none) if _identity_taps(g) else (g["tap_x"], g["tap_y"])
-    quads = (none, none) if g["quad_x"] is None else (g["quad_x"],
-                                                      g["quad_y"])
-    tables = DeviceTables(_FloorTables(
-        g["tile_x0"], g["tile_y0"], *taps, *quads,
-        np.ascontiguousarray(g["staged"], np.uint8)))
-    (tw, th), (ww, wh) = g["tile"], g["window"]
+    tiles, boxes = floor_tiles(g), floor_boxes(g)
+    n_spans = int((tiles[:, 3] < 0).sum())
+    tables = DeviceTables(_FloorTables(tiles, boxes.rel_x, boxes.rel_y,
+                                       boxes.x0, boxes.y0))
+    th = g["tile"][1]
+    (bw0, bh0), (bw1, bh1) = boxes.box
 
     def reference(img):
         """The plain torch version on img's device (any device)."""
         return dma_floor_reference(img, g)
 
     def launch(img):
+        if img.shape[2] % PITCH_WORDS or img.data_ptr() % (4 * PITCH_WORDS):
+            raise ValueError(
+                f"the DMA floor's TMA loads take a 16-byte-aligned frame "
+                f"with a row pitch of a multiple of {PITCH_WORDS} words, not "
+                f"{img.shape[2]}: pre-pad it to the ring pitch {fn.pad_to}")
         dev = img.device
         m = tables.on(dev)
         out = torch.empty((B, OH, OW), dtype=torch.int32, device=dev)
         err = _launch_fn()(
-            img.data_ptr(), out.data_ptr(), m.tile_x0.data_ptr(),
-            m.tile_y0.data_ptr(), _ptr(m.tap_x), _ptr(m.tap_y),
-            _ptr(m.quad_x), _ptr(m.quad_y), m.staged.data_ptr(), B, H, W,
-            img.shape[1], img.shape[2], OH, OW, tw, th, ww, wh, g["threads"],
-            _STAGES[g["stage"]],
-            int(g["stage_quads"]), int(g["oob"] == "clamp"), 0,
+            img.data_ptr(), out.data_ptr(), m.tiles.data_ptr(), len(tiles),
+            n_spans, m.rel_x.data_ptr(), m.rel_y.data_ptr(), m.x0.data_ptr(),
+            m.y0.data_ptr(), B, H, W, img.shape[1], img.shape[2], OH, OW,
+            FLOOR_TILE_W, th, bw0, bh0, bw1, bh1,
             torch.cuda.current_stream(dev).cuda_stream)
         return out, err
 
     fn = kernel_fn("DMA floor", B, (H, W), (g["hp"], g["wp"]), reference,
                    launch)
-    fn.read_bytes = floor_loads(g) * 4
+    fn.pitch_words = PITCH_WORDS
+    fn.tiles = tiles
+    fn.n_spans = n_spans
+    fn.boxes = boxes
+    fn.read_bytes = floor_loads(g, boxes) * 4
     fn.write_bytes = B * OH * OW * 4
     fn.hbm_bytes = B * H * W * 4 + fn.write_bytes
     return fn
@@ -365,6 +494,18 @@ def vmem_rate_reference(x, steps, shares=1):
             reds.extend(_fold8(_sum_in_order(accs)).unbind(0))
         parts.append(_sum_in_order(reds))
     return _sum_in_order(parts)
+
+
+def wt_swizzle_offset(n, k, tile=128):
+    """csrc/mxu_rate.cu::wt_offset: the byte offset of W^T element (n, k)
+    (W[k][n] in bf16) in the tensor-core probe's shared tile, the K-major
+    layout with the 128-byte swizzle that wgmma reads B from: two atoms of
+    tile x 64 bf16 along K, each rows of 128 bytes in blocks of 8 rows (1
+    KB), the 16-byte chunk k / 8 of row n stored at chunk (k / 8) ^ (n %
+    8). Elementwise over numpy integer arrays."""
+    n, k = np.asarray(n), np.asarray(k)
+    return ((k // 64) * (tile * 128) + (n // 8) * 1024 + (n % 8) * 128
+            + (((k % 64) // 8) ^ (n % 8)) * 16 + (k % 8) * 2)
 
 
 def mxu_rate_reference(x, w, k, steps):
@@ -525,7 +666,7 @@ def build_mxu_rate(k, tile=128, steps=64):
     """The tensor-core rate probe (B8c): fn(x, w) with x, w (tile, tile) f32
     tensors returns the (8, tile) f32 result of `steps` steps of k chained
     bf16 rounds over 8 streams (mxu_rate_reference). A CUDA tensor launches
-    csrc/mxu_rate.cu (mma.sync m16n8k16), a CPU tensor runs the plain
+    csrc/mxu_rate.cu (wgmma m64n128k16), a CPU tensor runs the plain
     version. Published as the JAX builder's (sol.py:335-337): steps, k,
     tile; plus macs (steps * k * 8 * tile^3), launches and reference. Only
     tile 128 is ported."""

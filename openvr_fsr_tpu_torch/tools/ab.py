@@ -1,8 +1,9 @@
 """Same-process A/B of one redesigned kernel (B1 csrc/fsr_fused.cu, B3
 csrc/nis_scaler.cu, B5 csrc/cas_upscale.cu, B4 csrc/nis_sharpen.cu, B6
-csrc/cas_sharpen.cu, B2 csrc/rcas_sharpen.cu or the shared-memory rate
-probe B8b csrc/vmem_rate.cu) against an earlier source of it, or against
-the current source with one part taken out, on one NVIDIA GPU.
+csrc/cas_sharpen.cu, B2 csrc/rcas_sharpen.cu, the shared-memory and
+tensor-core rate probes B8b csrc/vmem_rate.cu and B8c csrc/mxu_rate.cu, or
+the DMA floor B7 csrc/dma_floor.cu) against an earlier source of it, or
+against the current source with one part taken out, on one NVIDIA GPU.
 
     python3 -m openvr_fsr_tpu_torch.tools.ab --kernel KERNEL
         (--parent FILE | --ablate NAME) [--iters N] [--out FILE]
@@ -29,7 +30,16 @@ that source was written for:
                pitch, sharp, tint, stream);
   vmem_rate    the current vmem_rate_launch, one 130-thread CTA per
                (column, share), driven with the shares its source was
-               written for (PARENT_VMEM_SHARES).
+               written for (PARENT_VMEM_SHARES);
+  mxu_rate     the current mxu_rate_launch(x, w, partials, out, tile, k,
+               steps, stream) (the earlier source: mma.sync, 8 warps per
+               step);
+  dma_floor    dma_floor_launch(img, out, tile_x0, tile_y0, tap_x, tap_y,
+               quad_x, quad_y, staged, batch, in_h, in_w, rows, pitch,
+               out_h, out_w, tile_w, tile_h, win_w, win_h, threads, stage,
+               stage_quads, clamp, mask, stream): one CTA per tile in the
+               compute kernel's launch shape, its windows loaded word by
+               word (parent_floor builds its tables from the geometry).
 It is built with the port's nvcc flags into a temporary directory and
 driven with the tables it was written for, made from the same sample maps
 and centres as the current build's.
@@ -53,7 +63,9 @@ point swapped in. It answers what a part of the kernel costs:
                predicated  every plane goes through the predicated loop of
                         two loads per trip, not unrolled (the same bits);
                nounroll the loop of blocks of 8 planes not unrolled (the
-                        same bits).
+                        same bits);
+  dma_floor    nopersist one CTA per item, the box items too: no ring
+                        holds a second box (the same words).
   cas_upscale  nostage  no window is staged: the filter reads a window
                         never written (other bits: a time only);
                noload   the window's texels are made from their index
@@ -76,13 +88,27 @@ registers, spills and shared memory per kernel, the current class kernels'
 CTAs per SM, and per case both rounds of each and parent / current (the
 ablated build stands in the parent's place).
 
-For vmem_rate the case is the audit's full probe (tools/vpu_audit.py
-PROBES["vmem"]: k 16 and 112, 4,096 steps): both builds' hi calls must
-equal the plain version bit for bit; then each one's rate is measured as
-the audit measures it (paired slopes over the two k) in turns, parent,
-current, current, parent, and given as TB/s and as a share of SMs x 128 B
-x the max SM clock; the line also holds the loops of both builds' SASS
-(instructions and LDS per loop).
+For vmem_rate and mxu_rate the case is the audit's full probe
+(tools/vpu_audit.py PROBES: vmem k 16 and 112, 4,096 steps; mxu k 8 and
+64, 264 steps): both builds' hi calls must equal the plain version (vmem:
+bit for bit; mxu: within kernels/sol.py::MXU_TOLERANCE); then each one's
+rate is measured as the audit measures it (paired slopes over the two k)
+in turns, parent, current, current, parent, and given per second and as a
+share of its bound (vmem: SMs x 128 B x the max SM clock; mxu: SMs x
+2,048 dense bf16 MACs x the max SM clock); the line also holds the loops of both builds'
+SASS (instructions, LDS, HMMA, HGMMA and LDSM per loop).
+
+For dma_floor the cases are the seven bench paths' geometries
+(tools/bench_paths.py PATHS) at their radius 0.5 and at radius 0.0 and
+2.0: both floors must equal the plain version word for word on the first
+ring frame; then the parent floor, the current floor and the path's
+compute kernel are timed in turns (parent, current, kernel, kernel,
+current, parent) over the bench's ring frames, and each case gives both
+floors' ms, the kernel's, and vs_sol against each floor; then the same
+turns again as device time alone (graph_ms: the calls replayed from one
+CUDA graph, so the host's launch time is out of the loop), with vs_sol
+from those. With --ablate the ablated floor takes the parent floor's place,
+driven through the current wrapper.
 """
 
 import argparse
@@ -100,7 +126,9 @@ __all__ = ["main", "build_parent", "parent_launcher", "ablated_source",
            "CASES", "KERNELS", "PARENT_ARGTYPES", "ABLATIONS"]
 
 KERNELS = ("fsr_fused", "nis_scaler", "cas_upscale", "nis_sharpen",
-           "cas_sharpen", "rcas_sharpen", "vmem_rate")
+           "cas_sharpen", "rcas_sharpen", "vmem_rate", "mxu_rate",
+           "dma_floor")
+PROBE_KERNELS = ("vmem_rate", "mxu_rate")
 SHARPEN_KERNELS = ("nis_sharpen", "cas_sharpen", "rcas_sharpen")
 _MAIN = [(f"rs0.75 radius {r}", 1869, 1683, 0.75, r, 0, 1.0)
          for r in (0.0, 0.5, 2.0)]
@@ -131,6 +159,8 @@ PARENT_ARGTYPES = {
     "cas_sharpen": [_P] * 3 + [_I] * 5 + [_F] * 3 + [_P],
     "rcas_sharpen": [_P] * 3 + [_I] * 5 + [_F] * 2 + [_P],
     "vmem_rate": [_P] * 3 + [_I] * 5 + [_P],
+    "mxu_rate": [_P] * 4 + [_I] * 3 + [_P],
+    "dma_floor": [_P] * 9 + [_I] * 15 + [ctypes.c_uint, _P],
 }
 # the earlier vmem_rate source's shares at the audit's k and steps: as many
 # 130-thread CTAs of one column (58 KB at k 112) as fit on 132 SMs at once
@@ -170,16 +200,21 @@ ABLATIONS = {
                                "const int pairs = 0;")]),
         "nounroll": (True, [("#pragma unroll 4", "#pragma unroll 1")]),
     },
+    "dma_floor": {
+        "nopersist": (True, [("(boxes < ctas ? boxes : ctas)", "boxes")]),
+    },
 }
 # kernel -> the name of its wrapper module's entry-point getter
 _ENTRIES = {"nis_scaler": "_scaler_fn", "cas_upscale": "_upscale_launch_fn",
             "nis_sharpen": "_sharpen_fn", "cas_sharpen": "_sharpen_launch_fn",
-            "rcas_sharpen": "_launch_fn", "vmem_rate": "_probe_launch"}
+            "rcas_sharpen": "_launch_fn", "vmem_rate": "_probe_launch",
+            "mxu_rate": "_probe_launch", "dma_floor": "_launch_fn"}
 
 
 def _wrapper_module(kernel):
     from ..kernels import cas, nis, rcas, sol
-    return {"rcas_sharpen": rcas, "vmem_rate": sol}.get(
+    return {"rcas_sharpen": rcas, "vmem_rate": sol, "mxu_rate": sol,
+            "dma_floor": sol}.get(
         kernel, cas if kernel.startswith("cas") else nis)
 
 
@@ -378,59 +413,201 @@ def _best_ms(fn, inputs, iters):
     return min(rotation_ms(fn, inputs, iters) for _ in range(3))
 
 
-def _sass_loops(lib):
-    """[(instructions, LDS)] of each loop of vmem_rate_kernel in a built
-    library's SASS, shortest first, or None without cuobjdump."""
+def _graph_ms(fn, inputs, iters):
+    """Device ms per call with no host in the loop: `iters` calls over the
+    rotating inputs captured in one CUDA graph, the best of 5 replays."""
+    from ..utils.timing import replay_ms, rotation_graph
+    graph = rotation_graph(fn, inputs, iters)
+    return min(replay_ms(graph, iters) for _ in range(5))
+
+
+# the opcodes each probe's A/B line counts per loop of its SASS
+_LOOP_OPS = {"vmem_rate": ("LDS",), "mxu_rate": ("HMMA", "HGMMA", "LDSM")}
+
+
+def _sass_loops(lib, kernel):
+    """[(instructions, {opcode: count})] of each loop of the probe kernel's
+    function in a built library's SASS, shortest first, or None without
+    cuobjdump."""
     from ..kernels import _build
     from . import sass
     text = sass.disassemble(lib, _build._nvcc())
     if text is None:
         return None
-    return [(sum(ops.values()), ops["LDS"])
+    return [(sum(ops.values()), {o: ops[o] for o in _LOOP_OPS[kernel]})
             for fn, found in sass.loops(text).items()
-            if "vmem_rate_kernel" in fn for _, _, _, ops in found]
+            if f"{kernel}_kernel" in fn for _, _, _, ops in found]
 
 
-def _vmem_rates(entry, shares, dev, iters):
-    """The vmem_rate A/B at the audit's full probe: {"parent": [rates],
-    "current": [rates]} in bytes/s, each from the audit's paired slopes,
-    timed in turns parent, current, current, parent; `entry` (the parent
-    or ablated vmem_rate_launch) runs with `shares`. Exits 1 if either
-    build's hi call is not bit-equal to the plain version."""
+def _probe_rates(kernel, entry, dev, iters, shares=None):
+    """A rate probe's A/B at the audit's full settings: {"parent": [records],
+    "current": [records]}, each the audit's paired-slope record, timed in
+    turns parent, current, current, parent; `entry` (the parent or ablated
+    launch) runs through the current wrapper, for vmem_rate with `shares`.
+    Exits 1 if either build's hi call disagrees with the plain version
+    (vmem_rate: bit for bit; mxu_rate: within sol.MXU_TOLERANCE)."""
     from ..kernels import sol
     from . import vpu_audit
 
-    k_lo, k_hi, steps = vpu_audit.PROBES["vmem"][0]
     rng = np.random.default_rng(0)
-    planes = torch.from_numpy(rng.random((k_hi, 130, 128),
-                                         np.float32)).to(dev)
-    args = {k_lo: (planes[:k_lo].contiguous(),), k_hi: (planes,)}
+    if kernel == "vmem_rate":
+        k_lo, k_hi, steps = vpu_audit.PROBES["vmem"][0]
+        planes = torch.from_numpy(rng.random((k_hi, 130, 128),
+                                             np.float32)).to(dev)
+        args = {k_lo: (planes[:k_lo].contiguous(),), k_hi: (planes,)}
+
+        def build(k, parent):
+            return sol.build_vmem_rate(k, steps=steps,
+                                       shares=shares if parent else None)
+
+        def work(f):
+            return f.bytes_per_step * f.steps
+    else:
+        k_lo, k_hi, steps = vpu_audit.PROBES["mxu"][0]
+        x = torch.from_numpy(rng.random((128, 128), np.float32)).to(dev)
+        w = torch.from_numpy(rng.random((128, 128), np.float32)
+                             * 0.1).to(dev)
+        args = {k_lo: (x, w), k_hi: (x, w)}
+
+        def build(k, parent):
+            return sol.build_mxu_rate(k, steps=steps)
+
+        def work(f):
+            return f.macs
 
     def through(fn):          # fn with its launch through `entry`
-        run = _through_entry("vmem_rate", entry, fn)
-        run.k, run.steps = fn.k, fn.steps
-        run.bytes_per_step, run.reference = fn.bytes_per_step, fn.reference
+        run = _through_entry(kernel, entry, fn)
+        run.k, run.steps, run.reference = fn.k, fn.steps, fn.reference
+        run.bytes_per_step = getattr(fn, "bytes_per_step", None)
+        run.macs = getattr(fn, "macs", None)
         return run
 
-    builds = {
-        "parent": [through(sol.build_vmem_rate(k, steps=steps, shares=shares))
-                   for k in (k_lo, k_hi)],
-        "current": [sol.build_vmem_rate(k, steps=steps) for k in (k_lo, k_hi)],
-    }
+    builds = {"parent": [through(build(k, True)) for k in (k_lo, k_hi)],
+              "current": [build(k, False) for k in (k_lo, k_hi)]}
     for name, (_, hi) in builds.items():
-        ne = int((hi(planes) != hi.reference(planes)).sum())
-        if ne:
-            print(json.dumps({"metric": "ab", "kernel": "vmem_rate", "error":
-                              f"{name} probe: {ne} of 1024 outputs unequal "
-                              "to the plain version"}))
+        got, want = hi(*args[k_hi]), hi.reference(*args[k_hi])
+        if kernel == "vmem_rate":
+            ne = int((got != want).sum())
+            error = ne and f"{ne} of 1024 outputs unequal"
+        else:
+            err, top = float((got - want).abs().max()), float(want.abs().max())
+            error = (err > sol.MXU_TOLERANCE * top
+                     and f"max abs err {err} above {sol.MXU_TOLERANCE} x "
+                         f"{top}")
+        if error or not bool(torch.isfinite(got).all()):
+            print(json.dumps({"metric": "ab", "kernel": kernel, "error":
+                              f"{name} probe: {error or 'not finite'} "
+                              "against the plain version"}))
             sys.exit(1)
     rounds = {"parent": [], "current": []}
     for name in ("parent", "current", "current", "parent"):
-        rec = vpu_audit._measure_rate(
-            builds[name], lambda f: args[f.k],
-            lambda f: f.bytes_per_step * f.steps, iters=iters)
+        rec = vpu_audit._measure_rate(builds[name], lambda f: args[f.k],
+                                      work, iters=iters)
         rounds[name].append(rec)
     return rounds
+
+
+def parent_floor(entry, geom, device):
+    """fn(img) running the earlier DMA floor `entry` (one CTA per tile in
+    the compute kernel's launch shape) with the tables it was written for,
+    made from `geom`: window origins, taps (null where the identity), the
+    four-tap floors (stage "list"), the staged table."""
+    from ..kernels import sol
+
+    g = geom
+    B, H, W, OH, OW = g["batch"], g["in_h"], g["in_w"], g["out_h"], g["out_w"]
+    (tw, th), (ww, wh) = g["tile"], g["window"]
+    identity = sol._identity_taps(g)
+
+    def table(a, dtype=np.int32):
+        return (None if a is None else
+                torch.as_tensor(np.ascontiguousarray(a, dtype), device=device))
+
+    t = {name: table(g[name]) for name in ("tile_x0", "tile_y0")}
+    t.update(tap_x=None if identity else table(g["tap_x"]),
+             tap_y=None if identity else table(g["tap_y"]),
+             quad_x=table(g["quad_x"]), quad_y=table(g["quad_y"]),
+             staged=table(g["staged"], np.uint8))
+
+    def ptr(name):
+        return None if t[name] is None else t[name].data_ptr()
+
+    def run(img):
+        out = torch.empty((B, OH, OW), dtype=torch.int32, device=device)
+        err = entry(img.data_ptr(), out.data_ptr(), ptr("tile_x0"),
+                    ptr("tile_y0"), ptr("tap_x"), ptr("tap_y"), ptr("quad_x"),
+                    ptr("quad_y"), ptr("staged"), B, H, W, img.shape[1],
+                    img.shape[2], OH, OW, tw, th, ww, wh, g["threads"],
+                    {"list": 0, "copy": 1}[g["stage"]], int(g["stage_quads"]),
+                    int(g["oob"] == "clamp"), 0,
+                    torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"parent dma_floor_launch: cudaError {err}")
+        return out
+    return run
+
+
+def floor_cases():
+    """[(label, config, in_h, in_w)]: the seven bench paths at their radius
+    and at radius 0.0 and 2.0."""
+    from .bench_paths import PATHS, path_config
+    cases = []
+    for name in PATHS:
+        cfg, h, w = path_config(name)
+        cases += [(f"{name} radius {r}", cfg.with_(radius=r), h, w)
+                  for r in (cfg.radius, 0.0, 2.0)]
+    return cases
+
+
+def _floor_ab(entry, dev, iters, ablated=False):
+    """The dma_floor A/B: one record per floor_cases() case; `entry` is
+    the earlier floor's (parent_floor), or where `ablated` the ablated
+    build's, run through the current wrapper. Exits 1 if either floor
+    disagrees with the plain version."""
+    from .. import bench
+    from ..api.pipeline import Pipeline
+    from ..kernels.sol import build_dma_floor
+
+    out = []
+    for label, cfg, h, w in floor_cases():
+        kernel = Pipeline(cfg, device=dev)._build(2, h, w, (0, 1), True)
+        floor = build_dma_floor(kernel.dma_geometry)
+        old = (_through_entry("dma_floor", entry, floor) if ablated
+               else parent_floor(entry, kernel.dma_geometry, dev))
+        inputs = bench.ring_frames(h, w, kernel.pad_to, dev)
+        want = floor.reference(inputs[0])
+        for name, fn in (("parent", old), ("current", floor)):
+            ne = int((fn(inputs[0]) != want).sum())
+            if ne:
+                print(json.dumps({"metric": "ab", "kernel": "dma_floor",
+                                  "error": f"{label}: {name} floor {ne} "
+                                  "words unequal to the plain version"}))
+                sys.exit(1)
+        turns = (("parent", old), ("current", floor), ("kernel", kernel),
+                 ("kernel", kernel), ("current", floor), ("parent", old))
+        rounds = {"parent": [], "current": [], "kernel": []}
+        graphs = {"parent": [], "current": [], "kernel": []}
+        for name, fn in turns:
+            rounds[name].append(_best_ms(fn, inputs, iters))
+        for name, fn in turns:
+            graphs[name].append(_graph_ms(fn, inputs, iters))
+        ms = {n: float(np.mean(v)) for n, v in rounds.items()}
+        gms = {n: float(np.mean(v)) for n, v in graphs.items()}
+        case = {"case": label, "parent_ms": rounds["parent"],
+                "current_ms": rounds["current"],
+                "kernel_ms": rounds["kernel"],
+                "parent_over_current": ms["parent"] / ms["current"],
+                "vs_sol_parent": ms["parent"] / ms["kernel"],
+                "vs_sol_current": ms["current"] / ms["kernel"],
+                "graph_ms": graphs,
+                "graph_vs_sol_parent": gms["parent"] / gms["kernel"],
+                "graph_vs_sol_current": gms["current"] / gms["kernel"],
+                "hbm_bytes": floor.hbm_bytes, "read_bytes": floor.read_bytes,
+                "current_gbps": floor.hbm_bytes / ms["current"] / 1e6,
+                "current_graph_gbps": floor.hbm_bytes / gms["current"] / 1e6}
+        out.append(case)
+        print(f"[ab] dma_floor {label}: {case}", file=sys.stderr, flush=True)
+    return out
 
 
 def main(argv=None):
@@ -477,22 +654,26 @@ def main(argv=None):
                                               f"ablate {args.ablate}"),
            "ptxas_parent": parent_usage, "ptxas_current": usage,
            "cases": []}
-    if kernel == "vmem_rate":
+    if kernel in PROBE_KERNELS:
         from . import vpu_audit
         from ..kernels import sol
-        _, k_hi, steps = vpu_audit.PROBES["vmem"][0]
-        shares = (sol.vmem_rate_shares(k_hi, steps=steps)
-                  if args.ablate and args.ablate != "onegroup"
-                  else PARENT_VMEM_SHARES)
-        bound = vpu_audit.smem_bytes_per_s(
+        shares = None
+        if kernel == "vmem_rate":
+            _, k_hi, steps = vpu_audit.PROBES["vmem"][0]
+            shares = (sol.vmem_rate_shares(k_hi, steps=steps)
+                      if args.ablate and args.ablate != "onegroup"
+                      else PARENT_VMEM_SHARES)
+        bound = (vpu_audit.smem_bytes_per_s if kernel == "vmem_rate"
+                 else vpu_audit.tensor_macs_per_s)(
             torch.cuda.get_device_properties(dev).multi_processor_count,
             float(vpu_audit._smi("clocks.max.sm") or "nan") * 1e6)
-        rounds = _vmem_rates(entry, shares, dev, iters=5)
+        rounds = _probe_rates(kernel, entry, dev, iters=5, shares=shares)
         rate = {n: [r["rate"] for r in rs] for n, rs in rounds.items()}
         rec.update(
             parent_shares=shares, bound=bound,
-            sass_loops_parent=_sass_loops(parent_lib),
-            sass_loops_current=_sass_loops(_build.library_path(kernel)),
+            sass_loops_parent=_sass_loops(parent_lib, kernel),
+            sass_loops_current=_sass_loops(_build.library_path(kernel),
+                                           kernel),
             parent_rate=rate["parent"], current_rate=rate["current"],
             parent_share_of_bound=[r / bound for r in rate["parent"]],
             current_share_of_bound=[r / bound for r in rate["current"]],
@@ -503,6 +684,9 @@ def main(argv=None):
             current_over_parent=float(np.mean(rate["current"])
                                       / np.mean(rate["parent"])))
         rec.pop("cases")
+        return _emit(rec, args.out)
+    if kernel == "dma_floor":
+        rec["cases"] = _floor_ab(entry, dev, args.iters, bool(args.ablate))
         return _emit(rec, args.out)
     rec["ctas_per_sm_current"] = occupancy(kernel)
     print(f"[ab] {kernel} on {card}; parent {parent_usage}; current {usage}, "

@@ -14,8 +14,9 @@ radius 0.5:
     python3 -m openvr_fsr_tpu_torch.tools.bench_paths [--paths a,b]
         [--iters N] [--out FILE]
 
-Methodology as bench.py's (the three rotating ring frames, warm-up, best of
-3 rounds of --iters back-to-back calls timed with CUDA events), each path
+Methodology as bench.py's (the three rotating ring frames, warm-up, --iters
+calls captured in one CUDA graph, the best of 3 replays timed with CUDA
+events: device time alone), each path
 stamped with its own DMA floor timed in turns with it, so vs_sol <= 1.
 Each line: metric, value (ms per stereo pair), unit, mpix_per_s, compile_s
 (the build, with nvcc where the library is not built yet, plus the first

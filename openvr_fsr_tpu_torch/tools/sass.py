@@ -3,9 +3,12 @@ function and per loop, read with `cuobjdump -sass` (beside nvcc); and what
 ptxas reported for each kernel when it was built (ptxas_usage).
 
 chip_smoke.py checks with it that each kernel kept its work (the DMA
-floor its loads and stores, each rate probe the instructions it meters),
+floor its TMA loads and its stores, each rate probe the instructions it
+meters: the tensor-core probe its HGMMA),
 and tools/vpu_audit.py takes the FP32 instructions of one vpu_cycle from
-it. A loop is the span from a backward branch's target to the branch; the
+it; inside_float_per_output reads the float instructions of one output of
+each compute kernel's inside kernel, to hold beside the op meter's count.
+A loop is the span from a backward branch's target to the branch; the
 innermost loop holding a given opcode is the one with the shortest span.
 """
 
@@ -15,7 +18,8 @@ import subprocess
 from pathlib import Path
 
 __all__ = ["disassemble", "function_counts", "loops", "innermost_loop",
-           "probe_loops", "ptxas_usage"]
+           "probe_loops", "probe_loop_counts", "ptxas_usage",
+           "inside_float_per_output", "INSIDE_RULES"]
 
 _INSN = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _BRANCH = re.compile(r"\bBRA\s+0x([0-9a-f]+)")
@@ -23,6 +27,21 @@ _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _USED = re.compile(r"Used (\d+) registers")
 _SMEM = re.compile(r"(\d+) bytes smem")
+
+FLOAT_ARITH = ("FADD", "FMUL", "FFMA")
+FLOAT_CMP = ("FMNMX", "FSETP", "FSEL")
+OUTPUTS_PER_THREAD = 4         # every inside kernel's outputs per thread
+FSR_POSITIONS_PER_OUTPUT = (34 / 32) ** 2   # B1's haloed stage-1 tile
+# kernel -> (a part of its inside kernel's name, how one inside output's
+# float instructions are read from it: inside_float_per_output)
+INSIDE_RULES = {
+    "fsr_fused": ("fsr_inside_kernel", "fsr"),
+    "rcas_sharpen": ("rcas_sharpen_inside_kernel", "tile"),
+    "nis_scaler": ("nis_inside_kernel", "run"),
+    "nis_sharpen": ("nis_sharpen_inside_kernel", "tile"),
+    "cas_upscale": ("cas_inside_kernel", "tile"),
+    "cas_sharpen": ("cas_sharpen_inside_kernel", "tile"),
+}
 
 
 def ptxas_usage(log):
@@ -120,13 +139,9 @@ def innermost_loop(sass, function_part, *opcodes):
 
 
 def probe_loops(nvcc=None):
-    """What each rate probe's SASS keeps in its metering loop, or None
-    without cuobjdump (the probes are built first where they are not):
-      vpu_rate   FP32 instructions (FADD + FMUL + FMNMX) per vpu_cycle;
-      vmem_rate  LDS in the Horner loop, and plane words per LDS (FMUL /
-                 LDS: 4 for 128-bit loads, above 4 a load was dropped);
-      mxu_rate   HMMA and LDSM per round of one warp.
-    Each is the innermost loop holding the instructions it meters."""
+    """What each rate probe's SASS keeps in its metering loop
+    (probe_loop_counts), or None without cuobjdump (the probes are built
+    first where they are not)."""
     from ..kernels import _build
 
     names = ("vpu_rate", "vmem_rate", "mxu_rate")
@@ -137,16 +152,97 @@ def probe_loops(nvcc=None):
         texts[name] = disassemble(_build.library_path(name), nvcc)
         if texts[name] is None:
             return None
+    return probe_loop_counts(texts)
+
+
+def probe_loop_counts(texts):
+    """From the SASS texts {probe name: text} of the three rate probes:
+      vpu_rate   FP32 instructions (FADD + FMUL + FMNMX) per vpu_cycle;
+      vmem_rate  LDS in the Horner loop, and plane words per LDS (FMUL /
+                 LDS: 4 for 128-bit loads, above 4 a load was dropped);
+      mxu_rate   HGMMA per round of one warpgroup (wgmma m64n128k16: 8 per
+                 (64, 128) @ (128, 128) round).
+    Each is the innermost loop holding the instructions it meters."""
     vpu = innermost_loop(texts["vpu_rate"], "vpu_rate_kernel", "FMNMX")
     vmem = innermost_loop(texts["vmem_rate"], "vmem_rate_kernel", "LDS",
                           "FMUL")
-    mxu = innermost_loop(texts["mxu_rate"], "mxu_rate_kernel", "HMMA")
+    mxu = innermost_loop(texts["mxu_rate"], "mxu_rate_kernel", "HGMMA")
     return {
         "vpu_rate": {"fp32_per_cycle": (vpu["FADD"] + vpu["FMUL"]
                                         + vpu["FMNMX"]) if vpu else 0},
         "vmem_rate": {"lds_in_loop": vmem["LDS"] if vmem else 0,
                       "words_per_lds": (vmem["FMUL"] / vmem["LDS"])
                       if vmem and vmem["LDS"] else None},
-        "mxu_rate": {"hmma_per_round": mxu["HMMA"] if mxu else 0,
-                     "ldsm_per_round": mxu["LDSM"] if mxu else 0},
+        "mxu_rate": {"hgmma_per_round": mxu["HGMMA"] if mxu else 0},
     }
+
+
+def _floats(ops):
+    """(arithmetic, compare-select) float instruction counts of a Counter."""
+    return (sum(ops[o] for o in FLOAT_ARITH), sum(ops[o] for o in FLOAT_CMP))
+
+
+def _outermost(found):
+    """The loops of `found` that no other loop of it contains."""
+    return [lp for lp in found
+            if not any(o is not lp and o[1] <= lp[1] and lp[2] <= o[2]
+                       for o in found)]
+
+
+def inside_float_per_output(text, kernel, in_per_out=1.0):
+    """(arithmetic, compare-select): the float instructions (FLOAT_ARITH,
+    FLOAT_CMP) of one output inside the foveation circle, read from the
+    SASS text of `kernel`'s library, or None where its inside kernel or a
+    loop the rule needs is missing. Static: each instruction of a region
+    counts once and every branch of it counts (a path that seldom runs, as
+    IEEE division's slow one, too); the output's pack counts, the window's
+    staging does not. By INSIDE_RULES:
+      tile  the function less its staging loops (each outermost loop that
+            stores to shared memory) over OUTPUTS_PER_THREAD: B2, B4, B5,
+            B6, whose runs of 4 outputs per thread are unrolled;
+      fsr   B1: its stage-1 loop (the innermost loop holding MUFU and STS:
+            one EASU or bilinear position) x FSR_POSITIONS_PER_OUTPUT, plus
+            its persistent tile loop (the longest) less the loops in it
+            that store to shared memory, over OUTPUTS_PER_THREAD (RCAS);
+      run   B3: its run loop (the longest: one output per trip, the reload
+            and the one-row step both counted) plus each staging loop's
+            body once per input pixel (in_per_out: the luma and the edge
+            map are made per input pixel)."""
+    part, rule = INSIDE_RULES[kernel]
+    counts = function_counts(text)
+    found = loops(text)
+    names = [fn for fn in counts if part in fn]
+    if not names:
+        return None
+    fn = names[0]
+    whole, its = counts[fn], found[fn]
+    staging = _outermost([lp for lp in its if lp[3]["STS"]])
+    if rule == "tile":
+        arith, cmp = _floats(whole)
+        for lp in staging:
+            a, c = _floats(lp[3])
+            arith, cmp = arith - a, cmp - c
+        return arith / OUTPUTS_PER_THREAD, cmp / OUTPUTS_PER_THREAD
+    if not its:
+        return None
+    longest = its[-1]
+    if rule == "run":
+        arith, cmp = _floats(longest[3])
+        for lp in staging:
+            if lp is not longest:
+                a, c = _floats(lp[3])
+                arith, cmp = arith + a * in_per_out, cmp + c * in_per_out
+        return arith, cmp
+    stage1 = next((lp for lp in its if lp[3]["MUFU"] and lp[3]["STS"]
+                   and lp is not longest), None)
+    if stage1 is None:
+        return None
+    arith, cmp = _floats(longest[3])
+    for lp in _outermost([lp for lp in its if lp[3]["STS"]
+                          and lp is not longest
+                          and longest[1] <= lp[1] and lp[2] <= longest[2]]):
+        a, c = _floats(lp[3])
+        arith, cmp = arith - a, cmp - c
+    a, c = _floats(stage1[3])
+    return (a * FSR_POSITIONS_PER_OUTPUT + arith / OUTPUTS_PER_THREAD,
+            c * FSR_POSITIONS_PER_OUTPUT + cmp / OUTPUTS_PER_THREAD)

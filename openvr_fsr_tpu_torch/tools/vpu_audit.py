@@ -50,6 +50,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 __all__ = ["count_ops", "count_macs", "paired_slope", "rate_from_slopes",
            "path_ops", "kernel_floors", "roofline_bound", "probe_bounds",
+           "fp32_instructions_per_s", "smem_bytes_per_s", "tensor_macs_per_s",
            "main", "ELEMWISE_SKIP", "SMEM_WORDS", "MAX_SPREAD"]
 
 # layout, index, creation and conversion ops: the meter skips them, as the
@@ -69,14 +70,16 @@ ELEMWISE_SKIP = frozenset({
 _MATMUL = frozenset({"mm", "bmm", "addmm", "baddbmm", "matmul", "dot", "mv"})
 MAX_SPREAD = 1.5            # largest / smallest pair slope a rate may show
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA's data sheet)
-# FP32 outside the tensor cores at 700 W (the data sheet): it counts an FFMA
-# as two operations, while the port builds with --fmad=false (one rounded
-# FMUL or FADD per issue slot and lane), so it is twice what the kernels
-# can issue
-FP32_OPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989.4e12  # dense bf16 tensor cores at 700 W (the data sheet)
-TENSOR_MACS_PER_S = BF16_FLOPS_PER_S / 2
+# FP32 work is priced at the card's issue bound (fp32_instructions_per_s):
+# the data sheet's 67 TFLOP/s counts an FFMA as two operations, while the
+# port builds with --fmad=false (one rounded FMUL or FADD per issue slot and
+# lane), so it is twice what the kernels can issue
 LANES_PER_SM = 128          # FP32 lanes, and shared-memory bytes per clock
+# dense bf16 MACs per SM and clock: the data sheet's 989.4 TFLOP/s is 132
+# SMs x 4,096 FLOP x 1,830 MHz, below the max SM clock the card runs at, so
+# the tensor bound, like the FP32 and shared-memory ones, takes the sampled
+# max SM clock (tensor_macs_per_s)
+TENSOR_MACS_PER_SM_CLOCK = 2048
 
 # The shared-memory words each kernel's math reads per output pixel, from
 # its source (staging stores and recomputed halos not counted), inside the
@@ -417,11 +420,10 @@ def kernel_floors(inside_px, fallback_px, ops, smem_words, unique_bytes,
             "share": floors[bound_by] / ms}
 
 
-def roofline_bound(nbytes, ops, peak=FP32_OPS_PER_S, smem_bytes=0,
-                   smem_rate=None):
+def roofline_bound(nbytes, ops, peak, smem_bytes=0, smem_rate=None):
     """(ms, bound_by): the least time the card could take for one call, the
     largest of its unique device-memory bytes over HBM_BYTES_PER_S
-    ("bytes"), its operations over the peak rate of their type
+    ("bytes"), its operations over `peak`, the rate of their type
     ("operations") and, for work that is shared-memory reads by definition
     (the shared-memory probe), those bytes over smem_rate ("smem")."""
     terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -432,32 +434,50 @@ def roofline_bound(nbytes, ops, peak=FP32_OPS_PER_S, smem_bytes=0,
     return terms[by], by
 
 
+def fp32_instructions_per_s(sms, clock_hz):
+    """The FP32 issue bound: SMs x 128 lanes x the SM clock, one rounded
+    FADD, FMUL or FMNMX per lane and clock."""
+    return sms * LANES_PER_SM * clock_hz
+
+
 def smem_bytes_per_s(sms, clock_hz):
     """The shared-memory bound: SMs x 128 B per clock x the SM clock."""
     return sms * LANES_PER_SM * clock_hz
 
 
-def probe_bounds(vpu, vmem, mxu, sms, clock_hz):
+def tensor_macs_per_s(sms, clock_hz):
+    """The dense bf16 tensor bound: SMs x 2,048 MACs per clock x the SM
+    clock."""
+    return sms * TENSOR_MACS_PER_SM_CLOCK * clock_hz
+
+
+def probe_bounds(vpu, vmem, mxu, sms, clock_hz, fp32_per_cycle=None):
     """{probe name: (bound ms, bound_by)} of the three rate-probe builds
-    (kernels/sol.py), each a roofline_bound: the FP32 probe its meter ops
-    over FP32_OPS_PER_S; the shared-memory probe the plane bytes its step
-    loop reads (bytes_per_step x steps) over smem_bytes_per_s(sms,
-    clock_hz), the bound measure_rates states for the smem rate, beside its
-    Horner ops (an FMUL and an FADD per word); the tensor-core probe its
-    MACs as two bf16 operations each. Each also has its input and output
-    bytes over HBM_BYTES_PER_S."""
+    (kernels/sol.py), each a roofline_bound: the FP32 probe its FP32
+    instructions (fp32_per_cycle per element and vpu_cycle, as
+    sass.probe_loops counts them in its SASS; the meter's ops where that is
+    None) over fp32_instructions_per_s(sms, clock_hz), the bound
+    measure_rates states for the FP32 rate; the shared-memory probe the
+    plane bytes its step loop reads (bytes_per_step x steps) over
+    smem_bytes_per_s(sms, clock_hz), beside its Horner ops (an FMUL and an
+    FADD per word) at the same issue bound; the tensor-core probe its MACs
+    over tensor_macs_per_s(sms, clock_hz), the bound measure_rates states
+    for the tensor rate. Each also has its input and output bytes over
+    HBM_BYTES_PER_S."""
     out = (8 * 128) * 4      # every probe's (8, 128) f32 result
     plane_bytes = vmem.bytes_per_step * vmem.steps
+    issue = fp32_instructions_per_s(sms, clock_hz)
+    per_cycle = fp32_per_cycle or vpu_cycle_ops()
     return {
         "vpu_rate": roofline_bound(
             vpu.elems * 4 + out,
-            vpu.k * vpu_cycle_ops() * vpu.elems * vpu.steps),
+            vpu.k * per_cycle * vpu.elems * vpu.steps, issue),
         "vmem_rate": roofline_bound(
-            vmem.bytes_per_step + out, 2 * plane_bytes // 4,
+            vmem.bytes_per_step + out, 2 * plane_bytes // 4, issue,
             smem_bytes=plane_bytes,
             smem_rate=smem_bytes_per_s(sms, clock_hz)),
-        "mxu_rate": roofline_bound(3 * mxu.tile ** 2 * 4, 2 * mxu.macs,
-                                   BF16_FLOPS_PER_S),
+        "mxu_rate": roofline_bound(3 * mxu.tile ** 2 * 4, mxu.macs,
+                                   tensor_macs_per_s(sms, clock_hz)),
     }
 
 
@@ -528,7 +548,7 @@ def measure_rates(dev, quick=False):
                          lambda f: f.k * cycle_ops * f.elems * f.steps)
     fp32.update(unit="meter ops/s", ops_per_cycle=cycle_ops,
                 fp32_instructions_per_cycle=fp32_per_cycle,
-                bound=sms * LANES_PER_SM * clock_hz,
+                bound=fp32_instructions_per_s(sms, clock_hz),
                 bound_unit="FP32 instructions/s (SMs x 128 lanes x max SM "
                            "clock)")
     fp32["instruction_rate"] = fp32["rate"] * (
@@ -563,11 +583,11 @@ def measure_rates(dev, quick=False):
                            lambda f: f.k * 8 * 128 ** 2 * scale * f.steps,
                            fp32["rate"])
     tensor.update(unit="MAC/s", side_ops_per_element_round=scale,
-                  hmma_per_round=loops["mxu_rate"]["hmma_per_round"]
+                  hgmma_per_round=loops["mxu_rate"]["hgmma_per_round"]
                   if loops else None,
-                  bound=TENSOR_MACS_PER_S,
-                  bound_unit="MAC/s (989.4 dense bf16 TFLOP/s at 700 W, "
-                             "the data sheet)")
+                  bound=tensor_macs_per_s(sms, clock_hz),
+                  bound_unit="MAC/s (SMs x 2,048 dense bf16 MACs per clock "
+                             "x max SM clock)")
     rates = {"fp32": fp32, "smem": smem, "tensor": tensor,
              "sms": sms, "max_sm_clock_hz": clock_hz}
     return rates, [*vpu, *vmem, *mxu]
@@ -601,11 +621,12 @@ def inside_pixels(geom):
 
 
 def kernel_ms(fn, inputs, iters=30, rounds=3, warmup=5):
-    """bench.py's method: warm-up, then the best of `rounds` rounds of
-    `iters` back-to-back calls over the rotating ring frames."""
-    from ..utils.timing import rotation_ms
+    """bench.py's method: warm-up, then `iters` calls over the rotating ring
+    frames captured in one CUDA graph, the best of `rounds` replays."""
+    from ..utils.timing import replay_ms, rotation_graph, rotation_ms
     rotation_ms(fn, inputs, warmup)
-    return min(rotation_ms(fn, inputs, iters) for _ in range(rounds))
+    graph = rotation_graph(fn, inputs, iters)
+    return min(replay_ms(graph, iters) for _ in range(rounds))
 
 
 def audit_kernels(kernels, rates, dev):

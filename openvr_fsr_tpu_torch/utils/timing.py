@@ -7,7 +7,9 @@ time for upscale: X ms" at each rollover. bench_fn, rotation_ms and
 hbm_calibration are the counterparts of the JAX package's
 utils/timing.py:56-110. CUDA work is timed with pairs of
 `torch.cuda.Event`s on the current stream (the timestamp queries'
-counterpart); CPU work with `time.perf_counter`.
+counterpart); CPU work with `time.perf_counter`. rotation_graph and
+replay_ms time a kernel's device work alone: its calls captured once in a
+CUDA graph and replayed, so no host launch sits between them.
 """
 
 import time
@@ -16,7 +18,8 @@ import torch
 
 from .log import get_logger
 
-__all__ = ["GpuTimer", "bench_fn", "rotation_ms", "hbm_calibration"]
+__all__ = ["GpuTimer", "bench_fn", "rotation_ms", "rotation_graph",
+           "replay_ms", "hbm_calibration"]
 
 
 class GpuTimer:
@@ -115,6 +118,42 @@ def rotation_ms(fn, inputs, iters):
     for i in range(iters):
         fn(inputs[i % len(inputs)])
     return (time.perf_counter() - t0) * 1000.0 / iters
+
+
+def rotation_graph(fn, inputs, iters):
+    """`iters` calls fn(inputs[i % len]) captured in one CUDA graph and
+    replayed once (each input called once on a side stream first, as
+    capture requires). A wrapper that counts its launches counts each
+    captured call once; a replay runs them again uncounted. Raises
+    ValueError on CPU inputs: there is no graph to capture."""
+    if not inputs[0].is_cuda:
+        raise ValueError("rotation_graph captures CUDA work: the inputs "
+                         "are on the CPU")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for x in inputs:
+            fn(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(inputs[i % len(inputs)])
+    graph.replay()
+    return graph
+
+
+def replay_ms(graph, iters):
+    """Device ms per call of one replay of a rotation_graph of `iters`
+    calls, timed with one CUDA event pair: the host launches the graph
+    once, so its cost per call is out of the time."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def hbm_calibration(device, read_shape=(2, 1872, 1792),

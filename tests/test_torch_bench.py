@@ -22,7 +22,8 @@ torch = pytest.importorskip("torch")
 from openvr_fsr_tpu_torch import Config, Pipeline, bench  # noqa: E402
 from openvr_fsr_tpu_torch.tools import bench_paths  # noqa: E402
 from openvr_fsr_tpu_torch.utils.timing import (bench_fn,  # noqa: E402
-                                               hbm_calibration, rotation_ms)
+                                               hbm_calibration, rotation_graph,
+                                               rotation_ms)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -120,6 +121,15 @@ def test_rotation_ms_on_the_cpu():
     calls = []
     ms = rotation_ms(calls.append, [torch.zeros(1), torch.ones(1)], 4)
     assert ms > 0 and [float(c) for c in calls] == [0.0, 1.0, 0.0, 1.0]
+
+
+def test_rotation_graph_refuses_cpu_inputs():
+    """A CUDA graph captures CUDA work only: on CPU inputs it raises before
+    it calls anything."""
+    calls = []
+    with pytest.raises(ValueError, match="on the CPU"):
+        rotation_graph(calls.append, [torch.zeros(1)], 4)
+    assert calls == []
 
 
 def test_hbm_calibration_smoke():

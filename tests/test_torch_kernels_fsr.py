@@ -310,7 +310,8 @@ def test_ab_tool_takes_one_comparison(argv, capsys):
 
 ABLATED = [("cas_sharpen", "noslide"), ("cas_sharpen", "nostage"),
            ("cas_upscale", "noload"),
-           ("cas_upscale", "nostage"), ("nis_scaler", "noslide"),
+           ("cas_upscale", "nostage"), ("dma_floor", "nopersist"),
+           ("nis_scaler", "noslide"),
            ("nis_sharpen", "noslide"), ("rcas_sharpen", "noslide"),
            ("vmem_rate", "nounroll"), ("vmem_rate", "onegroup"),
            ("vmem_rate", "predicated")]

@@ -137,13 +137,18 @@ def test_geometry_is_the_two_kernels(kernel, h, w, radius, eyes, batch):
     assert np.array_equal(g["tap_y"], np.arange(h))
     outs = (np.minimum(32, h - np.arange(ty) * 32)[:, None]
             * np.minimum(32, w - np.arange(tx) * 32)[None, :])
-    if oob == "clamp":
-        stage = np.full(outs.shape, win * win)
-    else:
-        nx = np.clip(g["tile_x0"] + win, 0, w) - np.clip(g["tile_x0"], 0, w)
-        ny = np.clip(g["tile_y0"] + win, 0, h) - np.clip(g["tile_y0"], 0, h)
-        stage = ny[:, None] * nx[None, :]
+    # the floor moves those words by TMA, one box per tile, reading only
+    # its in-image words (edge-clamped or zero, the window's in-image words
+    # are the same): an inside tile's window from 4 words before the tile
+    # (its rows start on 16 bytes) to the window's end, 40 words wide,
+    # another tile's own texels
+    x0 = np.arange(tx) * 32 - 4
+    nx = np.clip(x0 + 40, 0, w) - np.clip(x0, 0, w)
+    ny = np.clip(g["tile_y0"] + win, 0, h) - np.clip(g["tile_y0"], 0, h)
+    stage = ny[:, None] * nx[None, :]
     floor = sol.build_dma_floor(g)
+    assert floor.boxes.box == ((32, 32), (40, win))
+    assert np.array_equal(floor.boxes.x0[1], x0)
     assert floor.read_bytes == 4 * int(np.where(m.tile_inside, stage,
                                                 outs).sum())
     assert floor.write_bytes == floor.hbm_bytes - 4 * batch * h * w \
@@ -159,6 +164,24 @@ extern "C" int rcas_sharpen_launch(const void* img, void* out, const void* centr
 """
 
 
+# the entry points of the earlier tensor-core probe (mma.sync; the same
+# prototype as the current wgmma one) and DMA floor (one CTA per tile in the
+# compute kernel's launch shape), which tools/ab.py drives as the parents
+PARENT_MXU_PROTOTYPE = """
+extern "C" int mxu_rate_launch(const void* x, const void* w, void* partials, void* out,
+                               int tile, int k, int steps, void* stream) {
+"""
+PARENT_FLOOR_PROTOTYPE = """
+extern "C" int dma_floor_launch(const void* img, void* out, const void* tile_x0,
+                                const void* tile_y0, const void* tap_x, const void* tap_y,
+                                const void* quad_x, const void* quad_y, const void* staged,
+                                int batch, int in_h, int in_w, int rows,
+                                int pitch, int out_h, int out_w, int tile_w, int tile_h, int win_w,
+                                int win_h, int threads, int stage, int stage_quads, int clamp,
+                                unsigned int mask, void* stream) {
+"""
+
+
 def _prototype_argtypes(kernel, entry, text=None):
     """The ctypes types of the C prototype `entry` in csrc/<kernel>.cu (or
     in `text`): pointers as c_void_p, int as c_int, float as c_float."""
@@ -170,7 +193,8 @@ def _prototype_argtypes(kernel, entry, text=None):
     for p in params.split(","):
         p = " ".join(p.split())
         types.append(ctypes.c_void_p if "*" in p else
-                     {"int": ctypes.c_int, "float": ctypes.c_float}[p.split()[0]])
+                     {"int": ctypes.c_int, "float": ctypes.c_float,
+                      "unsigned": ctypes.c_uint}[p.split()[0]])
     return types
 
 
@@ -184,13 +208,32 @@ def test_argtypes_are_the_prototype(kernel, module):
         kernel, f"{kernel}_launch")
 
 
+@pytest.mark.parametrize("kernel,text", [
+    ("rcas_sharpen", PARENT_RCAS_PROTOTYPE), ("mxu_rate", PARENT_MXU_PROTOTYPE),
+    ("dma_floor", PARENT_FLOOR_PROTOTYPE)])
+def test_parent_argtypes_are_the_earlier_prototypes(kernel, text):
+    """tools/ab.py binds each earlier entry point it drives with the types
+    of that source's prototype; the tensor-core probe's is also the current
+    source's, so the parent runs through the current wrapper."""
+    assert ab.PARENT_ARGTYPES[kernel] == _prototype_argtypes(
+        kernel, f"{kernel}_launch", text)
+    if kernel == "mxu_rate":
+        assert ab.PARENT_ARGTYPES[kernel] == _prototype_argtypes(
+            kernel, f"{kernel}_launch")
+
+
+def test_floor_argtypes_are_the_prototype():
+    assert sol.FLOOR_ARGTYPES == _prototype_argtypes("dma_floor",
+                                                     "dma_floor_launch")
+
+
 def _conforms(args, argtypes):
     """Each argument is a Python value ctypes converts to its type."""
     assert len(args) == len(argtypes)
     for a, t in zip(args, argtypes):
         if t is ctypes.c_float:
             assert isinstance(a, float), (a, t)
-        elif t is ctypes.c_int:
+        elif t in (ctypes.c_int, ctypes.c_uint):
             assert isinstance(a, int) and not isinstance(a, bool), (a, t)
         else:
             assert a is None or isinstance(a, int), (a, t)
@@ -328,3 +371,40 @@ def test_rcas_reference_selects_by_the_group_classes(radius, eyes):
     alpha = (out.numpy().view(np.uint32) >> 24).astype(np.int64)
     per_pixel = np.repeat(np.repeat(m.group_cls, 16, 1), 16, 2)[:, :h, :w]
     assert np.array_equal(alpha, per_pixel * 255)
+
+
+@pytest.mark.parametrize("plan", ["rcas_sharpen", "nvsharpen", "fsr_fused",
+                                  "nvscaler", "cas_upscale"])
+def test_parent_floor_takes_the_earlier_entry_point(plan, monkeypatch):
+    """The A/B tool drives the earlier DMA floor with the tables it was
+    written for: window origins, null taps where they are the identity,
+    the four-tap floors of stage "list", the staged table, and the
+    geometry's shape, in the types of its argtypes."""
+    from openvr_fsr_tpu_torch import Config, Pipeline
+    kw = {"rcas_sharpen": dict(render_scale=1.0),
+          "nvsharpen": dict(render_scale=1.0, use_nis=True),
+          "fsr_fused": dict(render_scale=0.75),
+          "nvscaler": dict(render_scale=0.75, use_nis=True),
+          "cas_upscale": dict(render_scale=0.75, use_cas=True)}[plan]
+    h, w = 45, 61
+    g = Pipeline(Config(enabled=True, radius=0.5, **kw), device="cpu")._build(
+        2, h, w, (0, 1), True).dma_geometry
+    seen = {}
+
+    def entry(*args):
+        seen["args"] = args
+        return 0
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: type(
+        "S", (), {"cuda_stream": 0})())
+    run = ab.parent_floor(entry, g, torch.device("cpu"))
+    assert run(torch.zeros((2, h, w), dtype=torch.int32)).shape == (
+        2, g["out_h"], g["out_w"])
+    args = seen["args"]
+    _conforms(args, ab.PARENT_ARGTYPES["dma_floor"])
+    copy = g["stage"] == "copy"
+    assert (args[4] is None) == (args[5] is None) == copy    # taps
+    assert (args[6] is None) == (args[7] is None) == copy    # four-tap floors
+    assert args[9:16] == (2, h, w, h, w, g["out_h"], g["out_w"])
+    assert args[16:21] == (*g["tile"], *g["window"], 256)
+    assert args[21:25] == ({"list": 0, "copy": 1}[g["stage"]],
+                           int(g["stage_quads"]), int(g["oob"] == "clamp"), 0)

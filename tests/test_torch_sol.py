@@ -59,12 +59,56 @@ def _frames(h, w, seed=0):
         .astype(np.uint32).view(np.int32)
 
 
+def _class_boxes(g):
+    """{class: [(origins per tile, extent) along x, along y]}: the box a
+    tile of class 1 (it stages) or 0 (it does not) loads. Its span of taps
+    per tile: class 1 its window; class 0, stage "copy", its own texels,
+    "list", its four edge-clamped bilinear taps (quad row 1). The box
+    starts at the span's first tap, rounded down to 4 words along x (TMA
+    starts a row on 16 bytes), and is as wide as the largest span from
+    there, rounded up to 4 words along x."""
+    out = {0: [], 1: []}
+    for tile, win, quad, n_in, n_out, origins, align in (
+            (g["tile"][0], g["window"][0], g["quad_x"], g["in_w"],
+             g["out_w"], g["tile_x0"], 4),
+            (g["tile"][1], g["window"][1], g["quad_y"], g["in_h"],
+             g["out_h"], g["tile_y0"], 1)):
+        if g["stage"] == "list":
+            lo = np.clip(quad[1], 0, n_in - 1)
+            hi = np.clip(quad[1] + 1, 0, n_in - 1)
+        else:
+            lo = hi = np.arange(n_out)
+        starts = range(0, n_out, tile)
+        spans = {0: (np.array([lo[a:a + tile].min() for a in starts]),
+                     np.array([hi[a:a + tile].max() for a in starts])),
+                 1: (origins.astype(np.int64), origins + win - 1)}
+        for c, (first, last) in spans.items():
+            origin = first // align * align
+            ext = int((last - origin).max()) + 1
+            out[c].append((origin, -(-ext // align) * align))
+    return out
+
+
+def _in_image(x0, y0, bw, bh, h, w):
+    """(tiles_y, tiles_x): the in-image words of (bw, bh) boxes at the
+    origins x0 per tile column and y0 per tile row."""
+    nx = np.clip(np.asarray(x0) + bw, 0, w) - np.clip(x0, 0, w)
+    ny = np.clip(np.asarray(y0) + bh, 0, h) - np.clip(y0, 0, h)
+    return ny[:, None] * nx[None, :]
+
+
 def _emulate(img, g):
-    """The floor kernel in numpy, CTA by CTA: (output, words loaded).
-    Asserts that every staged read lies inside the CTA's window."""
+    """The floor kernel in numpy, tile by tile: (output, words loaded).
+    Each tile loads one box into a zero-filled buffer, reading only its
+    in-image words (TMA fills the others with 0), and each output stores
+    the box word at its tap, the box of its class (_class_boxes). Asserts
+    that
+    every tap an output (and its four bilinear or RGBA taps) reads lies in
+    its tile's box."""
     B, H, W = g["batch"], g["in_h"], g["in_w"]
     OH, OW = g["out_h"], g["out_w"]
-    (tw, th), (ww, wh) = g["tile"], g["window"]
+    (tw, th) = g["tile"]
+    boxes = _class_boxes(g)
     out = np.zeros((B, OH, OW), np.int32)
     loads = 0
     for b in range(B):
@@ -72,34 +116,34 @@ def _emulate(img, g):
             oy = np.arange(ty * th, min(ty * th + th, OH))
             for tx in range(-(-OW // tw)):
                 ox = np.arange(tx * tw, min(tx * tw + tw, OW))
-                n = len(oy) * len(ox)
-                if g["staged"][b, ty, tx]:
-                    y = g["tile_y0"][ty] + np.arange(wh)
-                    x = g["tile_x0"][tx] + np.arange(ww)
-                    win = img[b][np.ix_(np.clip(y, 0, H - 1),
-                                        np.clip(x, 0, W - 1))]
-                    if g["oob"] == "zero":
-                        valid = (((y >= 0) & (y < H))[:, None]
-                                 & ((x >= 0) & (x < W))[None, :])
-                        win = np.where(valid, win, 0)
-                        loads += int(valid.sum())
-                    else:
-                        loads += ww * wh
-                    ry = g["tap_y"][oy] - y[0]
-                    rx = g["tap_x"][ox] - x[0]
-                    assert ry.min() >= 0 and ry.max() < wh
-                    assert rx.min() >= 0 and rx.max() < ww
-                    out[b][np.ix_(oy, ox)] = win[np.ix_(ry, rx)]
-                    loads += 4 * n if g["stage_quads"] else 0
+                c = int(g["staged"][b, ty, tx])
+                (xo, bw), (yo, bh) = boxes[c]
+                x0, y0 = xo[tx], yo[ty]
+                if c:
+                    ys, xs = g["tap_y"][oy], g["tap_x"][ox]
+                    quad = 0 if g["stage_quads"] else None
                 elif g["stage"] == "list":
-                    qy = np.clip(g["quad_y"][1][oy], 0, H - 1)
-                    qx = np.clip(g["quad_x"][1][ox], 0, W - 1)
-                    out[b][np.ix_(oy, ox)] = img[b][np.ix_(qy, qx)]
-                    loads += 4 * n
+                    ys = np.clip(g["quad_y"][1][oy], 0, H - 1)
+                    xs = np.clip(g["quad_x"][1][ox], 0, W - 1)
+                    quad = 1
                 else:
-                    out[b][np.ix_(oy, ox)] = \
-                        img[b][np.ix_(g["tap_y"][oy], g["tap_x"][ox])]
-                    loads += n
+                    ys, xs, quad = oy, ox, None
+                y, x = y0 + np.arange(bh), x0 + np.arange(bw)
+                valid = (((y >= 0) & (y < H))[:, None]
+                         & ((x >= 0) & (x < W))[None, :])
+                box = np.where(valid, img[b][np.ix_(np.clip(y, 0, H - 1),
+                                                    np.clip(x, 0, W - 1))], 0)
+                loads += int(valid.sum())
+                taps = [(ys, xs)]
+                if quad is not None:
+                    qy, qx = g["quad_y"][quad][oy], g["quad_x"][quad][ox]
+                    taps += [(np.clip(qy + dy, 0, H - 1),
+                              np.clip(qx + dx, 0, W - 1))
+                             for dy in (0, 1) for dx in (0, 1)]
+                for ty_, tx_ in taps:
+                    assert ty_.min() >= y0 and ty_.max() < y0 + bh
+                    assert tx_.min() >= x0 and tx_.max() < x0 + bw
+                out[b][np.ix_(oy, ox)] = box[np.ix_(ys - y0, xs - x0)]
     return out, loads
 
 
@@ -142,6 +186,110 @@ class TestGeometry:
         a = floor(torch.from_numpy(img))
         b = floor(torch.from_numpy(ring))
         assert torch.equal(a, b) and floor.launches == 0
+
+    def test_tile_list_covers_every_tile_once(self, plan, h, w, radius):
+        """The floor's host list: every (b, ty, tx) of the grid in exactly
+        one item, the span items first (one CTA each, the launch's
+        n_spans), then the persistent CTAs' box items, each part in order;
+        kind 1 where the compute kernel stages the tile, else 0 (a box of
+        stage "list") or, in stage "copy" with output rows of whole 16-byte
+        units, -n: a span of n <= 4 outside tiles of one tile row, as long
+        as the row allows."""
+        g = _geometry(plan, h, w, radius)
+        items = sol.floor_tiles(g)
+        assert items.dtype == np.int32 and items.shape[1] == 4
+        assert items.flags["C_CONTIGUOUS"]      # the kernel reads it as int4
+        n_spans = int((items[:, 3] < 0).sum())
+        assert (items[:n_spans, 3] < 0).all()
+        assert sol.build_dma_floor(g).n_spans == n_spans
+        grid = np.shape(g["staged"])
+        staged = np.asarray(g["staged"], bool)
+        seen = np.zeros(grid, np.int64)
+        tiles = []
+        for b, ty, tx, kind in items:
+            for t in range(tx, tx + max(-kind, 1)):
+                seen[b, ty, t] += 1
+                tiles.append((b, ty, t, int(kind == 1)))
+        assert (seen == 1).all()
+        span_tiles = -int(items[:n_spans, 3].sum())
+        for part in (tiles[:span_tiles], tiles[span_tiles:]):
+            assert part == sorted(part)
+        assert sorted(tiles) == [(b, ty, tx, int(staged[b, ty, tx]))
+                                 for b, ty, tx in np.ndindex(grid)]
+        spans = g["stage"] == "copy" and g["out_w"] % 4 == 0
+        assert ((items[:, 3] < 0).any() if spans and not staged.all()
+                else (items[:, 3] >= 0).all())
+        assert (items[:, 3] >= -sol.FLOOR_SPAN).all()
+        for b, ty, tx, kind in items[:n_spans]:
+            end = tx - kind
+            if kind > -sol.FLOOR_SPAN and end < grid[2]:
+                assert staged[b, ty, end]     # a span ends at a staged tile
+
+    def test_boxes_hold_every_tap(self, plan, h, w, radius):
+        """Each tile's TMA box (the tables the kernel launches with) holds
+        every tap its outputs read: a staging tile's window holds each
+        output's tap (and NVScaler's four RGBA taps), another tile's box
+        each output's own texel or its four edge-clamped bilinear taps.
+        The boxes' rows start and end on 16-byte boundaries."""
+        g = _geometry(plan, h, w, radius)
+        b = sol.floor_boxes(g)
+        H, W = g["in_h"], g["in_w"]
+        (tw, th) = g["tile"]
+        assert all(bw % 4 == 0 and 0 < bw <= 256 and 0 < bh <= 256
+                   for bw, bh in b.box)
+        assert (b.x0 % 4 == 0).all()      # rows start on 16 bytes
+        for c in (0, 1):
+            for axis, tile, n_in, rel, origins, taps, quad in (
+                    ("x", tw, W, b.rel_x[c], b.x0[c], g["tap_x"],
+                     g["quad_x"]),
+                    ("y", th, H, b.rel_y[c], b.y0[c], g["tap_y"],
+                     g["quad_y"])):
+                ext = b.box[c][0 if axis == "x" else 1]
+                first = np.repeat(origins, tile)[:len(taps)].astype(np.int64)
+                assert rel.min() >= 0 and rel.max() < ext
+                if c == 1:
+                    assert np.array_equal(rel[:len(taps)], taps - first)
+                    reads = [taps]
+                    if g["stage_quads"]:
+                        reads += [np.clip(quad[0] + d, 0, n_in - 1)
+                                  for d in (0, 1)]
+                elif g["stage"] == "list":
+                    reads = [np.clip(quad[1] + d, 0, n_in - 1)
+                             for d in (0, 1)]
+                    assert np.array_equal(rel[:len(taps)], reads[0] - first)
+                else:
+                    reads = [np.arange(len(taps))]
+                    assert np.array_equal(rel[:len(taps)], reads[0] - first)
+                for r in reads:
+                    assert (r >= first).all() and (r < first + ext).all()
+
+    def test_clamped_tap_from_zero_filled_box(self, plan, h, w, radius):
+        """The kernel's reading, in numpy, from the tables it launches with:
+        each tile's box zero-filled outside the image (TMA), each output
+        the box word at its box-relative tap (the edge-clamped tap, on the
+        clamp geometries) equals dma_floor_reference."""
+        g = _geometry(plan, h, w, radius)
+        b = sol.floor_boxes(g)
+        img = _frames(h, w, seed=2)
+        H, W, (tw, th) = g["in_h"], g["in_w"], g["tile"]
+        out = np.zeros((2, g["out_h"], g["out_w"]), np.int32)
+        for bi, ty, tx0, kind in sol.floor_tiles(g):
+            # a span's tiles copy their own texels: the class-0 box, the tile
+            for tx in range(tx0, tx0 + max(-kind, 1)):
+                c = int(kind == 1)
+                (bw, bh), x0, y0 = b.box[c], b.x0[c][tx], b.y0[c][ty]
+                y, x = y0 + np.arange(bh), x0 + np.arange(bw)
+                valid = (((y >= 0) & (y < H))[:, None]
+                         & ((x >= 0) & (x < W))[None, :])
+                box = np.where(valid, img[bi][np.ix_(np.clip(y, 0, H - 1),
+                                                     np.clip(x, 0, W - 1))],
+                               0)
+                oy = np.arange(ty * th, min(ty * th + th, g["out_h"]))
+                ox = np.arange(tx * tw, min(tx * tw + tw, g["out_w"]))
+                out[bi][np.ix_(oy, ox)] = box[np.ix_(b.rel_y[c][oy],
+                                                     b.rel_x[c][ox])]
+        want = sol.dma_floor_reference(torch.from_numpy(img), g).numpy()
+        assert np.array_equal(out, want)
 
     def test_windows_cover_the_taps_of_their_tiles(self, plan, h, w, radius):
         g = _geometry(plan, h, w, radius)
@@ -213,6 +361,67 @@ def test_full_size_geometries_fit_the_floor():
         assert floor.read_bytes >= 2 * h * w * 4
 
 
+@pytest.mark.parametrize("name", ["fsr_fused", "fsr_supersample",
+                                  "rcas_only", "nvscaler", "nvsharpen",
+                                  "cas_upscale", "cas_sharpen"])
+def test_full_size_boxes_fit_tma(name):
+    """At each bench path's full size the floor's boxes suit TMA: rows
+    that start and end on 16-byte boundaries (a window loads from its
+    origin rounded down to 4 words: B2's and B6's 34-word windows, which
+    start a word before a boundary, load 40), at most 256 words a side,
+    the ring of boxes within a CTA's shared memory; the ring pitch is a
+    multiple of the floor's pitch_words."""
+    from openvr_fsr_tpu_torch.tools.bench_paths import path_config
+    cfg, h, w = path_config(name)
+    g = Pipeline(cfg, device="cpu")._build(2, h, w, (0, 1), True).dma_geometry
+    floor = sol.build_dma_floor(g)
+    (bw0, bh0), (bw1, bh1) = floor.boxes.box
+    assert bw0 % 4 == bw1 % 4 == 0 and max(bw0, bh0, bw1, bh1) <= 256
+    assert (floor.boxes.x0 % 4 == 0).all()
+    lead = int((g["tile_x0"] % 4).max())
+    assert bw1 == -(-(lead + g["window"][0]) // 4) * 4 and bh1 == g["window"][1]
+    if name in ("rcas_only", "cas_sharpen"):
+        assert bw1 == 40
+    assert sol.FLOOR_STAGES * max(bw0 * bh0, bw1 * bh1) * 4 <= sol.SMEM_MAX
+    assert floor.pad_to[1] % floor.pitch_words == 0
+    assert floor.read_bytes == 4 * sol.floor_loads(g)
+
+
+def test_floor_refuses_a_pitch_tma_cannot_take(monkeypatch):
+    """On the card the floor's launch refuses a frame whose row pitch is not
+    a multiple of 16 bytes (the upscalers' unpadded 1683-word rows) with a
+    ValueError, before any launch; the ring pitch reaches the entry point
+    with the tables, the shapes and the boxes, in the types of its
+    argtypes."""
+    g = _geometry("fsr_fused", 45, 61, 0.5)
+    floor = sol.build_dma_floor(g)
+    cells = dict(zip(floor.__code__.co_freevars,
+                     (c.cell_contents for c in floor.__closure__)))
+    launch = cells["launch"]
+    seen = {}
+
+    def entry(*args):
+        seen["args"] = args
+        return 0
+    monkeypatch.setattr(sol, "_launch_fn", lambda: entry)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: type(
+        "S", (), {"cuda_stream": 0})())
+    with pytest.raises(ValueError, match="pitch"):
+        launch(torch.zeros((2, 45, 61), dtype=torch.int32))
+    assert not seen
+    hp, wp = floor.pad_to
+    out, err = launch(torch.zeros((2, hp, wp), dtype=torch.int32))
+    assert err == 0 and out.shape == (2, g["out_h"], g["out_w"])
+    args = seen["args"]
+    assert len(args) == len(sol.FLOOR_ARGTYPES)
+    assert args[3] == len(floor.tiles) == 2 * len(g["tile_y0"]) * len(
+        g["tile_x0"])
+    assert args[4] == floor.n_spans == 0        # the list form has no spans
+    assert args[9:16] == (2, 45, 61, hp, wp, g["out_h"], g["out_w"])
+    assert args[16:22] == (32, 32, *floor.boxes.box[0], *floor.boxes.box[1])
+    assert floor.launches == 0
+
+
 def test_tap_outside_its_window_is_refused():
     g = _geometry("fsr_fused", 72, 96, 0.5)
     bad = dict(g, tap_x=g["tap_x"] + _maps.IN_TILE)
@@ -220,6 +429,11 @@ def test_tap_outside_its_window_is_refused():
         sol.build_dma_floor(bad)
     with pytest.raises(ValueError, match="threads"):
         sol.build_dma_floor(dict(g, threads=128))
+    nis = _geometry("nvscaler", 72, 96, 0.5)
+    quad_x = nis["quad_x"].copy()
+    quad_x[0] += 40
+    with pytest.raises(ValueError, match="RGBA tap"):
+        sol.build_dma_floor(dict(nis, quad_x=quad_x))
 
 
 @pytest.mark.parametrize("plan,change,match", [
@@ -270,7 +484,8 @@ def test_fused_geometry_is_the_two_kernels(h, w, rs, radius, eyes, batch):
     load and store (csrc/fsr_fused.cu): a 32x32 tile with an output inside
     the circle stages its 40x40 window, every word loaded edge-clamped;
     every other tile loads four bilinear taps per output from device
-    memory; every output word is stored once."""
+    memory; every output word is stored once. The floor moves those words:
+    each tile's box, by TMA."""
     from openvr_fsr_tpu_torch.kernels.fsr import build_fsr_fused
     from openvr_fsr_tpu_torch.kernels._common import circle_mask
     ow, oh = Config(render_scale=rs).output_size(w, h)
@@ -283,9 +498,13 @@ def test_fused_geometry_is_the_two_kernels(h, w, rs, radius, eyes, batch):
     mask = np.zeros((batch, ty * 32, tx * 32), bool)
     mask[:, :oh, :ow] = circle_mask(torch.from_numpy(cen), oh, ow).numpy()
     inside = mask.reshape(batch, ty, 32, tx, 32).any(axis=(2, 4))
-    outs = (np.minimum(32, oh - np.arange(ty) * 32)[:, None]
-            * np.minimum(32, ow - np.arange(tx) * 32)[None, :])
-    loads = int(np.where(inside, 40 * 40, 4 * outs).sum())
+    # the floor loads one box per tile by TMA, only its in-image words: an
+    # inside tile its 40x40 window, another the footprint of its four
+    # bilinear taps
+    words = {c: _in_image(x0, y0, bw, bh, h, w)
+             for c, ((x0, bw), (y0, bh)) in _class_boxes(g).items()}
+    loads = int(np.where(inside, words[1], words[0]).sum())
+    assert _class_boxes(g)[1][1][1] == 40
     assert (g["tile"], g["window"], g["group"]) == ((32, 32), (40, 40),
                                                     (16, 16))
     assert (g["stage"], g["stage_quads"], g["oob"]) == ("list", False,

@@ -205,18 +205,36 @@ def test_geometry_is_the_two_kernels(h, w, rs, kernel, radius, eyes, batch):
     assert np.array_equal(g["tap_x"], np.clip(m.col_i[0], 0, w - 1))
     assert np.array_equal(g["tap_y"], np.clip(m.row_i[0], 0, h - 1))
     (tw, th), (ww, wh) = tile, win
-    ty, tx = staged.shape[1:]
-    outs = (np.minimum(th, oh - np.arange(ty) * th)[:, None]
-            * np.minimum(tw, ow - np.arange(tx) * tw)[None, :])
-    if kernel == "nis_scaler":
-        window = np.full(outs.shape, ww * wh)
-        stage = window + 4 * outs
-    else:
-        nx = np.clip(m.tile_x0 + ww, 0, w) - np.clip(m.tile_x0, 0, w)
-        ny = np.clip(m.tile_y0 + wh, 0, h) - np.clip(m.tile_y0, 0, h)
-        stage = ny[:, None] * nx[None, :]
+    # the floor moves those words by TMA, one box per tile, reading only
+    # its in-image words: an inside tile's window (B3's RGBA taps lie in
+    # it), another tile the footprint of its four bilinear taps; each box
+    # from its first column rounded down to 4 words (rows start on 16
+    # bytes), as wide as the widest span from there rounded up to 4 words
+    def in_image(x0, y0, bw, bh):
+        nx = np.clip(np.asarray(x0) + bw, 0, w) - np.clip(x0, 0, w)
+        ny = np.clip(np.asarray(y0) + bh, 0, h) - np.clip(y0, 0, h)
+        return ny[:, None] * nx[None, :]
+
+    def box(first, last, align):
+        origin = first // align * align
+        ext = int((last - origin).max()) + 1
+        return origin, -(-ext // align) * align
+
+    foot = []
+    for t, q, n_in, align in ((tw, g["quad_x"][1], w, 4),
+                              (th, g["quad_y"][1], h, 1)):
+        lo, hi = np.clip(q, 0, n_in - 1), np.clip(q + 1, 0, n_in - 1)
+        first = np.array([lo[a:a + t].min() for a in range(0, len(q), t)])
+        last = np.array([hi[a:a + t].max() for a in range(0, len(q), t)])
+        foot.append(box(first, last, align))
+    (fx, fw), (fy, fh) = foot
+    (sx, sw), (sy, sh) = (box(m.tile_x0, m.tile_x0 + ww - 1, 4),
+                          box(m.tile_y0, m.tile_y0 + wh - 1, 1))
     floor = sol.build_dma_floor(g)
-    assert floor.read_bytes == 4 * int(np.where(staged, stage, 4 * outs).sum())
+    assert floor.boxes.box == ((fw, fh), (sw, sh)) and sh == wh
+    assert ww <= sw <= ww + 4
+    assert floor.read_bytes == 4 * int(np.where(
+        staged, in_image(sx, sy, sw, sh), in_image(fx, fy, fw, fh)).sum())
     assert floor.write_bytes == 4 * batch * oh * ow
 
 

@@ -165,11 +165,22 @@ def test_probe_bounds():
     """Each probe's bound is the largest of its terms: the shared-memory
     probe's is the plane bytes its step loop reads over SMs x 128 B x the
     max SM clock (0.913 ms at the audit's k 112 and 4,096 steps on 132 SMs
-    at 1980 MHz), far above its Horner ops over the data sheet's FP32 rate;
-    the FP32 and tensor-core probes are bound by their operations."""
-    b = A.probe_bounds(sol.build_vpu_rate(144, steps=1024),
-                       sol.build_vmem_rate(112, steps=4096),
-                       sol.build_mxu_rate(64, steps=264), 132, 1980e6)
+    at 1980 MHz), far above its Horner ops at the FP32 issue bound; the
+    FP32 probe is bound by its FP32 instructions at SMs x 128 lanes x the
+    clock (26 per element and cycle in its SASS on the H100: 1.907 ms), or
+    its meter ops there without the SASS; the tensor-core probe by its
+    MACs over SMs x 2,048 dense bf16 MACs per clock x the clock (0.530 ms;
+    the data sheet's 989.4 TFLOP/s is the same count at 1830 MHz)."""
+    issue = 132 * 128 * 1980e6
+    assert A.fp32_instructions_per_s(132, 1980e6) == issue \
+        == A.smem_bytes_per_s(132, 1980e6)
+    assert A.tensor_macs_per_s(132, 1980e6) == 132 * 2048 * 1980e6
+    assert 2 * A.tensor_macs_per_s(132, 1830e6) == pytest.approx(989.4e12,
+                                                                 rel=1e-4)
+    builds = (sol.build_vpu_rate(144, steps=1024),
+              sol.build_vmem_rate(112, steps=4096),
+              sol.build_mxu_rate(64, steps=264))
+    b = A.probe_bounds(*builds, 132, 1980e6, fp32_per_cycle=26)
     ms, by = b["vmem_rate"]
     assert by == "smem"
     assert ms == pytest.approx(112 * 130 * 128 * 4 * 4096
@@ -177,13 +188,17 @@ def test_probe_bounds():
     assert round(ms, 3) == 0.913
     assert b["vpu_rate"][1] == b["mxu_rate"][1] == "operations"
     assert b["vpu_rate"][0] == pytest.approx(
-        144 * 30 * 130 * 128 * 1024 / A.FP32_OPS_PER_S * 1e3)
+        144 * 26 * 130 * 128 * 1024 / issue * 1e3)
+    assert round(b["vpu_rate"][0], 3) == 1.907
+    assert A.probe_bounds(*builds, 132, 1980e6)["vpu_rate"][0] == \
+        pytest.approx(144 * 30 * 130 * 128 * 1024 / issue * 1e3)
     assert b["mxu_rate"][0] == pytest.approx(
-        2 * 64 * 264 * 8 * 128 ** 3 / A.BF16_FLOPS_PER_S * 1e3)
+        64 * 264 * 8 * 128 ** 3 / (132 * 2048 * 1980e6) * 1e3)
+    assert round(b["mxu_rate"][0], 3) == 0.530
     # without its smem term the shared-memory probe would read "operations"
-    assert A.roofline_bound(112 * 130 * 128 * 4, 2 * 112 * 130 * 128 * 4096
-                            )[1] == "operations"
-    assert A.roofline_bound(1e9, 0) == pytest.approx(
+    assert A.roofline_bound(112 * 130 * 128 * 4, 2 * 112 * 130 * 128 * 4096,
+                            issue)[1] == "operations"
+    assert A.roofline_bound(1e9, 0, issue) == pytest.approx(
         (1e9 / A.HBM_BYTES_PER_S * 1e3, "bytes"))
 
 
@@ -372,6 +387,184 @@ def test_sass_loops():
     assert (inner["FADD"], inner["FMUL"], inner["FMNMX"]) == (1, 1, 1)
     assert sass.innermost_loop(SASS, "vpu_rate_kernel", "EXIT") is None
     assert len(sass.loops(SASS)[fn]) == 2
+
+
+PROBE_SASS = {
+    "vpu_rate": SASS,
+    "vmem_rate": """
+        Function : _Z16vmem_rate_kernelPKfPfiiii
+        /*0100*/                   LDS.128 R4, [R0] ;
+        /*0110*/                   FMUL R1, R2, R4 ;
+        /*0120*/                   FMUL R1, R2, R5 ;
+        /*0130*/                   FMUL R1, R2, R6 ;
+        /*0140*/                   FMUL R1, R2, R7 ;
+        /*0150*/              @!P0 BRA 0x100 ;
+        /*0160*/                   EXIT ;
+""",
+    "mxu_rate": """
+        Function : _Z15mxu_rate_kernelPKfS0_Pfi
+        /*0100*/                   LDG.E R2, desc[UR4][R2.64] ;
+        /*0110*/                   WARPGROUP.ARRIVE ;
+        /*0120*/                   HGMMA.64x128x16.F32.BF16 R24, R88, gdesc[UR8], RZ, !UPT ;
+        /*0130*/                   HGMMA.64x128x16.F32.BF16 R24, R92, gdesc[UR12], R24 ;
+        /*0140*/                   HGMMA.64x128x16.F32.BF16 R24, R96, gdesc[UR16], R24, gsb0 ;
+        /*0150*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+        /*0160*/                   FMUL R24, R24, 0.001 ;
+        /*0170*/                   F2FP.BF16.F32.PACK_AB R88, R25, R24 ;
+        /*0180*/              @P0 BRA 0x110 ;
+        /*0190*/              @P1 BRA 0x100 ;
+        /*01a0*/                   EXIT ;
+""",
+}
+
+
+def test_sass_counts_hgmma_per_round():
+    """The tensor-core probe's metering loop is the innermost one holding
+    HGMMA (wgmma, 8 per round at m64n128k16 over K = 128); the outer
+    stream loop also holds them, and is not the one counted."""
+    loops = sass.probe_loop_counts(PROBE_SASS)
+    assert loops["mxu_rate"] == {"hgmma_per_round": 3}
+    assert loops["vpu_rate"] == {"fp32_per_cycle": 3}
+    assert loops["vmem_rate"] == {"lds_in_loop": 1, "words_per_lds": 4.0}
+    counts = sass.function_counts(PROBE_SASS["mxu_rate"])
+    (ops,) = counts.values()
+    assert ops["HGMMA"] == 3 and ops["HMMA"] == 0
+    no_mma = PROBE_SASS["mxu_rate"].replace("HGMMA", "HMMA")
+    assert sass.probe_loop_counts(dict(PROBE_SASS, mxu_rate=no_mma))[
+        "mxu_rate"] == {"hgmma_per_round": 0}
+
+
+INSIDE_SASS = {
+    # a staging loop (one FMUL), then 4 unrolled outputs' float work
+    "cas_sharpen": """
+        Function : _Z25cas_sharpen_inside_kernel6Params
+        /*0100*/                   LDG.E R2, desc[UR4][R2.64] ;
+        /*0110*/                   FMUL R3, R2, 0.5 ;
+        /*0120*/                   STS [R0], R3 ;
+        /*0130*/              @P0 BRA 0x100 ;
+        /*0140*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0150*/                   LDS R4, [R0] ;
+        /*0160*/                   FADD R5, R4, R4 ;
+        /*0170*/                   FMUL R5, R5, R4 ;
+        /*0180*/                   FSETP.GT.AND P1, PT, R5, R4, PT ;
+        /*0190*/                   FSEL R5, R5, R4, P1 ;
+        /*01a0*/                   FMNMX R5, R5, R4, PT ;
+        /*01b0*/                   STG.E desc[UR4][R6.64], R5 ;
+        /*01c0*/                   EXIT ;
+""",
+    # a staging loop (two FMUL), then the run loop: one output per trip
+    "nis_scaler": """
+        Function : _Z17nis_inside_kernel6Params
+        /*0100*/                   LDG.E R2, desc[UR4][R2.64] ;
+        /*0110*/                   FMUL R3, R2, 0.5 ;
+        /*0120*/                   FMUL R3, R3, 0.5 ;
+        /*0130*/                   STS [R0], R3 ;
+        /*0140*/              @P0 BRA 0x100 ;
+        /*0150*/                   LDS R4, [R0] ;
+        /*0160*/                   FADD R5, R4, R4 ;
+        /*0170*/                   FADD R5, R5, R4 ;
+        /*0180*/                   FFMA R5, R5, R4, R4 ;
+        /*0190*/                   FSEL R5, R5, R4, P1 ;
+        /*01a0*/                   STG.E desc[UR4][R6.64], R5 ;
+        /*01b0*/                   IADD3 R0, R0, 0x4, RZ ;
+        /*01c0*/              @P2 BRA 0x150 ;
+        /*01d0*/                   EXIT ;
+""",
+    # the persistent tile loop: a decode loop (one FMUL), the stage-1 loop
+    # (4 FMUL, 2 FSETP, an rcp), then RCAS (8 FADD, 4 FMNMX) and the store
+    "fsr_fused": """
+        Function : _Z17fsr_inside_kernel6Params
+        /*0100*/                   LDS R2, [R0] ;
+        /*0110*/                   FMUL R3, R2, 0.5 ;
+        /*0120*/                   STS [R0], R3 ;
+        /*0130*/              @P0 BRA 0x100 ;
+        /*0140*/                   LDS R4, [R0] ;
+        /*0150*/                   MUFU.RCP R5, R4 ;
+        /*0160*/                   FMUL R5, R5, R4 ;
+        /*0170*/                   FMUL R5, R5, R4 ;
+        /*0180*/                   FMUL R5, R5, R4 ;
+        /*0190*/                   FMUL R5, R5, R4 ;
+        /*01a0*/                   FSETP.GT.AND P1, PT, R5, R4, PT ;
+        /*01b0*/                   FSETP.LT.AND P2, PT, R5, R4, PT ;
+        /*01c0*/                   STS [R1], R5 ;
+        /*01d0*/              @P3 BRA 0x140 ;
+        /*01e0*/                   FADD R6, R5, R4 ;
+        /*01f0*/                   FADD R6, R6, R4 ;
+        /*0200*/                   FADD R6, R6, R4 ;
+        /*0210*/                   FADD R6, R6, R4 ;
+        /*0220*/                   FADD R6, R6, R4 ;
+        /*0230*/                   FADD R6, R6, R4 ;
+        /*0240*/                   FADD R6, R6, R4 ;
+        /*0250*/                   FADD R6, R6, R4 ;
+        /*0260*/                   FMNMX R6, R6, R4, PT ;
+        /*0270*/                   FMNMX R6, R6, R4, PT ;
+        /*0280*/                   FMNMX R6, R6, R4, PT ;
+        /*0290*/                   FMNMX R6, R6, R4, PT ;
+        /*02a0*/                   STG.E desc[UR4][R6.64], R6 ;
+        /*02b0*/              @P4 BRA 0x100 ;
+        /*02c0*/                   EXIT ;
+""",
+}
+
+
+def test_inside_float_per_output_reads_each_rule():
+    """One inside output's float instructions (arithmetic, compare-select)
+    from an inside kernel's SASS: B2/B4/B5/B6 the function less its staging
+    loops over 4 outputs per thread; B3 its run loop plus each staging
+    loop per input pixel; B1 its stage-1 loop per haloed position plus its
+    tile loop's RCAS over 4. None without the inside kernel."""
+    per = sass.inside_float_per_output
+    assert per(INSIDE_SASS["cas_sharpen"], "cas_sharpen") == (2 / 4, 3 / 4)
+    assert per(INSIDE_SASS["cas_sharpen"], "rcas_sharpen") is None
+    assert per(INSIDE_SASS["nis_scaler"], "nis_scaler", 0.5) == \
+        pytest.approx((3 + 2 * 0.5, 1))
+    h = (34 / 32) ** 2
+    assert per(INSIDE_SASS["fsr_fused"], "fsr_fused") == pytest.approx(
+        (4 * h + (13 - 1 - 4) / 4, 2 * h + (6 - 2) / 4))
+    # without a stage-1 loop (no MUFU) the FSR rule finds nothing to read
+    no_rcp = INSIDE_SASS["fsr_fused"].replace("MUFU.RCP", "FCHK")
+    assert per(no_rcp, "fsr_fused") is None
+    assert set(sass.INSIDE_RULES) == set(A.SMEM_WORDS)
+
+
+def test_wt_swizzle_is_a_bijection():
+    """The W^T tile the tensor-core probe's wgmma reads (csrc/mxu_rate.cu
+    wt_offset, stated in kernels/sol.py): the 128 x 128 bf16 elements map
+    one to one onto the 32 KB tile's 2-byte slots; each row's 16-byte
+    chunks of one atom stay in the row's 128 bytes, permuted by the row
+    within its block of 8, and every 8 rows x 16 bytes of one k16 slice
+    hit 8 distinct bank groups."""
+    n, k = np.meshgrid(np.arange(128), np.arange(128), indexing="ij")
+    off = sol.wt_swizzle_offset(n, k)
+    assert off.min() == 0 and off.max() == 32 * 1024 - 2
+    assert (off % 2 == 0).all()
+    assert len(np.unique(off)) == 128 * 128
+    row = (k // 64) * 128 * 128 + n * 128
+    assert ((off - row >= 0) & (off - row < 128)).all()
+    assert np.array_equal((off - row) % 16, (k % 8) * 2)
+    chunk = (off // 16) % 8
+    for kk in range(8):
+        for n0 in range(0, 128, 8):
+            chunks = chunk[n0:n0 + 8, 16 * kk]
+            assert len(set(chunks.tolist())) == 8
+    # the descriptor's k16 step: 32 bytes further into the atom's rows
+    assert np.array_equal(sol.wt_swizzle_offset(0, np.arange(0, 64, 16)),
+                          np.arange(4) * 32)
+
+
+def test_ab_drives_the_tensor_probe_through_another_entry():
+    """tools/ab.py --kernel mxu_rate runs the earlier build through the
+    probe's own wrapper with its entry point swapped in for the call (the
+    prototype is unchanged), and restores it after."""
+    from openvr_fsr_tpu_torch.tools import ab
+    original = sol._probe_launch
+    seen = []
+    run = ab._through_entry("mxu_rate", "entry",
+                            lambda: seen.append(sol._probe_launch(
+                                "mxu_rate", 4, 3)))
+    run()
+    assert seen == ["entry"] and sol._probe_launch is original
+    assert "mxu_rate" in ab.PROBE_KERNELS and "dma_floor" in ab.KERNELS
 
 
 @pytest.mark.parametrize("entry", ["Pipeline", "upscale", "FsrModel"])
