@@ -56,7 +56,11 @@ lines:
      live Pipeline; upscale(use_nis=True), get_model("cas") and
      upscale(use_cas=True); Pipeline(cfg), upscale(frame) and FsrModel() on
      numpy frames. No entry point is given a device: each must default to
-     the card and launch its CUDA kernel;
+     the card and launch its CUDA kernel. Then deferred capture on the
+     card (arm_capture), for the uint8 and the packed int32 input: a
+     right-eye-only batch writes no file, the next stereo batch writes one
+     DDS whose texels (read_dds_rgba8) equal the eye-0 output byte for
+     byte;
   4. kernel and plain-version times in ms per stereo pair (CUDA events;
      a kernel's calls replayed from one CUDA graph, device time alone),
      and each plain version's peak device memory; fsr_fused also at rs 1.3;
@@ -79,11 +83,23 @@ lines:
      call by call, bench_fn) and the card's pure-read and pure-write rates
      (hbm_calibration); then the bench entries, bench.main() and
      tools.bench_paths.main() over all seven paths, in this process,
-     printing their JSON lines;
-     every path's kernel and floor must have launched in that run, and
-     none may read vs_sol above 1.02 (a floor slower than its kernel is a
-     wrong floor);
-  6. the rate probes (B8) and the audit: each probe (csrc/vpu_rate.cu,
+     printing their JSON lines, each with value (back to back, the host's
+     cost of a call included) and device_ms (from the CUDA graph) and
+     their difference, the host's cost per call that the card's work does
+     not hide; and, per path,
+     Pipeline.process's host time to enqueue a call (no sync) and its
+     back-to-back time;
+     every path's kernel and floor must have launched in that run, value
+     must be at least 0.98 x device_ms, vs_sol must be the floor's graph
+     time over device_ms, and none may read vs_sol above 1.02 (a floor
+     slower than its kernel is a wrong floor);
+  6. the NumPy oracle at full size and the throughput tool: two cases of
+     tools/parity.py through Pipeline.process on the card against the
+     port's copy of the oracle (oracle/pipeline.py, computed on the host):
+     fsr_fused_zone_r0.5 (0 unequal values) and nvscaler_noise (at most 1
+     LSB), each with its kernel launched; then tools.throughput_bench at
+     batch 8, in this process, printing its JSON line;
+  7. the rate probes (B8) and the audit: each probe (csrc/vpu_rate.cu,
      vmem_rate.cu, mxu_rate.cu) against its plain version at the audit's
      full k and steps (FP32 and shared-memory probes: 0 unequal; the
      tensor-core probe within kernels/sol.py::MXU_TOLERANCE, also at small
@@ -101,7 +117,7 @@ lines:
      failing on a missing launch, a rate that is not finite, a pair spread
      above 1.5, a rate above 1.05 x its bound, or a kernel row whose bound
      is above 1.05 x its time;
-  7. the result lines: the card, the kernels JSON (each bound the largest
+  8. the result lines: the card, the kernels JSON (each bound the largest
      of its unique bytes over 3.35 TB/s, its operations over the peak for
      their type: f32 work, the FP32 probe's as the FP32 instructions its
      SASS keeps per cycle, at the FP32 issue bound SMs x 128 lanes x the
@@ -117,6 +133,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -132,6 +149,10 @@ PARITY_MAX_LSB = 1
 EXACT = ("fsr_fused", "nis_scaler", "cas_upscale", "nis_sharpen",
          "cas_sharpen", "rcas_sharpen")   # held to 0 unequal texels
 VS_SOL_MAX = 1.02            # floor / kernel; above it the floor is wrong
+VALUE_MIN = 0.98             # back-to-back value / device_ms, at least
+# tools/parity.py's cases run here: the headline (0 unequal) and the TPU
+# record's worst case (33 values at 1 LSB there)
+ORACLE_CASES = ("fsr_fused_zone_r0.5", "nvscaler_noise")
 RATE_MAX = 1.05              # a measured rate over its bound
 SHARE_MAX = 1.05             # an audit row's bound over its time
 N_PAIRS = 10                 # stereo pairs per plan through the public API
@@ -633,6 +654,32 @@ def main():
     log("[main] Pipeline(cfg), FsrModel() and upscale() with no device, on "
         "numpy frames: on the card, the CUDA kernel launched, equal to the "
         "FSR plan")
+    # deferred capture on the card: a right-eye-only batch writes nothing,
+    # the next stereo batch saves its eye-0 output as a DDS
+    from openvr_fsr_tpu_torch.api.capture import read_dds_rgba8
+    for label, x in (("uint8", pairs_in[0]),
+                     ("packed int32",
+                      pairs_in[0].view(torch.int32)[..., 0].contiguous())):
+        with tempfile.TemporaryDirectory() as tmp:
+            pipe = Pipeline(fsr_cfg)
+            pipe.arm_capture(tmp)
+            pipe.process(x[1:], eyes=(1,))
+            if pipe._capture_armed is None or any(Path(tmp).iterdir()):
+                fail(f"capture ({label}): a right-eye-only batch captured")
+            out = pipe.process(x)
+            if pipe._capture_armed is not None \
+                    or len(pipe.last_capture_paths) != 1:
+                fail(f"capture ({label}): the stereo batch wrote "
+                     f"{pipe.last_capture_paths}")
+            got = read_dds_rgba8(pipe.last_capture_paths[0])
+            want = out[0].cpu().contiguous().view(torch.uint8).numpy() \
+                .reshape(OH, OW, 4)
+            if not np.array_equal(got, want):
+                fail(f"capture ({label}): the DDS differs from the eye-0 "
+                     "output")
+            log(f"[main] capture ({label}): the right-eye batch wrote "
+                f"nothing; {pipe.last_capture_paths[0].name} "
+                f"{got.shape} equals the eye-0 output byte for byte")
 
     # ---- 4. times -----------------------------------------------------------
     timed = {   # kernel -> (build at the default config, input)
@@ -764,8 +811,9 @@ def main():
               for r in (0.0, 0.5, 2.0)),
             ("rs 1.3 radius 0.5", bench_paths.path_config("fsr_supersample"))):
         run = bench.measure(cfg, h, w, rounds=B_ROUNDS)
-        log(f"[b1] fsr_fused {label}: {run.ms} ms per stereo pair, its DMA "
-            f"floor {run.sol_ms} ms, vs_sol {run.vs_sol}, floor "
+        log(f"[b1] fsr_fused {label}: {run.device_ms} ms per stereo pair "
+            f"(device; back to back {run.ms}), its DMA floor {run.sol_ms} "
+            f"ms, vs_sol {run.vs_sol}, floor "
             f"{run.probe_effective_gbps:.1f} GB/s over the unique bytes")
     # nis_scaler, cas_upscale, nis_sharpen, cas_sharpen and rcas_sharpen
     # with their floors, the same way
@@ -775,8 +823,9 @@ def main():
         cfg, h, w = bench_paths.path_config(path)
         for r in (0.0, 0.5, 2.0):
             run = bench.measure(cfg.with_(radius=r), h, w, rounds=B_ROUNDS)
-            log(f"[{tag}] {path} radius {r}: {run.ms} ms per stereo pair, "
-                f"its DMA floor {run.sol_ms} ms, vs_sol {run.vs_sol}, floor "
+            log(f"[{tag}] {path} radius {r}: {run.device_ms} ms per stereo "
+                f"pair (device; back to back {run.ms}), its DMA floor "
+                f"{run.sol_ms} ms, vs_sol {run.vs_sol}, floor "
                 f"{run.probe_effective_gbps:.1f} GB/s over the unique bytes")
             if run.vs_sol > VS_SOL_MAX:
                 fail(f"{path} radius {r}: vs_sol {run.vs_sol} > {VS_SOL_MAX}")
@@ -795,22 +844,74 @@ def main():
     runs = [bench_run] + [run for _, run in paths.values()]
     for record, run in zip(records, runs):
         k, f = run.kernel.launches, run.floor.launches
-        log(f"[bench] {record['metric']}: kernel launches {k}, floor "
-            f"launches {f}, vs_sol {record['vs_sol']}")
-        if not (k > 0 and k == f):
+        log(f"[bench] {record['metric']}: value {record['value']} ms back "
+            f"to back, device_ms {record['device_ms']}, host per call not "
+            f"hidden by the card {record['value'] - record['device_ms']} ms "
+            f"({card}); kernel "
+            f"launches {k}, floor launches {f}, vs_sol {record['vs_sol']}")
+        # the kernel runs the back-to-back rounds besides the floor's calls
+        if not (k > f > 0):
             fail(f"{record['metric']}: kernel launched {k} times, its floor "
                  f"{f}")
-        for key in ("value", "hbm_sol_ms", "probe_effective_gbps"):
+        for key in ("value", "device_ms", "hbm_sol_ms",
+                    "probe_effective_gbps"):
             if not (math.isfinite(record[key]) and record[key] > 0):
                 fail(f"{record['metric']}: {key} = {record[key]}")
+        if record["value"] < VALUE_MIN * record["device_ms"]:
+            fail(f"{record['metric']}: value {record['value']} below "
+                 f"{VALUE_MIN} x device_ms {record['device_ms']}: the "
+                 "back-to-back time cannot beat the device's")
+        if record["vs_sol"] != record["hbm_sol_ms"] / record["device_ms"]:
+            fail(f"{record['metric']}: vs_sol is not the floor's graph time "
+                 "over device_ms")
         if record["vs_sol"] > VS_SOL_MAX:
             fail(f"{record['metric']}: vs_sol {record['vs_sol']} > "
                  f"{VS_SOL_MAX}: the floor is slower than its kernel")
     if len(paths) != len(bench_paths.PATHS):
         fail("bench_paths did not measure every path")
+    # the API's host cost of a call: Pipeline.process on each path's
+    # unpadded packed stereo pair, the host's time to enqueue a call (no
+    # sync) and back to back ending in a sync, beside the path's device_ms
+    from openvr_fsr_tpu_torch.utils.timing import wall_ms
+    for name, (record, _) in paths.items():
+        cfg, h, w = bench_paths.path_config(name)
+        pipe = Pipeline(cfg)
+        x = sets["in" if (h, w) == (H, W) else "full"]["zone+noise"]
+        wall_ms(pipe.process, [x], 5)
+        enqueue = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(40):
+                pipe.process(x)
+            enqueue.append((time.perf_counter() - t0) * 1000.0 / 40)
+            torch.cuda.synchronize()
+        b2b = min(wall_ms(pipe.process, [x], 40) for _ in range(3))
+        log(f"[api] {name}: Pipeline.process enqueues in {min(enqueue)} ms "
+            f"per call (host alone), {b2b} ms per call back to back; the "
+            f"bench line's device_ms {record['device_ms']}, value "
+            f"{record['value']} ({card})")
+        if not 0 < min(enqueue) <= b2b * 1.05:
+            fail(f"{name}: Pipeline.process enqueue {min(enqueue)} ms, "
+                 f"back to back {b2b} ms")
     launches["dma_floor"] = sum(run.floor.launches for run in runs)
 
-    # ---- 6. the rate probes and the audit -----------------------------------
+    # ---- 6. the oracle at full size, and the throughput tool ----------------
+    from openvr_fsr_tpu_torch.tools import parity as parity_tool
+    from openvr_fsr_tpu_torch.tools import throughput_bench
+
+    results = parity_tool.run(parity_tool.select(names=ORACLE_CASES))
+    for name, r in results.items():
+        log(f"[oracle] {name} at full size on the card against the NumPy "
+            f"oracle: unequal {r['mismatch_gt0']} of {r['pixels']} values, "
+            f"{r['mismatch_gt1']} above 1 LSB, max {r['max_lsb']} LSB, "
+            f"{r['launches']} kernel launches ({card})")
+        if not parity_tool.meets_bar(name, r) or r["launches"] < 1:
+            fail(f"{name}: the card misses the oracle's bar: {r}")
+    tp = throughput_bench.main(["8"])
+    if not (math.isfinite(tp["value"]) and tp["value"] > 0):
+        fail(f"throughput_bench: {tp}")
+
+    # ---- 7. the rate probes and the audit -----------------------------------
     from openvr_fsr_tpu_torch.kernels import sol
     from openvr_fsr_tpu_torch.tools import sass, vpu_audit
 
@@ -1006,7 +1107,7 @@ def main():
         audit["rates"]["fp32"]["fp32_instructions_per_cycle"]))
     log(f"[bound] {bounds}")
 
-    # ---- 7. result lines ----------------------------------------------------
+    # ---- 8. result lines ----------------------------------------------------
     sources = {
         "fsr_fused": "openvr_fsr_tpu/kernels/fsr.py:191",
         "rcas_sharpen": "openvr_fsr_tpu/kernels/rcas.py:35",

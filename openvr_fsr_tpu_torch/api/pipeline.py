@@ -18,7 +18,8 @@ renderScale != 1, sharpen-only with the maxColorDelta clamp at renderScale 1
 torch version. The signatures are the JAX package's (openvr_fsr_tpu/api/
 pipeline.py), plus `device`: the card unless the caller asks for the CPU
 (device="cpu"). The options not ported yet raise NotImplementedError naming
-the ROADMAP.md entry that ports them.
+the ROADMAP.md entry that ports them. arm_capture saves the next processed
+left-eye frame (api/capture.py), as the reference's capture hotkey does.
 """
 
 import numpy as np
@@ -27,6 +28,7 @@ import torch
 from ..core.config import Config
 from ..core import constants as C
 from ..core.projection import default_centers
+from .capture import save_frame
 from ..kernels.cas import build_cas_sharpen, build_cas_upscale
 from ..kernels.fsr import build_fsr_fused
 from ..kernels.nis import build_nvscaler, build_nvsharpen
@@ -110,6 +112,8 @@ class Pipeline:
         self._cache = {}
         self.timer = GpuTimer(scale_for_stereo=single_eye_per_frame)
         self._log = get_logger()
+        self._capture_armed = None   # (directory, formats) when armed
+        self.last_capture_paths = []
 
     # --- reference hotkey actions (PostProcessor.cpp:659-716) ---------------
     def reset(self):
@@ -340,14 +344,34 @@ class Pipeline:
             out = self.timer.measure(fn, x, pairs=pairs)
         else:
             out = fn(x)
+        if self._capture_armed is not None:
+            # Deferred capture (PostProcessor.cpp:634-637): the armed flag
+            # saves the *next processed left-eye frame* and clears itself.
+            # Double-wide frames contain the left eye, so any frame counts.
+            idx = (0 if not self.single_eye_per_frame
+                   else next((i for i, e in enumerate(eyes) if e == 0), None))
+            if idx is not None:
+                directory, formats = self._capture_armed
+                self._capture_armed = None
+                self.last_capture_paths = save_frame(
+                    out[idx], directory=directory,
+                    use_nis=self.config.use_nis,
+                    sharpness=self.config.sharpness,
+                    radius=self.config.radius, formats=formats)
+                self._log.info("Captured frame to %s",
+                               [str(p) for p in self.last_capture_paths])
         if crop and first_bounds is not None:
             out = self.crop_output(out, first_bounds)
         return out[0] if squeeze else out
 
     def arm_capture(self, directory=".", formats=("dds",)):
-        """Deferred capture (PostProcessor.cpp:634-637, 707)."""
-        raise NotImplementedError(
-            "capture is not ported yet: ROADMAP.md Queue A item 5 (capture)")
+        """Arm a deferred capture: the next `process` call that includes a
+        left-eye (eye 0) frame saves its processed output with the
+        reference filename scheme, then the flag clears — the semantics of
+        the reference's takeCapture hotkey (PostProcessor.cpp:707 sets the
+        flag, :634-637 saves on the next Eye_Left submit). The frame leaves
+        the card once. Written paths land in `self.last_capture_paths`."""
+        self._capture_armed = (directory, tuple(formats))
 
 
 def upscale(frame, render_scale=None, sharpness=0.9, use_nis=False, radius=0.5,

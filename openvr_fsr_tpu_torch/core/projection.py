@@ -5,17 +5,27 @@ given the raw projection extents (l, r, t, b) of each eye and the eye-to-head
 transforms' forward vectors, compute where the optical centre lands in
 normalized texture coordinates. The foveated radius is centred there.
 
-A copy of projection_center and default_centers from
-openvr_fsr_tpu/core/projection.py (the port cannot import that package: its
-__init__ imports jax); tests/test_torch_core.py holds the two equal. The
-cant angle and the MIP bias come with the slices that use them.
+A copy of openvr_fsr_tpu/core/projection.py (the port cannot import that
+package: its __init__ imports jax); tests/test_torch_core.py holds each
+function equal to its original.
 """
 
 import math
 
 import numpy as np
 
-__all__ = ["projection_center", "default_centers"]
+__all__ = ["canted_angle", "projection_center", "default_centers",
+           "mip_lod_bias"]
+
+
+def canted_angle(forward_left, forward_right, eye):
+    """Half the angle between the two eyes' forward (-z) axes, signed per eye
+    (negative for the right eye) — PostProcessor.cpp:111-114."""
+    fl = np.asarray(forward_left, np.float64)
+    fr = np.asarray(forward_right, np.float64)
+    dot = float(np.dot(fl, fr))
+    dot = max(-1.0, min(1.0, dot))
+    return abs(math.acos(dot) / 2) * (-1.0 if eye == 1 else 1.0)
 
 
 def projection_center(left, right, top, bottom, cant_rad=0.0):
@@ -35,3 +45,13 @@ def default_centers():
     for both eyes. Used when the caller has no HMD geometry."""
     c = projection_center(-1.0, 1.0, -1.0, 1.0, 0.0)
     return c, c
+
+
+def mip_lod_bias(in_w, out_w):
+    """The negative texture-LOD bias the reference injects into the game's
+    anisotropic samplers so textures mip-select for the *output* resolution
+    (VrHooks.cpp:94-136: MipLODBias += -log2(outW/inW), applied only to
+    samplers with bias == 0 and anisotropy > 1). The library has no sampler
+    to patch — `applyMIPBias` is the caller's texture-sampling concern; this
+    returns the value a renderer should add to its own samplers."""
+    return float(np.float32(-math.log2(float(out_w) / float(in_w))))

@@ -14,13 +14,16 @@ radius 0.5:
     python3 -m openvr_fsr_tpu_torch.tools.bench_paths [--paths a,b]
         [--iters N] [--out FILE]
 
-Methodology as bench.py's (the three rotating ring frames, warm-up, --iters
-calls captured in one CUDA graph, the best of 3 replays timed with CUDA
-events: device time alone), each path
-stamped with its own DMA floor timed in turns with it, so vs_sol <= 1.
-Each line: metric, value (ms per stereo pair), unit, mpix_per_s, compile_s
-(the build, with nvcc where the library is not built yet, plus the first
-launch), sol_probe, probe_effective_gbps, hbm_sol_ms, vs_sol, device.
+Methodology as bench.py's (the three rotating ring frames, a warm-up, then
+the best of 3 rounds of --iters calls each way: back to back ending in a
+host sync, the host's cost of a call included, and replayed from one CUDA
+graph, device time alone), each path stamped with its own DMA floor
+replayed in turns with it, so vs_sol = floor / device_ms <= 1.
+Each line: metric, value (ms per stereo pair, back to back), unit,
+device_ms (ms per stereo pair, device time), mpix_per_s (over value),
+compile_s (the build, with nvcc where the library is not built yet, plus
+the first launch), sol_probe, probe_effective_gbps, hbm_sol_ms, vs_sol,
+device.
 --out also writes the lines as one JSON object to FILE. With no CUDA GPU
 each path's line has value null and an error, and the exit code is 1.
 """
@@ -84,6 +87,7 @@ def main(argv=None):
             "metric": metric(name),
             "value": run.ms,
             "unit": "ms",
+            "device_ms": run.device_ms,
             "mpix_per_s": 2 * run.out_w * run.out_h / 1e6 / (run.ms / 1000.0),
             "compile_s": run.compile_s,
             "sol_probe": bench.SOL_PROBE,
@@ -92,8 +96,8 @@ def main(argv=None):
             "vs_sol": run.vs_sol,
             "device": device,
         }
-        print(f"[bench_paths] {name}: {run.ms} ms/pair, DMA floor "
-              f"{run.sol_ms} ms ({run.vs_sol * 100:.0f}% of the kernel, "
+        print(f"[bench_paths] {name}: {run.ms} ms/pair back to back, "
+              f"{run.device_ms} device time, DMA floor {run.sol_ms} ms ({run.vs_sol * 100:.0f}% of the kernel, "
               f"{run.probe_effective_gbps:.0f} GB/s), compile "
               f"{run.compile_s:.1f} s", file=sys.stderr, flush=True)
         print(json.dumps(record), flush=True)

@@ -2,8 +2,9 @@
 
 External layout: (B, H, W, 4) RGBA (uint8, or uint16 for 10-bit, or float).
 Internal layout: planar (B, 4, H, W) float32 torch tensors, the layout the
-plain ops in ops/ take. The synthetic frames are numpy copies of
-openvr_fsr_tpu/utils/frames.py, so both packages see the same inputs.
+plain ops in ops/ take. The synthetic frames, and the numpy UNORM helpers
+the oracle (oracle/) imports, are copies of openvr_fsr_tpu/utils/frames.py,
+so both packages see the same inputs and judge with the same code.
 """
 
 import numpy as np
@@ -12,6 +13,8 @@ import torch
 __all__ = [
     "to_planar",
     "from_planar",
+    "quantize_unorm",
+    "decode_unorm",
     "gradient_frame",
     "checkerboard_frame",
     "zone_plate_frame",
@@ -65,6 +68,17 @@ def from_planar(planar, color_bits=8, alpha_bits=None):
     alp = torch.round(torch.clamp(x[..., 3:], 0.0, 1.0) * ascale)
     out = torch.cat([col, alp], dim=-1)
     return out.to(torch.uint8 if color_bits == 8 else torch.uint16)
+
+
+def quantize_unorm(x, bits=8):
+    """NumPy UNORM quantize-and-decode (round-half-even), for oracle pipelines."""
+    scale = np.float32((1 << bits) - 1)
+    q = np.rint(np.clip(np.asarray(x, np.float32), 0.0, 1.0) * scale).astype(np.float32)
+    return q * np.float32(1.0 / scale)
+
+
+def decode_unorm(u, bits=8):
+    return np.asarray(u, np.float32) * np.float32(1.0 / ((1 << bits) - 1))
 
 
 # --- synthetic frames (uint8 RGBA) ------------------------------------------

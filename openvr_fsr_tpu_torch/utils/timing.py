@@ -9,7 +9,9 @@ utils/timing.py:56-110. CUDA work is timed with pairs of
 `torch.cuda.Event`s on the current stream (the timestamp queries'
 counterpart); CPU work with `time.perf_counter`. rotation_graph and
 replay_ms time a kernel's device work alone: its calls captured once in a
-CUDA graph and replayed, so no host launch sits between them.
+CUDA graph and replayed, so no host launch sits between them. wall_ms
+times what a caller pays: back-to-back calls on the host's clock, ending
+in a host sync.
 """
 
 import time
@@ -18,8 +20,8 @@ import torch
 
 from .log import get_logger
 
-__all__ = ["GpuTimer", "bench_fn", "rotation_ms", "rotation_graph",
-           "replay_ms", "hbm_calibration"]
+__all__ = ["GpuTimer", "bench_fn", "rotation_ms", "wall_ms",
+           "rotation_graph", "replay_ms", "hbm_calibration"]
 
 
 class GpuTimer:
@@ -117,6 +119,19 @@ def rotation_ms(fn, inputs, iters):
     t0 = time.perf_counter()
     for i in range(iters):
         fn(inputs[i % len(inputs)])
+    return (time.perf_counter() - t0) * 1000.0 / iters
+
+
+def wall_ms(fn, inputs, iters):
+    """Host ms per call of `iters` back-to-back calls fn(inputs[i % len]),
+    on perf_counter, ending in a host sync of the inputs' CUDA device (the
+    root bench.py's run(), :89-95): the device time and the host's cost of
+    each call, whichever is longer, plus one sync."""
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(inputs[i % len(inputs)])
+    if inputs[0].is_cuda:
+        torch.cuda.synchronize(inputs[0].device)
     return (time.perf_counter() - t0) * 1000.0 / iters
 
 

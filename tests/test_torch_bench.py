@@ -1,9 +1,11 @@
-"""The port's measurement entries on the CPU: openvr_fsr_tpu_torch.bench
-and openvr_fsr_tpu_torch.tools.bench_paths (their configs against the
-root bench.py and tools/bench_paths.py, their refusal without a GPU), the
-timing helpers of utils/timing.py, and the DMA geometry Pipeline._build
-carries. The entries themselves measure only on the card: `python3
-chip_smoke.py` runs both there.
+"""The port's measurement entries on the CPU: openvr_fsr_tpu_torch.bench,
+openvr_fsr_tpu_torch.tools.bench_paths and tools.throughput_bench (their
+configs against the root bench.py, tools/bench_paths.py and
+tools/throughput_bench.py, their refusal without a GPU, the keys of their
+records and what each holds, from a stubbed measurement), the timing
+helpers of utils/timing.py, and the DMA geometry Pipeline._build carries.
+The entries themselves measure only on the card: `python3 chip_smoke.py`
+runs them there.
 """
 
 import ast
@@ -12,6 +14,7 @@ import json
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -21,9 +24,10 @@ torch = pytest.importorskip("torch")
 
 from openvr_fsr_tpu_torch import Config, Pipeline, bench  # noqa: E402
 from openvr_fsr_tpu_torch.tools import bench_paths  # noqa: E402
+from openvr_fsr_tpu_torch.tools import throughput_bench  # noqa: E402
 from openvr_fsr_tpu_torch.utils.timing import (bench_fn,  # noqa: E402
                                                hbm_calibration, rotation_graph,
-                                               rotation_ms)
+                                               rotation_ms, wall_ms)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -56,9 +60,36 @@ def test_headline_config_equals_the_root_bench():
     assert "run(5)" in src and "min(run(40) for _ in range(3))" in src
 
 
+def test_throughput_config_equals_the_root_tool():
+    src = (REPO / "tools" / "throughput_bench.py").read_text()
+    assert f"h_in, w_in = {throughput_bench.H_IN}, {throughput_bench.W_IN}" \
+        in src
+    assert ("Config(enabled=True, render_scale=0.75, sharpness=0.9, "
+            "radius=0.5)") in src
+    assert throughput_bench.CONFIG == bench.CONFIG
+    assert (throughput_bench.WARMUP, throughput_bench.ITERS,
+            throughput_bench.ROUNDS) == (5, 20, 3)
+    assert "run(5)" in src and "min(run(20) for _ in range(3))" in src
+    assert '"fsr_batch%d_packed_pairs_per_s" % B' in src
+    assert throughput_bench.metric(8) == "fsr_batch8_packed_pairs_per_s"
+
+
+def test_throughput_stacks():
+    """Three seeded stacks of packed texels, int32 views of numpy's uint32
+    words, as the root tool's (:34-36)."""
+    got = throughput_bench.stacks(4, 9, 13, "cpu")
+    rng = np.random.default_rng(0)
+    assert len(got) == 3
+    for g in got:
+        want = rng.integers(0, 2**32, (4, 9, 13), dtype=np.uint32)
+        assert g.dtype == torch.int32 and g.device.type == "cpu"
+        assert np.array_equal(g.numpy().view(np.uint32), want)
+
+
 @pytest.mark.parametrize("module,lines", [
     ("openvr_fsr_tpu_torch.bench", 1),
-    ("openvr_fsr_tpu_torch.tools.bench_paths", len(bench_paths.PATHS))])
+    ("openvr_fsr_tpu_torch.tools.bench_paths", len(bench_paths.PATHS)),
+    ("openvr_fsr_tpu_torch.tools.throughput_bench", 1)])
 def test_without_a_gpu_the_entry_fails(module, lines):
     """No CUDA GPU: a null value and an error per line, a non-zero exit,
     and jax never imported."""
@@ -78,7 +109,10 @@ def test_without_a_gpu_the_entry_fails(module, lines):
     assert len(out) == lines
     for record in out:
         assert record["value"] is None and "no CUDA GPU" in record["error"]
-    if module.endswith("bench"):
+    if module.endswith("throughput_bench"):
+        assert out[0]["metric"] == throughput_bench.metric(8)
+        assert out[0]["unit"] == "pairs/s"
+    elif module.endswith("bench"):
         assert out[0]["metric"] == bench.METRIC
     else:
         assert [o["metric"] for o in out] == [
@@ -121,6 +155,71 @@ def test_rotation_ms_on_the_cpu():
     calls = []
     ms = rotation_ms(calls.append, [torch.zeros(1), torch.ones(1)], 4)
     assert ms > 0 and [float(c) for c in calls] == [0.0, 1.0, 0.0, 1.0]
+
+
+def test_wall_ms_on_the_cpu():
+    calls = []
+    ms = wall_ms(calls.append, [torch.zeros(1), torch.ones(1)], 5)
+    assert ms > 0 and [float(c) for c in calls] == [0.0, 1.0, 0.0, 1.0, 0.0]
+
+
+def _stub_run(ms=0.25, device_ms=0.2, sol_ms=0.05):
+    floor = types.SimpleNamespace(hbm_bytes=70_000_000, launches=3)
+    return bench.PathRun(types.SimpleNamespace(launches=5), floor, ms,
+                         device_ms, sol_ms, 1.5, 2244, 2492)
+
+
+def test_path_run():
+    run = _stub_run()
+    assert run.vs_sol == 0.05 / 0.2           # device time over device time
+    assert run.probe_effective_gbps == 70_000_000 / 1e9 / (0.05 / 1000.0)
+
+
+def _stubbed(monkeypatch):
+    """bench.measure, require_gpu and card stubbed: no card, no timing."""
+    calls = []
+
+    def measure(config, h, w, **kw):
+        calls.append((config, h, w, kw))
+        return _stub_run()
+
+    monkeypatch.setattr(bench, "measure", measure)
+    monkeypatch.setattr(bench, "require_gpu", lambda metrics: None)
+    monkeypatch.setattr(bench, "card", lambda: "NVIDIA H100, 700.00 W")
+    return calls
+
+
+def test_bench_record(monkeypatch, capsys):
+    """The headline line: value is the back-to-back time (the root's
+    quantity), device_ms the graph time, vs_sol device over device."""
+    calls = _stubbed(monkeypatch)
+    record, run = bench.main()
+    assert json.loads(capsys.readouterr().out) == record
+    assert list(record) == ["metric", "value", "unit", "device_ms",
+                            "vs_baseline", "sol_probe",
+                            "probe_effective_gbps", "hbm_sol_ms", "vs_sol",
+                            "device"]
+    assert record["metric"] == bench.METRIC and record["unit"] == "ms"
+    assert record["value"] == run.ms == 0.25
+    assert record["device_ms"] == run.device_ms == 0.2
+    assert record["vs_baseline"] == 1.0 / 0.25
+    assert record["hbm_sol_ms"] == 0.05 and record["vs_sol"] == 0.05 / 0.2
+    assert record["device"] == "NVIDIA H100, 700.00 W"
+    (config, h, w, kw), = calls
+    assert (h, w, kw) == (bench.H_IN, bench.W_IN, {})
+
+
+def test_bench_paths_records(monkeypatch, capsys):
+    calls = _stubbed(monkeypatch)
+    results = bench_paths.main(["--paths", "fsr_fused,cas_sharpen",
+                                "--iters", "7"])
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [r for r, _ in results.values()] == lines
+    for record in lines:
+        assert record["value"] == 0.25 and record["device_ms"] == 0.2
+        assert record["vs_sol"] == 0.05 / 0.2
+        assert record["mpix_per_s"] == 2 * 2244 * 2492 / 1e6 / (0.25 / 1000)
+    assert [kw for *_, kw in calls] == [{"iters": 7}] * 2
 
 
 def test_rotation_graph_refuses_cpu_inputs():

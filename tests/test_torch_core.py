@@ -173,6 +173,29 @@ class TestConstantTables:
         for args in ((-1.2, 1.0, -1.1, 0.9, 0.0), (-1.0, 1.0, -1.0, 1.0, 0.1)):
             assert TP.projection_center(*args) == JP.projection_center(*args)
 
+    @pytest.mark.parametrize("eye", [0, 1])
+    def test_canted_angle(self, eye):
+        """Over a grid of forward axes: unit ones canted in yaw and pitch,
+        unnormalised ones (the dot clamps to [-1, 1]), opposite ones."""
+        rng = np.random.default_rng(7)
+        axes = [(0.0, 0.0, -1.0), (0.0, 0.0, 1.0), (0.2, 0.0, -1.0),
+                (-0.3, 0.1, -2.0)]
+        for a in np.linspace(-0.6, 0.6, 7):
+            axes.append((np.sin(a), 0.0, -np.cos(a)))
+            axes.append((0.0, np.sin(a), -np.cos(a)))
+        axes += [tuple(v) for v in rng.normal(size=(8, 3))]
+        for fl in axes:
+            for fr in axes:
+                assert TP.canted_angle(fl, fr, eye) == \
+                    JP.canted_angle(fl, fr, eye)
+
+    def test_mip_lod_bias(self):
+        for in_w in (640, 1683, 2016, 2244, 5760):
+            for out_w in (640, 1024, 2244, 2917, 7680):
+                got = TP.mip_lod_bias(in_w, out_w)
+                assert got == JP.mip_lod_bias(in_w, out_w)
+                assert type(got) is float
+
 
 def _nis_cfg_equal(a, b):
     """Every NisConfig field equal, bit for bit (floats) or by value."""
@@ -269,9 +292,14 @@ class TestGpuTimer:
 def test_port_never_imports_jax():
     """`import openvr_fsr_tpu_torch` (the GPU machine has no jax) pulls in
     neither jax nor the JAX package, with every submodule imported,
-    the DMA floor, the rate probes, the two bench entries, the audit and
-    the A/B tool included."""
+    the DMA floor, the rate probes, the two bench entries, the audit, the
+    A/B tool, the oracle copy, capture, the parity tool and the throughput
+    tool included."""
     code = ("import sys, openvr_fsr_tpu_torch, openvr_fsr_tpu_torch.kernels, "
+            "openvr_fsr_tpu_torch.oracle, openvr_fsr_tpu_torch.oracle.pipeline, "
+            "openvr_fsr_tpu_torch.api.capture, "
+            "openvr_fsr_tpu_torch.tools.parity, "
+            "openvr_fsr_tpu_torch.tools.throughput_bench, "
             "openvr_fsr_tpu_torch.kernels._build, openvr_fsr_tpu_torch.ops, "
             "openvr_fsr_tpu_torch.utils, openvr_fsr_tpu_torch.api, "
             "openvr_fsr_tpu_torch.kernels.sol, openvr_fsr_tpu_torch.bench, "

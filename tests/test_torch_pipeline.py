@@ -290,10 +290,24 @@ class TestApi:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.Pipeline(T.Config(**MAIN), device="cpu", **kw)
 
-    def test_capture_raises(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.Pipeline(T.Config(**MAIN), device="cpu").arm_capture(
-                "/nonexistent")
+    def test_capture_raises(self, tmp_path):
+        """arm_capture raised NotImplementedError before capture was
+        ported; now it arms and raises nothing, and the next left-eye
+        frame is saved: the port's file holds its output, under the JAX
+        pipeline's name (less the time stamp)."""
+        from openvr_fsr_tpu_torch.api.capture import read_dds_rgba8
+
+        frames = _stereo(48, 56)
+        tp, jp = _pair(**MAIN)
+        tp.arm_capture(tmp_path / "t")
+        jp.arm_capture(tmp_path / "j")
+        out = tp.process(frames)
+        jp.process(frames)
+        (got,) = tp.last_capture_paths
+        (want,) = jp.last_capture_paths
+        assert got.name.split("_", 3)[3] == want.name.split("_", 3)[3] \
+            == "fsr_s90_r50.dds"
+        assert np.array_equal(read_dds_rgba8(got), out[0].numpy())
 
     @pytest.mark.parametrize("backend", ["xla", "pallas", "pallas-interpret"])
     def test_other_backends_raise(self, backend):
