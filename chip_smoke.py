@@ -15,7 +15,9 @@ lines:
      upscaler (fsr_fused, nis_scaler, cas_upscale: the shared bilinear pass
      outside the foveation circle, and the kernel inside it) and of
      nis_sharpen, cas_sharpen and rcas_sharpen (the shared copy pass
-     outside, the kernel inside);
+     outside, the kernel inside), each at both texel formats (the RGBA8
+     and R10G10B10A2 instantiations; a warning where the 10-bit one holds
+     fewer CTAs per SM);
   2. each kernel against its plain torch version on the card, at full
      size, on a zone-plate + noise set and a uniform-random set, both with
      alpha that is not all 255:
@@ -49,6 +51,13 @@ lines:
      bright border) against the CPU path; and, in a fresh process, a first
      NVScaler call on a side stream (torch.cuda.Stream()), 0 unequal
      texels: nothing the kernel reads may be ordered on another stream;
+     then the six 10-bit kernels (color_bits=10, (2, H, W, 4) uint16)
+     against their plain versions at full size, value for value: radius
+     0.5, 2.0, 0.0 and 0.5 with debug, off-centre eyes at radius 0.3,
+     NIS hdr 1, on a 10-bit zone plate + noise set and a uniform set (alpha
+     in {0..3}; 1% of values above 1023, which saturate), the ring pitch,
+     small frames over the whole uint16 range and a bright border against
+     the CPU path, CAS max_color_delta 0.05; 0 unequal values, every case;
   3. the plans through the public API, each with the launch counts set to
      0 just before and read just after: FSR rs 0.75, FSR rs 1, NIS rs 0.75,
      NIS rs 1, CasModel() (rs 1) and CasModel(render_scale=0.75) process 10
@@ -60,10 +69,14 @@ lines:
      card (arm_capture), for the uint8 and the packed int32 input: a
      right-eye-only batch writes no file, the next stereo batch writes one
      DDS whose texels (read_dds_rgba8) equal the eye-0 output byte for
-     byte;
+     byte. The six plans again at 10 bits through Pipeline(color_bits=10)
+     (10 stereo pairs each, launch counts from 0) and
+     upscale(color_bits=10), with no device, and a 10-bit capture read
+     back as R10G10B10A2, its payload byte-equal to the packed output;
   4. kernel and plain-version times in ms per stereo pair (CUDA events;
      a kernel's calls replayed from one CUDA graph, device time alone),
      and each plain version's peak device memory; fsr_fused also at rs 1.3;
+     the six 10-bit kernels at radius 0.5 with their plain versions;
   5. the measurement path: the DMA floor (csrc/dma_floor.cu) keeps its
      TMA loads, shared reads and stores in its SASS, and equals its plain
      version word for word at the full-size geometry of each of the seven
@@ -89,6 +102,10 @@ lines:
      not hide; and, per path,
      Pipeline.process's host time to enqueue a call (no sync) and its
      back-to-back time;
+     the 10-bit floors word for word against their plain version at the
+     six plans' 10-bit geometries at radius 0.0, 0.5 and 2.0, and the six
+     10-bit kernels timed in turns with their floors at the same radii
+     (the 10-bit [bN] lines; vs_sol at most 1.02);
      every path's kernel and floor must have launched in that run, value
      must be at least 0.98 x device_ms, vs_sol must be the floor's graph
      time over device_ms, and none may read vs_sol above 1.02 (a floor
@@ -96,8 +113,9 @@ lines:
   6. the NumPy oracle at full size and the throughput tool: two cases of
      tools/parity.py through Pipeline.process on the card against the
      port's copy of the oracle (oracle/pipeline.py, computed on the host):
-     fsr_fused_zone_r0.5 (0 unequal values) and nvscaler_noise (at most 1
-     LSB), each with its kernel launched; then tools.throughput_bench at
+     fsr_fused_zone_r0.5 (0 unequal values), nvscaler_noise (at most 1
+     LSB) and fsr_fused_noise10_r0.5 (0 unequal), each with its kernel
+     launched; then tools.throughput_bench at
      batch 8, in this process, printing its JSON line;
   7. the rate probes (B8) and the audit: each probe (csrc/vpu_rate.cu,
      vmem_rate.cu, mxu_rate.cu) against its plain version at the audit's
@@ -117,7 +135,8 @@ lines:
      failing on a missing launch, a rate that is not finite, a pair spread
      above 1.5, a rate above 1.05 x its bound, or a kernel row whose bound
      is above 1.05 x its time;
-  8. the result lines: the card, the kernels JSON (each bound the largest
+  8. the result lines: the card, the kernels JSON (the 10-bit
+     instantiations as <kernel>_10bit; each bound the largest
      of its unique bytes over 3.35 TB/s, its operations over the peak for
      their type: f32 work, the FP32 probe's as the FP32 instructions its
      SASS keeps per cycle, at the FP32 issue bound SMs x 128 lanes x the
@@ -150,9 +169,11 @@ EXACT = ("fsr_fused", "nis_scaler", "cas_upscale", "nis_sharpen",
          "cas_sharpen", "rcas_sharpen")   # held to 0 unequal texels
 VS_SOL_MAX = 1.02            # floor / kernel; above it the floor is wrong
 VALUE_MIN = 0.98             # back-to-back value / device_ms, at least
-# tools/parity.py's cases run here: the headline (0 unequal) and the TPU
-# record's worst case (33 values at 1 LSB there)
-ORACLE_CASES = ("fsr_fused_zone_r0.5", "nvscaler_noise")
+# tools/parity.py's cases run here: the headline (0 unequal), the TPU
+# record's worst case (33 values at 1 LSB there) and the 10-bit FSR upscale
+# (0 unequal)
+ORACLE_CASES = ("fsr_fused_zone_r0.5", "nvscaler_noise",
+                "fsr_fused_noise10_r0.5")
 RATE_MAX = 1.05              # a measured rate over its bound
 SHARE_MAX = 1.05             # an audit row's bound over its time
 N_PAIRS = 10                 # stereo pairs per plan through the public API
@@ -289,60 +310,79 @@ def main():
                            ("rcas_sharpen", "rcas_sharpen")):
         usage = sass.ptxas_usage(_build.library_path(kernel)
                                  .with_suffix(".log").read_text())
-        per_sm = occupancy(kernel)
+        ctas = {}
+        for bits in (8, 10):     # the RGBA8 and R10G10B10A2 instantiations
+            per_sm = occupancy(kernel, bits)
+            for cls in ("outside", "inside"):
+                u = [v for fn, v in usage.items()
+                     if f"{prefix}_{cls}_kernel" in fn
+                     and sass.of_codec(fn, bits)]
+                if len(u) != 1 or per_sm[cls] < 1:
+                    fail(f"{kernel} {bits}-bit {cls} kernel: ptxas {u}, "
+                         f"{per_sm[cls]} CTAs per SM")
+                u = u[0]
+                smem = (f"{per_sm['inside_smem']} B smem" if cls == "inside"
+                        else f"{u['smem']} B static smem")
+                log(f"[setup] {kernel} {bits}-bit {cls} kernel: "
+                    f"{u['registers']} registers, {u['spill_stores']} B "
+                    f"spill stores, {u['spill_loads']} B spill loads, "
+                    f"{smem}, {per_sm[cls]} CTAs per SM")
+                ctas[bits, cls] = per_sm[cls]
         for cls in ("outside", "inside"):
-            u = [v for fn, v in usage.items()
-                 if f"{prefix}_{cls}_kernel" in fn]
-            if len(u) != 1 or per_sm[cls] < 1:
-                fail(f"{kernel} {cls} kernel: ptxas {u}, {per_sm[cls]} CTAs "
-                     "per SM")
-            u = u[0]
-            smem = (f"{per_sm['inside_smem']} B smem" if cls == "inside"
-                    else f"{u['smem']} B static smem")
-            log(f"[setup] {kernel} {cls} kernel: {u['registers']} registers, "
-                f"{u['spill_stores']} B spill stores, {u['spill_loads']} B "
-                f"spill loads, {smem}, {per_sm[cls]} CTAs per SM")
+            if ctas[10, cls] < ctas[8, cls]:
+                log(f"[setup] WARNING: {kernel} {cls} kernel holds "
+                    f"{ctas[10, cls]} CTAs per SM at 10 bits, "
+                    f"{ctas[8, cls]} at 8 bits")
 
     def centres(ow, oh, radius, b=2, eyes=CENTRES):
         return C.centres_payload(ow, oh, radius, eyes,
                                  tuple(i % 2 for i in range(b)))
 
-    def fsr(radius, debug=False, h=H, w=W, rs=0.75, b=2, eyes=CENTRES):
+    def fsr(radius, debug=False, h=H, w=W, rs=0.75, b=2, eyes=CENTRES,
+            bits=8):
         ow, oh = Config(render_scale=rs).output_size(w, h)
         return build_fsr_fused(b, h, w, ow, oh, sharpness=SHARPNESS,
                                centres=centres(ow, oh, radius, b, eyes),
-                               debug=debug)
+                               debug=debug, color_bits=bits)
 
-    def rcas(radius, debug=False, h=OH, w=OW, b=2, eyes=CENTRES):
+    def rcas(radius, debug=False, h=OH, w=OW, b=2, eyes=CENTRES, bits=8):
         return build_rcas_sharpen(b, h, w, sharpness=SHARPNESS,
                                   centres=centres(w, h, radius, b, eyes),
-                                  debug=debug)
+                                  debug=debug, color_bits=bits)
 
-    def sharpen(radius, debug=False, hdr=0, h=OH, w=OW, b=2, eyes=CENTRES):
+    def sharpen(radius, debug=False, hdr=0, h=OH, w=OW, b=2, eyes=CENTRES,
+                bits=8):
         cfg = C.nvsharpen_update_config(SHARPNESS, w, h, w, h, hdr_mode=hdr)
         return build_nvsharpen(b, h, w, nis_cfg=cfg,
                                centres=centres(w, h, radius, b, eyes),
-                               debug=debug)
+                               debug=debug, color_bits=bits)
 
     def scaler(radius, debug=False, hdr=0, h=H, w=W, rs=0.75, b=2,
-               eyes=CENTRES):
+               eyes=CENTRES, bits=8):
         ow, oh = Config(render_scale=rs).output_size(w, h)
         cfg = C.nvscaler_update_config(SHARPNESS, w, h, w, h, ow, oh, ow, oh,
                                        hdr_mode=hdr)
         return build_nvscaler(b, h, w, ow, oh, nis_cfg=cfg,
                               centres=centres(ow, oh, radius, b, eyes),
-                              debug=debug)
+                              debug=debug, color_bits=bits)
 
-    def cas_up(radius, debug=False, h=H, w=W, rs=0.75, b=2, eyes=CENTRES):
+    def cas_up(radius, debug=False, h=H, w=W, rs=0.75, b=2, eyes=CENTRES,
+               bits=8):
         ow, oh = Config(render_scale=rs).output_size(w, h)
         return build_cas_upscale(b, h, w, ow, oh, sharpness=CAS_SHARPNESS,
                                  centres=centres(ow, oh, radius, b, eyes),
-                                 debug=debug)
+                                 debug=debug, color_bits=bits)
 
-    def cas_sh(radius, debug=False, mcd=1.0, h=OH, w=OW, b=2, eyes=CENTRES):
+    def cas_sh(radius, debug=False, mcd=1.0, h=OH, w=OW, b=2, eyes=CENTRES,
+               bits=8):
         return build_cas_sharpen(b, h, w, sharpness=CAS_SHARPNESS,
                                  centres=centres(w, h, radius, b, eyes),
-                                 debug=debug, max_color_delta=mcd)
+                                 debug=debug, max_color_delta=mcd,
+                                 color_bits=bits)
+
+    builds = {"fsr_fused": fsr, "rcas_sharpen": rcas, "nis_sharpen": sharpen,
+              "nis_scaler": scaler, "cas_upscale": cas_up,
+              "cas_sharpen": cas_sh}
 
     rng = np.random.default_rng(0)
 
@@ -510,6 +550,94 @@ def main():
         f"{n_launch} launch")
     if ne or n_launch != 1:
         fail("nis_scaler disagrees with its plain version on a side stream")
+
+    # the 10-bit instantiations (R10G10B10A2: (B, H, W, 4) uint16) against
+    # their plain versions, value for value: full size, every radius and
+    # debug, off-centre eyes, NIS hdr 1; alpha in {0..3}; the uniform set
+    # also holds 1% of out-of-range 16-bit values, which saturate
+    from openvr_fsr_tpu_torch.tools.parity import noise10, zone_plate10
+
+    def frame_sets10(h, w):
+        zone = np.stack([zone_plate10(h, w), noise10(h, w, seed=1)])
+        zone[..., 3] = rng.integers(0, 4, (2, h, w))
+        uni = rng.integers(0, 1024, (2, h, w, 4)).astype(np.uint16)
+        uni[..., 3] = rng.integers(0, 4, (2, h, w))
+        wild = rng.random((2, h, w, 4)) < 0.01
+        uni[wild] = rng.integers(1024, 65536, int(wild.sum()))
+        return {"zone10+noise10": torch.from_numpy(zone).to(dev),
+                "uniform10": torch.from_numpy(uni).to(dev)}
+
+    sets10 = {"in": frame_sets10(H, W), "full": frame_sets10(OH, OW)}
+    UPSCALERS = ("fsr_fused", "nis_scaler", "cas_upscale")
+    for k in EXACT:
+        max_lsb[f"{k}_10bit"] = 0
+
+    def parity10(kernel, label, fn, img, want=None):
+        got = fn(img)
+        want = fn.reference(img) if want is None else want
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != torch.uint16 \
+                or want.dtype != torch.uint16 or got.device != img.device:
+            fail(f"{kernel} 10-bit output {tuple(got.shape)} {got.dtype} on "
+                 f"{got.device}, plain {tuple(want.shape)} {want.dtype}")
+        d = (got.to(torch.int32) - want.to(torch.int32).to(got.device)).abs()
+        ne, mx = int((d > 0).sum()), int(d.max())
+        log(f"[parity] {kernel} 10-bit {label}: unequal {ne} of "
+            f"{d.numel()} values, max {mx} LSB")
+        if ne:
+            fail(f"{kernel} 10-bit disagrees with its plain version "
+                 f"({ne}, {mx})")
+        return got
+
+    kernel_out10 = {}
+    for kernel, build in builds.items():
+        size = "in" if kernel in UPSCALERS else "full"
+        shape = (f"2x{W}x{H}->2x{OW}x{OH}" if size == "in"
+                 else f"2x{OW}x{OH}")
+        for radius, debug in cases:
+            for name, img in sets10[size].items():
+                kernel_out10[kernel, radius, debug, name] = parity10(
+                    kernel, f"{shape} radius={radius} debug={debug} {name}",
+                    build(radius, debug, bits=10), img)
+        for name, img in sets10[size].items():
+            parity10(kernel, f"{shape} radius=0.3 eyes {OFF_CENTRE} {name}",
+                     build(0.3, eyes=OFF_CENTRE, bits=10), img)
+        if kernel.startswith("nis"):
+            for name, img in sets10[size].items():
+                parity10(kernel, f"{shape} radius=0.5 hdr=1 {name}",
+                         build(0.5, hdr=1, bits=10), img)
+        # the ring pitch, read in place
+        fn = build(0.5, bits=10)
+        img = sets10[size]["uniform10"]
+        hp, wp = fn.pad_to
+        ring = torch.full((2, hp, wp, 4), 1023, dtype=torch.uint16,
+                          device=dev)
+        ring[:, :img.shape[1], :img.shape[2]] = img
+        parity10(kernel, f"ring pitch {hp}x{wp} vs unpadded", fn, ring,
+                 fn(img))
+    # the card's conversions against the CPU path: small frames whose
+    # values span the whole uint16 range (saturating), and a bright border
+    small10 = rng.integers(0, 65536, (2, 96, 128, 4)).astype(np.uint16)
+    small10[:, ::2] = rng.integers(0, 1024, (2, 48, 128, 4))
+    small10[:, ::2, :, 3] = rng.integers(0, 4, (2, 48, 128))
+    border10 = np.full((2, 96, 128, 4), 80, np.uint16)
+    border10[:, :2], border10[:, -2:] = 1000, 960
+    border10[:, :, :2], border10[:, :, -2:] = 1023, 990
+    border10[..., 3] = rng.integers(0, 4, (2, 96, 128))
+    for label, frame in (("full uint16 range", small10),
+                         ("bright border", border10)):
+        img = torch.from_numpy(frame).to(dev)
+        for kernel, build in builds.items():
+            fn = build(2.0 if label == "bright border" else 0.5, h=96, w=128,
+                       bits=10)
+            parity10(kernel, f"2x128x96 {label} vs the CPU path", fn, img,
+                     fn(img.cpu()))
+    fn = cas_sh(2.0, mcd=0.05, bits=10)
+    img = sets10["full"]["zone10+noise10"]
+    if torch.equal(parity10("cas_sharpen", "max_color_delta=0.05", fn, img),
+                   kernel_out10["cas_sharpen", 2.0, False, "zone10+noise10"]):
+        fail("cas_sharpen 10-bit: max_color_delta 0.05 left the output as "
+             "it was at 1.0")
 
     # ---- 3. the plans through the public API --------------------------------
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -681,6 +809,96 @@ def main():
                 f"nothing; {pipe.last_capture_paths[0].name} "
                 f"{got.shape} equals the eye-0 output byte for byte")
 
+    # the six plans at 10 bits through Pipeline(color_bits=10), given no
+    # device, with the launch counts set to 0 just before
+    gen10 = np.random.default_rng(2)
+
+    def pairs10(h, w, first):
+        u16 = gen10.integers(0, 1024, (N_PAIRS, 2, h, w, 4)).astype(np.uint16)
+        u16[..., 3] = gen10.integers(0, 4, (N_PAIRS, 2, h, w))
+        out = torch.from_numpy(u16).to(dev)
+        out[0] = first
+        return out
+
+    pairs10_in = pairs10(H, W, sets10["in"]["zone10+noise10"])
+    pairs10_full = pairs10(OH, OW, sets10["full"]["zone10+noise10"])
+    plans10 = {kernel: (Pipeline(pipe.config, color_bits=10,
+                                 cas_max_color_delta=pipe.cas_max_color_delta),
+                        pairs10_in if kernel in UPSCALERS else pairs10_full)
+               for kernel, ((_, pipe), _) in plans.items()}
+    first_out10 = {}
+    for kernel, (pipe, xs) in plans10.items():
+        pipe.process(xs[0])                         # builds (not counted)
+        for k in pipe.kernels:
+            k.launches = 0
+        outs = [pipe.process(xs[i]) for i in range(N_PAIRS)]
+        torch.cuda.synchronize()
+        counts = [k.launches for k in pipe.kernels]
+        launches[f"{kernel}_10bit"] = sum(counts)
+        log(f"[main] {kernel} 10-bit plan: {N_PAIRS} calls, kernel launches "
+            f"{counts}")
+        if counts != [N_PAIRS] or pipe.kernels[0].color_bits != 10:
+            fail(f"the {kernel} 10-bit plan did not launch its 10-bit "
+                 "kernel once per call")
+        for i, out in enumerate(outs):
+            if out.shape != (2, OH, OW, 4) or out.dtype != torch.uint16 \
+                    or not out.is_cuda:
+                fail(f"{kernel} 10-bit output {tuple(out.shape)} {out.dtype}")
+        fn = pipe.kernels[0]
+        if not torch.equal(outs[0], fn(xs[0])):
+            fail(f"{kernel}: the 10-bit Pipeline output differs from its "
+                 "kernel's")
+        values = outs[0].to(torch.int32)   # few CUDA kernels take uint16
+        if int(values[..., :3].max()) > 1023 or int(values[..., 3].max()) > 3:
+            fail(f"{kernel} 10-bit output above 1023 or alpha above 3")
+        first_out10[kernel] = outs[0]
+        log(f"[main] {kernel} 10-bit plan: output {tuple(outs[0].shape)} "
+            f"uint16, alpha values {values[..., 3].unique().tolist()}")
+    for kernel, radius in (("fsr_fused", 0.5), ("cas_upscale", 2.0),
+                           ("cas_sharpen", 2.0)):
+        if not torch.equal(first_out10[kernel], kernel_out10[
+                kernel, radius, False, "zone10+noise10"]):
+            fail(f"the {kernel} 10-bit plan differs from its kernel at the "
+                 "same config in phase 2")
+    for kernel, (pipe, xs) in plans10.items():
+        cfg = pipe.config
+        up = upscale(xs[0], render_scale=cfg.render_scale,
+                     sharpness=cfg.sharpness, radius=cfg.radius,
+                     use_nis=cfg.use_nis, use_cas=cfg.use_cas, color_bits=10)
+        torch.cuda.synchronize()
+        if not up.is_cuda or not torch.equal(up, first_out10[kernel]):
+            fail(f"upscale(color_bits=10) differs from the {kernel} 10-bit "
+                 "plan")
+    log("[main] upscale(color_bits=10) with no device, each plan: on the "
+        "card, equal to Pipeline(color_bits=10)")
+    # RGB uint16 frames get the opaque alpha 3, as the JAX to_planar does
+    opaque = pairs10_in[0].cpu().numpy()
+    opaque[..., 3] = 3
+    rgb = upscale(pairs10_in[0][..., :3], render_scale=0.75, color_bits=10)
+    if not torch.equal(rgb, upscale(torch.from_numpy(opaque).to(dev),
+                                    render_scale=0.75, color_bits=10)):
+        fail("upscale(color_bits=10) on RGB frames differs from opaque RGBA")
+    log("[main] upscale(color_bits=10) on RGB uint16 frames equals the same "
+        "frames with alpha 3")
+    # deferred capture of a 10-bit pipeline: an R10G10B10A2 DDS
+    from openvr_fsr_tpu_torch.api.capture import (pack_r10g10b10a2,
+                                                  read_dds)
+    with tempfile.TemporaryDirectory() as tmp:
+        pipe = Pipeline(fsr_cfg, color_bits=10)
+        pipe.arm_capture(tmp)
+        pipe.process(pairs10_in[0][1:], eyes=(1,))
+        if any(Path(tmp).iterdir()):
+            fail("10-bit capture: a right-eye-only batch captured")
+        out = pipe.process(pairs10_in[0])
+        (path,) = pipe.last_capture_paths
+        got, bits = read_dds(path)
+        payload = pack_r10g10b10a2(out[0].cpu().numpy()).tobytes()
+        if bits != 10 or not np.array_equal(got, out[0].cpu().numpy()) \
+                or path.read_bytes()[128:] != payload:
+            fail("10-bit capture: the DDS differs from the eye-0 output")
+        log(f"[main] capture (10-bit): {path.name} R10G10B10A2 {got.shape} "
+            "equals the eye-0 output value for value")
+
     # ---- 4. times -----------------------------------------------------------
     timed = {   # kernel -> (build at the default config, input)
         "fsr_fused": (fsr(0.5), sets["in"]["zone+noise"]),
@@ -724,6 +942,24 @@ def main():
                      if kernel.startswith("cas") else "")
             log(f"[time] {kernel} radius={radius}: {t} ms per stereo "
                 f"pair{plain}")
+    # the 10-bit kernels at radius 0.5, the same way
+    timed10 = {kernel: (build(0.5, bits=10),
+                        sets10["in" if kernel in UPSCALERS else "full"]
+                        ["zone10+noise10"])
+               for kernel, build in builds.items()}
+    for kernel, (fn, img) in timed10.items():
+        rounds = {"kernel": [], "plain": []}
+        for label, f, n in (("plain", fn.reference, 5), ("kernel", fn, 200),
+                            ("kernel", fn, 200), ("plain", fn.reference, 5)):
+            rounds[label].append((graph_ms if label == "kernel" else time_ms)(
+                f, img, n))
+        ms[f"{kernel}_10bit"] = float(np.mean(rounds["kernel"]))
+        plain_ms[f"{kernel}_10bit"] = float(np.mean(rounds["plain"]))
+        mbytes = (img.numel() + fn(img).numel()) * 2 / 1e6
+        log(f"[time] {kernel} 10-bit radius 0.5: kernel {rounds['kernel']} "
+            f"ms per stereo pair ({mbytes:.1f} MB moved -> "
+            f"{mbytes / ms[f'{kernel}_10bit']:.1f} GB/s; 8-bit "
+            f"{ms[kernel]} ms); plain torch {rounds['plain']} ms")
     log(f"[time] fsr_fused rs=1.3 2x{OW}x{OH} radius=0.5: "
         f"{graph_ms(fsr(0.5, h=OH, w=OW, rs=1.3), sets['full']['zone+noise'], 200)}"
         " ms per stereo pair")
@@ -829,6 +1065,81 @@ def main():
                 f"{run.probe_effective_gbps:.1f} GB/s over the unique bytes")
             if run.vs_sol > VS_SOL_MAX:
                 fail(f"{path} radius {r}: vs_sol {run.vs_sol} > {VS_SOL_MAX}")
+    # the 10-bit floors: word for word against their plain version at the
+    # six plans' 10-bit geometries at radius 0.0, 0.5 and 2.0 (ring pitch,
+    # and unpadded where its row pitch is a multiple of 16 bytes), then each
+    # 10-bit kernel and its floor in turns ([b1]-[b6] 10-bit lines)
+    max_lsb["dma_floor_10bit"] = 0
+    paths10 = (("b1", "fsr_fused", "fsr_fused"), ("b3", "nvscaler", "nis_scaler"),
+               ("b5", "cas_upscale", "cas_upscale"),
+               ("b4", "nvsharpen", "nis_sharpen"),
+               ("b6", "cas_sharpen", "cas_sharpen"),
+               ("b2", "rcas_only", "rcas_sharpen"))
+    for _, path, kernel in paths10:
+        cfg, h, w = bench_paths.path_config(path)
+        x10 = sets10["in" if (h, w) == (H, W) else "full"]["zone10+noise10"]
+        for r in (0.0, 0.5, 2.0):
+            fn10 = Pipeline(cfg.with_(radius=r), color_bits=10)._build(
+                2, h, w, (0, 1), False)
+            floor10 = build_dma_floor(fn10.dma_geometry)
+            want = floor10.reference(x10)
+            hp, wp = floor10.pad_to
+            ring = torch.zeros((2, hp, wp, 4), dtype=torch.uint16, device=dev)
+            ring[:, :h, :w] = x10
+            for label, x in (("unpadded", x10), (f"ring pitch {hp}x{wp}",
+                                                 ring)):
+                if 2 * x.shape[2] % floor10.pitch_words:
+                    try:
+                        floor10(x)
+                    except ValueError:
+                        log(f"[floor] dma_floor 10-bit {path} radius {r} "
+                            f"{label}: refused as published (a "
+                            f"{2 * x.shape[2]}-word pitch)")
+                        continue
+                    fail(f"dma_floor 10-bit {path} ({label}): a "
+                         f"{2 * x.shape[2]}-word pitch was not refused")
+                got = floor10(x)
+                torch.cuda.synchronize()
+                ne = int((got.to(torch.int32) != want.to(torch.int32)).sum()) \
+                    if got.shape == want.shape else -1
+                log(f"[floor] dma_floor 10-bit {path} radius {r} {label}: "
+                    f"unequal {ne} of {want.numel()} values (read "
+                    f"{floor10.read_bytes / 1e6:.1f} MB, "
+                    f"{floor10.hbm_bytes / 1e6:.1f} MB unique)")
+                if ne:
+                    fail(f"dma_floor 10-bit {path} radius {r} ({label}) "
+                         "disagrees with its plain version")
+    runs10 = []
+    for tag, path, kernel in paths10:
+        cfg, h, w = bench_paths.path_config(path)
+        for r in (0.0, 0.5, 2.0):
+            run = bench.measure(cfg.with_(radius=r), h, w, rounds=B_ROUNDS,
+                                color_bits=10)
+            runs10.append(run)
+            log(f"[{tag}] {path} 10-bit radius {r}: {run.device_ms} ms per "
+                f"stereo pair (device; back to back {run.ms}), its DMA floor "
+                f"{run.sol_ms} ms, vs_sol {run.vs_sol}, floor "
+                f"{run.probe_effective_gbps:.1f} GB/s over the unique bytes "
+                f"({card})")
+            if run.vs_sol > VS_SOL_MAX:
+                fail(f"{path} 10-bit radius {r}: vs_sol {run.vs_sol} > "
+                     f"{VS_SOL_MAX}")
+    launches["dma_floor_10bit"] = sum(run.floor.launches for run in runs10)
+    floor10 = build_dma_floor(timed10["fsr_fused"][0].dma_geometry)
+    hp, wp = floor10.pad_to
+    img10 = torch.zeros((2, hp, wp, 4), dtype=torch.uint16, device=dev)
+    img10[:, :H, :W] = timed10["fsr_fused"][1]
+    rounds = {"kernel": [], "plain": []}
+    for label, f, n in (("plain", floor10.reference, 5),
+                        ("kernel", floor10, 200), ("kernel", floor10, 200),
+                        ("plain", floor10.reference, 5)):
+        rounds[label].append((graph_ms if label == "kernel" else time_ms)(
+            f, img10, n))
+    ms["dma_floor_10bit"] = float(np.mean(rounds["kernel"]))
+    plain_ms["dma_floor_10bit"] = float(np.mean(rounds["plain"]))
+    log(f"[time] dma_floor at the fsr_fused 10-bit geometry: "
+        f"{rounds['kernel']} ms per stereo pair; plain torch "
+        f"{rounds['plain']} ms")
     best, avg = bench_fn(floor, img, warmup=3, iters=50)
     read_bw, write_bw = hbm_calibration(dev)
     log(f"[time] dma_floor call by call (bench_fn): best {best} ms, average "
@@ -941,7 +1252,7 @@ def main():
         stage1 = sass.innermost_loop(text, "fsr_inside_kernel", "FMUL",
                                      "STS", "MUFU")
         outside = [ops for fn, ops in sass.function_counts(text).items()
-                   if "fsr_outside_kernel" in fn]
+                   if "fsr_outside_kernel" in fn and sass.of_codec(fn)]
         for label, ops in (("inside kernel, stage-1 loop", stage1),
                            ("outside kernel", outside[0] if outside
                             else None)):
@@ -971,8 +1282,10 @@ def main():
                 longest = (f"longest loop {sum(ops.values())} instructions, "
                            f"LDS {ops['LDS']}, LDC {ops['LDC']}, MUFU "
                            f"{ops['MUFU']}" if ops else "no loop")
-                log(f"[probe] SASS {name} {part}: {longest}; whole kernel "
-                    f"{sum(whole.values())}, {dict(whole.most_common(8))}")
+                bits = 8 if sass.of_codec(fn_name) else 10
+                log(f"[probe] SASS {name} {part} ({bits}-bit): {longest}; "
+                    f"whole kernel {sum(whole.values())}, "
+                    f"{dict(whole.most_common(8))}")
         # one inside output's float instructions in each inside kernel's
         # SASS (static: tools/sass.py::inside_float_per_output) beside the
         # meter's ops, which price B1-B6's f32 work in the kernels line
@@ -1100,7 +1413,17 @@ def main():
         bounds[kernel] = bound(
             (img.numel() + 2 * g["out_h"] * g["out_w"]) * 4,
             inside * per_px[0] + fallback * per_px[1], issue)
+    for kernel, (fn, img) in timed10.items():
+        g = fn.dma_geometry
+        inside, fallback = vpu_audit.inside_pixels(g)
+        per_px = vpu_audit.path_ops(
+            kernel, in_per_out=g["in_h"] * g["in_w"] / (g["out_h"] * g["out_w"]),
+            sharpness=CAS_SHARPNESS if kernel.startswith("cas") else SHARPNESS)
+        bounds[f"{kernel}_10bit"] = bound(
+            img.numel() * 2 + 2 * g["out_h"] * g["out_w"] * 4,
+            inside * per_px[0] + fallback * per_px[1], issue)
     bounds["dma_floor"] = bound(floor.hbm_bytes, 0, issue)
+    bounds["dma_floor_10bit"] = bound(floor10.hbm_bytes, 0, issue)
     bounds.update(vpu_audit.probe_bounds(
         *(probes[n][0] for n in ("vpu_rate", "vmem_rate", "mxu_rate")),
         audit["rates"]["sms"], audit["rates"]["max_sm_clock_hz"],
@@ -1120,11 +1443,14 @@ def main():
         "vmem_rate": "openvr_fsr_tpu/kernels/sol.py:202",
         "mxu_rate": "openvr_fsr_tpu/kernels/sol.py:276",
     }
+    # the 10-bit instantiations: the same sources and TPU kernels (their
+    # color_bits=10 branch)
+    sources.update({f"{k}_10bit": sources[k] for k in (*EXACT, "dma_floor")})
     log(card)
     log(json.dumps({"kernels": [{
         "name": kernel,
         "route": "cuda",
-        "source": f"openvr_fsr_tpu_torch/csrc/{kernel}.cu",
+        "source": f"openvr_fsr_tpu_torch/csrc/{kernel.removesuffix('_10bit')}.cu",
         "replaces": replaces,
         "launches": launches[kernel],
         "max_abs_err": max_lsb[kernel],

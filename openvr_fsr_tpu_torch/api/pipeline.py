@@ -4,12 +4,14 @@ Reference orchestration being reproduced (src/postprocess/PostProcessor.cpp):
   - output sizing: rs<1 -> out=in/rs, rs>=1 -> out=in*rs  (:512-518)
   - per-eye constant buffers with projection-centred foveation circles
     (:293-310, 416-430)
-  - the EASU->RCAS handoff through a UNORM8 texture (:527)
+  - the EASU->RCAS handoff through a UNORM texture in the frame's format
+    (:527; R8G8B8A8 or R10G10B10A2, :63-74)
   - lazy per-(shape, config) resource creation = a build cache keyed the
     same way (:136-153); `Reset()` = dropping the cache
 
-This port covers every stage plan of the JAX package on RGBA8 frames, each
-one kernel launch per batch: FSR with an upscale (renderScale != 1,
+This port covers every stage plan of the JAX package on RGBA8 frames and
+on R10G10B10A2 ones (color_bits=10: (B, H, W, 4) uint16, RGB in [0, 1023],
+alpha in [0, 3]), each one kernel launch per batch: FSR with an upscale (renderScale != 1,
 kernels/fsr.py), FSR sharpen-only at renderScale 1 (kernels/rcas.py), NIS
 upscale (NVScaler) and NIS at renderScale 1 (NVSharpen, both kernels/nis.py,
 HDR modes 0/1/2), and CAS, one CasFilter pass: sharpen-and-upscale at
@@ -41,6 +43,9 @@ __all__ = ["Pipeline", "upscale"]
 
 F32 = np.float32
 _PACKED = (torch.uint32, torch.int32)   # packed RGBA8 plane dtypes
+# color_bits -> the dtype of (B, H, W, 4) frames and the value of an opaque
+# alpha (RGB input gets it)
+_FRAMES = {8: (torch.uint8, 255), 10: (torch.uint16, 3)}
 
 
 def _resolve_device(device):
@@ -69,7 +74,8 @@ class Pipeline:
         image centres (symmetric projection, no cant).
       single_eye_per_frame: True = each batch entry is one eye (the reference's
         textureContainsOnlyOneEye); False = double-wide frames holding both.
-      color_bits: None or 8 (RGBA8).
+      color_bits: None or 8 (RGBA8), or 10: the R10G10B10A2 passthrough,
+        uint16 frames (RGB /1023, the 2-bit alpha /3).
       backend, precision, hdr_mode, cas_max_color_delta: the JAX signature;
         only "auto" / "full" run here. hdr_mode is NIS_HDR_MODE (0 none,
         the mod's shipped build; 1 linear; 2 PQ, NIS_Scaler.h:112-116) and
@@ -92,10 +98,9 @@ class Pipeline:
                              "'auto' (CUDA kernel for CUDA tensors, plain "
                              "torch for CPU tensors)")
         self.color_bits = int(color_bits or 8)
-        if self.color_bits != 8:
-            raise NotImplementedError(
-                "color_bits=10 is not ported yet: ROADMAP.md Queue A item 5 "
-                "(the 10-bit planar path)")
+        if self.color_bits not in _FRAMES:
+            raise ValueError(f"color_bits={color_bits!r}: 8 (RGBA8) or 10 "
+                             "(R10G10B10A2)")
         if precision != "full":
             raise NotImplementedError(
                 f"precision={precision!r} is not ported yet: ROADMAP.md "
@@ -174,6 +179,7 @@ class Pipeline:
         do_up, _ = cfg.stage_plan()
         out_w, out_h = cfg.output_size(w, h)
         centres = self._centres_array(out_w, out_h, eyes)
+        cb = self.color_bits
         if cfg.use_cas and do_up:           # CAS: one CasFilter scaling pass
             if not cas_support_scaling(out_w, out_h, w, h):
                 self._log.info(
@@ -181,12 +187,12 @@ class Pipeline:
                     "(ffx_cas.h:368-372) — output follows the filter anyway")
             return build_cas_upscale(b, h, w, out_w, out_h,
                                      sharpness=cfg.sharpness, centres=centres,
-                                     debug=cfg.debug_mode)
+                                     debug=cfg.debug_mode, color_bits=cb)
         if cfg.use_cas:                     # CAS at renderScale 1: noScaling
             return build_cas_sharpen(
                 b, h, w, sharpness=cfg.sharpness, centres=centres,
                 debug=cfg.debug_mode,
-                max_color_delta=self.cas_max_color_delta)
+                max_color_delta=self.cas_max_color_delta, color_bits=cb)
         if cfg.use_nis and do_up:           # NIS upscale: NVScaler
             nis_cfg = C.nvscaler_update_config(
                 cfg.sharpness, w, h, w, h, out_w, out_h, out_w, out_h,
@@ -196,19 +202,21 @@ class Pipeline:
                     "NIS scale factor outside the supported 0.5..1.0 window "
                     "(NIS_Config.h:226) — output follows the reference anyway")
             return build_nvscaler(b, h, w, out_w, out_h, nis_cfg=nis_cfg,
-                                  centres=centres, debug=cfg.debug_mode)
+                                  centres=centres, debug=cfg.debug_mode,
+                                  color_bits=cb)
         if cfg.use_nis:                     # NIS at renderScale 1: NVSharpen
             nis_cfg = C.nvsharpen_update_config(cfg.sharpness, w, h, w, h,
                                                 hdr_mode=self.hdr_mode)
             return build_nvsharpen(b, h, w, nis_cfg=nis_cfg, centres=centres,
-                                   debug=cfg.debug_mode)
+                                   debug=cfg.debug_mode, color_bits=cb)
         if do_up:                           # FSR: EASU + RCAS, fused
             return build_fsr_fused(b, h, w, out_w, out_h,
                                    sharpness=cfg.sharpness, centres=centres,
-                                   debug=cfg.debug_mode)
+                                   debug=cfg.debug_mode, color_bits=cb)
         # FSR at renderScale 1: sharpen only (PostProcessor.cpp:530)
         return build_rcas_sharpen(b, h, w, sharpness=cfg.sharpness,
-                                  centres=centres, debug=cfg.debug_mode)
+                                  centres=centres, debug=cfg.debug_mode,
+                                  color_bits=cb)
 
     def _build(self, b, h, w, eyes, packed):
         kern = self._build_kernel(b, h, w, eyes)
@@ -219,11 +227,16 @@ class Pipeline:
             def run(x):
                 return kern(x.view(torch.int32)).view(x.dtype)
         else:
+            opaque = _FRAMES[self.color_bits][1]
+
             def run(x):
                 if x.shape[-1] == 3:                 # RGB input: opaque alpha
-                    x = torch.cat([x, torch.full(x.shape[:-1] + (1,), 255,
-                                                 dtype=x.dtype,
-                                                 device=x.device)], dim=-1)
+                    # through int32: few CUDA kernels take uint16
+                    x = torch.cat([x.to(torch.int32), torch.full(
+                        x.shape[:-1] + (1,), opaque, dtype=torch.int32,
+                        device=x.device)], dim=-1).to(x.dtype)
+                if self.color_bits == 10:   # the kernel takes the frame
+                    return kern(x.contiguous())
                 plane = x.contiguous().view(torch.int32)[..., 0]
                 return kern(plane)[..., None].view(torch.uint8)
 
@@ -294,10 +307,12 @@ class Pipeline:
         return out[..., y0:y1, x0:x1, :]
 
     def process(self, frames, eyes=None, bounds=None, crop=False):
-        """frames: (B, H, W, 4|3) or (H, W, 4|3) uint8, or — zero-copy
-          packed mode — (B, H, W) / (H, W) uint32 (or int32) holding packed
-          RGBA8 texels (little-endian, R in the low byte); the result is
-          then packed in the same dtype. A numpy array or a torch tensor.
+        """frames: (B, H, W, 4|3) or (H, W, 4|3) uint8 (uint16 with
+          color_bits=10: RGB in [0, 1023], alpha in [0, 3]), or — zero-copy
+          packed mode, 8-bit only — (B, H, W) / (H, W) uint32 (or int32)
+          holding packed RGBA8 texels (little-endian, R in the low byte);
+          the result is then packed in the same dtype. A numpy array or a
+          torch tensor.
         eyes: per-entry eye index (default alternating 0,1,...).
         bounds: optional VRTextureBounds_t (uMin, vMin, uMax, vMax), or a
           per-entry sequence of them. Like the reference (PostProcessor.cpp:
@@ -314,9 +329,15 @@ class Pipeline:
         first_bounds = self._apply_bounds_layout(bounds)
         x = self._as_tensor(frames)
         packed = x.dtype in _PACKED
-        if not packed and x.dtype != torch.uint8:
-            raise TypeError(f"frames of dtype {x.dtype}: the port takes "
-                            "uint8 RGBA8 or a packed uint32/int32 plane")
+        if packed and self.color_bits != 8:
+            raise ValueError("packed-u32 frames require color_bits=8")
+        expected = _FRAMES[self.color_bits][0]
+        if not packed and x.dtype != expected:
+            raise TypeError(
+                f"frames of dtype {x.dtype}: a color_bits={self.color_bits} "
+                f"pipeline takes {expected} frames"
+                + (" or a packed uint32/int32 RGBA8 plane"
+                   if self.color_bits == 8 else ""))
         squeeze = x.ndim == (2 if packed else 3)
         if squeeze:
             x = x[None]
@@ -325,7 +346,7 @@ class Pipeline:
             eyes = tuple(i % 2 for i in range(b))
         else:
             eyes = tuple(int(e) for e in eyes)
-        key = (b, h, w, str(x.dtype), eyes, self.config,
+        key = (b, h, w, str(x.dtype), eyes, self.config, self.color_bits,
                self.single_eye_per_frame, self.hdr_mode,
                self.cas_max_color_delta, x.device)
         fn = self._cache.get(key)
@@ -380,8 +401,9 @@ def upscale(frame, render_scale=None, sharpness=0.9, use_nis=False, radius=0.5,
             bounds=None, crop=False, use_cas=False, device=None):
     """One-shot functional API.
 
-    frame: (H, W, 4) or (B, H, W, 4) uint8 RGBA, or a packed uint32/int32
-    plane, as a numpy array or a torch tensor. render_scale: <1 upscales by
+    frame: (H, W, 4) or (B, H, W, 4) uint8 RGBA (uint16 R10G10B10A2 with
+    color_bits=10), or a packed uint32/int32 plane, as a numpy array or a
+    torch tensor. render_scale: <1 upscales by
     1/rs; >1 supersamples by rs; 1/None = sharpen only. use_nis selects
     NVIDIA Image Scaling (NVScaler / NVSharpen) instead of FSR.
     bounds: optional VRTextureBounds_t (uMin, vMin, uMax, vMax) — half-width

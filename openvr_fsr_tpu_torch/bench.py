@@ -94,11 +94,14 @@ def card():
     return r.stdout.strip().splitlines()[0]
 
 
-def ring_frames(h, w, pad_to, device):
+def ring_frames(h, w, pad_to, device, color_bits=8):
     """The root bench.py's three stereo frames (:75-81): zone plate + noise,
     uniform random, gradient + checkerboard, packed to the native u32 plane,
     padded to the ring pitch `pad_to`, and moved to `device` as int32 views
-    of the u32 words (the port's packed dtype; no converted copy)."""
+    of the u32 words (the port's packed dtype; no converted copy). At
+    color_bits 10 the same frames widened to R10G10B10A2 (each 8-bit value
+    v to v * 4 + v // 64, alpha to its top 2 bits), as padded (B, hp, wp,
+    4) uint16 tensors."""
     import torch
 
     from .utils import frames as FR
@@ -110,6 +113,13 @@ def ring_frames(h, w, pad_to, device):
         np.stack([FR.gradient_frame(h, w), FR.checkerboard_frame(h, w)])]
     out = []
     for u8 in sets:
+        if color_bits == 10:
+            v = u8.astype(np.uint16)
+            u16 = np.concatenate([v[..., :3] * 4 + v[..., :3] // 64,
+                                  v[..., 3:] // 64], axis=-1)
+            ring = np.pad(u16, ((0, 0), (0, hp - h), (0, wp - w), (0, 0)))
+            out.append(torch.from_numpy(ring).to(device))
+            continue
         packed = np.ascontiguousarray(u8).view(np.uint32)[..., 0]
         ring = np.pad(packed, ((0, 0), (0, hp - h), (0, wp - w)))
         out.append(torch.from_numpy(ring.view(np.int32)).to(device))
@@ -142,25 +152,26 @@ class PathRun:
 
 
 def measure(config, h, w, *, iters=ITERS, rounds=ROUNDS, warmup=WARMUP,
-            device="cuda"):
+            device="cuda", color_bits=8):
     """Time one plan's kernel and its DMA floor on the card over the three
     ring frames of (h, w) stereo pairs, in turns each round: the kernel's
     and the floor's CUDA graphs of `iters` calls, and `iters` back-to-back
     kernel calls ending in a host sync; the best of `rounds` each.
     compile_s is the build (host tables, and nvcc where the library is not
-    built yet) plus the first launch."""
+    built yet) plus the first launch. color_bits 10 measures the
+    R10G10B10A2 build on uint16 frames (the packed plane is 8-bit only)."""
     import torch
 
     from .api.pipeline import Pipeline
     from .kernels.sol import build_dma_floor
     from .utils.timing import replay_ms, rotation_graph, rotation_ms, wall_ms
 
-    pipe = Pipeline(config, device=device)
+    pipe = Pipeline(config, device=device, color_bits=color_bits)
     out_w, out_h = pipe.output_size(w, h)
     t0 = time.perf_counter()
-    fn = pipe._build(2, h, w, (0, 1), True)
+    fn = pipe._build(2, h, w, (0, 1), color_bits == 8)
     build_s = time.perf_counter() - t0
-    inputs = ring_frames(h, w, fn.pad_to, device)
+    inputs = ring_frames(h, w, fn.pad_to, device, color_bits)
     t0 = time.perf_counter()
     fn(inputs[0])
     torch.cuda.synchronize()

@@ -8,12 +8,16 @@
 // clamped to within maxColorDelta of the centre texel. Inside the foveation
 // circle (16x16 groups) the output is that colour with alpha 1; outside,
 // the source colour times the debug tint with the source's own alpha
-// (kernels/cas.py:483-490), stored as packed RGBA8.
+// (kernels/cas.py:483-490), stored in the frame's format: packed RGBA8, or
+// R10G10B10A2 as four uint16 (the JAX builder's color_bits=10 branch,
+// cas.py:418; the codecs of codec.cuh, one instantiation of every kernel
+// each, behind cas_sharpen_launch and cas_sharpen_launch10).
 //
-// What bounds it: bytes moved outside the circle (one 4-byte load and store
+// What bounds it: bytes moved outside the circle (one texel load and store
 // per output; at the headset's per-eye size, 2 x 2244x2492, one stereo pair
-// reads and writes 44.7 MB each way), and inside it the shared-memory words
-// the filter's 3x3 taps read (the filter is a few dozen f32 ops per pixel).
+// reads and writes 44.7 MB each way in RGBA8, 89.5 MB in R10G10B10A2), and
+// inside it the shared-memory words the filter's 3x3 taps read (the filter
+// is a few dozen f32 ops per pixel).
 //
 // The design, per output tile of 32x32 pixels (2x2 foveation groups):
 //   - the host (kernels/_maps.py::sharpen_maps) evaluates the circle test
@@ -42,8 +46,8 @@
 #include <cstdint>
 
 #include "cas_math.cuh"
+#include "codec.cuh"
 #include "copy_pass.cuh"
-#include "rgba8.cuh"
 
 namespace {
 
@@ -54,23 +58,24 @@ constexpr int kThreads = 256;
 constexpr int kRun = kTile * kTile / kThreads;   // outputs per thread (4), one column
 static_assert(kGroup % kRun == 0, "a run lies in one group row");
 
+template <class C>
 struct Params {
-  const uint32_t* img;        // (B, rows, pitch) packed RGBA8, R in the low byte
-  uint32_t* out;              // (B, h, w) packed RGBA8
+  const typename C::Texel* img;   // (B, rows, pitch) texels
+  typename C::Texel* out;         // (B, h, w) texels
   const int32_t* group_cls;   // (B, groups_y, groups_x): 1 inside the circle
   const int32_t* tiles;       // the inside list: b * tiles_y * tiles_x + ty * tiles_x + tx
   int h, w, rows, pitch, tiles_x, tiles_y, groups_x, groups_y;
   float sharp, mcd, tint;
 };
 
-using rgba8::channel;
-
 // The inside kernel's shared memory: the window decoded into R, G, B planes.
 struct Smem {
   float c[3][kWin][kWin];
 };
 
-__global__ void __launch_bounds__(kThreads) cas_sharpen_inside_kernel(Params p) {
+template <class C>
+__global__ void __launch_bounds__(kThreads) cas_sharpen_inside_kernel(Params<C> p) {
+  using Texel = typename C::Texel;
   __shared__ Smem s;
 
   const int tid = threadIdx.x;
@@ -80,17 +85,17 @@ __global__ void __launch_bounds__(kThreads) cas_sharpen_inside_kernel(Params p) 
   const int ty = (id - b * per) / p.tiles_x;
   const int tx = id - b * per - ty * p.tiles_x;
   const int x0 = tx * kTile, y0 = ty * kTile;
-  const uint32_t* img = p.img + static_cast<size_t>(b) * p.rows * p.pitch;
+  const Texel* img = p.img + static_cast<size_t>(b) * p.rows * p.pitch;
 
   // the window, once, decoded; texels outside the image are 0 (CasLoad)
   for (int i = tid; i < kWin * kWin; i += kThreads) {
     const int ly = i / kWin, lx = i % kWin;
     const int y = y0 - 1 + ly, x = x0 - 1 + lx;
-    const uint32_t t = (y >= 0 && y < p.h && x >= 0 && x < p.w)
-                           ? img[static_cast<size_t>(y) * p.pitch + x]
-                           : 0u;
+    const Texel t = (y >= 0 && y < p.h && x >= 0 && x < p.w)
+                        ? img[static_cast<size_t>(y) * p.pitch + x]
+                        : Texel{};
 #pragma unroll
-    for (int c = 0; c < 3; ++c) s.c[c][ly][lx] = channel(t, c);
+    for (int c = 0; c < 3; ++c) s.c[c][ly][lx] = C::channel(t, c);
   }
   __syncthreads();
 
@@ -98,11 +103,11 @@ __global__ void __launch_bounds__(kThreads) cas_sharpen_inside_kernel(Params p) 
   const int lx = tid % kTile, ly0 = (tid / kTile) * kRun;
   const int x = x0 + lx, oy0 = y0 + ly0;
   if (x >= p.w || oy0 >= p.h) return;
-  uint32_t* out = p.out + static_cast<size_t>(b) * p.h * p.w;
+  Texel* out = p.out + static_cast<size_t>(b) * p.h * p.w;
   if (!p.group_cls[(b * p.groups_y + oy0 / kGroup) * p.groups_x + x / kGroup]) {
     for (int r = 0; r < kRun && oy0 + r < p.h; ++r)
       out[static_cast<size_t>(oy0 + r) * p.w + x] =
-          copy_pass::texel<true>(img[static_cast<size_t>(oy0 + r) * p.pitch + x], p.tint);
+          copy_pass::texel<true, C>(img[static_cast<size_t>(oy0 + r) * p.pitch + x], p.tint);
     return;
   }
   float t[3][3][3];   // the taps of output row oy0 + r: window rows ly0 + r .. + 2
@@ -125,47 +130,40 @@ __global__ void __launch_bounds__(kThreads) cas_sharpen_inside_kernel(Params p) 
         for (int c = 0; c < 3; ++c) t[k][q][c] = s.c[c][ly0 + r + k][lx + q];
     float res[3];
     cas::sharpen(t, p.sharp, p.mcd, res);
-    out[static_cast<size_t>(oy0 + r) * p.w + x] = rgba8::pack(res[0], res[1], res[2], 1.0f);
+    out[static_cast<size_t>(oy0 + r) * p.w + x] = C::pack(res[0], res[1], res[2], 1.0f);
   }
 }
 
 // The outside list: the shared copy pass, the source alpha kept.
+template <class C>
 __global__ void __launch_bounds__(copy_pass::kThreads)
-    cas_sharpen_outside_kernel(copy_pass::Args a) {
-  copy_pass::run<kTile, kTile, true>(a);
+    cas_sharpen_outside_kernel(copy_pass::Args<C> a) {
+  copy_pass::run<kTile, kTile, true, C>(a);
 }
 
-}  // namespace
-
-// CTAs per SM of the outside and inside kernels on the current device
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the inside kernel's
-// shared memory per CTA in bytes. Returns the first non-zero cudaError_t.
-extern "C" int cas_sharpen_occupancy(int* outside, int* inside, int* inside_smem) {
+template <class C>
+int occupancy(int* outside, int* inside, int* inside_smem) {
   *inside_smem = static_cast<int>(sizeof(Smem));
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      outside, cas_sharpen_outside_kernel, copy_pass::kThreads, 0);
+      outside, cas_sharpen_outside_kernel<C>, copy_pass::kThreads, 0);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, cas_sharpen_inside_kernel,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, cas_sharpen_inside_kernel<C>,
                                                         kThreads, 0);
   return static_cast<int>(err);
 }
 
-// Launch on `stream`: the copy pass over outside_tiles, then the inside
-// kernel over inside_tiles (an empty list launches nothing). Returns the
-// first non-zero cudaError_t (0 = launched). The caller (kernels/cas.py) has
-// checked shapes, dtypes and devices and that the lists partition the
-// tiles; tile and window must equal kTile and kWin.
-extern "C" int cas_sharpen_launch(const void* img, void* out, const void* group_cls,
-                                  const void* inside_tiles, int n_inside,
-                                  const void* outside_tiles, int n_outside, int batch, int h,
-                                  int w, int rows, int pitch, float sharp, float mcd, float tint,
-                                  int tile, int window, void* stream) {
+template <class C>
+int launch(const void* img, void* out, const void* group_cls, const void* inside_tiles,
+           int n_inside, const void* outside_tiles, int n_outside, int batch, int h, int w,
+           int rows, int pitch, float sharp, float mcd, float tint, int tile, int window,
+           void* stream) {
+  using Texel = typename C::Texel;
   if (tile != kTile || window != kWin || batch <= 0 || h <= 0 || w <= 0 || h > rows ||
       w > pitch || n_inside < 0 || n_outside < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
-  p.img = static_cast<const uint32_t*>(img);
-  p.out = static_cast<uint32_t*>(out);
+  Params<C> p;
+  p.img = static_cast<const Texel*>(img);
+  p.out = static_cast<Texel*>(out);
   p.group_cls = static_cast<const int32_t*>(group_cls);
   p.tiles = static_cast<const int32_t*>(inside_tiles);
   p.h = h;
@@ -181,15 +179,55 @@ extern "C" int cas_sharpen_launch(const void* img, void* out, const void* group_
   p.tint = tint;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_outside > 0) {
-    const copy_pass::Args a = {p.img, p.out, static_cast<const int32_t*>(outside_tiles), h, w,
-                               rows, pitch, p.tiles_x, p.tiles_y, tint};
-    cas_sharpen_outside_kernel<<<n_outside, copy_pass::kThreads, 0, s>>>(a);
+    const copy_pass::Args<C> a = {p.img, p.out, static_cast<const int32_t*>(outside_tiles), h,
+                                  w, rows, pitch, p.tiles_x, p.tiles_y, tint};
+    cas_sharpen_outside_kernel<C><<<n_outside, copy_pass::kThreads, 0, s>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (n_inside > 0) {
-    cas_sharpen_inside_kernel<<<n_inside, kThreads, 0, s>>>(p);
+    cas_sharpen_inside_kernel<C><<<n_inside, kThreads, 0, s>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
   return 0;
+}
+
+}  // namespace
+
+// CTAs per SM of the outside and inside kernels on the current device
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the inside kernel's
+// shared memory per CTA in bytes, for RGBA8 (cas_sharpen_occupancy) and
+// R10G10B10A2 (cas_sharpen_occupancy10). Returns the first non-zero
+// cudaError_t.
+extern "C" int cas_sharpen_occupancy(int* outside, int* inside, int* inside_smem) {
+  return occupancy<codec::Rgba8>(outside, inside, inside_smem);
+}
+extern "C" int cas_sharpen_occupancy10(int* outside, int* inside, int* inside_smem) {
+  return occupancy<codec::Rgb10a2>(outside, inside, inside_smem);
+}
+
+// Launch on `stream`: the copy pass over outside_tiles, then the inside
+// kernel over inside_tiles (an empty list launches nothing), on packed
+// RGBA8 texels (cas_sharpen_launch) or R10G10B10A2 ones
+// (cas_sharpen_launch10). Returns the first non-zero cudaError_t (0 =
+// launched). The caller (kernels/cas.py) has checked shapes, dtypes and
+// devices and that the lists partition the tiles; tile and window must
+// equal kTile and kWin.
+extern "C" int cas_sharpen_launch(const void* img, void* out, const void* group_cls,
+                                  const void* inside_tiles, int n_inside,
+                                  const void* outside_tiles, int n_outside, int batch, int h,
+                                  int w, int rows, int pitch, float sharp, float mcd, float tint,
+                                  int tile, int window, void* stream) {
+  return launch<codec::Rgba8>(img, out, group_cls, inside_tiles, n_inside, outside_tiles,
+                              n_outside, batch, h, w, rows, pitch, sharp, mcd, tint, tile,
+                              window, stream);
+}
+extern "C" int cas_sharpen_launch10(const void* img, void* out, const void* group_cls,
+                                    const void* inside_tiles, int n_inside,
+                                    const void* outside_tiles, int n_outside, int batch, int h,
+                                    int w, int rows, int pitch, float sharp, float mcd,
+                                    float tint, int tile, int window, void* stream) {
+  return launch<codec::Rgb10a2>(img, out, group_cls, inside_tiles, n_inside, outside_tiles,
+                                n_outside, batch, h, w, rows, pitch, sharp, mcd, tint, tile,
+                                window, stream);
 }

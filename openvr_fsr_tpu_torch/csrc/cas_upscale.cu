@@ -7,12 +7,16 @@
 // 4x4 window around floor(pp), with zero out-of-image taps (CasLoad),
 // inside the foveation circle; outside, the bilinear fallback
 // (fsr_easu.hlsl:33-36) times the debug tint (kernels/cas.py:345-348); stored
-// as packed RGBA8 with alpha 255.
+// in the frame's format with alpha 1: packed RGBA8, or R10G10B10A2 as four
+// uint16 (the JAX builder's color_bits=10 branch, cas.py:67; the codecs of
+// codec.cuh, one instantiation of every kernel each, behind
+// cas_upscale_launch and cas_upscale_launch10).
 //
-// What bounds it: bytes outside the circle (four taps and one 4-byte store
+// What bounds it: bytes outside the circle (four taps and one texel store
 // per output), and inside it the filter's issue: about a hundred f32 ops per
-// output, plus its taps. At the full size (2 x 1683x1869 -> 2 x 2244x2492,
-// u32 in and out) one stereo pair reads 25.2 MB and writes 44.7 MB.
+// output, plus its taps. At the full size (2 x 1683x1869 -> 2 x 2244x2492)
+// one stereo pair reads 25.2 MB and writes 44.7 MB in RGBA8, 50.3 MB and
+// 89.5 MB in R10G10B10A2.
 //
 // The design, per output tile of 32x32 pixels (2x2 foveation groups of
 // 16x16, the reference's circle test being per group):
@@ -47,8 +51,8 @@
 
 #include "bilinear_pass.cuh"
 #include "cas_math.cuh"
+#include "codec.cuh"
 #include "ffx_math.cuh"
-#include "rgba8.cuh"
 
 namespace {
 
@@ -58,9 +62,10 @@ constexpr int kWin = 36;       // staged input window edge (kernels/_maps.py CAS
 constexpr int kThreads = 256;
 constexpr int kRun = kTile * kTile / kThreads;   // outputs per thread (4), one column
 
+template <class C>
 struct Params {
-  const uint32_t* img;        // (B, in_rows, pitch) packed RGBA8, R in the low byte
-  uint32_t* out;              // (B, out_h, out_w) packed RGBA8
+  const typename C::Texel* img;   // (B, in_rows, pitch) texels
+  typename C::Texel* out;         // (B, out_h, out_w) texels
   const int32_t* col_i;       // (2, out_w): CAS floor fx, bilinear x0
   const float* col_f;         // (2, out_w): CAS fraction ppx, bilinear fx
   const int32_t* row_i;       // (2, out_h): CAS floor fy, bilinear y0
@@ -74,7 +79,6 @@ struct Params {
   float sharp, tint;
 };
 
-using rgba8::channel;
 using rgba8::clampi;
 
 // The inside kernel's shared memory: the window decoded into R, G, B planes.
@@ -82,7 +86,9 @@ struct Smem {
   float c[3][kWin][kWin];
 };
 
-__global__ void __launch_bounds__(kThreads) cas_inside_kernel(Params p) {
+template <class C>
+__global__ void __launch_bounds__(kThreads) cas_inside_kernel(Params<C> p) {
+  using Texel = typename C::Texel;
   __shared__ Smem s;
 
   const int tid = threadIdx.x;
@@ -92,17 +98,17 @@ __global__ void __launch_bounds__(kThreads) cas_inside_kernel(Params p) {
   const int ty = (id - b * per) / p.tiles_x;
   const int tx = id - b * per - ty * p.tiles_x;
   const int wx0 = p.tile_x0[tx], wy0 = p.tile_y0[ty];
-  const uint32_t* img = p.img + static_cast<size_t>(b) * p.in_rows * p.pitch;
+  const Texel* img = p.img + static_cast<size_t>(b) * p.in_rows * p.pitch;
 
   // the window, once, decoded; texels outside the image are 0
   for (int i = tid; i < kWin * kWin; i += kThreads) {
     const int ly = i / kWin, lx = i % kWin;
     const int y = wy0 + ly, x = wx0 + lx;
-    const uint32_t t = (y >= 0 && y < p.in_h && x >= 0 && x < p.in_w)
-                           ? img[static_cast<size_t>(y) * p.pitch + x]
-                           : 0u;
+    const Texel t = (y >= 0 && y < p.in_h && x >= 0 && x < p.in_w)
+                        ? img[static_cast<size_t>(y) * p.pitch + x]
+                        : Texel{};
 #pragma unroll
-    for (int c = 0; c < 3; ++c) s.c[c][ly][lx] = channel(t, c);
+    for (int c = 0; c < 3; ++c) s.c[c][ly][lx] = C::channel(t, c);
   }
   __syncthreads();
 
@@ -110,7 +116,7 @@ __global__ void __launch_bounds__(kThreads) cas_inside_kernel(Params p) {
   // one group row (kRun divides kGroup)
   const int ox = tx * kTile + tid % kTile, oy0 = ty * kTile + (tid / kTile) * kRun;
   if (ox >= p.out_w || oy0 >= p.out_h) return;
-  uint32_t* out = p.out + static_cast<size_t>(b) * p.out_h * p.out_w;
+  Texel* out = p.out + static_cast<size_t>(b) * p.out_h * p.out_w;
   if (p.group_cls[(b * p.groups_y + oy0 / kGroup) * p.groups_x + ox / kGroup]) {
     const int sx = p.col_i[ox] - 1 - wx0;
     const float ppx = p.col_f[ox];
@@ -129,7 +135,7 @@ __global__ void __launch_bounds__(kThreads) cas_inside_kernel(Params p) {
             w[k][q][c] = ((k == 0 || k == 3) && (q == 0 || q == 3)) ? 0.0f : s.c[c][sy + k][sx + q];
       float rgb[3];
       cas::upscale(w, ppx, p.row_f[oy], p.sharp, rgb);
-      out[static_cast<size_t>(oy) * p.out_w + ox] = rgba8::pack(rgb[0], rgb[1], rgb[2], 1.0f);
+      out[static_cast<size_t>(oy) * p.out_w + ox] = C::pack(rgb[0], rgb[1], rgb[2], 1.0f);
     }
   } else {
     const int x0 = p.col_i[p.out_w + ox];
@@ -148,50 +154,42 @@ __global__ void __launch_bounds__(kThreads) cas_inside_kernel(Params p) {
         rgb[c] = ffx::bilerp(s.c[c][sy0][sx0], s.c[c][sy0][sx1], s.c[c][sy1][sx0],
                              s.c[c][sy1][sx1], fxw, fyw);
       out[static_cast<size_t>(oy) * p.out_w + ox] =
-          rgba8::pack(rgb[0], rgb[1] * p.tint, rgb[2] * p.tint, 1.0f);
+          C::pack(rgb[0], rgb[1] * p.tint, rgb[2] * p.tint, 1.0f);
     }
   }
 }
 
 // The outside list: the shared bilinear pass, no round trip.
+template <class C>
 __global__ void __launch_bounds__(bilinear_pass::kThreads)
-    cas_outside_kernel(bilinear_pass::Args a) {
-  bilinear_pass::run<kTile, kTile, false>(a);
+    cas_outside_kernel(bilinear_pass::Args<C> a) {
+  bilinear_pass::run<kTile, kTile, false, C>(a);
 }
 
-}  // namespace
-
-// CTAs per SM of the outside and inside kernels on the current device
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the inside kernel's
-// shared memory per CTA in bytes. Returns the first non-zero cudaError_t.
-extern "C" int cas_upscale_occupancy(int* outside, int* inside, int* inside_smem) {
+template <class C>
+int occupancy(int* outside, int* inside, int* inside_smem) {
   *inside_smem = static_cast<int>(sizeof(Smem));
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      outside, cas_outside_kernel, bilinear_pass::kThreads, 0);
+      outside, cas_outside_kernel<C>, bilinear_pass::kThreads, 0);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, cas_inside_kernel, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, cas_inside_kernel<C>, kThreads,
+                                                        0);
   return static_cast<int>(err);
 }
 
-// Launch on `stream`: the outside pass over outside_tiles, then the inside
-// kernel over inside_tiles (an empty list launches nothing). Returns the
-// first non-zero cudaError_t (0 = launched). The caller (kernels/cas.py) has
-// checked shapes, dtypes and devices, that every tile's window fits kWin and
-// that the lists partition the tiles; tile and window must equal kTile and
-// kWin.
-extern "C" int cas_upscale_launch(const void* img, void* out, const void* col_i,
-                                  const void* col_f, const void* row_i, const void* row_f,
-                                  const void* tile_x0, const void* tile_y0, const void* group_cls,
-                                  const void* inside_tiles, int n_inside,
-                                  const void* outside_tiles, int n_outside, int batch, int in_h,
-                                  int in_w, int in_rows, int pitch, int out_h, int out_w,
-                                  float sharp, float tint, int tile, int window, void* stream) {
+template <class C>
+int launch(const void* img, void* out, const void* col_i, const void* col_f, const void* row_i,
+           const void* row_f, const void* tile_x0, const void* tile_y0, const void* group_cls,
+           const void* inside_tiles, int n_inside, const void* outside_tiles, int n_outside,
+           int batch, int in_h, int in_w, int in_rows, int pitch, int out_h, int out_w,
+           float sharp, float tint, int tile, int window, void* stream) {
+  using Texel = typename C::Texel;
   if (tile != kTile || window != kWin || batch <= 0 || in_h <= 0 || in_w <= 0 || out_h <= 0 ||
       out_w <= 0 || in_h > in_rows || in_w > pitch || n_inside < 0 || n_outside < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
-  p.img = static_cast<const uint32_t*>(img);
-  p.out = static_cast<uint32_t*>(out);
+  Params<C> p;
+  p.img = static_cast<const Texel*>(img);
+  p.out = static_cast<Texel*>(out);
   p.col_i = static_cast<const int32_t*>(col_i);
   p.col_f = static_cast<const float*>(col_f);
   p.row_i = static_cast<const int32_t*>(row_i);
@@ -214,17 +212,64 @@ extern "C" int cas_upscale_launch(const void* img, void* out, const void* col_i,
   p.tint = tint;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_outside > 0) {
-    const bilinear_pass::Args a = {p.img, p.out, p.col_i + out_w, p.col_f + out_w,
-                                   p.row_i + out_h, p.row_f + out_h,
-                                   static_cast<const int32_t*>(outside_tiles), in_h, in_w,
-                                   in_rows, pitch, out_h, out_w, p.tiles_x, p.tiles_y, tint};
-    cas_outside_kernel<<<n_outside, bilinear_pass::kThreads, 0, s>>>(a);
+    const bilinear_pass::Args<C> a = {p.img, p.out, p.col_i + out_w, p.col_f + out_w,
+                                      p.row_i + out_h, p.row_f + out_h,
+                                      static_cast<const int32_t*>(outside_tiles), in_h, in_w,
+                                      in_rows, pitch, out_h, out_w, p.tiles_x, p.tiles_y, tint};
+    cas_outside_kernel<C><<<n_outside, bilinear_pass::kThreads, 0, s>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (n_inside > 0) {
-    cas_inside_kernel<<<n_inside, kThreads, 0, s>>>(p);
+    cas_inside_kernel<C><<<n_inside, kThreads, 0, s>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
   return 0;
+}
+
+}  // namespace
+
+// CTAs per SM of the outside and inside kernels on the current device
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the inside kernel's
+// shared memory per CTA in bytes, for RGBA8 (cas_upscale_occupancy) and
+// R10G10B10A2 (cas_upscale_occupancy10). Returns the first non-zero
+// cudaError_t.
+extern "C" int cas_upscale_occupancy(int* outside, int* inside, int* inside_smem) {
+  return occupancy<codec::Rgba8>(outside, inside, inside_smem);
+}
+extern "C" int cas_upscale_occupancy10(int* outside, int* inside, int* inside_smem) {
+  return occupancy<codec::Rgb10a2>(outside, inside, inside_smem);
+}
+
+// Launch on `stream`: the outside pass over outside_tiles, then the inside
+// kernel over inside_tiles (an empty list launches nothing), on packed
+// RGBA8 texels (cas_upscale_launch) or R10G10B10A2 ones
+// (cas_upscale_launch10). Returns the first non-zero cudaError_t (0 =
+// launched). The caller (kernels/cas.py) has checked shapes, dtypes and
+// devices, that every tile's window fits kWin and that the lists partition
+// the tiles; tile and window must equal kTile and kWin.
+extern "C" int cas_upscale_launch(const void* img, void* out, const void* col_i,
+                                  const void* col_f, const void* row_i, const void* row_f,
+                                  const void* tile_x0, const void* tile_y0, const void* group_cls,
+                                  const void* inside_tiles, int n_inside,
+                                  const void* outside_tiles, int n_outside, int batch, int in_h,
+                                  int in_w, int in_rows, int pitch, int out_h, int out_w,
+                                  float sharp, float tint, int tile, int window, void* stream) {
+  return launch<codec::Rgba8>(img, out, col_i, col_f, row_i, row_f, tile_x0, tile_y0, group_cls,
+                              inside_tiles, n_inside, outside_tiles, n_outside, batch, in_h,
+                              in_w, in_rows, pitch, out_h, out_w, sharp, tint, tile, window,
+                              stream);
+}
+extern "C" int cas_upscale_launch10(const void* img, void* out, const void* col_i,
+                                    const void* col_f, const void* row_i, const void* row_f,
+                                    const void* tile_x0, const void* tile_y0,
+                                    const void* group_cls, const void* inside_tiles,
+                                    int n_inside, const void* outside_tiles, int n_outside,
+                                    int batch, int in_h, int in_w, int in_rows, int pitch,
+                                    int out_h, int out_w, float sharp, float tint, int tile,
+                                    int window, void* stream) {
+  return launch<codec::Rgb10a2>(img, out, col_i, col_f, row_i, row_f, tile_x0, tile_y0,
+                                group_cls, inside_tiles, n_inside, outside_tiles, n_outside,
+                                batch, in_h, in_w, in_rows, pitch, out_h, out_w, sharp, tint,
+                                tile, window, stream);
 }

@@ -30,15 +30,22 @@
 // completing on its mbarrier: the CTA's next boxes are in flight while a
 // tile stores. The threads then gather 4 outputs of one row each from the
 // box and store them with one 16-byte store (where the output rows are not
-// whole 16-byte units, each warp stores a tile row of 32 words, 128
+// whole 16-byte units, each warp stores 32 words of a tile row, 128
 // coalesced bytes). A span item (kind -n: n neighbouring outside tiles of
 // one tile row of the copy form) is a straight copy of its rows, 16 bytes
-// per thread, 4 in flight, streaming: a copy needs no shared memory, and on
+// per load, a span in one batch: a copy needs no shared memory, and on
 // the card a row-major copy of a span moves the same words faster than one
 // box per tile in and out. Nothing is computed, so
 // only the card's memory system bounds it. TMA takes a row pitch of a
 // multiple of 16 bytes; the wrapper refuses any other (kernels/sol.py
 // PITCH_WORDS).
+//
+// Both texel formats run in words: a tile is 32 outputs wide, 32 words of
+// RGBA8 texels or 64 words of R10G10B10A2 ones (two words per texel, the
+// geometry a 10-bit build publishes, kernels/_maps.py::word_geometry), so
+// the kernel is instantiated at both tile widths (TW) and the launch
+// dispatches on tile_w. Box origins, widths and the 16-byte alignment are
+// all in words, and the floor moves the 10-bit kernel's exact bytes.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -49,8 +56,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileW = 32;       // 8 runs of 4 outputs per tile row
-constexpr int kRun = 4;
+constexpr int kRun = 4;          // words per 16-byte store
 constexpr int kStages = 4;       // boxes in flight per CTA
 constexpr int kMaxBox = 256;     // a TMA box's largest extent
 constexpr int kAlign = 128;      // a TMA destination's alignment in shared memory
@@ -60,7 +66,7 @@ constexpr uint32_t kMaxPolls = 1u << 26;   // barrier polls before a missing box
 struct Params {
   uint32_t* out;           // (B, out_h, out_w)
   const int4* tiles;       // (n_tiles,): b, ty, tx, kind (1, 0: the box of that class; -n: a span)
-  const int32_t* rel_x;    // (2, tiles_x * 32): per class, each output column's box column
+  const int32_t* rel_x;    // (2, tiles_x * TW): per class, each output column's box column
   const int32_t* rel_y;    // (2, tiles_y * tile_h): per class, each output row's box row
   const int32_t* box_x0;   // (2, tiles_x): per class, the box origin per tile column
   const int32_t* box_y0;   // (2, tiles_y): per class, the box origin per tile row
@@ -170,35 +176,41 @@ __device__ __forceinline__ void load_box(const Params& p, int t, uint32_t* dst, 
 }
 
 // All threads: copy the rows of span item (b, ty, tx, -n), 16 bytes per
-// thread, 4 in flight, with the streaming cache hint (each word is read and
-// written once: 1.5-2% faster than plain loads and stores on the H100).
+// load, with plain loads and stores, a whole span of FLOOR_SPAN 32-row
+// tiles in one batch (TW / 8 loads in flight per thread: 16 KB at 32-word
+// tiles, 32 KB at 64). In turns on the H100 the streaming cache hints read
+// slower at both tile widths, and at 64-word tiles a span in two batches of
+// 4 loads read slower than the batch of 8: there the sharpen-only kernels'
+// copy pass is itself about as fast as a copy, so the floor has no time to
+// spare.
+template <int TW>
 __device__ __forceinline__ void copy_span(const Params& p, int4 item, int tid) {
-  const int x0 = item.z * kTileW, y0 = item.y * p.tile_h;
-  const int per_row = (min(-item.w * kTileW, p.out_w - x0) + kRun - 1) / kRun;
+  const int x0 = item.z * TW, y0 = item.y * p.tile_h;
+  const int per_row = (min(-item.w * TW, p.out_w - x0) + kRun - 1) / kRun;
   const int runs = per_row * min(p.tile_h, p.out_h - y0);
   const uint32_t* src = p.img + (static_cast<size_t>(item.x) * p.rows + y0) * p.pitch + x0;
   uint32_t* dst = p.out + (static_cast<size_t>(item.x) * p.out_h + y0) * p.out_w + x0;
-  constexpr int kFlight = 4;
+  constexpr int kFlight = TW / 8;
   for (int r0 = tid; r0 < runs; r0 += kFlight * kThreads) {
     uint4 v[kFlight];
 #pragma unroll
     for (int u = 0; u < kFlight; ++u) {
       const int r = r0 + u * kThreads;
       if (r < runs)
-        v[u] = __ldcs(reinterpret_cast<const uint4*>(src + static_cast<size_t>(r / per_row) * p.pitch +
-                                                     r % per_row * kRun));
+        v[u] = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r / per_row) * p.pitch +
+                                               r % per_row * kRun);
     }
 #pragma unroll
     for (int u = 0; u < kFlight; ++u) {
       const int r = r0 + u * kThreads;
       if (r < runs)
-        __stcs(reinterpret_cast<uint4*>(dst + static_cast<size_t>(r / per_row) * p.out_w +
-                                        r % per_row * kRun),
-               v[u]);
+        *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r / per_row) * p.out_w +
+                                  r % per_row * kRun) = v[u];
     }
   }
 }
 
+template <int TW>
 __global__ void __launch_bounds__(kThreads) dma_floor_kernel(const __grid_constant__ BoxMap map0,
                                                              const __grid_constant__ BoxMap map1,
                                                              const Params p) {
@@ -208,7 +220,7 @@ __global__ void __launch_bounds__(kThreads) dma_floor_kernel(const __grid_consta
   uint32_t* bufs = reinterpret_cast<uint32_t*>(s + kAlign);
   const int tid = threadIdx.x;
   if (static_cast<int>(blockIdx.x) < p.n_spans) {   // a leading span item
-    copy_span(p, p.tiles[blockIdx.x], tid);
+    copy_span<TW>(p, p.tiles[blockIdx.x], tid);
     return;
   }
   // the persistent CTAs: box items blockIdx.x, + stride, ... from n_spans on
@@ -237,23 +249,23 @@ __global__ void __launch_bounds__(kThreads) dma_floor_kernel(const __grid_consta
     const int stage = used % kStages;
     uint32_t* buf = bufs + stage * p.stage_words;
     const int c = item.w, bw = c ? p.box_w[1] : p.box_w[0];
-    const int32_t* rel_x = p.rel_x + c * p.tiles_x * kTileW;
+    const int32_t* rel_x = p.rel_x + c * p.tiles_x * TW;
     const int32_t* rel_y = p.rel_y + c * p.tiles_y * p.tile_h;
     uint32_t* out = p.out + static_cast<size_t>(item.x) * p.out_h * p.out_w;
     bar_wait(&bars[stage], (used / kStages) & 1);
     if (vec) {   // runs of 4 outputs of one row, one 16-byte store each
-      for (int r = tid; r < kTileW / kRun * p.tile_h; r += kThreads) {
-        const int oy = item.y * p.tile_h + r / (kTileW / kRun);
-        const int ox = item.z * kTileW + r % (kTileW / kRun) * kRun;
+      for (int r = tid; r < TW / kRun * p.tile_h; r += kThreads) {
+        const int oy = item.y * p.tile_h + r / (TW / kRun);
+        const int ox = item.z * TW + r % (TW / kRun) * kRun;
         const int4 rx = *reinterpret_cast<const int4*>(rel_x + ox);
         const uint32_t* row = buf + rel_y[oy] * bw;
         const uint4 v = make_uint4(row[rx.x], row[rx.y], row[rx.z], row[rx.w]);
         if (oy < p.out_h && ox < p.out_w)
           *reinterpret_cast<uint4*>(out + static_cast<size_t>(oy) * p.out_w + ox) = v;
       }
-    } else {     // a warp per tile row: 32 coalesced 4-byte stores
-      const int ox = item.z * kTileW + tid % kTileW, rx = rel_x[ox];
-      for (int r = tid / kTileW; r < p.tile_h; r += kThreads / kTileW) {
+    } else {     // TW threads per tile row: coalesced 4-byte stores
+      const int ox = item.z * TW + tid % TW, rx = rel_x[ox];
+      for (int r = tid / TW; r < p.tile_h; r += kThreads / TW) {
         const int oy = item.y * p.tile_h + r;
         const uint32_t v = buf[rel_y[oy] * bw + rx];
         if (oy < p.out_h && ox < p.out_w) out[static_cast<size_t>(oy) * p.out_w + ox] = v;
@@ -299,6 +311,7 @@ bool cached_map(const MapKey& key, BoxMap* map) {
 
 // The persistent grid: SMs x the CTAs of `smem` bytes one SM holds, for
 // the current device (kept for the last device and size asked).
+template <int TW>
 int grid_ctas(size_t smem) {
   static std::mutex mutex;
   static int last_dev = -1, last_ctas = 0;
@@ -307,10 +320,10 @@ int grid_ctas(size_t smem) {
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   const std::lock_guard<std::mutex> lock(mutex);
   if (dev == last_dev && smem == last_smem) return last_ctas;
-  if (cudaFuncSetAttribute(dma_floor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (cudaFuncSetAttribute(dma_floor_kernel<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem)) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dma_floor_kernel, kThreads, smem) !=
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dma_floor_kernel<TW>, kThreads, smem) !=
           cudaSuccess)
     return 0;
   last_dev = dev;
@@ -321,6 +334,18 @@ int grid_ctas(size_t smem) {
 
 bool box_ok(int bw, int bh) { return bw >= 4 && bw % 4 == 0 && bw <= kMaxBox && bh >= 1 && bh <= kMaxBox; }
 
+// The launch of the TW-word-tile kernel: the span items' CTAs, then the
+// persistent CTAs over the box items.
+template <int TW>
+int launch_tiles(const BoxMap& map0, const BoxMap& map1, const Params& p, size_t smem,
+                 cudaStream_t stream) {
+  const int ctas = grid_ctas<TW>(smem), boxes = p.n_tiles - p.n_spans;
+  if (ctas <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  dma_floor_kernel<TW><<<p.n_spans + (boxes < ctas ? boxes : ctas), kThreads, smem, stream>>>(
+      map0, map1, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launch on `stream`; returns the launch's cudaError_t (0 = launched). The
@@ -330,7 +355,7 @@ bool box_ok(int bw, int bh) { return bw >= 4 && bw % 4 == 0 && bw <= kMaxBox && 
 // outside tiles of the copy form whose output rows are whole 16-byte units.
 // img must be 16-byte aligned with a pitch of a multiple of 4 words; each
 // box is at most 256 x 256 words, its width a multiple of 4, and its column
-// origin too; tile_w must be 32.
+// origin too; tile_w must be 32 (RGBA8) or 64 (R10G10B10A2) words.
 extern "C" int dma_floor_launch(const void* img, void* out, const void* tiles, int n_tiles,
                                 int n_spans, const void* rel_x, const void* rel_y, const void* box_x0,
                                 const void* box_y0, int batch, int in_h, int in_w, int rows,
@@ -338,7 +363,7 @@ extern "C" int dma_floor_launch(const void* img, void* out, const void* tiles, i
                                 int box_h0, int box_w1, int box_h1, void* stream) {
   if (n_tiles <= 0 || n_spans < 0 || n_spans > n_tiles || batch <= 0 || in_h <= 0 || in_w <= 0 || out_h <= 0 || out_w <= 0 ||
       in_h > rows || in_w > pitch || pitch % 4 != 0 || reinterpret_cast<uintptr_t>(img) % 16 != 0 ||
-      tile_w != kTileW || tile_h < 1 || tile_h > kMaxBox || !box_ok(box_w0, box_h0) ||
+      (tile_w != 32 && tile_w != 64) || tile_h < 1 || tile_h > kMaxBox || !box_ok(box_w0, box_h0) ||
       !box_ok(box_w1, box_h1))
     return static_cast<int>(cudaErrorInvalidValue);
   BoxMap map0, map1;
@@ -354,7 +379,7 @@ extern "C" int dma_floor_launch(const void* img, void* out, const void* tiles, i
   p.box_y0 = static_cast<const int32_t*>(box_y0);
   p.n_tiles = n_tiles;
   p.n_spans = n_spans;
-  p.tiles_x = (out_w + kTileW - 1) / kTileW;
+  p.tiles_x = (out_w + tile_w - 1) / tile_w;
   p.tiles_y = (out_h + tile_h - 1) / tile_h;
   p.tile_h = tile_h;
   p.out_h = out_h;
@@ -370,9 +395,7 @@ extern "C" int dma_floor_launch(const void* img, void* out, const void* tiles, i
   p.stage_words = (words + kAlign / 4 - 1) / (kAlign / 4) * (kAlign / 4);
   // the barriers, the ring, and the slack that aligns them
   const size_t smem = kAlign + static_cast<size_t>(kStages) * p.stage_words * 4 + kAlign;
-  const int ctas = grid_ctas(smem), boxes = n_tiles - p.n_spans;
-  if (ctas <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  dma_floor_kernel<<<p.n_spans + (boxes < ctas ? boxes : ctas), kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(map0, map1, p);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return tile_w == 64 ? launch_tiles<64>(map0, map1, p, smem, s)
+                      : launch_tiles<32>(map0, map1, p, smem, s);
 }

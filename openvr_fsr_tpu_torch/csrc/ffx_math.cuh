@@ -52,6 +52,12 @@ __device__ __forceinline__ float aprx_lo_rsq(float a) {  // logical shift
 constexpr float kInv255 = 1.0f / 255.0f;
 __device__ __forceinline__ float unorm8_round(float v) { return rintf(sat(v) * 255.0f); }
 __device__ __forceinline__ float unorm8_roundtrip(float v) { return unorm8_round(v) * kInv255; }
+// UNORM10 (R10G10B10A2's colour) and UNORM2 (its alpha), the same way.
+constexpr float kInv1023 = 1.0f / 1023.0f;
+constexpr float kInv3 = 1.0f / 3.0f;
+__device__ __forceinline__ float unorm10_round(float v) { return rintf(sat(v) * 1023.0f); }
+__device__ __forceinline__ float unorm10_roundtrip(float v) { return unorm10_round(v) * kInv1023; }
+__device__ __forceinline__ float unorm2_round(float v) { return rintf(sat(v) * 3.0f); }
 
 // The 12 EASU taps in the FsrEasuF accumulation order (ffx_fsr1.h:423-434;
 // ops/easu.py TAP_ORDER): b c i j f e k l h g o n. Tap k's offset + 1 is the

@@ -11,12 +11,17 @@
 // (linear HDR) luma correction; alpha is the tap's. Outside the foveation
 // circle (32x24 blocks, NIS_Upscale.hlsl:95-107) the DirectCopy fallback
 // writes the bilinear tap at (x/OW, y/OH) times the debug tint with alpha 1
-// (api/pipeline.py:428-434). Stored as packed RGBA8.
+// (api/pipeline.py:428-434). Stored in the frame's format: packed RGBA8, or
+// R10G10B10A2 as four uint16 (the JAX builder's color_bits=10 branch,
+// nis.py:371: only the texel decode and encode change, NIS_SCALE_FLOAT
+// stays 255; the codecs of codec.cuh, one instantiation of every kernel
+// each, behind nis_scaler_launch and nis_scaler_launch10).
 //
 // What bounds it: inside the circle, the per-pixel math (about a thousand
 // f32 ops: 4 EvalPoly6 with their LTI, FilterNormal, the interpolation
 // trees) and the shared-memory words it reads; outside, the bytes (at the
-// shipped geometry one stereo pair reads 25.2 MB and writes 44.7 MB).
+// shipped geometry one stereo pair reads 25.2 MB and writes 44.7 MB in
+// RGBA8, 50.3 MB and 89.5 MB in R10G10B10A2).
 //
 // The design, per CTA output tile of 32x48 pixels (two stacked 32x24
 // blocks; the reference's circle test is per block):
@@ -63,10 +68,10 @@
 #include <cstring>
 
 #include "bilinear_pass.cuh"
+#include "codec.cuh"
 #include "ffx_math.cuh"
 #include "nis_coef.cuh"
 #include "nis_math.cuh"
-#include "rgba8.cuh"
 
 namespace {
 
@@ -92,9 +97,10 @@ __device__ __forceinline__ int coef_row(int phase) { return phase * kRowStride +
 // fy_int.
 static_assert(sizeof(c_coef) == 2 * kPhases * kTaps * sizeof(float), "the (2, 64, 8) tables");
 
+template <class C>
 struct Params {
-  const uint32_t* img;      // (B, rows, pitch) packed RGBA8, R in the low byte
-  uint32_t* out;            // (B, out_h, out_w) packed RGBA8
+  const typename C::Texel* img;   // (B, rows, pitch) texels
+  typename C::Texel* out;         // (B, out_h, out_w) texels
   const int32_t* col_i;     // (4, out_w): source floor, phase, RGBA-tap x0, fallback x0
   const float* col_f;       // (3, out_w): source fraction, RGBA-tap fx, fallback fx
   const int32_t* row_i;     // (4, out_h): the same per output row
@@ -151,14 +157,17 @@ __device__ __forceinline__ void diag135(const float q[6][6], float b, float t[7]
 
 // Rows j of the 6x6 scaled-luma support at source row pyi: luma rows
 // clip(pyi + j - 2) at the window columns ci (NIS_SCALE_FLOAT = 255).
-__device__ __forceinline__ void load_luma_row(const Smem& s, const Params& p, int ty0, int pyi, int j,
-                                              const int ci[6], float row[6]) {
+template <class C>
+__device__ __forceinline__ void load_luma_row(const Smem& s, const Params<C>& p, int ty0, int pyi,
+                                              int j, const int ci[6], float row[6]) {
   const int ri = rgba8::clampi(pyi + j - 2, 0, p.in_h - 1) - ty0;
 #pragma unroll
   for (int c = 0; c < 6; ++c) row[c] = s.y[ri][ci[c]] * 255.0f;
 }
 
-__global__ void __launch_bounds__(kThreads, kInsideCtasPerSm) nis_inside_kernel(Params p) {
+template <class C>
+__global__ void __launch_bounds__(kThreads, kInsideCtasPerSm) nis_inside_kernel(Params<C> p) {
+  using Texel = typename C::Texel;
   __shared__ Smem s;
 
   const int tid = threadIdx.x;
@@ -167,8 +176,8 @@ __global__ void __launch_bounds__(kThreads, kInsideCtasPerSm) nis_inside_kernel(
   const int b = id / per;
   const int ty = (id - b * per) / p.tiles_x;
   const int tx = id - b * per - ty * p.tiles_x;
-  const uint32_t* img = p.img + static_cast<size_t>(b) * p.rows * p.pitch;
-  uint32_t* out = p.out + static_cast<size_t>(b) * p.out_h * p.out_w;
+  const Texel* img = p.img + static_cast<size_t>(b) * p.rows * p.pitch;
+  Texel* out = p.out + static_cast<size_t>(b) * p.out_h * p.out_w;
   const int OW = p.out_w, OH = p.out_h;
   const int tx0 = p.tile_x0[tx], ty0 = p.tile_y0[ty];
   const int ex0 = p.edge_x[tx], ey0 = p.edge_y[ty];
@@ -183,9 +192,8 @@ __global__ void __launch_bounds__(kThreads, kInsideCtasPerSm) nis_inside_kernel(
   for (int i = tid; i < kWinH * kWinW; i += kThreads) {
     const int ly = i / kWinW, lx = i % kWinW;
     const int sy = min(ty0 + ly, p.in_h - 1), sx = min(tx0 + lx, p.in_w - 1);
-    const uint32_t t = img[static_cast<size_t>(sy) * p.pitch + sx];
-    s.y[ly][lx] = nis::get_y(rgba8::channel(t, 0), rgba8::channel(t, 1), rgba8::channel(t, 2),
-                             p.hdr_mode);
+    const Texel t = img[static_cast<size_t>(sy) * p.pitch + sx];
+    s.y[ly][lx] = nis::get_y(C::channel(t, 0), C::channel(t, 1), C::channel(t, 2), p.hdr_mode);
   }
   __syncthreads();
 
@@ -226,9 +234,9 @@ __global__ void __launch_bounds__(kThreads, kInsideCtasPerSm) nis_inside_kernel(
       const int oy = oy0 + r;
       if (oy >= OH) break;
       const int y0 = p.row_i[3 * OH + oy];
-      const uint32_t* r0 = img + static_cast<size_t>(rgba8::clampi(y0, 0, p.in_h - 1)) * p.pitch;
-      const uint32_t* r1 = img + static_cast<size_t>(rgba8::clampi(y0 + 1, 0, p.in_h - 1)) * p.pitch;
-      out[static_cast<size_t>(oy) * OW + ox] = bilinear_pass::texel<false>(
+      const Texel* r0 = img + static_cast<size_t>(rgba8::clampi(y0, 0, p.in_h - 1)) * p.pitch;
+      const Texel* r1 = img + static_cast<size_t>(rgba8::clampi(y0 + 1, 0, p.in_h - 1)) * p.pitch;
+      out[static_cast<size_t>(oy) * OW + ox] = bilinear_pass::texel<false, C>(
           r0[sx0], r0[sx1], r1[sx0], r1[sx1], fx, p.row_f[2 * OH + oy], p.tint);
     }
     return;
@@ -350,7 +358,7 @@ __global__ void __launch_bounds__(kThreads, kInsideCtasPerSm) nis_inside_kernel(
 
     // the bilinear RGBA tap at ((x+0.5)/OW, (y+0.5)/OH) and the correction
     float op[4];
-    rgba8::bilinear_rgba(img, p.pitch, p.in_h, p.in_w, p.col_i[2 * OW + ox], p.row_i[2 * OH + oy],
+    codec::bilinear_rgba<C>(img, p.pitch, p.in_h, p.in_w, p.col_i[2 * OW + ox], p.row_i[2 * OH + oy],
                          p.col_f[OW + ox], p.row_f[OH + oy], op);
     if (p.hdr_mode == 1) {  // multiplicative luma fix (NIS_Scaler.h:749-756)
       const float op_yn = ffx::max_nan(op_y, 0.0f) * k.scaler_hdr_norm;
@@ -364,58 +372,44 @@ __global__ void __launch_bounds__(kThreads, kInsideCtasPerSm) nis_inside_kernel(
 #pragma unroll
       for (int c = 0; c < 3; ++c) op[c] = op[c] + corr;
     }
-    out[static_cast<size_t>(oy) * OW + ox] = rgba8::pack(op[0], op[1], op[2], op[3]);
+    out[static_cast<size_t>(oy) * OW + ox] = C::pack(op[0], op[1], op[2], op[3]);
   }
 }
 
 // The outside list: the shared bilinear pass on the DirectCopy maps.
+template <class C>
 __global__ void __launch_bounds__(bilinear_pass::kThreads)
-    nis_outside_kernel(bilinear_pass::Args a) {
-  bilinear_pass::run<kTileW, kTileH, false>(a);
+    nis_outside_kernel(bilinear_pass::Args<C> a) {
+  bilinear_pass::run<kTileW, kTileH, false, C>(a);
 }
 
-}  // namespace
-
-// CTAs per SM of the outside and inside kernels on the current device
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the inside kernel's
-// shared memory per CTA in bytes. Returns the first non-zero cudaError_t.
-extern "C" int nis_scaler_occupancy(int* outside, int* inside, int* inside_smem) {
+template <class C>
+int occupancy(int* outside, int* inside, int* inside_smem) {
   *inside_smem = static_cast<int>(sizeof(Smem));
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      outside, nis_outside_kernel, bilinear_pass::kThreads, 0);
+      outside, nis_outside_kernel<C>, bilinear_pass::kThreads, 0);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, nis_inside_kernel, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, nis_inside_kernel<C>, kThreads, 0);
   return static_cast<int>(err);
 }
 
-// Launch on `stream`: the outside pass over outside_tiles, then the inside
-// kernel over inside_tiles (an empty list launches nothing). Returns the
-// first non-zero cudaError_t (0 = launched). The caller (kernels/nis.py) has
-// checked shapes, dtypes and devices, and the host maps (kernels/_maps.py::
-// nvscaler_maps) that every tile's window and edge extent fit their caps and
-// that the lists partition the tiles; tile, window and edge must equal
-// (kTileW, kTileH), (kWinW, kWinH) and (kEdgeW, kEdgeH). coef is the device
-// copy of the (2, 64, 8) tables (the values of c_coef, staged into shared
-// memory by coalesced loads); consts points to nis::kNumConsts host floats in
-// nis::Consts order.
-extern "C" int nis_scaler_launch(const void* img, void* out, const void* col_i, const void* col_f,
-                                 const void* row_i, const void* row_f, const void* tile_x0,
-                                 const void* tile_y0, const void* edge_x, const void* edge_y,
-                                 const void* block_cls, const void* coef,
-                                 const void* inside_tiles, int n_inside,
-                                 const void* outside_tiles, int n_outside, const float* consts,
-                                 int n_consts, int batch, int in_h, int in_w, int rows, int pitch,
-                                 int out_h, int out_w, int hdr_mode, float tint, int tile_w,
-                                 int tile_h, int win_w, int win_h, int edge_w, int edge_h,
-                                 void* stream) {
+template <class C>
+int launch(const void* img, void* out, const void* col_i, const void* col_f, const void* row_i,
+           const void* row_f, const void* tile_x0, const void* tile_y0, const void* edge_x,
+           const void* edge_y, const void* block_cls, const void* coef, const void* inside_tiles,
+           int n_inside, const void* outside_tiles, int n_outside, const float* consts,
+           int n_consts, int batch, int in_h, int in_w, int rows, int pitch, int out_h,
+           int out_w, int hdr_mode, float tint, int tile_w, int tile_h, int win_w, int win_h,
+           int edge_w, int edge_h, void* stream) {
+  using Texel = typename C::Texel;
   if (n_consts != nis::kNumConsts || tile_w != kTileW || tile_h != kTileH || win_w != kWinW ||
       win_h != kWinH || edge_w != kEdgeW || edge_h != kEdgeH || batch <= 0 || in_h <= 0 ||
       in_w <= 0 || out_h <= 0 || out_w <= 0 || in_h > rows || in_w > pitch || hdr_mode < 0 ||
       hdr_mode > 2 || n_inside < 0 || n_outside < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
-  p.img = static_cast<const uint32_t*>(img);
-  p.out = static_cast<uint32_t*>(out);
+  Params<C> p;
+  p.img = static_cast<const Texel*>(img);
+  p.out = static_cast<Texel*>(out);
   p.col_i = static_cast<const int32_t*>(col_i);
   p.col_f = static_cast<const float*>(col_f);
   p.row_i = static_cast<const int32_t*>(row_i);
@@ -441,17 +435,76 @@ extern "C" int nis_scaler_launch(const void* img, void* out, const void* col_i, 
   p.tint = tint;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_outside > 0) {
-    const bilinear_pass::Args a = {p.img, p.out, p.col_i + 3 * out_w, p.col_f + 2 * out_w,
-                                   p.row_i + 3 * out_h, p.row_f + 2 * out_h,
-                                   static_cast<const int32_t*>(outside_tiles), in_h, in_w,
-                                   rows, pitch, out_h, out_w, p.tiles_x, p.tiles_y, tint};
-    nis_outside_kernel<<<n_outside, bilinear_pass::kThreads, 0, s>>>(a);
+    const bilinear_pass::Args<C> a = {p.img, p.out, p.col_i + 3 * out_w, p.col_f + 2 * out_w,
+                                      p.row_i + 3 * out_h, p.row_f + 2 * out_h,
+                                      static_cast<const int32_t*>(outside_tiles), in_h, in_w,
+                                      rows, pitch, out_h, out_w, p.tiles_x, p.tiles_y, tint};
+    nis_outside_kernel<C><<<n_outside, bilinear_pass::kThreads, 0, s>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (n_inside > 0) {
-    nis_inside_kernel<<<n_inside, kThreads, 0, s>>>(p);
+    nis_inside_kernel<C><<<n_inside, kThreads, 0, s>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
   return 0;
+}
+
+}  // namespace
+
+// CTAs per SM of the outside and inside kernels on the current device
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the inside kernel's
+// shared memory per CTA in bytes, for RGBA8 (nis_scaler_occupancy) and
+// R10G10B10A2 (nis_scaler_occupancy10). Returns the first non-zero
+// cudaError_t.
+extern "C" int nis_scaler_occupancy(int* outside, int* inside, int* inside_smem) {
+  return occupancy<codec::Rgba8>(outside, inside, inside_smem);
+}
+extern "C" int nis_scaler_occupancy10(int* outside, int* inside, int* inside_smem) {
+  return occupancy<codec::Rgb10a2>(outside, inside, inside_smem);
+}
+
+// Launch on `stream`: the outside pass over outside_tiles, then the inside
+// kernel over inside_tiles (an empty list launches nothing), on packed
+// RGBA8 texels (nis_scaler_launch) or R10G10B10A2 ones
+// (nis_scaler_launch10). Returns the first non-zero cudaError_t (0 =
+// launched). The caller (kernels/nis.py) has checked shapes, dtypes and
+// devices, and the host maps (kernels/_maps.py::nvscaler_maps) that every
+// tile's window and edge extent fit their caps and that the lists partition
+// the tiles; tile, window and edge must equal
+// (kTileW, kTileH), (kWinW, kWinH) and (kEdgeW, kEdgeH). coef is the device
+// copy of the (2, 64, 8) tables (the values of c_coef, staged into shared
+// memory by coalesced loads); consts points to nis::kNumConsts host floats in
+// nis::Consts order.
+extern "C" int nis_scaler_launch(const void* img, void* out, const void* col_i, const void* col_f,
+                                 const void* row_i, const void* row_f, const void* tile_x0,
+                                 const void* tile_y0, const void* edge_x, const void* edge_y,
+                                 const void* block_cls, const void* coef,
+                                 const void* inside_tiles, int n_inside,
+                                 const void* outside_tiles, int n_outside, const float* consts,
+                                 int n_consts, int batch, int in_h, int in_w, int rows, int pitch,
+                                 int out_h, int out_w, int hdr_mode, float tint, int tile_w,
+                                 int tile_h, int win_w, int win_h, int edge_w, int edge_h,
+                                 void* stream) {
+  return launch<codec::Rgba8>(img, out, col_i, col_f, row_i, row_f, tile_x0, tile_y0, edge_x,
+                              edge_y, block_cls, coef, inside_tiles, n_inside, outside_tiles,
+                              n_outside, consts, n_consts, batch, in_h, in_w, rows, pitch, out_h,
+                              out_w, hdr_mode, tint, tile_w, tile_h, win_w, win_h, edge_w, edge_h,
+                              stream);
+}
+extern "C" int nis_scaler_launch10(const void* img, void* out, const void* col_i, const void* col_f,
+                                   const void* row_i, const void* row_f, const void* tile_x0,
+                                   const void* tile_y0, const void* edge_x, const void* edge_y,
+                                   const void* block_cls, const void* coef,
+                                   const void* inside_tiles, int n_inside,
+                                   const void* outside_tiles, int n_outside, const float* consts,
+                                   int n_consts, int batch, int in_h, int in_w, int rows, int pitch,
+                                   int out_h, int out_w, int hdr_mode, float tint, int tile_w,
+                                   int tile_h, int win_w, int win_h, int edge_w, int edge_h,
+                                   void* stream) {
+  return launch<codec::Rgb10a2>(img, out, col_i, col_f, row_i, row_f, tile_x0, tile_y0, edge_x,
+                                edge_y, block_cls, coef, inside_tiles, n_inside, outside_tiles,
+                                n_outside, consts, n_consts, batch, in_h, in_w, rows, pitch, out_h,
+                                out_w, hdr_mode, tint, tile_w, tile_h, win_w, win_h, edge_w, edge_h,
+                                stream);
 }

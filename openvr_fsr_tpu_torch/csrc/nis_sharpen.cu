@@ -10,12 +10,17 @@
 // luma correction of the source colour. Inside the foveation circle (32x32
 // blocks, NIS_Sharpen.hlsl:93-105) the source alpha is kept; outside, the
 // DirectCopy writes the source colour times the debug tint with alpha 1
-// (kernels/nis.py:238-241). Stored as packed RGBA8.
+// (kernels/nis.py:238-241). Stored in the frame's format: packed RGBA8, or
+// R10G10B10A2 as four uint16 (the JAX builder's color_bits=10 branch,
+// nis.py:125: only the texel decode and encode change, NIS_SCALE_FLOAT
+// stays 255; the codecs of codec.cuh, one instantiation of every kernel
+// each, behind nis_sharpen_launch and nis_sharpen_launch10).
 //
-// What bounds it: bytes moved outside the circle (one 4-byte load and store
+// What bounds it: bytes moved outside the circle (one texel load and store
 // per output; at the headset's per-eye size, 2 x 2244x2492, one stereo pair
-// reads and writes 44.7 MB each way), and inside it the per-pixel math (a
-// few hundred f32 ops) and the shared-memory words of its 5x5 support.
+// reads and writes 44.7 MB each way in RGBA8, 89.5 MB in R10G10B10A2), and
+// inside it the per-pixel math (a few hundred f32 ops) and the
+// shared-memory words of its 5x5 support.
 //
 // The design follows the reference's own block of 32x32 pixels:
 //   - the host (kernels/_maps.py::sharpen_maps) evaluates the circle test
@@ -27,7 +32,7 @@
 //   - nis_sharpen_inside_kernel runs the inside list, one CTA per block: the
 //     block's 36x36 edge-clamped window is loaded once and staged twice, as
 //     lumas (the reference's shared-memory tile, NIS_Scaler.h:886-906) and as
-//     packed texels, one barrier; then each thread takes 4 outputs of one
+//     texels (4 or 8 bytes each), one barrier; then each thread takes 4 outputs of one
 //     column (a warp reads and stores whole rows: no bank conflicts), and
 //     the 5x5 luma support slides down the run in registers: the first
 //     output reads 25 lumas, each later one only its new bottom row's 5 (10
@@ -43,10 +48,10 @@
 #include <cstdint>
 #include <cstring>
 
+#include "codec.cuh"
 #include "copy_pass.cuh"
 #include "ffx_math.cuh"
 #include "nis_math.cuh"
-#include "rgba8.cuh"
 
 namespace {
 
@@ -55,26 +60,28 @@ constexpr int kWin = kBlock + 4;   // with the +-2 luma support (NIS_SHARPEN_IN_
 constexpr int kThreads = 256;
 constexpr int kRun = kBlock * kBlock / kThreads;   // outputs per thread (4), one column
 
+template <class C>
 struct Params {
-  const uint32_t* img;      // (B, rows, pitch) packed RGBA8, R in the low byte
-  uint32_t* out;            // (B, h, w) packed RGBA8
+  const typename C::Texel* img;   // (B, rows, pitch) texels
+  typename C::Texel* out;         // (B, h, w) texels
   const int32_t* tiles;     // the inside list: b * tiles_y * tiles_x + ty * tiles_x + tx
   nis::Consts k;
   int h, w, rows, pitch, tiles_x, tiles_y, hdr_mode;
   float tint;
 };
 
-using rgba8::channel;
-
 // The inside kernel's shared memory: the edge-clamped window as lumas and as
-// packed texels.
+// texels.
+template <class C>
 struct Smem {
   float y[kWin][kWin];
-  uint32_t t[kWin][kWin];
+  typename C::Texel t[kWin][kWin];
 };
 
-__global__ void __launch_bounds__(kThreads) nis_sharpen_inside_kernel(Params p) {
-  __shared__ Smem s;
+template <class C>
+__global__ void __launch_bounds__(kThreads) nis_sharpen_inside_kernel(Params<C> p) {
+  using Texel = typename C::Texel;
+  __shared__ Smem<C> s;
 
   const int tid = threadIdx.x;
   const int id = p.tiles[blockIdx.x];
@@ -83,16 +90,16 @@ __global__ void __launch_bounds__(kThreads) nis_sharpen_inside_kernel(Params p) 
   const int ty = (id - b * per) / p.tiles_x;
   const int tx = id - b * per - ty * p.tiles_x;
   const int x0 = tx * kBlock, y0 = ty * kBlock;
-  const uint32_t* img = p.img + static_cast<size_t>(b) * p.rows * p.pitch;
+  const Texel* img = p.img + static_cast<size_t>(b) * p.rows * p.pitch;
 
   // the block with the +-2 support, edge-clamped, once
   for (int i = tid; i < kWin * kWin; i += kThreads) {
     const int ly = i / kWin, lx = i % kWin;
     const int sy = rgba8::clampi(y0 - 2 + ly, 0, p.h - 1);
     const int sx = rgba8::clampi(x0 - 2 + lx, 0, p.w - 1);
-    const uint32_t t = img[static_cast<size_t>(sy) * p.pitch + sx];
+    const Texel t = img[static_cast<size_t>(sy) * p.pitch + sx];
     s.t[ly][lx] = t;
-    s.y[ly][lx] = nis::get_y(channel(t, 0), channel(t, 1), channel(t, 2), p.hdr_mode);
+    s.y[ly][lx] = nis::get_y(C::channel(t, 0), C::channel(t, 1), C::channel(t, 2), p.hdr_mode);
   }
   __syncthreads();
 
@@ -100,7 +107,7 @@ __global__ void __launch_bounds__(kThreads) nis_sharpen_inside_kernel(Params p) 
   const int lx = tid % kBlock, ly0 = (tid / kBlock) * kRun;
   const int x = x0 + lx, oy0 = y0 + ly0;
   if (x >= p.w || oy0 >= p.h) return;
-  uint32_t* out = p.out + static_cast<size_t>(b) * p.h * p.w;
+  Texel* out = p.out + static_cast<size_t>(b) * p.h * p.w;
   const nis::Consts& k = p.k;
   float q[5][5];   // the support of output row oy0 + r: window rows ly0 + r .. + 4
 #pragma unroll
@@ -142,10 +149,10 @@ __global__ void __launch_bounds__(kThreads) nis_sharpen_inside_kernel(Params p) 
     nis::edge_map(pc, k, wgt);
     const float usm_y = d0 * wgt[0] + d90 * wgt[1] + d45 * wgt[2] + d135 * wgt[3];
 
-    const uint32_t t = s.t[ly0 + r + 2][lx + 2];   // the output's own texel
+    const Texel t = s.t[ly0 + r + 2][lx + 2];   // the output's own texel
     float rgb[3];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) rgb[c] = channel(t, c);
+    for (int c = 0; c < 3; ++c) rgb[c] = C::channel(t, c);
     if (p.hdr_mode == 1) {  // multiplicative luma fix (NIS_Scaler.h:951-959)
       const float new_y = ffx::max_nan(yc + usm_y, 0.0f);
       const float corr = (new_y * new_y + k.sharpen_hdr_eps) / (yc * yc + k.sharpen_hdr_eps);
@@ -155,49 +162,41 @@ __global__ void __launch_bounds__(kThreads) nis_sharpen_inside_kernel(Params p) 
 #pragma unroll
       for (int c = 0; c < 3; ++c) rgb[c] = rgb[c] + usm_y;
     }
-    out[static_cast<size_t>(oy0 + r) * p.w + x] = rgba8::pack(rgb[0], rgb[1], rgb[2], channel(t, 3));
+    out[static_cast<size_t>(oy0 + r) * p.w + x] = C::pack(rgb[0], rgb[1], rgb[2], C::channel(t, 3));
   }
 }
 
 // The outside list: the shared copy pass, alpha 1.
+template <class C>
 __global__ void __launch_bounds__(copy_pass::kThreads)
-    nis_sharpen_outside_kernel(copy_pass::Args a) {
-  copy_pass::run<kBlock, kBlock, false>(a);
+    nis_sharpen_outside_kernel(copy_pass::Args<C> a) {
+  copy_pass::run<kBlock, kBlock, false, C>(a);
 }
 
-}  // namespace
-
-// CTAs per SM of the outside and inside kernels on the current device
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the inside kernel's
-// shared memory per CTA in bytes. Returns the first non-zero cudaError_t.
-extern "C" int nis_sharpen_occupancy(int* outside, int* inside, int* inside_smem) {
-  *inside_smem = static_cast<int>(sizeof(Smem));
+template <class C>
+int occupancy(int* outside, int* inside, int* inside_smem) {
+  *inside_smem = static_cast<int>(sizeof(Smem<C>));
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      outside, nis_sharpen_outside_kernel, copy_pass::kThreads, 0);
+      outside, nis_sharpen_outside_kernel<C>, copy_pass::kThreads, 0);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, nis_sharpen_inside_kernel,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, nis_sharpen_inside_kernel<C>,
                                                         kThreads, 0);
   return static_cast<int>(err);
 }
 
-// Launch on `stream`: the copy pass over outside_tiles, then the inside
-// kernel over inside_tiles (an empty list launches nothing). Returns the
-// first non-zero cudaError_t (0 = launched). The caller (kernels/nis.py) has
-// checked shapes, dtypes and devices and that the lists partition the
-// blocks; consts points to nis::kNumConsts host floats in nis::Consts order;
-// tile and window must equal kBlock and kWin.
-extern "C" int nis_sharpen_launch(const void* img, void* out, const void* inside_tiles,
-                                  int n_inside, const void* outside_tiles, int n_outside,
-                                  const float* consts, int n_consts, int batch, int h, int w,
-                                  int rows, int pitch, int hdr_mode, float tint, int tile,
-                                  int window, void* stream) {
+template <class C>
+int launch(const void* img, void* out, const void* inside_tiles, int n_inside,
+           const void* outside_tiles, int n_outside, const float* consts, int n_consts,
+           int batch, int h, int w, int rows, int pitch, int hdr_mode, float tint, int tile,
+           int window, void* stream) {
+  using Texel = typename C::Texel;
   if (tile != kBlock || window != kWin || n_consts != nis::kNumConsts || batch <= 0 || h <= 0 ||
       w <= 0 || h > rows || w > pitch || hdr_mode < 0 || hdr_mode > 2 || n_inside < 0 ||
       n_outside < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
-  p.img = static_cast<const uint32_t*>(img);
-  p.out = static_cast<uint32_t*>(out);
+  Params<C> p;
+  p.img = static_cast<const Texel*>(img);
+  p.out = static_cast<Texel*>(out);
   p.tiles = static_cast<const int32_t*>(inside_tiles);
   std::memcpy(&p.k, consts, sizeof(p.k));
   p.h = h;
@@ -210,15 +209,56 @@ extern "C" int nis_sharpen_launch(const void* img, void* out, const void* inside
   p.tint = tint;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_outside > 0) {
-    const copy_pass::Args a = {p.img, p.out, static_cast<const int32_t*>(outside_tiles), h, w,
-                               rows, pitch, p.tiles_x, p.tiles_y, tint};
-    nis_sharpen_outside_kernel<<<n_outside, copy_pass::kThreads, 0, s>>>(a);
+    const copy_pass::Args<C> a = {p.img, p.out, static_cast<const int32_t*>(outside_tiles), h,
+                                  w, rows, pitch, p.tiles_x, p.tiles_y, tint};
+    nis_sharpen_outside_kernel<C><<<n_outside, copy_pass::kThreads, 0, s>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (n_inside > 0) {
-    nis_sharpen_inside_kernel<<<n_inside, kThreads, 0, s>>>(p);
+    nis_sharpen_inside_kernel<C><<<n_inside, kThreads, 0, s>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
   return 0;
+}
+
+}  // namespace
+
+// CTAs per SM of the outside and inside kernels on the current device
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the inside kernel's
+// shared memory per CTA in bytes, for RGBA8 (nis_sharpen_occupancy) and
+// R10G10B10A2 (nis_sharpen_occupancy10). Returns the first non-zero
+// cudaError_t.
+extern "C" int nis_sharpen_occupancy(int* outside, int* inside, int* inside_smem) {
+  return occupancy<codec::Rgba8>(outside, inside, inside_smem);
+}
+extern "C" int nis_sharpen_occupancy10(int* outside, int* inside, int* inside_smem) {
+  return occupancy<codec::Rgb10a2>(outside, inside, inside_smem);
+}
+
+// Launch on `stream`: the copy pass over outside_tiles, then the inside
+// kernel over inside_tiles (an empty list launches nothing), on packed
+// RGBA8 texels (nis_sharpen_launch) or R10G10B10A2 ones
+// (nis_sharpen_launch10). Returns the first non-zero cudaError_t (0 =
+// launched). The caller (kernels/nis.py) has checked shapes, dtypes and
+// devices and that the lists partition the blocks; consts points to
+// nis::kNumConsts host floats in nis::Consts order; tile and window must
+// equal kBlock and kWin.
+extern "C" int nis_sharpen_launch(const void* img, void* out, const void* inside_tiles,
+                                  int n_inside, const void* outside_tiles, int n_outside,
+                                  const float* consts, int n_consts, int batch, int h, int w,
+                                  int rows, int pitch, int hdr_mode, float tint, int tile,
+                                  int window, void* stream) {
+  return launch<codec::Rgba8>(img, out, inside_tiles, n_inside, outside_tiles, n_outside,
+                              consts, n_consts, batch, h, w, rows, pitch, hdr_mode, tint, tile,
+                              window, stream);
+}
+extern "C" int nis_sharpen_launch10(const void* img, void* out, const void* inside_tiles,
+                                    int n_inside, const void* outside_tiles, int n_outside,
+                                    const float* consts, int n_consts, int batch, int h, int w,
+                                    int rows, int pitch, int hdr_mode, float tint, int tile,
+                                    int window, void* stream) {
+  return launch<codec::Rgb10a2>(img, out, inside_tiles, n_inside, outside_tiles, n_outside,
+                                consts, n_consts, batch, h, w, rows, pitch, hdr_mode, tint,
+                                tile, window, stream);
 }

@@ -1,10 +1,14 @@
-"""What every kernel wrapper of the port shares: the packed-RGBA8 codec of
-the plain versions, the foveation circle test, and the launch wrapper.
+"""What every kernel wrapper of the port shares: the texel codecs of the
+plain versions, the foveation circle test, and the launch wrapper.
 
-A frame is a (B, H, W) int32 plane of packed RGBA8 texels (little-endian,
-R in the low byte). The plain versions decode it to f32 planes exactly as
-the CUDA kernels do (u * f32(1/255)) and encode with clamp, *255 and round
-half to even, as the reference's UNORM store does.
+A frame is, at color_bits=8, a (B, H, W) int32 plane of packed RGBA8
+texels (little-endian, R in the low byte); at color_bits=10 (R10G10B10A2,
+the reference's other output format, PostProcessor.cpp:63-74) a
+(B, H, W, 4) uint16 tensor, RGB in [0, 1023] and alpha in [0, 3]. The
+plain versions decode either to f32 planes exactly as the CUDA kernels do
+(csrc/codec.cuh: u * f32(1/255); RGB u * f32(1/1023), alpha a * f32(1/3),
+the whole 16-bit value) and encode with clamp, scale and round half to
+even, as the reference's UNORM store does.
 """
 
 import ctypes
@@ -13,28 +17,47 @@ import numpy as np
 import torch
 
 __all__ = ["unpack", "pack", "circle_mask", "debug_tint", "tint_vector",
-           "DeviceTables", "kernel_fn", "occupancy"]
+           "DeviceTables", "kernel_fn", "occupancy", "entry_name",
+           "texel_words"]
 
 F32 = np.float32
 _INV255 = float(F32(1.0) / F32(255.0))
+_INV1023 = float(F32(1.0) / F32(1023.0))
+_INV3 = float(F32(1.0) / F32(3.0))
 
 
-def unpack(img, channels=4):
-    """(B, H, W) int32 packed RGBA8 -> (B, channels, H, W) f32 texels
-    decoded as u * f32(1/255); channels 3 drops alpha."""
+def unpack(img, channels=4, color_bits=8):
+    """A frame -> (B, channels, H, W) f32 texels; channels 3 drops alpha.
+    color_bits 8: (B, H, W) int32 packed RGBA8, decoded as u * f32(1/255);
+    10: (B, H, W, 4) uint16, RGB decoded as u * f32(1/1023) and alpha as
+    a * f32(1/3) (utils/frames.py::to_planar)."""
+    if color_bits == 10:
+        x = img[..., :channels].to(torch.int32).to(torch.float32)
+        x = x.permute(0, 3, 1, 2)
+        if channels == 4:
+            return torch.cat([x[:, :3] * _INV1023, x[:, 3:] * _INV3], dim=1)
+        return x * _INV1023
     return torch.stack([((img >> (8 * c)) & 255).to(torch.float32)
                         for c in range(channels)], dim=-3) * _INV255
 
 
-def _unorm8(x):
-    return torch.round(torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.int64)
+def _unorm(x, scale):
+    return torch.round(torch.clamp(x, 0.0, 1.0) * scale).to(torch.int64)
 
 
-def pack(rgb, alpha=None):
-    """(B, 3, H, W) f32 RGB and (B, H, W) f32 alpha (None: 1) -> (B, H, W)
-    int32 packed RGBA8: clamp, *255, round half to even per channel."""
-    q = _unorm8(rgb)
-    a = 255 if alpha is None else _unorm8(alpha)
+def pack(rgb, alpha=None, color_bits=8):
+    """(B, 3, H, W) f32 RGB and (B, H, W) f32 alpha (None: 1) -> a frame:
+    clamp, scale, round half to even per channel. color_bits 8: (B, H, W)
+    int32 packed RGBA8; 10: (B, H, W, 4) uint16, RGB * 1023 and alpha * 3
+    (utils/frames.py::from_planar)."""
+    if color_bits == 10:
+        q = _unorm(rgb, 1023.0)
+        a = torch.full_like(q[:, 0], 3) if alpha is None else _unorm(alpha,
+                                                                      3.0)
+        return torch.stack([q[:, 0], q[:, 1], q[:, 2], a], dim=-1).to(
+            torch.int32).to(torch.uint16)
+    q = _unorm(rgb, 255.0)
+    a = 255 if alpha is None else _unorm(alpha, 255.0)
     v = q[:, 0] + (q[:, 1] << 8) + (q[:, 2] << 16) + (a << 24)
     return (v - ((v >> 31) << 32)).to(torch.int32)   # u32 bits as int32
 
@@ -85,30 +108,38 @@ class DeviceTables:
         return t
 
 
-def kernel_fn(name, batch, shape, pad_to, reference, launch, geometry=None):
+def kernel_fn(name, batch, shape, pad_to, reference, launch, geometry=None,
+              color_bits=8):
     """The function a kernel build returns.
 
-    fn(img) takes a contiguous (batch, *shape) int32 tensor, or one
-    pre-padded to the ring pitch `pad_to` (read in place). A CPU tensor
-    runs `reference(img)`, the plain torch version; a CUDA tensor runs
-    `launch(img)`, which returns (out, cudaError), and raises if the error
-    is not 0. Nothing falls back. fn.launches counts CUDA launches;
-    fn.reference and fn.pad_to are published, and fn.dma_geometry when
-    `geometry` (kernels/_maps.py::dma_geometry) is given: that dict with
-    batch, in_h, in_w and the ring pitch hp, wp added, which
-    kernels/sol.py::build_dma_floor consumes."""
+    fn(img) takes a contiguous (batch, *shape) int32 tensor of packed RGBA8
+    (color_bits 8) or (batch, *shape, 4) uint16 tensor of R10G10B10A2
+    texels (color_bits 10), or one pre-padded to the ring pitch `pad_to`
+    (read in place). A CPU tensor runs `reference(img)`, the plain torch
+    version; a CUDA tensor runs `launch(img)`, which returns (out,
+    cudaError), and raises if the error is not 0. Nothing falls back.
+    fn.launches counts CUDA launches; fn.reference, fn.pad_to and
+    fn.color_bits are published, and fn.dma_geometry when `geometry`
+    (kernels/_maps.py::dma_geometry, in 4-byte words: word_geometry at 10
+    bits) is given: that dict with batch, in_h, in_w and the ring pitch hp,
+    wp added, in words, which kernels/sol.py::build_dma_floor consumes."""
     B, (H, W), pad_to = int(batch), tuple(shape), tuple(pad_to)
+    ten = texel_words(color_bits) == 2
+    dtype, texel = ((torch.uint16, (4,)) if ten else (torch.int32, ()))
 
     def fn(img):
-        if not isinstance(img, torch.Tensor) or img.dtype != torch.int32:
-            raise TypeError(f"{name} takes an int32 tensor of packed RGBA8 "
-                            f"texels, got {type(img).__name__} "
-                            f"{getattr(img, 'dtype', '')}")
-        if img.ndim != 3 or img.shape[0] != B or \
-                tuple(img.shape[1:]) not in ((H, W), pad_to):
+        if not isinstance(img, torch.Tensor) or img.dtype != dtype:
+            raise TypeError(
+                f"{name} takes a {dtype} tensor of "
+                f"{'R10G10B10A2' if ten else 'packed RGBA8'} texels, got "
+                f"{type(img).__name__} {getattr(img, 'dtype', '')}")
+        if img.ndim != 3 + len(texel) or img.shape[0] != B or \
+                tuple(img.shape[3:]) != texel or \
+                tuple(img.shape[1:3]) not in ((H, W), pad_to):
             raise ValueError(
                 f"frame shape {tuple(img.shape)} matches neither the build "
-                f"shape {(B, H, W)} nor the pre-padded pitch {(B, *pad_to)}")
+                f"shape {(B, H, W, *texel)} nor the pre-padded pitch "
+                f"{(B, *pad_to, *texel)}")
         if not img.is_contiguous():
             raise ValueError(f"{name} takes a contiguous frame tensor")
         dev = img.device
@@ -126,21 +157,40 @@ def kernel_fn(name, batch, shape, pad_to, reference, launch, geometry=None):
     fn.launches = 0
     fn.pad_to = pad_to
     fn.reference = reference
+    fn.color_bits = color_bits
     if geometry is not None:
-        fn.dma_geometry = dict(geometry, batch=B, in_h=H, in_w=W,
-                               hp=pad_to[0], wp=pad_to[1])
+        n = geometry.get("texel_words", 1)
+        fn.dma_geometry = dict(geometry, batch=B, in_h=H, in_w=W * n,
+                               hp=pad_to[0], wp=pad_to[1] * n)
     return fn
 
 
-def occupancy(name):
+def texel_words(color_bits):
+    """4-byte words per texel: 1 for RGBA8 (color_bits 8), 2 for
+    R10G10B10A2 (10); any other color_bits raises ValueError."""
+    if color_bits not in (8, 10):
+        raise ValueError(f"color_bits={color_bits!r}: 8 (RGBA8) or 10 "
+                         "(R10G10B10A2)")
+    return 1 if color_bits == 8 else 2
+
+
+def entry_name(entry, color_bits):
+    """The C entry point of `color_bits`: `entry` (RGBA8) or entry + "10"
+    (R10G10B10A2), e.g. fsr_fused_launch10."""
+    return entry if color_bits == 8 else f"{entry}{color_bits}"
+
+
+def occupancy(name, color_bits=8):
     """{"outside": n, "inside": n, "inside_smem": bytes} of the class
     kernels `name` (fsr_fused, nis_scaler, cas_upscale, nis_sharpen,
-    cas_sharpen, rcas_sharpen): the CTAs per SM of its two
+    cas_sharpen, rcas_sharpen) for `color_bits`: the CTAs per SM of its two
     class kernels on the current CUDA device (cudaOccupancyMaxActiveBlocks
     PerMultiprocessor at 256 threads) and the inside kernel's shared memory
-    per CTA, from its <name>_occupancy entry point."""
+    per CTA, from its <name>_occupancy (or <name>_occupancy10) entry
+    point."""
     from . import _build
-    f = getattr(_build.load_library(name), f"{name}_occupancy")
+    f = getattr(_build.load_library(name),
+                entry_name(f"{name}_occupancy", color_bits))
     f.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
     f.restype = ctypes.c_int
     vals = [ctypes.c_int() for _ in range(3)]

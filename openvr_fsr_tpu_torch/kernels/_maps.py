@@ -35,7 +35,8 @@ of a stream.
 Every build also publishes its DMA geometry (dma_geometry,
 sharpen_geometry): what its CUDA kernel loads from the frame and stores,
 which kernels/sol.py::build_dma_floor turns into the kernel's
-zero-compute floor.
+zero-compute floor. The geometry is in 4-byte words: one per RGBA8 texel,
+two per R10G10B10A2 texel (word_geometry).
 """
 
 import dataclasses
@@ -54,6 +55,7 @@ from ..ops.nis import nis_source_maps
 __all__ = ["FsrMaps", "fsr_maps", "cas_upscale_maps",
            "NisMaps", "nvscaler_maps", "SharpenMaps", "sharpen_maps",
            "input_padding", "dma_geometry", "sharpen_geometry",
+           "word_geometry",
            "group_classes", "tile_lists", "TILE", "FSR_TILE", "IN_TILE",
            "CAS_IN_TILE", "NIS_TILE", "NIS_IN_TILE", "NIS_EDGE_TILE",
            "SHARPEN_TILE", "CAS_SHARPEN_IN_TILE", "NIS_SHARPEN_IN_TILE",
@@ -479,3 +481,33 @@ def sharpen_geometry(h, w, tile, halo, centres, oob, staged, group=None):
         np.arange(-(-h // tile)) * tile - halo, centres, oob=oob,
         stage="copy", staged=staged, group=group, tap_x=np.arange(w),
         tap_y=np.arange(h))
+
+
+def word_geometry(geom, texel_words):
+    """A texel geometry (dma_geometry, sharpen_geometry) in 4-byte words,
+    for a frame of `texel_words` words per texel (1: RGBA8, returned as it
+    is; 2: R10G10B10A2's 8-byte texels): every column quantity (the tile
+    and window widths, out_w, the window origins, the per-output taps and
+    bilinear floors) per word, word k of texel x being texel x's word k,
+    and texel_words added, which the floor's clamps read
+    (kernels/sol.py::clip_words). The rows, the foveation group and the
+    centres stay in texels."""
+    n = int(texel_words)
+    if n == 1:
+        return geom
+    g = dict(geom)
+
+    def words(cols):
+        cols = np.asarray(cols, np.int64)
+        return np.ascontiguousarray(
+            (cols[..., None] * n + np.arange(n)).reshape(
+                *cols.shape[:-1], -1), np.int32)
+
+    (tw, th), (ww, wh) = geom["tile"], geom["window"]
+    g.update(tile=(tw * n, th), window=(ww * n, wh),
+             out_w=geom["out_w"] * n, texel_words=n,
+             tile_x0=np.ascontiguousarray(geom["tile_x0"] * n, np.int32),
+             tap_x=words(geom["tap_x"]))
+    if geom["quad_x"] is not None:
+        g["quad_x"] = words(geom["quad_x"])
+    return g

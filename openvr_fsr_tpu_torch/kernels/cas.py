@@ -1,6 +1,8 @@
 """The two CAS kernels: build, launch, and their plain versions.
 
-The ports of the JAX package's kernels/cas.py for the 8-bit packed path.
+The ports of the JAX package's kernels/cas.py, on RGBA8 (color_bits 8,
+packed u32 planes) and R10G10B10A2 (color_bits 10, (B, H, W, 4) uint16
+frames) texels.
 The reference keeps CAS in-tree but out of the build; the JAX package ships
 it as a pipeline mode with the FSR wrappers' foveation and debug tint, one
 CasFilter pass per plan (Config.stage_plan):
@@ -36,55 +38,62 @@ from ..ops.cas import (cas_core, cas_setup, cas_sharpen_taps,
                        cas_upscale_core, cas_upscale_gather)
 from ..ops.common import F32
 from . import _build
-from ._common import (DeviceTables, circle_mask, debug_tint, kernel_fn, pack,
-                      tint_vector, unpack)
+from ._common import (DeviceTables, circle_mask, debug_tint, entry_name,
+                      kernel_fn, pack, texel_words, tint_vector, unpack)
 from ._maps import (CAS_IN_TILE, CAS_SHARPEN_IN_TILE, FSR_TILE, SHARPEN_TILE,
                     TILE, cas_upscale_maps, dma_geometry, input_padding,
-                    sharpen_geometry, sharpen_maps)
+                    sharpen_geometry, sharpen_maps, word_geometry)
 
 __all__ = ["build_cas_upscale", "build_cas_sharpen", "cas_upscale_reference",
            "cas_sharpen_reference"]
 
 
-def cas_upscale_reference(img, maps, sharp, tint):
+def cas_upscale_reference(img, maps, sharp, tint, color_bits=8):
     """The CAS upscale kernel's computation in plain torch, on img's device.
 
-    img: (B, H, W) or pre-padded (B, HP, WP) int32 packed RGBA8; maps: the
-    build's cas_upscale_maps on img's device; sharp: the cas_setup constant;
-    tint: the out-of-circle G/B multiplier. Returns (B, OH, OW) int32
-    packed RGBA8 with alpha 255."""
+    img: (B, H, W) or pre-padded (B, HP, WP) int32 packed RGBA8, or at
+    color_bits 10 the same with a trailing 4 of uint16 R10G10B10A2; maps:
+    the build's cas_upscale_maps on img's device; sharp: the cas_setup
+    constant; tint: the out-of-circle G/B multiplier. Returns (B, OH, OW)
+    int32 packed RGBA8 with alpha 255, or (B, OH, OW, 4) uint16 with alpha
+    3."""
     m = maps
-    rgb = unpack(img[:, :m.in_h, :m.in_w], 3)
+    rgb = unpack(img[:, :m.in_h, :m.in_w], 3, color_bits)
     taps = cas_upscale_gather(rgb, m.col_i[0], m.row_i[0])
     up = cas_upscale_core(taps, m.col_f[0][None, :], m.row_f[0][:, None],
                           sharp)
     bil = bilinear_gather(rgb, m.col_i[1], m.col_f[1], m.row_i[1],
                           m.row_f[1])
     inside = circle_mask(m.centres, m.out_h, m.out_w, TILE_FSR)[:, None]
-    return pack(torch.where(inside, up, bil * tint_vector(tint, img.device)))
+    return pack(torch.where(inside, up, bil * tint_vector(tint, img.device)),
+                color_bits=color_bits)
 
 
-def cas_sharpen_reference(img, centres, sharp, max_color_delta, tint):
+def cas_sharpen_reference(img, centres, sharp, max_color_delta, tint,
+                          color_bits=8):
     """The CAS sharpen-only kernel's computation in plain torch, on img's
     device.
 
-    img: (B, H, W) int32 packed RGBA8 (a pre-padded plane is cropped by the
-    caller); centres: (B, 5) int64 on img's device; sharp: the cas_setup
-    constant; tint: the out-of-circle G/B multiplier. Returns (B, H, W)
-    int32 packed RGBA8."""
-    rgba = unpack(img)
+    img: (B, H, W) int32 packed RGBA8, or at color_bits 10 (B, H, W, 4)
+    uint16 R10G10B10A2 (a pre-padded one is cropped by the caller);
+    centres: (B, 5) int64 on img's device; sharp: the cas_setup constant;
+    tint: the out-of-circle G/B multiplier. Returns a frame of img's shape
+    and format."""
+    rgba = unpack(img, 4, color_bits)
     rgb, alpha = rgba[:, :3], rgba[:, 3]
     inside = circle_mask(centres, img.shape[1], img.shape[2], TILE_FSR)
     sharp_rgb = cas_core(cas_sharpen_taps(rgb), sharp, max_color_delta)
     out_rgb = torch.where(inside[:, None], sharp_rgb,
                           rgb * tint_vector(tint, img.device))
-    return pack(out_rgb, torch.where(inside, 1.0, alpha))
+    return pack(out_rgb, torch.where(inside, 1.0, alpha), color_bits)
 
 
 @functools.cache
-def _upscale_launch_fn():
-    """The ctypes entry point, bound (and built) at the first launch."""
-    f = _build.load_library("cas_upscale").cas_upscale_launch
+def _upscale_launch_fn(color_bits=8):
+    """The ctypes entry point of `color_bits` (cas_upscale_launch, or
+    cas_upscale_launch10), bound (and built) at the first launch."""
+    f = getattr(_build.load_library("cas_upscale"),
+                entry_name("cas_upscale_launch", color_bits))
     f.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
                   + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
@@ -101,16 +110,18 @@ SHARPEN_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
 
 
 @functools.cache
-def _sharpen_launch_fn():
-    """The ctypes entry point, bound (and built) at the first launch."""
-    f = _build.load_library("cas_sharpen").cas_sharpen_launch
+def _sharpen_launch_fn(color_bits=8):
+    """The ctypes entry point of `color_bits` (cas_sharpen_launch, or
+    cas_sharpen_launch10), bound (and built) at the first launch."""
+    f = getattr(_build.load_library("cas_sharpen"),
+                entry_name("cas_sharpen_launch", color_bits))
     f.argtypes = SHARPEN_ARGTYPES
     f.restype = ctypes.c_int
     return f
 
 
 def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
-                      centres, debug=False):
+                      centres, debug=False, color_bits=8):
     """Build the CAS scaling kernel for a fixed shape/config.
 
     Args:
@@ -121,11 +132,14 @@ def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
       centres: (B, 5) int array per batch entry: cx1, cy1, cx2, cy2,
         radius_sq (core.constants.centres_payload at the output size).
       debug: out-of-radius tint 1-(0, .3, .3).
+      color_bits: 8 (RGBA8) or 10 (R10G10B10A2 passthrough).
 
     Returns fn(img) with the fused FSR kernel's contract: img is a
     contiguous (B, in_h, in_w) int32 tensor of packed RGBA8, or one
     pre-padded to the ring pitch fn.pad_to; the result is a new (B, out_h,
-    out_w) int32 tensor of packed RGBA8 with alpha 255 on img's device.
+    out_w) int32 tensor of packed RGBA8 with alpha 255 on img's device (at
+    color_bits 10, (B, in_h, in_w, 4) uint16 in and (B, out_h, out_w, 4)
+    uint16 with alpha 3 out).
     fn.launches counts calls that launched the CUDA kernels (one per call:
     the outside pass and the inside kernel, each only where its tile list
     is not empty); fn.reference(img) runs the plain version on img's
@@ -137,16 +151,19 @@ def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
     tables = DeviceTables(cas_upscale_maps(B, H, W, OW, OH, centres))
     sharp = cas_setup(sharpness)
     tint = debug_tint(debug)
+    cb = int(color_bits)
 
     def reference(img):
         """The plain torch version on img's device (any device)."""
-        return cas_upscale_reference(img, tables.on(img.device), sharp, tint)
+        return cas_upscale_reference(img, tables.on(img.device), sharp, tint,
+                                     cb)
 
     def launch(img):
         dev = img.device
         m = tables.on(dev)
-        out = torch.empty((B, OH, OW), dtype=torch.int32, device=dev)
-        err = _upscale_launch_fn()(
+        out = torch.empty((B, OH, OW, 4) if cb == 10 else (B, OH, OW),
+                          dtype=img.dtype, device=dev)
+        err = (_upscale_launch_fn() if cb == 8 else _upscale_launch_fn(cb))(
             img.data_ptr(), out.data_ptr(), m.col_i.data_ptr(),
             m.col_f.data_ptr(), m.row_i.data_ptr(), m.row_f.data_ptr(),
             m.tile_x0.data_ptr(), m.tile_y0.data_ptr(),
@@ -169,11 +186,12 @@ def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
         tap_y=np.clip(m.row_i[0], 0, H - 1),
         quad_x=m.col_i[[1, 1]], quad_y=m.row_i[[1, 1]])
     return kernel_fn("CAS upscale", B, (H, W), input_padding(H, W),
-                     reference, launch, geometry)
+                     reference, launch,
+                     word_geometry(geometry, texel_words(cb)), cb)
 
 
 def build_cas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
-                      max_color_delta=1.0):
+                      max_color_delta=1.0, color_bits=8):
     """Build the CAS sharpen-only kernel for a fixed shape/config.
 
     Args:
@@ -184,6 +202,7 @@ def build_cas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
       debug: out-of-radius tint 1-(0, .3, .3).
       max_color_delta: CasSetup's maxColorDelta (ffx_cas.h:379); 1 leaves
         the sharpened colour unclamped.
+      color_bits: 8 (RGBA8) or 10 (R10G10B10A2 passthrough).
 
     Returns fn(img) with the RCAS sharpen-only kernel's contract (kernels/
     rcas.py::build_rcas_sharpen).
@@ -193,18 +212,20 @@ def build_cas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
     sharp = cas_setup(sharpness)
     mcd = F32(max_color_delta)
     tint = debug_tint(debug)
+    cb = int(color_bits)
 
     def reference(img):
         """The plain torch version on img's device (any device)."""
         return cas_sharpen_reference(img[:, :H, :W],
                                      tables.on(img.device).centres, sharp,
-                                     mcd, tint)
+                                     mcd, tint, cb)
 
     def launch(img):
         dev = img.device
         m = tables.on(dev)
-        out = torch.empty((B, H, W), dtype=torch.int32, device=dev)
-        err = _sharpen_launch_fn()(
+        out = torch.empty((B, H, W, 4) if cb == 10 else (B, H, W),
+                          dtype=img.dtype, device=dev)
+        err = (_sharpen_launch_fn() if cb == 8 else _sharpen_launch_fn(cb))(
             img.data_ptr(), out.data_ptr(), m.group_cls.data_ptr(),
             m.inside_tiles.data_ptr(), n_inside, m.outside_tiles.data_ptr(),
             n_outside, B, H, W, img.shape[1], img.shape[2], float(sharp),
@@ -218,7 +239,8 @@ def build_cas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
     m = tables.host
     n_inside, n_outside = len(m.inside_tiles), len(m.outside_tiles)
     return kernel_fn("CAS sharpen", B, (H, W), input_padding(H, W),
-                     reference, launch,
-                     sharpen_geometry(H, W, SHARPEN_TILE, 1, m.centres,
-                                      "zero", staged=m.tile_inside,
-                                      group=(TILE, TILE)))
+                     reference, launch, word_geometry(
+                         sharpen_geometry(H, W, SHARPEN_TILE, 1, m.centres,
+                                          "zero", staged=m.tile_inside,
+                                          group=(TILE, TILE)),
+                         texel_words(cb)), cb)

@@ -2,7 +2,10 @@
 NVScaler (NIS upscale): build, launch, and their plain versions.
 
 `build_nvsharpen` and `build_nvscaler` are the ports of the JAX package's
-kernels/nis.py builders for the 8-bit packed path, HDR modes 0/1/2. What
+kernels/nis.py builders, HDR modes 0/1/2, on RGBA8 (color_bits 8, packed
+u32 planes) and R10G10B10A2 (color_bits 10, (B, H, W, 4) uint16 frames)
+texels: only the texel decode and encode change with the format
+(NIS_SCALE_FLOAT stays 255, a shader constant, JAX ops/nis.py:20). What
 each computes per pixel, with the foveated select of the reference
 pipeline (api/pipeline.py:419-476 of the JAX package):
 
@@ -35,11 +38,12 @@ from ..core.foveation import TILE_NIS_SCALER, TILE_NIS_SHARPEN
 from ..ops.bilinear import bilinear_fallback_fsr
 from ..ops.nis import KHDR_COMPRESSION, NIS_SCALE_FLOAT, nvscaler, nvsharpen
 from . import _build
-from ._common import (DeviceTables, circle_mask, debug_tint, kernel_fn, pack,
-                      tint_vector, unpack)
+from ._common import (DeviceTables, circle_mask, debug_tint, entry_name,
+                      kernel_fn, pack, texel_words, tint_vector, unpack)
 from ._maps import (NIS_EDGE_TILE, NIS_IN_TILE, NIS_SHARPEN_IN_TILE,
                     NIS_TILE, SHARPEN_TILE, dma_geometry, input_padding,
-                    nvscaler_maps, sharpen_geometry, sharpen_maps)
+                    nvscaler_maps, sharpen_geometry, sharpen_maps,
+                    word_geometry)
 
 __all__ = ["build_nvsharpen", "build_nvscaler", "nvsharpen_reference",
            "nvscaler_reference"]
@@ -63,35 +67,38 @@ def _consts(cfg: NisConfig):
     ], np.float32)
 
 
-def nvsharpen_reference(img, centres, nis_cfg, tint):
+def nvsharpen_reference(img, centres, nis_cfg, tint, color_bits=8):
     """NVSharpen with the foveated select in plain torch, on img's device.
 
-    img: (B, H, W) int32 packed RGBA8; centres: (B, 5) int64 on img's
-    device; tint: the out-of-circle G/B multiplier. Returns (B, H, W)
-    int32 packed RGBA8."""
-    rgba = unpack(img)
+    img: (B, H, W) int32 packed RGBA8, or at color_bits 10 (B, H, W, 4)
+    uint16 R10G10B10A2; centres: (B, 5) int64 on img's device; tint: the
+    out-of-circle G/B multiplier. Returns a frame of img's shape and
+    format."""
+    rgba = unpack(img, 4, color_bits)
     sh = nvsharpen(rgba, nis_cfg)
     inside = circle_mask(centres, img.shape[1], img.shape[2],
                          TILE_NIS_SHARPEN)
     rgb = torch.where(inside[:, None], sh[:, :3],
                       rgba[:, :3] * tint_vector(tint, img.device))
-    return pack(rgb, torch.where(inside, rgba[:, 3], 1.0))
+    return pack(rgb, torch.where(inside, rgba[:, 3], 1.0), color_bits)
 
 
-def nvscaler_reference(img, centres, out_w, out_h, nis_cfg, tint):
+def nvscaler_reference(img, centres, out_w, out_h, nis_cfg, tint,
+                       color_bits=8):
     """NVScaler with the foveated DirectCopy fallback in plain torch, on
     img's device.
 
-    img: (B, H, W) int32 packed RGBA8; centres: (B, 5) int64 on img's
-    device; tint: the out-of-circle G/B multiplier. Returns (B, out_h,
-    out_w) int32 packed RGBA8."""
-    rgba = unpack(img)
+    img: (B, H, W) int32 packed RGBA8, or at color_bits 10 (B, H, W, 4)
+    uint16 R10G10B10A2; centres: (B, 5) int64 on img's device; tint: the
+    out-of-circle G/B multiplier. Returns (B, out_h, out_w) int32 packed
+    RGBA8, or (B, out_h, out_w, 4) uint16."""
+    rgba = unpack(img, 4, color_bits)
     up = nvscaler(rgba, out_w, out_h, nis_cfg)
     fb = bilinear_fallback_fsr(rgba[:, :3], out_w, out_h)
     inside = circle_mask(centres, out_h, out_w, TILE_NIS_SCALER)
     rgb = torch.where(inside[:, None], up[:, :3],
                       fb * tint_vector(tint, img.device))
-    return pack(rgb, torch.where(inside, up[:, 3], 1.0))
+    return pack(rgb, torch.where(inside, up[:, 3], 1.0), color_bits)
 
 
 # csrc/nis_sharpen.cu nis_sharpen_launch: img, out, the inside list and its
@@ -104,18 +111,22 @@ SHARPEN_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
 
 
 @functools.cache
-def _sharpen_fn():
-    """NVSharpen's ctypes entry point, bound (and built) at first launch."""
-    f = _build.load_library("nis_sharpen").nis_sharpen_launch
+def _sharpen_fn(color_bits=8):
+    """NVSharpen's ctypes entry point of `color_bits` (nis_sharpen_launch,
+    or nis_sharpen_launch10), bound (and built) at first launch."""
+    f = getattr(_build.load_library("nis_sharpen"),
+                entry_name("nis_sharpen_launch", color_bits))
     f.argtypes = SHARPEN_ARGTYPES
     f.restype = ctypes.c_int
     return f
 
 
 @functools.cache
-def _scaler_fn():
-    """NVScaler's ctypes entry point, bound (and built) at first launch."""
-    f = _build.load_library("nis_scaler").nis_scaler_launch
+def _scaler_fn(color_bits=8):
+    """NVScaler's ctypes entry point of `color_bits` (nis_scaler_launch, or
+    nis_scaler_launch10), bound (and built) at first launch."""
+    f = getattr(_build.load_library("nis_scaler"),
+                entry_name("nis_scaler_launch", color_bits))
     f.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int, ctypes.c_void_p]
                   + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 9
                   + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
@@ -123,7 +134,8 @@ def _scaler_fn():
     return f
 
 
-def build_nvsharpen(batch, h, w, *, nis_cfg: NisConfig, centres, debug=False):
+def build_nvsharpen(batch, h, w, *, nis_cfg: NisConfig, centres, debug=False,
+                    color_bits=8):
     """Build the NVSharpen kernel for a fixed shape/config.
 
     Args:
@@ -133,11 +145,14 @@ def build_nvsharpen(batch, h, w, *, nis_cfg: NisConfig, centres, debug=False):
       centres: (B, 5) int array per batch entry (core.constants.
         centres_payload at the frame size).
       debug: out-of-radius tint 1-(0, .3, .3).
+      color_bits: 8 (RGBA8) or 10 (R10G10B10A2 passthrough).
 
     Returns fn(img): img is a contiguous (B, h, w) int32 tensor, or one
     pre-padded to the ring pitch fn.pad_to, of packed RGBA8 texels; the
     result is a new (B, h, w) int32 tensor of packed RGBA8 on img's device.
-    fn.launches counts CUDA launches; fn.reference(img) runs the plain
+    At color_bits 10 img is a (B, h, w, 4) uint16 tensor (or pre-padded the
+    same way) and the result a (B, h, w, 4) uint16 one. fn.launches counts
+    CUDA launches; fn.reference(img) runs the plain
     version on img's device; fn.dma_geometry is what the kernel loads and
     stores (kernels/sol.py).
     """
@@ -145,18 +160,20 @@ def build_nvsharpen(batch, h, w, *, nis_cfg: NisConfig, centres, debug=False):
     tables = DeviceTables(sharpen_maps(B, H, W, centres, TILE_NIS_SHARPEN))
     consts = _consts(nis_cfg)
     tint = debug_tint(debug)
+    cb = int(color_bits)
 
     def reference(img):
         """The plain torch version on img's device (any device)."""
         return nvsharpen_reference(img[:, :H, :W],
                                    tables.on(img.device).centres, nis_cfg,
-                                   tint)
+                                   tint, cb)
 
     def launch(img):
         dev = img.device
         m = tables.on(dev)
-        out = torch.empty((B, H, W), dtype=torch.int32, device=dev)
-        err = _sharpen_fn()(
+        out = torch.empty((B, H, W, 4) if cb == 10 else (B, H, W),
+                          dtype=img.dtype, device=dev)
+        err = (_sharpen_fn() if cb == 8 else _sharpen_fn(cb))(
             img.data_ptr(), out.data_ptr(), m.inside_tiles.data_ptr(),
             n_inside, m.outside_tiles.data_ptr(), n_outside,
             consts.ctypes.data, consts.size, B, H, W, img.shape[1],
@@ -169,13 +186,14 @@ def build_nvsharpen(batch, h, w, *, nis_cfg: NisConfig, centres, debug=False):
     m = tables.host
     n_inside, n_outside = len(m.inside_tiles), len(m.outside_tiles)
     return kernel_fn("NVSharpen", B, (H, W), input_padding(H, W), reference,
-                     launch, sharpen_geometry(H, W, SHARPEN_TILE, 2,
-                                              m.centres, "clamp",
-                                              staged=m.tile_inside))
+                     launch, word_geometry(
+                         sharpen_geometry(H, W, SHARPEN_TILE, 2, m.centres,
+                                          "clamp", staged=m.tile_inside),
+                         texel_words(cb)), cb)
 
 
 def build_nvscaler(batch, in_h, in_w, out_w, out_h, *, nis_cfg: NisConfig,
-                   centres, debug=False):
+                   centres, debug=False, color_bits=8):
     """Build the NVScaler kernel for a fixed shape/config.
 
     Args:
@@ -186,8 +204,10 @@ def build_nvscaler(batch, in_h, in_w, out_w, out_h, *, nis_cfg: NisConfig,
       centres: (B, 5) int array per batch entry (core.constants.
         centres_payload at the output size).
       debug: out-of-radius tint 1-(0, .3, .3).
+      color_bits: 8 (RGBA8) or 10 (R10G10B10A2 passthrough).
 
-    Returns fn(img) as build_nvsharpen's, with a (B, out_h, out_w) result;
+    Returns fn(img) as build_nvsharpen's, with a (B, out_h, out_w) result
+    ((B, out_h, out_w, 4) at color_bits 10);
     fn.launches counts calls that launched the CUDA kernels (one per call:
     the DirectCopy pass and the inside kernel, each only where its tile
     list is not empty). Raises ValueError here if a tile's luma window or
@@ -198,18 +218,20 @@ def build_nvscaler(batch, in_h, in_w, out_w, out_h, *, nis_cfg: NisConfig,
     tables = DeviceTables(nvscaler_maps(B, H, W, OW, OH, nis_cfg, centres))
     consts = _consts(nis_cfg)
     tint = debug_tint(debug)
+    cb = int(color_bits)
 
     def reference(img):
         """The plain torch version on img's device (any device)."""
         return nvscaler_reference(img[:, :H, :W],
                                   tables.on(img.device).centres, OW, OH,
-                                  nis_cfg, tint)
+                                  nis_cfg, tint, cb)
 
     def launch(img):
         dev = img.device
         m = tables.on(dev)
-        out = torch.empty((B, OH, OW), dtype=torch.int32, device=dev)
-        err = _scaler_fn()(
+        out = torch.empty((B, OH, OW, 4) if cb == 10 else (B, OH, OW),
+                          dtype=img.dtype, device=dev)
+        err = (_scaler_fn() if cb == 8 else _scaler_fn(cb))(
             img.data_ptr(), out.data_ptr(), m.col_i.data_ptr(),
             m.col_f.data_ptr(), m.row_i.data_ptr(), m.row_f.data_ptr(),
             m.tile_x0.data_ptr(), m.tile_y0.data_ptr(), m.edge_x.data_ptr(),
@@ -234,4 +256,4 @@ def build_nvscaler(batch, in_h, in_w, out_w, out_h, *, nis_cfg: NisConfig,
         tap_y=np.clip(m.row_i[0], 0, H - 1),
         quad_x=m.col_i[2:4], quad_y=m.row_i[2:4])
     return kernel_fn("NVScaler", B, (H, W), input_padding(H, W), reference,
-                     launch, geometry)
+                     launch, word_geometry(geometry, texel_words(cb)), cb)

@@ -2,7 +2,8 @@
 version.
 
 `build_rcas_sharpen` is the port of the JAX package's kernels/rcas.py::
-build_rcas_sharpen for the 8-bit packed path. The reference runs only the
+build_rcas_sharpen, on RGBA8 (color_bits 8, packed u32 planes) and
+R10G10B10A2 (color_bits 10, (B, H, W, 4) uint16 frames) texels. The reference runs only the
 sharpen dispatch when renderScale is 1 (PostProcessor.cpp:530-535,
 591-594): RCAS (ffx_fsr1.h:684-769) over the game's frame with zero
 out-of-image taps (fsr_rcas.hlsl:18) inside the foveation circle, alpha 1
@@ -26,28 +27,30 @@ from ..core import constants as C
 from ..core.foveation import TILE_FSR
 from ..ops.rcas import rcas
 from . import _build
-from ._common import (DeviceTables, circle_mask, debug_tint, kernel_fn, pack,
-                      tint_vector, unpack)
+from ._common import (DeviceTables, circle_mask, debug_tint, entry_name,
+                      kernel_fn, pack, texel_words, tint_vector, unpack)
 from ._maps import (CAS_SHARPEN_IN_TILE, SHARPEN_TILE, TILE, input_padding,
-                    sharpen_geometry, sharpen_maps)
+                    sharpen_geometry, sharpen_maps, word_geometry)
 
 __all__ = ["build_rcas_sharpen", "rcas_sharpen_reference"]
 
 
-def rcas_sharpen_reference(img, centres, sharpness_linear, tint):
+def rcas_sharpen_reference(img, centres, sharpness_linear, tint,
+                           color_bits=8):
     """The kernel's computation in plain torch, on img's device.
 
-    img: (B, H, W) int32 packed RGBA8 (H, W: the frame; a pre-padded plane
-    is cropped by the caller); centres: (B, 5) int64 on img's device;
-    sharpness_linear: RCAS con.x; tint: the out-of-circle G/B multiplier.
-    Returns (B, H, W) int32 packed RGBA8."""
-    rgba = unpack(img)
+    img: (B, H, W) int32 packed RGBA8, or at color_bits 10 (B, H, W, 4)
+    uint16 R10G10B10A2 (H, W: the frame; a pre-padded one is cropped by the
+    caller); centres: (B, 5) int64 on img's device; sharpness_linear: RCAS
+    con.x; tint: the out-of-circle G/B multiplier. Returns a frame of img's
+    shape and format."""
+    rgba = unpack(img, 4, color_bits)
     rgb, alpha = rgba[:, :3], rgba[:, 3]
     inside = circle_mask(centres, img.shape[1], img.shape[2], TILE_FSR)
     sharp = rcas(rgb, sharpness_linear)
     out_rgb = torch.where(inside[:, None], sharp,
                           rgb * tint_vector(tint, img.device))
-    return pack(out_rgb, torch.where(inside, 1.0, alpha))
+    return pack(out_rgb, torch.where(inside, 1.0, alpha), color_bits)
 
 
 # csrc/rcas_sharpen.cu rcas_sharpen_launch: img, out, group_cls, the inside
@@ -59,15 +62,18 @@ SHARPEN_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
 
 
 @functools.cache
-def _launch_fn():
-    """The ctypes entry point, bound (and built) at the first launch."""
-    f = _build.load_library("rcas_sharpen").rcas_sharpen_launch
+def _launch_fn(color_bits=8):
+    """The ctypes entry point of `color_bits` (rcas_sharpen_launch, or
+    rcas_sharpen_launch10), bound (and built) at the first launch."""
+    f = getattr(_build.load_library("rcas_sharpen"),
+                entry_name("rcas_sharpen_launch", color_bits))
     f.argtypes = SHARPEN_ARGTYPES
     f.restype = ctypes.c_int
     return f
 
 
-def build_rcas_sharpen(batch, h, w, *, sharpness, centres, debug=False):
+def build_rcas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
+                       color_bits=8):
     """Build the sharpen-only RCAS kernel for a fixed shape/config.
 
     Args:
@@ -76,10 +82,13 @@ def build_rcas_sharpen(batch, h, w, *, sharpness, centres, debug=False):
       centres: (B, 5) int array per batch entry: cx1, cy1, cx2, cy2,
         radius_sq (core.constants.centres_payload at the frame size).
       debug: out-of-radius tint 1-(0, .3, .3) (fsr_rcas.hlsl:46).
+      color_bits: 8 (RGBA8) or 10 (R10G10B10A2 passthrough).
 
     Returns fn(img): img is a contiguous (B, h, w) int32 tensor, or one
     pre-padded to the ring pitch fn.pad_to, of packed RGBA8 texels; the
     result is a new (B, h, w) int32 tensor of packed RGBA8 on img's device.
+    At color_bits 10 img is a (B, h, w, 4) uint16 tensor (or pre-padded the
+    same way) and the result a (B, h, w, 4) uint16 one.
     fn.launches counts calls that launched the CUDA kernels (one per call:
     the copy pass and the inside kernel, each only where its tile list is
     not empty); fn.reference(img) runs the plain version on img's device;
@@ -89,18 +98,20 @@ def build_rcas_sharpen(batch, h, w, *, sharpness, centres, debug=False):
     tables = DeviceTables(sharpen_maps(B, H, W, centres, (TILE, TILE)))
     sharp = C.fsr_rcas_con(C.rcas_stops_from_slider(sharpness))
     tint = debug_tint(debug)
+    cb = int(color_bits)
 
     def reference(img):
         """The plain torch version on img's device (any device)."""
         return rcas_sharpen_reference(img[:, :H, :W],
                                       tables.on(img.device).centres, sharp,
-                                      tint)
+                                      tint, cb)
 
     def launch(img):
         dev = img.device
         m = tables.on(dev)
-        out = torch.empty((B, H, W), dtype=torch.int32, device=dev)
-        err = _launch_fn()(
+        out = torch.empty((B, H, W, 4) if cb == 10 else (B, H, W),
+                          dtype=img.dtype, device=dev)
+        err = (_launch_fn() if cb == 8 else _launch_fn(cb))(
             img.data_ptr(), out.data_ptr(), m.group_cls.data_ptr(),
             m.inside_tiles.data_ptr(), n_inside, m.outside_tiles.data_ptr(),
             n_outside, B, H, W, img.shape[1], img.shape[2], float(sharp),
@@ -114,7 +125,8 @@ def build_rcas_sharpen(batch, h, w, *, sharpness, centres, debug=False):
     m = tables.host
     n_inside, n_outside = len(m.inside_tiles), len(m.outside_tiles)
     return kernel_fn("RCAS sharpen", B, (H, W), input_padding(H, W),
-                     reference, launch,
-                     sharpen_geometry(H, W, SHARPEN_TILE, 1, m.centres,
-                                      "zero", staged=m.tile_inside,
-                                      group=(TILE, TILE)))
+                     reference, launch, word_geometry(
+                         sharpen_geometry(H, W, SHARPEN_TILE, 1, m.centres,
+                                          "zero", staged=m.tile_inside,
+                                          group=(TILE, TILE)),
+                         texel_words(cb)), cb)

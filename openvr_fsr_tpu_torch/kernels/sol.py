@@ -17,7 +17,11 @@ tools/bench_paths.py).
 
 What it describes is the CUDA kernel's own traffic, not the TPU kernel's:
 the TPU floor DMAs one row band per grid step (its read_bytes count band
-windows); this one loads tile boxes, overlaps included.
+windows); this one loads tile boxes, overlaps included. It runs in 4-byte
+words: a 10-bit build's geometry holds two words per R10G10B10A2 texel
+(kernels/_maps.py::word_geometry), its tiles are 64 words wide, and its
+floor takes and returns the kernel's own uint16 frames, moving their
+words.
 
 The rate probes (B8) follow: the FP32 rate (build_vpu_rate,
 csrc/vpu_rate.cu), the shared-memory rate (build_vmem_rate,
@@ -41,7 +45,8 @@ from ._common import DeviceTables, kernel_fn
 from ._maps import THREADS, _Tables
 
 __all__ = ["build_dma_floor", "dma_floor_reference", "check_geometry",
-           "floor_tiles", "floor_boxes", "floor_loads", "wt_swizzle_offset",
+           "floor_tiles", "floor_boxes", "floor_loads", "clip_words",
+           "wt_swizzle_offset",
            "vpu_cycle", "build_vpu_rate", "vpu_rate_reference",
            "build_vmem_rate", "vmem_rate_reference", "build_mxu_rate",
            "mxu_rate_reference", "MXU_TOLERANCE", "PITCH_WORDS"]
@@ -49,13 +54,23 @@ __all__ = ["build_dma_floor", "dma_floor_reference", "check_geometry",
 # csrc/dma_floor.cu: TMA boxes are at most BOX_MAX words on a side, their
 # rows start and end on 16-byte boundaries (multiples of BOX_ALIGN words),
 # and the frame's row pitch is a multiple of PITCH_WORDS words (16 bytes);
-# a tile row is one warp
+# a tile is 32 outputs wide: FLOOR_TILE_W words per texel word
 BOX_MAX = 256
 BOX_ALIGN = 4
 PITCH_WORDS = 4
 FLOOR_STAGES = 4            # boxes in flight per CTA (kStages)
 FLOOR_SPAN = 4              # outside tiles per span item of the copy form
 FLOOR_TILE_W = 32
+
+
+def clip_words(cols, n_in, texel_words, right=0):
+    """The word of the edge-clamped texel `right` texels to the right of
+    each word column in `cols` (word k of texel x is x * texel_words + k):
+    clip(x + right, 0, texels - 1) * texel_words + k, over n_in words. At
+    one word per texel, clip(cols + right, 0, n_in - 1)."""
+    cols = np.asarray(cols, np.int64)
+    n = int(texel_words)
+    return np.clip(cols // n + right, 0, n_in // n - 1) * n + cols % n
 
 
 def floor_tiles(geom):
@@ -133,15 +148,17 @@ def floor_boxes(geom):
     g = geom
     (tw, th), (ww, wh) = g["tile"], g["window"]
     axes = []
-    for tile, win, n_in, origins, taps, quad, align in (
+    for tile, win, n_in, origins, taps, quad, align, words in (
             (tw, ww, g["in_w"], g["tile_x0"], g["tap_x"], g["quad_x"],
-             BOX_ALIGN),
-            (th, wh, g["in_h"], g["tile_y0"], g["tap_y"], g["quad_y"], 1)):
+             BOX_ALIGN, g.get("texel_words", 1)),
+            (th, wh, g["in_h"], g["tile_y0"], g["tap_y"], g["quad_y"], 1,
+             1)):
         origins = origins.astype(np.int64)
         if g["stage"] == "list":
-            q = quad[1].astype(np.int64)
-            outside_taps = np.clip(q, 0, n_in - 1)
-            spans = _spans(outside_taps, np.clip(q + 1, 0, n_in - 1), tile)
+            q = quad[1]
+            outside_taps = clip_words(q, n_in, words)
+            spans = _spans(outside_taps, clip_words(q, n_in, words, 1),
+                           tile)
         else:
             outside_taps = np.arange(len(taps))
             spans = _spans(outside_taps, outside_taps, tile)
@@ -180,7 +197,8 @@ def floor_loads(geom, boxes=None):
 
 def check_geometry(geom):
     """Raise ValueError unless the floor can run `geom`: 256 threads per
-    CTA and tiles 32 wide; stage "copy" with no
+    CTA and tiles 32 outputs wide (FLOOR_TILE_W words per texel word);
+    stage "copy" with no
     four-tap floors, no stage_quads, a staged table of the grid's shape and
     each output's tap its own texel, or "list" with the floors and a staged
     table; every output's tap inside the window of its tile, and where
@@ -189,8 +207,10 @@ def check_geometry(geom):
     if g["threads"] != THREADS:
         raise ValueError(f"the DMA floor runs {THREADS} threads per CTA, "
                          f"the geometry {g['threads']}")
-    if g["tile"][0] != FLOOR_TILE_W:
-        raise ValueError(f"the DMA floor takes tiles {FLOOR_TILE_W} wide, not "
+    words = g.get("texel_words", 1)
+    if g["tile"][0] != FLOOR_TILE_W * words:
+        raise ValueError(f"the DMA floor takes tiles {FLOOR_TILE_W} outputs "
+                         f"({FLOOR_TILE_W * words} words) wide, not "
                          f"{g['tile']}")
     grid = (g["batch"], len(g["tile_y0"]), len(g["tile_x0"]))
     if g["stage"] == "list":
@@ -209,20 +229,20 @@ def check_geometry(geom):
                              "the taps must be the identity")
     else:
         raise ValueError(f"no floor form for stage {g['stage']!r}")
-    for axis, tile, win, origins, taps, quad, n_in in (
+    for axis, tile, win, origins, taps, quad, n_in, n in (
             ("column", g["tile"][0], g["window"][0], g["tile_x0"],
-             g["tap_x"], g["quad_x"], g["in_w"]),
+             g["tap_x"], g["quad_x"], g["in_w"], words),
             ("row", g["tile"][1], g["window"][1], g["tile_y0"], g["tap_y"],
-             g["quad_y"], g["in_h"])):
+             g["quad_y"], g["in_h"], 1)):
         first = np.repeat(origins, tile)[:len(taps)]
         rel = taps - first
         if rel.min() < 0 or rel.max() >= win:
             raise ValueError(f"an output {axis}'s tap lies outside the "
                              f"{win}-wide window of its tile")
         if g["stage_quads"]:
-            q = quad[0].astype(np.int64)
-            if (np.clip(q, 0, n_in - 1) < first).any() or \
-                    (np.clip(q + 1, 0, n_in - 1) >= first + win).any():
+            q = quad[0]
+            if (clip_words(q, n_in, n) < first).any() or \
+                    (clip_words(q, n_in, n, 1) >= first + win).any():
                 raise ValueError(f"an output {axis}'s RGBA tap lies outside "
                                  f"the {win}-wide window of its tile")
 
@@ -236,8 +256,9 @@ def dma_floor_reference(img, geom):
     """The floor's output in plain torch, on img's device: each output word
     is the input word at its tap (tap_y, tap_x); in a tile of stage "list"
     that does not stage, the first of its four bilinear taps instead,
-    edge-clamped. img: (B, H, W) or ring-pitch (B, hp, wp) int32.
-    Returns (B, out_h, out_w) int32."""
+    edge-clamped. img: (B, H, W) or ring-pitch (B, hp, wp) int32 words (W
+    and out_w in words, as the geometry's). Returns (B, out_h, out_w)
+    int32."""
     g = geom
     H, W, OH, OW = g["in_h"], g["in_w"], g["out_h"], g["out_w"]
     x = img[:, :H, :W]
@@ -253,7 +274,8 @@ def dma_floor_reference(img, geom):
         staged = torch.as_tensor(g["staged"], device=img.device)
         staged = staged.repeat_interleave(th, 1).repeat_interleave(tw, 2)
         direct = gather(np.clip(g["quad_y"][1], 0, H - 1),
-                        np.clip(g["quad_x"][1], 0, W - 1))
+                        clip_words(g["quad_x"][1], W,
+                                   g.get("texel_words", 1)))
         out = torch.where(staged[:, :OH, :OW], out, direct)
     return out
 
@@ -292,14 +314,17 @@ def build_dma_floor(geom):
     """Build the DMA floor of one compute kernel from its published
     geometry (a kernel build's or Pipeline._build's fn.dma_geometry).
 
-    Returns fn(img): img is the same contiguous (B, in_h, in_w) int32
-    plane, or one pre-padded to the ring pitch fn.pad_to, that the compute
-    kernel takes; the result is a new (B, out_h, out_w) int32 tensor, the
-    input word at each output's tap (dma_floor_reference). A CUDA tensor
-    launches csrc/dma_floor.cu, whose TMA loads take a row pitch of a
-    multiple of fn.pitch_words words: any other CUDA frame (the unpadded
-    1683-word rows of the upscalers' input among them) raises ValueError,
-    and the ring pitch always runs. A CPU tensor runs the plain version.
+    Returns fn(img): img is the same contiguous frame, or one pre-padded
+    to the ring pitch fn.pad_to, that the compute kernel takes (a (B,
+    in_h, in_w) int32 plane; at 10 bits a (B, in_h, in_w, 4) uint16 one,
+    moved as its two words per texel); the result is a new frame of the
+    compute kernel's output shape, each output word the input word at its
+    tap (dma_floor_reference). A CUDA tensor launches csrc/dma_floor.cu,
+    whose TMA loads take a row pitch of a multiple of fn.pitch_words
+    words: any other CUDA frame (the unpadded 1683-word rows of the
+    upscalers' 8-bit input and 3366-word rows of their 10-bit one among
+    them) raises ValueError, and the ring pitch always runs. A CPU tensor
+    runs the plain version.
     Published:
       launches, pad_to, reference   as every kernel build's;
       pitch_words   the row pitch the CUDA path takes a multiple of;
@@ -309,7 +334,7 @@ def build_dma_floor(geom):
       read_bytes    the bytes the floor loads, overlaps included
                     (floor_loads; the JAX floor's read_bytes, sol.py:101,
                     counts its band windows the same way);
-      write_bytes   B * out_h * out_w * 4, as sol.py:102;
+      write_bytes   B * out_h * out_w * 4 (out_w in words), as sol.py:102;
       hbm_bytes     the unique input plane plus the output: the bytes that
                     must cross device memory. Effective GB/s is taken over
                     these, not read_bytes: a word that overlapping boxes
@@ -320,36 +345,47 @@ def build_dma_floor(geom):
     check_geometry(g)
     B, H, W = g["batch"], g["in_h"], g["in_w"]
     OH, OW = g["out_h"], g["out_w"]
+    n = g.get("texel_words", 1)
     tiles, boxes = floor_tiles(g), floor_boxes(g)
     n_spans = int((tiles[:, 3] < 0).sum())
     tables = DeviceTables(_FloorTables(tiles, boxes.rel_x, boxes.rel_y,
                                        boxes.x0, boxes.y0))
-    th = g["tile"][1]
+    tw, th = g["tile"]
     (bw0, bh0), (bw1, bh1) = boxes.box
+
+    def words(img):
+        """The frame as (B, rows, pitch) int32 words (a view)."""
+        return img if n == 1 else img.view(torch.int32).reshape(
+            img.shape[0], img.shape[1], -1)
+
+    def texels(out):
+        """(B, OH, OW) output words as the compute kernel's frame."""
+        return out if n == 1 else out.view(torch.uint16).reshape(
+            B, OH, OW // n, 4)
 
     def reference(img):
         """The plain torch version on img's device (any device)."""
-        return dma_floor_reference(img, g)
+        return texels(dma_floor_reference(words(img), g))
 
     def launch(img):
-        if img.shape[2] % PITCH_WORDS or img.data_ptr() % (4 * PITCH_WORDS):
+        x = words(img)
+        if x.shape[2] % PITCH_WORDS or x.data_ptr() % (4 * PITCH_WORDS):
             raise ValueError(
                 f"the DMA floor's TMA loads take a 16-byte-aligned frame "
                 f"with a row pitch of a multiple of {PITCH_WORDS} words, not "
-                f"{img.shape[2]}: pre-pad it to the ring pitch {fn.pad_to}")
+                f"{x.shape[2]}: pre-pad it to the ring pitch {fn.pad_to}")
         dev = img.device
         m = tables.on(dev)
         out = torch.empty((B, OH, OW), dtype=torch.int32, device=dev)
         err = _launch_fn()(
-            img.data_ptr(), out.data_ptr(), m.tiles.data_ptr(), len(tiles),
+            x.data_ptr(), out.data_ptr(), m.tiles.data_ptr(), len(tiles),
             n_spans, m.rel_x.data_ptr(), m.rel_y.data_ptr(), m.x0.data_ptr(),
-            m.y0.data_ptr(), B, H, W, img.shape[1], img.shape[2], OH, OW,
-            FLOOR_TILE_W, th, bw0, bh0, bw1, bh1,
-            torch.cuda.current_stream(dev).cuda_stream)
-        return out, err
+            m.y0.data_ptr(), B, H, W, x.shape[1], x.shape[2], OH, OW, tw, th,
+            bw0, bh0, bw1, bh1, torch.cuda.current_stream(dev).cuda_stream)
+        return texels(out), err
 
-    fn = kernel_fn("DMA floor", B, (H, W), (g["hp"], g["wp"]), reference,
-                   launch)
+    fn = kernel_fn("DMA floor", B, (H, W // n), (g["hp"], g["wp"] // n),
+                   reference, launch, color_bits=8 if n == 1 else 10)
     fn.pitch_words = PITCH_WORDS
     fn.tiles = tiles
     fn.n_spans = n_spans

@@ -179,7 +179,8 @@ ABLATIONS = {
                              "i += kThreads) {",
                              "for (int i = tid; i < 0; i += kThreads) {")]),
         "noload": (False, [("? img[static_cast<size_t>(y) * p.pitch + x]",
-                            "? static_cast<uint32_t>(i) * 2654435761u")]),
+                            "? Texel{static_cast<uint32_t>(i) * 2654435761u}"
+                            )]),
     },
     "nis_sharpen": {
         "noslide": (True, [("i = (r == 0 ? 0 : 4)", "i = 0")]),

@@ -11,11 +11,14 @@ bytes, the values that differ (`mismatch_gt0`), those that differ by more
 than 1 (`mismatch_gt1`) and the largest difference (`max_lsb`).
 
 The cases are the root tool's eleven (:87-116: the same frames, kwargs and
-names), then eight the TPU record (PARITY_r05.json) lacks: NVScaler and
+names), then fourteen the TPU record (PARITY_r05.json) lacks: NVScaler and
 NVSharpen at hdr_mode 1 and 2, FSR at radius 0.0 with debug, CAS sharpen
-at cas_max_color_delta 0.05, an off-centre right eye, and one double-wide
-frame. The bar: every case within 1 LSB, and 0 unequal values wherever
-PARITY_r05.json shows 0 (ZERO). The exit code is 1 when a case misses it.
+at cas_max_color_delta 0.05, an off-centre right eye, one double-wide
+frame, and the 10-bit path (color_bits=10, R10G10B10A2), one case per
+stage plan at radius 0.5, on a 10-bit zone plate or a seeded 10-bit noise
+whose alpha takes all four values. The bar: every case within 1 LSB, and
+0 unequal values wherever PARITY_r05.json shows 0 (ZERO) and in the 10-bit
+cases (TEN_BIT). The exit code is 1 when a case misses it.
 
     python3 -m openvr_fsr_tpu_torch.tools.parity [--skip-nis]
         [--oracle-only] [--out PATH] [--device cpu [--small]]
@@ -52,8 +55,8 @@ OFF_CENTRE = ((0.45, 0.5), (0.55, 0.52))
 MAX_LSB = 1
 
 # (name, frame, kwargs for both sides). Frames: the render-size zone plate
-# and noise, the output-size zone plate, and two render-size zone plates
-# side by side (a double-wide frame).
+# and noise, the output-size zone plate, two render-size zone plates side
+# by side (a double-wide frame), and the 10-bit frames (frames()).
 CASES = [
     ("fsr_fused_zone_r0.5", "zone_plate",
      dict(render_scale=0.75, sharpness=0.9, radius=0.5)),
@@ -100,11 +103,31 @@ CASES = [
           eye_centers=OFF_CENTRE)),
     ("fsr_fused_zone_doublewide", "double_wide",
      dict(render_scale=0.75, sharpness=0.9, radius=0.5, single_eye=False)),
+    # the 10-bit path, one case per stage plan
+    ("fsr_fused_noise10_r0.5", "noise10",
+     dict(render_scale=0.75, sharpness=0.9, radius=0.5, color_bits=10)),
+    ("rcas_only_zone10_r0.5_debug", "big_zone_plate10",
+     dict(render_scale=1.0, sharpness=0.9, radius=0.5, debug=True,
+          color_bits=10)),
+    ("nvscaler_noise10_r0.5", "noise10",
+     dict(render_scale=0.75, sharpness=0.7, radius=0.5, use_nis=True,
+          color_bits=10)),
+    ("nvsharpen_zone10_r0.5", "big_zone_plate10",
+     dict(render_scale=1.0, sharpness=0.7, radius=0.5, use_nis=True,
+          color_bits=10)),
+    ("cas_upscale_noise10_r0.5", "noise10",
+     dict(render_scale=0.75, sharpness=0.8, radius=0.5, use_cas=True,
+          color_bits=10)),
+    ("cas_sharpen_zone10_r0.5", "big_zone_plate10",
+     dict(render_scale=1.0, sharpness=0.8, radius=0.5, use_cas=True,
+          color_bits=10)),
 ]
 # the cases PARITY_r05.json shows with 0 unequal values on the TPU
 ZERO = ("fsr_fused_zone_r0.5", "fsr_fused_zone_r2.0", "rcas_only_zone",
         "fsr_supersample_zone", "cas_upscale_noise", "cas_sharpen_zone",
         "nvsharpen_zone")
+# the 10-bit cases, held to 0 unequal values too
+TEN_BIT = tuple(n for n, _, kw in CASES if kw.get("color_bits") == 10)
 
 
 def _oracle_fingerprint():
@@ -133,15 +156,39 @@ def _case_key(name, frame, kw, oracle_fp):
     return f"{name}:{h.hexdigest()[:16]}"
 
 
+def zone_plate10(h, w, k=0.08):
+    """utils/frames.py::zone_plate_frame at 10 bits: (h, w, 4) uint16, the
+    plate 511.5 + 511.5 cos(...) in RGB, alpha 3 (opaque)."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    r2 = (yy - h / 2.0) ** 2 + (xx - w / 2.0) ** 2
+    v = (511.5 + 511.5 * np.cos(k * r2 * np.pi / max(h, w))).astype(
+        np.uint16)
+    return np.stack([v, v, v, np.full((h, w), 3, np.uint16)], -1)
+
+
+def noise10(h, w, seed=1):
+    """(h, w, 4) uint16 from `seed`: RGB uniform in [0, 1023], alpha
+    uniform in {0, 1, 2, 3}, so every value of the 2-bit alpha is
+    carried."""
+    rng = np.random.default_rng(seed)
+    rgb = rng.integers(0, 1024, (h, w, 3)).astype(np.uint16)
+    alpha = rng.integers(0, 4, (h, w, 1)).astype(np.uint16)
+    return np.concatenate([rgb, alpha], axis=-1)
+
+
 def frames(small=False):
-    """The cases' input frames, uint8 RGBA: full size, or --small's."""
+    """The cases' input frames, uint8 RGBA and, for the 10-bit cases,
+    uint16 R10G10B10A2: full size, or --small's."""
     from ..utils import frames as FR
     h, w = SMALL if small else FULL
     oh, ow = int(h / 0.75), int(w / 0.75)     # the headline output size
     zone = FR.zone_plate_frame(h, w)
     return {"zone_plate": zone, "noise": FR.noise_frame(h, w, seed=1),
             "big_zone_plate": FR.zone_plate_frame(oh, ow),
-            "double_wide": np.concatenate([zone, zone], axis=1)}
+            "double_wide": np.concatenate([zone, zone], axis=1),
+            "zone_plate10": zone_plate10(h, w),
+            "big_zone_plate10": zone_plate10(oh, ow),
+            "noise10": noise10(h, w, seed=1)}
 
 
 def select(skip_nis=False, names=None):
@@ -210,6 +257,7 @@ def port_output(frame, kw, device):
                  debug_mode=kw.get("debug", False))
     pipe = Pipeline(cfg, eye_centers=kw.get("eye_centers"),
                     single_eye_per_frame=kw.get("single_eye", True),
+                    color_bits=kw.get("color_bits"),
                     hdr_mode=kw.get("hdr_mode", 0),
                     cas_max_color_delta=kw.get("cas_max_color_delta", 1.0),
                     device=device)
@@ -229,7 +277,7 @@ def compare(got, want):
 
 def meets_bar(name, result):
     return result["max_lsb"] <= MAX_LSB and (
-        name not in ZERO or result["mismatch_gt0"] == 0)
+        name not in ZERO + TEN_BIT or result["mismatch_gt0"] == 0)
 
 
 def run(cases, device="cuda", small=False, cache_path=CACHE, jobs=None):
@@ -307,7 +355,7 @@ def main(argv=None):
             f.write("\n")
     if misses:
         print(f"parity: {misses} miss the bar (max {MAX_LSB} LSB, 0 "
-              f"unequal in {ZERO})", file=sys.stderr, flush=True)
+              f"unequal in {ZERO + TEN_BIT})", file=sys.stderr, flush=True)
         sys.exit(1)
     return record
 

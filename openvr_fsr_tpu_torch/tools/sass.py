@@ -19,7 +19,8 @@ from pathlib import Path
 
 __all__ = ["disassemble", "function_counts", "loops", "innermost_loop",
            "probe_loops", "probe_loop_counts", "ptxas_usage",
-           "inside_float_per_output", "INSIDE_RULES"]
+           "inside_float_per_output", "of_codec", "INSIDE_RULES",
+           "CODECS"]
 
 _INSN = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _BRANCH = re.compile(r"\bBRA\s+0x([0-9a-f]+)")
@@ -42,6 +43,18 @@ INSIDE_RULES = {
     "cas_upscale": ("cas_inside_kernel", "tile"),
     "cas_sharpen": ("cas_sharpen_inside_kernel", "tile"),
 }
+# color_bits -> the mangled template argument of the B1-B6 kernels'
+# instantiation for that texel format (csrc/codec.cuh)
+CODECS = {8: "N5codec5Rgba8E", 10: "N5codec7Rgb10a2E"}
+
+
+def of_codec(fn, color_bits=8):
+    """Whether function `fn` (a mangled name) is the color_bits
+    instantiation; a function of no codec (a probe, the floor) counts as
+    8-bit."""
+    if any(tag in fn for tag in CODECS.values()):
+        return CODECS[color_bits] in fn
+    return color_bits == 8
 
 
 def ptxas_usage(log):
@@ -126,11 +139,12 @@ def loops(sass):
     return out
 
 
-def innermost_loop(sass, function_part, *opcodes):
+def innermost_loop(sass, function_part, *opcodes, color_bits=8):
     """The opcode Counter of the shortest loop of the function whose name
-    holds `function_part` that holds every one of `opcodes`, or None."""
+    holds `function_part` (its color_bits instantiation) that holds every
+    one of `opcodes`, or None."""
     for fn, found in loops(sass).items():
-        if function_part not in fn:
+        if function_part not in fn or not of_codec(fn, color_bits):
             continue
         for _, _, _, ops in found:
             if all(ops[o] for o in opcodes):
@@ -189,11 +203,11 @@ def _outermost(found):
                        for o in found)]
 
 
-def inside_float_per_output(text, kernel, in_per_out=1.0):
+def inside_float_per_output(text, kernel, in_per_out=1.0, color_bits=8):
     """(arithmetic, compare-select): the float instructions (FLOAT_ARITH,
     FLOAT_CMP) of one output inside the foveation circle, read from the
-    SASS text of `kernel`'s library, or None where its inside kernel or a
-    loop the rule needs is missing. Static: each instruction of a region
+    SASS text of `kernel`'s library (its color_bits instantiation), or None
+    where its inside kernel or a loop the rule needs is missing. Static: each instruction of a region
     counts once and every branch of it counts (a path that seldom runs, as
     IEEE division's slow one, too); the output's pack counts, the window's
     staging does not. By INSIDE_RULES:
@@ -211,7 +225,7 @@ def inside_float_per_output(text, kernel, in_per_out=1.0):
     part, rule = INSIDE_RULES[kernel]
     counts = function_counts(text)
     found = loops(text)
-    names = [fn for fn in counts if part in fn]
+    names = [fn for fn in counts if part in fn and of_codec(fn, color_bits)]
     if not names:
         return None
     fn = names[0]

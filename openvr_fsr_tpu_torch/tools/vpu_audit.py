@@ -612,10 +612,11 @@ def inside_pixels(geom):
     """Output pixels inside the foveation circle by the kernel's own test
     (the reference's, per foveation group, as the host's per-group classes
     give it to every kernel: kernels/_maps.py::group_classes), and the
-    fallback pixels."""
+    fallback pixels; a 10-bit build's geometry counts its words in pairs."""
     from ..kernels._common import circle_mask
     mask = circle_mask(torch.as_tensor(geom["centres"]), geom["out_h"],
-                       geom["out_w"], tuple(geom["group"]))
+                       geom["out_w"] // geom.get("texel_words", 1),
+                       tuple(geom["group"]))
     inside = int(mask.sum())
     return inside, mask.numel() - inside
 

@@ -1,6 +1,6 @@
 """The port's full-size parity tool (openvr_fsr_tpu_torch/tools/parity.py) on
-the CPU: its cases against the root tools/parity.py's eleven plus the eight
-the TPU record lacks, its cache key and oracle fingerprint, a --device cpu
+the CPU: its cases against the root tools/parity.py's eleven plus the
+fourteen the TPU record lacks (six of them the 10-bit path's), its cache key and oracle fingerprint, a --device cpu
 --small run (every case, 0 unequal values), the oracle's process pool and
 cache, and its refusals. The tool itself judges the card: `python3 -m
 openvr_fsr_tpu_torch.tools.parity` (and chip_smoke.py runs two cases).
@@ -47,6 +47,23 @@ NEW = {
         eye_centers=((0.45, 0.5), (0.55, 0.52)))),
     "fsr_fused_zone_doublewide": ("double_wide", dict(
         render_scale=0.75, sharpness=0.9, radius=0.5, single_eye=False)),
+    "fsr_fused_noise10_r0.5": ("noise10", dict(
+        render_scale=0.75, sharpness=0.9, radius=0.5, color_bits=10)),
+    "rcas_only_zone10_r0.5_debug": ("big_zone_plate10", dict(
+        render_scale=1.0, sharpness=0.9, radius=0.5, debug=True,
+        color_bits=10)),
+    "nvscaler_noise10_r0.5": ("noise10", dict(
+        render_scale=0.75, sharpness=0.7, radius=0.5, use_nis=True,
+        color_bits=10)),
+    "nvsharpen_zone10_r0.5": ("big_zone_plate10", dict(
+        render_scale=1.0, sharpness=0.7, radius=0.5, use_nis=True,
+        color_bits=10)),
+    "cas_upscale_noise10_r0.5": ("noise10", dict(
+        render_scale=0.75, sharpness=0.8, radius=0.5, use_cas=True,
+        color_bits=10)),
+    "cas_sharpen_zone10_r0.5": ("big_zone_plate10", dict(
+        render_scale=1.0, sharpness=0.8, radius=0.5, use_cas=True,
+        color_bits=10)),
 }
 
 
@@ -87,7 +104,9 @@ def test_the_root_cases_come_first():
 
 def test_the_cases_the_tpu_record_lacks():
     assert {n: (f, kw) for n, f, kw in P.CASES[11:]} == NEW
-    assert len(P.CASES) == 19
+    assert len(P.CASES) == 25
+    assert P.TEN_BIT == tuple(n for n in NEW if "10_" in n)
+    assert len(P.TEN_BIT) == 6
     tpu = json.loads((REPO / "PARITY_r05.json").read_text())["results"]
     assert set(tpu) == {n for n, _, _ in P.CASES[:11]}
     assert set(P.ZERO) == {n for n, r in tpu.items()
@@ -98,7 +117,7 @@ def test_select():
     assert P.select() == P.CASES
     assert [n for n, _, _ in P.select(skip_nis=True)] == [
         n for n, _, kw in P.CASES if not kw.get("use_nis")]
-    assert len(P.select(skip_nis=True)) == 12
+    assert len(P.select(skip_nis=True)) == 16
     assert [n for n, _, _ in P.select(names=("nvscaler_noise",
                                              "fsr_fused_zone_r0.5"))] == [
         "fsr_fused_zone_r0.5", "nvscaler_noise"]
@@ -146,6 +165,15 @@ def test_frames():
     assert small["big_zone_plate"].shape == (53, 64, 4)
     assert small["double_wide"].shape == (40, 96, 4)
     assert np.array_equal(small["double_wide"][:, 48:], small["zone_plate"])
+    assert small["noise10"].shape == small["zone_plate10"].shape == \
+        (40, 48, 4)
+    assert small["big_zone_plate10"].shape == (53, 64, 4)
+    for name in ("noise10", "zone_plate10", "big_zone_plate10"):
+        assert small[name].dtype == np.uint16
+        assert small[name][..., :3].max() <= 1023
+    assert set(np.unique(small["noise10"][..., 3])) == {0, 1, 2, 3}
+    assert (small["zone_plate10"][..., 3] == 3).all()
+    assert small["zone_plate10"][..., 0].max() > 1000
     assert P.FULL == (1869, 1683)
     assert (int(1869 / 0.75), int(1683 / 0.75)) == (2492, 2244)
 
@@ -194,7 +222,9 @@ def test_oracle_pool_and_cache(tmp_path, monkeypatch):
     (dict(max_lsb=0, mismatch_gt0=0), "fsr_fused_zone_r0.5", True),
     (dict(max_lsb=1, mismatch_gt0=3), "fsr_fused_zone_r0.5", False),
     (dict(max_lsb=1, mismatch_gt0=33), "nvscaler_noise", True),
-    (dict(max_lsb=2, mismatch_gt0=1), "nvscaler_noise", False)])
+    (dict(max_lsb=2, mismatch_gt0=1), "nvscaler_noise", False),
+    (dict(max_lsb=0, mismatch_gt0=0), "nvscaler_noise10_r0.5", True),
+    (dict(max_lsb=1, mismatch_gt0=1), "nvscaler_noise10_r0.5", False)])
 def test_the_bar(r, name, ok):
     assert P.meets_bar(name, r) is ok
 
