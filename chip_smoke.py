@@ -17,7 +17,8 @@ lines:
      nis_sharpen, cas_sharpen and rcas_sharpen (the shared copy pass
      outside, the kernel inside), each at both texel formats (the RGBA8
      and R10G10B10A2 instantiations; a warning where the 10-bit one holds
-     fewer CTAs per SM);
+     fewer CTAs per SM), and the registers and spills of fsr_fused's and
+     cas_upscale's band instantiations (the row-band strips');
   2. each kernel against its plain torch version on the card, at full
      size, on a zone-plate + noise set and a uniform-random set, both with
      alpha that is not all 255:
@@ -58,6 +59,22 @@ lines:
      in {0..3}; 1% of values above 1023, which saturate), the ring pitch,
      small frames over the whole uint16 range and a bright border against
      the CPU path, CAS max_color_delta 0.05; 0 unequal values, every case;
+  2b. the row-band strips of fsr_fused and cas_upscale (band_range: the
+     same two kernels on an input strip, storing a band of output rows),
+     each strip build on its input strip against the single launch on the
+     card, 0 unequal texels: 3 strips at the default band_rows at radius
+     0.5, 2.0, 0.0 and 0.5 with debug, off-centre eyes at radius 0.3 and the
+     full supersample (rs 1.3); every 32-row band alone; 24-row bands,
+     whose edges cut the kernels' 32-row tiles (at 8 and at 10 bits); small
+     strips against the plain version on the CPU. Then the spatial path's
+     entry point, SpatialFsrPipeline with 3 strips on this card for FSR and
+     CAS at 2 x 1683x1869 -> 2 x 2244x2492, its launch counts set to 0 just
+     before 10 steady-state process_placed calls under
+     torch.cuda.set_sync_debug_mode("error") (no host sync) and read just
+     after, equal to Pipeline.process; the strips' summed device time
+     beside the single launch's; ShardedPipeline over [cuda:0] * 2 and
+     FsrModel().sharded() at batch 4, equal to Pipeline.process; and
+     tools.spatial_onchip, in this process;
   3. the plans through the public API, each with the launch counts set to
      0 just before and read just after: FSR rs 0.75, FSR rs 1, NIS rs 0.75,
      NIS rs 1, CasModel() (rs 1) and CasModel(render_scale=0.75) process 10
@@ -136,7 +153,9 @@ lines:
      above 1.5, a rate above 1.05 x its bound, or a kernel row whose bound
      is above 1.05 x its time;
   8. the result lines: the card, the kernels JSON (the 10-bit
-     instantiations as <kernel>_10bit; each bound the largest
+     instantiations as <kernel>_10bit, the strips of the spatial path as
+     fsr_fused_band and cas_upscale_band, their ms the strips' summed device
+     time and their bytes the strips' rows; each bound the largest
      of its unique bytes over 3.35 TB/s, its operations over the peak for
      their type: f32 work, the FP32 probe's as the FP32 instructions its
      SASS keeps per cycle, at the FP32 issue bound SMs x 128 lanes x the
@@ -177,6 +196,7 @@ ORACLE_CASES = ("fsr_fused_zone_r0.5", "nvscaler_noise",
 RATE_MAX = 1.05              # a measured rate over its bound
 SHARE_MAX = 1.05             # an audit row's bound over its time
 N_PAIRS = 10                 # stereo pairs per plan through the public API
+STRIPS = 3                   # row-band strips of the spatial path
 # the [bN] lines of phase 5: rounds of graph replays, kernel and floor in
 # turns, the best of each
 B_ROUNDS = 10
@@ -333,17 +353,26 @@ def main():
                 log(f"[setup] WARNING: {kernel} {cls} kernel holds "
                     f"{ctas[10, cls]} CTAs per SM at 10 bits, "
                     f"{ctas[8, cls]} at 8 bits")
+        # the row-band strips' instantiations (B1, B5: a row test before
+        # each store)
+        for fn, u in usage.items():
+            if f"{prefix}_band_" in fn:
+                log(f"[setup] {kernel} "
+                    f"{8 if sass.of_codec(fn) else 10}-bit "
+                    f"{fn.split('_band_')[1].split('_')[0]} band kernel: "
+                    f"{u['registers']} registers, {u['spill_stores']} B "
+                    f"spill stores, {u['spill_loads']} B spill loads")
 
     def centres(ow, oh, radius, b=2, eyes=CENTRES):
         return C.centres_payload(ow, oh, radius, eyes,
                                  tuple(i % 2 for i in range(b)))
 
     def fsr(radius, debug=False, h=H, w=W, rs=0.75, b=2, eyes=CENTRES,
-            bits=8):
+            bits=8, **band):
         ow, oh = Config(render_scale=rs).output_size(w, h)
         return build_fsr_fused(b, h, w, ow, oh, sharpness=SHARPNESS,
                                centres=centres(ow, oh, radius, b, eyes),
-                               debug=debug, color_bits=bits)
+                               debug=debug, color_bits=bits, **band)
 
     def rcas(radius, debug=False, h=OH, w=OW, b=2, eyes=CENTRES, bits=8):
         return build_rcas_sharpen(b, h, w, sharpness=SHARPNESS,
@@ -367,11 +396,11 @@ def main():
                               debug=debug, color_bits=bits)
 
     def cas_up(radius, debug=False, h=H, w=W, rs=0.75, b=2, eyes=CENTRES,
-               bits=8):
+               bits=8, **band):
         ow, oh = Config(render_scale=rs).output_size(w, h)
         return build_cas_upscale(b, h, w, ow, oh, sharpness=CAS_SHARPNESS,
                                  centres=centres(ow, oh, radius, b, eyes),
-                                 debug=debug, color_bits=bits)
+                                 debug=debug, color_bits=bits, **band)
 
     def cas_sh(radius, debug=False, mcd=1.0, h=OH, w=OW, b=2, eyes=CENTRES,
                bits=8):
@@ -639,6 +668,154 @@ def main():
         fail("cas_sharpen 10-bit: max_color_delta 0.05 left the output as "
              "it was at 1.0")
 
+    # ---- 2b. the row-band strips of B1 and B5 --------------------------------
+    # each strip build (band_range) on its input strip against the full
+    # launch on the card, 0 unequal texels: split STRIPS ways at the default
+    # band_rows, every band alone at 32 rows, and 24-row bands, whose edges
+    # cut 32-row tiles; one 10-bit case per kernel; small strips against the
+    # CPU path
+    from openvr_fsr_tpu_torch.kernels.cas import cas_band_layout
+    from openvr_fsr_tpu_torch.kernels.fsr import fsr_band_layout
+    from openvr_fsr_tpu_torch.parallel import (ShardedPipeline,
+                                               SpatialFsrPipeline,
+                                               split_bands)
+    layouts = {"fsr_fused": (fsr, fsr_band_layout),
+               "cas_upscale": (cas_up, cas_band_layout)}
+    for k in ("fsr_fused_band", "cas_upscale_band"):
+        max_lsb[k] = 0
+
+    def value_diff(a, b):
+        """(unequal values, max difference) of two frames of one format."""
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return -1, -1
+        if a.dtype == torch.uint16:
+            d = (a.to(torch.int32) - b.to(torch.int32)).abs()
+            return int((d > 0).sum()), int(d.max())
+        ne, _, mx = lsb_diff(a, b)
+        return ne, mx
+
+    def strips(kernel, label, img, radius=0.5, band_rows=128, n=STRIPS,
+               want=None, **kw):
+        """The concatenated strips of `kernel` on img (n equal splits of the
+        bands, or every band alone where n is None) against the full
+        launch (or `want`); each strip kernel launched once."""
+        build, layout = layouts[kernel]
+        full = build(radius, **kw)
+        want = full(img) if want is None else want
+        _, gy = layout(want.shape[2], want.shape[1], band_rows)
+        outs = []
+        for g0, g1 in split_bands(gy, gy if n is None else n):
+            fn = build(radius, band_rows=band_rows, band_range=(g0, g1), **kw)
+            got = fn(img[:, fn.in_row_base:fn.in_row_base + fn.in_rows]
+                     .contiguous())
+            if fn.launches != 1 or got.shape[1] != fn.out_rows:
+                fail(f"{kernel} strip {(g0, g1)}: {fn.launches} launches, "
+                     f"{got.shape[1]} of {fn.out_rows} rows")
+            outs.append(got)
+        got = torch.cat(outs, 1)
+        torch.cuda.synchronize()
+        ne, mx = value_diff(got, want.to(got.device))
+        log(f"[strip] {kernel} {label} band_rows={band_rows}, "
+            f"{len(outs)} strips: unequal {ne} of {want.numel()} against "
+            "the single launch")
+        if ne:
+            fail(f"{kernel}: the strips differ from the single launch "
+                 f"({label}, band_rows {band_rows}: {ne} unequal)")
+        max_lsb[f"{kernel}_band"] = max(max_lsb[f"{kernel}_band"], mx)
+
+    shape_in = f"2x{W}x{H}->2x{OW}x{OH}"
+    for kernel in ("fsr_fused", "cas_upscale"):
+        for radius, debug in cases:
+            strips(kernel, f"{shape_in} radius={radius} debug={debug}",
+                   sets["in"]["zone+noise"], radius, debug=debug)
+        strips(kernel, f"{shape_in} radius=0.3 eyes {OFF_CENTRE} uniform",
+               sets["in"]["uniform"], 0.3, eyes=OFF_CENTRE)
+        strips(kernel, f"2x{OW}x{OH} rs=1.3 radius=0.5",
+               sets["full"]["zone+noise"], h=OH, w=OW, rs=1.3)
+        strips(kernel, f"{shape_in} radius=0.5 every band alone",
+               sets["in"]["zone+noise"], band_rows=32, n=None)
+        strips(kernel, f"{shape_in} radius=2.0 (band edges inside tiles)",
+               sets["in"]["uniform"], 2.0, band_rows=24)
+        strips(kernel, f"{shape_in} 10-bit radius=0.5 (band edges inside "
+               "tiles)", sets10["in"]["uniform10"], band_rows=24, bits=10)
+        # small strips on the card against the plain version on the CPU
+        small_img = small if kernel == "fsr_fused" else border
+        want = layouts[kernel][0](0.5, h=96, w=128)(small_img.cpu()).to(dev)
+        strips(kernel, "2x128x96 rs=0.75 against the CPU path", small_img,
+               band_rows=24, want=want, h=96, w=128)
+    # the spatial path through its entry point, in the steady state, with
+    # the launch counts set to 0 just before: 3 strips on this card, under
+    # set_sync_debug_mode("error") (no host sync), equal to Pipeline.process
+    fsr_cfg0 = Config(enabled=True, render_scale=0.75, sharpness=SHARPNESS,
+                      radius=0.5)
+    spatial = {"fsr_fused": fsr_cfg0,
+               "cas_upscale": Config(enabled=True, use_cas=True,
+                                     render_scale=0.75,
+                                     sharpness=CAS_SHARPNESS, radius=0.5)}
+    strip_ms, strip_plain_ms, strip_bytes = {}, {}, {}
+    launches = {}
+    for kernel, cfg in spatial.items():
+        img = sets["in"]["zone+noise"]
+        want = Pipeline(cfg).process(img, eyes=(0, 1))
+        sp = SpatialFsrPipeline(cfg, devices=[dev] * STRIPS)
+        placed = sp.place(img, eyes=(0, 1))
+        sp.process_placed(placed)              # builds, tables on the card
+        torch.cuda.synchronize()
+        for k in sp.kernels:
+            k.launches = 0
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(N_PAIRS):
+                outs = sp.process_placed(placed)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        counts = [k.launches for k in sp.kernels]
+        launches[f"{kernel}_band"] = sum(counts)
+        got = sp.gather(placed[0], outs)
+        ne = int((got != want.cpu().numpy().view(np.uint32)).sum())
+        log(f"[strip] {kernel} SpatialFsrPipeline {STRIPS} strips on the card, "
+            f"{N_PAIRS} steady-state process_placed calls with no host sync: "
+            f"launches {counts}, unequal {ne} of {got.size} against "
+            "Pipeline.process")
+        if ne or counts != [N_PAIRS] * STRIPS:
+            fail(f"{kernel}: SpatialFsrPipeline differs from Pipeline.process "
+                 f"or did not launch each strip once per call ({counts})")
+        shards = sp._cache[placed[0]][0]
+        per = [graph_ms(fn, x, 200) for (fn, *_), x in zip(shards, placed[1])]
+        plain = [time_ms(fn.reference, x, 3)
+                 for (fn, *_), x in zip(shards, placed[1])]
+        strip_ms[kernel], strip_plain_ms[kernel] = sum(per), sum(plain)
+        strip_bytes[kernel] = sum(x.numel() for x in placed[1]) * 4
+        single = graph_ms(Pipeline(cfg)._build(2, H, W, (0, 1), True), img,
+                          200)
+        log(f"[strip] {kernel} radius 0.5: strips {per} ms, summed "
+            f"{strip_ms[kernel]} ms per stereo pair against the single "
+            f"launch's {single} ms (device; {card}); plain torch "
+            f"{strip_plain_ms[kernel]} ms; input strips of "
+            f"{[rows for _, _, rows, _, _ in shards]} rows")
+    # batch splitting: ShardedPipeline over two slices on this card, and a
+    # model family's sharded(), equal to Pipeline.process at batch 4
+    both_in = torch.cat([sets["in"]["zone+noise"], sets["in"]["uniform"]])
+    pipe = Pipeline(fsr_cfg0)
+    want = pipe.process(both_in)
+    outs = ShardedPipeline(pipe, [dev, dev]).process(both_in)
+    torch.cuda.synchronize()
+    fn = [k for k in pipe.kernels if k.launches == 2]
+    if not torch.equal(torch.cat(outs), want) or len(fn) != 1 \
+            or any(o.device != dev for o in outs):
+        fail("ShardedPipeline over [cuda:0] * 2 differs from "
+             "Pipeline.process or did not launch once per slice")
+    model = FsrModel(render_scale=0.75, sharpness=SHARPNESS, radius=0.5)
+    outs = model.sharded([dev, dev]).process(both_in.view(torch.uint8).view(
+        4, H, W, 4))
+    if not torch.equal(torch.cat(outs).view(torch.int32)[..., 0], want):
+        fail("FsrModel().sharded() differs from Pipeline.process")
+    log("[strip] ShardedPipeline over [cuda:0] * 2 at batch 4 (packed) and "
+        "FsrModel().sharded() (uint8): equal to Pipeline.process, one launch "
+        "per slice")
+    from openvr_fsr_tpu_torch.tools import spatial_onchip
+    spatial_onchip.main([])
+
     # ---- 3. the plans through the public API --------------------------------
     gen = torch.Generator(device=dev).manual_seed(1)
 
@@ -676,7 +853,7 @@ def main():
         "cas_sharpen": (model_of(), pairs_full),
         "cas_upscale": (model_of(render_scale=0.75), pairs_in),
     }
-    launches, first_out = {}, {}
+    first_out = {}
     for kernel, ((call, pipe), pairs_u8) in plans.items():
         pairs_packed = pairs_u8.view(torch.int32)[..., 0]
         call(pairs_u8[0])                           # builds (not counted)
@@ -1422,6 +1599,18 @@ def main():
         bounds[f"{kernel}_10bit"] = bound(
             img.numel() * 2 + 2 * g["out_h"] * g["out_w"] * 4,
             inside * per_px[0] + fallback * per_px[1], issue)
+    # the strips compute the full launch's outputs from strips of rows
+    for kernel in ("fsr_fused", "cas_upscale"):
+        g = timed[kernel][0].dma_geometry
+        inside, fallback = vpu_audit.inside_pixels(g)
+        per_px = vpu_audit.path_ops(
+            kernel, in_per_out=g["in_h"] * g["in_w"] / (g["out_h"] * g["out_w"]),
+            sharpness=CAS_SHARPNESS if kernel.startswith("cas") else SHARPNESS)
+        bounds[f"{kernel}_band"] = bound(
+            strip_bytes[kernel] + 2 * g["out_h"] * g["out_w"] * 4,
+            inside * per_px[0] + fallback * per_px[1], issue)
+    ms.update({f"{k}_band": v for k, v in strip_ms.items()})
+    plain_ms.update({f"{k}_band": v for k, v in strip_plain_ms.items()})
     bounds["dma_floor"] = bound(floor.hbm_bytes, 0, issue)
     bounds["dma_floor_10bit"] = bound(floor10.hbm_bytes, 0, issue)
     bounds.update(vpu_audit.probe_bounds(
@@ -1443,14 +1632,17 @@ def main():
         "vmem_rate": "openvr_fsr_tpu/kernels/sol.py:202",
         "mxu_rate": "openvr_fsr_tpu/kernels/sol.py:276",
     }
-    # the 10-bit instantiations: the same sources and TPU kernels (their
-    # color_bits=10 branch)
+    # the 10-bit instantiations and the strips: the same sources and TPU
+    # kernels (their color_bits=10 and band_range branches)
     sources.update({f"{k}_10bit": sources[k] for k in (*EXACT, "dma_floor")})
+    sources.update({f"{k}_band": sources[k]
+                    for k in ("fsr_fused", "cas_upscale")})
     log(card)
     log(json.dumps({"kernels": [{
         "name": kernel,
         "route": "cuda",
-        "source": f"openvr_fsr_tpu_torch/csrc/{kernel.removesuffix('_10bit')}.cu",
+        "source": "openvr_fsr_tpu_torch/csrc/"
+                  f"{kernel.removesuffix('_10bit').removesuffix('_band')}.cu",
         "replaces": replaces,
         "launches": launches[kernel],
         "max_abs_err": max_lsb[kernel],

@@ -44,6 +44,24 @@
 // Both launch on the caller's stream; an empty list launches nothing. Build
 // with --fmad=false: the bits then match the plain torch version
 // (kernels/cas.py::cas_upscale_reference).
+//
+// Row-band strips (the JAX builder's band_range, cas.py:70, 232-245): a
+// launch computes the output rows [out_row0, out_row1) of the full image
+// into a (B, out_row1 - out_row0, out_w) buffer, from an input strip of
+// in_rows rows that starts at the image's row in_row_base, with the full
+// image's tables and the band's 32-row tiles in the lists
+// (kernels/_maps.py::band_strip finds the strip: every row the tiles read,
+// inside the image). Every row index stays global: the window reads 0
+// outside the full image (not outside the strip), and the launch rebases
+// img by in_row_base rows and out by out_row0 rows, so a global row
+// addresses the strip. A tile that a band edge cuts runs in both strips,
+// each storing its own rows. The full image is the band [0, out_h) of the
+// strip at row 0, through the same entry point and class-kernel bodies; a
+// band smaller than the output launches their instantiations with the row
+// test before each store and the band's rows in a parameter of their own
+// (cas_band_outside_kernel, cas_band_inside_kernel). The whole output's take
+// PR 12's parameters and keep its registers and CTAs per SM (PERF.md, PR
+// 13).
 
 #include <cuda_runtime.h>
 
@@ -64,8 +82,8 @@ constexpr int kRun = kTile * kTile / kThreads;   // outputs per thread (4), one 
 
 template <class C>
 struct Params {
-  const typename C::Texel* img;   // (B, in_rows, pitch) texels
-  typename C::Texel* out;         // (B, out_h, out_w) texels
+  const typename C::Texel* img;   // (B, in_rows, pitch) texels, rebased: img + y * pitch is image row y
+  typename C::Texel* out;         // (B, rows of the band, out_w) texels, rebased: out + y * out_w is output row y
   const int32_t* col_i;       // (2, out_w): CAS floor fx, bilinear x0
   const float* col_f;         // (2, out_w): CAS fraction ppx, bilinear fx
   const int32_t* row_i;       // (2, out_h): CAS floor fy, bilinear y0
@@ -79,6 +97,9 @@ struct Params {
   float sharp, tint;
 };
 
+using bilinear_pass::Band;
+using bilinear_pass::rebase;
+using bilinear_pass::strip_is_valid;
 using rgba8::clampi;
 
 // The inside kernel's shared memory: the window decoded into R, G, B planes.
@@ -86,8 +107,10 @@ struct Smem {
   float c[3][kWin][kWin];
 };
 
-template <class C>
-__global__ void __launch_bounds__(kThreads) cas_inside_kernel(Params<C> p) {
+// One inside tile (the CTA's of the list); kBand: store only the band's
+// rows (a band smaller than the output).
+template <class C, bool kBand>
+__device__ __forceinline__ void inside_tile(const Params<C>& p, const Band& band) {
   using Texel = typename C::Texel;
   __shared__ Smem s;
 
@@ -115,15 +138,18 @@ __global__ void __launch_bounds__(kThreads) cas_inside_kernel(Params<C> p) {
   // this thread's outputs: column ox, rows oy0 .. oy0 + kRun - 1, all in
   // one group row (kRun divides kGroup)
   const int ox = tx * kTile + tid % kTile, oy0 = ty * kTile + (tid / kTile) * kRun;
-  if (ox >= p.out_w || oy0 >= p.out_h) return;
-  Texel* out = p.out + static_cast<size_t>(b) * p.out_h * p.out_w;
+  if (ox >= p.out_w || oy0 >= (kBand ? band.row1 : p.out_h) ||
+      (kBand && oy0 + kRun <= band.row0))
+    return;
+  Texel* out = p.out + static_cast<size_t>(b) * (kBand ? band.rows : p.out_h) * p.out_w;
   if (p.group_cls[(b * p.groups_y + oy0 / kGroup) * p.groups_x + ox / kGroup]) {
     const int sx = p.col_i[ox] - 1 - wx0;
     const float ppx = p.col_f[ox];
 #pragma unroll
     for (int r = 0; r < kRun; ++r) {
       const int oy = oy0 + r;
-      if (oy >= p.out_h) break;
+      if (oy >= (kBand ? band.row1 : p.out_h)) break;
+      if (kBand && oy < band.row0) continue;   // a row of the band above
       const int sy = p.row_i[oy] - 1 - wy0;
       float w[4][4][3];   // the 4x4 window around floor(pp); the corners are not read
 #pragma unroll
@@ -144,7 +170,8 @@ __global__ void __launch_bounds__(kThreads) cas_inside_kernel(Params<C> p) {
 #pragma unroll
     for (int r = 0; r < kRun; ++r) {
       const int oy = oy0 + r;
-      if (oy >= p.out_h) break;
+      if (oy >= (kBand ? band.row1 : p.out_h)) break;
+      if (kBand && oy < band.row0) continue;
       const int y0 = p.row_i[p.out_h + oy];
       const int sy0 = clampi(y0, 0, p.in_h - 1) - wy0, sy1 = clampi(y0 + 1, 0, p.in_h - 1) - wy0;
       const float fyw = p.row_f[p.out_h + oy];
@@ -159,11 +186,26 @@ __global__ void __launch_bounds__(kThreads) cas_inside_kernel(Params<C> p) {
   }
 }
 
-// The outside list: the shared bilinear pass, no round trip.
+template <class C>
+__global__ void __launch_bounds__(kThreads) cas_inside_kernel(Params<C> p) {
+  inside_tile<C, false>(p, Band{});
+}
+template <class C>
+__global__ void __launch_bounds__(kThreads) cas_band_inside_kernel(Params<C> p, Band band) {
+  inside_tile<C, true>(p, band);
+}
+
+// The outside list: the shared bilinear pass, no round trip, on every row or
+// on the band's.
 template <class C>
 __global__ void __launch_bounds__(bilinear_pass::kThreads)
     cas_outside_kernel(bilinear_pass::Args<C> a) {
   bilinear_pass::run<kTile, kTile, false, C>(a);
+}
+template <class C>
+__global__ void __launch_bounds__(bilinear_pass::kThreads)
+    cas_band_outside_kernel(bilinear_pass::Args<C> a, Band band) {
+  bilinear_pass::run<kTile, kTile, false, C, true>(a, band);
 }
 
 template <class C>
@@ -181,15 +223,17 @@ template <class C>
 int launch(const void* img, void* out, const void* col_i, const void* col_f, const void* row_i,
            const void* row_f, const void* tile_x0, const void* tile_y0, const void* group_cls,
            const void* inside_tiles, int n_inside, const void* outside_tiles, int n_outside,
-           int batch, int in_h, int in_w, int in_rows, int pitch, int out_h, int out_w,
-           float sharp, float tint, int tile, int window, void* stream) {
+           int batch, int in_h, int in_w, int in_row_base, int in_rows, int pitch, int out_h,
+           int out_w, int out_row0, int out_row1, float sharp, float tint, int tile, int window,
+           void* stream) {
   using Texel = typename C::Texel;
   if (tile != kTile || window != kWin || batch <= 0 || in_h <= 0 || in_w <= 0 || out_h <= 0 ||
-      out_w <= 0 || in_h > in_rows || in_w > pitch || n_inside < 0 || n_outside < 0)
+      out_w <= 0 || in_w > pitch || n_inside < 0 || n_outside < 0 ||
+      !strip_is_valid(in_h, in_row_base, in_rows, out_h, out_row0, out_row1))
     return static_cast<int>(cudaErrorInvalidValue);
   Params<C> p;
-  p.img = static_cast<const Texel*>(img);
-  p.out = static_cast<Texel*>(out);
+  p.img = rebase(static_cast<const Texel*>(img), in_row_base, pitch);
+  p.out = rebase(static_cast<Texel*>(out), out_row0, out_w);
   p.col_i = static_cast<const int32_t*>(col_i);
   p.col_f = static_cast<const float*>(col_f);
   p.row_i = static_cast<const int32_t*>(row_i);
@@ -210,18 +254,26 @@ int launch(const void* img, void* out, const void* col_i, const void* col_f, con
   p.groups_y = (out_h + kGroup - 1) / kGroup;
   p.sharp = sharp;
   p.tint = tint;
+  const Band rows = {out_row0, out_row1, out_row1 - out_row0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool band = out_row0 != 0 || out_row1 != out_h;
   if (n_outside > 0) {
     const bilinear_pass::Args<C> a = {p.img, p.out, p.col_i + out_w, p.col_f + out_w,
                                       p.row_i + out_h, p.row_f + out_h,
                                       static_cast<const int32_t*>(outside_tiles), in_h, in_w,
                                       in_rows, pitch, out_h, out_w, p.tiles_x, p.tiles_y, tint};
-    cas_outside_kernel<C><<<n_outside, bilinear_pass::kThreads, 0, s>>>(a);
+    if (band)
+      cas_band_outside_kernel<C><<<n_outside, bilinear_pass::kThreads, 0, s>>>(a, rows);
+    else
+      cas_outside_kernel<C><<<n_outside, bilinear_pass::kThreads, 0, s>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (n_inside > 0) {
-    cas_inside_kernel<C><<<n_inside, kThreads, 0, s>>>(p);
+    if (band)
+      cas_band_inside_kernel<C><<<n_inside, kThreads, 0, s>>>(p, rows);
+    else
+      cas_inside_kernel<C><<<n_inside, kThreads, 0, s>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
   return 0;
@@ -244,32 +296,37 @@ extern "C" int cas_upscale_occupancy10(int* outside, int* inside, int* inside_sm
 // Launch on `stream`: the outside pass over outside_tiles, then the inside
 // kernel over inside_tiles (an empty list launches nothing), on packed
 // RGBA8 texels (cas_upscale_launch) or R10G10B10A2 ones
-// (cas_upscale_launch10). Returns the first non-zero cudaError_t (0 =
-// launched). The caller (kernels/cas.py) has checked shapes, dtypes and
-// devices, that every tile's window fits kWin and that the lists partition
-// the tiles; tile and window must equal kTile and kWin.
+// (cas_upscale_launch10), for the output rows [out_row0, out_row1) from
+// the input strip of in_rows rows at the image's row in_row_base (the full
+// image: 0, its rows, 0, out_h). Returns the first non-zero cudaError_t (0
+// = launched). The caller (kernels/cas.py) has checked shapes, dtypes and
+// devices, that every tile's window fits kWin, that the lists partition
+// the band's tiles and that the strip holds every row they read; tile and
+// window must equal kTile and kWin.
 extern "C" int cas_upscale_launch(const void* img, void* out, const void* col_i,
                                   const void* col_f, const void* row_i, const void* row_f,
                                   const void* tile_x0, const void* tile_y0, const void* group_cls,
                                   const void* inside_tiles, int n_inside,
                                   const void* outside_tiles, int n_outside, int batch, int in_h,
-                                  int in_w, int in_rows, int pitch, int out_h, int out_w,
-                                  float sharp, float tint, int tile, int window, void* stream) {
+                                  int in_w, int in_row_base, int in_rows, int pitch, int out_h,
+                                  int out_w, int out_row0, int out_row1, float sharp, float tint,
+                                  int tile, int window, void* stream) {
   return launch<codec::Rgba8>(img, out, col_i, col_f, row_i, row_f, tile_x0, tile_y0, group_cls,
                               inside_tiles, n_inside, outside_tiles, n_outside, batch, in_h,
-                              in_w, in_rows, pitch, out_h, out_w, sharp, tint, tile, window,
-                              stream);
+                              in_w, in_row_base, in_rows, pitch, out_h, out_w, out_row0,
+                              out_row1, sharp, tint, tile, window, stream);
 }
 extern "C" int cas_upscale_launch10(const void* img, void* out, const void* col_i,
                                     const void* col_f, const void* row_i, const void* row_f,
                                     const void* tile_x0, const void* tile_y0,
                                     const void* group_cls, const void* inside_tiles,
                                     int n_inside, const void* outside_tiles, int n_outside,
-                                    int batch, int in_h, int in_w, int in_rows, int pitch,
-                                    int out_h, int out_w, float sharp, float tint, int tile,
-                                    int window, void* stream) {
+                                    int batch, int in_h, int in_w, int in_row_base, int in_rows,
+                                    int pitch, int out_h, int out_w, int out_row0, int out_row1,
+                                    float sharp, float tint, int tile, int window,
+                                    void* stream) {
   return launch<codec::Rgb10a2>(img, out, col_i, col_f, row_i, row_f, tile_x0, tile_y0,
                                 group_cls, inside_tiles, n_inside, outside_tiles, n_outside,
-                                batch, in_h, in_w, in_rows, pitch, out_h, out_w, sharp, tint,
-                                tile, window, stream);
+                                batch, in_h, in_w, in_row_base, in_rows, pitch, out_h, out_w,
+                                out_row0, out_row1, sharp, tint, tile, window, stream);
 }

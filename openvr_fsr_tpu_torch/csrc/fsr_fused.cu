@@ -55,6 +55,26 @@
 // A window is staged edge-clamped (its origin may lie left of or above the
 // image), so it holds every tap at its unclamped position with the
 // clamped texel's value, as the reference's clamped sampler reads it.
+//
+// Row-band strips (the JAX builder's band_range, fsr.py:194, 436-454): a
+// launch computes the output rows [out_row0, out_row1) of the full image
+// into a (B, out_row1 - out_row0, out_w) buffer, from an input strip of
+// in_rows rows that starts at the image's row in_row_base. The tables are
+// the full image's and the tile lists hold the band's 32-row tiles
+// (kernels/_maps.py::band_strip, which also finds the strip: every row the
+// tiles read). Every row index stays global: the window is clamped against
+// the full image's in_h, and the launch rebases img by in_row_base rows
+// and out by out_row0 rows, so a global row addresses the strip. A tile
+// that a band edge cuts runs in both strips, each computing the whole
+// tile (its RCAS needs stage 1 one row beyond the band) and storing only
+// its own rows. The full image is the band [0, out_h) of the strip at row
+// 0, through the same entry point and class-kernel bodies; a band smaller
+// than the output launches their instantiations with the row test before
+// each store and the band's rows in a parameter of their own
+// (fsr_band_outside_kernel, fsr_band_inside_kernel). The whole output's
+// instantiations take PR 12's parameters and keep its registers and CTAs
+// per SM: with the row test, the inside kernel compiled to 113 registers
+// instead of 117 and ran 1.5% slower at radius 0.5 (PERF.md, PR 13).
 // Build with --fmad=false:
 // the bits then match the plain torch version
 // (kernels/fsr.py::fsr_fused_reference).
@@ -80,8 +100,8 @@ constexpr int kInsideCtasPerSm = 2;   // __launch_bounds__ minimum of the inside
 
 template <class C>
 struct Params {
-  const typename C::Texel* img;   // (B, in_rows, pitch) texels
-  typename C::Texel* out;         // (B, out_h, out_w) texels
+  const typename C::Texel* img;   // (B, in_rows, pitch) texels, rebased: img + y * pitch is image row y
+  typename C::Texel* out;         // (B, rows of the band, out_w) texels, rebased: out + y * out_w is output row y
   const int32_t* col_i;       // (2, out_w): EASU floor fxi, bilinear x0
   const float* col_f;         // (2, out_w): EASU fraction ppx, bilinear fx
   const int32_t* row_i;       // (2, out_h): EASU floor fyi, bilinear y0
@@ -96,6 +116,9 @@ struct Params {
   float sharp, tint;
 };
 
+using bilinear_pass::Band;
+using bilinear_pass::rebase;
+using bilinear_pass::strip_is_valid;
 using rgba8::clampi;
 
 // ---- the asynchronous copy: the only inline PTX of this file ---------------
@@ -221,8 +244,10 @@ __device__ __forceinline__ void stage1(const Params<C>& p, const Tile& t, const 
   for (int c = 0; c < 3; ++c) rgb[c] = C::roundtrip(rgb[c]);
 }
 
-template <class C>
-__global__ void __launch_bounds__(kThreads, kInsideCtasPerSm) fsr_inside_kernel(Params<C> p) {
+// The inside list's body; kBand: store only the band's rows (a band smaller
+// than the output).
+template <class C, bool kBand>
+__device__ __forceinline__ void inside_tiles(const Params<C>& p, const Band& band) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<C>& sm = *reinterpret_cast<Smem<C>*>(smem_raw);
   Slot<C>* s_slot = sm.slot;
@@ -268,11 +293,13 @@ __global__ void __launch_bounds__(kThreads, kInsideCtasPerSm) fsr_inside_kernel(
     __syncthreads();
 
     const int ox = cur.ox0 + lx;
-    typename C::Texel* out = p.out + static_cast<size_t>(cur.b) * p.out_h * p.out_w;
+    typename C::Texel* out =
+        p.out + static_cast<size_t>(cur.b) * (kBand ? band.rows : p.out_h) * p.out_w;
 #pragma unroll
     for (int r = 0; r < kRun; ++r) {
       const int ly = ly0 + r, oy = cur.oy0 + ly;
-      if (ox >= p.out_w || oy >= p.out_h) break;
+      if (ox >= p.out_w || oy >= (kBand ? band.row1 : p.out_h)) break;
+      if (kBand && oy < band.row0) continue;   // a row of the band above
       float e[3], res[3];
 #pragma unroll
       for (int c = 0; c < 3; ++c) e[c] = s_q[c][ly + 1][lx + 1];
@@ -297,21 +324,41 @@ __global__ void __launch_bounds__(kThreads, kInsideCtasPerSm) fsr_inside_kernel(
   }
 }
 
-// The outside list: the shared bilinear pass with the UNORM round trip.
+template <class C>
+__global__ void __launch_bounds__(kThreads, kInsideCtasPerSm) fsr_inside_kernel(Params<C> p) {
+  inside_tiles<C, false>(p, Band{});
+}
+template <class C>
+__global__ void __launch_bounds__(kThreads, kInsideCtasPerSm)
+    fsr_band_inside_kernel(Params<C> p, Band band) {
+  inside_tiles<C, true>(p, band);
+}
+
+// The outside list: the shared bilinear pass with the UNORM round trip, on
+// every row or on the band's.
 template <class C>
 __global__ void __launch_bounds__(bilinear_pass::kThreads)
     fsr_outside_kernel(bilinear_pass::Args<C> a) {
   bilinear_pass::run<kTile, kTile, true, C>(a);
 }
+template <class C>
+__global__ void __launch_bounds__(bilinear_pass::kThreads)
+    fsr_band_outside_kernel(bilinear_pass::Args<C> a, Band band) {
+  bilinear_pass::run<kTile, kTile, true, C, true>(a, band);
+}
 
-// CTAs per SM of the outside and inside kernels on the current device, as
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them, after allowing
-// the inside kernel its dynamic shared memory. Returns the first non-zero
-// cudaError_t.
+// CTAs per SM of the (whole-output) outside and inside kernels on the
+// current device, as cudaOccupancyMaxActiveBlocksPerMultiprocessor gives
+// them, after allowing both inside kernels their dynamic shared memory (the
+// band's has at most the other's registers, so at least its CTAs). Returns
+// the first non-zero cudaError_t.
 template <class C>
 int occupancy(int* outside, int* inside) {
   cudaError_t err = cudaFuncSetAttribute(
       fsr_inside_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Smem<C>));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fsr_band_inside_kernel<C>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Smem<C>));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(outside, fsr_outside_kernel<C>,
                                                         bilinear_pass::kThreads, 0);
@@ -343,15 +390,17 @@ template <class C>
 int launch(const void* img, void* out, const void* col_i, const void* col_f, const void* row_i,
            const void* row_f, const void* tile_x0, const void* tile_y0, const void* group_cls,
            const void* inside_tiles, int n_inside, const void* outside_tiles, int n_outside,
-           int batch, int in_h, int in_w, int in_rows, int pitch, int out_h, int out_w,
-           float sharp, float tint, int tile, int window, void* stream) {
+           int batch, int in_h, int in_w, int in_row_base, int in_rows, int pitch, int out_h,
+           int out_w, int out_row0, int out_row1, float sharp, float tint, int tile, int window,
+           void* stream) {
   using Texel = typename C::Texel;
-  if (tile != kTile || window != kWin || batch <= 0 || out_h <= 0 || out_w <= 0 ||
-      in_h > in_rows || in_w > pitch || n_inside < 0 || n_outside < 0)
+  if (tile != kTile || window != kWin || batch <= 0 || in_h <= 0 || out_h <= 0 || out_w <= 0 ||
+      in_w > pitch || n_inside < 0 || n_outside < 0 ||
+      !strip_is_valid(in_h, in_row_base, in_rows, out_h, out_row0, out_row1))
     return static_cast<int>(cudaErrorInvalidValue);
   Params<C> p;
-  p.img = static_cast<const Texel*>(img);
-  p.out = static_cast<Texel*>(out);
+  p.img = rebase(static_cast<const Texel*>(img), in_row_base, pitch);
+  p.out = rebase(static_cast<Texel*>(out), out_row0, out_w);
   p.col_i = static_cast<const int32_t*>(col_i);
   p.col_f = static_cast<const float*>(col_f);
   p.row_i = static_cast<const int32_t*>(row_i);
@@ -371,13 +420,18 @@ int launch(const void* img, void* out, const void* col_i, const void* col_f, con
   p.groups_y = (out_h + kGroup - 1) / kGroup;
   p.sharp = sharp;
   p.tint = tint;
+  const Band rows = {out_row0, out_row1, out_row1 - out_row0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool band = out_row0 != 0 || out_row1 != out_h;
   if (n_outside > 0) {
     const bilinear_pass::Args<C> a = {p.img, p.out, p.col_i + out_w, p.col_f + out_w,
                                       p.row_i + out_h, p.row_f + out_h,
                                       static_cast<const int32_t*>(outside_tiles), in_h, in_w,
                                       in_rows, pitch, out_h, out_w, p.tiles_x, p.tiles_y, tint};
-    fsr_outside_kernel<C><<<n_outside, bilinear_pass::kThreads, 0, s>>>(a);
+    if (band)
+      fsr_band_outside_kernel<C><<<n_outside, bilinear_pass::kThreads, 0, s>>>(a, rows);
+    else
+      fsr_outside_kernel<C><<<n_outside, bilinear_pass::kThreads, 0, s>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -386,7 +440,11 @@ int launch(const void* img, void* out, const void* col_i, const void* col_f, con
     if (grid <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
     p.tiles = static_cast<const int32_t*>(inside_tiles);
     p.n_tiles = n_inside;
-    fsr_inside_kernel<C><<<grid < n_inside ? grid : n_inside, kThreads, sizeof(Smem<C>), s>>>(p);
+    const int ctas = grid < n_inside ? grid : n_inside;
+    if (band)
+      fsr_band_inside_kernel<C><<<ctas, kThreads, sizeof(Smem<C>), s>>>(p, rows);
+    else
+      fsr_inside_kernel<C><<<ctas, kThreads, sizeof(Smem<C>), s>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
   return 0;
@@ -408,32 +466,37 @@ extern "C" int fsr_fused_occupancy10(int* outside, int* inside, int* inside_smem
 
 // Launch on `stream`: the outside pass over outside_tiles, then the inside
 // kernel over inside_tiles (an empty list launches nothing), on packed
-// RGBA8 texels (fsr_fused_launch) or R10G10B10A2 ones (fsr_fused_launch10).
-// Returns the first non-zero cudaError_t (0 = launched). The caller
-// (kernels/fsr.py) has checked shapes, dtypes and devices, that every
-// tile's window fits kWin and that the lists partition the tiles; tile and
-// window must equal kTile and kWin.
+// RGBA8 texels (fsr_fused_launch) or R10G10B10A2 ones (fsr_fused_launch10),
+// for the output rows [out_row0, out_row1) from the input strip of in_rows
+// rows at the image's row in_row_base (the full image: 0, its rows, 0,
+// out_h). Returns the first non-zero cudaError_t (0 = launched). The
+// caller (kernels/fsr.py) has checked shapes, dtypes and devices, that
+// every tile's window fits kWin, that the lists partition the band's tiles
+// and that the strip holds every row they read; tile and window must equal
+// kTile and kWin.
 extern "C" int fsr_fused_launch(const void* img, void* out, const void* col_i, const void* col_f,
                                 const void* row_i, const void* row_f, const void* tile_x0,
                                 const void* tile_y0, const void* group_cls,
                                 const void* inside_tiles, int n_inside,
                                 const void* outside_tiles, int n_outside, int batch, int in_h,
-                                int in_w, int in_rows, int pitch, int out_h, int out_w,
-                                float sharp, float tint, int tile, int window, void* stream) {
+                                int in_w, int in_row_base, int in_rows, int pitch, int out_h,
+                                int out_w, int out_row0, int out_row1, float sharp, float tint,
+                                int tile, int window, void* stream) {
   return launch<codec::Rgba8>(img, out, col_i, col_f, row_i, row_f, tile_x0, tile_y0, group_cls,
                               inside_tiles, n_inside, outside_tiles, n_outside, batch, in_h,
-                              in_w, in_rows, pitch, out_h, out_w, sharp, tint, tile, window,
-                              stream);
+                              in_w, in_row_base, in_rows, pitch, out_h, out_w, out_row0,
+                              out_row1, sharp, tint, tile, window, stream);
 }
 extern "C" int fsr_fused_launch10(const void* img, void* out, const void* col_i,
                                   const void* col_f, const void* row_i, const void* row_f,
                                   const void* tile_x0, const void* tile_y0,
                                   const void* group_cls, const void* inside_tiles, int n_inside,
                                   const void* outside_tiles, int n_outside, int batch, int in_h,
-                                  int in_w, int in_rows, int pitch, int out_h, int out_w,
-                                  float sharp, float tint, int tile, int window, void* stream) {
+                                  int in_w, int in_row_base, int in_rows, int pitch, int out_h,
+                                  int out_w, int out_row0, int out_row1, float sharp, float tint,
+                                  int tile, int window, void* stream) {
   return launch<codec::Rgb10a2>(img, out, col_i, col_f, row_i, row_f, tile_x0, tile_y0,
                                 group_cls, inside_tiles, n_inside, outside_tiles, n_outside,
-                                batch, in_h, in_w, in_rows, pitch, out_h, out_w, sharp, tint,
-                                tile, window, stream);
+                                batch, in_h, in_w, in_row_base, in_rows, pitch, out_h, out_w,
+                                out_row0, out_row1, sharp, tint, tile, window, stream);
 }

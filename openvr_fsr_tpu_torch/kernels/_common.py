@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 __all__ = ["unpack", "pack", "circle_mask", "debug_tint", "tint_vector",
-           "DeviceTables", "kernel_fn", "occupancy", "entry_name",
+           "DeviceTables", "kernel_fn", "band_fn", "occupancy", "entry_name",
            "texel_words"]
 
 F32 = np.float32
@@ -162,6 +162,23 @@ def kernel_fn(name, batch, shape, pad_to, reference, launch, geometry=None,
         n = geometry.get("texel_words", 1)
         fn.dma_geometry = dict(geometry, batch=B, in_h=H, in_w=W * n,
                                hp=pad_to[0], wp=pad_to[1] * n)
+    return fn
+
+
+def band_fn(name, batch, strip, pad_to, reference, launch, color_bits,
+            band_range, in_row_base, out_rows):
+    """kernel_fn of a row-band build (B1, B5 with band_range): fn(img)
+    takes the input strip, (batch, *strip) with strip = (in_rows, in_w),
+    or its width padded to the ring pitch pad_to's; publishes band_range,
+    in_row_base, in_rows and out_rows (the JAX builders' meaning) and no DMA
+    geometry (dma_geometry None)."""
+    rows, w = strip
+    fn = kernel_fn(name, batch, (rows, w), (rows, pad_to[1]), reference,
+                   launch, None, color_bits)
+    fn.dma_geometry = None
+    fn.band_range = tuple(int(g) for g in band_range)
+    fn.in_row_base, fn.in_rows, fn.out_rows = (int(in_row_base), int(rows),
+                                               int(out_rows))
     return fn
 
 

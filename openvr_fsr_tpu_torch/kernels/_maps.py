@@ -32,6 +32,11 @@ and the lists of their 32x32 tiles (sharpen_maps). The tables depend only
 on the build's shapes, config and centres, so one build serves every frame
 of a stream.
 
+A row-band strip of B1 or B5 (the JAX builders' band_range) keeps the full
+image's tables and restricts the tile lists to the 32-row tiles that
+overlap the band's output rows; band_strip finds the input rows those
+tiles read, which the strip must hold.
+
 Every build also publishes its DMA geometry (dma_geometry,
 sharpen_geometry): what its CUDA kernel loads from the frame and stores,
 which kernels/sol.py::build_dma_floor turns into the kernel's
@@ -52,7 +57,8 @@ from ..ops.cas import cas_upscale_index_maps
 from ..ops.easu import easu_index_maps
 from ..ops.nis import nis_source_maps
 
-__all__ = ["FsrMaps", "fsr_maps", "cas_upscale_maps",
+__all__ = ["FsrMaps", "fsr_maps", "cas_upscale_maps", "band_strip",
+           "band_layout", "band_output_rows",
            "NisMaps", "nvscaler_maps", "SharpenMaps", "sharpen_maps",
            "input_padding", "dma_geometry", "sharpen_geometry",
            "word_geometry",
@@ -267,6 +273,77 @@ def cas_upscale_maps(batch, in_h, in_w, out_w, out_h, centres):
         centres=np.ascontiguousarray(cen),
         group_cls=cls.astype(np.int32), inside_tiles=inside,
         outside_tiles=outside)
+
+
+def band_layout(out_w, out_h, band_rows, scratch_bytes, chunk=128):
+    """(TH, GY): the JAX builders' output band height and band count
+    (kernels/fsr.py:178-189, kernels/cas.py:56-64): band_rows (any multiple
+    of 8, or at least out_h; else ValueError) halved while it is above 32
+    and scratch_bytes(band_rows, padded width) exceeds 24 MiB, the JAX
+    kernel's VMEM budget, whose band splits parallel/spatial.py follows."""
+    oh, ow, br = int(out_h), int(out_w), int(band_rows)
+    if br <= 0 or (br % ROW_ALIGN and br < oh):
+        raise ValueError(f"band_rows={band_rows!r}: a multiple of "
+                         f"{ROW_ALIGN}, or at least out_h ({oh})")
+    owp = -(-ow // int(chunk)) * int(chunk)
+    while br > 32 and scratch_bytes(br, owp) > 24 * 2**20:
+        br //= 2
+    th = oh if oh <= br else br
+    return th, -(-oh // th)
+
+
+def band_output_rows(th, gy, out_h, band_range):
+    """The output rows [g0 * th, min(g1 * th, out_h)) of bands
+    band_range = (g0, g1) of a (th, gy) band_layout; ValueError unless
+    0 <= g0 < g1 <= gy."""
+    g0, g1 = (int(g) for g in band_range)
+    if not 0 <= g0 < g1 <= gy:
+        raise ValueError(f"band_range={tuple(band_range)!r}: need 0 <= g0 "
+                         f"< g1 <= {gy} bands")
+    return g0 * th, min(g1 * th, int(out_h))
+
+
+def band_strip(maps, rows, window, oob):
+    """The strip of the output rows [r0, r1) = `rows` of a B1 or B5 build:
+    (maps with the tile lists restricted to the FSR_TILE tile rows that
+    overlap the band, in_row_base, in_rows), the strip the first input row
+    and the number of rows that those tiles read. An inside tile reads its
+    `window`-row window from tile_y0 (oob "clamp": edge-clamped into the
+    image, B1; "zero": the rows inside the image, B5), an outside tile the
+    two edge-clamped bilinear rows (row_i[1], + 1) of each of its outputs
+    in the band. The whole output is the whole image: (maps, 0, in_h)."""
+    m = maps
+    r0, r1 = int(rows[0]), int(rows[1])
+    if not 0 <= r0 < r1 <= m.out_h:
+        raise ValueError(f"band rows [{r0}, {r1}) outside [0, {m.out_h})")
+    if (r0, r1) == (0, m.out_h):
+        return m, 0, m.in_h
+    n_ty, n_tx = len(m.tile_y0), len(m.tile_x0)
+    t0, t1 = r0 // FSR_TILE, -(-r1 // FSR_TILE)
+
+    def tile_rows(ids):
+        return ids % (n_ty * n_tx) // n_tx
+
+    def band(ids):
+        ty = tile_rows(ids)
+        return np.ascontiguousarray(ids[(ty >= t0) & (ty < t1)])
+
+    inside, outside = band(m.inside_tiles), band(m.outside_tiles)
+    h = m.in_h
+    lo, hi = [], []
+    for ty in np.unique(tile_rows(inside)):
+        y0 = int(m.tile_y0[ty])
+        a, b = y0, y0 + int(window) - 1
+        lo.append(min(max(a, 0), h - 1) if oob == "clamp" else max(a, 0))
+        hi.append(min(max(b, 0), h - 1) if oob == "clamp" else min(b, h - 1))
+    for ty in np.unique(tile_rows(outside)):
+        oy = np.arange(max(r0, ty * FSR_TILE), min(r1, (ty + 1) * FSR_TILE))
+        y0 = np.asarray(m.row_i[1])[oy]
+        lo.append(int(np.clip(y0, 0, h - 1).min()))
+        hi.append(int(np.clip(y0 + 1, 0, h - 1).max()))
+    base = min(lo)
+    return (dataclasses.replace(m, inside_tiles=inside, outside_tiles=outside),
+            base, max(hi) - base + 1)
 
 
 @dataclasses.dataclass(frozen=True)

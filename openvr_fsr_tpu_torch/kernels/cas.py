@@ -23,7 +23,9 @@ CasFilter pass per plan (Config.stage_plan):
 
 Each returned function launches its CUDA kernel for a CUDA tensor and runs
 the plain torch version (cas_upscale_reference, cas_sharpen_reference) for
-a CPU tensor. Nothing falls back.
+a CPU tensor. Nothing falls back. build_cas_upscale's band_range builds a
+row band of the full image from an input row strip (parallel/spatial.py),
+as build_fsr_fused's does.
 """
 
 import ctypes
@@ -38,33 +40,48 @@ from ..ops.cas import (cas_core, cas_setup, cas_sharpen_taps,
                        cas_upscale_core, cas_upscale_gather)
 from ..ops.common import F32
 from . import _build
-from ._common import (DeviceTables, circle_mask, debug_tint, entry_name,
-                      kernel_fn, pack, texel_words, tint_vector, unpack)
+from ._common import (DeviceTables, band_fn, circle_mask, debug_tint,
+                      entry_name, kernel_fn, pack, texel_words, tint_vector,
+                      unpack)
 from ._maps import (CAS_IN_TILE, CAS_SHARPEN_IN_TILE, FSR_TILE, SHARPEN_TILE,
-                    TILE, cas_upscale_maps, dma_geometry, input_padding,
+                    TILE, band_layout, band_output_rows, band_strip,
+                    cas_upscale_maps, dma_geometry, input_padding,
                     sharpen_geometry, sharpen_maps, word_geometry)
 
 __all__ = ["build_cas_upscale", "build_cas_sharpen", "cas_upscale_reference",
-           "cas_sharpen_reference"]
+           "cas_sharpen_reference", "cas_band_layout", "UPSCALE_ARGTYPES",
+           "SHARPEN_ARGTYPES"]
 
 
-def cas_upscale_reference(img, maps, sharp, tint, color_bits=8):
+def cas_band_layout(out_w, out_h, band_rows=128, chunk=128):
+    """(TH, GY) after the JAX CAS kernel's VMEM auto-shrink (the JAX
+    package's kernels/cas.py::cas_band_layout; cf. fsr_band_layout)."""
+    return band_layout(out_w, out_h, band_rows,
+                       lambda th, owp: 9 * th * owp * 4, chunk)
+
+
+def cas_upscale_reference(img, maps, sharp, tint, color_bits=8, band=None):
     """The CAS upscale kernel's computation in plain torch, on img's device.
 
     img: (B, H, W) or pre-padded (B, HP, WP) int32 packed RGBA8, or at
     color_bits 10 the same with a trailing 4 of uint16 R10G10B10A2; maps:
     the build's cas_upscale_maps on img's device; sharp: the cas_setup
-    constant; tint: the out-of-circle G/B multiplier. Returns (B, OH, OW)
+    constant; tint: the out-of-circle G/B multiplier; band: (in_row_base,
+    out_row0, out_row1) of a row-band build, whose img is the input strip
+    from the image's row in_row_base (row indices stay the full image's,
+    rebased to the strip), default the whole image. Returns (B, OH, OW)
     int32 packed RGBA8 with alpha 255, or (B, OH, OW, 4) uint16 with alpha
-    3."""
+    3, for the band's OH = out_row1 - out_row0 rows."""
     m = maps
-    rgb = unpack(img[:, :m.in_h, :m.in_w], 3, color_bits)
-    taps = cas_upscale_gather(rgb, m.col_i[0], m.row_i[0])
-    up = cas_upscale_core(taps, m.col_f[0][None, :], m.row_f[0][:, None],
-                          sharp)
-    bil = bilinear_gather(rgb, m.col_i[1], m.col_f[1], m.row_i[1],
-                          m.row_f[1])
-    inside = circle_mask(m.centres, m.out_h, m.out_w, TILE_FSR)[:, None]
+    base, r0, r1 = (0, 0, m.out_h) if band is None else band
+    ri, rf = m.row_i[:, r0:r1], m.row_f[:, r0:r1]
+    rgb = unpack(img[:, :m.in_h - base, :m.in_w], 3, color_bits)
+    taps = cas_upscale_gather(rgb, m.col_i[0], ri[0], base, m.in_h)
+    up = cas_upscale_core(taps, m.col_f[0][None, :], rf[0][:, None], sharp)
+    bil = bilinear_gather(rgb, m.col_i[1], m.col_f[1], ri[1], rf[1], base,
+                          m.in_h)
+    inside = circle_mask(m.centres, m.out_h, m.out_w,
+                         TILE_FSR)[:, None, r0:r1]
     return pack(torch.where(inside, up, bil * tint_vector(tint, img.device)),
                 color_bits=color_bits)
 
@@ -88,15 +105,22 @@ def cas_sharpen_reference(img, centres, sharp, max_color_delta, tint,
     return pack(out_rgb, torch.where(inside, 1.0, alpha), color_bits)
 
 
+# csrc/cas_upscale.cu cas_upscale_launch: img, out, the four sample maps,
+# the window origins, group_cls, the inside list and its length, the outside
+# list and its length, batch, in_h, in_w, in_row_base, in_rows, pitch,
+# out_h, out_w, out_row0, out_row1, sharp, tint, tile, window, stream
+UPSCALE_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
+                    + [ctypes.c_int] * 11 + [ctypes.c_float] * 2
+                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
 @functools.cache
 def _upscale_launch_fn(color_bits=8):
     """The ctypes entry point of `color_bits` (cas_upscale_launch, or
     cas_upscale_launch10), bound (and built) at the first launch."""
     f = getattr(_build.load_library("cas_upscale"),
                 entry_name("cas_upscale_launch", color_bits))
-    f.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
-                  + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
-                  + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    f.argtypes = UPSCALE_ARGTYPES
     f.restype = ctypes.c_int
     return f
 
@@ -121,7 +145,8 @@ def _sharpen_launch_fn(color_bits=8):
 
 
 def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
-                      centres, debug=False, color_bits=8):
+                      centres, debug=False, color_bits=8, band_rows=128,
+                      band_range=None):
     """Build the CAS scaling kernel for a fixed shape/config.
 
     Args:
@@ -133,6 +158,8 @@ def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
         radius_sq (core.constants.centres_payload at the output size).
       debug: out-of-radius tint 1-(0, .3, .3).
       color_bits: 8 (RGBA8) or 10 (R10G10B10A2 passthrough).
+      band_rows, band_range: a row-band build, as build_fsr_fused's, at
+        cas_band_layout's band height.
 
     Returns fn(img) with the fused FSR kernel's contract: img is a
     contiguous (B, in_h, in_w) int32 tensor of packed RGBA8, or one
@@ -148,7 +175,12 @@ def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
     """
     B, H, W = int(batch), int(in_h), int(in_w)
     OH, OW = int(out_h), int(out_w)
-    tables = DeviceTables(cas_upscale_maps(B, H, W, OW, OH, centres))
+    th, gy = cas_band_layout(OW, OH, band_rows)
+    r0, r1 = (0, OH) if band_range is None else band_output_rows(
+        th, gy, OH, band_range)
+    maps, base, rows = band_strip(cas_upscale_maps(B, H, W, OW, OH, centres),
+                                  (r0, r1), CAS_IN_TILE, "zero")
+    tables = DeviceTables(maps)
     sharp = cas_setup(sharpness)
     tint = debug_tint(debug)
     cb = int(color_bits)
@@ -156,28 +188,32 @@ def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
     def reference(img):
         """The plain torch version on img's device (any device)."""
         return cas_upscale_reference(img, tables.on(img.device), sharp, tint,
-                                     cb)
+                                     cb, (base, r0, r1))
 
     def launch(img):
         dev = img.device
         m = tables.on(dev)
-        out = torch.empty((B, OH, OW, 4) if cb == 10 else (B, OH, OW),
-                          dtype=img.dtype, device=dev)
+        out = torch.empty((B, r1 - r0, OW, 4) if cb == 10
+                          else (B, r1 - r0, OW), dtype=img.dtype, device=dev)
         err = (_upscale_launch_fn() if cb == 8 else _upscale_launch_fn(cb))(
             img.data_ptr(), out.data_ptr(), m.col_i.data_ptr(),
             m.col_f.data_ptr(), m.row_i.data_ptr(), m.row_f.data_ptr(),
             m.tile_x0.data_ptr(), m.tile_y0.data_ptr(),
             m.group_cls.data_ptr(), m.inside_tiles.data_ptr(), n_inside,
-            m.outside_tiles.data_ptr(), n_outside, B, H, W, img.shape[1],
-            img.shape[2], OH, OW, float(sharp), float(tint), FSR_TILE,
-            CAS_IN_TILE, torch.cuda.current_stream(dev).cuda_stream)
+            m.outside_tiles.data_ptr(), n_outside, B, H, W, base,
+            img.shape[1], img.shape[2], OH, OW, r0, r1, float(sharp),
+            float(tint), FSR_TILE, CAS_IN_TILE,
+            torch.cuda.current_stream(dev).cuda_stream)
         return out, err
 
+    m = tables.host
+    n_inside, n_outside = len(m.inside_tiles), len(m.outside_tiles)
+    if band_range is not None:
+        return band_fn("CAS upscale strip", B, (rows, W), input_padding(H, W),
+                       reference, launch, cb, band_range, base, r1 - r0)
     # the inside tiles stage their 36x36 window, which may start at -2, 0
     # outside the image; an output's own tap there is its clamped CasFilter
     # floor. The outside tiles load each output's four bilinear taps.
-    m = tables.host
-    n_inside, n_outside = len(m.inside_tiles), len(m.outside_tiles)
     geometry = dma_geometry(
         OH, OW, (FSR_TILE, FSR_TILE), (CAS_IN_TILE, CAS_IN_TILE), m.tile_x0,
         m.tile_y0, m.centres, oob="zero", stage="list",

@@ -9,6 +9,7 @@ unless it is given device="cpu" (Pipeline's `device`).
 
 from ..api.pipeline import Pipeline
 from ..core.config import Config
+from ..parallel.sharding import ShardedPipeline
 
 __all__ = ["FsrModel", "NisModel", "CasModel", "get_model", "MODELS"]
 
@@ -37,9 +38,9 @@ class _PipelineModel:
         return self.pipeline.process(frames, eyes=eyes)
 
     def sharded(self, mesh=None):
-        raise NotImplementedError(
-            "multi-device splitting is not ported yet: ROADMAP.md Queue A "
-            "item 13 (parallel/)")
+        """The family's pipeline split over a batch mesh (a list of torch
+        devices; default every CUDA device): parallel.ShardedPipeline."""
+        return ShardedPipeline(self.pipeline, mesh)
 
 
 class FsrModel(_PipelineModel):

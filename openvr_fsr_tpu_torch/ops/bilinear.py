@@ -9,7 +9,7 @@ gather is two index_selects and the weights are per-axis vectors.
 import numpy as np
 import torch
 
-from .common import F32
+from .common import F32, strip_rows
 
 __all__ = ["bilinear_axis", "bilinear_texel_axis", "bilerp",
            "bilinear_gather", "bilinear_sample", "bilinear_fallback_fsr"]
@@ -56,16 +56,20 @@ def bilerp(c00, c10, c01, c11, fx, fy):
     return top * (1.0 - fy) + bot * fy
 
 
-def bilinear_gather(rgb, x0, fx, y0, fy):
+def bilinear_gather(rgb, x0, fx, y0, fy, row_base=0, in_h=None):
     """rgb: (..., C, H, W). x0/fx: (Wo,) floor index (any int dtype) and
     fraction per output column; y0/fy the same per output row. Corners clamp
     to the edge. Returns (..., C, Ho, Wo) with the lerp form
-    c00*(1-fx) + c10*fx, then the same in y (ops/bilinear.py:51-53)."""
+    c00*(1-fx) + c10*fx, then the same in y (ops/bilinear.py:51-53).
+    rgb may be a row strip of an image of in_h rows that starts at the
+    image's row row_base: a corner's row is clamped into the image, then
+    rebased to the strip and clamped into it (strip_rows)."""
     h, w = rgb.shape[-2:]
     x0 = x0.long()
     y0 = y0.long()
     x0c, x1c = x0.clamp(0, w - 1), (x0 + 1).clamp(0, w - 1)
-    y0c, y1c = y0.clamp(0, h - 1), (y0 + 1).clamp(0, h - 1)
+    y0c = strip_rows(y0, h, row_base, in_h)
+    y1c = strip_rows(y0 + 1, h, row_base, in_h)
     rows0 = rgb.index_select(-2, y0c)
     rows1 = rgb.index_select(-2, y1c)
     c00, c10 = rows0.index_select(-1, x0c), rows0.index_select(-1, x1c)

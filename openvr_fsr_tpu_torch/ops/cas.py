@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from ..f32util import f32, rcp as rcp_np
 from .common import (F32, aprx_lo_rcp, aprx_lo_sqrt, aprx_med_rcp, max3,
-                     min3, sat)
+                     min3, sat, strip_rows)
 from .rcas import shift_zero
 
 __all__ = ["CAS_AREA_LIMIT", "CAS_USED_TAPS", "cas_support_scaling",
@@ -140,16 +140,23 @@ def cas_upscale_core(taps, ppx, ppy, sharp):
                * rcp_w)
 
 
-def cas_upscale_gather(rgb, fx, fy):
+def cas_upscale_gather(rgb, fx, fy, row_base=0, in_h=None):
     """The CAS_USED_TAPS of every output pixel: rgb (..., C, H, W); fx / fy
     the floor of pp per output column / row (any int dtype, on rgb's
     device). Taps outside the image read zero (CasLoad). Returns dict (dx,
-    dy) -> (..., C, len(fy), len(fx))."""
+    dy) -> (..., C, len(fy), len(fx)). rgb may be a row strip of an image
+    of in_h rows that starts at the image's row row_base: a tap's row
+    outside the image reads zero, one inside is rebased to the strip
+    (strip_rows)."""
     h, w = rgb.shape[-2:]
-    pad = F.pad(rgb, (1, 3, 1, 3))
+    in_h = h if in_h is None else int(in_h)
+    pad = F.pad(rgb, (1, 3, 1, 0))    # row 0: the zero row
     fx, fy = fx.long(), fy.long()
-    rows = {dy: pad.index_select(-2, (fy + dy + 1).clamp(0, h + 3))
-            for dy in (-1, 0, 1, 2)}
+
+    def row(r):
+        return torch.where((r >= 0) & (r < in_h),
+                           strip_rows(r, h, row_base, in_h) + 1, 0)
+    rows = {dy: pad.index_select(-2, row(fy + dy)) for dy in (-1, 0, 1, 2)}
     return {(dx, dy): rows[dy].index_select(-1, (fx + dx + 1).clamp(0, w + 3))
             for dx, dy in CAS_USED_TAPS}
 

@@ -28,6 +28,7 @@ __all__ = [
     "max3",
     "hlsl_lerp",
     "unorm_quantize",
+    "strip_rows",
 ]
 
 
@@ -104,3 +105,14 @@ def unorm_quantize(x, bits=8):
     (PostProcessor.cpp:527, 63-74)."""
     scale = F32((1 << bits) - 1)
     return torch.round(sat(x) * float(scale)) * float(F32(1.0) / scale)
+
+
+def strip_rows(rows, h, row_base=0, in_h=None):
+    """Global input rows (an int64 tensor), clamped into an image of in_h
+    rows (default h), as strip indices: rebased by row_base, the image's
+    first row in a strip of h rows, and clamped into the strip. A row-band
+    build's outputs read only rows its strip holds (kernels/_maps.py::
+    band_strip); the second clamp serves the positions a plain version
+    computes and the band discards. For the whole image it does nothing."""
+    in_h = h if in_h is None else int(in_h)
+    return (rows.clamp(0, in_h - 1) - row_base).clamp(0, h - 1)

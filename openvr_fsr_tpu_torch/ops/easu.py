@@ -11,7 +11,8 @@ on the output column), so each tap is two index_selects.
 import numpy as np
 import torch
 
-from .common import aprx_lo_rcp, aprx_lo_rsq, rcp, sat, min3, max3
+from .common import (aprx_lo_rcp, aprx_lo_rsq, rcp, sat, min3, max3,
+                     strip_rows)
 
 __all__ = ["easu", "easu_core", "easu_index_maps", "TAP_ORDER"]
 
@@ -156,12 +157,15 @@ def easu_index_maps(in_w, in_h, out_w, out_h, con0):
     )
 
 
-def easu_gather(rgb, fxi, fyi):
+def easu_gather(rgb, fxi, fyi, row_base=0, in_h=None):
     """The 12 EASU taps of rgb (..., 3, H, W) at the floor maps fxi (Wo,)
-    and fyi (Ho,) (tensors), edge-clamped: dict (dx, dy) -> (..., 3, Ho, Wo)."""
+    and fyi (Ho,) (tensors), edge-clamped: dict (dx, dy) -> (..., 3, Ho, Wo).
+    rgb may be a row strip of an image of in_h rows that starts at the
+    image's row row_base: a tap's row is clamped into the image, then
+    rebased to the strip and clamped into it (strip_rows)."""
     h, w = rgb.shape[-2:]
     fxi, fyi = fxi.long(), fyi.long()
-    rows = {dy: rgb.index_select(-2, (fyi + dy).clamp(0, h - 1))
+    rows = {dy: rgb.index_select(-2, strip_rows(fyi + dy, h, row_base, in_h))
             for dy in (-1, 0, 1, 2)}
     cols = {dx: (fxi + dx).clamp(0, w - 1) for dx in (-1, 0, 1, 2)}
     return {(dx, dy): rows[dy].index_select(-1, cols[dx])

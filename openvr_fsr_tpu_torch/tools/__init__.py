@@ -10,4 +10,7 @@ openvr_fsr_tpu_torch.tools.<name>` on a machine with an NVIDIA GPU:
                     Pipeline.process (the port of tools/throughput_bench.py)
   vpu_audit         the rate probes and each kernel's bound and share
   ab                a kernel against an earlier source, or less one part
+  spatial_onchip    3 row-band strips against the single launch, bit for
+                    bit, for the fused FSR and CAS upscale paths (the port
+                    of tools/spatial_onchip.py)
 """

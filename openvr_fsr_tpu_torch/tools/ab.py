@@ -14,10 +14,15 @@ source needs in its earlier form goes beside it (its own directory is
 searched first: the earlier rcas_sharpen.cu needs the earlier rgba8.cuh,
 which still held the circle test). It is driven through the entry point
 that source was written for:
-  fsr_fused    the two class kernels' fsr_fused_launch (the current one);
+  fsr_fused    the two class kernels' fsr_fused_launch as it was before
+               the row-band strips (CLASS_ARGTYPES: no strip base, no
+               band rows), with the current tables;
   nis_scaler   one CTA per 32x24 block, nis_scaler_launch with 11 pointers
                and 40x32 luma windows;
-  cas_upscale  one CTA per 16x16 tile, cas_upscale_launch with 9 pointers
+  cas_upscale  where the source's cas_upscale_launch has the class kernels'
+               prototype before the strips (CLASS_ARGTYPES), that entry
+               point with the current tables, as fsr_fused's; otherwise
+               one CTA per 16x16 tile, cas_upscale_launch with 9 pointers
                and 20x20 windows;
   nis_sharpen  one CTA per 32x32 block with its own circle test,
                nis_sharpen_launch(img, out, centres, consts, n_consts,
@@ -40,9 +45,11 @@ that source was written for:
                stage_quads, clamp, mask, stream): one CTA per tile in the
                compute kernel's launch shape, its windows loaded word by
                word (parent_floor builds its tables from the geometry).
-It is built with the port's nvcc flags into a temporary directory and
-driven with the tables it was written for, made from the same sample maps
-and centres as the current build's.
+A compute kernel's earlier source whose entry point has the current
+prototype (NVScaler's from PR 7 on) runs through the current wrapper
+instead. It is built with the port's nvcc flags into a temporary directory
+and driven with the tables it was written for, made from the same sample
+maps and centres as the current build's.
 
 NAME is one of ABLATIONS[KERNEL]: the current source with one edit, built
 the same way and driven through the current wrapper with its own entry
@@ -84,9 +91,11 @@ current, parent, each round the best of 3 rotations of `iters`
 back-to-back calls over the bench's three ring frames (CUDA events). An
 ablation that keeps the bits is held to the plain version too; one that
 does not is only timed. Prints one JSON line: the card, each build's ptxas
-registers, spills and shared memory per kernel, the current class kernels'
-CTAs per SM, and per case both rounds of each and parent / current (the
-ablated build stands in the parent's place).
+registers, spills and shared memory per kernel, whether each of the
+parent's functions compiled to the same SASS in the current build
+(sass_same, by name less the anonymous namespace), the current class
+kernels' CTAs per SM, and per case both rounds of each and parent /
+current (the ablated build stands in the parent's place).
 
 For vmem_rate and mxu_rate the case is the audit's full probe
 (tools/vpu_audit.py PROBES: vmem k 16 and 112, 4,096 steps; mxu k 8 and
@@ -114,6 +123,7 @@ driven through the current wrapper.
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -123,7 +133,8 @@ import numpy as np
 import torch
 
 __all__ = ["main", "build_parent", "parent_launcher", "ablated_source",
-           "CASES", "KERNELS", "PARENT_ARGTYPES", "ABLATIONS"]
+           "class_parent", "CASES", "KERNELS", "PARENT_ARGTYPES",
+           "CLASS_ARGTYPES", "ABLATIONS"]
 
 KERNELS = ("fsr_fused", "nis_scaler", "cas_upscale", "nis_sharpen",
            "cas_sharpen", "rcas_sharpen", "vmem_rate", "mxu_rate",
@@ -151,8 +162,14 @@ CASES = {
 }
 SHARPNESS = 0.9
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the upscalers' class-kernel entry point before the row-band strips
+# (fsr_fused_launch, cas_upscale_launch): img, out, the four sample maps,
+# the window origins, group_cls, the inside list and its length, the outside
+# list and its length, batch, in_h, in_w, rows, pitch, out_h, out_w, sharp,
+# tint, tile, window, stream
+CLASS_ARGTYPES = [_P] * 10 + [_I, _P] + [_I] * 8 + [_F] * 2 + [_I] * 2 + [_P]
 PARENT_ARGTYPES = {
-    "fsr_fused": [_P] * 10 + [_I, _P] + [_I] * 8 + [_F] * 2 + [_I] * 2 + [_P],
+    "fsr_fused": CLASS_ARGTYPES,
     "nis_scaler": [_P] * 11 + [_I] * 9 + [_F] + [_I] * 2 + [_P],
     "cas_upscale": [_P] * 9 + [_I] * 7 + [_F] * 2 + [_I, _P],
     "nis_sharpen": [_P] * 4 + [_I] * 7 + [_F, _P],
@@ -206,16 +223,17 @@ ABLATIONS = {
     },
 }
 # kernel -> the name of its wrapper module's entry-point getter
-_ENTRIES = {"nis_scaler": "_scaler_fn", "cas_upscale": "_upscale_launch_fn",
+_ENTRIES = {"fsr_fused": "_launch_fn", "nis_scaler": "_scaler_fn",
+            "cas_upscale": "_upscale_launch_fn",
             "nis_sharpen": "_sharpen_fn", "cas_sharpen": "_sharpen_launch_fn",
             "rcas_sharpen": "_launch_fn", "vmem_rate": "_probe_launch",
             "mxu_rate": "_probe_launch", "dma_floor": "_launch_fn"}
 
 
 def _wrapper_module(kernel):
-    from ..kernels import cas, nis, rcas, sol
-    return {"rcas_sharpen": rcas, "vmem_rate": sol, "mxu_rate": sol,
-            "dma_floor": sol}.get(
+    from ..kernels import cas, fsr, nis, rcas, sol
+    return {"fsr_fused": fsr, "rcas_sharpen": rcas, "vmem_rate": sol,
+            "mxu_rate": sol, "dma_floor": sol}.get(
         kernel, cas if kernel.startswith("cas") else nis)
 
 
@@ -240,6 +258,51 @@ def build_parent(kernel, source, argtypes=None):
     return f, sass.ptxas_usage(r.stdout + r.stderr), lib
 
 
+def entry_params(kernel, text):
+    """The number of parameters of <kernel>_launch in the source `text`, or
+    None where it has no such entry point."""
+    m = re.search(rf'extern "C" int {kernel}_launch\((.*?)\)\s*\{{', text,
+                  re.S)
+    return None if m is None else len(m.group(1).split(","))
+
+
+def class_parent(kernel, text):
+    """Whether the earlier source `text` of an upscaler (fsr_fused,
+    cas_upscale) exports <kernel>_launch with the class kernels' prototype
+    before the strips (CLASS_ARGTYPES' parameter count): B1's always has
+    it; B5's had it from the class kernels on, one CTA per 16x16 tile
+    before."""
+    if kernel == "fsr_fused":
+        return True
+    return kernel == "cas_upscale" and \
+        entry_params(kernel, text) == len(CLASS_ARGTYPES)
+
+
+def _current_entry(kernel):
+    """The current wrapper's ctypes entry point of `kernel` (built)."""
+    getter = getattr(_wrapper_module(kernel), _ENTRIES[kernel])
+    return getter("vmem_rate", 3, 5) if kernel == "vmem_rate" else getter()
+
+
+def same_sass(lib_a, lib_b):
+    """{function: whether its SASS is the same instruction for instruction
+    in both libraries (None where lib_b lacks it)} over lib_a's functions,
+    matched by name less the anonymous namespace (whose name hashes the
+    source's path); None without cuobjdump."""
+    from ..kernels import _build
+    from . import sass
+    texts = [sass.disassemble(lib, _build._nvcc()) for lib in (lib_a, lib_b)]
+    if None in texts:
+        return None
+
+    def key(fn):
+        m = re.match(r"_ZN(\d+)(?=_GLOBAL__N_)", fn)
+        return fn if m is None else fn[m.end() + int(m.group(1)):]
+    a, b = ({key(fn): [t for _, t in ins]
+             for fn, ins in sass._functions(t).items()} for t in texts)
+    return {fn: None if fn not in b else ins == b[fn] for fn, ins in a.items()}
+
+
 def ablated_source(kernel, name, text):
     """The source text of csrc/<kernel>.cu with ablation `name` applied;
     raises ValueError if an edit's text does not occur exactly once."""
@@ -256,9 +319,7 @@ def _build_ablated(kernel, name):
     ptxas usage, the library's path)."""
     from ..kernels import _build
 
-    getter = getattr(_wrapper_module(kernel), _ENTRIES[kernel])
-    current = (getter("vmem_rate", 3, 5) if kernel == "vmem_rate"
-               else getter())
+    current = _current_entry(kernel)
     src = Path(tempfile.mkdtemp(prefix=f"{kernel}_{name}_")) / f"{kernel}.cu"
     src.write_text(ablated_source(kernel, name, (
         _build.CSRC / f"{kernel}.cu").read_text()))
@@ -341,10 +402,13 @@ def _parent_origins(kernel, m):
 
 
 def parent_launcher(kernel, entry, maps, batch, device, sharp=None,
-                    consts=None, hdr_mode=0, tint=1.0, mcd=1.0):
+                    consts=None, hdr_mode=0, tint=1.0, mcd=1.0,
+                    classes=None):
     """fn(img) running the parent kernel `entry` with the tables it was
-    written for, made from `maps` (the current build's host tables)."""
-    from ..kernels._maps import FSR_TILE, IN_TILE
+    written for, made from `maps` (the current build's host tables).
+    classes: an upscaler parent with the class kernels' entry point before
+    the strips (CLASS_ARGTYPES; default: B1's parent only)."""
+    from ..kernels._maps import CAS_IN_TILE, FSR_TILE, IN_TILE
 
     m = maps
     d = m.to(device)
@@ -374,7 +438,8 @@ def parent_launcher(kernel, entry, maps, batch, device, sharp=None,
         return run_sharpen
 
     H, W, OH, OW = m.in_h, m.in_w, m.out_h, m.out_w
-    if kernel != "fsr_fused":
+    classes = kernel == "fsr_fused" if classes is None else classes
+    if not classes:
         x0, y0 = (torch.as_tensor(o, device=device)
                   for o in _parent_origins(kernel, m))
 
@@ -384,13 +449,15 @@ def parent_launcher(kernel, entry, maps, batch, device, sharp=None,
                      d.col_f.data_ptr(), d.row_i.data_ptr(),
                      d.row_f.data_ptr())
         rows, pitch = img.shape[1:]
-        if kernel == "fsr_fused":
+        if classes:
             err = entry(*maps_ptrs, d.tile_x0.data_ptr(),
                         d.tile_y0.data_ptr(), d.group_cls.data_ptr(),
                         d.inside_tiles.data_ptr(), len(m.inside_tiles),
                         d.outside_tiles.data_ptr(), len(m.outside_tiles),
                         batch, H, W, rows, pitch, OH, OW, float(sharp),
-                        float(tint), FSR_TILE, IN_TILE, stream())
+                        float(tint), FSR_TILE,
+                        IN_TILE if kernel == "fsr_fused" else CAS_IN_TILE,
+                        stream())
         elif kernel == "nis_scaler":
             err = entry(*maps_ptrs, x0.data_ptr(), y0.data_ptr(),
                         d.centres.data_ptr(), d.coef.data_ptr(),
@@ -642,11 +709,22 @@ def main(argv=None):
     dev = torch.device("cuda", torch.cuda.current_device())
     card = bench.card()
     _build.build([kernel])
+    classes = through = None
     if args.ablate:
         entry, parent_usage, parent_lib = _build_ablated(kernel, args.ablate)
         exact = ABLATIONS[kernel][args.ablate][0]
+        through = True
     else:
-        entry, parent_usage, parent_lib = build_parent(kernel, args.parent)
+        text = Path(args.parent).read_text()
+        # a compute kernel's parent with the current prototype runs through
+        # the current wrapper, as an ablation does
+        through = kernel in CASES and entry_params(kernel, text) == len(
+            _current_entry(kernel).argtypes)
+        classes = not through and class_parent(kernel, text)
+        entry, parent_usage, parent_lib = build_parent(
+            kernel, args.parent,
+            _current_entry(kernel).argtypes if through
+            else CLASS_ARGTYPES if classes else None)
         exact = True
     usage = sass.ptxas_usage(
         _build.library_path(kernel).with_suffix(".log").read_text())
@@ -654,6 +732,7 @@ def main(argv=None):
            "iters": args.iters, "parent": str(args.parent or
                                               f"ablate {args.ablate}"),
            "ptxas_parent": parent_usage, "ptxas_current": usage,
+           "sass_same": same_sass(parent_lib, _build.library_path(kernel)),
            "cases": []}
     if kernel in PROBE_KERNELS:
         from . import vpu_audit
@@ -699,8 +778,9 @@ def main(argv=None):
                                 .eye_centers, (0, 1))
         new, maps, kw = _build_current(kernel, 2, h, w, ow, oh, cen, hdr,
                                        mcd)
-        old = (_through_entry(kernel, entry, new) if args.ablate else
-               parent_launcher(kernel, entry, maps, 2, dev, **kw))
+        old = (_through_entry(kernel, entry, new) if through else
+               parent_launcher(kernel, entry, maps, 2, dev, classes=classes,
+                               **kw))
         inputs = bench.ring_frames(h, w, new.pad_to, dev)
         want = new.reference(inputs[0])
         for name, fn in (("parent", old), ("current", new)):

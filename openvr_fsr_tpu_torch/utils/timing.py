@@ -138,9 +138,11 @@ def wall_ms(fn, inputs, iters):
 def rotation_graph(fn, inputs, iters):
     """`iters` calls fn(inputs[i % len]) captured in one CUDA graph and
     replayed once (each input called once on a side stream first, as
-    capture requires). A wrapper that counts its launches counts each
-    captured call once; a replay runs them again uncounted. Raises
-    ValueError on CPU inputs: there is no graph to capture."""
+    capture requires) on the current CUDA device, captured on that side
+    stream (torch.cuda.graph's default capture stream belongs to the device
+    current when it was first used). A wrapper that counts its launches
+    counts each captured call once; a replay runs them again uncounted.
+    Raises ValueError on CPU inputs: there is no graph to capture."""
     if not inputs[0].is_cuda:
         raise ValueError("rotation_graph captures CUDA work: the inputs "
                          "are on the CPU")
@@ -151,7 +153,7 @@ def rotation_graph(fn, inputs, iters):
             fn(x)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for i in range(iters):
             fn(inputs[i % len(inputs)])
     graph.replay()

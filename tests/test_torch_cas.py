@@ -557,9 +557,19 @@ class TestPipelineAndModels:
 
     @pytest.mark.parametrize("cls", ["FsrModel", "NisModel", "CasModel"])
     def test_sharded_raises_naming_roadmap(self, cls):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A "
-                                                      "item 13"):
-            getattr(T, cls)(device="cpu").sharded()
+        """sharded() no longer raises naming ROADMAP.md Queue A item 13
+        (parallel/ is ported): it returns a working ShardedPipeline whose
+        per-device outputs, in batch order, are the family's own."""
+        from openvr_fsr_tpu_torch.parallel import ShardedPipeline
+        model = getattr(T, cls)(render_scale=0.75, device="cpu")
+        cpu = torch.device("cpu")
+        sharded = model.sharded([cpu, cpu])
+        assert isinstance(sharded, ShardedPipeline)
+        assert sharded.pipeline is model.pipeline
+        frames = np.concatenate([_stereo(32, 40), _stereo(32, 40, 90)])
+        outs = sharded.process(frames)
+        assert [tuple(o.shape) for o in outs] == [(2, 42, 53, 4)] * 2
+        assert torch.equal(torch.cat(outs), model(frames))
 
     def test_nis_and_cas_together_raise(self):
         with pytest.raises(ValueError, match="mutually exclusive"):

@@ -293,8 +293,8 @@ def test_port_never_imports_jax():
     """`import openvr_fsr_tpu_torch` (the GPU machine has no jax) pulls in
     neither jax nor the JAX package, with every submodule imported,
     the DMA floor, the rate probes, the two bench entries, the audit, the
-    A/B tool, the oracle copy, capture, the parity tool and the throughput
-    tool included."""
+    A/B tool, the oracle copy, capture, the parity tool, the throughput
+    tool, parallel/ and the spatial strips' tool included."""
     code = ("import sys, openvr_fsr_tpu_torch, openvr_fsr_tpu_torch.kernels, "
             "openvr_fsr_tpu_torch.oracle, openvr_fsr_tpu_torch.oracle.pipeline, "
             "openvr_fsr_tpu_torch.api.capture, "
@@ -308,7 +308,11 @@ def test_port_never_imports_jax():
             "openvr_fsr_tpu_torch.tools.sass, openvr_fsr_tpu_torch.tools.ab, "
             "openvr_fsr_tpu_torch.kernels.cas, "
             "openvr_fsr_tpu_torch.kernels.nis, "
-            "openvr_fsr_tpu_torch.kernels.fsr;"
+            "openvr_fsr_tpu_torch.kernels.fsr, "
+            "openvr_fsr_tpu_torch.parallel, "
+            "openvr_fsr_tpu_torch.parallel.sharding, "
+            "openvr_fsr_tpu_torch.parallel.spatial, "
+            "openvr_fsr_tpu_torch.tools.spatial_onchip;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'openvr_fsr_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
