@@ -94,6 +94,23 @@ lines:
      a kernel's calls replayed from one CUDA graph, device time alone),
      and each plain version's peak device memory; fsr_fused also at rs 1.3;
      the six 10-bit kernels at radius 0.5 with their plain versions;
+  4b. half precision ([half] lines): the half instantiations of fsr_fused,
+     rcas_sharpen, cas_upscale and cas_sharpen (precision="half", bf16 op
+     by op as the JAX package's half cores): their registers, spills (none
+     allowed) and CTAs per SM at both texel formats; each against its
+     plain bf16 version at full size, 0 unequal texels: fsr_fused at radius
+     0.5, 2.0, 0.0 with debug and rs 1.3, the others at radius 0.5 and
+     2.0, on both 8-bit sets, and one 10-bit case per kernel (radius 0.5,
+     both 10-bit sets, 0 unequal values), each with its largest difference
+     from the full kernel; the five FSR and CAS plans through
+     Pipeline(precision="half") with no device (N_PAIRS packed pairs, the
+     launch counts set to 0 just before and read just after, equal to the
+     kernel and to upscale(precision="half")), the four 10-bit plans the
+     same way, and a NIS half pipeline refused at construction and after
+     toggle_nis(); tools.half_bench in this process (its vs_sol and value
+     held as bench_paths' are); each half kernel at radius 0.5 timed in
+     turns with its plain version for the kernels line, and at radius 2.0
+     in turns with its full kernel;
   5. the measurement path: the DMA floor (csrc/dma_floor.cu) keeps its
      TMA loads, shared reads and stores in its SASS, and equals its plain
      version word for word at the full-size geometry of each of the seven
@@ -157,8 +174,9 @@ lines:
      fsr_fused_band and cas_upscale_band, their ms the strips' summed device
      time and their bytes the strips' rows; each bound the largest
      of its unique bytes over 3.35 TB/s, its operations over the peak for
-     their type: f32 work, the FP32 probe's as the FP32 instructions its
-     SASS keeps per cycle, at the FP32 issue bound SMs x 128 lanes x the
+     their type (the half instantiations as <kernel>_half, their bf16 ops
+     at twice the FP32 rate, tools/vpu_audit.py::issue_slots): f32 work,
+     the FP32 probe's as the FP32 instructions its SASS keeps per cycle, at the FP32 issue bound SMs x 128 lanes x the
      max SM clock, bf16 MACs at SMs x 2,048 x the max SM clock, and, for the
      shared-memory probe, the plane bytes it reads over SMs x 128 B x the
      max SM clock: tools/vpu_audit.py::roofline_bound, probe_bounds), and
@@ -368,16 +386,17 @@ def main():
                                  tuple(i % 2 for i in range(b)))
 
     def fsr(radius, debug=False, h=H, w=W, rs=0.75, b=2, eyes=CENTRES,
-            bits=8, **band):
+            bits=8, **kw):
         ow, oh = Config(render_scale=rs).output_size(w, h)
         return build_fsr_fused(b, h, w, ow, oh, sharpness=SHARPNESS,
                                centres=centres(ow, oh, radius, b, eyes),
-                               debug=debug, color_bits=bits, **band)
+                               debug=debug, color_bits=bits, **kw)
 
-    def rcas(radius, debug=False, h=OH, w=OW, b=2, eyes=CENTRES, bits=8):
+    def rcas(radius, debug=False, h=OH, w=OW, b=2, eyes=CENTRES, bits=8,
+             **kw):
         return build_rcas_sharpen(b, h, w, sharpness=SHARPNESS,
                                   centres=centres(w, h, radius, b, eyes),
-                                  debug=debug, color_bits=bits)
+                                  debug=debug, color_bits=bits, **kw)
 
     def sharpen(radius, debug=False, hdr=0, h=OH, w=OW, b=2, eyes=CENTRES,
                 bits=8):
@@ -396,18 +415,18 @@ def main():
                               debug=debug, color_bits=bits)
 
     def cas_up(radius, debug=False, h=H, w=W, rs=0.75, b=2, eyes=CENTRES,
-               bits=8, **band):
+               bits=8, **kw):
         ow, oh = Config(render_scale=rs).output_size(w, h)
         return build_cas_upscale(b, h, w, ow, oh, sharpness=CAS_SHARPNESS,
                                  centres=centres(ow, oh, radius, b, eyes),
-                                 debug=debug, color_bits=bits, **band)
+                                 debug=debug, color_bits=bits, **kw)
 
     def cas_sh(radius, debug=False, mcd=1.0, h=OH, w=OW, b=2, eyes=CENTRES,
-               bits=8):
+               bits=8, **kw):
         return build_cas_sharpen(b, h, w, sharpness=CAS_SHARPNESS,
                                  centres=centres(w, h, radius, b, eyes),
                                  debug=debug, max_color_delta=mcd,
-                                 color_bits=bits)
+                                 color_bits=bits, **kw)
 
     builds = {"fsr_fused": fsr, "rcas_sharpen": rcas, "nis_sharpen": sharpen,
               "nis_scaler": scaler, "cas_upscale": cas_up,
@@ -1141,6 +1160,188 @@ def main():
         f"{graph_ms(fsr(0.5, h=OH, w=OW, rs=1.3), sets['full']['zone+noise'], 200)}"
         " ms per stereo pair")
 
+    # ---- 4b. half precision ----------------------------------------------------
+    # the half instantiations of B1, B2, B5 and B6 (precision="half", the
+    # JAX package's bf16 cores op by op): their registers, spills and CTAs
+    # per SM, each against its plain bf16 version at full size (0 unequal
+    # texels, or values at 10 bits), the plans through the public API with
+    # the launch counts from 0, NIS half refused, tools.half_bench, and the
+    # half kernels' times for the kernels line
+    from openvr_fsr_tpu_torch.tools import half_bench
+    t_half = time.perf_counter()
+    half_builds = {   # kernel -> (build, the half inside kernel's name)
+        "fsr_fused": (fsr, "fsr_half_inside_kernel"),
+        "rcas_sharpen": (rcas, "rcas_sharpen_half_inside_kernel"),
+        "cas_upscale": (cas_up, "cas_half_inside_kernel"),
+        "cas_sharpen": (cas_sh, "cas_sharpen_half_inside_kernel")}
+    for kernel, (build, part) in half_builds.items():
+        usage = sass.ptxas_usage(_build.library_path(kernel)
+                                 .with_suffix(".log").read_text())
+        for bits in (8, 10):
+            per_sm = occupancy(kernel, bits, "half")
+            u = [v for fn, v in usage.items()
+                 if part in fn and sass.of_codec(fn, bits)]
+            if len(u) != 1 or per_sm["inside"] < 1:
+                fail(f"{kernel} {bits}-bit half inside kernel: ptxas {u}, "
+                     f"{per_sm['inside']} CTAs per SM")
+            u = u[0]
+            log(f"[half] {kernel} {bits}-bit half inside kernel: "
+                f"{u['registers']} registers, {u['spill_stores']} B spill "
+                f"stores, {u['spill_loads']} B spill loads, "
+                f"{per_sm['inside']} CTAs per SM (full: "
+                f"{occupancy(kernel, bits)['inside']})")
+            if u["spill_stores"] or u["spill_loads"]:
+                fail(f"{kernel} {bits}-bit half inside kernel spills")
+        max_lsb[f"{kernel}_half"] = 0
+
+    def parity_half(kernel, label, fn, img):
+        got, want = fn(img), fn.reference(img)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype \
+                or got.device != img.device or fn.precision != "half":
+            fail(f"{kernel} half output {tuple(got.shape)} {got.dtype}")
+        ne = int((got != want).sum())
+        log(f"[half] parity {kernel} {label}: unequal {ne} of "
+            f"{got.numel()} {'values' if fn.color_bits == 10 else 'texels'}")
+        if ne:
+            fail(f"{kernel} half disagrees with its plain bf16 version")
+        return got
+
+    half_cases = [("fsr_fused", dict(radius=r, debug=d))
+                  for r, d in ((0.5, False), (2.0, False), (0.0, True))]
+    half_cases += [("fsr_fused", dict(radius=0.5, h=OH, w=OW, rs=1.3))]
+    half_cases += [(k, dict(radius=r)) for k in ("rcas_sharpen",
+                                                 "cas_upscale", "cas_sharpen")
+                   for r in (0.5, 2.0)]
+    for kernel, kw in half_cases:
+        fn = half_builds[kernel][0](precision="half", **kw)
+        size = "in" if kernel in UPSCALERS and "rs" not in kw else "full"
+        for name, img in sets[size].items():
+            got = parity_half(kernel, f"{kw} {name}", fn, img)
+            if name == "zone+noise":
+                ne, n, mx = lsb_diff(got, half_builds[kernel][0](**kw)(img))
+                log(f"[half] {kernel} {kw} {name}: half against full "
+                    f"{ne} of {n} texels unequal, max {mx} LSB")
+    for kernel, (build, _) in half_builds.items():
+        size = "in" if kernel in UPSCALERS else "full"
+        fn = build(0.5, bits=10, precision="half")
+        for name, img in sets10[size].items():
+            parity_half(kernel, f"10-bit radius 0.5 {name}", fn, img)
+
+    # through the public API, on the card by default: each plan's Pipeline
+    # (precision="half") over N_PAIRS packed stereo pairs, counts from 0
+    half_plans = {   # label -> (kernel, config, input pairs)
+        "fsr_fused": ("fsr_fused", dict(render_scale=0.75), pairs_in),
+        "fsr_supersample": ("fsr_fused", dict(render_scale=1.3), pairs_full),
+        "rcas_only": ("rcas_sharpen", dict(render_scale=1.0), pairs_full),
+        "cas_upscale": ("cas_upscale", dict(render_scale=0.75, use_cas=True),
+                        pairs_in),
+        "cas_sharpen": ("cas_sharpen", dict(render_scale=1.0, use_cas=True),
+                        pairs_full)}
+    for label, (kernel, kw, pairs_u8) in half_plans.items():
+        cfg = Config(enabled=True, sharpness=SHARPNESS, radius=0.5, **kw)
+        pipe = Pipeline(cfg, precision="half")
+        packed_pairs = pairs_u8.view(torch.int32)[..., 0]
+        first = pipe.process(packed_pairs[0].contiguous())    # the build
+        (fn,) = pipe.kernels
+        fn.launches = 0
+        outs = [pipe.process(packed_pairs[i].contiguous())
+                for i in range(N_PAIRS)]
+        torch.cuda.synchronize()
+        launches[f"{kernel}_half"] = launches.get(f"{kernel}_half", 0) \
+            + fn.launches
+        log(f"[half] {label} plan: {N_PAIRS} calls, kernel launches "
+            f"{fn.launches}")
+        if fn.launches != N_PAIRS or fn.precision != "half" \
+                or not outs[0].is_cuda:
+            fail(f"the half {label} plan did not launch its half kernel "
+                 "once per call")
+        if not torch.equal(outs[0], first) or not torch.equal(
+                first, fn(packed_pairs[0].contiguous())):
+            fail(f"the half {label} plan differs from its kernel")
+        up = upscale(pairs_u8[0], render_scale=cfg.render_scale,
+                     sharpness=SHARPNESS, radius=0.5, use_cas=cfg.use_cas,
+                     precision="half")
+        if not up.is_cuda or not torch.equal(up.view(torch.int32)[..., 0],
+                                             first):
+            fail(f"upscale(precision='half') differs from the {label} plan")
+    log("[half] upscale(precision='half') with no device, each plan: on the "
+        "card, equal to Pipeline(precision='half')")
+    for label, (kernel, kw, pairs10) in (
+            ("fsr_fused", ("fsr_fused", dict(render_scale=0.75),
+                           pairs10_in)),
+            ("rcas_only", ("rcas_sharpen", dict(render_scale=1.0),
+                           pairs10_full)),
+            ("cas_upscale", ("cas_upscale", dict(render_scale=0.75,
+                                                 use_cas=True), pairs10_in)),
+            ("cas_sharpen", ("cas_sharpen", dict(render_scale=1.0,
+                                                 use_cas=True),
+                             pairs10_full))):
+        pipe = Pipeline(Config(enabled=True, sharpness=SHARPNESS, radius=0.5,
+                               **kw), color_bits=10, precision="half")
+        first = pipe.process(pairs10[0])
+        (fn,) = pipe.kernels
+        fn.launches = 0
+        for i in range(N_PAIRS):
+            pipe.process(pairs10[i])
+        torch.cuda.synchronize()
+        launches[f"{kernel}_half"] += fn.launches
+        log(f"[half] {label} 10-bit plan: {N_PAIRS} calls, kernel launches "
+            f"{fn.launches}")
+        if fn.launches != N_PAIRS or fn.color_bits != 10 \
+                or not torch.equal(first, fn(pairs10[0])):
+            fail(f"the half {label} 10-bit plan did not run its half kernel")
+    for use_nis_cfg in (dict(use_nis=True), dict()):
+        pipe = None
+        try:
+            pipe = Pipeline(Config(enabled=True, render_scale=0.75,
+                                   **use_nis_cfg), precision="half")
+            pipe.process(pairs_in[0])
+            if not use_nis_cfg:
+                pipe.toggle_nis()
+                pipe.process(pairs_in[0])
+            fail("a half NIS pipeline ran")
+        except NotImplementedError as e:
+            if "Queue A 6b" not in str(e):
+                fail(f"the half NIS refusal does not name its entry: {e}")
+            log(f"[half] NIS half refused{' after toggle_nis()' if pipe else ''}"
+                f": {e}")
+
+    # times: half_bench's lines, then each half kernel at radius 0.5 in
+    # turns with its plain version for the kernels line
+    half_records = half_bench.main([])
+    for name, (rec, runs) in half_records.items():
+        for prec, run in runs.items():
+            if not (run.vs_sol <= VS_SOL_MAX
+                    and run.ms >= VALUE_MIN * run.device_ms
+                    and run.kernel.launches and run.floor.launches):
+                fail(f"half_bench {name} {prec}: vs_sol {run.vs_sol}, value "
+                     f"{run.ms}, device_ms {run.device_ms}")
+    timed_half = {kernel: (build(0.5, precision="half"),
+                           sets["in" if kernel in UPSCALERS else "full"]
+                           ["zone+noise"])
+                  for kernel, (build, _) in half_builds.items()}
+    for kernel, (fn, img) in timed_half.items():
+        rounds = {"kernel": [], "plain": []}
+        for label, f, n in (("plain", fn.reference, 5), ("kernel", fn, 200),
+                            ("kernel", fn, 200), ("plain", fn.reference, 5)):
+            rounds[label].append((graph_ms if label == "kernel" else time_ms)(
+                f, img, n))
+        ms[f"{kernel}_half"] = float(np.mean(rounds["kernel"]))
+        plain_ms[f"{kernel}_half"] = float(np.mean(rounds["plain"]))
+        log(f"[half] time {kernel} radius 0.5: half kernel "
+            f"{rounds['kernel']} ms per stereo pair (full {ms[kernel]}); "
+            f"plain bf16 torch {rounds['plain']} ms ({card})")
+    for kernel, (build, _) in half_builds.items():   # all inside the circle
+        img = timed_half[kernel][1]
+        fns = {"full": build(2.0), "half": build(2.0, precision="half")}
+        t = {p: [] for p in fns}
+        for p in ("full", "half", "half", "full"):
+            t[p].append(graph_ms(fns[p], img, 200))
+        log(f"[half] time {kernel} radius 2.0: half kernel {t['half']} ms, "
+            f"full kernel {t['full']} ms per stereo pair ({card})")
+    log(f"[half] phase took {time.perf_counter() - t_half:.1f} s")
+
     # ---- 5. the measurement path --------------------------------------------
     from openvr_fsr_tpu_torch import bench
     from openvr_fsr_tpu_torch.kernels.sol import build_dma_floor
@@ -1609,6 +1810,18 @@ def main():
         bounds[f"{kernel}_band"] = bound(
             strip_bytes[kernel] + 2 * g["out_h"] * g["out_w"] * 4,
             inside * per_px[0] + fallback * per_px[1], issue)
+    # the half instantiations: the same bytes, the half cores' ops in FP32
+    # issue slots (a bf16 op one half: vpu_audit.issue_slots)
+    for kernel, (fn, img) in timed_half.items():
+        g = fn.dma_geometry
+        inside, fallback = vpu_audit.inside_pixels(g)
+        per_px = vpu_audit.path_ops(
+            kernel, in_per_out=g["in_h"] * g["in_w"] / (g["out_h"] * g["out_w"]),
+            sharpness=CAS_SHARPNESS if kernel.startswith("cas") else SHARPNESS,
+            precision="half")
+        bounds[f"{kernel}_half"] = bound(
+            (img.numel() + 2 * g["out_h"] * g["out_w"]) * 4,
+            inside * per_px[0] + fallback * per_px[1], issue)
     ms.update({f"{k}_band": v for k, v in strip_ms.items()})
     plain_ms.update({f"{k}_band": v for k, v in strip_plain_ms.items()})
     bounds["dma_floor"] = bound(floor.hbm_bytes, 0, issue)
@@ -1637,12 +1850,14 @@ def main():
     sources.update({f"{k}_10bit": sources[k] for k in (*EXACT, "dma_floor")})
     sources.update({f"{k}_band": sources[k]
                     for k in ("fsr_fused", "cas_upscale")})
+    # the half instantiations: their precision="half" branches
+    sources.update({f"{k}_half": sources[k] for k in half_builds})
     log(card)
     log(json.dumps({"kernels": [{
         "name": kernel,
         "route": "cuda",
-        "source": "openvr_fsr_tpu_torch/csrc/"
-                  f"{kernel.removesuffix('_10bit').removesuffix('_band')}.cu",
+        "source": "openvr_fsr_tpu_torch/csrc/" + kernel.removesuffix(
+            "_10bit").removesuffix("_band").removesuffix("_half") + ".cu",
         "replaces": replaces,
         "launches": launches[kernel],
         "max_abs_err": max_lsb[kernel],

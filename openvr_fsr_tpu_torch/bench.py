@@ -152,21 +152,23 @@ class PathRun:
 
 
 def measure(config, h, w, *, iters=ITERS, rounds=ROUNDS, warmup=WARMUP,
-            device="cuda", color_bits=8):
+            device="cuda", color_bits=8, precision="full"):
     """Time one plan's kernel and its DMA floor on the card over the three
     ring frames of (h, w) stereo pairs, in turns each round: the kernel's
     and the floor's CUDA graphs of `iters` calls, and `iters` back-to-back
     kernel calls ending in a host sync; the best of `rounds` each.
     compile_s is the build (host tables, and nvcc where the library is not
     built yet) plus the first launch. color_bits 10 measures the
-    R10G10B10A2 build on uint16 frames (the packed plane is 8-bit only)."""
+    R10G10B10A2 build on uint16 frames (the packed plane is 8-bit only);
+    precision "half" the half build (Pipeline's precision)."""
     import torch
 
     from .api.pipeline import Pipeline
     from .kernels.sol import build_dma_floor
     from .utils.timing import replay_ms, rotation_graph, rotation_ms, wall_ms
 
-    pipe = Pipeline(config, device=device, color_bits=color_bits)
+    pipe = Pipeline(config, device=device, color_bits=color_bits,
+                    precision=precision)
     out_w, out_h = pipe.output_size(w, h)
     t0 = time.perf_counter()
     fn = pipe._build(2, h, w, (0, 1), color_bits == 8)

@@ -37,8 +37,16 @@
 //     16x16 group; a run whose group is outside the circle writes the copy
 //     (its texels from device memory), so bits never depend on the tile a
 //     group sits in.
-// Both launch on the caller's stream; an empty list launches nothing. Build
-// with --fmad=false: the bits then match the plain torch version
+// Both launch on the caller's stream; an empty list launches nothing.
+//
+// Half precision (the JAX kernel's precision="half", cas.py:425, 482):
+// cas_sharpen_half_inside_kernel is the inside kernel's body with CasFilter
+// in bf16 op by op (cas::sharpen<ffx::Half>): the window is decoded into
+// bf16 values (held as f32 in the same planes; they feed only the filter)
+// and the host rounds the sharpness and maxColorDelta; the copy outside the
+// circle is the same. One instantiation per codec behind
+// cas_sharpen_launch_h and cas_sharpen_launch10_h.
+// Build with --fmad=false: the bits then match the plain torch version
 // (kernels/cas.py::cas_sharpen_reference).
 
 #include <cuda_runtime.h>
@@ -73,8 +81,10 @@ struct Smem {
   float c[3][kWin][kWin];
 };
 
-template <class C>
-__global__ void __launch_bounds__(kThreads) cas_sharpen_inside_kernel(Params<C> p) {
+// One inside tile (the CTA's of the list) in the working precision P
+// (ffx::Full, ffx::Half).
+template <class C, class P>
+__device__ __forceinline__ void inside_tile(const Params<C>& p) {
   using Texel = typename C::Texel;
   __shared__ Smem s;
 
@@ -95,7 +105,7 @@ __global__ void __launch_bounds__(kThreads) cas_sharpen_inside_kernel(Params<C> 
                         ? img[static_cast<size_t>(y) * p.pitch + x]
                         : Texel{};
 #pragma unroll
-    for (int c = 0; c < 3; ++c) s.c[c][ly][lx] = C::channel(t, c);
+    for (int c = 0; c < 3; ++c) s.c[c][ly][lx] = P::r(C::channel(t, c));
   }
   __syncthreads();
 
@@ -129,9 +139,27 @@ __global__ void __launch_bounds__(kThreads) cas_sharpen_inside_kernel(Params<C> 
 #pragma unroll
         for (int c = 0; c < 3; ++c) t[k][q][c] = s.c[c][ly0 + r + k][lx + q];
     float res[3];
-    cas::sharpen(t, p.sharp, p.mcd, res);
+    cas::sharpen<P>(t, p.sharp, p.mcd, res);
     out[static_cast<size_t>(oy0 + r) * p.w + x] = C::pack(res[0], res[1], res[2], 1.0f);
   }
+}
+
+template <class C>
+__global__ void __launch_bounds__(kThreads) cas_sharpen_inside_kernel(Params<C> p) {
+  inside_tile<C, ffx::Full>(p);
+}
+template <class C>
+__global__ void __launch_bounds__(kThreads) cas_sharpen_half_inside_kernel(Params<C> p) {
+  inside_tile<C, ffx::Half>(p);
+}
+
+// The inside kernel of precision P.
+template <class C, class P>
+auto inside_kernel() {
+  if constexpr (P::kHalf)
+    return cas_sharpen_half_inside_kernel<C>;
+  else
+    return cas_sharpen_inside_kernel<C>;
 }
 
 // The outside list: the shared copy pass, the source alpha kept.
@@ -141,18 +169,18 @@ __global__ void __launch_bounds__(copy_pass::kThreads)
   copy_pass::run<kTile, kTile, true, C>(a);
 }
 
-template <class C>
+template <class C, class P>
 int occupancy(int* outside, int* inside, int* inside_smem) {
   *inside_smem = static_cast<int>(sizeof(Smem));
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       outside, cas_sharpen_outside_kernel<C>, copy_pass::kThreads, 0);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, cas_sharpen_inside_kernel<C>,
-                                                        kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, inside_kernel<C, P>(), kThreads,
+                                                        0);
   return static_cast<int>(err);
 }
 
-template <class C>
+template <class C, class P>
 int launch(const void* img, void* out, const void* group_cls, const void* inside_tiles,
            int n_inside, const void* outside_tiles, int n_outside, int batch, int h, int w,
            int rows, int pitch, float sharp, float mcd, float tint, int tile, int window,
@@ -186,7 +214,8 @@ int launch(const void* img, void* out, const void* group_cls, const void* inside
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (n_inside > 0) {
-    cas_sharpen_inside_kernel<C><<<n_inside, kThreads, 0, s>>>(p);
+    const auto kernel = inside_kernel<C, P>();
+    kernel<<<n_inside, kThreads, 0, s>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
   return 0;
@@ -200,10 +229,17 @@ int launch(const void* img, void* out, const void* group_cls, const void* inside
 // R10G10B10A2 (cas_sharpen_occupancy10). Returns the first non-zero
 // cudaError_t.
 extern "C" int cas_sharpen_occupancy(int* outside, int* inside, int* inside_smem) {
-  return occupancy<codec::Rgba8>(outside, inside, inside_smem);
+  return occupancy<codec::Rgba8, ffx::Full>(outside, inside, inside_smem);
 }
 extern "C" int cas_sharpen_occupancy10(int* outside, int* inside, int* inside_smem) {
-  return occupancy<codec::Rgb10a2>(outside, inside, inside_smem);
+  return occupancy<codec::Rgb10a2, ffx::Full>(outside, inside, inside_smem);
+}
+// The same for the half instantiations (cas_sharpen_launch_h, _launch10_h).
+extern "C" int cas_sharpen_occupancy_h(int* outside, int* inside, int* inside_smem) {
+  return occupancy<codec::Rgba8, ffx::Half>(outside, inside, inside_smem);
+}
+extern "C" int cas_sharpen_occupancy10_h(int* outside, int* inside, int* inside_smem) {
+  return occupancy<codec::Rgb10a2, ffx::Half>(outside, inside, inside_smem);
 }
 
 // Launch on `stream`: the copy pass over outside_tiles, then the inside
@@ -218,16 +254,37 @@ extern "C" int cas_sharpen_launch(const void* img, void* out, const void* group_
                                   const void* outside_tiles, int n_outside, int batch, int h,
                                   int w, int rows, int pitch, float sharp, float mcd, float tint,
                                   int tile, int window, void* stream) {
-  return launch<codec::Rgba8>(img, out, group_cls, inside_tiles, n_inside, outside_tiles,
-                              n_outside, batch, h, w, rows, pitch, sharp, mcd, tint, tile,
-                              window, stream);
+  return launch<codec::Rgba8, ffx::Full>(img, out, group_cls, inside_tiles, n_inside,
+                                         outside_tiles, n_outside, batch, h, w, rows, pitch,
+                                         sharp, mcd, tint, tile, window, stream);
 }
 extern "C" int cas_sharpen_launch10(const void* img, void* out, const void* group_cls,
                                     const void* inside_tiles, int n_inside,
                                     const void* outside_tiles, int n_outside, int batch, int h,
                                     int w, int rows, int pitch, float sharp, float mcd,
                                     float tint, int tile, int window, void* stream) {
-  return launch<codec::Rgb10a2>(img, out, group_cls, inside_tiles, n_inside, outside_tiles,
-                                n_outside, batch, h, w, rows, pitch, sharp, mcd, tint, tile,
-                                window, stream);
+  return launch<codec::Rgb10a2, ffx::Full>(img, out, group_cls, inside_tiles, n_inside,
+                                           outside_tiles, n_outside, batch, h, w, rows, pitch,
+                                           sharp, mcd, tint, tile, window, stream);
+}
+
+// The half instantiations, the same prototype (sharp and mcd: the host's
+// bf16 values).
+extern "C" int cas_sharpen_launch_h(const void* img, void* out, const void* group_cls,
+                                    const void* inside_tiles, int n_inside,
+                                    const void* outside_tiles, int n_outside, int batch, int h,
+                                    int w, int rows, int pitch, float sharp, float mcd,
+                                    float tint, int tile, int window, void* stream) {
+  return launch<codec::Rgba8, ffx::Half>(img, out, group_cls, inside_tiles, n_inside,
+                                         outside_tiles, n_outside, batch, h, w, rows, pitch,
+                                         sharp, mcd, tint, tile, window, stream);
+}
+extern "C" int cas_sharpen_launch10_h(const void* img, void* out, const void* group_cls,
+                                      const void* inside_tiles, int n_inside,
+                                      const void* outside_tiles, int n_outside, int batch,
+                                      int h, int w, int rows, int pitch, float sharp, float mcd,
+                                      float tint, int tile, int window, void* stream) {
+  return launch<codec::Rgb10a2, ffx::Half>(img, out, group_cls, inside_tiles, n_inside,
+                                           outside_tiles, n_outside, batch, h, w, rows, pitch,
+                                           sharp, mcd, tint, tile, window, stream);
 }

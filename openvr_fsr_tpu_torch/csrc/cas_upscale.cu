@@ -62,6 +62,16 @@
 // (cas_band_outside_kernel, cas_band_inside_kernel). The whole output's take
 // PR 12's parameters and keep its registers and CTAs per SM (PERF.md, PR
 // 13).
+//
+// Half precision (the JAX kernel's precision="half", cas.py:89, 306):
+// cas_half_inside_kernel is the inside kernel's body with CasFilter in bf16
+// op by op (cas::upscale<ffx::Half>): the 12 taps and the fractions are
+// rounded to bf16 where they are read (the planes stay f32: the bilinear
+// fallback of an outside group in an inside tile reads them, f32 as in
+// JAX), the host rounds the sharpness; the outside pass is the same. One
+// instantiation per codec behind cas_upscale_launch_h and
+// cas_upscale_launch10_h; no band variant (the JAX package builds its strips
+// at full precision only).
 
 #include <cuda_runtime.h>
 
@@ -107,9 +117,10 @@ struct Smem {
   float c[3][kWin][kWin];
 };
 
-// One inside tile (the CTA's of the list); kBand: store only the band's
-// rows (a band smaller than the output).
-template <class C, bool kBand>
+// One inside tile (the CTA's of the list) in the working precision P
+// (ffx::Full, ffx::Half); kBand: store only the band's rows (a band smaller
+// than the output).
+template <class C, class P, bool kBand>
 __device__ __forceinline__ void inside_tile(const Params<C>& p, const Band& band) {
   using Texel = typename C::Texel;
   __shared__ Smem s;
@@ -144,7 +155,7 @@ __device__ __forceinline__ void inside_tile(const Params<C>& p, const Band& band
   Texel* out = p.out + static_cast<size_t>(b) * (kBand ? band.rows : p.out_h) * p.out_w;
   if (p.group_cls[(b * p.groups_y + oy0 / kGroup) * p.groups_x + ox / kGroup]) {
     const int sx = p.col_i[ox] - 1 - wx0;
-    const float ppx = p.col_f[ox];
+    const float ppx = P::r(p.col_f[ox]);
 #pragma unroll
     for (int r = 0; r < kRun; ++r) {
       const int oy = oy0 + r;
@@ -158,9 +169,10 @@ __device__ __forceinline__ void inside_tile(const Params<C>& p, const Band& band
         for (int q = 0; q < 4; ++q)
 #pragma unroll
           for (int c = 0; c < 3; ++c)
-            w[k][q][c] = ((k == 0 || k == 3) && (q == 0 || q == 3)) ? 0.0f : s.c[c][sy + k][sx + q];
+            w[k][q][c] =
+                ((k == 0 || k == 3) && (q == 0 || q == 3)) ? 0.0f : P::r(s.c[c][sy + k][sx + q]);
       float rgb[3];
-      cas::upscale(w, ppx, p.row_f[oy], p.sharp, rgb);
+      cas::upscale<P>(w, ppx, P::r(p.row_f[oy]), p.sharp, rgb);
       out[static_cast<size_t>(oy) * p.out_w + ox] = C::pack(rgb[0], rgb[1], rgb[2], 1.0f);
     }
   } else {
@@ -188,11 +200,24 @@ __device__ __forceinline__ void inside_tile(const Params<C>& p, const Band& band
 
 template <class C>
 __global__ void __launch_bounds__(kThreads) cas_inside_kernel(Params<C> p) {
-  inside_tile<C, false>(p, Band{});
+  inside_tile<C, ffx::Full, false>(p, Band{});
 }
 template <class C>
 __global__ void __launch_bounds__(kThreads) cas_band_inside_kernel(Params<C> p, Band band) {
-  inside_tile<C, true>(p, band);
+  inside_tile<C, ffx::Full, true>(p, band);
+}
+template <class C>
+__global__ void __launch_bounds__(kThreads) cas_half_inside_kernel(Params<C> p) {
+  inside_tile<C, ffx::Half, false>(p, Band{});
+}
+
+// The whole output's inside kernel of precision P.
+template <class C, class P>
+auto inside_kernel() {
+  if constexpr (P::kHalf)
+    return cas_half_inside_kernel<C>;
+  else
+    return cas_inside_kernel<C>;
 }
 
 // The outside list: the shared bilinear pass, no round trip, on every row or
@@ -208,18 +233,19 @@ __global__ void __launch_bounds__(bilinear_pass::kThreads)
   bilinear_pass::run<kTile, kTile, false, C, true>(a, band);
 }
 
-template <class C>
+template <class C, class P>
 int occupancy(int* outside, int* inside, int* inside_smem) {
   *inside_smem = static_cast<int>(sizeof(Smem));
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       outside, cas_outside_kernel<C>, bilinear_pass::kThreads, 0);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, cas_inside_kernel<C>, kThreads,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, inside_kernel<C, P>(), kThreads,
                                                         0);
   return static_cast<int>(err);
 }
 
-template <class C>
+// A launch of precision P; at P::kHalf only the whole output (no band).
+template <class C, class P>
 int launch(const void* img, void* out, const void* col_i, const void* col_f, const void* row_i,
            const void* row_f, const void* tile_x0, const void* tile_y0, const void* group_cls,
            const void* inside_tiles, int n_inside, const void* outside_tiles, int n_outside,
@@ -229,7 +255,8 @@ int launch(const void* img, void* out, const void* col_i, const void* col_f, con
   using Texel = typename C::Texel;
   if (tile != kTile || window != kWin || batch <= 0 || in_h <= 0 || in_w <= 0 || out_h <= 0 ||
       out_w <= 0 || in_w > pitch || n_inside < 0 || n_outside < 0 ||
-      !strip_is_valid(in_h, in_row_base, in_rows, out_h, out_row0, out_row1))
+      !strip_is_valid(in_h, in_row_base, in_rows, out_h, out_row0, out_row1) ||
+      (P::kHalf && (out_row0 != 0 || out_row1 != out_h)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params<C> p;
   p.img = rebase(static_cast<const Texel*>(img), in_row_base, pitch);
@@ -270,10 +297,12 @@ int launch(const void* img, void* out, const void* col_i, const void* col_f, con
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (n_inside > 0) {
-    if (band)
+    if (band) {
       cas_band_inside_kernel<C><<<n_inside, kThreads, 0, s>>>(p, rows);
-    else
-      cas_inside_kernel<C><<<n_inside, kThreads, 0, s>>>(p);
+    } else {
+      const auto kernel = inside_kernel<C, P>();
+      kernel<<<n_inside, kThreads, 0, s>>>(p);
+    }
     return static_cast<int>(cudaGetLastError());
   }
   return 0;
@@ -287,10 +316,17 @@ int launch(const void* img, void* out, const void* col_i, const void* col_f, con
 // R10G10B10A2 (cas_upscale_occupancy10). Returns the first non-zero
 // cudaError_t.
 extern "C" int cas_upscale_occupancy(int* outside, int* inside, int* inside_smem) {
-  return occupancy<codec::Rgba8>(outside, inside, inside_smem);
+  return occupancy<codec::Rgba8, ffx::Full>(outside, inside, inside_smem);
 }
 extern "C" int cas_upscale_occupancy10(int* outside, int* inside, int* inside_smem) {
-  return occupancy<codec::Rgb10a2>(outside, inside, inside_smem);
+  return occupancy<codec::Rgb10a2, ffx::Full>(outside, inside, inside_smem);
+}
+// The same for the half instantiations (cas_upscale_launch_h, _launch10_h).
+extern "C" int cas_upscale_occupancy_h(int* outside, int* inside, int* inside_smem) {
+  return occupancy<codec::Rgba8, ffx::Half>(outside, inside, inside_smem);
+}
+extern "C" int cas_upscale_occupancy10_h(int* outside, int* inside, int* inside_smem) {
+  return occupancy<codec::Rgb10a2, ffx::Half>(outside, inside, inside_smem);
 }
 
 // Launch on `stream`: the outside pass over outside_tiles, then the inside
@@ -311,10 +347,11 @@ extern "C" int cas_upscale_launch(const void* img, void* out, const void* col_i,
                                   int in_w, int in_row_base, int in_rows, int pitch, int out_h,
                                   int out_w, int out_row0, int out_row1, float sharp, float tint,
                                   int tile, int window, void* stream) {
-  return launch<codec::Rgba8>(img, out, col_i, col_f, row_i, row_f, tile_x0, tile_y0, group_cls,
-                              inside_tiles, n_inside, outside_tiles, n_outside, batch, in_h,
-                              in_w, in_row_base, in_rows, pitch, out_h, out_w, out_row0,
-                              out_row1, sharp, tint, tile, window, stream);
+  return launch<codec::Rgba8, ffx::Full>(img, out, col_i, col_f, row_i, row_f, tile_x0, tile_y0,
+                                         group_cls, inside_tiles, n_inside, outside_tiles,
+                                         n_outside, batch, in_h, in_w, in_row_base, in_rows,
+                                         pitch, out_h, out_w, out_row0, out_row1, sharp, tint,
+                                         tile, window, stream);
 }
 extern "C" int cas_upscale_launch10(const void* img, void* out, const void* col_i,
                                     const void* col_f, const void* row_i, const void* row_f,
@@ -325,8 +362,41 @@ extern "C" int cas_upscale_launch10(const void* img, void* out, const void* col_
                                     int pitch, int out_h, int out_w, int out_row0, int out_row1,
                                     float sharp, float tint, int tile, int window,
                                     void* stream) {
-  return launch<codec::Rgb10a2>(img, out, col_i, col_f, row_i, row_f, tile_x0, tile_y0,
-                                group_cls, inside_tiles, n_inside, outside_tiles, n_outside,
-                                batch, in_h, in_w, in_row_base, in_rows, pitch, out_h, out_w,
-                                out_row0, out_row1, sharp, tint, tile, window, stream);
+  return launch<codec::Rgb10a2, ffx::Full>(img, out, col_i, col_f, row_i, row_f, tile_x0,
+                                           tile_y0, group_cls, inside_tiles, n_inside,
+                                           outside_tiles, n_outside, batch, in_h, in_w,
+                                           in_row_base, in_rows, pitch, out_h, out_w, out_row0,
+                                           out_row1, sharp, tint, tile, window, stream);
+}
+
+// The half instantiations, the same prototype: sharp is the host's bf16
+// value; the whole output only (out_row0 0, out_row1 out_h).
+extern "C" int cas_upscale_launch_h(const void* img, void* out, const void* col_i,
+                                    const void* col_f, const void* row_i, const void* row_f,
+                                    const void* tile_x0, const void* tile_y0,
+                                    const void* group_cls, const void* inside_tiles, int n_inside,
+                                    const void* outside_tiles, int n_outside, int batch,
+                                    int in_h, int in_w, int in_row_base, int in_rows, int pitch,
+                                    int out_h, int out_w, int out_row0, int out_row1, float sharp,
+                                    float tint, int tile, int window, void* stream) {
+  return launch<codec::Rgba8, ffx::Half>(img, out, col_i, col_f, row_i, row_f, tile_x0, tile_y0,
+                                         group_cls, inside_tiles, n_inside, outside_tiles,
+                                         n_outside, batch, in_h, in_w, in_row_base, in_rows,
+                                         pitch, out_h, out_w, out_row0, out_row1, sharp, tint,
+                                         tile, window, stream);
+}
+extern "C" int cas_upscale_launch10_h(const void* img, void* out, const void* col_i,
+                                      const void* col_f, const void* row_i, const void* row_f,
+                                      const void* tile_x0, const void* tile_y0,
+                                      const void* group_cls, const void* inside_tiles,
+                                      int n_inside, const void* outside_tiles, int n_outside,
+                                      int batch, int in_h, int in_w, int in_row_base,
+                                      int in_rows, int pitch, int out_h, int out_w, int out_row0,
+                                      int out_row1, float sharp, float tint, int tile, int window,
+                                      void* stream) {
+  return launch<codec::Rgb10a2, ffx::Half>(img, out, col_i, col_f, row_i, row_f, tile_x0,
+                                           tile_y0, group_cls, inside_tiles, n_inside,
+                                           outside_tiles, n_outside, batch, in_h, in_w,
+                                           in_row_base, in_rows, pitch, out_h, out_w, out_row0,
+                                           out_row1, sharp, tint, tile, window, stream);
 }

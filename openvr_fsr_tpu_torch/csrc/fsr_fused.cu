@@ -75,6 +75,15 @@
 // instantiations take PR 12's parameters and keep its registers and CTAs
 // per SM: with the row test, the inside kernel compiled to 113 registers
 // instead of 117 and ran 1.5% slower at radius 0.5 (PERF.md, PR 13).
+//
+// Half precision (the JAX kernel's precision="half", fsr.py:263, 707-709,
+// 878): fsr_half_inside_kernel is the inside kernel's body with EASU and
+// RCAS in bf16 op by op (ffx::Half of ffx_math.cuh): the EASU taps and
+// fractions and RCAS's cross are rounded to bf16 where they are read, the
+// sharpness by the host; the bilinear fallback, the UNORM round trip, the
+// tint and the outside pass stay f32, as there. One instantiation per codec
+// behind fsr_fused_launch_h and fsr_fused_launch10_h; no band variant (the
+// JAX package builds its strips at full precision only).
 // Build with --fmad=false:
 // the bits then match the plain torch version
 // (kernels/fsr.py::fsr_fused_reference).
@@ -211,8 +220,8 @@ __device__ __forceinline__ void stage_tile(const Params<C>& p, const Tile& t, Sl
 // class, then the UNORM round trip; 0 outside the image (the RCAS Load()
 // rule). The window holds the edge-clamped texels of every unclamped tap
 // position, so a tap at a constant offset from the sample's floor needs no
-// clamp.
-template <class C>
+// clamp. EASU's taps and fractions are rounded to P, the bilinear's not.
+template <class C, class P>
 __device__ __forceinline__ void stage1(const Params<C>& p, const Tile& t, const Slot<C>& s,
                                        const float4 (*win)[kWin], int ly, int lx, float rgb[3]) {
   rgb[0] = rgb[1] = rgb[2] = 0.0f;
@@ -226,11 +235,12 @@ __device__ __forceinline__ void stage1(const Params<C>& p, const Tile& t, const 
 #pragma unroll
     for (int k = 0; k < 12; ++k) {
       const float4 texel = at[ffx::tap_dy(k) * kWin + ffx::tap_dx(k)];
-      tap[k][0] = texel.x;
-      tap[k][1] = texel.y;
-      tap[k][2] = texel.z;
+      tap[k][0] = P::r(texel.x);
+      tap[k][1] = P::r(texel.y);
+      tap[k][2] = P::r(texel.z);
     }
-    ffx::easu(tap, __uint_as_float(s.maps[2][lx]), __uint_as_float(s.maps[6][ly]), rgb);
+    ffx::easu<P>(tap, P::r(__uint_as_float(s.maps[2][lx])), P::r(__uint_as_float(s.maps[6][ly])),
+                 rgb);
   } else {
     const float4* at =
         &win[static_cast<int>(s.maps[5][ly]) - wy0][static_cast<int>(s.maps[1][lx]) - wx0];
@@ -244,9 +254,9 @@ __device__ __forceinline__ void stage1(const Params<C>& p, const Tile& t, const 
   for (int c = 0; c < 3; ++c) rgb[c] = C::roundtrip(rgb[c]);
 }
 
-// The inside list's body; kBand: store only the band's rows (a band smaller
-// than the output).
-template <class C, bool kBand>
+// The inside list's body in the working precision P (ffx::Full, ffx::Half);
+// kBand: store only the band's rows (a band smaller than the output).
+template <class C, class P, bool kBand>
 __device__ __forceinline__ void inside_tiles(const Params<C>& p, const Band& band) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<C>& sm = *reinterpret_cast<Smem<C>*>(smem_raw);
@@ -284,7 +294,7 @@ __device__ __forceinline__ void inside_tiles(const Params<C>& p, const Band& ban
     for (int j = tid; j < kHalo * kHalo; j += kThreads) {
       const int ly = j / kHalo, lxh = j % kHalo;
       float rgb[3];
-      stage1(p, cur, s, sm.win, ly, lxh, rgb);
+      stage1<C, P>(p, cur, s, sm.win, ly, lxh, rgb);
 #pragma unroll
       for (int c = 0; c < 3; ++c) s_q[c][ly][lxh] = rgb[c];
     }
@@ -304,15 +314,16 @@ __device__ __forceinline__ void inside_tiles(const Params<C>& p, const Band& ban
 #pragma unroll
       for (int c = 0; c < 3; ++c) e[c] = s_q[c][ly + 1][lx + 1];
       if (inside) {
-        float bt[3], dt[3], ft[3], ht[3];
+        float bt[3], dt[3], et[3], ft[3], ht[3];
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          bt[c] = s_q[c][ly][lx + 1];
-          dt[c] = s_q[c][ly + 1][lx];
-          ft[c] = s_q[c][ly + 1][lx + 2];
-          ht[c] = s_q[c][ly + 2][lx + 1];
+          bt[c] = P::r(s_q[c][ly][lx + 1]);
+          dt[c] = P::r(s_q[c][ly + 1][lx]);
+          et[c] = P::r(e[c]);
+          ft[c] = P::r(s_q[c][ly + 1][lx + 2]);
+          ht[c] = P::r(s_q[c][ly + 2][lx + 1]);
         }
-        ffx::rcas(bt, dt, e, ft, ht, p.sharp, res);
+        ffx::rcas<P>(bt, dt, et, ft, ht, p.sharp, res);
       } else {
         res[0] = e[0];
         res[1] = e[1] * p.tint;
@@ -326,12 +337,26 @@ __device__ __forceinline__ void inside_tiles(const Params<C>& p, const Band& ban
 
 template <class C>
 __global__ void __launch_bounds__(kThreads, kInsideCtasPerSm) fsr_inside_kernel(Params<C> p) {
-  inside_tiles<C, false>(p, Band{});
+  inside_tiles<C, ffx::Full, false>(p, Band{});
 }
 template <class C>
 __global__ void __launch_bounds__(kThreads, kInsideCtasPerSm)
     fsr_band_inside_kernel(Params<C> p, Band band) {
-  inside_tiles<C, true>(p, band);
+  inside_tiles<C, ffx::Full, true>(p, band);
+}
+template <class C>
+__global__ void __launch_bounds__(kThreads, kInsideCtasPerSm)
+    fsr_half_inside_kernel(Params<C> p) {
+  inside_tiles<C, ffx::Half, false>(p, Band{});
+}
+
+// The whole output's inside kernel of precision P.
+template <class C, class P>
+auto inside_kernel() {
+  if constexpr (P::kHalf)
+    return fsr_half_inside_kernel<C>;
+  else
+    return fsr_inside_kernel<C>;
 }
 
 // The outside list: the shared bilinear pass with the UNORM round trip, on
@@ -347,30 +372,30 @@ __global__ void __launch_bounds__(bilinear_pass::kThreads)
   bilinear_pass::run<kTile, kTile, true, C, true>(a, band);
 }
 
-// CTAs per SM of the (whole-output) outside and inside kernels on the
-// current device, as cudaOccupancyMaxActiveBlocksPerMultiprocessor gives
-// them, after allowing both inside kernels their dynamic shared memory (the
-// band's has at most the other's registers, so at least its CTAs). Returns
-// the first non-zero cudaError_t.
-template <class C>
+// CTAs per SM of the (whole-output) outside and inside kernels of precision
+// P on the current device, as cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// gives them, after allowing the inside kernels their dynamic shared memory
+// (at full precision also the band's, which has at most the other's
+// registers, so at least its CTAs). Returns the first non-zero cudaError_t.
+template <class C, class P>
 int occupancy(int* outside, int* inside) {
   cudaError_t err = cudaFuncSetAttribute(
-      fsr_inside_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Smem<C>));
-  if (err == cudaSuccess)
+      inside_kernel<C, P>(), cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Smem<C>));
+  if (err == cudaSuccess && !P::kHalf)
     err = cudaFuncSetAttribute(fsr_band_inside_kernel<C>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Smem<C>));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(outside, fsr_outside_kernel<C>,
                                                         bilinear_pass::kThreads, 0);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, fsr_inside_kernel<C>, kThreads,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, inside_kernel<C, P>(), kThreads,
                                                         sizeof(Smem<C>));
   return static_cast<int>(err);
 }
 
 // The inside kernel's persistent grid on the current device: SMs x the CTAs
 // of it one SM holds, queried once per device and process (0 on an error).
-template <class C>
+template <class C, class P>
 int inside_grid() {
   constexpr int kMaxDevices = 64;
   static int grid[kMaxDevices] = {0};
@@ -379,14 +404,15 @@ int inside_grid() {
   if (grid[dev] == 0) {
     int sms = 0, outside = 0, per_sm = 0;
     if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        occupancy<C>(&outside, &per_sm) != cudaSuccess)
+        occupancy<C, P>(&outside, &per_sm) != cudaSuccess)
       return 0;
     grid[dev] = sms * per_sm;
   }
   return grid[dev];
 }
 
-template <class C>
+// A launch of precision P; at P::kHalf only the whole output (no band).
+template <class C, class P>
 int launch(const void* img, void* out, const void* col_i, const void* col_f, const void* row_i,
            const void* row_f, const void* tile_x0, const void* tile_y0, const void* group_cls,
            const void* inside_tiles, int n_inside, const void* outside_tiles, int n_outside,
@@ -396,7 +422,8 @@ int launch(const void* img, void* out, const void* col_i, const void* col_f, con
   using Texel = typename C::Texel;
   if (tile != kTile || window != kWin || batch <= 0 || in_h <= 0 || out_h <= 0 || out_w <= 0 ||
       in_w > pitch || n_inside < 0 || n_outside < 0 ||
-      !strip_is_valid(in_h, in_row_base, in_rows, out_h, out_row0, out_row1))
+      !strip_is_valid(in_h, in_row_base, in_rows, out_h, out_row0, out_row1) ||
+      (P::kHalf && (out_row0 != 0 || out_row1 != out_h)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params<C> p;
   p.img = rebase(static_cast<const Texel*>(img), in_row_base, pitch);
@@ -436,15 +463,17 @@ int launch(const void* img, void* out, const void* col_i, const void* col_f, con
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (n_inside > 0) {
-    const int grid = inside_grid<C>();
+    const int grid = inside_grid<C, P>();
     if (grid <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
     p.tiles = static_cast<const int32_t*>(inside_tiles);
     p.n_tiles = n_inside;
     const int ctas = grid < n_inside ? grid : n_inside;
     if (band)
       fsr_band_inside_kernel<C><<<ctas, kThreads, sizeof(Smem<C>), s>>>(p, rows);
-    else
-      fsr_inside_kernel<C><<<ctas, kThreads, sizeof(Smem<C>), s>>>(p);
+    else {
+      const auto kernel = inside_kernel<C, P>();
+      kernel<<<ctas, kThreads, sizeof(Smem<C>), s>>>(p);
+    }
     return static_cast<int>(cudaGetLastError());
   }
   return 0;
@@ -457,11 +486,20 @@ int launch(const void* img, void* out, const void* col_i, const void* col_f, con
 // (fsr_fused_occupancy) and R10G10B10A2 (fsr_fused_occupancy10).
 extern "C" int fsr_fused_occupancy(int* outside, int* inside, int* inside_smem) {
   *inside_smem = static_cast<int>(sizeof(Smem<codec::Rgba8>));
-  return occupancy<codec::Rgba8>(outside, inside);
+  return occupancy<codec::Rgba8, ffx::Full>(outside, inside);
 }
 extern "C" int fsr_fused_occupancy10(int* outside, int* inside, int* inside_smem) {
   *inside_smem = static_cast<int>(sizeof(Smem<codec::Rgb10a2>));
-  return occupancy<codec::Rgb10a2>(outside, inside);
+  return occupancy<codec::Rgb10a2, ffx::Full>(outside, inside);
+}
+// The same for the half instantiations (fsr_fused_launch_h, _launch10_h).
+extern "C" int fsr_fused_occupancy_h(int* outside, int* inside, int* inside_smem) {
+  *inside_smem = static_cast<int>(sizeof(Smem<codec::Rgba8>));
+  return occupancy<codec::Rgba8, ffx::Half>(outside, inside);
+}
+extern "C" int fsr_fused_occupancy10_h(int* outside, int* inside, int* inside_smem) {
+  *inside_smem = static_cast<int>(sizeof(Smem<codec::Rgb10a2>));
+  return occupancy<codec::Rgb10a2, ffx::Half>(outside, inside);
 }
 
 // Launch on `stream`: the outside pass over outside_tiles, then the inside
@@ -482,10 +520,11 @@ extern "C" int fsr_fused_launch(const void* img, void* out, const void* col_i, c
                                 int in_w, int in_row_base, int in_rows, int pitch, int out_h,
                                 int out_w, int out_row0, int out_row1, float sharp, float tint,
                                 int tile, int window, void* stream) {
-  return launch<codec::Rgba8>(img, out, col_i, col_f, row_i, row_f, tile_x0, tile_y0, group_cls,
-                              inside_tiles, n_inside, outside_tiles, n_outside, batch, in_h,
-                              in_w, in_row_base, in_rows, pitch, out_h, out_w, out_row0,
-                              out_row1, sharp, tint, tile, window, stream);
+  return launch<codec::Rgba8, ffx::Full>(img, out, col_i, col_f, row_i, row_f, tile_x0, tile_y0,
+                                         group_cls, inside_tiles, n_inside, outside_tiles,
+                                         n_outside, batch, in_h, in_w, in_row_base, in_rows,
+                                         pitch, out_h, out_w, out_row0, out_row1, sharp, tint,
+                                         tile, window, stream);
 }
 extern "C" int fsr_fused_launch10(const void* img, void* out, const void* col_i,
                                   const void* col_f, const void* row_i, const void* row_f,
@@ -495,8 +534,40 @@ extern "C" int fsr_fused_launch10(const void* img, void* out, const void* col_i,
                                   int in_w, int in_row_base, int in_rows, int pitch, int out_h,
                                   int out_w, int out_row0, int out_row1, float sharp, float tint,
                                   int tile, int window, void* stream) {
-  return launch<codec::Rgb10a2>(img, out, col_i, col_f, row_i, row_f, tile_x0, tile_y0,
-                                group_cls, inside_tiles, n_inside, outside_tiles, n_outside,
-                                batch, in_h, in_w, in_row_base, in_rows, pitch, out_h, out_w,
-                                out_row0, out_row1, sharp, tint, tile, window, stream);
+  return launch<codec::Rgb10a2, ffx::Full>(img, out, col_i, col_f, row_i, row_f, tile_x0,
+                                           tile_y0, group_cls, inside_tiles, n_inside,
+                                           outside_tiles, n_outside, batch, in_h, in_w,
+                                           in_row_base, in_rows, pitch, out_h, out_w, out_row0,
+                                           out_row1, sharp, tint, tile, window, stream);
+}
+
+// The half instantiations, the same prototype: sharp is the host's bf16
+// value; the whole output only (out_row0 0, out_row1 out_h).
+extern "C" int fsr_fused_launch_h(const void* img, void* out, const void* col_i,
+                                  const void* col_f, const void* row_i, const void* row_f,
+                                  const void* tile_x0, const void* tile_y0,
+                                  const void* group_cls, const void* inside_tiles, int n_inside,
+                                  const void* outside_tiles, int n_outside, int batch, int in_h,
+                                  int in_w, int in_row_base, int in_rows, int pitch, int out_h,
+                                  int out_w, int out_row0, int out_row1, float sharp, float tint,
+                                  int tile, int window, void* stream) {
+  return launch<codec::Rgba8, ffx::Half>(img, out, col_i, col_f, row_i, row_f, tile_x0, tile_y0,
+                                         group_cls, inside_tiles, n_inside, outside_tiles,
+                                         n_outside, batch, in_h, in_w, in_row_base, in_rows,
+                                         pitch, out_h, out_w, out_row0, out_row1, sharp, tint,
+                                         tile, window, stream);
+}
+extern "C" int fsr_fused_launch10_h(const void* img, void* out, const void* col_i,
+                                    const void* col_f, const void* row_i, const void* row_f,
+                                    const void* tile_x0, const void* tile_y0,
+                                    const void* group_cls, const void* inside_tiles, int n_inside,
+                                    const void* outside_tiles, int n_outside, int batch,
+                                    int in_h, int in_w, int in_row_base, int in_rows, int pitch,
+                                    int out_h, int out_w, int out_row0, int out_row1, float sharp,
+                                    float tint, int tile, int window, void* stream) {
+  return launch<codec::Rgb10a2, ffx::Half>(img, out, col_i, col_f, row_i, row_f, tile_x0,
+                                           tile_y0, group_cls, inside_tiles, n_inside,
+                                           outside_tiles, n_outside, batch, in_h, in_w,
+                                           in_row_base, in_rows, pitch, out_h, out_w, out_row0,
+                                           out_row1, sharp, tint, tile, window, stream);
 }

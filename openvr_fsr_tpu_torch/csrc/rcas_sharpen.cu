@@ -38,8 +38,16 @@
 //     output). A run lies in one 16x16 group; a run whose group is outside
 //     the circle writes the copy (its texels from device memory), so bits
 //     never depend on the tile a group sits in.
-// Both launch on the caller's stream; an empty list launches nothing. Build
-// with --fmad=false: the bits then match the plain torch version
+// Both launch on the caller's stream; an empty list launches nothing.
+//
+// Half precision (the JAX kernel's precision="half", rcas.py:49, 105):
+// rcas_sharpen_half_inside_kernel is the inside kernel's body with RCAS in
+// bf16 op by op (ffx::Half of ffx_math.cuh): the window is decoded into
+// bf16 values (held as f32 in the same planes; they feed only RCAS) and the
+// host rounds the sharpness; the copy outside the circle is the same. One
+// instantiation per codec behind rcas_sharpen_launch_h and
+// rcas_sharpen_launch10_h.
+// Build with --fmad=false: the bits then match the plain torch version
 // (kernels/rcas.py::rcas_sharpen_reference).
 
 #include <cuda_runtime.h>
@@ -74,8 +82,10 @@ struct Smem {
   float c[3][kWin][kWin];
 };
 
-template <class C>
-__global__ void __launch_bounds__(kThreads) rcas_sharpen_inside_kernel(Params<C> p) {
+// One inside tile (the CTA's of the list) in the working precision P
+// (ffx::Full, ffx::Half).
+template <class C, class P>
+__device__ __forceinline__ void inside_tile(const Params<C>& p) {
   using Texel = typename C::Texel;
   __shared__ Smem s;
 
@@ -96,7 +106,7 @@ __global__ void __launch_bounds__(kThreads) rcas_sharpen_inside_kernel(Params<C>
                         ? img[static_cast<size_t>(y) * p.pitch + x]
                         : Texel{};
 #pragma unroll
-    for (int c = 0; c < 3; ++c) s.c[c][ly][lx] = C::channel(t, c);
+    for (int c = 0; c < 3; ++c) s.c[c][ly][lx] = P::r(C::channel(t, c));
   }
   __syncthreads();
 
@@ -133,9 +143,27 @@ __global__ void __launch_bounds__(kThreads) rcas_sharpen_inside_kernel(Params<C>
       ht[c] = s.c[c][ly + 1][lx + 1];
     }
     float res[3];
-    ffx::rcas(bt, dt, e, ft, ht, p.sharp, res);
+    ffx::rcas<P>(bt, dt, e, ft, ht, p.sharp, res);
     out[static_cast<size_t>(oy0 + r) * p.w + x] = C::pack(res[0], res[1], res[2], 1.0f);
   }
+}
+
+template <class C>
+__global__ void __launch_bounds__(kThreads) rcas_sharpen_inside_kernel(Params<C> p) {
+  inside_tile<C, ffx::Full>(p);
+}
+template <class C>
+__global__ void __launch_bounds__(kThreads) rcas_sharpen_half_inside_kernel(Params<C> p) {
+  inside_tile<C, ffx::Half>(p);
+}
+
+// The inside kernel of precision P.
+template <class C, class P>
+auto inside_kernel() {
+  if constexpr (P::kHalf)
+    return rcas_sharpen_half_inside_kernel<C>;
+  else
+    return rcas_sharpen_inside_kernel<C>;
 }
 
 // The outside list: the shared copy pass, the source alpha kept.
@@ -145,18 +173,18 @@ __global__ void __launch_bounds__(copy_pass::kThreads)
   copy_pass::run<kTile, kTile, true, C>(a);
 }
 
-template <class C>
+template <class C, class P>
 int occupancy(int* outside, int* inside, int* inside_smem) {
   *inside_smem = static_cast<int>(sizeof(Smem));
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       outside, rcas_sharpen_outside_kernel<C>, copy_pass::kThreads, 0);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, rcas_sharpen_inside_kernel<C>,
-                                                        kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, inside_kernel<C, P>(), kThreads,
+                                                        0);
   return static_cast<int>(err);
 }
 
-template <class C>
+template <class C, class P>
 int launch(const void* img, void* out, const void* group_cls, const void* inside_tiles,
            int n_inside, const void* outside_tiles, int n_outside, int batch, int h, int w,
            int rows, int pitch, float sharp, float tint, int tile, int window, void* stream) {
@@ -188,7 +216,8 @@ int launch(const void* img, void* out, const void* group_cls, const void* inside
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (n_inside > 0) {
-    rcas_sharpen_inside_kernel<C><<<n_inside, kThreads, 0, s>>>(p);
+    const auto kernel = inside_kernel<C, P>();
+    kernel<<<n_inside, kThreads, 0, s>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
   return 0;
@@ -202,10 +231,17 @@ int launch(const void* img, void* out, const void* group_cls, const void* inside
 // R10G10B10A2 (rcas_sharpen_occupancy10). Returns the first non-zero
 // cudaError_t.
 extern "C" int rcas_sharpen_occupancy(int* outside, int* inside, int* inside_smem) {
-  return occupancy<codec::Rgba8>(outside, inside, inside_smem);
+  return occupancy<codec::Rgba8, ffx::Full>(outside, inside, inside_smem);
 }
 extern "C" int rcas_sharpen_occupancy10(int* outside, int* inside, int* inside_smem) {
-  return occupancy<codec::Rgb10a2>(outside, inside, inside_smem);
+  return occupancy<codec::Rgb10a2, ffx::Full>(outside, inside, inside_smem);
+}
+// The same for the half instantiations (rcas_sharpen_launch_h, _launch10_h).
+extern "C" int rcas_sharpen_occupancy_h(int* outside, int* inside, int* inside_smem) {
+  return occupancy<codec::Rgba8, ffx::Half>(outside, inside, inside_smem);
+}
+extern "C" int rcas_sharpen_occupancy10_h(int* outside, int* inside, int* inside_smem) {
+  return occupancy<codec::Rgb10a2, ffx::Half>(outside, inside, inside_smem);
 }
 
 // Launch on `stream`: the copy pass over outside_tiles, then the inside
@@ -220,16 +256,37 @@ extern "C" int rcas_sharpen_launch(const void* img, void* out, const void* group
                                    const void* outside_tiles, int n_outside, int batch, int h,
                                    int w, int rows, int pitch, float sharp, float tint, int tile,
                                    int window, void* stream) {
-  return launch<codec::Rgba8>(img, out, group_cls, inside_tiles, n_inside, outside_tiles,
-                              n_outside, batch, h, w, rows, pitch, sharp, tint, tile, window,
-                              stream);
+  return launch<codec::Rgba8, ffx::Full>(img, out, group_cls, inside_tiles, n_inside,
+                                         outside_tiles, n_outside, batch, h, w, rows, pitch,
+                                         sharp, tint, tile, window, stream);
 }
 extern "C" int rcas_sharpen_launch10(const void* img, void* out, const void* group_cls,
                                      const void* inside_tiles, int n_inside,
                                      const void* outside_tiles, int n_outside, int batch, int h,
                                      int w, int rows, int pitch, float sharp, float tint, int tile,
                                      int window, void* stream) {
-  return launch<codec::Rgb10a2>(img, out, group_cls, inside_tiles, n_inside, outside_tiles,
-                                n_outside, batch, h, w, rows, pitch, sharp, tint, tile, window,
-                                stream);
+  return launch<codec::Rgb10a2, ffx::Full>(img, out, group_cls, inside_tiles, n_inside,
+                                           outside_tiles, n_outside, batch, h, w, rows, pitch,
+                                           sharp, tint, tile, window, stream);
+}
+
+// The half instantiations, the same prototype (sharp: the host's bf16
+// value).
+extern "C" int rcas_sharpen_launch_h(const void* img, void* out, const void* group_cls,
+                                     const void* inside_tiles, int n_inside,
+                                     const void* outside_tiles, int n_outside, int batch, int h,
+                                     int w, int rows, int pitch, float sharp, float tint,
+                                     int tile, int window, void* stream) {
+  return launch<codec::Rgba8, ffx::Half>(img, out, group_cls, inside_tiles, n_inside,
+                                         outside_tiles, n_outside, batch, h, w, rows, pitch,
+                                         sharp, tint, tile, window, stream);
+}
+extern "C" int rcas_sharpen_launch10_h(const void* img, void* out, const void* group_cls,
+                                       const void* inside_tiles, int n_inside,
+                                       const void* outside_tiles, int n_outside, int batch,
+                                       int h, int w, int rows, int pitch, float sharp,
+                                       float tint, int tile, int window, void* stream) {
+  return launch<codec::Rgb10a2, ffx::Half>(img, out, group_cls, inside_tiles, n_inside,
+                                           outside_tiles, n_outside, batch, h, w, rows, pitch,
+                                           sharp, tint, tile, window, stream);
 }

@@ -16,9 +16,11 @@ import ctypes
 import numpy as np
 import torch
 
+from ..ops.common import HALF
+
 __all__ = ["unpack", "pack", "circle_mask", "debug_tint", "tint_vector",
            "DeviceTables", "kernel_fn", "band_fn", "occupancy", "entry_name",
-           "texel_words"]
+           "entry_args", "texel_words", "working_type", "PRECISIONS"]
 
 F32 = np.float32
 _INV255 = float(F32(1.0) / F32(255.0))
@@ -109,7 +111,7 @@ class DeviceTables:
 
 
 def kernel_fn(name, batch, shape, pad_to, reference, launch, geometry=None,
-              color_bits=8):
+              color_bits=8, precision="full"):
     """The function a kernel build returns.
 
     fn(img) takes a contiguous (batch, *shape) int32 tensor of packed RGBA8
@@ -118,10 +120,10 @@ def kernel_fn(name, batch, shape, pad_to, reference, launch, geometry=None,
     (read in place). A CPU tensor runs `reference(img)`, the plain torch
     version; a CUDA tensor runs `launch(img)`, which returns (out,
     cudaError), and raises if the error is not 0. Nothing falls back.
-    fn.launches counts CUDA launches; fn.reference, fn.pad_to and
-    fn.color_bits are published, and fn.dma_geometry when `geometry`
-    (kernels/_maps.py::dma_geometry, in 4-byte words: word_geometry at 10
-    bits) is given: that dict with batch, in_h, in_w and the ring pitch hp,
+    fn.launches counts CUDA launches; fn.reference, fn.pad_to,
+    fn.color_bits and fn.precision are published, and fn.dma_geometry when
+    `geometry` (kernels/_maps.py::dma_geometry, in 4-byte words:
+    word_geometry at 10 bits) is given: that dict with batch, in_h, in_w and the ring pitch hp,
     wp added, in words, which kernels/sol.py::build_dma_floor consumes."""
     B, (H, W), pad_to = int(batch), tuple(shape), tuple(pad_to)
     ten = texel_words(color_bits) == 2
@@ -158,6 +160,7 @@ def kernel_fn(name, batch, shape, pad_to, reference, launch, geometry=None,
     fn.pad_to = pad_to
     fn.reference = reference
     fn.color_bits = color_bits
+    fn.precision = precision
     if geometry is not None:
         n = geometry.get("texel_words", 1)
         fn.dma_geometry = dict(geometry, batch=B, in_h=H, in_w=W * n,
@@ -191,23 +194,50 @@ def texel_words(color_bits):
     return 1 if color_bits == 8 else 2
 
 
-def entry_name(entry, color_bits):
-    """The C entry point of `color_bits`: `entry` (RGBA8) or entry + "10"
-    (R10G10B10A2), e.g. fsr_fused_launch10."""
-    return entry if color_bits == 8 else f"{entry}{color_bits}"
+# precision -> the working type of the inside kernels' math: "full" f32,
+# "half" bf16 (the JAX package's dt=bfloat16 cores, op by op)
+PRECISIONS = {"full": torch.float32, "half": HALF}
 
 
-def occupancy(name, color_bits=8):
+def working_type(precision):
+    """The torch dtype of `precision` ("full" f32, "half" bf16); any other
+    value raises ValueError."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision={precision!r}: 'full' (f32) or 'half' "
+                         "(bf16)")
+    return PRECISIONS[precision]
+
+
+def entry_name(entry, color_bits, precision="full"):
+    """The C entry point of `color_bits` and `precision`: `entry` (RGBA8),
+    entry + "10" (R10G10B10A2), and "_h" after either for the half
+    instantiation, e.g. fsr_fused_launch10_h."""
+    name = entry if color_bits == 8 else f"{entry}{color_bits}"
+    return name + ("_h" if precision == "half" else "")
+
+
+def entry_args(color_bits, precision="full"):
+    """The arguments of a wrapper's cached entry-point getter
+    (`_launch_fn(*entry_args(...))`): none for RGBA8 at full precision,
+    (color_bits,) for R10G10B10A2, (color_bits, "half") for the half
+    instantiations."""
+    if precision == "half":
+        return color_bits, precision
+    return () if color_bits == 8 else (color_bits,)
+
+
+def occupancy(name, color_bits=8, precision="full"):
     """{"outside": n, "inside": n, "inside_smem": bytes} of the class
     kernels `name` (fsr_fused, nis_scaler, cas_upscale, nis_sharpen,
-    cas_sharpen, rcas_sharpen) for `color_bits`: the CTAs per SM of its two
-    class kernels on the current CUDA device (cudaOccupancyMaxActiveBlocks
-    PerMultiprocessor at 256 threads) and the inside kernel's shared memory
-    per CTA, from its <name>_occupancy (or <name>_occupancy10) entry
-    point."""
+    cas_sharpen, rcas_sharpen) for `color_bits` and `precision` (the half
+    instantiations of fsr_fused, cas_upscale, cas_sharpen and
+    rcas_sharpen): the CTAs per SM of its two class kernels on the current
+    CUDA device (cudaOccupancyMaxActiveBlocksPerMultiprocessor at 256
+    threads) and the inside kernel's shared memory per CTA, from its
+    <name>_occupancy entry point (entry_name)."""
     from . import _build
     f = getattr(_build.load_library(name),
-                entry_name(f"{name}_occupancy", color_bits))
+                entry_name(f"{name}_occupancy", color_bits, precision))
     f.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
     f.restype = ctypes.c_int
     vals = [ctypes.c_int() for _ in range(3)]

@@ -25,7 +25,10 @@ Each returned function launches its CUDA kernel for a CUDA tensor and runs
 the plain torch version (cas_upscale_reference, cas_sharpen_reference) for
 a CPU tensor. Nothing falls back. build_cas_upscale's band_range builds a
 row band of the full image from an input row strip (parallel/spatial.py),
-as build_fsr_fused's does.
+as build_fsr_fused's does. precision="half" runs CasFilter in bf16 as the
+JAX kernels' precision="half" does (ops/cas.py at dt=bf16), through the
+half instantiations of the inside kernels (<kernel>_launch_h,
+_launch10_h); the fallbacks outside the circle are the same.
 """
 
 import ctypes
@@ -38,11 +41,11 @@ from ..core.foveation import TILE_FSR
 from ..ops.bilinear import bilinear_gather
 from ..ops.cas import (cas_core, cas_setup, cas_sharpen_taps,
                        cas_upscale_core, cas_upscale_gather)
-from ..ops.common import F32
+from ..ops.common import F32, lit
 from . import _build
 from ._common import (DeviceTables, band_fn, circle_mask, debug_tint,
-                      entry_name, kernel_fn, pack, texel_words, tint_vector,
-                      unpack)
+                      entry_args, entry_name, kernel_fn, pack, texel_words,
+                      tint_vector, unpack, working_type)
 from ._maps import (CAS_IN_TILE, CAS_SHARPEN_IN_TILE, FSR_TILE, SHARPEN_TILE,
                     TILE, band_layout, band_output_rows, band_strip,
                     cas_upscale_maps, dma_geometry, input_padding,
@@ -60,7 +63,8 @@ def cas_band_layout(out_w, out_h, band_rows=128, chunk=128):
                        lambda th, owp: 9 * th * owp * 4, chunk)
 
 
-def cas_upscale_reference(img, maps, sharp, tint, color_bits=8, band=None):
+def cas_upscale_reference(img, maps, sharp, tint, color_bits=8, band=None,
+                          precision="full"):
     """The CAS upscale kernel's computation in plain torch, on img's device.
 
     img: (B, H, W) or pre-padded (B, HP, WP) int32 packed RGBA8, or at
@@ -69,15 +73,17 @@ def cas_upscale_reference(img, maps, sharp, tint, color_bits=8, band=None):
     constant; tint: the out-of-circle G/B multiplier; band: (in_row_base,
     out_row0, out_row1) of a row-band build, whose img is the input strip
     from the image's row in_row_base (row indices stay the full image's,
-    rebased to the strip), default the whole image. Returns (B, OH, OW)
-    int32 packed RGBA8 with alpha 255, or (B, OH, OW, 4) uint16 with alpha
-    3, for the band's OH = out_row1 - out_row0 rows."""
+    rebased to the strip), default the whole image; precision: "full", or
+    "half" for CasFilter in bf16. Returns (B, OH, OW) int32 packed RGBA8
+    with alpha 255, or (B, OH, OW, 4) uint16 with alpha 3, for the band's
+    OH = out_row1 - out_row0 rows."""
     m = maps
     base, r0, r1 = (0, 0, m.out_h) if band is None else band
     ri, rf = m.row_i[:, r0:r1], m.row_f[:, r0:r1]
     rgb = unpack(img[:, :m.in_h - base, :m.in_w], 3, color_bits)
     taps = cas_upscale_gather(rgb, m.col_i[0], ri[0], base, m.in_h)
-    up = cas_upscale_core(taps, m.col_f[0][None, :], rf[0][:, None], sharp)
+    up = cas_upscale_core(taps, m.col_f[0][None, :], rf[0][:, None], sharp,
+                          working_type(precision)).float()
     bil = bilinear_gather(rgb, m.col_i[1], m.col_f[1], ri[1], rf[1], base,
                           m.in_h)
     inside = circle_mask(m.centres, m.out_h, m.out_w,
@@ -87,19 +93,20 @@ def cas_upscale_reference(img, maps, sharp, tint, color_bits=8, band=None):
 
 
 def cas_sharpen_reference(img, centres, sharp, max_color_delta, tint,
-                          color_bits=8):
+                          color_bits=8, precision="full"):
     """The CAS sharpen-only kernel's computation in plain torch, on img's
     device.
 
     img: (B, H, W) int32 packed RGBA8, or at color_bits 10 (B, H, W, 4)
     uint16 R10G10B10A2 (a pre-padded one is cropped by the caller);
     centres: (B, 5) int64 on img's device; sharp: the cas_setup constant;
-    tint: the out-of-circle G/B multiplier. Returns a frame of img's shape
-    and format."""
+    tint: the out-of-circle G/B multiplier; precision: "full", or "half"
+    for CasFilter in bf16. Returns a frame of img's shape and format."""
     rgba = unpack(img, 4, color_bits)
     rgb, alpha = rgba[:, :3], rgba[:, 3]
     inside = circle_mask(centres, img.shape[1], img.shape[2], TILE_FSR)
-    sharp_rgb = cas_core(cas_sharpen_taps(rgb), sharp, max_color_delta)
+    sharp_rgb = cas_core(cas_sharpen_taps(rgb), sharp, max_color_delta,
+                         working_type(precision)).float()
     out_rgb = torch.where(inside[:, None], sharp_rgb,
                           rgb * tint_vector(tint, img.device))
     return pack(out_rgb, torch.where(inside, 1.0, alpha), color_bits)
@@ -115,11 +122,12 @@ UPSCALE_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
 
 
 @functools.cache
-def _upscale_launch_fn(color_bits=8):
-    """The ctypes entry point of `color_bits` (cas_upscale_launch, or
-    cas_upscale_launch10), bound (and built) at the first launch."""
+def _upscale_launch_fn(color_bits=8, precision="full"):
+    """The ctypes entry point of `color_bits` and `precision`
+    (cas_upscale_launch, cas_upscale_launch10, or either with the suffix
+    _h), bound (and built) at the first launch."""
     f = getattr(_build.load_library("cas_upscale"),
-                entry_name("cas_upscale_launch", color_bits))
+                entry_name("cas_upscale_launch", color_bits, precision))
     f.argtypes = UPSCALE_ARGTYPES
     f.restype = ctypes.c_int
     return f
@@ -134,11 +142,12 @@ SHARPEN_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
 
 
 @functools.cache
-def _sharpen_launch_fn(color_bits=8):
-    """The ctypes entry point of `color_bits` (cas_sharpen_launch, or
-    cas_sharpen_launch10), bound (and built) at the first launch."""
+def _sharpen_launch_fn(color_bits=8, precision="full"):
+    """The ctypes entry point of `color_bits` and `precision`
+    (cas_sharpen_launch, cas_sharpen_launch10, or either with the suffix
+    _h), bound (and built) at the first launch."""
     f = getattr(_build.load_library("cas_sharpen"),
-                entry_name("cas_sharpen_launch", color_bits))
+                entry_name("cas_sharpen_launch", color_bits, precision))
     f.argtypes = SHARPEN_ARGTYPES
     f.restype = ctypes.c_int
     return f
@@ -146,7 +155,7 @@ def _sharpen_launch_fn(color_bits=8):
 
 def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
                       centres, debug=False, color_bits=8, band_rows=128,
-                      band_range=None):
+                      band_range=None, precision="full"):
     """Build the CAS scaling kernel for a fixed shape/config.
 
     Args:
@@ -160,6 +169,9 @@ def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
       color_bits: 8 (RGBA8) or 10 (R10G10B10A2 passthrough).
       band_rows, band_range: a row-band build, as build_fsr_fused's, at
         cas_band_layout's band height.
+      precision: "full" (f32) or "half" (CasFilter in bf16, op by op as
+        the JAX kernel's precision="half"); half with band_range raises
+        ValueError, as build_fsr_fused's.
 
     Returns fn(img) with the fused FSR kernel's contract: img is a
     contiguous (B, in_h, in_w) int32 tensor of packed RGBA8, or one
@@ -173,6 +185,11 @@ def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
     device; fn.dma_geometry is what the kernels load and store
     (kernels/sol.py).
     """
+    dt = working_type(precision)
+    if precision == "half" and band_range is not None:
+        raise ValueError("precision='half' has no row-band strips (the JAX "
+                         "package's parallel/spatial.py builds them at full "
+                         "precision)")
     B, H, W = int(batch), int(in_h), int(in_w)
     OH, OW = int(out_h), int(out_w)
     th, gy = cas_band_layout(OW, OH, band_rows)
@@ -188,20 +205,20 @@ def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
     def reference(img):
         """The plain torch version on img's device (any device)."""
         return cas_upscale_reference(img, tables.on(img.device), sharp, tint,
-                                     cb, (base, r0, r1))
+                                     cb, (base, r0, r1), precision)
 
     def launch(img):
         dev = img.device
         m = tables.on(dev)
         out = torch.empty((B, r1 - r0, OW, 4) if cb == 10
                           else (B, r1 - r0, OW), dtype=img.dtype, device=dev)
-        err = (_upscale_launch_fn() if cb == 8 else _upscale_launch_fn(cb))(
+        err = _upscale_launch_fn(*entry_args(cb, precision))(
             img.data_ptr(), out.data_ptr(), m.col_i.data_ptr(),
             m.col_f.data_ptr(), m.row_i.data_ptr(), m.row_f.data_ptr(),
             m.tile_x0.data_ptr(), m.tile_y0.data_ptr(),
             m.group_cls.data_ptr(), m.inside_tiles.data_ptr(), n_inside,
             m.outside_tiles.data_ptr(), n_outside, B, H, W, base,
-            img.shape[1], img.shape[2], OH, OW, r0, r1, float(sharp),
+            img.shape[1], img.shape[2], OH, OW, r0, r1, lit(sharp, dt),
             float(tint), FSR_TILE, CAS_IN_TILE,
             torch.cuda.current_stream(dev).cuda_stream)
         return out, err
@@ -223,11 +240,11 @@ def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
         quad_x=m.col_i[[1, 1]], quad_y=m.row_i[[1, 1]])
     return kernel_fn("CAS upscale", B, (H, W), input_padding(H, W),
                      reference, launch,
-                     word_geometry(geometry, texel_words(cb)), cb)
+                     word_geometry(geometry, texel_words(cb)), cb, precision)
 
 
 def build_cas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
-                      max_color_delta=1.0, color_bits=8):
+                      max_color_delta=1.0, color_bits=8, precision="full"):
     """Build the CAS sharpen-only kernel for a fixed shape/config.
 
     Args:
@@ -239,10 +256,13 @@ def build_cas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
       max_color_delta: CasSetup's maxColorDelta (ffx_cas.h:379); 1 leaves
         the sharpened colour unclamped.
       color_bits: 8 (RGBA8) or 10 (R10G10B10A2 passthrough).
+      precision: "full" (f32) or "half" (CasFilter in bf16, op by op as
+        the JAX kernel's precision="half").
 
     Returns fn(img) with the RCAS sharpen-only kernel's contract (kernels/
     rcas.py::build_rcas_sharpen).
     """
+    dt = working_type(precision)
     B, H, W = int(batch), int(h), int(w)
     tables = DeviceTables(sharpen_maps(B, H, W, centres, (TILE, TILE)))
     sharp = cas_setup(sharpness)
@@ -254,18 +274,18 @@ def build_cas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
         """The plain torch version on img's device (any device)."""
         return cas_sharpen_reference(img[:, :H, :W],
                                      tables.on(img.device).centres, sharp,
-                                     mcd, tint, cb)
+                                     mcd, tint, cb, precision)
 
     def launch(img):
         dev = img.device
         m = tables.on(dev)
         out = torch.empty((B, H, W, 4) if cb == 10 else (B, H, W),
                           dtype=img.dtype, device=dev)
-        err = (_sharpen_launch_fn() if cb == 8 else _sharpen_launch_fn(cb))(
+        err = _sharpen_launch_fn(*entry_args(cb, precision))(
             img.data_ptr(), out.data_ptr(), m.group_cls.data_ptr(),
             m.inside_tiles.data_ptr(), n_inside, m.outside_tiles.data_ptr(),
-            n_outside, B, H, W, img.shape[1], img.shape[2], float(sharp),
-            float(mcd), float(tint), SHARPEN_TILE, CAS_SHARPEN_IN_TILE,
+            n_outside, B, H, W, img.shape[1], img.shape[2], lit(sharp, dt),
+            lit(mcd, dt), float(tint), SHARPEN_TILE, CAS_SHARPEN_IN_TILE,
             torch.cuda.current_stream(dev).cuda_stream)
         return out, err
 
@@ -279,4 +299,4 @@ def build_cas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
                          sharpen_geometry(H, W, SHARPEN_TILE, 1, m.centres,
                                           "zero", staged=m.tile_inside,
                                           group=(TILE, TILE)),
-                         texel_words(cb)), cb)
+                         texel_words(cb)), cb, precision)

@@ -23,6 +23,10 @@ torch, for a CPU tensor. Nothing falls back: a CUDA tensor runs the kernels
 or raises. With band_range the build computes a row band of the full
 image from an input row strip (the JAX builder's band_range, for
 parallel/spatial.py), through the same kernels and plain version.
+precision="half" runs EASU and RCAS in bf16 as the JAX kernel's
+precision="half" does (ops/easu.py, ops/rcas.py at dt=bf16; the bilinear
+fallback, the UNORM round trip and the tint stay f32), through the half
+instantiation of the inside kernel (fsr_fused_launch_h, _launch10_h).
 """
 
 import ctypes
@@ -36,11 +40,11 @@ from ..core.foveation import TILE_FSR
 from ..ops.bilinear import bilinear_gather
 from ..ops.easu import easu_core, easu_gather
 from ..ops.rcas import rcas
-from ..ops.common import unorm_quantize
+from ..ops.common import lit, unorm_quantize
 from . import _build
 from ._common import (DeviceTables, band_fn, circle_mask, debug_tint,
-                      entry_name, kernel_fn, pack, texel_words, tint_vector,
-                      unpack)
+                      entry_args, entry_name, kernel_fn, pack, texel_words,
+                      tint_vector, unpack, working_type)
 from ._maps import (FSR_TILE, IN_TILE, TILE, band_layout, band_output_rows,
                     band_strip, dma_geometry, fsr_maps, input_padding,
                     word_geometry)
@@ -59,7 +63,7 @@ def fsr_band_layout(out_w, out_h, band_rows=128, chunk=128):
 
 
 def fsr_fused_reference(img, maps, sharpness_linear, tint, color_bits=8,
-                        band=None):
+                        band=None, precision="full"):
     """The fused kernel's computation in plain torch, on img's device.
 
     img: (B, H, W) or pre-padded (B, HP, WP) int32 packed RGBA8, or at
@@ -68,9 +72,11 @@ def fsr_fused_reference(img, maps, sharpness_linear, tint, color_bits=8,
     tint: the out-of-circle G/B multiplier (0.7 in debug mode, else 1);
     band: (in_row_base, out_row0, out_row1) of a row-band build, whose img
     is the input strip from the image's row in_row_base (row indices stay
-    the full image's, rebased to the strip), default the whole image.
-    Returns (B, OH, OW) int32 packed RGBA8, or (B, OH, OW, 4) uint16, for
-    the band's OH = out_row1 - out_row0 rows."""
+    the full image's, rebased to the strip), default the whole image;
+    precision: "full", or "half" for EASU and RCAS in bf16 (ops/easu.py,
+    ops/rcas.py at dt=bf16). Returns (B, OH, OW) int32 packed RGBA8, or
+    (B, OH, OW, 4) uint16, for the band's OH = out_row1 - out_row0 rows."""
+    dt = working_type(precision)
     m = maps
     base, r0, r1 = (0, 0, m.out_h) if band is None else band
     # stage 1 one row beyond the band, where the image has it: RCAS's taps
@@ -78,13 +84,13 @@ def fsr_fused_reference(img, maps, sharpness_linear, tint, color_bits=8,
     ri, rf = m.row_i[:, q0:q1], m.row_f[:, q0:q1]
     rgb = unpack(img[:, :m.in_h - base, :m.in_w], 3, color_bits)
     taps = easu_gather(rgb, m.col_i[0], ri[0], base, m.in_h)
-    up = easu_core(taps, m.col_f[0][None, :], rf[0][:, None])
+    up = easu_core(taps, m.col_f[0][None, :], rf[0][:, None], dt)
     bil = bilinear_gather(rgb, m.col_i[1], m.col_f[1], ri[1], rf[1], base,
                           m.in_h)
     inside = circle_mask(m.centres, m.out_h, m.out_w,
                          TILE_FSR)[:, None, q0:q1]
     q = unorm_quantize(torch.where(inside, up, bil), color_bits)
-    sharp = rcas(q, sharpness_linear)
+    sharp = rcas(q, sharpness_linear, dt)
     out = torch.where(inside, sharp, q * tint_vector(tint, img.device))
     return pack(out[..., r0 - q0:r1 - q0, :], color_bits=color_bits)
 
@@ -99,11 +105,12 @@ FUSED_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
 
 
 @functools.cache
-def _launch_fn(color_bits=8):
-    """The ctypes entry point of `color_bits` (fsr_fused_launch, or
-    fsr_fused_launch10), bound (and built) at the first launch."""
+def _launch_fn(color_bits=8, precision="full"):
+    """The ctypes entry point of `color_bits` and `precision`
+    (fsr_fused_launch, fsr_fused_launch10, or either with the suffix _h),
+    bound (and built) at the first launch."""
     f = getattr(_build.load_library("fsr_fused"),
-                entry_name("fsr_fused_launch", color_bits))
+                entry_name("fsr_fused_launch", color_bits, precision))
     f.argtypes = FUSED_ARGTYPES
     f.restype = ctypes.c_int
     return f
@@ -111,7 +118,7 @@ def _launch_fn(color_bits=8):
 
 def build_fsr_fused(batch, in_h, in_w, out_w, out_h, *, sharpness, centres,
                     debug=False, color_bits=8, band_rows=128,
-                    band_range=None):
+                    band_range=None, precision="full"):
     """Build the fused stereo FSR kernel for a fixed shape/config.
 
     Args:
@@ -131,6 +138,11 @@ def build_fsr_fused(batch, in_h, in_w, out_w, out_h, *, sharpness, centres,
         [fn.in_row_base, fn.in_row_base + fn.in_rows) as (B, fn.in_rows,
         in_w) (or in_w padded to the ring pitch) and returns the band's
         fn.out_rows rows; fn.band_range is (g0, g1), fn.dma_geometry None.
+      precision: "full" (f32, the oracle's bits) or "half": EASU and RCAS
+        in bf16, op by op as the JAX kernel's precision="half"
+        (fsr_fused_reference; the CUDA kernel's half instantiation). The
+        JAX package builds its row-band strips at full precision only, so
+        half with band_range raises ValueError.
 
     Returns fn(img): img is a contiguous (B, in_h, in_w) int32 tensor, or
     one pre-padded to the ring pitch fn.pad_to (rows read in place, no
@@ -144,6 +156,11 @@ def build_fsr_fused(batch, in_h, in_w, out_w, out_h, *, sharpness, centres,
     plain version on img's device; fn.dma_geometry is what the kernels load
     and store (kernels/sol.py).
     """
+    dt = working_type(precision)
+    if precision == "half" and band_range is not None:
+        raise ValueError("precision='half' has no row-band strips (the JAX "
+                         "package's parallel/spatial.py builds them at full "
+                         "precision)")
     B, H, W = int(batch), int(in_h), int(in_w)
     OH, OW = int(out_h), int(out_w)
     th, gy = fsr_band_layout(OW, OH, band_rows)
@@ -159,20 +176,20 @@ def build_fsr_fused(batch, in_h, in_w, out_w, out_h, *, sharpness, centres,
     def reference(img):
         """The plain torch version on img's device (any device)."""
         return fsr_fused_reference(img, tables.on(img.device), sharp, tint,
-                                   cb, (base, r0, r1))
+                                   cb, (base, r0, r1), precision)
 
     def launch(img):
         dev = img.device
         m = tables.on(dev)
         out = torch.empty((B, r1 - r0, OW, 4) if cb == 10
                           else (B, r1 - r0, OW), dtype=img.dtype, device=dev)
-        err = (_launch_fn() if cb == 8 else _launch_fn(cb))(
+        err = _launch_fn(*entry_args(cb, precision))(
             img.data_ptr(), out.data_ptr(), m.col_i.data_ptr(),
             m.col_f.data_ptr(), m.row_i.data_ptr(), m.row_f.data_ptr(),
             m.tile_x0.data_ptr(), m.tile_y0.data_ptr(),
             m.group_cls.data_ptr(), m.inside_tiles.data_ptr(), n_inside,
             m.outside_tiles.data_ptr(), n_outside, B, H, W, base,
-            img.shape[1], img.shape[2], OH, OW, r0, r1, float(sharp),
+            img.shape[1], img.shape[2], OH, OW, r0, r1, lit(sharp, dt),
             float(tint), FSR_TILE, IN_TILE,
             torch.cuda.current_stream(dev).cuda_stream)
         return out, err
@@ -193,4 +210,5 @@ def build_fsr_fused(batch, in_h, in_w, out_w, out_h, *, sharpness, centres,
         tap_y=np.clip(m.row_i[0], 0, H - 1),
         quad_x=m.col_i[[1, 1]], quad_y=m.row_i[[1, 1]])
     return kernel_fn("fused FSR", B, (H, W), input_padding(H, W), reference,
-                     launch, word_geometry(geometry, texel_words(cb)), cb)
+                     launch, word_geometry(geometry, texel_words(cb)), cb,
+                     precision)

@@ -15,7 +15,10 @@ copy pass over the 32x32 tiles outside the circle and an RCAS kernel over
 those inside, from one C entry point and the host's tile lists,
 kernels/_maps.py::sharpen_maps) for a CUDA tensor and runs
 `rcas_sharpen_reference`, the same computation in plain torch, for a CPU
-tensor. Nothing falls back.
+tensor. Nothing falls back. precision="half" runs RCAS in bf16 as the JAX
+kernel's precision="half" does (ops/rcas.py at dt=bf16), through the half
+instantiation of the inside kernel (rcas_sharpen_launch_h, _launch10_h);
+the copy outside the circle is the same.
 """
 
 import ctypes
@@ -25,10 +28,12 @@ import torch
 
 from ..core import constants as C
 from ..core.foveation import TILE_FSR
+from ..ops.common import lit
 from ..ops.rcas import rcas
 from . import _build
-from ._common import (DeviceTables, circle_mask, debug_tint, entry_name,
-                      kernel_fn, pack, texel_words, tint_vector, unpack)
+from ._common import (DeviceTables, circle_mask, debug_tint, entry_args,
+                      entry_name, kernel_fn, pack, texel_words, tint_vector,
+                      unpack, working_type)
 from ._maps import (CAS_SHARPEN_IN_TILE, SHARPEN_TILE, TILE, input_padding,
                     sharpen_geometry, sharpen_maps, word_geometry)
 
@@ -36,18 +41,18 @@ __all__ = ["build_rcas_sharpen", "rcas_sharpen_reference"]
 
 
 def rcas_sharpen_reference(img, centres, sharpness_linear, tint,
-                           color_bits=8):
+                           color_bits=8, precision="full"):
     """The kernel's computation in plain torch, on img's device.
 
     img: (B, H, W) int32 packed RGBA8, or at color_bits 10 (B, H, W, 4)
     uint16 R10G10B10A2 (H, W: the frame; a pre-padded one is cropped by the
     caller); centres: (B, 5) int64 on img's device; sharpness_linear: RCAS
-    con.x; tint: the out-of-circle G/B multiplier. Returns a frame of img's
-    shape and format."""
+    con.x; tint: the out-of-circle G/B multiplier; precision: "full", or
+    "half" for RCAS in bf16. Returns a frame of img's shape and format."""
     rgba = unpack(img, 4, color_bits)
     rgb, alpha = rgba[:, :3], rgba[:, 3]
     inside = circle_mask(centres, img.shape[1], img.shape[2], TILE_FSR)
-    sharp = rcas(rgb, sharpness_linear)
+    sharp = rcas(rgb, sharpness_linear, working_type(precision))
     out_rgb = torch.where(inside[:, None], sharp,
                           rgb * tint_vector(tint, img.device))
     return pack(out_rgb, torch.where(inside, 1.0, alpha), color_bits)
@@ -62,18 +67,19 @@ SHARPEN_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
 
 
 @functools.cache
-def _launch_fn(color_bits=8):
-    """The ctypes entry point of `color_bits` (rcas_sharpen_launch, or
-    rcas_sharpen_launch10), bound (and built) at the first launch."""
+def _launch_fn(color_bits=8, precision="full"):
+    """The ctypes entry point of `color_bits` and `precision`
+    (rcas_sharpen_launch, rcas_sharpen_launch10, or either with the suffix
+    _h), bound (and built) at the first launch."""
     f = getattr(_build.load_library("rcas_sharpen"),
-                entry_name("rcas_sharpen_launch", color_bits))
+                entry_name("rcas_sharpen_launch", color_bits, precision))
     f.argtypes = SHARPEN_ARGTYPES
     f.restype = ctypes.c_int
     return f
 
 
 def build_rcas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
-                       color_bits=8):
+                       color_bits=8, precision="full"):
     """Build the sharpen-only RCAS kernel for a fixed shape/config.
 
     Args:
@@ -83,6 +89,8 @@ def build_rcas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
         radius_sq (core.constants.centres_payload at the frame size).
       debug: out-of-radius tint 1-(0, .3, .3) (fsr_rcas.hlsl:46).
       color_bits: 8 (RGBA8) or 10 (R10G10B10A2 passthrough).
+      precision: "full" (f32) or "half" (RCAS in bf16, op by op as the JAX
+        kernel's precision="half").
 
     Returns fn(img): img is a contiguous (B, h, w) int32 tensor, or one
     pre-padded to the ring pitch fn.pad_to, of packed RGBA8 texels; the
@@ -94,6 +102,7 @@ def build_rcas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
     not empty); fn.reference(img) runs the plain version on img's device;
     fn.dma_geometry is what the kernels load and store (kernels/sol.py).
     """
+    dt = working_type(precision)
     B, H, W = int(batch), int(h), int(w)
     tables = DeviceTables(sharpen_maps(B, H, W, centres, (TILE, TILE)))
     sharp = C.fsr_rcas_con(C.rcas_stops_from_slider(sharpness))
@@ -104,17 +113,17 @@ def build_rcas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
         """The plain torch version on img's device (any device)."""
         return rcas_sharpen_reference(img[:, :H, :W],
                                       tables.on(img.device).centres, sharp,
-                                      tint, cb)
+                                      tint, cb, precision)
 
     def launch(img):
         dev = img.device
         m = tables.on(dev)
         out = torch.empty((B, H, W, 4) if cb == 10 else (B, H, W),
                           dtype=img.dtype, device=dev)
-        err = (_launch_fn() if cb == 8 else _launch_fn(cb))(
+        err = _launch_fn(*entry_args(cb, precision))(
             img.data_ptr(), out.data_ptr(), m.group_cls.data_ptr(),
             m.inside_tiles.data_ptr(), n_inside, m.outside_tiles.data_ptr(),
-            n_outside, B, H, W, img.shape[1], img.shape[2], float(sharp),
+            n_outside, B, H, W, img.shape[1], img.shape[2], lit(sharp, dt),
             float(tint), SHARPEN_TILE, CAS_SHARPEN_IN_TILE,
             torch.cuda.current_stream(dev).cuda_stream)
         return out, err
@@ -129,4 +138,4 @@ def build_rcas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
                          sharpen_geometry(H, W, SHARPEN_TILE, 1, m.centres,
                                           "zero", staged=m.tile_inside,
                                           group=(TILE, TILE)),
-                         texel_words(cb)), cb)
+                         texel_words(cb)), cb, precision)

@@ -14,8 +14,10 @@ ffx_a.h's ALerpF1 = b*c + (-a*c + a). The JAX op (openvr_fsr_tpu/ops/cas.py::
 cas_setup_sharp) computes -1 * rcp(8 + s*(5-8)), which differs by 1 ulp at
 14 of the 101 slider values 0.00..1.00.
 
-Only precision="full" is ported; keep these eager (torch.compile may
-contract mul+add).
+The cores take the working type dt: f32, or bf16 for precision="half",
+the JAX package's dt=bfloat16 (taps, fractions and constants rounded to
+bf16, every op in bf16 but the ffx_a.h approximations, which run through
+f32: via_f32). Keep these eager (torch.compile may contract mul+add).
 """
 
 import numpy as np
@@ -23,8 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from ..f32util import f32, rcp as rcp_np
-from .common import (F32, aprx_lo_rcp, aprx_lo_sqrt, aprx_med_rcp, max3,
-                     min3, sat, strip_rows)
+from .common import (F32, aprx_lo_rcp, aprx_lo_sqrt, aprx_med_rcp, lit, max3,
+                     min3, sat, strip_rows, via_f32)
 from .rcas import shift_zero
 
 __all__ = ["CAS_AREA_LIMIT", "CAS_USED_TAPS", "cas_support_scaling",
@@ -64,11 +66,15 @@ def cas_upscale_index_maps(in_n, out_n):
     return fp.astype(np.int64), (pp - fp).astype(np.float32)
 
 
-def cas_core(taps, sharp, max_color_delta):
+def cas_core(taps, sharp, max_color_delta, dt=torch.float32):
     """CasFilter noScaling (ffx_cas.h:430-552) with CAS_BETTER_DIAGONALS,
     green-coefficient weights and the maxColorDelta clamp. taps: dict
     (dy, dx) -> (..., 3, H, W), out-of-image taps already zero; sharp: the
-    cas_setup constant. Returns (..., 3, H, W)."""
+    cas_setup constant; dt: the working type. Returns (..., 3, H, W) in
+    dt."""
+    taps = {k: v.to(dt) for k, v in taps.items()}
+    lo_sqrt, lo_rcp, med_rcp = (via_f32(f, dt) for f in (
+        aprx_lo_sqrt, aprx_lo_rcp, aprx_med_rcp))
     a, b, c = taps[-1, -1], taps[-1, 0], taps[-1, 1]
     d, e, f = taps[0, -1], taps[0, 0], taps[0, 1]
     g, h, i = taps[1, -1], taps[1, 0], taps[1, 1]
@@ -78,19 +84,25 @@ def cas_core(taps, sharp, max_color_delta):
     mx = torch.maximum(max3(d, e, f), torch.maximum(b, h))
     mx = mx + torch.maximum(max3(mx, a, c), torch.maximum(g, i))
 
-    amp = aprx_lo_sqrt(sat(torch.minimum(mn, 2.0 - mx) * aprx_lo_rcp(mx)))
-    w_g = (amp * float(sharp))[..., 1:2, :, :]       # green coefficient only
-    rcp_weight = aprx_med_rcp(1.0 + 4.0 * w_g)
+    amp = lo_sqrt(sat(torch.minimum(mn, 2.0 - mx) * lo_rcp(mx)))
+    w_g = (amp * lit(sharp, dt))[..., 1:2, :, :]     # green coefficient only
+    rcp_weight = med_rcp(1.0 + 4.0 * w_g)
     pix = sat((b * w_g + d * w_g + f * w_g + h * w_g + e) * rcp_weight)
-    mcd = float(F32(max_color_delta))
+    mcd = lit(max_color_delta, dt)
     return torch.minimum(torch.maximum(pix, e - mcd), e + mcd)
 
 
-def cas_upscale_core(taps, ppx, ppy, sharp):
+def cas_upscale_core(taps, ppx, ppy, sharp, dt=torch.float32):
     """CasFilter scaling (ffx_cas.h:552-892) with the mod's upscale flags:
     no CAS_BETTER_DIAGONALS, no maxColorDelta clamp. taps: dict (dx, dy) ->
     (..., 3, h, w) over CAS_USED_TAPS; ppx / ppy: fractions broadcastable
-    against (h, w); sharp: the cas_setup constant. Returns (..., 3, h, w)."""
+    against (h, w); sharp: the cas_setup constant; dt: the working type.
+    Returns (..., 3, h, w) in dt."""
+    taps = {k: v.to(dt) for k, v in taps.items()}
+    ppx, ppy = ppx.to(dt), ppy.to(dt)
+    lo_sqrt, lo_rcp, med_rcp = (via_f32(f, dt) for f in (
+        aprx_lo_sqrt, aprx_lo_rcp, aprx_med_rcp))
+    sharp = lit(sharp, dt)
     b, c = taps[0, -1], taps[1, -1]
     e, f, g, h = taps[-1, 0], taps[0, 0], taps[1, 0], taps[2, 0]
     i, j, k, ll = taps[-1, 1], taps[0, 1], taps[1, 1], taps[2, 1]
@@ -107,8 +119,8 @@ def cas_upscale_core(taps, ppx, ppy, sharp):
     mnk, mxk = soft_g(g, j, k, ll, o)
 
     def weight(mn, mx):
-        amp = aprx_lo_sqrt(sat(torch.minimum(mn, 1.0 - mx) * aprx_lo_rcp(mx)))
-        return amp * float(sharp)
+        amp = lo_sqrt(sat(torch.minimum(mn, 1.0 - mx) * lo_rcp(mx)))
+        return amp * sharp
 
     wf, wg = weight(mnf, mxf), weight(mng, mxg)
     wj, wk = weight(mnj, mxj), weight(mnk, mxk)
@@ -118,10 +130,10 @@ def cas_upscale_core(taps, ppx, ppy, sharp):
     u = (1.0 - ppx) * ppy
     v = ppx * ppy
     thin = 1.0 / 32.0
-    s = s * aprx_lo_rcp(thin + (mxf - mnf))
-    t = t * aprx_lo_rcp(thin + (mxg - mng))
-    u = u * aprx_lo_rcp(thin + (mxj - mnj))
-    v = v * aprx_lo_rcp(thin + (mxk - mnk))
+    s = s * lo_rcp(thin + (mxf - mnf))
+    t = t * lo_rcp(thin + (mxg - mng))
+    u = u * lo_rcp(thin + (mxj - mnj))
+    v = v * lo_rcp(thin + (mxk - mnk))
 
     qbe = wf * s
     qch = wg * t
@@ -131,8 +143,8 @@ def cas_upscale_core(taps, ppx, ppy, sharp):
     qk = wg * t + wj * u + v
     qin = wj * u
     qlo = wk * v
-    rcp_w = aprx_med_rcp(2.0 * qbe + 2.0 * qch + 2.0 * qin + 2.0 * qlo
-                         + qf + qg + qj + qk)
+    rcp_w = med_rcp(2.0 * qbe + 2.0 * qch + 2.0 * qin + 2.0 * qlo
+                    + qf + qg + qj + qk)
     qbe, qch, qf, qg, qj, qk, qin, qlo, rcp_w = (
         q.unsqueeze(-3) for q in (qbe, qch, qf, qg, qj, qk, qin, qlo, rcp_w))
     return sat((b * qbe + e * qbe + c * qch + h * qch + i * qin + n * qin

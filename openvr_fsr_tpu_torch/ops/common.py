@@ -7,6 +7,15 @@ add: every f32 op rounds once, in the order written, as in the NumPy oracle.
 f32 division on the CPU and on CUDA is correctly rounded, so the JAX
 package's `rcp_ieee` correction (written for the TPU's division) has no
 counterpart here.
+
+The half-precision cores (precision="half", the JAX package's dt=bfloat16)
+keep their working values as bf16 tensors: a torch op on two bf16 tensors
+is the f32 op rounded once to bf16 (round to nearest even), which is what
+the JAX package computes op by op. Torch promotes mixed operands like JAX
+does for two arrays, but a Python float or a 0-d tensor never lifts a bf16
+tensor to f32, while the JAX package's np.float32 literals do: the cores
+name each such step with an explicit `.float()`. Their literals are dt
+values (`lit`), as the JAX package's dt(...) are.
 """
 
 import numpy as np
@@ -29,7 +38,27 @@ __all__ = [
     "hlsl_lerp",
     "unorm_quantize",
     "strip_rows",
+    "HALF",
+    "lit",
+    "via_f32",
 ]
+
+HALF = torch.bfloat16     # the working type of precision="half"
+
+
+def lit(v, dt=torch.float32):
+    """The literal v as a Python float in the core's working type dt: its
+    f32 value, rounded to bf16 for dt=bf16 (the JAX package's dt(v))."""
+    return torch.tensor(float(v), dtype=torch.float32).to(dt).item()
+
+
+def via_f32(fn, dt=torch.float32):
+    """fn evaluated on the f32 value of its operand, the result rounded to
+    dt: how the half cores run the ffx_a.h bit approximations and rcp (the
+    JAX package's `_via_f32`). For dt=f32 it is fn itself."""
+    if dt == torch.float32:
+        return fn
+    return lambda a: fn(a.float()).to(dt)
 
 
 def _bits(a):
@@ -76,7 +105,9 @@ def sat(a):
 
 
 def hlsl_min(x, y):
-    """D3D min: x < y ? x : y (NaN in x selects y)."""
+    """D3D min: x < y ? x : y (NaN in x selects y). On bf16 operands the
+    compare is exact, as the JAX half cores' f32 compares (ops/rcas.py
+    _hmin, _hmax)."""
     return torch.where(x < y, x, y)
 
 

@@ -106,8 +106,8 @@ class ShardedPipeline:
                 "per-shard eye pattern must repeat across shards "
                 f"(local batch {local_b}); got {eyes}")
         key = ("shard", local_b, h, w, str(x.dtype), pattern, pipe.config,
-               pipe.color_bits, pipe.single_eye_per_frame, pipe.hdr_mode,
-               pipe.cas_max_color_delta, tuple(self.mesh))
+               pipe.color_bits, pipe.precision, pipe.single_eye_per_frame,
+               pipe.hdr_mode, pipe.cas_max_color_delta, tuple(self.mesh))
         fn = pipe._cache.get(key)
         if fn is None:
             fn = pipe._cache[key] = pipe._build(local_b, h, w, pattern,

@@ -13,4 +13,7 @@ openvr_fsr_tpu_torch.tools.<name>` on a machine with an NVIDIA GPU:
   spatial_onchip    3 row-band strips against the single launch, bit for
                     bit, for the fused FSR and CAS upscale paths (the port
                     of tools/spatial_onchip.py)
+  half_bench        precision="half" against "full" on the five FSR and
+                    CAS paths: times, floors and quality (the port of
+                    tools/half_bench.py)
 """

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-__all__ = ["count_ops", "count_macs", "paired_slope", "rate_from_slopes",
+__all__ = ["count_ops", "count_macs", "issue_slots", "paired_slope", "rate_from_slopes",
            "path_ops", "kernel_floors", "roofline_bound", "probe_bounds",
            "fp32_instructions_per_s", "smem_bytes_per_s", "tensor_macs_per_s",
            "main", "ELEMWISE_SKIP", "SMEM_WORDS", "MAX_SPREAD"]
@@ -147,6 +147,7 @@ class _Meter(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.ops = 0
+        self.half_ops = 0     # of them, the ops on bf16 values
         self.macs = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -161,8 +162,13 @@ class _Meter(TorchDispatchMode):
                 self.macs += batch * a.shape[-2] * a.shape[-1] * b.shape[-1]
         elif name not in ELEMWISE_SKIP:
             outs = out if isinstance(out, (tuple, list)) else [out]
-            self.ops += max((o.numel() for o in outs
-                             if isinstance(o, torch.Tensor)), default=0)
+            n = max((o.numel() for o in outs if isinstance(o, torch.Tensor)),
+                    default=0)
+            self.ops += n
+            first = next((a for a in args if isinstance(a, torch.Tensor)),
+                         None)
+            if first is not None and first.dtype == torch.bfloat16:
+                self.half_ops += n
         return out
 
 
@@ -173,6 +179,18 @@ def count_ops(fn, *args):
     with _Meter() as m:
         fn(*args)
     return m.ops
+
+
+def issue_slots(fn, *args):
+    """count_ops of fn(*args) in FP32 issue slots: an op on bf16 values
+    (the half cores') counts one half, since a packed bf16x2 instruction
+    (HADD2, HMUL2, HFMA2, HMNMX2 .BF16) does two per lane and clock; the
+    NVIDIA H100 white paper gives the card's non-tensor bf16 rate as twice
+    its f32 one. A lower bound of what the half kernels, which round each
+    bf16 op from an f32 one, can issue."""
+    with _Meter() as m:
+        fn(*args)
+    return m.ops - m.half_ops / 2
 
 
 def count_macs(fn, *args):
@@ -309,11 +327,14 @@ def _nis_scaler_stages(z, cfg):
             "resolve": resolve}
 
 
-def path_ops(kernel, h=16, w=16, in_per_out=1.0, sharpness=0.9):
+def path_ops(kernel, h=16, w=16, in_per_out=1.0, sharpness=0.9,
+             precision="full"):
     """(inside, fallback): the f32 ops per output pixel of `kernel`'s path
     inside the foveation circle and of its fallback, counted over (h, w)
     planes of the plain cores. in_per_out is the input pixels per output
-    pixel (NVScaler computes its luma and edge map per input pixel)."""
+    pixel (NVScaler computes its luma and edge map per input pixel).
+    precision "half" counts the half cores of B1, B2, B5 and B6 in FP32
+    issue slots (issue_slots: a bf16 op one half)."""
     from ..core import constants as C
     from ..ops import cas as CS
     from ..ops import nis as N
@@ -322,6 +343,12 @@ def path_ops(kernel, h=16, w=16, in_per_out=1.0, sharpness=0.9):
     from ..ops.easu import TAP_ORDER, easu_core
     from ..ops.rcas import rcas_core
 
+    from ..kernels._common import working_type
+    dt = working_type(precision)
+    if dt != torch.float32 and kernel.startswith("nis"):
+        raise ValueError(f"{kernel} has no half precision yet (ROADMAP.md "
+                         "Queue A 6b)")
+    count = count_ops if dt == torch.float32 else issue_slots
     z = _planes(h, w)
     n = h * w
     sharp = float(C.fsr_rcas_con(C.rcas_stops_from_slider(sharpness)))
@@ -336,15 +363,15 @@ def path_ops(kernel, h=16, w=16, in_per_out=1.0, sharpness=0.9):
     if kernel == "fsr_fused":
         def inside():
             q = unorm_quantize(easu_core({t: z(3) for t in TAP_ORDER},
-                                         z(), z()))
-            rcas_core(q, q, q, q, q, sharp)
+                                         z(), z(), dt))
+            rcas_core(q, q, q, q, q, sharp, dt)
 
         def fallback():
             unorm_quantize(bilerp(z(3), z(3), z(3), z(3), z(), z()))
             tint()
     elif kernel == "rcas_sharpen":
         def inside():
-            rcas_core(z(3), z(3), z(3), z(3), z(3), sharp)
+            rcas_core(z(3), z(3), z(3), z(3), z(3), sharp, dt)
         fallback = tint
     elif kernel == "nis_scaler":
         cfg = _nis_config(h, w, h, w, sharpness, True)
@@ -365,16 +392,17 @@ def path_ops(kernel, h=16, w=16, in_per_out=1.0, sharpness=0.9):
     elif kernel == "cas_upscale":
         def inside():
             CS.cas_upscale_core({t: z(3) for t in CS.CAS_USED_TAPS}, z(), z(),
-                                CS.cas_setup(sharpness))
+                                CS.cas_setup(sharpness), dt)
         fallback = bilinear_fallback
     elif kernel == "cas_sharpen":
         def inside():
             CS.cas_core({(dy, dx): z(3) for dy in (-1, 0, 1)
-                         for dx in (-1, 0, 1)}, CS.cas_setup(sharpness), 1.0)
+                         for dx in (-1, 0, 1)}, CS.cas_setup(sharpness), 1.0,
+                        dt)
         fallback = tint
     else:
         raise ValueError(f"unknown kernel {kernel!r}")
-    return count_ops(inside) / n, count_ops(fallback) / n
+    return count(inside) / n, count(fallback) / n
 
 
 def nis_stage_ops(h=16, w=16, sharpness=NIS_SHARPNESS):

@@ -294,7 +294,8 @@ def test_port_never_imports_jax():
     neither jax nor the JAX package, with every submodule imported,
     the DMA floor, the rate probes, the two bench entries, the audit, the
     A/B tool, the oracle copy, capture, the parity tool, the throughput
-    tool, parallel/ and the spatial strips' tool included."""
+    tool, parallel/, the spatial strips' tool and the half tool included;
+    the half precision code needs no ml_dtypes either (torch.bfloat16)."""
     code = ("import sys, openvr_fsr_tpu_torch, openvr_fsr_tpu_torch.kernels, "
             "openvr_fsr_tpu_torch.oracle, openvr_fsr_tpu_torch.oracle.pipeline, "
             "openvr_fsr_tpu_torch.api.capture, "
@@ -312,9 +313,10 @@ def test_port_never_imports_jax():
             "openvr_fsr_tpu_torch.parallel, "
             "openvr_fsr_tpu_torch.parallel.sharding, "
             "openvr_fsr_tpu_torch.parallel.spatial, "
-            "openvr_fsr_tpu_torch.tools.spatial_onchip;"
+            "openvr_fsr_tpu_torch.tools.spatial_onchip, "
+            "openvr_fsr_tpu_torch.tools.half_bench;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'openvr_fsr_tpu'));"
+            "('jax', 'jaxlib', 'openvr_fsr_tpu', 'ml_dtypes'));"
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)

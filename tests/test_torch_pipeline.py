@@ -287,13 +287,15 @@ class TestApi:
     @pytest.mark.parametrize("kw", [dict(color_bits=10),
                                     dict(precision="half")])
     def test_unported_options_raise(self, kw):
-        """precision="half" is not ported yet and raises naming its ROADMAP
-        entry; color_bits=10 raised before the 10-bit path was ported and
-        now runs: uint16 frames in and out, within the quantized tier of
-        the JAX XLA pipeline's 10-bit values."""
+        """precision="half" on a NIS plan is not ported yet and raises
+        naming its ROADMAP entry (half FSR and CAS run:
+        tests/test_torch_half.py); color_bits=10 raised before the 10-bit
+        path was ported and now runs: uint16 frames in and out, within the
+        quantized tier of the JAX XLA pipeline's 10-bit values."""
         if "precision" in kw:
             with pytest.raises(NotImplementedError, match="ROADMAP"):
-                T.Pipeline(T.Config(**MAIN), device="cpu", **kw)
+                T.Pipeline(T.Config(**MAIN, use_nis=True), device="cpu",
+                           **kw)
             return
         frames = _stereo(48, 56).astype(np.uint16) * 4
         frames[..., 3] = np.arange(48 * 56).reshape(48, 56) % 4
