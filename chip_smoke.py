@@ -94,23 +94,27 @@ lines:
      a kernel's calls replayed from one CUDA graph, device time alone),
      and each plain version's peak device memory; fsr_fused also at rs 1.3;
      the six 10-bit kernels at radius 0.5 with their plain versions;
-  4b. half precision ([half] lines): the half instantiations of fsr_fused,
-     rcas_sharpen, cas_upscale and cas_sharpen (precision="half", bf16 op
-     by op as the JAX package's half cores): their registers, spills (none
-     allowed) and CTAs per SM at both texel formats; each against its
-     plain bf16 version at full size, 0 unequal texels: fsr_fused at radius
-     0.5, 2.0, 0.0 with debug and rs 1.3, the others at radius 0.5 and
-     2.0, on both 8-bit sets, and one 10-bit case per kernel (radius 0.5,
-     both 10-bit sets, 0 unequal values), each with its largest difference
-     from the full kernel; the five FSR and CAS plans through
-     Pipeline(precision="half") with no device (N_PAIRS packed pairs, the
-     launch counts set to 0 just before and read just after, equal to the
-     kernel and to upscale(precision="half")), the four 10-bit plans the
-     same way, and a NIS half pipeline refused at construction and after
-     toggle_nis(); tools.half_bench in this process (its vs_sol and value
-     held as bench_paths' are); each half kernel at radius 0.5 timed in
-     turns with its plain version for the kernels line, and at radius 2.0
-     in turns with its full kernel;
+  4b. half precision ([half] lines): the half instantiations of all six
+     compute kernels (precision="half", bf16 op by op as the JAX package's
+     half cores; NIS under its kernels' half policy): their registers,
+     spills (none beyond the full instantiation's) and CTAs per SM at both
+     texel formats; each against its plain bf16 version at full size, 0
+     unequal texels: fsr_fused at radius 0.5, 2.0, 0.0 with debug and rs
+     1.3, rcas_sharpen, cas_upscale and cas_sharpen at radius 0.5 and 2.0,
+     nis_scaler and nis_sharpen at radius 0.5, 2.0, 0.0 with debug, two
+     off-centre eyes at radius 0.3 and hdr_mode 1 and 2 at radius 2.0, on
+     both 8-bit sets, and one 10-bit case per kernel (radius 0.5, both
+     10-bit sets, 0 unequal values), each with its largest difference from
+     the full kernel; the seven plans through Pipeline(precision="half")
+     with no device (N_PAIRS packed pairs, the launch counts set to 0 just
+     before and read just after, equal to the kernel and to
+     upscale(precision="half")), the six 10-bit plans the same way, and
+     toggle_nis() on a live half FSR pipeline (NVScaler at half, N_PAIRS
+     calls, equal to the half nvscaler plan); tools.half_bench over the
+     seven paths in this process (its vs_sol and value held as
+     bench_paths' are); each half kernel at radius 0.5 timed in turns with
+     its plain version for the kernels line, and at radius 2.0 in turns
+     with its full kernel;
   5. the measurement path: the DMA floor (csrc/dma_floor.cu) keeps its
      TMA loads, shared reads and stores in its SASS, and equals its plain
      version word for word at the full-size geometry of each of the seven
@@ -341,11 +345,11 @@ def main():
         if build_log.exists():
             for line in build_log.read_text().splitlines()[1:]:  # nvcc output
                 log(f"[setup]   {name}: {line.strip()}")
-    for kernel, prefix in (("fsr_fused", "fsr"), ("nis_scaler", "nis"),
-                           ("cas_upscale", "cas"),
-                           ("nis_sharpen", "nis_sharpen"),
-                           ("cas_sharpen", "cas_sharpen"),
-                           ("rcas_sharpen", "rcas_sharpen")):
+    # kernel -> the prefix of its class kernels' names
+    prefixes = {"fsr_fused": "fsr", "nis_scaler": "nis", "cas_upscale": "cas",
+                "nis_sharpen": "nis_sharpen", "cas_sharpen": "cas_sharpen",
+                "rcas_sharpen": "rcas_sharpen"}
+    for kernel, prefix in prefixes.items():
         usage = sass.ptxas_usage(_build.library_path(kernel)
                                  .with_suffix(".log").read_text())
         ctas = {}
@@ -399,20 +403,20 @@ def main():
                                   debug=debug, color_bits=bits, **kw)
 
     def sharpen(radius, debug=False, hdr=0, h=OH, w=OW, b=2, eyes=CENTRES,
-                bits=8):
+                bits=8, **kw):
         cfg = C.nvsharpen_update_config(SHARPNESS, w, h, w, h, hdr_mode=hdr)
         return build_nvsharpen(b, h, w, nis_cfg=cfg,
                                centres=centres(w, h, radius, b, eyes),
-                               debug=debug, color_bits=bits)
+                               debug=debug, color_bits=bits, **kw)
 
     def scaler(radius, debug=False, hdr=0, h=H, w=W, rs=0.75, b=2,
-               eyes=CENTRES, bits=8):
+               eyes=CENTRES, bits=8, **kw):
         ow, oh = Config(render_scale=rs).output_size(w, h)
         cfg = C.nvscaler_update_config(SHARPNESS, w, h, w, h, ow, oh, ow, oh,
                                        hdr_mode=hdr)
         return build_nvscaler(b, h, w, ow, oh, nis_cfg=cfg,
                               centres=centres(ow, oh, radius, b, eyes),
-                              debug=debug, color_bits=bits)
+                              debug=debug, color_bits=bits, **kw)
 
     def cas_up(radius, debug=False, h=H, w=W, rs=0.75, b=2, eyes=CENTRES,
                bits=8, **kw):
@@ -1161,37 +1165,48 @@ def main():
         " ms per stereo pair")
 
     # ---- 4b. half precision ----------------------------------------------------
-    # the half instantiations of B1, B2, B5 and B6 (precision="half", the
-    # JAX package's bf16 cores op by op): their registers, spills and CTAs
-    # per SM, each against its plain bf16 version at full size (0 unequal
-    # texels, or values at 10 bits), the plans through the public API with
-    # the launch counts from 0, NIS half refused, tools.half_bench, and the
-    # half kernels' times for the kernels line
+    # the half instantiations of B1-B6 (precision="half", the JAX package's
+    # bf16 cores op by op, NIS under its kernels' half policy): their
+    # registers, spills and CTAs per SM, each against its plain bf16
+    # version at full size (0 unequal texels, or values at 10 bits), the
+    # plans through the public API with the launch counts from 0, toggle_nis
+    # on a half pipeline, tools.half_bench, and the half kernels' times for
+    # the kernels line
     from openvr_fsr_tpu_torch.tools import half_bench
     t_half = time.perf_counter()
     half_builds = {   # kernel -> (build, the half inside kernel's name)
         "fsr_fused": (fsr, "fsr_half_inside_kernel"),
         "rcas_sharpen": (rcas, "rcas_sharpen_half_inside_kernel"),
+        "nis_scaler": (scaler, "nis_half_inside_kernel"),
+        "nis_sharpen": (sharpen, "nis_sharpen_half_inside_kernel"),
         "cas_upscale": (cas_up, "cas_half_inside_kernel"),
         "cas_sharpen": (cas_sh, "cas_sharpen_half_inside_kernel")}
     for kernel, (build, part) in half_builds.items():
         usage = sass.ptxas_usage(_build.library_path(kernel)
                                  .with_suffix(".log").read_text())
+        full_part = f"{prefixes[kernel]}_inside_kernel"
         for bits in (8, 10):
             per_sm = occupancy(kernel, bits, "half")
             u = [v for fn, v in usage.items()
                  if part in fn and sass.of_codec(fn, bits)]
-            if len(u) != 1 or per_sm["inside"] < 1:
+            uf = [v for fn, v in usage.items()
+                  if full_part in fn and sass.of_codec(fn, bits)]
+            if len(u) != 1 or len(uf) != 1 or per_sm["inside"] < 1:
                 fail(f"{kernel} {bits}-bit half inside kernel: ptxas {u}, "
                      f"{per_sm['inside']} CTAs per SM")
-            u = u[0]
+            u, uf = u[0], uf[0]
             log(f"[half] {kernel} {bits}-bit half inside kernel: "
                 f"{u['registers']} registers, {u['spill_stores']} B spill "
                 f"stores, {u['spill_loads']} B spill loads, "
-                f"{per_sm['inside']} CTAs per SM (full: "
-                f"{occupancy(kernel, bits)['inside']})")
-            if u["spill_stores"] or u["spill_loads"]:
-                fail(f"{kernel} {bits}-bit half inside kernel spills")
+                f"{per_sm['inside']} CTAs per SM (full: {uf['registers']} "
+                f"registers, {uf['spill_stores']} B spill stores, "
+                f"{occupancy(kernel, bits)['inside']} CTAs per SM)")
+            # no spill beyond the full instantiation's (NVSharpen's 10-bit
+            # one spills 4 B)
+            if u["spill_stores"] > uf["spill_stores"] \
+                    or u["spill_loads"] > uf["spill_loads"]:
+                fail(f"{kernel} {bits}-bit half inside kernel spills more "
+                     "than the full one")
         max_lsb[f"{kernel}_half"] = 0
 
     def parity_half(kernel, label, fn, img):
@@ -1213,6 +1228,12 @@ def main():
     half_cases += [(k, dict(radius=r)) for k in ("rcas_sharpen",
                                                  "cas_upscale", "cas_sharpen")
                    for r in (0.5, 2.0)]
+    half_cases += [(k, kw) for k in ("nis_scaler", "nis_sharpen")
+                   for kw in (dict(radius=0.5), dict(radius=2.0),
+                              dict(radius=0.0, debug=True),
+                              dict(radius=0.3, eyes=OFF_CENTRE),
+                              dict(radius=2.0, hdr=1), dict(radius=2.0,
+                                                            hdr=2))]
     for kernel, kw in half_cases:
         fn = half_builds[kernel][0](precision="half", **kw)
         size = "in" if kernel in UPSCALERS and "rs" not in kw else "full"
@@ -1234,10 +1255,15 @@ def main():
         "fsr_fused": ("fsr_fused", dict(render_scale=0.75), pairs_in),
         "fsr_supersample": ("fsr_fused", dict(render_scale=1.3), pairs_full),
         "rcas_only": ("rcas_sharpen", dict(render_scale=1.0), pairs_full),
+        "nvscaler": ("nis_scaler", dict(render_scale=0.75, use_nis=True),
+                     pairs_in),
+        "nvsharpen": ("nis_sharpen", dict(render_scale=1.0, use_nis=True),
+                      pairs_full),
         "cas_upscale": ("cas_upscale", dict(render_scale=0.75, use_cas=True),
                         pairs_in),
         "cas_sharpen": ("cas_sharpen", dict(render_scale=1.0, use_cas=True),
                         pairs_full)}
+    half_firsts = {}
     for label, (kernel, kw, pairs_u8) in half_plans.items():
         cfg = Config(enabled=True, sharpness=SHARPNESS, radius=0.5, **kw)
         pipe = Pipeline(cfg, precision="half")
@@ -1259,9 +1285,10 @@ def main():
         if not torch.equal(outs[0], first) or not torch.equal(
                 first, fn(packed_pairs[0].contiguous())):
             fail(f"the half {label} plan differs from its kernel")
+        half_firsts[label] = first
         up = upscale(pairs_u8[0], render_scale=cfg.render_scale,
                      sharpness=SHARPNESS, radius=0.5, use_cas=cfg.use_cas,
-                     precision="half")
+                     use_nis=cfg.use_nis, precision="half")
         if not up.is_cuda or not torch.equal(up.view(torch.int32)[..., 0],
                                              first):
             fail(f"upscale(precision='half') differs from the {label} plan")
@@ -1272,6 +1299,10 @@ def main():
                            pairs10_in)),
             ("rcas_only", ("rcas_sharpen", dict(render_scale=1.0),
                            pairs10_full)),
+            ("nvscaler", ("nis_scaler", dict(render_scale=0.75, use_nis=True),
+                          pairs10_in)),
+            ("nvsharpen", ("nis_sharpen", dict(render_scale=1.0,
+                                               use_nis=True), pairs10_full)),
             ("cas_upscale", ("cas_upscale", dict(render_scale=0.75,
                                                  use_cas=True), pairs10_in)),
             ("cas_sharpen", ("cas_sharpen", dict(render_scale=1.0,
@@ -1291,21 +1322,26 @@ def main():
         if fn.launches != N_PAIRS or fn.color_bits != 10 \
                 or not torch.equal(first, fn(pairs10[0])):
             fail(f"the half {label} 10-bit plan did not run its half kernel")
-    for use_nis_cfg in (dict(use_nis=True), dict()):
-        pipe = None
-        try:
-            pipe = Pipeline(Config(enabled=True, render_scale=0.75,
-                                   **use_nis_cfg), precision="half")
-            pipe.process(pairs_in[0])
-            if not use_nis_cfg:
-                pipe.toggle_nis()
-                pipe.process(pairs_in[0])
-            fail("a half NIS pipeline ran")
-        except NotImplementedError as e:
-            if "Queue A 6b" not in str(e):
-                fail(f"the half NIS refusal does not name its entry: {e}")
-            log(f"[half] NIS half refused{' after toggle_nis()' if pipe else ''}"
-                f": {e}")
+    # the NIS hotkey on a live half pipeline: NVScaler at half, its half
+    # kernel launched once per call (counts from 0), equal to the half
+    # nvscaler plan
+    pipe = Pipeline(Config(enabled=True, sharpness=SHARPNESS, radius=0.5,
+                           render_scale=0.75), precision="half")
+    packed_in = pairs_in.view(torch.int32)[..., 0]
+    pipe.process(packed_in[0].contiguous())
+    pipe.toggle_nis()
+    first = pipe.process(packed_in[0].contiguous())
+    (fn,) = pipe.kernels
+    fn.launches = 0
+    for i in range(N_PAIRS):
+        pipe.process(packed_in[i].contiguous())
+    torch.cuda.synchronize()
+    launches["nis_scaler_half"] += fn.launches
+    log(f"[half] toggle_nis() on a half FSR pipeline: {N_PAIRS} NVScaler "
+        f"calls, kernel launches {fn.launches}, precision {fn.precision}")
+    if fn.launches != N_PAIRS or fn.precision != "half" \
+            or not torch.equal(first, half_firsts["nvscaler"]):
+        fail("toggle_nis() on a half pipeline did not run NVScaler at half")
 
     # times: half_bench's lines, then each half kernel at radius 0.5 in
     # turns with its plain version for the kernels line

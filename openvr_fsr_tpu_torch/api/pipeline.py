@@ -19,10 +19,8 @@ renderScale != 1, sharpen-only with the maxColorDelta clamp at renderScale 1
 (kernels/cas.py). A CUDA tensor runs the CUDA kernel, a CPU tensor its plain
 torch version. The signatures are the JAX package's (openvr_fsr_tpu/api/
 pipeline.py), plus `device`: the card unless the caller asks for the CPU
-(device="cpu"). precision="half" runs the FSR and CAS plans' math in bf16,
-op by op as the JAX package's half mode (the kernels' half
-instantiations); on a NIS plan it is not ported yet and raises
-NotImplementedError naming the ROADMAP.md entry that ports it.
+(device="cpu"). precision="half" runs every plan's math in bf16, op by op
+as the JAX package's half mode (the kernels' half instantiations).
 arm_capture saves the next processed left-eye frame (api/capture.py), as
 the reference's capture hotkey does.
 """
@@ -82,11 +80,9 @@ class Pipeline:
         uint16 frames (RGB /1023, the 2-bit alpha /3).
       backend, precision, hdr_mode, cas_max_color_delta: the JAX signature.
         backend is "auto" only. precision is "full" (f32, the oracle's
-        bits) or "half": the FSR and CAS math in bf16, each op rounded as
-        the JAX package's half mode rounds it op by op; NIS in half
-        raises NotImplementedError (ROADMAP.md Queue A 6b) at
-        construction, or at the build after toggle_nis(); other values
-        raise ValueError. hdr_mode is NIS_HDR_MODE (0 none, the mod's
+        bits) or "half": the FSR, NIS and CAS math in bf16, each op
+        rounded as the JAX package's half mode rounds it op by op; other
+        values raise ValueError. hdr_mode is NIS_HDR_MODE (0 none, the mod's
         shipped build; 1 linear; 2 PQ, NIS_Scaler.h:112-116) and
         acts on the NIS paths only; cas_max_color_delta is CasSetup's
         maxColorDelta (ffx_cas.h:379, 1 = unlimited) and clamps the CAS
@@ -113,7 +109,6 @@ class Pipeline:
         working_type(precision)
         self.precision = precision
         self.config = config or Config(enabled=True)
-        self._check_precision()
         self.hdr_mode = int(hdr_mode)
         if self.hdr_mode not in (0, 1, 2):
             raise ValueError(f"hdr_mode={hdr_mode!r}: NIS_HDR_MODE is 0 "
@@ -127,15 +122,6 @@ class Pipeline:
         self._log = get_logger()
         self._capture_armed = None   # (directory, formats) when armed
         self.last_capture_paths = []
-
-    def _check_precision(self):
-        """Half precision on a NIS plan is not ported yet: raise naming its
-        ROADMAP entry (at construction, and again at build time, after
-        toggle_nis())."""
-        if self.precision == "half" and self.config.use_nis:
-            raise NotImplementedError(
-                "precision='half' on the NIS plans (NVScaler, NVSharpen) is "
-                "not ported yet: ROADMAP.md Queue A 6b (half for NIS)")
 
     # --- reference hotkey actions (PostProcessor.cpp:659-716) ---------------
     def reset(self):
@@ -193,7 +179,6 @@ class Pipeline:
         cfg = self.config
         if cfg.use_nis and cfg.use_cas:
             raise ValueError("use_nis and use_cas are mutually exclusive")
-        self._check_precision()
         prec = self.precision
         do_up, _ = cfg.stage_plan()
         out_w, out_h = cfg.output_size(w, h)
@@ -224,12 +209,13 @@ class Pipeline:
                     "(NIS_Config.h:226) — output follows the reference anyway")
             return build_nvscaler(b, h, w, out_w, out_h, nis_cfg=nis_cfg,
                                   centres=centres, debug=cfg.debug_mode,
-                                  color_bits=cb)
+                                  color_bits=cb, precision=prec)
         if cfg.use_nis:                     # NIS at renderScale 1: NVSharpen
             nis_cfg = C.nvsharpen_update_config(cfg.sharpness, w, h, w, h,
                                                 hdr_mode=self.hdr_mode)
             return build_nvsharpen(b, h, w, nis_cfg=nis_cfg, centres=centres,
-                                   debug=cfg.debug_mode, color_bits=cb)
+                                   debug=cfg.debug_mode, color_bits=cb,
+                                   precision=prec)
         if do_up:                           # FSR: EASU + RCAS, fused
             return build_fsr_fused(b, h, w, out_w, out_h,
                                    sharpness=cfg.sharpness, centres=centres,

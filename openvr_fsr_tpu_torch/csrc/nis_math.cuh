@@ -10,6 +10,15 @@
 // with --fmad=false and without --use_fast_math (IEEE division and sqrtf).
 // Minimum and maximum are the NaN-propagating ffx::min_nan / max_nan of
 // torch.minimum / torch.maximum.
+//
+// The filters (lerp, EvalPoly6 with CalcLTI, EvalUSM with CalcLTIFast) are
+// templates on the working precision P of ffx_math.cuh (ffx::Full,
+// ffx::Half: the JAX package's dt=bfloat16 cores eval_poly6_core,
+// _calc_lti_jax, _eval_usm_jax and _calc_lti_fast_jax): P::r on every op
+// they compute in bf16, the division in IEEE f32 then P::r, their literals
+// Lit<P>'s. The caller hands them taps, coefficients and the constants of
+// the dt(cfg.k...) literals already in P (kernels/nis.py::_consts rounds
+// those on the host). getY, the edge map and the combine stay f32.
 #pragma once
 
 #include <cstdint>
@@ -36,8 +45,24 @@ static_assert(sizeof(Consts) == kNumConsts * sizeof(float), "Consts is 16 packed
 
 constexpr float kHdrCompression = 0.282842712f;  // kHDRCompressionFactor (NIS_Scaler.h:118)
 
+// The filters' literals in the working type: 1/255 and the USM profile
+// taps 0.6001, 1.2002, as f32 (Full) or rounded to bf16 (Half, the JAX
+// package's dt(1.0 / 255), dt(0.6001), dt(1.2002)).
+template <class P>
+struct Lit {
+  static constexpr float inv255 = ffx::kInv255, usm_side = 0.6001f, usm_centre = 1.2002f;
+};
+template <>
+struct Lit<ffx::Half> {
+  static constexpr float inv255 = 0.003936767578125f, usm_side = 0.6015625f,
+                         usm_centre = 1.203125f;
+};
+
 // HLSL lerp in its exact form a + s*(b-a).
-__device__ __forceinline__ float lerp(float a, float b, float s) { return a + s * (b - a); }
+template <class P = ffx::Full>
+__device__ __forceinline__ float lerp(float a, float b, float s) {
+  return P::r(a + P::r(s * P::r(b - a)));
+}
 
 // getYLinear (NIS_Scaler.h:171-174): BT.709 luma.
 __device__ __forceinline__ float get_y_linear(float r, float g, float b) {
@@ -97,56 +122,65 @@ __device__ __forceinline__ void edge_map(const float p[3][3], const Consts& k, f
 
 // The tail CalcLTI and CalcLTIFast share: contrast ratio of the two 3-tap
 // windows -> local-transient weight.
+template <class P>
 __device__ __forceinline__ float lti_tail(float a_cont, float b_cont, float eps, const Consts& k) {
-  const float ratio = ffx::max_nan(a_cont, b_cont) / (ffx::min_nan(a_cont, b_cont) + eps);
-  return (1.0f - ffx::sat((ratio - k.min_contrast_ratio) * k.ratio_norm)) * k.contrast_boost;
+  const float ratio =
+      P::r(ffx::max_nan(a_cont, b_cont) / P::r(ffx::min_nan(a_cont, b_cont) + eps));
+  return P::r(P::r(1.0f - ffx::sat(P::r(P::r(ratio - k.min_contrast_ratio) * k.ratio_norm))) *
+              k.contrast_boost);
 }
 
 // CalcLTI (NIS_Scaler.h:343-375): the 5-tap window starts at tap 0 when the
 // phase is <= 32 (lo), else at tap 1.
+template <class P>
 __device__ __forceinline__ float calc_lti(const float p6[6], bool lo, const Consts& k) {
   float y[5];
 #pragma unroll
   for (int i = 0; i < 5; ++i) y[i] = lo ? p6[i] : p6[i + 1];
-  const float a_cont = max3(y[0], y[1], y[2]) - min3(y[0], y[1], y[2]);
-  const float b_cont = max3(y[2], y[3], y[4]) - min3(y[2], y[3], y[4]);
-  return lti_tail(a_cont, b_cont, k.eps, k);
+  const float a_cont = P::r(max3(y[0], y[1], y[2]) - min3(y[0], y[1], y[2]));
+  const float b_cont = P::r(max3(y[2], y[3], y[4]) - min3(y[2], y[3], y[4]));
+  return lti_tail<P>(a_cont, b_cont, k.eps, k);
 }
 
 // EvalPoly6 (NIS_Scaler.h:399-434): px the 6 scaled lumas along one
 // direction; cs / cu the COEF_SCALE / COEF_USM rows at the phase.
+template <class P>
 __device__ __forceinline__ float eval_poly6(const float px[6], const float* cs, const float* cu,
                                             bool lo, const Consts& k) {
-  float y = cs[0] * px[0];
+  float y = P::r(cs[0] * px[0]);
 #pragma unroll
-  for (int i = 1; i < 6; ++i) y = y + cs[i] * px[i];
-  float y_usm = cu[0] * px[0];
+  for (int i = 1; i < 6; ++i) y = P::r(y + P::r(cs[i] * px[i]));
+  float y_usm = P::r(cu[0] * px[0]);
 #pragma unroll
-  for (int i = 1; i < 6; ++i) y_usm = y_usm + cu[i] * px[i];
-  const float y_scale = 1.0f - ffx::sat((y * ffx::kInv255 - k.sharp_start_y) * k.sharp_scale_y);
-  const float y_sharpness = y_scale * k.sharp_strength_scale + k.sharp_strength_min;
-  y_usm = y_usm * y_sharpness;
-  const float y_limit = (y_scale * k.sharp_limit_scale + k.sharp_limit_min) * y;
+  for (int i = 1; i < 6; ++i) y_usm = P::r(y_usm + P::r(cu[i] * px[i]));
+  const float y_scale = P::r(
+      1.0f - ffx::sat(P::r(P::r(P::r(y * Lit<P>::inv255) - k.sharp_start_y) * k.sharp_scale_y)));
+  const float y_sharpness = P::r(P::r(y_scale * k.sharp_strength_scale) + k.sharp_strength_min);
+  y_usm = P::r(y_usm * y_sharpness);
+  const float y_limit = P::r(P::r(P::r(y_scale * k.sharp_limit_scale) + k.sharp_limit_min) * y);
   y_usm = ffx::min_nan(y_limit, ffx::max_nan(-y_limit, y_usm));
-  y_usm = y_usm * calc_lti(px, lo, k);
-  return y + y_usm;
+  y_usm = P::r(y_usm * calc_lti<P>(px, lo, k));
+  return P::r(y + y_usm);
 }
 
 // CalcLTIFast (NIS_Scaler.h:790-803) on 5 unscaled lumas.
+template <class P>
 __device__ __forceinline__ float calc_lti_fast(const float y[5], const Consts& k) {
-  const float a_cont = max3(y[0], y[1], y[2]) - min3(y[0], y[1], y[2]);
-  const float b_cont = max3(y[2], y[3], y[4]) - min3(y[2], y[3], y[4]);
-  return lti_tail(a_cont, b_cont, k.eps_fast, k);
+  const float a_cont = P::r(max3(y[0], y[1], y[2]) - min3(y[0], y[1], y[2]));
+  const float b_cont = P::r(max3(y[2], y[3], y[4]) - min3(y[2], y[3], y[4]));
+  return lti_tail<P>(a_cont, b_cont, k.eps_fast, k);
 }
 
 // EvalUSM (NIS_Scaler.h:805-817): the fixed [-0.6001, 1.2002, -0.6001]
 // profile, limited and LTI-weighted.
+template <class P>
 __device__ __forceinline__ float eval_usm(const float y[5], float strength, float limit,
                                           const Consts& k) {
-  float y_usm = -0.6001f * y[1] + 1.2002f * y[2] - 0.6001f * y[3];
-  y_usm = y_usm * strength;
+  float y_usm = P::r(P::r(P::r(-Lit<P>::usm_side * y[1]) + P::r(Lit<P>::usm_centre * y[2])) -
+                     P::r(Lit<P>::usm_side * y[3]));
+  y_usm = P::r(y_usm * strength);
   y_usm = ffx::min_nan(limit, ffx::max_nan(-limit, y_usm));
-  return y_usm * calc_lti_fast(y, k);
+  return P::r(y_usm * calc_lti_fast<P>(y, k));
 }
 
 }  // namespace nis

@@ -40,8 +40,19 @@
 //     kernel loads each window word from device memory once.
 // Both launch on the caller's stream; an empty list launches nothing. The
 // TPU kernel's one-hot row gathers, concat-shift columns and DMA ring have
-// no counterpart. Build with --fmad=false: the bits then match the plain
-// torch version (kernels/nis.py::nvsharpen_reference).
+// no counterpart.
+//
+// Half precision (the JAX kernel's precision="half", nis.py:126-137,
+// 187-226): nis_sharpen_half_inside_kernel is the inside kernel's body with
+// GetDirUSM in bf16 op by op (nis::eval_usm<ffx::Half>): the staged luma is
+// rounded to bf16 once (held as f32 in the same plane), the edge map reads
+// those rounded lumas, the combine stays f32, and the linear-HDR correction
+// takes the centre's f32 luma, recomputed from its staged texel; the host
+// rounds the constants of the USM (kernels/nis.py::_consts). The copy
+// outside the circle is the same. One instantiation per codec behind
+// nis_sharpen_launch_h and nis_sharpen_launch10_h.
+// Build with --fmad=false: the bits then match the plain torch version
+// (kernels/nis.py::nvsharpen_reference).
 
 #include <cuda_runtime.h>
 
@@ -78,8 +89,10 @@ struct Smem {
   typename C::Texel t[kWin][kWin];
 };
 
-template <class C>
-__global__ void __launch_bounds__(kThreads) nis_sharpen_inside_kernel(Params<C> p) {
+// One inside block (the CTA's of the list) in the working precision P
+// (ffx::Full, ffx::Half).
+template <class C, class P>
+__device__ __forceinline__ void inside_block(const Params<C>& p) {
   using Texel = typename C::Texel;
   __shared__ Smem<C> s;
 
@@ -99,7 +112,8 @@ __global__ void __launch_bounds__(kThreads) nis_sharpen_inside_kernel(Params<C> 
     const int sx = rgba8::clampi(x0 - 2 + lx, 0, p.w - 1);
     const Texel t = img[static_cast<size_t>(sy) * p.pitch + sx];
     s.t[ly][lx] = t;
-    s.y[ly][lx] = nis::get_y(C::channel(t, 0), C::channel(t, 1), C::channel(t, 2), p.hdr_mode);
+    s.y[ly][lx] =
+        P::r(nis::get_y(C::channel(t, 0), C::channel(t, 1), C::channel(t, 2), p.hdr_mode));
   }
   __syncthreads();
 
@@ -126,21 +140,23 @@ __global__ void __launch_bounds__(kThreads) nis_sharpen_inside_kernel(Params<C> 
 
     // GetDirUSM (NIS_Scaler.h:819-871)
     const float yc = q[2][2];
-    const float scale_y = 1.0f - ffx::sat((yc - k.sharp_start_y) * k.sharp_scale_y);
-    const float strength = scale_y * k.sharp_strength_scale + k.sharp_strength_min;
-    const float limit = (scale_y * k.sharp_limit_scale + k.sharp_limit_min) * yc;
+    const float scale_y =
+        P::r(1.0f - ffx::sat(P::r(P::r(yc - k.sharp_start_y) * k.sharp_scale_y)));
+    const float strength = P::r(P::r(scale_y * k.sharp_strength_scale) + k.sharp_strength_min);
+    const float limit = P::r(P::r(P::r(scale_y * k.sharp_limit_scale) + k.sharp_limit_min) * yc);
     const float v0[5] = {q[0][2], q[1][2], q[2][2], q[3][2], q[4][2]};
     const float v90[5] = {q[2][0], q[2][1], q[2][2], q[2][3], q[2][4]};
-    const float v45[5] = {q[1][1], nis::lerp(q[2][1], q[1][2], 0.5f), q[2][2],
-                          nis::lerp(q[3][2], q[2][3], 0.5f), q[3][3]};
-    const float v135[5] = {q[3][1], nis::lerp(q[3][2], q[2][1], 0.5f), q[2][2],
-                           nis::lerp(q[2][3], q[1][2], 0.5f), q[1][3]};
-    const float d0 = nis::eval_usm(v0, strength, limit, k);
-    const float d90 = nis::eval_usm(v90, strength, limit, k);
-    const float d45 = nis::eval_usm(v45, strength, limit, k);
-    const float d135 = nis::eval_usm(v135, strength, limit, k);
+    const float v45[5] = {q[1][1], nis::lerp<P>(q[2][1], q[1][2], 0.5f), q[2][2],
+                          nis::lerp<P>(q[3][2], q[2][3], 0.5f), q[3][3]};
+    const float v135[5] = {q[3][1], nis::lerp<P>(q[3][2], q[2][1], 0.5f), q[2][2],
+                           nis::lerp<P>(q[2][3], q[1][2], 0.5f), q[1][3]};
+    const float d0 = nis::eval_usm<P>(v0, strength, limit, k);
+    const float d90 = nis::eval_usm<P>(v90, strength, limit, k);
+    const float d45 = nis::eval_usm<P>(v45, strength, limit, k);
+    const float d135 = nis::eval_usm<P>(v135, strength, limit, k);
 
-    // edge-map weights on the 3x3 centred in the 5x5
+    // edge-map weights on the 3x3 centred in the 5x5 (Half: of the rounded
+    // lumas)
     float pc[3][3], wgt[4];
 #pragma unroll
     for (int i = 0; i < 3; ++i)
@@ -154,8 +170,10 @@ __global__ void __launch_bounds__(kThreads) nis_sharpen_inside_kernel(Params<C> 
 #pragma unroll
     for (int c = 0; c < 3; ++c) rgb[c] = C::channel(t, c);
     if (p.hdr_mode == 1) {  // multiplicative luma fix (NIS_Scaler.h:951-959)
-      const float new_y = ffx::max_nan(yc + usm_y, 0.0f);
-      const float corr = (new_y * new_y + k.sharpen_hdr_eps) / (yc * yc + k.sharpen_hdr_eps);
+      // of the f32 luma: Half staged it rounded
+      const float y = P::kHalf ? nis::get_y(rgb[0], rgb[1], rgb[2], 1) : yc;
+      const float new_y = ffx::max_nan(y + usm_y, 0.0f);
+      const float corr = (new_y * new_y + k.sharpen_hdr_eps) / (y * y + k.sharpen_hdr_eps);
 #pragma unroll
       for (int c = 0; c < 3; ++c) rgb[c] = rgb[c] * corr;
     } else {  // SDR and PQ: additive (:961-963)
@@ -166,6 +184,24 @@ __global__ void __launch_bounds__(kThreads) nis_sharpen_inside_kernel(Params<C> 
   }
 }
 
+template <class C>
+__global__ void __launch_bounds__(kThreads) nis_sharpen_inside_kernel(Params<C> p) {
+  inside_block<C, ffx::Full>(p);
+}
+template <class C>
+__global__ void __launch_bounds__(kThreads) nis_sharpen_half_inside_kernel(Params<C> p) {
+  inside_block<C, ffx::Half>(p);
+}
+
+// The inside kernel of precision P.
+template <class C, class P>
+auto inside_kernel() {
+  if constexpr (P::kHalf)
+    return nis_sharpen_half_inside_kernel<C>;
+  else
+    return nis_sharpen_inside_kernel<C>;
+}
+
 // The outside list: the shared copy pass, alpha 1.
 template <class C>
 __global__ void __launch_bounds__(copy_pass::kThreads)
@@ -173,18 +209,18 @@ __global__ void __launch_bounds__(copy_pass::kThreads)
   copy_pass::run<kBlock, kBlock, false, C>(a);
 }
 
-template <class C>
+template <class C, class P>
 int occupancy(int* outside, int* inside, int* inside_smem) {
   *inside_smem = static_cast<int>(sizeof(Smem<C>));
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       outside, nis_sharpen_outside_kernel<C>, copy_pass::kThreads, 0);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, nis_sharpen_inside_kernel<C>,
-                                                        kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, inside_kernel<C, P>(), kThreads,
+                                                        0);
   return static_cast<int>(err);
 }
 
-template <class C>
+template <class C, class P>
 int launch(const void* img, void* out, const void* inside_tiles, int n_inside,
            const void* outside_tiles, int n_outside, const float* consts, int n_consts,
            int batch, int h, int w, int rows, int pitch, int hdr_mode, float tint, int tile,
@@ -216,7 +252,8 @@ int launch(const void* img, void* out, const void* inside_tiles, int n_inside,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (n_inside > 0) {
-    nis_sharpen_inside_kernel<C><<<n_inside, kThreads, 0, s>>>(p);
+    const auto kernel = inside_kernel<C, P>();
+    kernel<<<n_inside, kThreads, 0, s>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
   return 0;
@@ -230,10 +267,17 @@ int launch(const void* img, void* out, const void* inside_tiles, int n_inside,
 // R10G10B10A2 (nis_sharpen_occupancy10). Returns the first non-zero
 // cudaError_t.
 extern "C" int nis_sharpen_occupancy(int* outside, int* inside, int* inside_smem) {
-  return occupancy<codec::Rgba8>(outside, inside, inside_smem);
+  return occupancy<codec::Rgba8, ffx::Full>(outside, inside, inside_smem);
 }
 extern "C" int nis_sharpen_occupancy10(int* outside, int* inside, int* inside_smem) {
-  return occupancy<codec::Rgb10a2>(outside, inside, inside_smem);
+  return occupancy<codec::Rgb10a2, ffx::Full>(outside, inside, inside_smem);
+}
+// The same for the half instantiations (nis_sharpen_launch_h, _launch10_h).
+extern "C" int nis_sharpen_occupancy_h(int* outside, int* inside, int* inside_smem) {
+  return occupancy<codec::Rgba8, ffx::Half>(outside, inside, inside_smem);
+}
+extern "C" int nis_sharpen_occupancy10_h(int* outside, int* inside, int* inside_smem) {
+  return occupancy<codec::Rgb10a2, ffx::Half>(outside, inside, inside_smem);
 }
 
 // Launch on `stream`: the copy pass over outside_tiles, then the inside
@@ -249,16 +293,37 @@ extern "C" int nis_sharpen_launch(const void* img, void* out, const void* inside
                                   const float* consts, int n_consts, int batch, int h, int w,
                                   int rows, int pitch, int hdr_mode, float tint, int tile,
                                   int window, void* stream) {
-  return launch<codec::Rgba8>(img, out, inside_tiles, n_inside, outside_tiles, n_outside,
-                              consts, n_consts, batch, h, w, rows, pitch, hdr_mode, tint, tile,
-                              window, stream);
+  return launch<codec::Rgba8, ffx::Full>(img, out, inside_tiles, n_inside, outside_tiles,
+                                         n_outside, consts, n_consts, batch, h, w, rows, pitch,
+                                         hdr_mode, tint, tile, window, stream);
 }
 extern "C" int nis_sharpen_launch10(const void* img, void* out, const void* inside_tiles,
                                     int n_inside, const void* outside_tiles, int n_outside,
                                     const float* consts, int n_consts, int batch, int h, int w,
                                     int rows, int pitch, int hdr_mode, float tint, int tile,
                                     int window, void* stream) {
-  return launch<codec::Rgb10a2>(img, out, inside_tiles, n_inside, outside_tiles, n_outside,
-                                consts, n_consts, batch, h, w, rows, pitch, hdr_mode, tint,
-                                tile, window, stream);
+  return launch<codec::Rgb10a2, ffx::Full>(img, out, inside_tiles, n_inside, outside_tiles,
+                                           n_outside, consts, n_consts, batch, h, w, rows, pitch,
+                                           hdr_mode, tint, tile, window, stream);
+}
+
+// The half instantiations, the same prototype (consts: kernels/nis.py::
+// _consts at bf16).
+extern "C" int nis_sharpen_launch_h(const void* img, void* out, const void* inside_tiles,
+                                    int n_inside, const void* outside_tiles, int n_outside,
+                                    const float* consts, int n_consts, int batch, int h, int w,
+                                    int rows, int pitch, int hdr_mode, float tint, int tile,
+                                    int window, void* stream) {
+  return launch<codec::Rgba8, ffx::Half>(img, out, inside_tiles, n_inside, outside_tiles,
+                                         n_outside, consts, n_consts, batch, h, w, rows, pitch,
+                                         hdr_mode, tint, tile, window, stream);
+}
+extern "C" int nis_sharpen_launch10_h(const void* img, void* out, const void* inside_tiles,
+                                      int n_inside, const void* outside_tiles, int n_outside,
+                                      const float* consts, int n_consts, int batch, int h,
+                                      int w, int rows, int pitch, int hdr_mode, float tint,
+                                      int tile, int window, void* stream) {
+  return launch<codec::Rgb10a2, ffx::Half>(img, out, inside_tiles, n_inside, outside_tiles,
+                                           n_outside, consts, n_consts, batch, h, w, rows, pitch,
+                                           hdr_mode, tint, tile, window, stream);
 }

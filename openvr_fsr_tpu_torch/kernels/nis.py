@@ -24,7 +24,12 @@ tiles outside the circle and an NVScaler kernel over those inside; each
 from one C entry point)
 for a CUDA tensor and run `nvsharpen_reference` /
 `nvscaler_reference`, the same computations in plain torch (ops/nis.py),
-for a CPU tensor. Nothing falls back.
+for a CPU tensor. Nothing falls back. precision="half" runs the filters
+in bf16 as the JAX kernels' precision="half" does (ops/nis.py at dt=bf16:
+NVScaler's FilterNormal, interpolation trees and EvalPoly6, NVSharpen's
+USM), through the half instantiations of the inside kernels
+(<kernel>_launch_h, _launch10_h); the fallbacks outside the circle are the
+same.
 """
 
 import ctypes
@@ -36,10 +41,12 @@ import torch
 from ..core.constants import NisConfig
 from ..core.foveation import TILE_NIS_SCALER, TILE_NIS_SHARPEN
 from ..ops.bilinear import bilinear_fallback_fsr
+from ..ops.common import lit
 from ..ops.nis import KHDR_COMPRESSION, NIS_SCALE_FLOAT, nvscaler, nvsharpen
 from . import _build
-from ._common import (DeviceTables, circle_mask, debug_tint, entry_name,
-                      kernel_fn, pack, texel_words, tint_vector, unpack)
+from ._common import (DeviceTables, circle_mask, debug_tint, entry_args,
+                      entry_name, kernel_fn, pack, texel_words, tint_vector,
+                      unpack, working_type)
 from ._maps import (NIS_EDGE_TILE, NIS_IN_TILE, NIS_SHARPEN_IN_TILE,
                     NIS_TILE, SHARPEN_TILE, dma_geometry, input_padding,
                     nvscaler_maps, sharpen_geometry, sharpen_maps,
@@ -51,10 +58,18 @@ __all__ = ["build_nvsharpen", "build_nvscaler", "nvsharpen_reference",
 F32 = np.float32
 
 
-def _consts(cfg: NisConfig):
-    """The config constants the kernels read, as f32 in the order of
-    csrc/nis_math.cuh nis::Consts."""
-    return np.array([
+# nis::Consts entries the filters read in their working type (the JAX
+# kernels' dt(cfg.k...) literals): kMinContrastRatio through
+# kSharpLimitScale; the edge map's thresholds and the corrections' constants
+# stay f32
+_DT_CONSTS = slice(2, 13)
+
+
+def _consts(cfg: NisConfig, dt=torch.float32):
+    """The config constants the kernels read, in the order of
+    csrc/nis_math.cuh nis::Consts: f32, those of _DT_CONSTS rounded to the
+    working type dt."""
+    k = np.array([
         cfg.kDetectRatio, cfg.kDetectThres, cfg.kMinContrastRatio,
         cfg.kRatioNorm, cfg.kContrastBoost, cfg.kEps,
         cfg.kEps * F32(1.0 / 255.0),
@@ -65,17 +80,20 @@ def _consts(cfg: NisConfig):
                   dtype=np.float32),
         F32(1e-4) * KHDR_COMPRESSION * KHDR_COMPRESSION,
     ], np.float32)
+    k[_DT_CONSTS] = [lit(v, dt) for v in k[_DT_CONSTS]]
+    return k
 
 
-def nvsharpen_reference(img, centres, nis_cfg, tint, color_bits=8):
+def nvsharpen_reference(img, centres, nis_cfg, tint, color_bits=8,
+                        precision="full"):
     """NVSharpen with the foveated select in plain torch, on img's device.
 
     img: (B, H, W) int32 packed RGBA8, or at color_bits 10 (B, H, W, 4)
     uint16 R10G10B10A2; centres: (B, 5) int64 on img's device; tint: the
-    out-of-circle G/B multiplier. Returns a frame of img's shape and
-    format."""
+    out-of-circle G/B multiplier; precision: "full", or "half" for the USM
+    in bf16. Returns a frame of img's shape and format."""
     rgba = unpack(img, 4, color_bits)
-    sh = nvsharpen(rgba, nis_cfg)
+    sh = nvsharpen(rgba, nis_cfg, working_type(precision))
     inside = circle_mask(centres, img.shape[1], img.shape[2],
                          TILE_NIS_SHARPEN)
     rgb = torch.where(inside[:, None], sh[:, :3],
@@ -84,16 +102,17 @@ def nvsharpen_reference(img, centres, nis_cfg, tint, color_bits=8):
 
 
 def nvscaler_reference(img, centres, out_w, out_h, nis_cfg, tint,
-                       color_bits=8):
+                       color_bits=8, precision="full"):
     """NVScaler with the foveated DirectCopy fallback in plain torch, on
     img's device.
 
     img: (B, H, W) int32 packed RGBA8, or at color_bits 10 (B, H, W, 4)
     uint16 R10G10B10A2; centres: (B, 5) int64 on img's device; tint: the
-    out-of-circle G/B multiplier. Returns (B, out_h, out_w) int32 packed
-    RGBA8, or (B, out_h, out_w, 4) uint16."""
+    out-of-circle G/B multiplier; precision: "full", or "half" for the
+    filters in bf16. Returns (B, out_h, out_w) int32 packed RGBA8, or
+    (B, out_h, out_w, 4) uint16."""
     rgba = unpack(img, 4, color_bits)
-    up = nvscaler(rgba, out_w, out_h, nis_cfg)
+    up = nvscaler(rgba, out_w, out_h, nis_cfg, working_type(precision))
     fb = bilinear_fallback_fsr(rgba[:, :3], out_w, out_h)
     inside = circle_mask(centres, out_h, out_w, TILE_NIS_SCALER)
     rgb = torch.where(inside[:, None], up[:, :3],
@@ -111,22 +130,24 @@ SHARPEN_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
 
 
 @functools.cache
-def _sharpen_fn(color_bits=8):
-    """NVSharpen's ctypes entry point of `color_bits` (nis_sharpen_launch,
-    or nis_sharpen_launch10), bound (and built) at first launch."""
+def _sharpen_fn(color_bits=8, precision="full"):
+    """NVSharpen's ctypes entry point of `color_bits` and `precision`
+    (nis_sharpen_launch, nis_sharpen_launch10, or either with the suffix
+    _h), bound (and built) at first launch."""
     f = getattr(_build.load_library("nis_sharpen"),
-                entry_name("nis_sharpen_launch", color_bits))
+                entry_name("nis_sharpen_launch", color_bits, precision))
     f.argtypes = SHARPEN_ARGTYPES
     f.restype = ctypes.c_int
     return f
 
 
 @functools.cache
-def _scaler_fn(color_bits=8):
-    """NVScaler's ctypes entry point of `color_bits` (nis_scaler_launch, or
-    nis_scaler_launch10), bound (and built) at first launch."""
+def _scaler_fn(color_bits=8, precision="full"):
+    """NVScaler's ctypes entry point of `color_bits` and `precision`
+    (nis_scaler_launch, nis_scaler_launch10, or either with the suffix
+    _h), bound (and built) at first launch."""
     f = getattr(_build.load_library("nis_scaler"),
-                entry_name("nis_scaler_launch", color_bits))
+                entry_name("nis_scaler_launch", color_bits, precision))
     f.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int, ctypes.c_void_p]
                   + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 9
                   + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
@@ -135,7 +156,7 @@ def _scaler_fn(color_bits=8):
 
 
 def build_nvsharpen(batch, h, w, *, nis_cfg: NisConfig, centres, debug=False,
-                    color_bits=8):
+                    color_bits=8, precision="full"):
     """Build the NVSharpen kernel for a fixed shape/config.
 
     Args:
@@ -146,6 +167,8 @@ def build_nvsharpen(batch, h, w, *, nis_cfg: NisConfig, centres, debug=False,
         centres_payload at the frame size).
       debug: out-of-radius tint 1-(0, .3, .3).
       color_bits: 8 (RGBA8) or 10 (R10G10B10A2 passthrough).
+      precision: "full" (f32) or "half" (the USM in bf16, op by op as the
+        JAX kernel's precision="half"; the edge map on the rounded luma).
 
     Returns fn(img): img is a contiguous (B, h, w) int32 tensor, or one
     pre-padded to the ring pitch fn.pad_to, of packed RGBA8 texels; the
@@ -154,11 +177,13 @@ def build_nvsharpen(batch, h, w, *, nis_cfg: NisConfig, centres, debug=False,
     same way) and the result a (B, h, w, 4) uint16 one. fn.launches counts
     CUDA launches; fn.reference(img) runs the plain
     version on img's device; fn.dma_geometry is what the kernel loads and
-    stores (kernels/sol.py).
+    stores (kernels/sol.py), the same at both precisions; fn.precision is
+    published.
     """
+    dt = working_type(precision)
     B, H, W = int(batch), int(h), int(w)
     tables = DeviceTables(sharpen_maps(B, H, W, centres, TILE_NIS_SHARPEN))
-    consts = _consts(nis_cfg)
+    consts = _consts(nis_cfg, dt)
     tint = debug_tint(debug)
     cb = int(color_bits)
 
@@ -166,14 +191,14 @@ def build_nvsharpen(batch, h, w, *, nis_cfg: NisConfig, centres, debug=False,
         """The plain torch version on img's device (any device)."""
         return nvsharpen_reference(img[:, :H, :W],
                                    tables.on(img.device).centres, nis_cfg,
-                                   tint, cb)
+                                   tint, cb, precision)
 
     def launch(img):
         dev = img.device
         m = tables.on(dev)
         out = torch.empty((B, H, W, 4) if cb == 10 else (B, H, W),
                           dtype=img.dtype, device=dev)
-        err = (_sharpen_fn() if cb == 8 else _sharpen_fn(cb))(
+        err = _sharpen_fn(*entry_args(cb, precision))(
             img.data_ptr(), out.data_ptr(), m.inside_tiles.data_ptr(),
             n_inside, m.outside_tiles.data_ptr(), n_outside,
             consts.ctypes.data, consts.size, B, H, W, img.shape[1],
@@ -189,11 +214,11 @@ def build_nvsharpen(batch, h, w, *, nis_cfg: NisConfig, centres, debug=False,
                      launch, word_geometry(
                          sharpen_geometry(H, W, SHARPEN_TILE, 2, m.centres,
                                           "clamp", staged=m.tile_inside),
-                         texel_words(cb)), cb)
+                         texel_words(cb)), cb, precision)
 
 
 def build_nvscaler(batch, in_h, in_w, out_w, out_h, *, nis_cfg: NisConfig,
-                   centres, debug=False, color_bits=8):
+                   centres, debug=False, color_bits=8, precision="full"):
     """Build the NVScaler kernel for a fixed shape/config.
 
     Args:
@@ -205,6 +230,9 @@ def build_nvscaler(batch, in_h, in_w, out_w, out_h, *, nis_cfg: NisConfig,
         centres_payload at the output size).
       debug: out-of-radius tint 1-(0, .3, .3).
       color_bits: 8 (RGBA8) or 10 (R10G10B10A2 passthrough).
+      precision: "full" (f32) or "half" (FilterNormal, the interpolation
+        trees and EvalPoly6 in bf16, op by op as the JAX kernel's
+        precision="half"; the edge map on the f32 luma).
 
     Returns fn(img) as build_nvsharpen's, with a (B, out_h, out_w) result
     ((B, out_h, out_w, 4) at color_bits 10);
@@ -213,10 +241,11 @@ def build_nvscaler(batch, in_h, in_w, out_w, out_h, *, nis_cfg: NisConfig,
     list is not empty). Raises ValueError here if a tile's luma window or
     edge-map extent exceeds the kernel's shared-memory caps.
     """
+    dt = working_type(precision)
     B, H, W = int(batch), int(in_h), int(in_w)
     OH, OW = int(out_h), int(out_w)
     tables = DeviceTables(nvscaler_maps(B, H, W, OW, OH, nis_cfg, centres))
-    consts = _consts(nis_cfg)
+    consts = _consts(nis_cfg, dt)
     tint = debug_tint(debug)
     cb = int(color_bits)
 
@@ -224,14 +253,14 @@ def build_nvscaler(batch, in_h, in_w, out_w, out_h, *, nis_cfg: NisConfig,
         """The plain torch version on img's device (any device)."""
         return nvscaler_reference(img[:, :H, :W],
                                   tables.on(img.device).centres, OW, OH,
-                                  nis_cfg, tint, cb)
+                                  nis_cfg, tint, cb, precision)
 
     def launch(img):
         dev = img.device
         m = tables.on(dev)
         out = torch.empty((B, OH, OW, 4) if cb == 10 else (B, OH, OW),
                           dtype=img.dtype, device=dev)
-        err = (_scaler_fn() if cb == 8 else _scaler_fn(cb))(
+        err = _scaler_fn(*entry_args(cb, precision))(
             img.data_ptr(), out.data_ptr(), m.col_i.data_ptr(),
             m.col_f.data_ptr(), m.row_i.data_ptr(), m.row_f.data_ptr(),
             m.tile_x0.data_ptr(), m.tile_y0.data_ptr(), m.edge_x.data_ptr(),
@@ -256,4 +285,5 @@ def build_nvscaler(batch, in_h, in_w, out_w, out_h, *, nis_cfg: NisConfig,
         tap_y=np.clip(m.row_i[0], 0, H - 1),
         quad_x=m.col_i[2:4], quad_y=m.row_i[2:4])
     return kernel_fn("NVScaler", B, (H, W), input_padding(H, W), reference,
-                     launch, word_geometry(geometry, texel_words(cb)), cb)
+                     launch, word_geometry(geometry, texel_words(cb)), cb,
+                     precision)

@@ -1,7 +1,8 @@
 """precision="half" against "full" per path on one NVIDIA GPU: the port of
-the repository's tools/half_bench.py, for the five FSR and CAS paths of
+the repository's tools/half_bench.py, for the seven paths of
 tools/bench_paths.py::PATHS (fsr_fused, fsr_supersample, rcas_only,
-cas_upscale, cas_sharpen) at full size, sharpness 0.9, radius 0.5.
+nvscaler, nvsharpen, cas_upscale, cas_sharpen) at full size, sharpness
+0.9, radius 0.5.
 
     python3 -m openvr_fsr_tpu_torch.tools.half_bench [--paths a,b]
         [--iters N] [--out FILE]
@@ -15,10 +16,8 @@ the same texels (the IO of the half kernels is f32's). Then half / full of
 value and of device_ms, and half against full on the first ring frame (a
 zone plate and a noise frame) over the RGB bytes: max LSB, mean LSB and
 PSNR (dB, peak 255; inf where equal). One JSON line per path on stdout;
---out also writes them as one JSON object to FILE. The NIS paths (nvscaler,
-nvsharpen) have no half kernels yet (ROADMAP.md Queue A 6b): a path of
-theirs in --paths prints a line saying so and is not measured. With no
-CUDA GPU each line has value null and an error, and the exit code is 1.
+--out also writes them as one JSON object to FILE. With no CUDA GPU each
+line has value null and an error, and the exit code is 1.
 """
 
 import argparse
@@ -28,9 +27,6 @@ import sys
 
 from .bench_paths import PATHS, metric, path_config
 
-HALF_PATHS = ("fsr_fused", "fsr_supersample", "rcas_only", "cas_upscale",
-              "cas_sharpen")
-NIS_PATHS = tuple(p for p in PATHS if p not in HALF_PATHS)
 
 
 def quality(half, full):
@@ -54,7 +50,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="python3 -m openvr_fsr_tpu_torch.tools.half_bench",
         description=__doc__.split("\n\n")[0])
-    ap.add_argument("--paths", default=",".join(HALF_PATHS),
+    ap.add_argument("--paths", default=",".join(PATHS),
                     help="comma-separated subset of: " + ", ".join(PATHS))
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--out", default=None,
@@ -64,11 +60,6 @@ def main(argv=None):
     unknown = [n for n in names if n not in PATHS]
     if unknown:
         ap.error(f"unknown paths {unknown}")
-    for name in (n for n in names if n in NIS_PATHS):
-        print(f"[half] {name}: no half kernels on the NIS plans yet, they "
-              "wait for the next PR (ROADMAP.md Queue A 6b): not measured",
-              file=sys.stderr, flush=True)
-    names = [n for n in names if n in HALF_PATHS]
     bench.require_gpu([f"{metric(n)}_half" for n in names])
     device = bench.card()
     results = {}

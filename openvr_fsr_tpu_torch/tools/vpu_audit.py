@@ -257,16 +257,18 @@ def _nis_input_pixel(z, cfg):
     return N._edge_weights(*N._edge_grads(p), cfg)
 
 
-def _nis_scaler_stages(z, cfg):
+def _nis_scaler_stages(z, cfg, dt=torch.float32):
     """NVScaler's per-output-pixel math (NIS_Scaler.h:589-770, ops/nis.py::
     nvscaler, csrc/nis_scaler.cu:237-367) on planes, stage by stage:
-    {stage: closure}."""
+    {stage: closure}. dt: the working type of the filters (FilterNormal,
+    the interpolation trees, EvalPoly6); the fractions, the diagonal
+    phases, the edge weights and the combine stay f32."""
     from ..ops import nis as N
     from ..ops.bilinear import bilerp
     from ..ops.common import hlsl_lerp
-    p = [[z() for _ in range(6)] for _ in range(6)]
+    p = [[z().to(dt) for _ in range(6)] for _ in range(6)]
     fx, fy = z(), z()
-    coef = [z() for _ in range(6)]
+    coef = [z().to(dt) for _ in range(6)]
 
     def normal():
         pixel_n = None
@@ -281,9 +283,10 @@ def _nis_scaler_stages(z, cfg):
     def f0f90():
         for axis, f in ((0, fx), (1, fy)):
             lo = f <= 0.5
+            f = f.to(dt)
             taps = [hlsl_lerp(p[i][2], p[i][3], f) if axis == 0
                     else hlsl_lerp(p[2][i], p[3][i], f) for i in range(6)]
-            N.eval_poly6_core(taps, coef, coef, lo, cfg)
+            N.eval_poly6_core(taps, coef, coef, lo, cfg, dt)
 
     def diag():
         for b, pairs, tails, frac in (
@@ -298,13 +301,13 @@ def _nis_scaler_stages(z, cfg):
                   ((2, 3), (3, 4), (1, 2)), ((1, 4), (2, 5), (0, 3))),
                  1.0 + (fx - fy))):
             hi = b >= 0.5
-            t = N._diag_taps(p, pairs, tails, b,
-                             torch.where(hi, b - 0.5, 0.5 - b), hi)
+            t = N._diag_taps(p, pairs, tails, b.to(dt),
+                             torch.where(hi, b - 0.5, 0.5 - b).to(dt), hi)
             wrap = frac >= 1.0
             frac = torch.where(wrap, frac - 1.0, frac)
             lo = frac * 64.0 <= 32.0
             N.eval_poly6_core([torch.where(wrap, t[i + 1], t[i])
-                               for i in range(6)], coef, coef, lo, cfg)
+                               for i in range(6)], coef, coef, lo, cfg, dt)
 
     def edge():
         ws = []
@@ -333,8 +336,9 @@ def path_ops(kernel, h=16, w=16, in_per_out=1.0, sharpness=0.9,
     inside the foveation circle and of its fallback, counted over (h, w)
     planes of the plain cores. in_per_out is the input pixels per output
     pixel (NVScaler computes its luma and edge map per input pixel).
-    precision "half" counts the half cores of B1, B2, B5 and B6 in FP32
-    issue slots (issue_slots: a bf16 op one half)."""
+    precision "half" counts the half cores of B1-B6 in FP32 issue slots
+    (issue_slots: a bf16 op one half; the f32 parts, NIS's edge maps and
+    combine among them, at full rate)."""
     from ..core import constants as C
     from ..ops import cas as CS
     from ..ops import nis as N
@@ -345,9 +349,6 @@ def path_ops(kernel, h=16, w=16, in_per_out=1.0, sharpness=0.9,
 
     from ..kernels._common import working_type
     dt = working_type(precision)
-    if dt != torch.float32 and kernel.startswith("nis"):
-        raise ValueError(f"{kernel} has no half precision yet (ROADMAP.md "
-                         "Queue A 6b)")
     count = count_ops if dt == torch.float32 else issue_slots
     z = _planes(h, w)
     n = h * w
@@ -377,17 +378,17 @@ def path_ops(kernel, h=16, w=16, in_per_out=1.0, sharpness=0.9,
         cfg = _nis_config(h, w, h, w, sharpness, True)
 
         def inside():
-            for stage in _nis_scaler_stages(z, cfg).values():
+            for stage in _nis_scaler_stages(z, cfg, dt).values():
                 stage()
         fallback = bilinear_fallback
         per_in = count_ops(_nis_input_pixel, z, cfg) / n
-        return (count_ops(inside) / n + per_in * in_per_out,
+        return (count(inside) / n + per_in * in_per_out,
                 count_ops(fallback) / n)
     elif kernel == "nis_sharpen":
         cfg = _nis_config(h, w, h, w, sharpness, False)
 
         def inside():
-            N.nvsharpen(z(4), cfg)
+            N.nvsharpen(z(4), cfg, dt)
         fallback = tint
     elif kernel == "cas_upscale":
         def inside():

@@ -374,23 +374,27 @@ def test_half_strips_raise(kernel):
 
 @pytest.mark.parametrize("rs", [0.75, 1.0])
 def test_nis_half_raises_naming_roadmap(rs):
-    """Half on a NIS plan is not ported yet: NotImplementedError naming
-    ROADMAP Queue A 6b at construction, and at the build after toggle_nis()
-    switches a half FSR pipeline to NIS (never full precision in its
-    place)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A 6b"):
-        T.Pipeline(T.Config(enabled=True, render_scale=rs, use_nis=True),
-                   precision="half", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A 6b"):
-        T.upscale(_stereo(), render_scale=rs, use_nis=True, precision="half",
-                  device="cpu")
-    pipe = T.Pipeline(T.Config(enabled=True, render_scale=rs),
-                      precision="half", device="cpu")
+    """Half on a NIS plan raised naming ROADMAP Queue A 6b until NIS half
+    was ported (tests/test_torch_nis_half.py holds it): now it runs at
+    construction, through upscale() and at the build after toggle_nis()
+    switches a half FSR pipeline to NIS, each time the half build (never
+    full precision in its place), with one output."""
+    cfg = T.Config(enabled=True, render_scale=rs, use_nis=True, radius=2.0,
+                   sharpness=0.9)
+    pipe = T.Pipeline(cfg, precision="half", device="cpu")
+    want = pipe.process(_stereo())
+    assert [fn.precision for fn in pipe.kernels] == ["half"]
+    assert not torch.equal(want, T.Pipeline(cfg, device="cpu").process(
+        _stereo()))
+    assert torch.equal(T.upscale(_stereo(), render_scale=rs, use_nis=True,
+                                 radius=2.0, precision="half", device="cpu"),
+                       want)
+    pipe = T.Pipeline(cfg.with_(use_nis=False), precision="half",
+                      device="cpu")
     pipe.process(_stereo())
     pipe.toggle_nis()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A 6b"):
-        pipe.process(_stereo())
-    assert not pipe._cache
+    assert torch.equal(pipe.process(_stereo()), want)
+    assert [fn.precision for fn in pipe.kernels] == ["half"]
 
 
 @pytest.mark.parametrize("precision", ["fp16", "bf16", None, "HALF"])
@@ -526,10 +530,10 @@ class _Kernel:
 
 
 def test_half_bench_records(monkeypatch, capsys):
-    """Each FSR/CAS path is measured at both precisions (bench.measure's
+    """Each path, NIS included (it waited for ROADMAP Queue A 6b until NIS
+    half was ported), is measured at both precisions (bench.measure's
     precision); the line holds both, their ratios and half against full
-    over the RGB bytes of the first ring frame; a NIS path prints that it
-    waits for ROADMAP Queue A 6b and is not measured."""
+    over the RGB bytes of the first ring frame."""
     import types
     from openvr_fsr_tpu_torch import bench
     from openvr_fsr_tpu_torch.tools import half_bench
@@ -553,10 +557,12 @@ def test_half_bench_records(monkeypatch, capsys):
     results = half_bench.main(["--paths", "rcas_only,nvsharpen", "--iters",
                                "3"])
     out = capsys.readouterr()
-    (line,) = [json.loads(x) for x in out.out.splitlines()]
-    assert "nvsharpen" in out.err and "Queue A 6b" in out.err
-    assert list(results) == ["rcas_only"]
-    assert [c[2:] for c in calls] == [(3, "full"), (3, "half")]
+    lines = [json.loads(x) for x in out.out.splitlines()]
+    assert "Queue A 6b" not in out.err
+    assert list(results) == ["rcas_only", "nvsharpen"]
+    assert [x["path"] for x in lines] == ["rcas_only", "nvsharpen"]
+    assert [c[2:] for c in calls] == [(3, "full"), (3, "half")] * 2
+    line = lines[0]
     assert line["full"]["device_ms"] == 0.2 and line["half"]["device_ms"] == 0.3
     assert line["half_over_full_device"] == 0.3 / 0.2
     assert line["half"]["vs_sol"] == 0.05 / 0.3
@@ -573,10 +579,13 @@ def test_half_ops_in_issue_slots(kernel):
     """tools/vpu_audit.py prices a half core's ops in FP32 issue slots, a
     bf16 op one half (packed bf16x2): the inside path's count lies between
     half and all of the full core's, the fallback (f32 in both) is the
-    full one's; the NIS kernels have no half count yet."""
+    full one's; the NIS kernels, which raised a ValueError naming ROADMAP
+    Queue A 6b until NIS half was ported, have a half count the same way
+    (tests/test_torch_nis_half.py::test_nis_half_ops_in_issue_slots)."""
     from openvr_fsr_tpu_torch.tools import vpu_audit
     full = vpu_audit.path_ops(kernel)
     half = vpu_audit.path_ops(kernel, precision="half")
     assert full[0] / 2 <= half[0] < full[0] and half[1] == full[1]
-    with pytest.raises(ValueError, match="6b"):
-        vpu_audit.path_ops("nis_sharpen", precision="half")
+    nis_full = vpu_audit.path_ops("nis_sharpen")
+    nis_half = vpu_audit.path_ops("nis_sharpen", precision="half")
+    assert nis_full[0] / 2 <= nis_half[0] < nis_full[0]
