@@ -10,7 +10,8 @@ The run builds the CUDA kernels from openvr_fsr_tpu_torch/csrc with nvcc
 _build/. Phases, in order; any failure exits non-zero before the result
 lines:
 
-  1. setup: card, power limit, toolchain versions, the kernel builds, and
+  1. setup: card, power limit, toolchain versions (g++ among them: it
+     builds the native runtime library), the kernel builds, and
      the registers, spills and CTAs per SM of the two class kernels of each
      upscaler (fsr_fused, nis_scaler, cas_upscale: the shared bilinear pass
      outside the foveation circle, and the kernel inside it) and of
@@ -139,7 +140,10 @@ lines:
      their difference, the host's cost per call that the card's work does
      not hide; and, per path,
      Pipeline.process's host time to enqueue a call (no sync) and its
-     back-to-back time;
+     back-to-back time, taken in turns from one warm state (an enqueue
+     round of 40 calls, a sync, a back-to-back round of 40, five times;
+     each round's pair logged), the least enqueue at most 1.05 x the
+     least back-to-back time;
      the 10-bit floors word for word against their plain version at the
      six plans' 10-bit geometries at radius 0.0, 0.5 and 2.0, and the six
      10-bit kernels timed in turns with their floors at the same radii
@@ -155,6 +159,29 @@ lines:
      LSB) and fsr_fused_noise10_r0.5 (0 unequal), each with its kernel
      launched; then tools.throughput_bench at
      batch 8, in this process, printing its JSON line;
+  6b. the native runtime library, the stream, the 8K batch, the trace and
+     the demo (phase_6b), each build's launch count from 0: [native] the
+     library built with g++ from csrc/ovrfsr_native.cc, its FrameRing
+     through a threaded push/pop of 64 tagged slots, in order; [stream]
+     tools.stream_bench at the headline shape, a ring per eye: 3 s
+     unpaced (at least 90 pairs/s, no tolerance) and 3 s paced at 90
+     (drops, p50 / p99 ms per pair, the uploader's busy share), 3 s
+     unpaced through the JAX tool's one ring of stereo slots (recorded),
+     then 3 s device-resident: every
+     frame's tag, read back from device memory behind its kernel, equal to
+     the popped tags in push order, and a sampled output bit-equal to
+     run() of that frame placed in device memory (the tool raises
+     otherwise); [8k] tools.bench_8k at batches 4, 8, 16 and 32 (5760x3240
+     -> 7680x4320, radius 2.0): ms per frame back to back, device_ms from
+     a CUDA graph, the B7 floor and vs_sol (at most 1.02), peak memory,
+     frames 0 and B-1 of each batch launch bit-equal to batch-1 launches;
+     [trace] bench_fn on the headline with profile_dir, its Chrome trace
+     holding B1's outside and inside kernel once per timed call and
+     nothing else, their summed device time beside the event time (a
+     CUPTI refusal must be bench_fn's named RuntimeError, logged); [demo]
+     tools.demo scripted (--frames 8 --keys d+]c) on the card, its
+     deferred capture written with the expected name and shape. Their B1
+     and B7 launches join the kernels line's;
   7. the rate probes (B8) and the audit: each probe (csrc/vpu_rate.cu,
      vmem_rate.cu, mxu_rate.cu) against its plain version at the audit's
      full k and steps (FP32 and shared-memory probes: 0 unequal; the
@@ -191,9 +218,11 @@ Exits non-zero, printing no result, when torch finds no CUDA GPU.
 
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -216,8 +245,14 @@ VALUE_MIN = 0.98             # back-to-back value / device_ms, at least
 ORACLE_CASES = ("fsr_fused_zone_r0.5", "nvscaler_noise",
                 "fsr_fused_noise10_r0.5")
 RATE_MAX = 1.05              # a measured rate over its bound
+RING_SLOTS = 64              # tagged slots through the native ring ([native])
+STREAM_S = 3.0               # seconds of each stream run ([stream])
+TRACE_ITERS = 20             # timed calls under the profiler ([trace])
 SHARE_MAX = 1.05             # an audit row's bound over its time
 N_PAIRS = 10                 # stereo pairs per plan through the public API
+# the [api] lines: rounds of an enqueue of API_CALLS calls, then as many
+# back to back, in turns; min against min, at most API_MAX
+API_ROUNDS, API_CALLS, API_MAX = 5, 40, 1.05
 STRIPS = 3                   # row-band strips of the spatial path
 # the [bN] lines of phase 5: rounds of graph replays, kernel and floor in
 # turns, the best of each
@@ -307,6 +342,159 @@ def time_ms(f, x, n, warmup=3):
     return start.elapsed_time(end) / n
 
 
+def phase_6b(card, x):
+    """Phase 6b: the native library and its ring, the stream, the 8K
+    batch, bench_fn's trace and the scripted demo, each on the card through
+    the port's own entry points, every build counting from 0. x: the
+    headline's (2, H, W) packed stereo pair for the trace. Returns the B1
+    and B7 launches of these runs."""
+    from openvr_fsr_tpu_torch import Config, Pipeline, native_rt
+    from openvr_fsr_tpu_torch.tools import bench_8k, demo, stream_bench
+    from openvr_fsr_tpu_torch.utils.timing import bench_fn, kernel_events
+
+    t_6b = time.perf_counter()
+    t0 = time.perf_counter()
+    native_rt.build()
+    log(f"[native] {native_rt.library_path().name} built with g++ "
+        f"{' '.join(native_rt.CXX_FLAGS)} in {time.perf_counter() - t0:.2f} s")
+    ring = native_rt.FrameRing(4096, nslots=6)
+
+    def ring_producer():
+        for i in range(RING_SLOTS):
+            ring.push(np.full(1024, i, np.int32))
+
+    producer = threading.Thread(target=ring_producer)
+    producer.start()
+    tags = [int(ring.pop((1024,), np.int32)[0]) for _ in range(RING_SLOTS)]
+    producer.join(timeout=10)
+    stats = ring.stats()
+    ring.close()
+    log(f"[native] FrameRing, threaded push/pop of {RING_SLOTS} tagged slots: "
+        f"tags in order {tags == list(range(RING_SLOTS))}, stats {stats}")
+    if producer.is_alive() or tags != list(range(RING_SLOTS)) or stats != {
+            "pushed": RING_SLOTS, "popped": RING_SLOTS, "dropped": 0,
+            "depth": 0}:
+        fail(f"FrameRing: tags {tags}, stats {stats}")
+
+    # the stream (tools/stream_bench.py): unpaced (gated) and paced at 90
+    # through a ring per eye, the JAX tool's one ring (recorded), then
+    # device-resident; each build counts from 0. A wrong tag or output
+    # raises inside the tool.
+    row, kern = stream_bench.measure(seconds=STREAM_S, log=log)
+    paced = row["paced"]
+    log(f"[stream] unpaced {row['value']} pairs/s (target "
+        f"{row['target_fps']}, verdict {row['verdict']}); device-only "
+        f"{row['device_only_pairs_per_s']} pairs/s; upload "
+        f"{row['upload_gbs_this_session']} GB/s (need "
+        f"{row['upload_need_gbs']}); paced at {paced['fps']}: "
+        f"{paced['pairs_per_s']} pairs/s, dropped {paced['ring_dropped']} of "
+        f"{paced['ring_pushed'] + paced['ring_dropped']}, p50 "
+        f"{paced['p50_ms_per_pair']} p99 {paced['p99_ms_per_pair']} ms per "
+        f"pair against a {paced['frame_budget_ms']} ms budget, uploader busy "
+        f"{paced['uploader_busy_share']}; the JAX tool's one ring of stereo "
+        f"slots, unpaced: {row['one_ring']['pairs_per_s']} pairs/s, uploader "
+        f"busy {row['one_ring']['uploader_busy_share']}; B1 launches "
+        f"{kern.launches} ({card})")
+    log(f"[stream] row {json.dumps(row)}")
+    if row["value"] < row["target_fps"] or row["verdict"] != "pass":
+        fail(f"stream: {row['value']} pairs/s unpaced, below "
+             f"{row['target_fps']} ({row['verdict']})")
+    if not (row["unpaced"]["sample_equal"] and paced["sample_equal"]):
+        fail("stream: no sampled output was checked")
+    stream_launches = kern.launches
+    row_r, kern = stream_bench.measure(seconds=STREAM_S, fps=0,
+                                       device_resident=True, log=log)
+    log(f"[stream] device-resident unpaced {row_r['value']} pairs/s, p50 "
+        f"{row_r['p50_ms_per_pair']} p99 {row_r['p99_ms_per_pair']} ms; B1 "
+        f"launches {kern.launches} ({card})")
+    stream_launches += kern.launches
+    if not stream_launches or not row_r["unpaced"]["sample_equal"]:
+        fail("stream: the kernel was not launched or no output checked")
+
+    # the 8K batch (tools/bench_8k.py): frames 0 and B-1 of each batch
+    # launch equal batch-1 launches (the tool raises otherwise)
+    k8_launches = f8_launches = 0
+    for b in bench_8k.BATCHES:
+        row8, kern, floor8 = bench_8k.measure(b, log=log)
+        k8_launches += kern.launches
+        f8_launches += floor8.launches
+        log(f"[8k] batch {b}: {row8['value']} ms/frame back to back, "
+            f"device_ms {row8['device_ms']} per frame, floor "
+            f"{row8['floor_ms']}, vs_sol {row8['vs_sol']}, "
+            f"{row8['mpix_per_s_per_chip']} Mpix/s, peak memory "
+            f"{row8['peak_memory_bytes']} B ("
+            f"{row8['peak_memory_bytes'] - row8['memory_at_start_bytes']} B "
+            f"above the start), frames equal to batch-1 "
+            f"launches {row8['frames_equal_to_batch1']}; launches B1 "
+            f"{kern.launches}, B7 {floor8.launches} ({card})")
+        for key in ("value", "device_ms", "floor_ms"):
+            if not (math.isfinite(row8[key]) and row8[key] > 0):
+                fail(f"8k batch {b}: {key} = {row8[key]}")
+        if row8["vs_sol"] > VS_SOL_MAX or not all(
+                row8["frames_equal_to_batch1"].values()):
+            fail(f"8k batch {b}: {row8}")
+        if not (kern.launches and floor8.launches):
+            fail(f"8k batch {b}: a kernel was not launched")
+
+    # the trace: bench_fn on the headline under torch.profiler
+    pipe = Pipeline(Config(enabled=True, render_scale=0.75,
+                           sharpness=SHARPNESS, radius=0.5))
+    run = pipe._build(2, H, W, (0, 1), packed=True)
+    run(x)
+    run.kernel.launches = 0
+    with tempfile.TemporaryDirectory() as trace_dir:
+        try:
+            best, avg = bench_fn(run, x, warmup=3, iters=TRACE_ITERS,
+                                 profile_dir=trace_dir)
+        except RuntimeError as e:
+            if "CUPTI" not in str(e):
+                raise
+            log(f"[trace] bench_fn refused the trace: {e} ({card})")
+        else:
+            traces = list(Path(trace_dir).glob("bench_fn_*.json"))
+            if len(traces) != 1:
+                fail(f"trace: {traces}")
+            events = kernel_events(traces[0])
+            b1 = [(n, us) for n, us in events
+                  if "fsr_outside_kernel" in n or "fsr_inside_kernel" in n]
+            log(f"[trace] {traces[0].name} ({traces[0].stat().st_size} B): "
+                f"{len(events)} CUDA kernel events over {TRACE_ITERS} timed "
+                f"calls, {len(b1)} of B1 ("
+                f"{sorted({re.search(r'fsr_\w+_kernel', n)[0] for n, _ in b1})}"
+                f"); their summed "
+                f"device time {sum(us for _, us in b1) / 1000.0} ms, the "
+                f"calls' event time {avg * TRACE_ITERS} ms (best {best}, "
+                f"average {avg} ms per call, the profiler's cost included) "
+                f"({card})")
+            if len(b1) != 2 * TRACE_ITERS or len(events) != len(b1):
+                fail(f"trace: {len(b1)} B1 kernel events of {len(events)}, "
+                     f"expected 2 per call over {TRACE_ITERS} calls")
+    trace_launches = run.kernel.launches
+
+    # the demo, scripted, on the card: its capture of the next frame
+    with tempfile.TemporaryDirectory() as cap_dir:
+        demo_pipe = demo.main(["--frames", "8", "--keys", "d+]c", "--out",
+                               cap_dir])
+        ow, oh = demo_pipe.output_size(1280, 720)
+        caps = sorted(Path(cap_dir).glob("capture_*_fsr_s95_r55.*"))
+        npy = [np.load(p) for p in caps if p.suffix == ".npy"]
+        log(f"[demo] {[p.name for p in caps]}, npy shape "
+            f"{[a.shape for a in npy]}; the last build's B1 launches "
+            f"{[k.launches for k in demo_pipe.kernels]} "
+            f"({demo_pipe.device})")
+        if demo_pipe.device.type != "cuda" or len(caps) != 2 or \
+                len(npy) != 1 or npy[0].shape != (oh, ow, 4) or \
+                not sum(k.launches for k in demo_pipe.kernels):
+            fail(f"demo: captures {caps}")
+        demo_launches = sum(k.launches for k in demo_pipe.kernels)
+    log(f"[6b] phase took {time.perf_counter() - t_6b:.1f} s; B1 launches: "
+        f"stream {stream_launches}, 8K {k8_launches}, trace "
+        f"{trace_launches}, demo {demo_launches}; B7 (8K floors) "
+        f"{f8_launches}")
+    return (stream_launches + k8_launches + trace_launches + demo_launches,
+            f8_launches)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch finds no CUDA GPU")
@@ -334,6 +522,12 @@ def main():
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, timeout=60)
     log(f"[setup] nvcc: {nvcc.stdout.strip().splitlines()[-1]}")
+    # the native runtime library (csrc/ovrfsr_native.cc) builds with g++,
+    # nvcc's host compiler
+    from openvr_fsr_tpu_torch import native_rt
+    gxx = subprocess.run([native_rt._cxx(), "--version"], capture_output=True,
+                         text=True, timeout=60)
+    log(f"[setup] g++: {gxx.stdout.strip().splitlines()[0]}")
     log(f"[setup] device: {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
@@ -1603,21 +1797,25 @@ def main():
         pipe = Pipeline(cfg)
         x = sets["in" if (h, w) == (H, W) else "full"]["zone+noise"]
         wall_ms(pipe.process, [x], 5)
-        enqueue = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            for _ in range(40):
-                pipe.process(x)
-            enqueue.append((time.perf_counter() - t0) * 1000.0 / 40)
+        # the two quantities in turns from the same warm state: an enqueue
+        # round (no sync inside it), a sync, then a back-to-back round
+        pairs = []
+        for _ in range(API_ROUNDS):
             torch.cuda.synchronize()
-        b2b = min(wall_ms(pipe.process, [x], 40) for _ in range(3))
-        log(f"[api] {name}: Pipeline.process enqueues in {min(enqueue)} ms "
-            f"per call (host alone), {b2b} ms per call back to back; the "
-            f"bench line's device_ms {record['device_ms']}, value "
-            f"{record['value']} ({card})")
-        if not 0 < min(enqueue) <= b2b * 1.05:
-            fail(f"{name}: Pipeline.process enqueue {min(enqueue)} ms, "
-                 f"back to back {b2b} ms")
+            t0 = time.perf_counter()
+            for _ in range(API_CALLS):
+                pipe.process(x)
+            enqueue = (time.perf_counter() - t0) * 1000.0 / API_CALLS
+            torch.cuda.synchronize()
+            pairs.append((enqueue, wall_ms(pipe.process, [x], API_CALLS)))
+        enqueue, b2b = (min(p[0] for p in pairs), min(p[1] for p in pairs))
+        log(f"[api] {name}: Pipeline.process ms per call, rounds (enqueue, "
+            f"back to back) {pairs}; min {enqueue} (host alone) / {b2b} = "
+            f"{enqueue / b2b}; the bench line's device_ms "
+            f"{record['device_ms']}, value {record['value']} ({card})")
+        if not 0 < enqueue <= b2b * API_MAX:
+            fail(f"{name}: Pipeline.process enqueue {enqueue} ms, back to "
+                 f"back {b2b} ms, above {API_MAX} x")
     launches["dma_floor"] = sum(run.floor.launches for run in runs)
 
     # ---- 6. the oracle at full size, and the throughput tool ----------------
@@ -1635,6 +1833,11 @@ def main():
     tp = throughput_bench.main(["8"])
     if not (math.isfinite(tp["value"]) and tp["value"] > 0):
         fail(f"throughput_bench: {tp}")
+
+    # ---- 6b. the native ring, the stream, the 8K batch, the trace, the demo
+    b1, b7 = phase_6b(card, sets["in"]["zone+noise"])
+    launches["fsr_fused"] += b1
+    launches["dma_floor"] += b7
 
     # ---- 7. the rate probes and the audit -----------------------------------
     from openvr_fsr_tpu_torch.kernels import sol

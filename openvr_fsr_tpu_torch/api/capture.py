@@ -9,11 +9,14 @@ metadata-in-filename scheme and format pair here; formats: .dds
 tone-dropped to 8-bit for PNG — the DDS/NPY captures keep full precision).
 
 A copy of openvr_fsr_tpu/api/capture.py (the port cannot import that
-package: its __init__ imports jax) without its native DDS codec, so the
-pure-Python writer and reader here are the only codec;
-tests/test_torch_capture.py holds the files byte-equal. save_frame takes
-a torch tensor on any device (moved to the host once) or a numpy array,
-and reads the port's packed int32 planes as packed RGBA8, as uint32 ones.
+package: its __init__ imports jax) whose pure-Python writer and reader are
+the port's codec path (tests/test_torch_capture.py holds the files
+byte-equal to the JAX writer's). The port's native runtime library
+(csrc/ovrfsr_native.cc, native_rt.dds_write_native / dds_read_native)
+holds the same codec, and tests/test_torch_native.py holds its files
+byte-equal to these. save_frame takes a torch tensor on any device (moved
+to the host once) or a numpy array, and reads the port's packed int32
+planes as packed RGBA8, as uint32 ones.
 """
 
 import struct

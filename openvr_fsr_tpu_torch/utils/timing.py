@@ -3,9 +3,10 @@
 GpuTimer is the analog of the reference's GPU timestamp-query ring
 (PostProcessor.h:72-83, PostProcessor.cpp:547-628): time each dispatch,
 keep a rolling average over 500 frames, and log "Average GPU processing
-time for upscale: X ms" at each rollover. bench_fn, rotation_ms and
-hbm_calibration are the counterparts of the JAX package's
-utils/timing.py:56-110. CUDA work is timed with pairs of
+time for upscale: X ms" at each rollover. bench_fn (with its
+profile_dir trace, torch.profiler's Chrome trace in place of
+jax.profiler's), rotation_ms and hbm_calibration are the counterparts of
+the JAX package's utils/timing.py:56-110. CUDA work is timed with pairs of
 `torch.cuda.Event`s on the current stream (the timestamp queries'
 counterpart); CPU work with `time.perf_counter`. rotation_graph and
 replay_ms time a kernel's device work alone: its calls captured once in a
@@ -14,13 +15,16 @@ times what a caller pays: back-to-back calls on the host's clock, ending
 in a host sync.
 """
 
+import json
+import os
 import time
+from pathlib import Path
 
 import torch
 
 from .log import get_logger
 
-__all__ = ["GpuTimer", "bench_fn", "rotation_ms", "wall_ms",
+__all__ = ["GpuTimer", "bench_fn", "kernel_events", "rotation_ms", "wall_ms",
            "rotation_graph", "replay_ms", "hbm_calibration"]
 
 
@@ -75,14 +79,48 @@ def _is_cuda(args):
     return any(isinstance(a, torch.Tensor) and a.is_cuda for a in args)
 
 
-def bench_fn(fn, *args, warmup=3, iters=50):
+def bench_fn(fn, *args, warmup=3, iters=50, profile_dir=None):
     """Time fn(*args) call by call: returns (best_ms, avg_ms) over `iters`
     calls after `warmup`. Any CUDA tensor argument selects a CUDA event
     pair around each call on the current stream (read after the last call
-    ends); otherwise each call is timed with perf_counter."""
+    ends); otherwise each call is timed with perf_counter.
+
+    profile_dir: also trace the timed calls with torch.profiler (CPU
+    activity, and CUDA activity when an argument is a CUDA tensor) and
+    write one Chrome trace, profile_dir/bench_fn_<pid>_<ns>.json
+    (`kernel_events` reads its CUDA kernels). The times of a traced run
+    carry the profiler's cost. On CUDA a trace holding no kernel event
+    (CUPTI refused or unavailable) is not written, and RuntimeError names
+    CUPTI."""
     for _ in range(warmup):
         fn(*args)
-    if _is_cuda(args):
+    cuda = _is_cuda(args)
+    if profile_dir is None:
+        return _timed_calls(fn, args, iters, cuda)
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        times = _timed_calls(fn, args, iters, cuda)
+        if cuda:
+            torch.cuda.synchronize()
+    out = Path(profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"bench_fn_{os.getpid()}_{time.time_ns()}.json"
+    prof.export_chrome_trace(str(path))
+    if cuda and not kernel_events(path):
+        path.unlink()
+        raise RuntimeError(
+            "torch.profiler recorded no CUDA kernel in the traced calls: "
+            "CUPTI (the CUDA profiling interface that traces the card) is "
+            "refused or unavailable here, so no device trace exists")
+    return times
+
+
+def _timed_calls(fn, args, iters, cuda):
+    if cuda:
         torch.cuda.synchronize()
         events = [(torch.cuda.Event(enable_timing=True),
                    torch.cuda.Event(enable_timing=True))
@@ -100,6 +138,16 @@ def bench_fn(fn, *args, warmup=3, iters=50):
             fn(*args)
             times.append((time.perf_counter() - t0) * 1000.0)
     return min(times), sum(times) / len(times)
+
+
+def kernel_events(trace_path):
+    """The CUDA kernels of a Chrome trace from torch.profiler: a list of
+    (name, device microseconds), one per launch (events of category
+    "kernel")."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], float(e.get("dur", 0.0))) for e in events
+            if e.get("cat") == "kernel"]
 
 
 def rotation_ms(fn, inputs, iters):

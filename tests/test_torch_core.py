@@ -294,7 +294,8 @@ def test_port_never_imports_jax():
     neither jax nor the JAX package, with every submodule imported,
     the DMA floor, the rate probes, the two bench entries, the audit, the
     A/B tool, the oracle copy, capture, the parity tool, the throughput
-    tool, parallel/, the spatial strips' tool and the half tool included;
+    tool, parallel/, the spatial strips' tool, the half tool, the native
+    runtime bindings and the stream, 8K and demo tools included;
     the half precision code needs no ml_dtypes either (torch.bfloat16)."""
     code = ("import sys, openvr_fsr_tpu_torch, openvr_fsr_tpu_torch.kernels, "
             "openvr_fsr_tpu_torch.oracle, openvr_fsr_tpu_torch.oracle.pipeline, "
@@ -314,7 +315,11 @@ def test_port_never_imports_jax():
             "openvr_fsr_tpu_torch.parallel.sharding, "
             "openvr_fsr_tpu_torch.parallel.spatial, "
             "openvr_fsr_tpu_torch.tools.spatial_onchip, "
-            "openvr_fsr_tpu_torch.tools.half_bench;"
+            "openvr_fsr_tpu_torch.tools.half_bench, "
+            "openvr_fsr_tpu_torch.native_rt, "
+            "openvr_fsr_tpu_torch.tools.stream_bench, "
+            "openvr_fsr_tpu_torch.tools.bench_8k, "
+            "openvr_fsr_tpu_torch.tools.demo;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'openvr_fsr_tpu', 'ml_dtypes'));"
             "print(bad); sys.exit(1 if bad else 0)")
