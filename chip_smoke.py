@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (openvr_fsr_tpu_torch) on one NVIDIA GPU.
 
-Run from the repository root, with no arguments:
+Run from the repository root, with no arguments (one card):
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
-The run builds the CUDA kernels from openvr_fsr_tpu_torch/csrc with nvcc
-(sm_90a), one nvcc per source, all at once, into openvr_fsr_tpu_torch/
-_build/. Phases, in order; any failure exits non-zero before the result
-lines:
+--parent DIR names a directory of earlier csrc sources (fsr_fused.cu,
+cas_upscale.cu, dma_floor.cu and the headers they were written with, e.g.
+`git archive <commit> openvr_fsr_tpu_torch/csrc` unpacked into an ignored
+directory); phase 1 then holds the current builds of those three kernels
+to it (below). The run builds the CUDA kernels from
+openvr_fsr_tpu_torch/csrc with nvcc (sm_90a), one nvcc per source, all at
+once, into openvr_fsr_tpu_torch/_build/. Phases, in order; any failure
+exits non-zero before the result lines:
 
   1. setup: card, power limit, toolchain versions (g++ among them: it
      builds the native runtime library), the kernel builds, and
@@ -18,8 +22,13 @@ lines:
      nis_sharpen, cas_sharpen and rcas_sharpen (the shared copy pass
      outside, the kernel inside), each at both texel formats (the RGBA8
      and R10G10B10A2 instantiations; a warning where the 10-bit one holds
-     fewer CTAs per SM), and the registers and spills of fsr_fused's and
-     cas_upscale's band instantiations (the row-band strips');
+     fewer CTAs per SM), and the registers, spills and CTAs per SM of
+     fsr_fused's and cas_upscale's band instantiations (the row-band
+     strips', full and half); with --parent, every function of the
+     parent's fsr_fused, cas_upscale and dma_floor libraries (the
+     whole-output class kernels, the full band kernels, the whole-image
+     floor) must have compiled to the same SASS in the current build
+     (tools/ab.py::same_sass), else the run fails;
   2. each kernel against its plain torch version on the card, at full
      size, on a zone-plate + noise set and a uniform-random set, both with
      alpha that is not all 255:
@@ -67,13 +76,30 @@ lines:
      0.5, 2.0, 0.0 and 0.5 with debug, off-centre eyes at radius 0.3 and the
      full supersample (rs 1.3); every 32-row band alone; 24-row bands,
      whose edges cut the kernels' 32-row tiles (at 8 and at 10 bits); small
-     strips against the plain version on the CPU. Then the spatial path's
-     entry point, SpatialFsrPipeline with 3 strips on this card for FSR and
-     CAS at 2 x 1683x1869 -> 2 x 2244x2492, its launch counts set to 0 just
-     before 10 steady-state process_placed calls under
+     strips against the plain version on the CPU; the half strips
+     (band_range with precision="half") at 8 and 10 bits, split 3 ways,
+     every 32-row band alone (off-centre eyes) and 24-row bands, each
+     against the half single launch and every strip against its plain
+     bf16 version, 0 unequal texels or values, and a small case against the
+     CPU path; every strip's DMA floor (B7: its band form where a band edge
+     cuts a tile), full and half, 0 unequal words against its plain
+     version and vs_sol at most 1.02 (device times from CUDA graphs of
+     STRIP_ITERS calls on the strip at the ring pitch). Then the spatial
+     path's entry point, SpatialFsrPipeline with 3 strips on this card for
+     FSR and CAS at 2 x 1683x1869 -> 2 x 2244x2492, its launch counts set
+     to 0 just before 10 steady-state process_placed calls under
      torch.cuda.set_sync_debug_mode("error") (no host sync) and read just
      after, equal to Pipeline.process; the strips' summed device time
-     beside the single launch's; ShardedPipeline over [cuda:0] * 2 and
+     beside the single launch's; each strip's floor (the whole form, as
+     each 128-row band starts on a tile row), N_PAIRS calls with its
+     launch count from 0, equal to its plain version, timed beside its
+     strip; the band form's path: the floors of the full-size 24-row strips
+     split 3 ways whose first row cuts a tile (FSR and CAS), N_PAIRS calls
+     each with the counts from 0, equal to their plain versions, timed
+     beside their strips (vs_sol at most 1.02); the half strips through
+     the builders, N_PAIRS calls each with the counts from 0, equal to the
+     half single launch, timed;
+     ShardedPipeline over [cuda:0] * 2 and
      FsrModel().sharded() at batch 4, equal to Pipeline.process; and
      tools.spatial_onchip, in this process;
   3. the plans through the public API, each with the launch counts set to
@@ -99,7 +125,9 @@ lines:
      compute kernels (precision="half", bf16 op by op as the JAX package's
      half cores; NIS under its kernels' half policy): their registers,
      spills (none beyond the full instantiation's) and CTAs per SM at both
-     texel formats; each against its plain bf16 version at full size, 0
+     texel formats, and fsr_fused's and cas_upscale's half band
+     instantiations beside them (a spill is logged); each against its
+     plain bf16 version at full size, 0
      unequal texels: fsr_fused at radius 0.5, 2.0, 0.0 with debug and rs
      1.3, rcas_sharpen, cas_upscale and cas_sharpen at radius 0.5 and 2.0,
      nis_scaler and nis_sharpen at radius 0.5, 2.0, 0.0 with debug, two
@@ -140,10 +168,10 @@ lines:
      their difference, the host's cost per call that the card's work does
      not hide; and, per path,
      Pipeline.process's host time to enqueue a call (no sync) and its
-     back-to-back time, taken in turns from one warm state (an enqueue
-     round of 40 calls, a sync, a back-to-back round of 40, five times;
-     each round's pair logged), the least enqueue at most 1.05 x the
-     least back-to-back time;
+     back-to-back time (tools/api_cost.py), taken in turns from one warm
+     state (an enqueue round of 40 calls, a sync, a back-to-back round of
+     40, five times; each round's pair logged), the least enqueue at most
+     1.05 x the least back-to-back time;
      the 10-bit floors word for word against their plain version at the
      six plans' 10-bit geometries at radius 0.0, 0.5 and 2.0, and the six
      10-bit kernels timed in turns with their floors at the same radii
@@ -203,7 +231,11 @@ lines:
   8. the result lines: the card, the kernels JSON (the 10-bit
      instantiations as <kernel>_10bit, the strips of the spatial path as
      fsr_fused_band and cas_upscale_band, their ms the strips' summed device
-     time and their bytes the strips' rows; each bound the largest
+     time and their bytes the strips' rows; the half strips as
+     fsr_fused_band_half and cas_upscale_band_half, the same way; the
+     band-form floors of the 24-row strips as dma_floor_band, their ms
+     and bytes summed the same way; each
+     bound the largest
      of its unique bytes over 3.35 TB/s, its operations over the peak for
      their type (the half instantiations as <kernel>_half, their bf16 ops
      at twice the FP32 rate, tools/vpu_audit.py::issue_slots): f32 work,
@@ -216,6 +248,7 @@ lines:
 Exits non-zero, printing no result, when torch finds no CUDA GPU.
 """
 
+import argparse
 import json
 import math
 import re
@@ -254,6 +287,9 @@ N_PAIRS = 10                 # stereo pairs per plan through the public API
 # back to back, in turns; min against min, at most API_MAX
 API_ROUNDS, API_CALLS, API_MAX = 5, 40, 1.05
 STRIPS = 3                   # row-band strips of the spatial path
+STRIP_ITERS = 20             # calls per graph timing each strip and its floor
+# the kernels whose parent SASS phase 1 compares with --parent
+PARENT_KERNELS = ("fsr_fused", "cas_upscale", "dma_floor")
 # the [bN] lines of phase 5: rounds of graph replays, kernel and floor in
 # turns, the best of each
 B_ROUNDS = 10
@@ -495,14 +531,36 @@ def phase_6b(card, x):
             f8_launches)
 
 
+def parent_sass(parent):
+    """{kernel: tools/ab.py::same_sass of the parent's library, built from
+    parent/<kernel>.cu with its own headers first, against the current
+    build} for PARENT_KERNELS (None where cuobjdump is missing)."""
+    from openvr_fsr_tpu_torch.kernels import _build
+    from openvr_fsr_tpu_torch.tools import ab
+    return {k: ab.same_sass(
+        ab.build_parent(k, Path(parent) / f"{k}.cu", argtypes=())[2],
+        _build.library_path(k)) for k in PARENT_KERNELS}
+
+
 def main():
+    ap = argparse.ArgumentParser(prog="python3 chip_smoke.py",
+                                 description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", default=None,
+                    help="a directory of earlier csrc sources whose "
+                         f"{', '.join(PARENT_KERNELS)} the current builds "
+                         "must compile to the same SASS")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch finds no CUDA GPU")
+    if args.parent is not None and not all(
+            (Path(args.parent) / f"{k}.cu").is_file() for k in PARENT_KERNELS):
+        fail(f"--parent {args.parent}: no {PARENT_KERNELS} sources there")
     from openvr_fsr_tpu_torch import (CasModel, Config, FsrModel, Pipeline,
                                       get_model, upscale)
     from openvr_fsr_tpu_torch.core import constants as C
     from openvr_fsr_tpu_torch.kernels import _build
-    from openvr_fsr_tpu_torch.kernels._common import occupancy
+    from openvr_fsr_tpu_torch.kernels._common import (band_occupancy,
+                                                      occupancy)
     from openvr_fsr_tpu_torch.kernels.cas import (build_cas_sharpen,
                                                   build_cas_upscale)
     from openvr_fsr_tpu_torch.kernels.fsr import build_fsr_fused
@@ -570,14 +628,37 @@ def main():
                     f"{ctas[10, cls]} CTAs per SM at 10 bits, "
                     f"{ctas[8, cls]} at 8 bits")
         # the row-band strips' instantiations (B1, B5: a row test before
-        # each store)
+        # each store; the inside kernel at full and half precision)
         for fn, u in usage.items():
             if f"{prefix}_band_" in fn:
-                log(f"[setup] {kernel} "
-                    f"{8 if sass.of_codec(fn) else 10}-bit "
-                    f"{fn.split('_band_')[1].split('_')[0]} band kernel: "
-                    f"{u['registers']} registers, {u['spill_stores']} B "
-                    f"spill stores, {u['spill_loads']} B spill loads")
+                bits = 8 if sass.of_codec(fn) else 10
+                part = fn.split("_band_")[1].split("_kernel")[0]
+                prec = "half" if part.startswith("half") else "full"
+                ctas = (f", {band_occupancy(kernel, bits, prec)} CTAs per SM"
+                        if part.endswith("inside") else "")
+                log(f"[setup] {kernel} {bits}-bit {part.replace('_', ' ')} "
+                    f"band kernel: {u['registers']} registers, "
+                    f"{u['spill_stores']} B spill stores, "
+                    f"{u['spill_loads']} B spill loads{ctas}")
+    # with --parent: every function of the parent's libraries of the
+    # kernels that hold the strips' instantiations (the whole-output class
+    # kernels, the full band kernels, the whole-image floor) keeps its SASS
+    if args.parent is None:
+        log("[setup] sass_same: no parent sources given (--parent DIR)")
+    else:
+        same = parent_sass(args.parent)
+        for lib, fns in same.items():
+            for fn, ok in (fns or {}).items():
+                log(f"[setup] sass_same {lib} {fn}: {ok} (against "
+                    f"{args.parent})")
+        changed = [f"{lib} {fn}" for lib, fns in same.items()
+                   for fn, ok in (fns or {None: None}).items()
+                   if ok is not True]
+        if changed:
+            fail(f"parent functions whose SASS changed, went or could not "
+                 f"be read: {changed}")
+        log(f"[setup] sass_same: all {sum(map(len, same.values()))} "
+            f"functions of {list(same)} as {args.parent} built them")
 
     def centres(ow, oh, radius, b=2, eyes=CENTRES):
         return C.centres_payload(ow, oh, radius, eyes,
@@ -898,7 +979,10 @@ def main():
                                                split_bands)
     layouts = {"fsr_fused": (fsr, fsr_band_layout),
                "cas_upscale": (cas_up, cas_band_layout)}
-    for k in ("fsr_fused_band", "cas_upscale_band"):
+    from openvr_fsr_tpu_torch.kernels.sol import build_dma_floor
+    t_strips = time.perf_counter()
+    for k in ("fsr_fused_band", "cas_upscale_band", "fsr_fused_band_half",
+              "cas_upscale_band_half", "dma_floor_band"):
         max_lsb[k] = 0
 
     def value_diff(a, b):
@@ -911,35 +995,80 @@ def main():
         ne, _, mx = lsb_diff(a, b)
         return ne, mx
 
+    def ring_of(floor, x):
+        """The strip x padded to the ring pitch, which the floor's TMA
+        takes."""
+        hp, wp = floor.pad_to
+        ring = torch.zeros((x.shape[0], hp, wp, *x.shape[3:]), dtype=x.dtype,
+                           device=dev)
+        ring[:, :, :x.shape[2]] = x
+        return ring
+
+    def strip_floor(fn, x):
+        """The strip's DMA floor (its band form where a band edge cuts a
+        tile) on the strip padded to the ring pitch: (unequal words against
+        its plain version, vs_sol: its device time over the strip kernel's
+        on that input, whether it ran the band form)."""
+        floor = build_dma_floor(fn.dma_geometry)
+        ring = ring_of(floor, x)
+        ne = int((floor(ring) != floor.reference(ring)).sum())
+        k_ms = graph_ms(fn, ring, STRIP_ITERS)
+        return (ne, graph_ms(floor, ring, STRIP_ITERS) / k_ms,
+                floor.band_form)
+
     def strips(kernel, label, img, radius=0.5, band_rows=128, n=STRIPS,
-               want=None, **kw):
-        """The concatenated strips of `kernel` on img (n equal splits of the
-        bands, or every band alone where n is None) against the full
-        launch (or `want`); each strip kernel launched once."""
+               want=None, precision="full", **kw):
+        """The concatenated strips of `kernel` at `precision` on img (n
+        equal splits of the bands, or every band alone where n is None)
+        against the single launch (or `want`), each strip kernel launched
+        once; at half each strip also against its plain bf16 version on
+        the card. Each strip's floor against its plain version, with its
+        vs_sol."""
         build, layout = layouts[kernel]
-        full = build(radius, **kw)
+        full = build(radius, precision=precision, **kw)
         want = full(img) if want is None else want
         _, gy = layout(want.shape[2], want.shape[1], band_rows)
-        outs = []
+        outs, plain_ne, floor_ne, vs_sol, banded = [], 0, 0, [], 0
         for g0, g1 in split_bands(gy, gy if n is None else n):
-            fn = build(radius, band_rows=band_rows, band_range=(g0, g1), **kw)
-            got = fn(img[:, fn.in_row_base:fn.in_row_base + fn.in_rows]
-                     .contiguous())
-            if fn.launches != 1 or got.shape[1] != fn.out_rows:
-                fail(f"{kernel} strip {(g0, g1)}: {fn.launches} launches, "
-                     f"{got.shape[1]} of {fn.out_rows} rows")
+            fn = build(radius, band_rows=band_rows, band_range=(g0, g1),
+                       precision=precision, **kw)
+            x = img[:, fn.in_row_base:fn.in_row_base + fn.in_rows].contiguous()
+            got = fn(x)
+            if fn.launches != 1 or got.shape[1] != fn.out_rows \
+                    or fn.precision != precision:
+                fail(f"{kernel} {precision} strip {(g0, g1)}: {fn.launches} "
+                     f"launches, {got.shape[1]} of {fn.out_rows} rows")
+            if precision == "half":
+                plain_ne += int((got != fn.reference(x)).sum())
+            ne, vs, band_form = strip_floor(fn, x)
+            floor_ne, vs_sol = floor_ne + ne, vs_sol + [vs]
+            banded += band_form
             outs.append(got)
         got = torch.cat(outs, 1)
         torch.cuda.synchronize()
         ne, mx = value_diff(got, want.to(got.device))
-        log(f"[strip] {kernel} {label} band_rows={band_rows}, "
-            f"{len(outs)} strips: unequal {ne} of {want.numel()} against "
-            "the single launch")
-        if ne:
-            fail(f"{kernel}: the strips differ from the single launch "
-                 f"({label}, band_rows {band_rows}: {ne} unequal)")
-        max_lsb[f"{kernel}_band"] = max(max_lsb[f"{kernel}_band"], mx)
+        tag = kernel if precision == "full" else f"{kernel} half"
+        log(f"[strip] {tag} {label} band_rows={band_rows}, {len(outs)} "
+            f"strips: unequal {ne} of {want.numel()} against the single "
+            "launch" + (f", {plain_ne} against the strips' plain bf16 "
+                        "versions" if precision == "half" else "")
+            + f"; floors ({banded} of {len(outs)} in the band form): "
+            f"unequal {floor_ne} words, vs_sol "
+            f"{min(vs_sol):.4f}-{max(vs_sol):.4f}")
+        if ne or plain_ne:
+            fail(f"{kernel} {precision}: the strips differ from the single "
+                 f"launch or their plain versions ({label}, band_rows "
+                 f"{band_rows}: {ne}, {plain_ne} unequal)")
+        if floor_ne or max(vs_sol) > VS_SOL_MAX:
+            fail(f"{kernel} {precision} ({label}, band_rows {band_rows}): "
+                 f"strip floors unequal {floor_ne}, vs_sol {max(vs_sol)}")
+        floor_vs_sol.extend(vs_sol)
+        band_strips[0] += banded
+        band_strips[1] += len(outs)
+        name = f"{kernel}_band" + ("_half" if precision == "half" else "")
+        max_lsb[name] = max(max_lsb[name], mx)
 
+    floor_vs_sol, band_strips = [], [0, 0]
     shape_in = f"2x{W}x{H}->2x{OW}x{OH}"
     for kernel in ("fsr_fused", "cas_upscale"):
         for radius, debug in cases:
@@ -960,6 +1089,28 @@ def main():
         want = layouts[kernel][0](0.5, h=96, w=128)(small_img.cpu()).to(dev)
         strips(kernel, "2x128x96 rs=0.75 against the CPU path", small_img,
                band_rows=24, want=want, h=96, w=128)
+        # the half strips (the builders' band_range with precision="half"):
+        # split STRIPS ways, every band alone at 32 rows, and 24-row bands,
+        # at 8 and 10 bits; one small case against the CPU path
+        for bits, img in ((8, sets["in"]["zone+noise"]),
+                          (10, sets10["in"]["zone10+noise10"])):
+            strips(kernel, f"{shape_in} {bits}-bit radius=0.5", img,
+                   precision="half", bits=bits)
+            strips(kernel, f"{shape_in} {bits}-bit radius=0.3 eyes "
+                   f"{OFF_CENTRE} every band alone", img, 0.3, band_rows=32,
+                   n=None, precision="half", bits=bits, eyes=OFF_CENTRE)
+            strips(kernel, f"{shape_in} {bits}-bit radius=2.0 (band edges "
+                   "inside tiles)", img, 2.0, band_rows=24, precision="half",
+                   bits=bits)
+        want = layouts[kernel][0](0.5, h=96, w=128, precision="half")(
+            small_img.cpu()).to(dev)
+        strips(kernel, "2x128x96 rs=0.75 against the CPU path", small_img,
+               band_rows=24, want=want, precision="half", h=96, w=128)
+    log(f"[strip] floors of {len(floor_vs_sol)} strips ({band_strips[0]} "
+        "in the band form, dma_floor_band_kernel; the rest whole, "
+        "dma_floor_kernel): 0 unequal words, "
+        f"vs_sol {min(floor_vs_sol):.4f}-{max(floor_vs_sol):.4f} ({card}); "
+        f"the strip cases took {time.perf_counter() - t_strips:.1f} s")
     # the spatial path through its entry point, in the steady state, with
     # the launch counts set to 0 just before: 3 strips on this card, under
     # set_sync_debug_mode("error") (no host sync), equal to Pipeline.process
@@ -970,6 +1121,7 @@ def main():
                                      render_scale=0.75,
                                      sharpness=CAS_SHARPNESS, radius=0.5)}
     strip_ms, strip_plain_ms, strip_bytes = {}, {}, {}
+    band_ms, band_plain_ms = {}, {}   # the half strips' and strip floors'
     launches = {}
     for kernel, cfg in spatial.items():
         img = sets["in"]["zone+noise"]
@@ -1010,6 +1162,116 @@ def main():
             f"launch's {single} ms (device; {card}); plain torch "
             f"{strip_plain_ms[kernel]} ms; input strips of "
             f"{[rows for _, _, rows, _, _ in shards]} rows")
+        # each strip's floor on its placed strip, N_PAIRS calls each,
+        # counts from 0: the whole form (dma_floor_kernel), since each
+        # 128-row band starts on a 32-row tile
+        floors = [build_dma_floor(fn.dma_geometry) for fn, *_ in shards]
+        for f, x in zip(floors, placed[1]):
+            f(x)
+        torch.cuda.synchronize()
+        for f in floors:
+            f.launches = 0
+        for _ in range(N_PAIRS):
+            for f, x in zip(floors, placed[1]):
+                f(x)
+        torch.cuda.synchronize()
+        counts = [f.launches for f in floors]
+        unequal = sum(int((f(x) != f.reference(x)).sum())
+                      for f, x in zip(floors, placed[1]))
+        per_floor = [graph_ms(f, x, 200) for f, x in zip(floors, placed[1])]
+        log(f"[strip] {kernel} radius 0.5: the strips' floors (whole form, "
+            f"dma_floor_kernel: band form {[f.band_form for f in floors]}) "
+            f"{per_floor} ms (vs_sol "
+            f"{[f / k for f, k in zip(per_floor, per)]}), summed "
+            f"{sum(per_floor)} ms; launches {counts}; unequal {unequal} "
+            f"words against their plain versions ({card})")
+        if unequal or counts != [N_PAIRS] * STRIPS:
+            fail(f"{kernel}: the strips' floors differ from their plain "
+                 f"versions or did not launch once per call ({counts})")
+    # the band form's path (B7, dma_floor_band_kernel), for the kernels
+    # line's dma_floor_band: the floors of the full-size strips of 24-row
+    # bands split STRIPS ways whose first row cuts a 32-row tile (FSR and
+    # CAS at radius 0.5), each on its strip at the ring pitch, N_PAIRS calls
+    # each with the counts from 0; each equal to its plain version, vs_sol
+    # against its strip kernel at most VS_SOL_MAX
+    band_floors = []
+    for kernel in ("fsr_fused", "cas_upscale"):
+        build, layout = layouts[kernel]
+        img = sets["in"]["zone+noise"]
+        _, gy = layout(OW, OH, 24)
+        for r in split_bands(gy, STRIPS):
+            fn = build(0.5, band_rows=24, band_range=r)
+            f = build_dma_floor(fn.dma_geometry)
+            if f.band_form:
+                x = img[:, fn.in_row_base:fn.in_row_base + fn.in_rows]
+                band_floors.append((f"{kernel} {r}", fn, f,
+                                    ring_of(f, x.contiguous())))
+    for _, _, f, x in band_floors:
+        f(x)
+    torch.cuda.synchronize()
+    for _, _, f, _ in band_floors:
+        f.launches = 0
+    for _ in range(N_PAIRS):
+        for _, _, f, x in band_floors:
+            f(x)
+    torch.cuda.synchronize()
+    counts = [f.launches for _, _, f, _ in band_floors]
+    err = max(int((f(x).to(torch.int64) - f.reference(x).to(torch.int64))
+                  .abs().max()) for _, _, f, x in band_floors)
+    per_floor = [graph_ms(f, x, 200) for _, _, f, x in band_floors]
+    vs = [t / graph_ms(fn, x, 200)
+          for t, (_, fn, _, x) in zip(per_floor, band_floors)]
+    log(f"[strip] band-form floors (dma_floor_band_kernel) of the 24-row "
+        "strips (kernel, bands, row0) "
+        f"{[(n, fn.dma_geometry['band'][0]) for n, fn, _, _ in band_floors]}: "
+        f"launches {counts}, max word difference {err} against their plain "
+        f"versions; {per_floor} ms, summed {sum(per_floor)} ms, vs_sol "
+        f"{vs} ({card})")
+    if len(band_floors) < 2 or counts != [N_PAIRS] * len(band_floors) \
+            or err or max(vs) > VS_SOL_MAX:
+        fail(f"the band-form floors: {len(band_floors)} of them, launches "
+             f"{counts}, max word difference {err}, vs_sol {vs}")
+    launches["dma_floor_band"] = sum(counts)
+    max_lsb["dma_floor_band"] = err
+    band_ms["dma_floor_band"] = sum(per_floor)
+    band_plain_ms["dma_floor_band"] = sum(
+        time_ms(f.reference, x, 3) for _, _, f, x in band_floors)
+    strip_bytes["dma_floor"] = sum(f.hbm_bytes for _, _, f, _ in band_floors)
+    # the half strips through the builders (band_range with
+    # precision="half"): STRIPS strips at the default band_rows, N_PAIRS
+    # calls each on their input strips, counts from 0; their summed device
+    # time and plain bf16 time for the kernels line
+    for kernel in ("fsr_fused", "cas_upscale"):
+        build, layout = layouts[kernel]
+        img = sets["in"]["zone+noise"]
+        _, gy = layout(OW, OH)
+        fns = [build(0.5, band_range=r, precision="half")
+               for r in split_bands(gy, STRIPS)]
+        xs = [img[:, f.in_row_base:f.in_row_base + f.in_rows].contiguous()
+              for f in fns]
+        for f, x in zip(fns, xs):
+            f(x)
+        torch.cuda.synchronize()
+        for f in fns:
+            f.launches = 0
+        outs = [[f(x) for f, x in zip(fns, xs)] for _ in range(N_PAIRS)]
+        torch.cuda.synchronize()
+        counts = [f.launches for f in fns]
+        launches[f"{kernel}_band_half"] = sum(counts)
+        if counts != [N_PAIRS] * STRIPS or not torch.equal(
+                torch.cat(outs[-1], 1), build(0.5, precision="half")(img)):
+            fail(f"{kernel} half strips: launches {counts}, or their output "
+                 "differs from the half single launch")
+        name = f"{kernel}_band_half"
+        per = [graph_ms(f, x, 200) for f, x in zip(fns, xs)]
+        band_ms[name] = sum(per)
+        band_plain_ms[name] = sum(time_ms(f.reference, x, 3)
+                                  for f, x in zip(fns, xs))
+        strip_bytes[f"{kernel}_half"] = sum(x.numel() for x in xs) * 4
+        log(f"[strip] {kernel} half radius 0.5: {STRIPS} strips, "
+            f"{N_PAIRS} calls each, launches {counts}; strips {per} ms, "
+            f"summed {band_ms[name]} ms per stereo pair (device; {card}); "
+            f"plain bf16 torch {band_plain_ms[name]} ms")
     # batch splitting: ShardedPipeline over two slices on this card, and a
     # model family's sharded(), equal to Pipeline.process at batch 4
     both_in = torch.cat([sets["in"]["zone+noise"], sets["in"]["uniform"]])
@@ -1401,6 +1663,24 @@ def main():
                     or u["spill_loads"] > uf["spill_loads"]:
                 fail(f"{kernel} {bits}-bit half inside kernel spills more "
                      "than the full one")
+            # the half strips' band instantiation beside the whole one's (a
+            # spill is logged, not refused)
+            band_part = part.replace("_half_", "_band_half_")
+            ub = [v for fn, v in usage.items()
+                  if band_part in fn and sass.of_codec(fn, bits)]
+            if kernel in layouts:
+                if len(ub) != 1:
+                    fail(f"{kernel} {bits}-bit {band_part}: ptxas {ub}")
+                ub = ub[0]
+                log(f"[half] {kernel} {bits}-bit half band inside kernel: "
+                    f"{ub['registers']} registers, {ub['spill_stores']} B "
+                    f"spill stores, {ub['spill_loads']} B spill loads, "
+                    f"{band_occupancy(kernel, bits, 'half')} CTAs per SM "
+                    f"(whole half: {u['registers']} registers, "
+                    f"{u['spill_stores']} B spill stores, "
+                    f"{per_sm['inside']} CTAs per SM)"
+                    + (" WARNING: it spills" if ub["spill_stores"]
+                       or ub["spill_loads"] else ""))
         max_lsb[f"{kernel}_half"] = 0
 
     def parity_half(kernel, label, fn, img):
@@ -1574,7 +1854,6 @@ def main():
 
     # ---- 5. the measurement path --------------------------------------------
     from openvr_fsr_tpu_torch import bench
-    from openvr_fsr_tpu_torch.kernels.sol import build_dma_floor
     from openvr_fsr_tpu_torch.tools import bench_paths
     from openvr_fsr_tpu_torch.utils.timing import bench_fn, hbm_calibration
 
@@ -1791,24 +2070,16 @@ def main():
     # the API's host cost of a call: Pipeline.process on each path's
     # unpadded packed stereo pair, the host's time to enqueue a call (no
     # sync) and back to back ending in a sync, beside the path's device_ms
-    from openvr_fsr_tpu_torch.utils.timing import wall_ms
+    # (tools/api_cost.py: the two quantities in turns from the same warm
+    # state, an enqueue round with no sync inside it, a sync, then a
+    # back-to-back round)
+    from openvr_fsr_tpu_torch.tools import api_cost
     for name, (record, _) in paths.items():
-        cfg, h, w = bench_paths.path_config(name)
-        pipe = Pipeline(cfg)
+        _, h, w = bench_paths.path_config(name)
         x = sets["in" if (h, w) == (H, W) else "full"]["zone+noise"]
-        wall_ms(pipe.process, [x], 5)
-        # the two quantities in turns from the same warm state: an enqueue
-        # round (no sync inside it), a sync, then a back-to-back round
-        pairs = []
-        for _ in range(API_ROUNDS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(API_CALLS):
-                pipe.process(x)
-            enqueue = (time.perf_counter() - t0) * 1000.0 / API_CALLS
-            torch.cuda.synchronize()
-            pairs.append((enqueue, wall_ms(pipe.process, [x], API_CALLS)))
-        enqueue, b2b = (min(p[0] for p in pairs), min(p[1] for p in pairs))
+        row = api_cost.measure(name, API_ROUNDS, API_CALLS, x=x)
+        pairs, enqueue, b2b = (row["rounds"], row["enqueue_ms"],
+                               row["back_to_back_ms"])
         log(f"[api] {name}: Pipeline.process ms per call, rounds (enqueue, "
             f"back to back) {pairs}; min {enqueue} (host alone) / {b2b} = "
             f"{enqueue / b2b}; the bench line's device_ms "
@@ -2061,9 +2332,23 @@ def main():
         bounds[f"{kernel}_half"] = bound(
             (img.numel() + 2 * g["out_h"] * g["out_w"]) * 4,
             inside * per_px[0] + fallback * per_px[1], issue)
+    # the half strips: the half strips' bytes, the half cores' ops
+    for kernel in ("fsr_fused", "cas_upscale"):
+        g = timed_half[kernel][0].dma_geometry
+        inside, fallback = vpu_audit.inside_pixels(g)
+        per_px = vpu_audit.path_ops(
+            kernel, in_per_out=g["in_h"] * g["in_w"] / (g["out_h"] * g["out_w"]),
+            sharpness=CAS_SHARPNESS if kernel.startswith("cas") else SHARPNESS,
+            precision="half")
+        bounds[f"{kernel}_band_half"] = bound(
+            strip_bytes[f"{kernel}_half"] + 2 * g["out_h"] * g["out_w"] * 4,
+            inside * per_px[0] + fallback * per_px[1], issue)
     ms.update({f"{k}_band": v for k, v in strip_ms.items()})
     plain_ms.update({f"{k}_band": v for k, v in strip_plain_ms.items()})
+    ms.update(band_ms)
+    plain_ms.update(band_plain_ms)
     bounds["dma_floor"] = bound(floor.hbm_bytes, 0, issue)
+    bounds["dma_floor_band"] = bound(strip_bytes["dma_floor"], 0, issue)
     bounds["dma_floor_10bit"] = bound(floor10.hbm_bytes, 0, issue)
     bounds.update(vpu_audit.probe_bounds(
         *(probes[n][0] for n in ("vpu_rate", "vmem_rate", "mxu_rate")),
@@ -2089,14 +2374,22 @@ def main():
     sources.update({f"{k}_10bit": sources[k] for k in (*EXACT, "dma_floor")})
     sources.update({f"{k}_band": sources[k]
                     for k in ("fsr_fused", "cas_upscale")})
-    # the half instantiations: their precision="half" branches
+    # the half instantiations: their precision="half" branches; the half
+    # strips both branches, and dma_floor_band B7's band form
     sources.update({f"{k}_half": sources[k] for k in half_builds})
+    sources.update({f"{k}_band_half": sources[k]
+                    for k in ("fsr_fused", "cas_upscale")})
+    sources["dma_floor_band"] = sources["dma_floor"]
+
+    def source_file(kernel):
+        for suffix in ("_10bit", "_half", "_band"):
+            kernel = kernel.removesuffix(suffix)
+        return f"openvr_fsr_tpu_torch/csrc/{kernel}.cu"
     log(card)
     log(json.dumps({"kernels": [{
         "name": kernel,
         "route": "cuda",
-        "source": "openvr_fsr_tpu_torch/csrc/" + kernel.removesuffix(
-            "_10bit").removesuffix("_band").removesuffix("_half") + ".cu",
+        "source": source_file(kernel),
         "replaces": replaces,
         "launches": launches[kernel],
         "max_abs_err": max_lsb[kernel],

@@ -70,8 +70,10 @@
 // fallback of an outside group in an inside tile reads them, f32 as in
 // JAX), the host rounds the sharpness; the outside pass is the same. One
 // instantiation per codec behind cas_upscale_launch_h and
-// cas_upscale_launch10_h; no band variant (the JAX package builds its strips
-// at full precision only).
+// cas_upscale_launch10_h, and a band one (cas_band_half_inside_kernel) for
+// the half strips, as the JAX builder takes band_range and
+// precision="half" together (cas.py:67-70); a band's outside pass is
+// cas_band_outside_kernel at both precisions.
 
 #include <cuda_runtime.h>
 
@@ -210,6 +212,10 @@ template <class C>
 __global__ void __launch_bounds__(kThreads) cas_half_inside_kernel(Params<C> p) {
   inside_tile<C, ffx::Half, false>(p, Band{});
 }
+template <class C>
+__global__ void __launch_bounds__(kThreads) cas_band_half_inside_kernel(Params<C> p, Band band) {
+  inside_tile<C, ffx::Half, true>(p, band);
+}
 
 // The whole output's inside kernel of precision P.
 template <class C, class P>
@@ -218,6 +224,14 @@ auto inside_kernel() {
     return cas_half_inside_kernel<C>;
   else
     return cas_inside_kernel<C>;
+}
+// A band's inside kernel of precision P.
+template <class C, class P>
+auto band_inside_kernel() {
+  if constexpr (P::kHalf)
+    return cas_band_half_inside_kernel<C>;
+  else
+    return cas_band_inside_kernel<C>;
 }
 
 // The outside list: the shared bilinear pass, no round trip, on every row or
@@ -244,7 +258,15 @@ int occupancy(int* outside, int* inside, int* inside_smem) {
   return static_cast<int>(err);
 }
 
-// A launch of precision P; at P::kHalf only the whole output (no band).
+// CTAs per SM of the band inside kernel of precision P on the current
+// device.
+template <class C, class P>
+int band_occupancy(int* inside) {
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, band_inside_kernel<C, P>(), kThreads, 0));
+}
+
+// A launch of precision P, of the whole output or of a band.
 template <class C, class P>
 int launch(const void* img, void* out, const void* col_i, const void* col_f, const void* row_i,
            const void* row_f, const void* tile_x0, const void* tile_y0, const void* group_cls,
@@ -255,8 +277,7 @@ int launch(const void* img, void* out, const void* col_i, const void* col_f, con
   using Texel = typename C::Texel;
   if (tile != kTile || window != kWin || batch <= 0 || in_h <= 0 || in_w <= 0 || out_h <= 0 ||
       out_w <= 0 || in_w > pitch || n_inside < 0 || n_outside < 0 ||
-      !strip_is_valid(in_h, in_row_base, in_rows, out_h, out_row0, out_row1) ||
-      (P::kHalf && (out_row0 != 0 || out_row1 != out_h)))
+      !strip_is_valid(in_h, in_row_base, in_rows, out_h, out_row0, out_row1))
     return static_cast<int>(cudaErrorInvalidValue);
   Params<C> p;
   p.img = rebase(static_cast<const Texel*>(img), in_row_base, pitch);
@@ -298,7 +319,8 @@ int launch(const void* img, void* out, const void* col_i, const void* col_f, con
   }
   if (n_inside > 0) {
     if (band) {
-      cas_band_inside_kernel<C><<<n_inside, kThreads, 0, s>>>(p, rows);
+      const auto kernel = band_inside_kernel<C, P>();
+      kernel<<<n_inside, kThreads, 0, s>>>(p, rows);
     } else {
       const auto kernel = inside_kernel<C, P>();
       kernel<<<n_inside, kThreads, 0, s>>>(p);
@@ -327,6 +349,18 @@ extern "C" int cas_upscale_occupancy_h(int* outside, int* inside, int* inside_sm
 }
 extern "C" int cas_upscale_occupancy10_h(int* outside, int* inside, int* inside_smem) {
   return occupancy<codec::Rgb10a2, ffx::Half>(outside, inside, inside_smem);
+}
+
+// CTAs per SM of the band inside kernel (cas_band_inside_kernel,
+// cas_band_half_inside_kernel) of color_bits 8 or 10 at full (half 0) or
+// half (half 1) precision on the current device. Returns the cudaError_t.
+extern "C" int cas_upscale_band_occupancy(int color_bits, int half, int* inside) {
+  if (color_bits == 10)
+    return half ? band_occupancy<codec::Rgb10a2, ffx::Half>(inside)
+                : band_occupancy<codec::Rgb10a2, ffx::Full>(inside);
+  if (color_bits != 8) return static_cast<int>(cudaErrorInvalidValue);
+  return half ? band_occupancy<codec::Rgba8, ffx::Half>(inside)
+              : band_occupancy<codec::Rgba8, ffx::Full>(inside);
 }
 
 // Launch on `stream`: the outside pass over outside_tiles, then the inside
@@ -370,7 +404,7 @@ extern "C" int cas_upscale_launch10(const void* img, void* out, const void* col_
 }
 
 // The half instantiations, the same prototype: sharp is the host's bf16
-// value; the whole output only (out_row0 0, out_row1 out_h).
+// value; the whole output or a band, as the full ones.
 extern "C" int cas_upscale_launch_h(const void* img, void* out, const void* col_i,
                                     const void* col_f, const void* row_i, const void* row_f,
                                     const void* tile_x0, const void* tile_y0,

@@ -46,6 +46,16 @@
 // the kernel is instantiated at both tile widths (TW) and the launch
 // dispatches on tile_w. Box origins, widths and the 16-byte alignment are
 // all in words, and the floor moves the 10-bit kernel's exact bytes.
+//
+// The band form (dma_floor_band_kernel) is the floor of a row-band strip of
+// B1 or B5 (kernels/_maps.py::band_geometry): the strip kernels run the
+// 32-row tiles that overlap the band, and a tile a band edge cuts loads its
+// whole window (or its outside footprint over the band's rows) and stores
+// only the band's rows. So the geometry's tile grid starts row0 rows above
+// the band's first output row: the band form loads each item's box as the
+// whole form does and stores grid row gy as output row gy - row0 where
+// that is a row of the band. It is instantiated apart, so the whole form's
+// SASS stays as it was; a strip's geometry is of the list form (no spans).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -76,6 +86,7 @@ struct Params {
   int stage_words;         // words per ring buffer
   const uint32_t* img;     // the frame, for the span copies
   int rows, pitch;
+  int row0;                // the band form's grid row of output row 0 (else 0)
 };
 
 // ---- the asynchronous copy (TMA): the only inline PTX of this file ---------
@@ -210,16 +221,19 @@ __device__ __forceinline__ void copy_span(const Params& p, int4 item, int tid) {
   }
 }
 
-template <int TW>
-__global__ void __launch_bounds__(kThreads) dma_floor_kernel(const __grid_constant__ BoxMap map0,
-                                                             const __grid_constant__ BoxMap map1,
-                                                             const Params p) {
+// The floor's items (every thread of a CTA). kBand: the band form of a
+// row-band strip's geometry, whose tile grid starts p.row0 rows above the
+// first stored output row: a tile loads its box as any other and stores
+// only the rows of the band, grid row gy as output row gy - row0 (rel_y
+// is per grid row). A strip's geometry is of the list form: no span items.
+template <int TW, bool kBand>
+__device__ __forceinline__ void floor_items(const BoxMap& map0, const BoxMap& map1, const Params& p) {
   extern __shared__ uint8_t s_dyn[];
   uint8_t* s = align_smem(s_dyn);
   uint64_t* bars = reinterpret_cast<uint64_t*>(s);   // kStages barriers
   uint32_t* bufs = reinterpret_cast<uint32_t*>(s + kAlign);
   const int tid = threadIdx.x;
-  if (static_cast<int>(blockIdx.x) < p.n_spans) {   // a leading span item
+  if (!kBand && static_cast<int>(blockIdx.x) < p.n_spans) {   // a leading span item
     copy_span<TW>(p, p.tiles[blockIdx.x], tid);
     return;
   }
@@ -255,20 +269,23 @@ __global__ void __launch_bounds__(kThreads) dma_floor_kernel(const __grid_consta
     bar_wait(&bars[stage], (used / kStages) & 1);
     if (vec) {   // runs of 4 outputs of one row, one 16-byte store each
       for (int r = tid; r < TW / kRun * p.tile_h; r += kThreads) {
-        const int oy = item.y * p.tile_h + r / (TW / kRun);
+        const int gy = item.y * p.tile_h + r / (TW / kRun);
+        const int oy = kBand ? gy - p.row0 : gy;
         const int ox = item.z * TW + r % (TW / kRun) * kRun;
         const int4 rx = *reinterpret_cast<const int4*>(rel_x + ox);
-        const uint32_t* row = buf + rel_y[oy] * bw;
+        const uint32_t* row = buf + rel_y[gy] * bw;
         const uint4 v = make_uint4(row[rx.x], row[rx.y], row[rx.z], row[rx.w]);
-        if (oy < p.out_h && ox < p.out_w)
+        if ((!kBand || oy >= 0) && oy < p.out_h && ox < p.out_w)
           *reinterpret_cast<uint4*>(out + static_cast<size_t>(oy) * p.out_w + ox) = v;
       }
     } else {     // TW threads per tile row: coalesced 4-byte stores
       const int ox = item.z * TW + tid % TW, rx = rel_x[ox];
       for (int r = tid / TW; r < p.tile_h; r += kThreads / TW) {
-        const int oy = item.y * p.tile_h + r;
-        const uint32_t v = buf[rel_y[oy] * bw + rx];
-        if (oy < p.out_h && ox < p.out_w) out[static_cast<size_t>(oy) * p.out_w + ox] = v;
+        const int gy = item.y * p.tile_h + r;
+        const int oy = kBand ? gy - p.row0 : gy;
+        const uint32_t v = buf[rel_y[gy] * bw + rx];
+        if ((!kBand || oy >= 0) && oy < p.out_h && ox < p.out_w)
+          out[static_cast<size_t>(oy) * p.out_w + ox] = v;
       }
     }
     ++used;
@@ -276,6 +293,19 @@ __global__ void __launch_bounds__(kThreads) dma_floor_kernel(const __grid_consta
     __syncthreads();
     if (tid == 0) load_next();
   }
+}
+
+template <int TW>
+__global__ void __launch_bounds__(kThreads) dma_floor_kernel(const __grid_constant__ BoxMap map0,
+                                                             const __grid_constant__ BoxMap map1,
+                                                             const Params p) {
+  floor_items<TW, false>(map0, map1, p);
+}
+template <int TW>
+__global__ void __launch_bounds__(kThreads)
+    dma_floor_band_kernel(const __grid_constant__ BoxMap map0, const __grid_constant__ BoxMap map1,
+                          const Params p) {
+  floor_items<TW, true>(map0, map1, p);
 }
 
 struct MapKey {
@@ -309,21 +339,24 @@ bool cached_map(const MapKey& key, BoxMap* map) {
   return true;
 }
 
-// The persistent grid: SMs x the CTAs of `smem` bytes one SM holds, for
-// the current device (kept for the last device and size asked).
-template <int TW>
+// The persistent grid of the TW-word-tile kernel (kBand: its band form):
+// SMs x the CTAs of `smem` bytes one SM holds, for the current device
+// (kept for the last device and size asked).
+template <int TW, bool kBand>
 int grid_ctas(size_t smem) {
   static std::mutex mutex;
   static int last_dev = -1, last_ctas = 0;
   static size_t last_smem = 0;
+  const void* kernel = kBand ? reinterpret_cast<const void*>(dma_floor_band_kernel<TW>)
+                             : reinterpret_cast<const void*>(dma_floor_kernel<TW>);
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   const std::lock_guard<std::mutex> lock(mutex);
   if (dev == last_dev && smem == last_smem) return last_ctas;
-  if (cudaFuncSetAttribute(dma_floor_kernel<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem)) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dma_floor_kernel<TW>, kThreads, smem) !=
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) !=
           cudaSuccess)
     return 0;
   last_dev = dev;
@@ -334,15 +367,18 @@ int grid_ctas(size_t smem) {
 
 bool box_ok(int bw, int bh) { return bw >= 4 && bw % 4 == 0 && bw <= kMaxBox && bh >= 1 && bh <= kMaxBox; }
 
-// The launch of the TW-word-tile kernel: the span items' CTAs, then the
-// persistent CTAs over the box items.
-template <int TW>
+// The launch of the TW-word-tile kernel (kBand: its band form): the span
+// items' CTAs, then the persistent CTAs over the box items.
+template <int TW, bool kBand>
 int launch_tiles(const BoxMap& map0, const BoxMap& map1, const Params& p, size_t smem,
                  cudaStream_t stream) {
-  const int ctas = grid_ctas<TW>(smem), boxes = p.n_tiles - p.n_spans;
+  const int ctas = grid_ctas<TW, kBand>(smem), boxes = p.n_tiles - p.n_spans;
   if (ctas <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  dma_floor_kernel<TW><<<p.n_spans + (boxes < ctas ? boxes : ctas), kThreads, smem, stream>>>(
-      map0, map1, p);
+  const int grid = p.n_spans + (boxes < ctas ? boxes : ctas);
+  if (kBand)
+    dma_floor_band_kernel<TW><<<grid, kThreads, smem, stream>>>(map0, map1, p);
+  else
+    dma_floor_kernel<TW><<<grid, kThreads, smem, stream>>>(map0, map1, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -355,16 +391,19 @@ int launch_tiles(const BoxMap& map0, const BoxMap& map1, const Params& p, size_t
 // outside tiles of the copy form whose output rows are whole 16-byte units.
 // img must be 16-byte aligned with a pitch of a multiple of 4 words; each
 // box is at most 256 x 256 words, its width a multiple of 4, and its column
-// origin too; tile_w must be 32 (RGBA8) or 64 (R10G10B10A2) words.
+// origin too; tile_w must be 32 (RGBA8) or 64 (R10G10B10A2) words. row0 > 0
+// launches the band form: out_h output rows from row row0 of a grid of
+// ceil((row0 + out_h) / tile_h) tile rows, rel_y per grid row, and no span
+// items; row0 0 the whole form.
 extern "C" int dma_floor_launch(const void* img, void* out, const void* tiles, int n_tiles,
                                 int n_spans, const void* rel_x, const void* rel_y, const void* box_x0,
                                 const void* box_y0, int batch, int in_h, int in_w, int rows,
                                 int pitch, int out_h, int out_w, int tile_w, int tile_h, int box_w0,
-                                int box_h0, int box_w1, int box_h1, void* stream) {
+                                int box_h0, int box_w1, int box_h1, int row0, void* stream) {
   if (n_tiles <= 0 || n_spans < 0 || n_spans > n_tiles || batch <= 0 || in_h <= 0 || in_w <= 0 || out_h <= 0 || out_w <= 0 ||
       in_h > rows || in_w > pitch || pitch % 4 != 0 || reinterpret_cast<uintptr_t>(img) % 16 != 0 ||
       (tile_w != 32 && tile_w != 64) || tile_h < 1 || tile_h > kMaxBox || !box_ok(box_w0, box_h0) ||
-      !box_ok(box_w1, box_h1))
+      !box_ok(box_w1, box_h1) || row0 < 0 || row0 >= tile_h || (row0 > 0 && n_spans > 0))
     return static_cast<int>(cudaErrorInvalidValue);
   BoxMap map0, map1;
   if (!cached_map({img, batch, in_h, in_w, rows, pitch, box_w0, box_h0}, &map0) ||
@@ -380,7 +419,7 @@ extern "C" int dma_floor_launch(const void* img, void* out, const void* tiles, i
   p.n_tiles = n_tiles;
   p.n_spans = n_spans;
   p.tiles_x = (out_w + tile_w - 1) / tile_w;
-  p.tiles_y = (out_h + tile_h - 1) / tile_h;
+  p.tiles_y = (row0 + out_h + tile_h - 1) / tile_h;
   p.tile_h = tile_h;
   p.out_h = out_h;
   p.out_w = out_w;
@@ -391,11 +430,15 @@ extern "C" int dma_floor_launch(const void* img, void* out, const void* tiles, i
   p.img = static_cast<const uint32_t*>(img);
   p.rows = rows;
   p.pitch = pitch;
+  p.row0 = row0;
   const int words = box_w0 * box_h0 > box_w1 * box_h1 ? box_w0 * box_h0 : box_w1 * box_h1;
   p.stage_words = (words + kAlign / 4 - 1) / (kAlign / 4) * (kAlign / 4);
   // the barriers, the ring, and the slack that aligns them
   const size_t smem = kAlign + static_cast<size_t>(kStages) * p.stage_words * 4 + kAlign;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return tile_w == 64 ? launch_tiles<64>(map0, map1, p, smem, s)
-                      : launch_tiles<32>(map0, map1, p, smem, s);
+  if (row0 > 0)
+    return tile_w == 64 ? launch_tiles<64, true>(map0, map1, p, smem, s)
+                        : launch_tiles<32, true>(map0, map1, p, smem, s);
+  return tile_w == 64 ? launch_tiles<64, false>(map0, map1, p, smem, s)
+                      : launch_tiles<32, false>(map0, map1, p, smem, s);
 }

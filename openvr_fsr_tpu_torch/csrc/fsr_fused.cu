@@ -82,8 +82,10 @@
 // fractions and RCAS's cross are rounded to bf16 where they are read, the
 // sharpness by the host; the bilinear fallback, the UNORM round trip, the
 // tint and the outside pass stay f32, as there. One instantiation per codec
-// behind fsr_fused_launch_h and fsr_fused_launch10_h; no band variant (the
-// JAX package builds its strips at full precision only).
+// behind fsr_fused_launch_h and fsr_fused_launch10_h, and a band one
+// (fsr_band_half_inside_kernel) for the half strips, as the JAX builder
+// takes band_range and precision="half" together (fsr.py:191-194); a band's
+// outside pass is fsr_band_outside_kernel at both precisions.
 // Build with --fmad=false:
 // the bits then match the plain torch version
 // (kernels/fsr.py::fsr_fused_reference).
@@ -349,6 +351,11 @@ __global__ void __launch_bounds__(kThreads, kInsideCtasPerSm)
     fsr_half_inside_kernel(Params<C> p) {
   inside_tiles<C, ffx::Half, false>(p, Band{});
 }
+template <class C>
+__global__ void __launch_bounds__(kThreads, kInsideCtasPerSm)
+    fsr_band_half_inside_kernel(Params<C> p, Band band) {
+  inside_tiles<C, ffx::Half, true>(p, band);
+}
 
 // The whole output's inside kernel of precision P.
 template <class C, class P>
@@ -357,6 +364,14 @@ auto inside_kernel() {
     return fsr_half_inside_kernel<C>;
   else
     return fsr_inside_kernel<C>;
+}
+// A band's inside kernel of precision P.
+template <class C, class P>
+auto band_inside_kernel() {
+  if constexpr (P::kHalf)
+    return fsr_band_half_inside_kernel<C>;
+  else
+    return fsr_band_inside_kernel<C>;
 }
 
 // The outside list: the shared bilinear pass with the UNORM round trip, on
@@ -375,14 +390,15 @@ __global__ void __launch_bounds__(bilinear_pass::kThreads)
 // CTAs per SM of the (whole-output) outside and inside kernels of precision
 // P on the current device, as cudaOccupancyMaxActiveBlocksPerMultiprocessor
 // gives them, after allowing the inside kernels their dynamic shared memory
-// (at full precision also the band's, which has at most the other's
-// registers, so at least its CTAs). Returns the first non-zero cudaError_t.
+// (also the band's of precision P, which runs on the whole kernel's grid:
+// both are held to kInsideCtasPerSm by their launch bounds, the same shared
+// memory and the same threads). Returns the first non-zero cudaError_t.
 template <class C, class P>
 int occupancy(int* outside, int* inside) {
   cudaError_t err = cudaFuncSetAttribute(
       inside_kernel<C, P>(), cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Smem<C>));
-  if (err == cudaSuccess && !P::kHalf)
-    err = cudaFuncSetAttribute(fsr_band_inside_kernel<C>,
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(band_inside_kernel<C, P>(),
                                cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Smem<C>));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(outside, fsr_outside_kernel<C>,
@@ -390,6 +406,18 @@ int occupancy(int* outside, int* inside) {
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, inside_kernel<C, P>(), kThreads,
                                                         sizeof(Smem<C>));
+  return static_cast<int>(err);
+}
+
+// CTAs per SM of the band inside kernel of precision P on the current
+// device, after allowing it its dynamic shared memory.
+template <class C, class P>
+int band_occupancy(int* inside) {
+  cudaError_t err = cudaFuncSetAttribute(
+      band_inside_kernel<C, P>(), cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Smem<C>));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, band_inside_kernel<C, P>(),
+                                                        kThreads, sizeof(Smem<C>));
   return static_cast<int>(err);
 }
 
@@ -411,7 +439,7 @@ int inside_grid() {
   return grid[dev];
 }
 
-// A launch of precision P; at P::kHalf only the whole output (no band).
+// A launch of precision P, of the whole output or of a band.
 template <class C, class P>
 int launch(const void* img, void* out, const void* col_i, const void* col_f, const void* row_i,
            const void* row_f, const void* tile_x0, const void* tile_y0, const void* group_cls,
@@ -422,8 +450,7 @@ int launch(const void* img, void* out, const void* col_i, const void* col_f, con
   using Texel = typename C::Texel;
   if (tile != kTile || window != kWin || batch <= 0 || in_h <= 0 || out_h <= 0 || out_w <= 0 ||
       in_w > pitch || n_inside < 0 || n_outside < 0 ||
-      !strip_is_valid(in_h, in_row_base, in_rows, out_h, out_row0, out_row1) ||
-      (P::kHalf && (out_row0 != 0 || out_row1 != out_h)))
+      !strip_is_valid(in_h, in_row_base, in_rows, out_h, out_row0, out_row1))
     return static_cast<int>(cudaErrorInvalidValue);
   Params<C> p;
   p.img = rebase(static_cast<const Texel*>(img), in_row_base, pitch);
@@ -468,9 +495,10 @@ int launch(const void* img, void* out, const void* col_i, const void* col_f, con
     p.tiles = static_cast<const int32_t*>(inside_tiles);
     p.n_tiles = n_inside;
     const int ctas = grid < n_inside ? grid : n_inside;
-    if (band)
-      fsr_band_inside_kernel<C><<<ctas, kThreads, sizeof(Smem<C>), s>>>(p, rows);
-    else {
+    if (band) {
+      const auto kernel = band_inside_kernel<C, P>();
+      kernel<<<ctas, kThreads, sizeof(Smem<C>), s>>>(p, rows);
+    } else {
       const auto kernel = inside_kernel<C, P>();
       kernel<<<ctas, kThreads, sizeof(Smem<C>), s>>>(p);
     }
@@ -500,6 +528,19 @@ extern "C" int fsr_fused_occupancy_h(int* outside, int* inside, int* inside_smem
 extern "C" int fsr_fused_occupancy10_h(int* outside, int* inside, int* inside_smem) {
   *inside_smem = static_cast<int>(sizeof(Smem<codec::Rgb10a2>));
   return occupancy<codec::Rgb10a2, ffx::Half>(outside, inside);
+}
+
+// CTAs per SM of the band inside kernel (fsr_band_inside_kernel,
+// fsr_band_half_inside_kernel) of color_bits 8 or 10 at full (half 0) or
+// half (half 1) precision on the current device. Returns the first non-zero
+// cudaError_t.
+extern "C" int fsr_fused_band_occupancy(int color_bits, int half, int* inside) {
+  if (color_bits == 10)
+    return half ? band_occupancy<codec::Rgb10a2, ffx::Half>(inside)
+                : band_occupancy<codec::Rgb10a2, ffx::Full>(inside);
+  if (color_bits != 8) return static_cast<int>(cudaErrorInvalidValue);
+  return half ? band_occupancy<codec::Rgba8, ffx::Half>(inside)
+              : band_occupancy<codec::Rgba8, ffx::Full>(inside);
 }
 
 // Launch on `stream`: the outside pass over outside_tiles, then the inside
@@ -542,7 +583,7 @@ extern "C" int fsr_fused_launch10(const void* img, void* out, const void* col_i,
 }
 
 // The half instantiations, the same prototype: sharp is the host's bf16
-// value; the whole output only (out_row0 0, out_row1 out_h).
+// value; the whole output or a band, as the full ones.
 extern "C" int fsr_fused_launch_h(const void* img, void* out, const void* col_i,
                                   const void* col_f, const void* row_i, const void* row_f,
                                   const void* tile_x0, const void* tile_y0,

@@ -19,7 +19,8 @@ import torch
 from ..ops.common import HALF
 
 __all__ = ["unpack", "pack", "circle_mask", "debug_tint", "tint_vector",
-           "DeviceTables", "kernel_fn", "band_fn", "occupancy", "entry_name",
+           "DeviceTables", "kernel_fn", "band_fn", "occupancy",
+           "band_occupancy", "entry_name",
            "entry_args", "texel_words", "working_type", "PRECISIONS"]
 
 F32 = np.float32
@@ -149,8 +150,11 @@ def kernel_fn(name, batch, shape, pad_to, reference, launch, geometry=None,
             return reference(img)
         if dev.type != "cuda":
             raise ValueError(f"{name} has no path for device {dev}")
-        with torch.cuda.device(dev):
+        if dev.index == torch.cuda.current_device():
             out, err = launch(img)
+        else:
+            with torch.cuda.device(dev):
+                out, err = launch(img)
         if err != 0:
             raise RuntimeError(f"{name}_launch failed: cudaError {err}")
         fn.launches += 1
@@ -168,17 +172,17 @@ def kernel_fn(name, batch, shape, pad_to, reference, launch, geometry=None,
     return fn
 
 
-def band_fn(name, batch, strip, pad_to, reference, launch, color_bits,
-            band_range, in_row_base, out_rows):
+def band_fn(name, batch, strip, pad_to, reference, launch, geometry,
+            color_bits, precision, band_range, in_row_base, out_rows):
     """kernel_fn of a row-band build (B1, B5 with band_range): fn(img)
     takes the input strip, (batch, *strip) with strip = (in_rows, in_w),
     or its width padded to the ring pitch pad_to's; publishes band_range,
-    in_row_base, in_rows and out_rows (the JAX builders' meaning) and no DMA
-    geometry (dma_geometry None)."""
+    in_row_base, in_rows and out_rows (the JAX builders' meaning),
+    precision, and the strip's DMA geometry (kernels/_maps.py::
+    band_geometry, in words), whose in_h is the strip's rows."""
     rows, w = strip
     fn = kernel_fn(name, batch, (rows, w), (rows, pad_to[1]), reference,
-                   launch, None, color_bits)
-    fn.dma_geometry = None
+                   launch, geometry, color_bits, precision)
     fn.band_range = tuple(int(g) for g in band_range)
     fn.in_row_base, fn.in_rows, fn.out_rows = (int(in_row_base), int(rows),
                                                int(out_rows))
@@ -246,3 +250,21 @@ def occupancy(name, color_bits=8, precision="full"):
         raise RuntimeError(f"{name}_occupancy failed: cudaError {err}")
     return dict(zip(("outside", "inside", "inside_smem"),
                     (v.value for v in vals)))
+
+
+def band_occupancy(name, color_bits=8, precision="full"):
+    """CTAs per SM of the band inside kernel of `name` (fsr_fused,
+    cas_upscale: the row-band strips' instantiation) for `color_bits` and
+    `precision` on the current CUDA device, from its <name>_band_occupancy
+    entry point."""
+    from . import _build
+    texel_words(color_bits)
+    working_type(precision)
+    f = getattr(_build.load_library(name), f"{name}_band_occupancy")
+    f.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    f.restype = ctypes.c_int
+    ctas = ctypes.c_int()
+    err = f(int(color_bits), int(precision == "half"), ctypes.byref(ctas))
+    if err != 0:
+        raise RuntimeError(f"{name}_band_occupancy failed: cudaError {err}")
+    return ctas.value

@@ -35,7 +35,9 @@ of a stream.
 A row-band strip of B1 or B5 (the JAX builders' band_range) keeps the full
 image's tables and restricts the tile lists to the 32-row tiles that
 overlap the band's output rows; band_strip finds the input rows those
-tiles read, which the strip must hold.
+tiles read, which the strip must hold, and band_geometry the strip
+kernels' DMA geometry (a band form: the floor loads what each band tile
+loads and stores only the band's rows).
 
 Every build also publishes its DMA geometry (dma_geometry,
 sharpen_geometry): what its CUDA kernel loads from the frame and stores,
@@ -61,7 +63,7 @@ __all__ = ["FsrMaps", "fsr_maps", "cas_upscale_maps", "band_strip",
            "band_layout", "band_output_rows",
            "NisMaps", "nvscaler_maps", "SharpenMaps", "sharpen_maps",
            "input_padding", "dma_geometry", "sharpen_geometry",
-           "word_geometry",
+           "word_geometry", "band_geometry",
            "group_classes", "tile_lists", "TILE", "FSR_TILE", "IN_TILE",
            "CAS_IN_TILE", "NIS_TILE", "NIS_IN_TILE", "NIS_EDGE_TILE",
            "SHARPEN_TILE", "CAS_SHARPEN_IN_TILE", "NIS_SHARPEN_IN_TILE",
@@ -587,4 +589,36 @@ def word_geometry(geom, texel_words):
              tap_x=words(geom["tap_x"]))
     if geom["quad_x"] is not None:
         g["quad_x"] = words(geom["quad_x"])
+    return g
+
+
+def band_geometry(geom, rows, in_row_base, in_rows):
+    """The DMA geometry of a row-band strip of B1 or B5: what the CUDA strip
+    kernels load and store, from the whole build's geometry `geom`
+    (dma_geometry, texels or words: only rows change here) and the band's
+    output rows [r0, r1) = `rows`. It keeps the tile rows [t0, t1) that
+    overlap the band (band_strip's lists), their window origins and their
+    staged table, and the band rows' own taps and bilinear floors, every
+    input row rebased by the strip's in_row_base. `band` = (row0, row1) are
+    the band's rows in the grid of those tile rows (row0 = r0 - t0 * tile
+    height): the rows a floor stores, out_h = row1 - row0. A tile that a band
+    edge cuts loads its whole window in both strips, each storing its own
+    rows, as the strip kernels do. Each output's own tap row is clipped
+    into the strip's in_rows rows: a no-op where its tile stages (its
+    window lies in the strip), and in a tile row where no tile stages the
+    floor reads the bilinear floors instead."""
+    r0, r1 = int(rows[0]), int(rows[1])
+    th = geom["tile"][1]
+    t0, t1 = r0 // th, -(-r1 // th)
+    base = int(in_row_base)
+    g = dict(geom)
+    g.update(out_h=r1 - r0, band=(r0 - t0 * th, r1 - t0 * th),
+             tile_y0=np.ascontiguousarray(geom["tile_y0"][t0:t1] - base,
+                                          np.int32),
+             tap_y=np.ascontiguousarray(np.clip(
+                 geom["tap_y"][r0:r1] - base, 0, int(in_rows) - 1), np.int32),
+             staged=np.ascontiguousarray(geom["staged"][:, t0:t1]))
+    if geom["quad_y"] is not None:
+        g["quad_y"] = np.ascontiguousarray(geom["quad_y"][:, r0:r1] - base,
+                                           np.int32)
     return g

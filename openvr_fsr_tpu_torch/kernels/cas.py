@@ -28,7 +28,8 @@ row band of the full image from an input row strip (parallel/spatial.py),
 as build_fsr_fused's does. precision="half" runs CasFilter in bf16 as the
 JAX kernels' precision="half" does (ops/cas.py at dt=bf16), through the
 half instantiations of the inside kernels (<kernel>_launch_h,
-_launch10_h); the fallbacks outside the circle are the same.
+_launch10_h; build_cas_upscale's on the whole image or a strip); the
+fallbacks outside the circle are the same.
 """
 
 import ctypes
@@ -47,9 +48,10 @@ from ._common import (DeviceTables, band_fn, circle_mask, debug_tint,
                       entry_args, entry_name, kernel_fn, pack, texel_words,
                       tint_vector, unpack, working_type)
 from ._maps import (CAS_IN_TILE, CAS_SHARPEN_IN_TILE, FSR_TILE, SHARPEN_TILE,
-                    TILE, band_layout, band_output_rows, band_strip,
-                    cas_upscale_maps, dma_geometry, input_padding,
-                    sharpen_geometry, sharpen_maps, word_geometry)
+                    TILE, band_geometry, band_layout, band_output_rows,
+                    band_strip, cas_upscale_maps, dma_geometry,
+                    input_padding, sharpen_geometry, sharpen_maps,
+                    word_geometry)
 
 __all__ = ["build_cas_upscale", "build_cas_sharpen", "cas_upscale_reference",
            "cas_sharpen_reference", "cas_band_layout", "UPSCALE_ARGTYPES",
@@ -170,8 +172,7 @@ def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
       band_rows, band_range: a row-band build, as build_fsr_fused's, at
         cas_band_layout's band height.
       precision: "full" (f32) or "half" (CasFilter in bf16, op by op as
-        the JAX kernel's precision="half"); half with band_range raises
-        ValueError, as build_fsr_fused's.
+        the JAX kernel's precision="half"), with or without band_range.
 
     Returns fn(img) with the fused FSR kernel's contract: img is a
     contiguous (B, in_h, in_w) int32 tensor of packed RGBA8, or one
@@ -183,13 +184,9 @@ def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
     the outside pass and the inside kernel, each only where its tile list
     is not empty); fn.reference(img) runs the plain version on img's
     device; fn.dma_geometry is what the kernels load and store
-    (kernels/sol.py).
+    (kernels/sol.py; a strip's: kernels/_maps.py::band_geometry).
     """
     dt = working_type(precision)
-    if precision == "half" and band_range is not None:
-        raise ValueError("precision='half' has no row-band strips (the JAX "
-                         "package's parallel/spatial.py builds them at full "
-                         "precision)")
     B, H, W = int(batch), int(in_h), int(in_w)
     OH, OW = int(out_h), int(out_w)
     th, gy = cas_band_layout(OW, OH, band_rows)
@@ -201,6 +198,8 @@ def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
     sharp = cas_setup(sharpness)
     tint = debug_tint(debug)
     cb = int(color_bits)
+    # the scalar arguments in the kernel's types, once: a call converts none
+    sharp_k, tint_k = lit(sharp, dt), float(tint)
 
     def reference(img):
         """The plain torch version on img's device (any device)."""
@@ -218,16 +217,13 @@ def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
             m.tile_x0.data_ptr(), m.tile_y0.data_ptr(),
             m.group_cls.data_ptr(), m.inside_tiles.data_ptr(), n_inside,
             m.outside_tiles.data_ptr(), n_outside, B, H, W, base,
-            img.shape[1], img.shape[2], OH, OW, r0, r1, lit(sharp, dt),
-            float(tint), FSR_TILE, CAS_IN_TILE,
+            img.shape[1], img.shape[2], OH, OW, r0, r1, sharp_k, tint_k,
+            FSR_TILE, CAS_IN_TILE,
             torch.cuda.current_stream(dev).cuda_stream)
         return out, err
 
     m = tables.host
     n_inside, n_outside = len(m.inside_tiles), len(m.outside_tiles)
-    if band_range is not None:
-        return band_fn("CAS upscale strip", B, (rows, W), input_padding(H, W),
-                       reference, launch, cb, band_range, base, r1 - r0)
     # the inside tiles stage their 36x36 window, which may start at -2, 0
     # outside the image; an output's own tap there is its clamped CasFilter
     # floor. The outside tiles load each output's four bilinear taps.
@@ -238,9 +234,14 @@ def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
         tap_x=np.clip(m.col_i[0], 0, W - 1),
         tap_y=np.clip(m.row_i[0], 0, H - 1),
         quad_x=m.col_i[[1, 1]], quad_y=m.row_i[[1, 1]])
+    geometry = word_geometry(geometry, texel_words(cb))
+    if band_range is not None:
+        return band_fn("CAS upscale strip", B, (rows, W), input_padding(H, W),
+                       reference, launch,
+                       band_geometry(geometry, (r0, r1), base, rows), cb,
+                       precision, band_range, base, r1 - r0)
     return kernel_fn("CAS upscale", B, (H, W), input_padding(H, W),
-                     reference, launch,
-                     word_geometry(geometry, texel_words(cb)), cb, precision)
+                     reference, launch, geometry, cb, precision)
 
 
 def build_cas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
@@ -269,6 +270,8 @@ def build_cas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
     mcd = F32(max_color_delta)
     tint = debug_tint(debug)
     cb = int(color_bits)
+    # the scalar arguments in the kernel's types, once: a call converts none
+    sharp_k, mcd_k, tint_k = lit(sharp, dt), lit(mcd, dt), float(tint)
 
     def reference(img):
         """The plain torch version on img's device (any device)."""
@@ -284,8 +287,8 @@ def build_cas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
         err = _sharpen_launch_fn(*entry_args(cb, precision))(
             img.data_ptr(), out.data_ptr(), m.group_cls.data_ptr(),
             m.inside_tiles.data_ptr(), n_inside, m.outside_tiles.data_ptr(),
-            n_outside, B, H, W, img.shape[1], img.shape[2], lit(sharp, dt),
-            lit(mcd, dt), float(tint), SHARPEN_TILE, CAS_SHARPEN_IN_TILE,
+            n_outside, B, H, W, img.shape[1], img.shape[2], sharp_k,
+            mcd_k, tint_k, SHARPEN_TILE, CAS_SHARPEN_IN_TILE,
             torch.cuda.current_stream(dev).cuda_stream)
         return out, err
 

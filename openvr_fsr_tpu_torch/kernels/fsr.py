@@ -26,7 +26,8 @@ parallel/spatial.py), through the same kernels and plain version.
 precision="half" runs EASU and RCAS in bf16 as the JAX kernel's
 precision="half" does (ops/easu.py, ops/rcas.py at dt=bf16; the bilinear
 fallback, the UNORM round trip and the tint stay f32), through the half
-instantiation of the inside kernel (fsr_fused_launch_h, _launch10_h).
+instantiations of the inside kernel (fsr_fused_launch_h, _launch10_h: the
+whole output's and a band's), on the whole image or a strip.
 """
 
 import ctypes
@@ -45,9 +46,9 @@ from . import _build
 from ._common import (DeviceTables, band_fn, circle_mask, debug_tint,
                       entry_args, entry_name, kernel_fn, pack, texel_words,
                       tint_vector, unpack, working_type)
-from ._maps import (FSR_TILE, IN_TILE, TILE, band_layout, band_output_rows,
-                    band_strip, dma_geometry, fsr_maps, input_padding,
-                    word_geometry)
+from ._maps import (FSR_TILE, IN_TILE, TILE, band_geometry, band_layout,
+                    band_output_rows, band_strip, dma_geometry, fsr_maps,
+                    input_padding, word_geometry)
 
 __all__ = ["build_fsr_fused", "fsr_fused_reference", "fsr_band_layout",
            "circle_mask", "FUSED_ARGTYPES"]
@@ -137,12 +138,12 @@ def build_fsr_fused(batch, in_h, in_w, out_w, out_h, *, sharpness, centres,
         the tile lists the band's). fn then takes the input row strip
         [fn.in_row_base, fn.in_row_base + fn.in_rows) as (B, fn.in_rows,
         in_w) (or in_w padded to the ring pitch) and returns the band's
-        fn.out_rows rows; fn.band_range is (g0, g1), fn.dma_geometry None.
+        fn.out_rows rows; fn.band_range is (g0, g1), fn.dma_geometry the
+        strip kernels' (kernels/_maps.py::band_geometry).
       precision: "full" (f32, the oracle's bits) or "half": EASU and RCAS
         in bf16, op by op as the JAX kernel's precision="half"
-        (fsr_fused_reference; the CUDA kernel's half instantiation). The
-        JAX package builds its row-band strips at full precision only, so
-        half with band_range raises ValueError.
+        (fsr_fused_reference; the CUDA kernel's half instantiations), with
+        or without band_range, as the JAX builder takes both.
 
     Returns fn(img): img is a contiguous (B, in_h, in_w) int32 tensor, or
     one pre-padded to the ring pitch fn.pad_to (rows read in place, no
@@ -157,10 +158,6 @@ def build_fsr_fused(batch, in_h, in_w, out_w, out_h, *, sharpness, centres,
     and store (kernels/sol.py).
     """
     dt = working_type(precision)
-    if precision == "half" and band_range is not None:
-        raise ValueError("precision='half' has no row-band strips (the JAX "
-                         "package's parallel/spatial.py builds them at full "
-                         "precision)")
     B, H, W = int(batch), int(in_h), int(in_w)
     OH, OW = int(out_h), int(out_w)
     th, gy = fsr_band_layout(OW, OH, band_rows)
@@ -172,6 +169,8 @@ def build_fsr_fused(batch, in_h, in_w, out_w, out_h, *, sharpness, centres,
     sharp = C.fsr_rcas_con(C.rcas_stops_from_slider(sharpness))
     tint = debug_tint(debug)
     cb = int(color_bits)
+    # the scalar arguments in the kernel's types, once: a call converts none
+    sharp_k, tint_k = lit(sharp, dt), float(tint)
 
     def reference(img):
         """The plain torch version on img's device (any device)."""
@@ -189,16 +188,13 @@ def build_fsr_fused(batch, in_h, in_w, out_w, out_h, *, sharpness, centres,
             m.tile_x0.data_ptr(), m.tile_y0.data_ptr(),
             m.group_cls.data_ptr(), m.inside_tiles.data_ptr(), n_inside,
             m.outside_tiles.data_ptr(), n_outside, B, H, W, base,
-            img.shape[1], img.shape[2], OH, OW, r0, r1, lit(sharp, dt),
-            float(tint), FSR_TILE, IN_TILE,
+            img.shape[1], img.shape[2], OH, OW, r0, r1, sharp_k, tint_k,
+            FSR_TILE, IN_TILE,
             torch.cuda.current_stream(dev).cuda_stream)
         return out, err
 
     m = tables.host
     n_inside, n_outside = len(m.inside_tiles), len(m.outside_tiles)
-    if band_range is not None:
-        return band_fn("fused FSR strip", B, (rows, W), input_padding(H, W),
-                       reference, launch, cb, band_range, base, r1 - r0)
     # the inside tiles stage their 40x40 window edge-clamped; an output's
     # own tap there is its clamped EASU floor. The outside tiles load each
     # output's four bilinear taps (fsr_outside_kernel).
@@ -209,6 +205,11 @@ def build_fsr_fused(batch, in_h, in_w, out_w, out_h, *, sharpness, centres,
         tap_x=np.clip(m.col_i[0], 0, W - 1),
         tap_y=np.clip(m.row_i[0], 0, H - 1),
         quad_x=m.col_i[[1, 1]], quad_y=m.row_i[[1, 1]])
+    geometry = word_geometry(geometry, texel_words(cb))
+    if band_range is not None:
+        return band_fn("fused FSR strip", B, (rows, W), input_padding(H, W),
+                       reference, launch,
+                       band_geometry(geometry, (r0, r1), base, rows), cb,
+                       precision, band_range, base, r1 - r0)
     return kernel_fn("fused FSR", B, (H, W), input_padding(H, W), reference,
-                     launch, word_geometry(geometry, texel_words(cb)), cb,
-                     precision)
+                     launch, geometry, cb, precision)

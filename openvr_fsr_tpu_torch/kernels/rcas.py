@@ -108,6 +108,8 @@ def build_rcas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
     sharp = C.fsr_rcas_con(C.rcas_stops_from_slider(sharpness))
     tint = debug_tint(debug)
     cb = int(color_bits)
+    # the scalar arguments in the kernel's types, once: a call converts none
+    sharp_k, tint_k = lit(sharp, dt), float(tint)
 
     def reference(img):
         """The plain torch version on img's device (any device)."""
@@ -123,8 +125,8 @@ def build_rcas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
         err = _launch_fn(*entry_args(cb, precision))(
             img.data_ptr(), out.data_ptr(), m.group_cls.data_ptr(),
             m.inside_tiles.data_ptr(), n_inside, m.outside_tiles.data_ptr(),
-            n_outside, B, H, W, img.shape[1], img.shape[2], lit(sharp, dt),
-            float(tint), SHARPEN_TILE, CAS_SHARPEN_IN_TILE,
+            n_outside, B, H, W, img.shape[1], img.shape[2], sharp_k, tint_k,
+            SHARPEN_TILE, CAS_SHARPEN_IN_TILE,
             torch.cuda.current_stream(dev).cuda_stream)
         return out, err
 

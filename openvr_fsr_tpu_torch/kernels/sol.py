@@ -45,8 +45,8 @@ from ._common import DeviceTables, kernel_fn
 from ._maps import THREADS, _Tables
 
 __all__ = ["build_dma_floor", "dma_floor_reference", "check_geometry",
-           "floor_tiles", "floor_boxes", "floor_loads", "clip_words",
-           "wt_swizzle_offset",
+           "floor_tiles", "floor_boxes", "floor_loads", "tile_loads",
+           "clip_words", "band_rows", "grid_rows", "wt_swizzle_offset",
            "vpu_cycle", "build_vpu_rate", "vpu_rate_reference",
            "build_vmem_rate", "vmem_rate_reference", "build_mxu_rate",
            "mxu_rate_reference", "MXU_TOLERANCE", "PITCH_WORDS"]
@@ -151,8 +151,8 @@ def floor_boxes(geom):
     for tile, win, n_in, origins, taps, quad, align, words in (
             (tw, ww, g["in_w"], g["tile_x0"], g["tap_x"], g["quad_x"],
              BOX_ALIGN, g.get("texel_words", 1)),
-            (th, wh, g["in_h"], g["tile_y0"], g["tap_y"], g["quad_y"], 1,
-             1)):
+            (th, wh, g["in_h"], g["tile_y0"], grid_rows(g, g["tap_y"]),
+             grid_rows(g, g["quad_y"]), 1, 1)):
         origins = origins.astype(np.int64)
         if g["stage"] == "list":
             q = quad[1]
@@ -179,10 +179,11 @@ def floor_boxes(geom):
     return FloorBoxes(((ex[0], ey[0]), (ex[1], ey[1])), x0, y0, rel_x, rel_y)
 
 
-def floor_loads(geom, boxes=None):
-    """Words one launch loads from the frame, overlaps included: per tile,
-    the in-image words of its box (TMA reads no word outside the image);
-    a span item's tiles read the same words, their own texels."""
+def tile_loads(geom, boxes=None):
+    """(B, tiles_y, tiles_x) words each tile of the floor loads from the
+    frame: the in-image words of its class's box (TMA reads no word
+    outside the image); a span item's tiles read the same words, their own
+    texels."""
     g = geom
     b = floor_boxes(g) if boxes is None else boxes
     (bw0, bh0), (bw1, bh1) = b.box
@@ -192,12 +193,39 @@ def floor_loads(geom, boxes=None):
     ny = (np.clip(y0 + np.array([[bh0], [bh1]]), 0, g["in_h"])
           - np.clip(y0, 0, g["in_h"]))
     words = ny[:, :, None] * nx[:, None, :]          # (2, tiles_y, tiles_x)
-    return int(np.where(g["staged"], words[1], words[0]).sum())
+    return np.where(g["staged"], words[1], words[0])
+
+
+def floor_loads(geom, boxes=None):
+    """Words one launch loads from the frame, overlaps included: the sum
+    of tile_loads."""
+    return int(tile_loads(geom, boxes).sum())
+
+
+def band_rows(geom):
+    """(row0, row1): the rows of the geometry's tile grid that its outputs
+    are, the band of a strip geometry (kernels/_maps.py::band_geometry),
+    else (0, out_h)."""
+    return tuple(geom.get("band") or (0, geom["out_h"]))
+
+
+def grid_rows(geom, rows):
+    """Per-output-row values (the last axis of `rows`: tap_y, quad_y) laid
+    over the rows of the tile grid: a band's row0 leading rows, which no
+    output is, take the first output row's values (the same tile row, so no
+    span or box grows); None stays None."""
+    row0 = band_rows(geom)[0]
+    if rows is None or not row0:
+        return rows
+    rows = np.asarray(rows)
+    return np.concatenate([np.repeat(rows[..., :1], row0, -1), rows], -1)
 
 
 def check_geometry(geom):
     """Raise ValueError unless the floor can run `geom`: 256 threads per
-    CTA and tiles 32 outputs wide (FLOOR_TILE_W words per texel word);
+    CTA and tiles 32 outputs wide (FLOOR_TILE_W words per texel word); a
+    band (band_rows) of out_h rows from row0 < the tile height, over its
+    tile rows, in stage "list" only;
     stage "copy" with no
     four-tap floors, no stage_quads, a staged table of the grid's shape and
     each output's tap its own texel, or "list" with the floors and a staged
@@ -213,6 +241,15 @@ def check_geometry(geom):
                          f"({FLOOR_TILE_W * words} words) wide, not "
                          f"{g['tile']}")
     grid = (g["batch"], len(g["tile_y0"]), len(g["tile_x0"]))
+    row0, row1 = band_rows(g)
+    if row1 - row0 != g["out_h"] or not 0 <= row0 < g["tile"][1] or \
+            len(g["tile_y0"]) != -(-row1 // g["tile"][1]):
+        raise ValueError(f"the band's rows {(row0, row1)} are not "
+                         f"{g['out_h']} rows from the first of "
+                         f"{len(g['tile_y0'])} tile rows")
+    if row0 and g["stage"] != "list":
+        raise ValueError("a band form takes stage 'list' (a strip of B1 or "
+                         "B5)")
     if g["stage"] == "list":
         if np.shape(g["staged"]) != grid or g["quad_x"] is None:
             raise ValueError(f"stage 'list' needs a staged table of shape "
@@ -232,8 +269,9 @@ def check_geometry(geom):
     for axis, tile, win, origins, taps, quad, n_in, n in (
             ("column", g["tile"][0], g["window"][0], g["tile_x0"],
              g["tap_x"], g["quad_x"], g["in_w"], words),
-            ("row", g["tile"][1], g["window"][1], g["tile_y0"], g["tap_y"],
-             g["quad_y"], g["in_h"], 1)):
+            ("row", g["tile"][1], g["window"][1], g["tile_y0"],
+             grid_rows(g, g["tap_y"]), grid_rows(g, g["quad_y"]), g["in_h"],
+             1)):
         first = np.repeat(origins, tile)[:len(taps)]
         rel = taps - first
         if rel.min() < 0 or rel.max() >= win:
@@ -257,8 +295,9 @@ def dma_floor_reference(img, geom):
     is the input word at its tap (tap_y, tap_x); in a tile of stage "list"
     that does not stage, the first of its four bilinear taps instead,
     edge-clamped. img: (B, H, W) or ring-pitch (B, hp, wp) int32 words (W
-    and out_w in words, as the geometry's). Returns (B, out_h, out_w)
-    int32."""
+    and out_w in words, as the geometry's; a strip's H its rows). Returns
+    (B, out_h, out_w) int32: a band form's out_h band rows, the tile of
+    each its row in the grid from row0 (band_rows)."""
     g = geom
     H, W, OH, OW = g["in_h"], g["in_w"], g["out_h"], g["out_w"]
     x = img[:, :H, :W]
@@ -271,12 +310,13 @@ def dma_floor_reference(img, geom):
     out = gather(g["tap_y"], g["tap_x"])
     if g["stage"] == "list":
         tw, th = g["tile"]
+        row0, row1 = band_rows(g)
         staged = torch.as_tensor(g["staged"], device=img.device)
         staged = staged.repeat_interleave(th, 1).repeat_interleave(tw, 2)
         direct = gather(np.clip(g["quad_y"][1], 0, H - 1),
                         clip_words(g["quad_x"][1], W,
                                    g.get("texel_words", 1)))
-        out = torch.where(staged[:, :OH, :OW], out, direct)
+        out = torch.where(staged[:, row0:row1, :OW], out, direct)
     return out
 
 
@@ -295,9 +335,9 @@ class _FloorTables(_Tables):
 
 
 # csrc/dma_floor.cu dma_floor_launch: img, out, tiles, n_tiles, n_spans,
-# rel_x, rel_y, box_x0, box_y0, 13 ints, stream
+# rel_x, rel_y, box_x0, box_y0, 14 ints (the last the band's row0), stream
 FLOOR_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                  + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13
+                  + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
                   + [ctypes.c_void_p])
 
 
@@ -317,9 +357,13 @@ def build_dma_floor(geom):
     Returns fn(img): img is the same contiguous frame, or one pre-padded
     to the ring pitch fn.pad_to, that the compute kernel takes (a (B,
     in_h, in_w) int32 plane; at 10 bits a (B, in_h, in_w, 4) uint16 one,
-    moved as its two words per texel); the result is a new frame of the
-    compute kernel's output shape, each output word the input word at its
-    tap (dma_floor_reference). A CUDA tensor launches csrc/dma_floor.cu,
+    moved as its two words per texel; a strip's input strip); the result
+    is a new frame of the compute kernel's output shape (a strip's band
+    rows), each output word the input word at its tap
+    (dma_floor_reference). A strip geometry (band_rows from a row0 > 0)
+    runs the band form: each tile loads what the strip kernel's tile
+    loads, its whole window where it stages, and stores the band's rows
+    only. A CUDA tensor launches csrc/dma_floor.cu,
     whose TMA loads take a row pitch of a multiple of fn.pitch_words
     words: any other CUDA frame (the unpadded 1683-word rows of the
     upscalers' 8-bit input and 3366-word rows of their 10-bit one among
@@ -327,6 +371,9 @@ def build_dma_floor(geom):
     runs the plain version.
     Published:
       launches, pad_to, reference   as every kernel build's;
+      band_form     whether a CUDA call launches the band form
+                    (dma_floor_band_kernel: a band from a row0 > 0) and
+                    not the whole form (dma_floor_kernel);
       pitch_words   the row pitch the CUDA path takes a multiple of;
       tiles         the item list (floor_tiles), its first n_spans items
                     the span items;
@@ -351,6 +398,7 @@ def build_dma_floor(geom):
     tables = DeviceTables(_FloorTables(tiles, boxes.rel_x, boxes.rel_y,
                                        boxes.x0, boxes.y0))
     tw, th = g["tile"]
+    row0 = band_rows(g)[0]
     (bw0, bh0), (bw1, bh1) = boxes.box
 
     def words(img):
@@ -381,11 +429,13 @@ def build_dma_floor(geom):
             x.data_ptr(), out.data_ptr(), m.tiles.data_ptr(), len(tiles),
             n_spans, m.rel_x.data_ptr(), m.rel_y.data_ptr(), m.x0.data_ptr(),
             m.y0.data_ptr(), B, H, W, x.shape[1], x.shape[2], OH, OW, tw, th,
-            bw0, bh0, bw1, bh1, torch.cuda.current_stream(dev).cuda_stream)
+            bw0, bh0, bw1, bh1, row0,
+            torch.cuda.current_stream(dev).cuda_stream)
         return texels(out), err
 
     fn = kernel_fn("DMA floor", B, (H, W // n), (g["hp"], g["wp"] // n),
                    reference, launch, color_bits=8 if n == 1 else 10)
+    fn.band_form = row0 > 0
     fn.pitch_words = PITCH_WORDS
     fn.tiles = tiles
     fn.n_spans = n_spans

@@ -13,7 +13,8 @@ writes a temporary file that it renames into place.
 
 Unlike the JAX loader, `lib()` never returns None: a missing g++, a failed
 build or a library of another ABI raises RuntimeError (with the compiler's
-output). The pure-Python config scanner (core/config.py::scan_cfg) and DDS
+output). `available()` keeps the JAX meaning (True when `lib()` loads);
+no path of the port branches on it. The pure-Python config scanner (core/config.py::scan_cfg) and DDS
 codec (api/capture.py) stay the port's path for those two;
 tests/test_torch_native.py holds them equal to this library.
 """
@@ -28,8 +29,8 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["lib", "library_path", "parse_cfg_native", "dds_write_native",
-           "dds_read_native", "FrameRing", "CXX_FLAGS"]
+__all__ = ["lib", "available", "library_path", "parse_cfg_native",
+           "dds_write_native", "dds_read_native", "FrameRing", "CXX_FLAGS"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ovrfsr_native.cc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -133,6 +134,17 @@ def lib():
         [ctypes.POINTER(ctypes.c_uint64)] * 4
     _LIBS[so] = L
     return L
+
+
+def available():
+    """True when lib() loads, False when g++ is missing, the build fails or
+    the library's ABI is another (the JAX native_rt.available()). A query
+    only: lib() still raises on each of those."""
+    try:
+        lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def parse_cfg_native(text):

@@ -8,10 +8,15 @@ cards, strip i on cuda:(i mod N)) for the fused FSR path
 (sharpness 0.9) and the CAS upscale path (sharpness 0.6), at 2 x 1683x1869
 -> 2 x 2244x2492 (rs 0.75, radius 0.5) on a zone plate and a noise frame,
 eyes (0, 1), at the default band_rows, and requires the concatenated strips
-to equal Pipeline.process on cuda:0 bit for bit. Then it times, with CUDA
-events, each strip kernel and the single launch (device time: each's calls
-replayed from a CUDA graph on its card, the strips and the single launch
-in turns, the best of ROUNDS replays each), and on the host's clock
+to equal Pipeline.process on cuda:0 bit for bit, and each strip's DMA
+floor (kernels/sol.py::build_dma_floor on the strip's geometry, the band
+form where a band edge cuts a tile) to equal its plain version word for
+word. Then it times, with CUDA events, each strip kernel, each strip's
+floor, the single launch and its floor (on the frame padded to the ring
+pitch, which the floor's TMA takes) (device time: each's calls replayed
+from a CUDA graph on its card, all in turns, the best of ROUNDS replays
+each), with each strip's vs_sol (its floor over its kernel) and the
+strips' summed floors beside the single launch's, and on the host's clock
 process_placed's strips and the single launch back to back (ITERS calls
 ending when every card is synchronised) and the latency of one call (from
 the call until every card is synchronised, the median of ITERS), and
@@ -21,7 +26,7 @@ record, not a gate.
     python3 -m openvr_fsr_tpu_torch.tools.spatial_onchip [--cards N]
         [--out FILE]
 
-Exits 1 on an unequal texel, or when torch finds no CUDA GPU.
+Exits 1 on an unequal texel or word, or when torch finds no CUDA GPU.
 """
 
 import argparse
@@ -48,6 +53,7 @@ def main(argv=None):
     from .. import bench
     from ..api.pipeline import Pipeline
     from ..core.config import Config
+    from ..kernels.sol import build_dma_floor
     from ..parallel.spatial import SpatialFsrPipeline
     from ..utils import frames as FR
     from ..utils.timing import replay_ms, rotation_graph
@@ -133,9 +139,20 @@ def main(argv=None):
             else -1
         shards = sp._cache[placed[0]][0]
         single = pipe.kernels[0]
-        *strip_ms, single_ms = device_ms(
+        floors = [build_dma_floor(fn.dma_geometry) for fn, *_ in shards]
+        single_floor = build_dma_floor(single.dma_geometry)
+        hp, wp = single_floor.pad_to
+        ring = torch.zeros((2, hp, wp), dtype=torch.int32, device=dev)
+        ring[:, :H, :W] = packed
+        floor_unequal = [int((f(x) != f.reference(x)).sum())
+                         for f, x in zip(floors + [single_floor],
+                                         placed[1] + [ring])]
+        times = device_ms(
             [(fn, x) for (fn, *_), x in zip(shards, placed[1])]
-            + [(single, packed)])
+            + [(f, x) for f, x in zip(floors, placed[1])]
+            + [(single, packed), (single_floor, ring)])
+        strip_ms, floor_ms = times[:STRIPS], times[STRIPS:2 * STRIPS]
+        single_ms, single_floor_ms = times[2 * STRIPS:]
         placed_ms = back_to_back_ms(lambda: sp.process_placed(placed))
         single_b2b_ms = back_to_back_ms(lambda: single(packed))
         strips_latency = latency_ms(lambda: sp.process_placed(placed))
@@ -148,6 +165,12 @@ def main(argv=None):
                "strip_ms": strip_ms, "strips_sum_ms": float(sum(strip_ms)),
                "single_ms": single_ms,
                "strips_over_single": float(sum(strip_ms)) / single_ms,
+               "floor_unequal": floor_unequal,
+               "strip_floor_ms": floor_ms,
+               "strip_vs_sol": [f / k for f, k in zip(floor_ms, strip_ms)],
+               "strip_floors_sum_ms": float(sum(floor_ms)),
+               "single_floor_ms": single_floor_ms,
+               "single_vs_sol": single_floor_ms / single_ms,
                "process_placed_ms": placed_ms,
                "single_back_to_back_ms": single_b2b_ms,
                "strips_latency_ms": strips_latency,
@@ -157,7 +180,12 @@ def main(argv=None):
               f"unequal "
               f"{unequal} of {res['pixels']} texels; device ms per strip "
               f"{strip_ms}, summed {res['strips_sum_ms']}, single launch "
-              f"{single_ms}; back to back {placed_ms} (strips) and "
+              f"{single_ms}; floors per strip {floor_ms} (vs_sol "
+              f"{res['strip_vs_sol']}), summed "
+              f"{res['strip_floors_sum_ms']}, the single launch's "
+              f"{single_floor_ms} (vs_sol {res['single_vs_sol']}); unequal "
+              f"floor words {floor_unequal}; back to back {placed_ms} "
+              f"(strips) and "
               f"{single_b2b_ms} (single); one call's latency "
               f"{strips_latency} (strips on {args.cards} card(s)) and "
               f"{single_latency} (single)", file=sys.stderr, flush=True)
@@ -166,7 +194,8 @@ def main(argv=None):
     if args.out:
         with open(args.out, "w") as f:
             f.write(line + "\n")
-    if not all(r["bitwise_equal"] for r in rec["results"].values()):
+    if not all(r["bitwise_equal"] and not any(r["floor_unequal"])
+               for r in rec["results"].values()):
         sys.exit(1)
     return rec
 

@@ -295,7 +295,7 @@ def test_port_never_imports_jax():
     the DMA floor, the rate probes, the two bench entries, the audit, the
     A/B tool, the oracle copy, capture, the parity tool, the throughput
     tool, parallel/, the spatial strips' tool, the half tool, the native
-    runtime bindings and the stream, 8K and demo tools included;
+    runtime bindings and the stream, 8K, demo and host-cost tools included;
     the half precision code needs no ml_dtypes either (torch.bfloat16)."""
     code = ("import sys, openvr_fsr_tpu_torch, openvr_fsr_tpu_torch.kernels, "
             "openvr_fsr_tpu_torch.oracle, openvr_fsr_tpu_torch.oracle.pipeline, "
@@ -319,7 +319,8 @@ def test_port_never_imports_jax():
             "openvr_fsr_tpu_torch.native_rt, "
             "openvr_fsr_tpu_torch.tools.stream_bench, "
             "openvr_fsr_tpu_torch.tools.bench_8k, "
-            "openvr_fsr_tpu_torch.tools.demo;"
+            "openvr_fsr_tpu_torch.tools.demo, "
+            "openvr_fsr_tpu_torch.tools.api_cost;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'openvr_fsr_tpu', 'ml_dtypes'));"
             "print(bad); sys.exit(1 if bad else 0)")

@@ -181,24 +181,34 @@ CASES = {f"{p} r{r}{' debug' if d else ''}": (_case_config(p, r, d), 8)
          for p in PATHS for r, d in RADII}
 CASES.update({f"{p} r0.5 10-bit": (_case_config(p, 0.5, False), 10)
               for p in TEN_BIT})
+# A known divergence (ROADMAP Queue C 6): the half FSR upscale at 2 x
+# 90x70 (h x w) -> 2 x 93x120, radius 2.0, on the frames of
+# tests/test_torch_half_strips.py (the "90x70" set), run in the same JAX
+# subprocesses
+TIE_CASE = "fsr_fused r2.0 2x90x70"
+TIE_CONFIG = _case_config("fsr_fused", 2.0, False)
 
 
 def _frames():
     """{8: (2, 48, 56, 4) uint8 zone plate + noise, alpha not all 255;
     10: the same widened to R10G10B10A2 (v to v * 4 + v // 64, bench.py's
-    ring_frames), alpha in {0..3}}."""
+    ring_frames), alpha in {0..3}; "90x70": (2, 90, 70, 4) uint8, the
+    frames of tests/test_torch_half_strips.py}."""
     from openvr_fsr_tpu_torch.utils import frames as FR
     rng = np.random.default_rng(14)
     f8 = np.stack([FR.zone_plate_frame(48, 56), FR.noise_frame(48, 56, 3)])
     f8[..., 3] = rng.integers(0, 256, (2, 48, 56))
     f10 = f8.astype(np.uint16) * 4 + f8 // 64
     f10[..., 3] = rng.integers(0, 4, (2, 48, 56))
-    return {8: f8, 10: f10}
+    rng = np.random.default_rng(17)
+    f90 = np.stack([FR.zone_plate_frame(90, 70), FR.noise_frame(90, 70, 5)])
+    f90[..., 3] = rng.integers(0, 256, (2, 90, 70))
+    return {8: f8, 10: f10, "90x70": f90}
 
 
 # One process computes every case through the JAX package's Pallas kernels
-# in interpret mode at precision="half": argv cases (JSON), frames (.npz),
-# output (.npz).
+# in interpret mode at precision="half": argv cases (JSON: name -> config,
+# bits, frame set), frames (.npz), output (.npz).
 JAX_HALF = r"""
 import json, sys
 import numpy as np
@@ -207,12 +217,16 @@ jax.config.update("jax_platforms", "cpu")
 import openvr_fsr_tpu as J
 cases, src = json.loads(sys.argv[1]), np.load(sys.argv[2])
 out = {}
-for name, (kw, bits) in cases.items():
+for name, (kw, bits, frames) in cases.items():
     pipe = J.Pipeline(J.Config(**kw), color_bits=bits,
                       backend="pallas-interpret", precision="half")
-    out[name] = np.asarray(pipe.process(src[str(bits)], eyes=(0, 1)))
+    out[name] = np.asarray(pipe.process(src[frames], eyes=(0, 1)))
 np.savez(sys.argv[3], **out)
 """
+# the cases of the JAX runs: CASES on their frame sets, and TIE_CASE
+JAX_CASES = {**{name: (kw, bits, str(bits))
+                for name, (kw, bits) in CASES.items()},
+             TIE_CASE: (TIE_CONFIG, 8, "90x70")}
 # XLA_FLAGS of the two JAX runs: per-op rounding, and the default flags
 # (excess precision allowed inside fusions)
 JAX_FLAGS = {"per_op": "--xla_allow_excess_precision=false", "default": ""}
@@ -230,7 +244,7 @@ def jax_half(tmp_path_factory):
         env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu",
                    XLA_FLAGS=xla)
         procs[flags] = subprocess.Popen(
-            [sys.executable, "-c", JAX_HALF, json.dumps(CASES),
+            [sys.executable, "-c", JAX_HALF, json.dumps(JAX_CASES),
              str(tmp / "frames.npz"), str(tmp / f"{flags}.npz")],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)
@@ -289,6 +303,69 @@ def test_half_pipeline_default_flags(case, jax_half, port_out):
     d = _diff(got, want) / (4.0 if CASES[case][1] == 10 else 1.0)
     assert d.max() <= 8, d.max()
     assert (d > 1).mean() <= 0.15, (d > 1).mean()
+
+
+def test_half_fsr_ties_at_90x70(jax_half, monkeypatch):
+    """A known divergence, traced (ROADMAP Queue C 6): at 2 x 90x70 the
+    port's half FSR upscale differs from the JAX Pallas-interpret kernel
+    under --xla_allow_excess_precision=false by up to 2 LSB, beyond
+    test_half_pipeline_per_op's 1 LSB. Every unequal texel lies in the RCAS
+    cross of a stage-1 value that is a tie of the UNORM store: the port's
+    EASU result times 255 ends in exactly .5, and rounds to even. The
+    port's EASU core equals the JAX core run op by op (jax.disable_jit(),
+    test_easu_core_half_bit_equal) on these taps too; the JAX kernel's
+    compiled program computes that core's f32 part an ulp apart on most
+    values (XLA on the CPU contracts a multiply and an add into one fused
+    multiply-add, which test_xla_cpu_contracts_multiply_add shows), so at
+    a tie it rounds the other way, and RCAS doubles the 1 LSB. Measured: 8
+    of 89,280 RGBA values, 2 LSB at most, all in the crosses of the
+    stage 1's 3 ties (2 of which the JAX program rounds up)."""
+    from openvr_fsr_tpu_torch.kernels import fsr as TF
+    frames = _frames()["90x70"]
+    ups = []
+
+    def easu_core(*args):
+        ups.append((args, orig(*args)))
+        return ups[-1][1]
+    orig = TF.easu_core
+    monkeypatch.setattr(TF, "easu_core", easu_core)
+    got = T.Pipeline(T.Config(**TIE_CONFIG), precision="half",
+                     device="cpu").process(frames, eyes=(0, 1)).numpy()
+    want = jax_half["per_op"][TIE_CASE]
+    assert got.shape == want.shape == (2, 120, 93, 4)
+    d = _diff(got, want)
+    assert d.max() <= 2 and int((d > 0).sum()) == 8, (d.max(), (d > 0).sum())
+    ((taps, ppx, ppy, _), up), = ups                # (2, 3, 120, 93) f32
+    core = _jax_bf16(lambda: jnp.stack(JEASU.easu_core_split(
+        {k: [jnp.asarray(v[:, c].numpy()) for c in range(3)]
+         for k, v in taps.items()}, jnp.asarray(ppx.numpy()),
+        jnp.asarray(ppy.numpy()), dt=BF16, exact_div=False), 1))
+    _same_bits(up, core, torch.float32)
+    scaled = up.clamp(0, 1) * 255.0
+    ties = (scaled - scaled.floor() == 0.5).any(1).numpy()
+    assert int(ties.sum()) == 3
+    cross = ties.copy()
+    cross[:, 1:] |= ties[:, :-1]
+    cross[:, :-1] |= ties[:, 1:]
+    cross[:, :, 1:] |= ties[:, :, :-1]
+    cross[:, :, :-1] |= ties[:, :, 1:]
+    assert cross[(d > 0).any(-1)].all()
+
+
+def test_xla_cpu_contracts_multiply_add():
+    """The mechanism of test_half_fsr_ties_at_90x70: a jitted a * b + c on
+    XLA's CPU backend equals the fused multiply-add (one rounding) on every
+    value, even with --xla_allow_excess_precision=false, where the port's
+    plain ops (and its kernels, built with --fmad=false) round the product
+    and the sum apart; on these inputs the two differ on many values."""
+    rng = np.random.default_rng(0)
+    a, b, c = (rng.random(4096, dtype=np.float32) for _ in range(3))
+    jitted = np.asarray(jax.jit(lambda a, b, c: a * b + c)(a, b, c))
+    fused = (a.astype(np.float64) * b + c).astype(np.float32)
+    apart = (torch.from_numpy(a) * torch.from_numpy(b)
+             + torch.from_numpy(c)).numpy()
+    assert np.array_equal(jitted, fused)
+    assert (jitted != apart).sum() > 100
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -360,16 +437,26 @@ def test_builds_publish_their_precision():
 
 @pytest.mark.parametrize("kernel", ["fsr", "cas"])
 def test_half_strips_raise(kernel):
-    """The JAX package builds its row-band strips at full precision only:
-    a half build with band_range raises ValueError."""
+    """The half strips raised ValueError until they were ported (the JAX
+    builders take band_range and precision="half" together): the same
+    build now succeeds and publishes precision "half", its band and a DMA
+    geometry, and its plain output is the half whole output's rows
+    (tests/test_torch_half_strips.py holds them at large)."""
     from openvr_fsr_tpu_torch.core import constants as C
     from openvr_fsr_tpu_torch.kernels import cas, fsr
     build = fsr.build_fsr_fused if kernel == "fsr" else cas.build_cas_upscale
     cen = C.centres_payload(74, 64, 0.5, ((0.5, 0.5),) * 2, (0, 1))
     kw = dict(sharpness=0.9, centres=cen, band_rows=32)
-    build(2, 48, 56, 74, 64, band_range=(0, 1), **kw)
-    with pytest.raises(ValueError, match="strips"):
-        build(2, 48, 56, 74, 64, band_range=(0, 1), precision="half", **kw)
+    full = build(2, 48, 56, 74, 64, band_range=(0, 1), **kw)
+    fn = build(2, 48, 56, 74, 64, band_range=(0, 1), precision="half", **kw)
+    assert (fn.precision, full.precision) == ("half", "full")
+    assert fn.band_range == (0, 1) and fn.out_rows == 32
+    assert fn.dma_geometry is not None
+    img = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 2**32, (2, 48, 56), dtype=np.uint32).view(np.int32))
+    whole = build(2, 48, 56, 74, 64, precision="half", **kw)(img)
+    assert torch.equal(fn(img[:, fn.in_row_base:fn.in_row_base
+                              + fn.in_rows].contiguous()), whole[:, :32])
 
 
 @pytest.mark.parametrize("rs", [0.75, 1.0])

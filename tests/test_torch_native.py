@@ -41,6 +41,44 @@ def test_builds_with_gxx_into_the_build_dir():
     assert TN.lib().ovrfsr_abi_version() == 2
 
 
+def test_available_when_the_library_loads():
+    """available(), the JAX meaning: True where lib() loads, as here."""
+    assert TN.available() is True
+    assert TN.lib().ovrfsr_abi_version() == 2
+
+
+def test_not_available_without_gxx(tmp_path, monkeypatch):
+    """No g++ on PATH: available() is False, and lib() still raises."""
+    monkeypatch.setattr(TN, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(TN, "_LIBS", {})
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    assert TN.available() is False
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        TN.lib()
+
+
+def test_not_available_after_a_failed_build(tmp_path, monkeypatch):
+    """A source g++ refuses: available() is False, no library is left."""
+    bad = tmp_path / "broken.cc"
+    bad.write_text("int main( {\n")
+    monkeypatch.setattr(TN, "SOURCE", bad)
+    monkeypatch.setattr(TN, "BUILD_DIR", tmp_path / "_build")
+    assert TN.available() is False
+    assert not list((tmp_path / "_build").glob("*.so"))
+
+
+def test_not_available_for_another_abi(tmp_path, monkeypatch):
+    """A library that builds but reports another ABI: available() is
+    False, and lib() raises naming both versions."""
+    other = tmp_path / "other_abi.cc"
+    other.write_text('extern "C" int ovrfsr_abi_version() { return 1; }\n')
+    monkeypatch.setattr(TN, "SOURCE", other)
+    monkeypatch.setattr(TN, "BUILD_DIR", tmp_path / "_build")
+    assert TN.available() is False
+    with pytest.raises(RuntimeError, match="ABI 1"):
+        TN.lib()
+
+
 def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
     bad = tmp_path / "broken.cc"
     bad.write_text("int main( {\n")

@@ -203,7 +203,9 @@ def test_strip_takes_the_ring_pitch(kernel):
 def test_band_build_publishes_the_jax_attributes(kernel):
     """band_range, in_row_base, in_rows and out_rows as the JAX builders
     publish them (the output rows the JAX ones: [g0 * TH, min(g1 * TH,
-    OH))), no DMA geometry, and the refusals."""
+    OH))), the strip's DMA geometry (its band's out_rows rows over the
+    strip's in_rows rows; tests/test_torch_half_strips.py holds it to the
+    whole image's), and the refusals."""
     build, layout = KERNELS[kernel][:2]
     h, w = 1869, 1683
     ow, oh = _out_size(h, w, 0.75)
@@ -214,7 +216,8 @@ def test_band_build_publishes_the_jax_attributes(kernel):
                  band_range=r) for r in split_bands(gy, 3)]
     assert [fn.band_range for fn in fns] == [(0, 7), (7, 13), (13, 20)]
     assert [fn.out_rows for fn in fns] == [896, 768, oh - 1664]
-    assert all(fn.dma_geometry is None for fn in fns)
+    assert [(fn.dma_geometry["in_h"], fn.dma_geometry["out_h"])
+            for fn in fns] == [(fn.in_rows, fn.out_rows) for fn in fns]
     assert fns[0].in_row_base == 0
     for a, b in zip(fns, fns[1:]):      # overlapping strips, in order
         assert a.in_row_base < b.in_row_base < a.in_row_base + a.in_rows
