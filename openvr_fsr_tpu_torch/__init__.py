@@ -16,7 +16,7 @@ Layers (bottom up), mirroring openvr_fsr_tpu:
   kernels/  — build, launch wrappers and plain versions of the kernels
   models/   — upscaler model families (FSR, NIS, CAS)
   api/      — `upscale()` + stateful `Pipeline`
-  utils/    — frames, timing, logging
+  utils/    — frames, timing, tracing (spans and counters), logging
 """
 
 from .version import __version__

@@ -38,6 +38,7 @@ from ..kernels.fsr import build_fsr_fused
 from ..kernels.nis import build_nvscaler, build_nvsharpen
 from ..kernels.rcas import build_rcas_sharpen
 from ..ops.cas import cas_support_scaling
+from ..utils import trace
 from ..utils.log import get_logger
 from ..utils.timing import GpuTimer
 
@@ -227,7 +228,9 @@ class Pipeline:
                                   color_bits=cb, precision=prec)
 
     def _build(self, b, h, w, eyes, packed):
-        kern = self._build_kernel(b, h, w, eyes)
+        with trace.span("build", cold=True):
+            trace.bump("builds")
+            kern = self._build_kernel(b, h, w, eyes)
 
         if packed:
             # zero-copy packed plane: (B, H, W) uint32/int32 RGBA8 texels,
@@ -331,7 +334,16 @@ class Pipeline:
         crop: with bounds, return only the bounded region of the output
           (the compositor's sampling rectangle).
         Returns a tensor of the processed frames at output resolution, same
-        dtype, on the frames' device."""
+        dtype, on the frames' device. Each call is a `process` span
+        (utils/trace.py)."""
+        sp = trace.span("process")
+        if sp is None:
+            return self._process(frames, eyes, bounds, crop)
+        with sp:
+            trace.bump("calls")
+            return self._process(frames, eyes, bounds, crop)
+
+    def _process(self, frames, eyes, bounds, crop):
         if not self.config.enabled:
             return frames
         first_bounds = self._apply_bounds_layout(bounds)

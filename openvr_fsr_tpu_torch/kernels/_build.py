@@ -20,6 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ..utils import trace
+
 __all__ = ["build", "load_library", "library_path", "kernel_names",
            "NVCC_FLAGS", "BUILD_DIR"]
 
@@ -64,8 +66,9 @@ def build(names=None):
     """Build the libraries of `names` (default: every kernel) that do not
     exist yet, one nvcc per source, all started together. Each nvcc command
     and its output (ptxas register and shared-memory use) is kept beside its
-    library in a .log file. Raises, naming every failed source, after all
-    have ended."""
+    library in a .log file. Returns the names built (empty when every
+    library existed). Raises, naming every failed source, after all have
+    ended."""
     names = kernel_names() if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / "lock", "w") as lock:
@@ -73,7 +76,7 @@ def build(names=None):
         todo = [(n, library_path(n)) for n in names]
         todo = [(n, so) for n, so in todo if not so.exists()]
         if not todo:
-            return
+            return []
         nvcc = _nvcc()
         jobs = []
         for name, so in todo:
@@ -98,14 +101,17 @@ def build(names=None):
                 os.replace(tmp, so)
         if failed:
             raise RuntimeError("\n".join(failed))
+        return [name for name, _ in todo]
 
 
 def load_library(name):
-    """The loaded library of kernel `name`, building it first if needed.
-    Raises on any build failure."""
+    """The loaded library of kernel `name`, building it first if needed: a
+    cold `library` span (utils/trace.py) whose info's `built` says whether
+    nvcc ran. Raises on any build failure."""
     so = library_path(name)
     lib = _LIBS.get(so)
     if lib is None:
-        build([name])
-        lib = _LIBS[so] = ctypes.CDLL(str(so))
+        with trace.span("library", cold=True) as sp:
+            sp.info["built"] = bool(build([name]))
+            lib = _LIBS[so] = ctypes.CDLL(str(so))
     return lib

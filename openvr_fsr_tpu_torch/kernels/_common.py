@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..ops.common import HALF
+from ..utils import trace
 
 __all__ = ["unpack", "pack", "circle_mask", "debug_tint", "tint_vector",
            "DeviceTables", "kernel_fn", "band_fn", "occupancy",
@@ -121,6 +122,7 @@ def kernel_fn(name, batch, shape, pad_to, reference, launch, geometry=None,
     (read in place). A CPU tensor runs `reference(img)`, the plain torch
     version; a CUDA tensor runs `launch(img)`, which returns (out,
     cudaError), and raises if the error is not 0. Nothing falls back.
+    Each launch is a `launch` span (utils/trace.py), cold on the first.
     fn.launches counts CUDA launches; fn.reference, fn.pad_to,
     fn.color_bits and fn.precision are published, and fn.dma_geometry when
     `geometry` (kernels/_maps.py::dma_geometry, in 4-byte words:
@@ -150,16 +152,22 @@ def kernel_fn(name, batch, shape, pad_to, reference, launch, geometry=None,
             return reference(img)
         if dev.type != "cuda":
             raise ValueError(f"{name} has no path for device {dev}")
-        if dev.index == torch.cuda.current_device():
-            out, err = launch(img)
+        nonlocal first
+        sp = trace.span("launch", cold=first)
+        if sp is None:
+            out, err = _on_device(launch, img, dev)
         else:
-            with torch.cuda.device(dev):
-                out, err = launch(img)
+            with sp:
+                out, err = _on_device(launch, img, dev)
+        first = False
         if err != 0:
             raise RuntimeError(f"{name}_launch failed: cudaError {err}")
         fn.launches += 1
+        if sp is not None:
+            trace.bump("launches")
         return out
 
+    first = True     # the first launch binds, uploads and loads: a cold span
     fn.launches = 0
     fn.pad_to = pad_to
     fn.reference = reference
@@ -170,6 +178,14 @@ def kernel_fn(name, batch, shape, pad_to, reference, launch, geometry=None,
         fn.dma_geometry = dict(geometry, batch=B, in_h=H, in_w=W * n,
                                hp=pad_to[0], wp=pad_to[1] * n)
     return fn
+
+
+def _on_device(launch, img, dev):
+    """launch(img) with img's device the current CUDA device."""
+    if dev.index == torch.cuda.current_device():
+        return launch(img)
+    with torch.cuda.device(dev):
+        return launch(img)
 
 
 def band_fn(name, batch, strip, pad_to, reference, launch, geometry,

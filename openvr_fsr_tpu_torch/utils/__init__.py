@@ -1,5 +1,6 @@
 from . import frames
 from . import timing
 from . import log
+from . import trace
 
-__all__ = ["frames", "timing", "log"]
+__all__ = ["frames", "timing", "log", "trace"]
