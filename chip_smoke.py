@@ -24,10 +24,15 @@ exits non-zero before the result lines:
      and R10G10B10A2 instantiations; a warning where the 10-bit one holds
      fewer CTAs per SM), and the registers, spills and CTAs per SM of
      fsr_fused's and cas_upscale's band instantiations (the row-band
-     strips', full and half); with --parent, every function of the
-     parent's fsr_fused, cas_upscale and dma_floor libraries (the
-     whole-output class kernels, the full band kernels, the whole-image
-     floor) must have compiled to the same SASS in the current build
+     strips', full and half); every instantiation of the bilinear pass
+     (each *_outside_kernel of fsr_fused, nis_scaler and cas_upscale, at
+     8 and 10 bits, band too) with its conversion instructions (I2F, F2I,
+     FRND, F2F: the codec's exact forms leave none, else the run fails),
+     FSETP and FSEL from its SASS (tools/sass.py); with --parent, the
+     same counts of the parent's builds, and every other function of the
+     parent's fsr_fused, nis_scaler, cas_upscale and dma_floor libraries
+     (the inside kernels, full, half and band, the floor's TMA forms) must
+     have compiled to the same SASS in the current build
      (tools/ab.py::same_sass), else the run fails;
   2. each kernel against its plain torch version on the card, at full
      size, on a zone-plate + noise set and a uniform-random set, both with
@@ -145,7 +150,8 @@ exits non-zero before the result lines:
      its plain version for the kernels line, and at radius 2.0 in turns
      with its full kernel;
   5. the measurement path: the DMA floor (csrc/dma_floor.cu) keeps its
-     TMA loads, shared reads and stores in its SASS, and equals its plain
+     TMA loads, shared reads and stores in the SASS of its ring forms (its
+     one-box form, dma_floor_one_kernel, its stores), and equals its plain
      version word for word at the full-size geometry of each of the seven
      bench paths, on the ring-pitch input and on the unpadded one where its
      row pitch is a multiple of 16 bytes (the floor refuses any other with
@@ -287,9 +293,15 @@ N_PAIRS = 10                 # stereo pairs per plan through the public API
 # back to back, in turns; min against min, at most API_MAX
 API_ROUNDS, API_CALLS, API_MAX = 5, 40, 1.05
 STRIPS = 3                   # row-band strips of the spatial path
-STRIP_ITERS = 20             # calls per graph timing each strip and its floor
-# the kernels whose parent SASS phase 1 compares with --parent
-PARENT_KERNELS = ("fsr_fused", "cas_upscale", "dma_floor")
+STRIP_ITERS = 200            # calls per graph timing each strip and its floor
+# the kernels whose parent SASS phase 1 compares with --parent: every
+# function but the bilinear pass's (PASS_KERNELS' outside kernels, held to
+# CONVERSIONS instead)
+PARENT_KERNELS = ("fsr_fused", "nis_scaler", "cas_upscale", "dma_floor")
+# the libraries of the bilinear pass (csrc/bilinear_pass.cuh), and the
+# conversion instructions none of its instantiations may hold
+PASS_KERNELS = ("fsr_fused", "nis_scaler", "cas_upscale")
+CONVERSIONS = ("I2F", "F2I", "FRND", "F2F")
 # the [bN] lines of phase 5: rounds of graph replays, kernel and floor in
 # turns, the best of each
 B_ROUNDS = 10
@@ -531,15 +543,41 @@ def phase_6b(card, x):
             f8_launches)
 
 
-def parent_sass(parent):
-    """{kernel: tools/ab.py::same_sass of the parent's library, built from
-    parent/<kernel>.cu with its own headers first, against the current
-    build} for PARENT_KERNELS (None where cuobjdump is missing)."""
-    from openvr_fsr_tpu_torch.kernels import _build
+def parent_libraries(parent):
+    """{kernel: the parent's library, built from parent/<kernel>.cu with its
+    own headers first} for PARENT_KERNELS."""
     from openvr_fsr_tpu_torch.tools import ab
-    return {k: ab.same_sass(
-        ab.build_parent(k, Path(parent) / f"{k}.cu", argtypes=())[2],
-        _build.library_path(k)) for k in PARENT_KERNELS}
+    return {k: ab.build_parent(k, Path(parent) / f"{k}.cu", argtypes=())[2]
+            for k in PARENT_KERNELS}
+
+
+def pass_counts(lib):
+    """{(pass kernel, texel bits): Counter of opcodes} for every bilinear
+    pass instantiation (an *_outside_kernel) in a built library's SASS, or
+    None without cuobjdump."""
+    from openvr_fsr_tpu_torch.kernels import _build
+    from openvr_fsr_tpu_torch.tools import sass
+    text = sass.disassemble(lib, _build._nvcc())
+    if text is None:
+        return None
+    return {(re.search(r"[a-z_]+_outside_kernel", fn).group(0),
+             8 if sass.of_codec(fn) else 10): ops
+            for fn, ops in sass.function_counts(text).items()
+            if "_outside_kernel" in fn}
+
+
+def log_pass_counts(kernel, counts, side):
+    """Log each pass instantiation's conversions, FSETP and FSEL; return
+    those that hold a conversion."""
+    bad = []
+    for (name, bits), ops in sorted(counts.items()):
+        conv = {o: ops[o] for o in CONVERSIONS}
+        log(f"[setup] {side} {kernel} {name} {bits}-bit SASS: conversions "
+            f"{conv}, FSETP {ops['FSETP']}, FSEL {ops['FSEL']}, "
+            f"{sum(ops.values())} instructions")
+        if any(conv.values()):
+            bad.append(f"{kernel} {name} {bits}-bit {conv}")
+    return bad
 
 
 def main():
@@ -566,7 +604,7 @@ def main():
     from openvr_fsr_tpu_torch.kernels.fsr import build_fsr_fused
     from openvr_fsr_tpu_torch.kernels.nis import build_nvscaler, build_nvsharpen
     from openvr_fsr_tpu_torch.kernels.rcas import build_rcas_sharpen
-    from openvr_fsr_tpu_torch.tools import sass
+    from openvr_fsr_tpu_torch.tools import ab, sass
     from openvr_fsr_tpu_torch.utils import frames as FR
 
     dev = torch.device("cuda", 0)
@@ -640,25 +678,43 @@ def main():
                     f"band kernel: {u['registers']} registers, "
                     f"{u['spill_stores']} B spill stores, "
                     f"{u['spill_loads']} B spill loads{ctas}")
-    # with --parent: every function of the parent's libraries of the
-    # kernels that hold the strips' instantiations (the whole-output class
-    # kernels, the full band kernels, the whole-image floor) keeps its SASS
+    # the bilinear pass decodes, saturates, rounds and encodes in the
+    # codecs' exact forms (csrc/codec.cuh): no conversion instruction in
+    # any of its instantiations
+    bad = []
+    for kernel in PASS_KERNELS:
+        counts = pass_counts(_build.library_path(kernel))
+        if not counts:
+            fail(f"{kernel}: no bilinear pass SASS read (cuobjdump beside "
+                 "nvcc?)")
+        bad += log_pass_counts(kernel, counts, "current")
+    if bad:
+        fail(f"bilinear pass instantiations that hold a conversion: {bad}")
+    # with --parent: every function of the parent's libraries but the
+    # bilinear pass's (the inside kernels, full, half and band; the floor's
+    # TMA forms) keeps its SASS
     if args.parent is None:
         log("[setup] sass_same: no parent sources given (--parent DIR)")
     else:
-        same = parent_sass(args.parent)
+        libs = parent_libraries(args.parent)
+        for kernel in PASS_KERNELS:
+            log_pass_counts(kernel, pass_counts(libs[kernel]) or {}, "parent")
+        same = {k: ab.same_sass(lib, _build.library_path(k))
+                for k, lib in libs.items()}
         for lib, fns in same.items():
             for fn, ok in (fns or {}).items():
                 log(f"[setup] sass_same {lib} {fn}: {ok} (against "
                     f"{args.parent})")
         changed = [f"{lib} {fn}" for lib, fns in same.items()
                    for fn, ok in (fns or {None: None}).items()
-                   if ok is not True]
+                   if ok is not True and "_outside_kernel" not in str(fn)]
         if changed:
             fail(f"parent functions whose SASS changed, went or could not "
                  f"be read: {changed}")
-        log(f"[setup] sass_same: all {sum(map(len, same.values()))} "
-            f"functions of {list(same)} as {args.parent} built them")
+        kept = sum(1 for fns in same.values() for fn in fns
+                   if "_outside_kernel" not in fn)
+        log(f"[setup] sass_same: all {kept} functions of {list(same)} but "
+            f"the bilinear pass's as {args.parent} built them")
 
     def centres(ow, oh, radius, b=2, eyes=CENTRES):
         return C.centres_payload(ow, oh, radius, eyes,
@@ -1107,7 +1163,8 @@ def main():
         strips(kernel, "2x128x96 rs=0.75 against the CPU path", small_img,
                band_rows=24, want=want, precision="half", h=96, w=128)
     log(f"[strip] floors of {len(floor_vs_sol)} strips ({band_strips[0]} "
-        "in the band form, dma_floor_band_kernel; the rest whole, "
+        "in the band form; each on dma_floor_one_kernel where its grid holds "
+        "a CTA per box item, else on dma_floor_band_kernel or "
         "dma_floor_kernel): 0 unequal words, "
         f"vs_sol {min(floor_vs_sol):.4f}-{max(floor_vs_sol):.4f} ({card}); "
         f"the strip cases took {time.perf_counter() - t_strips:.1f} s")
@@ -1862,7 +1919,9 @@ def main():
         log("[floor] cuobjdump not found: SASS not checked")
     for fn_name, (tma, lds, stg) in (counts or {}).items():
         log(f"[floor] SASS {fn_name}: {tma} UTMALDG, {lds} LDS, {stg} STG")
-        if not (tma and lds and stg):
+        # the one-box form gathers straight from the frame: stores only
+        one_box = "dma_floor_one_kernel" in fn_name
+        if not (stg if one_box else tma and lds and stg):
             fail(f"dma_floor {fn_name}: the compiler dropped its TMA loads, "
                  "its shared reads or its stores")
     max_lsb["dma_floor"] = 0
@@ -2134,7 +2193,8 @@ def main():
                     "and fallback)")
         # what fsr_fused's class kernels issue: the inside kernel's stage-1
         # loop (one EASU or bilinear position per pass; EASU's rcp is the
-        # only MUFU) and the whole outside kernel (4 outputs per thread)
+        # only MUFU) and the whole outside kernel (a run of 8 outputs down
+        # one column per thread)
         text = sass.disassemble(_build.library_path("fsr_fused"),
                                 _build._nvcc())
         stage1 = sass.innermost_loop(text, "fsr_inside_kernel", "FMUL",

@@ -11,12 +11,34 @@
 // row (B1 and B5 the bilinear row 1, B3 the DirectCopy rows col_i[3] /
 // col_f[2]) and the tile shape (B1 and B5 32x32, B3 32x48).
 //
-// What bounds it: bytes (four taps and one store of a texel, 4 or 8 bytes,
-// per output, the taps served by L1 and L2). So each CTA takes one tile of
-// the host's outside list; each of its 256 threads 4 neighbouring outputs of
-// one row (a tile of more than 1,024 outputs loops), read straight from
-// device memory and stored with 16-byte stores where the row start allows
-// it. No shared memory, no barrier.
+// What bounds it: the latency of a run's two waits on memory, at 36 warps
+// per SM (56 registers at 8 bits, 72 at 10). On an NVIDIA H100 80GB HBM3
+// at 700 W the pass alone (radius 0, 2 x 1683x1869 -> 2 x 2244x2492) takes
+// 0.0485 ms: 1.45 TB/s, 43% of the HBM's 3.35, and about a third of the
+// SMs' issue. Its instructions were the bound before, so the pass spends
+// few:
+//   - the codecs' exact forms (codec.cuh, namespace exact, where each
+//     identity is argued): a decode is a byte permute and one FMA, a
+//     saturate folds into the multiply or add before it, a round is an add
+//     of 2^23 and an encode byte permutes of the sums' bits. No conversion
+//     instruction (I2F, FRND and F2I issue at a quarter of the FP32 rate)
+//     and no NaN-carrying select: the same bits, as every operand here is
+//     finite;
+//   - each thread takes a run of kRun outputs down one column of a tile
+//     (threads(TW, TH) per CTA): the column's floor, fraction and clamped
+//     tap columns load once, every tap of the run loads before any is
+//     used, and where each row's floor is the last one's or one further
+//     (every step of a scale of at most 1) a row's top lerp is the last
+//     one's top or bot, so an output computes at most one new row. A warp
+//     is 32 neighbouring columns of the same rows: its taps and its stores
+//     are neighbouring texels;
+//   - host-made multiply-high divisors split the tile id (a division by a
+//     variable compiles to I2F, MUFU and F2I), and a tap's offset within
+//     its image is 32-bit.
+// The f32 arithmetic is ffx::bilerp's, op for op, then the reciprocal
+// decode multiplies and the tint multiply. No shared memory, no barrier.
+// texel keeps the codecs' plain forms for nis_inside_kernel's DirectCopy
+// blocks.
 //
 // A row-band strip (B1 and B5, kBand): the launch computes the output rows
 // [band.row0, band.row1) of the full image into a (B, band.rows, out_w)
@@ -24,9 +46,10 @@
 // row in_row_base. Every row index stays global (clamped against the full
 // image's in_h): the caller passes img and out rebased by in_row_base and
 // band.row0 rows, so that a global row addresses the strip, and an output
-// row outside the band is neither computed nor stored. The band travels in
-// a kernel parameter of its own: the whole output (and B3) launch the pass
-// without it, with PR 12's parameters and code.
+// row outside the band is not stored (a run that crosses the band's edge
+// computes its rows past the edge as the edge row, within the strip). The
+// band travels in a kernel parameter of its own: the whole output (and B3)
+// launch the pass without it.
 #pragma once
 
 #include <cstdint>
@@ -36,8 +59,30 @@
 
 namespace bilinear_pass {
 
-constexpr int kThreads = 256;
-constexpr int kRun = 4;   // neighbouring outputs of one row per thread
+constexpr int kRun = 8;   // output rows per thread: one column of each tile
+// threads per CTA of a (tw x th)-tile pass: one run each
+constexpr int threads(int tw, int th) { return tw * th / kRun; }
+
+// n / d by a multiply-high, for 0 <= n < 2^31 (the round-up method of
+// Granlund and Montgomery): for d > 1, m = ceil(2^p / d) with
+// p = 31 + ceil(log2 d) lies below 2^32, and floor(n * m / 2^p) is
+// floor(n / d), since n * (m * d - 2^p) / (d * 2^p) < 2^31 / 2^p <= 1 / d.
+// Made on the host once per launch (of), so the pass splits its tile ids
+// without a division by a variable, which compiles to I2F, MUFU and F2I.
+struct Divisor {
+  int d;
+  uint32_t m;   // 0 for d == 1
+  int shift;    // p - 32
+  static Divisor of(int d) {
+    int log2 = 0;
+    while ((1ll << log2) < d) ++log2;
+    if (d == 1) return {1, 0u, 0};
+    return {d, static_cast<uint32_t>(((1ull << (31 + log2)) + d - 1) / d), log2 - 1};
+  }
+  __device__ __forceinline__ int div(int n) const {
+    return m ? static_cast<int>(__umulhi(static_cast<uint32_t>(n), m) >> shift) : n;
+  }
+};
 
 template <class C>
 struct Args {
@@ -48,8 +93,9 @@ struct Args {
   const int32_t* y0;      // (out_h,): per output row
   const float* fy;        // (out_h,)
   const int32_t* tiles;   // this launch's tile ids: b * tiles_y * tiles_x + ty * tiles_x + tx
-  int in_h, in_w, in_rows, pitch, out_h, out_w, tiles_x, tiles_y;
+  int in_h, in_w, in_rows, pitch, out_h, out_w;
   float tint;
+  Divisor per, cols;      // tiles_y * tiles_x and tiles_x: a tile id's b, ty, tx
 };
 
 // A band of output rows [row0, row1); rows = row1 - row0, the rows per batch
@@ -75,60 +121,151 @@ __device__ __forceinline__ typename C::Texel texel(typename C::Texel c00, typena
   return C::pack(q[0], q[1] * tint, q[2] * tint, 1.0f);
 }
 
-// Run r (kRun outputs of one row) of tile (b, tx, ty).
-template <int TW, int TH, bool kRoundTrip, bool kBand, class C>
-__device__ __forceinline__ void run_outputs(const Args<C>& a, const Band& band, int b, int tx,
-                                            int ty, int r) {
-  using Texel = typename C::Texel;
-  constexpr int kPerRow = TW / kRun;
-  const int oy = ty * TH + r / kPerRow;
-  const int ox = tx * TW + (r % kPerRow) * kRun;
-  if constexpr (kBand) {
-    if (oy < band.row0 || oy >= band.row1 || ox >= a.out_w) return;
-  } else {
-    if (oy >= a.out_h || ox >= a.out_w) return;
+// p, as an address the compiler cannot see into: a tap's address is then
+// a 32-bit offset and one wide multiply-add onto p, where the compiler
+// would otherwise fold p's own offset into every tap's 64-bit arithmetic.
+template <class T>
+__device__ __forceinline__ T* opaque(T* p) {
+#ifdef __CUDA_ARCH__
+  asm("" : "+l"(p));
+#endif
+  return p;
+}
+
+// An input row's taps t0 (at the floor's column) and t1 (right of it),
+// decoded and lerped, c0 * (1 - fx) + c1 * fx per channel: ffx::bilerp's
+// top or bot row, op for op.
+struct Lerp {
+  float c[3];
+};
+
+template <class C>
+__device__ __forceinline__ Lerp lerp_row(typename C::Texel t0, typename C::Texel t1, float fx,
+                                         float gx) {
+  Lerp l;
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    l.c[c] = __fadd_rn(__fmul_rn(C::exact_channel(t0, c), gx),
+                       __fmul_rn(C::exact_channel(t1, c), fx));
+  return l;
+}
+
+// texel's bits from its rows' lerps, top * (1 - fy) + bot * fy per
+// channel as ffx::bilerp ends, through the codec's exact forms
+// (codec.cuh). B1's R skips its round trip, whose integer is its encode's
+// (codec.cuh, exact: encode).
+template <bool kRoundTrip, class C>
+__device__ __forceinline__ typename C::Texel exact_texel(const Lerp& top, const Lerp& bot,
+                                                         float fy, float tint) {
+  const float gy = __fsub_rn(1.0f, fy);
+  float q[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    q[c] = __fadd_rn(__fmul_rn(top.c[c], gy), __fmul_rn(bot.c[c], fy));
+    if (kRoundTrip && c > 0) q[c] = C::exact_roundtrip(q[c]);
   }
-  const Texel* img = a.img + static_cast<size_t>(b) * a.in_rows * a.pitch;
-  const int y0 = a.y0[oy];
-  const float fy = a.fy[oy];
-  const Texel* r0 = img + static_cast<size_t>(rgba8::clampi(y0, 0, a.in_h - 1)) * a.pitch;
-  const Texel* r1 = img + static_cast<size_t>(rgba8::clampi(y0 + 1, 0, a.in_h - 1)) * a.pitch;
-  const int n = min(kRun, a.out_w - ox);
-  Texel v[kRun];
+  return C::exact_pack(q[0], __fmul_rn(q[1], tint), __fmul_rn(q[2], tint));
+}
+
+// This thread's run of tile (b, tx, ty): output column ox, kRun rows from
+// oy0 (a warp: 32 neighbouring columns of the same rows, so its loads and
+// stores take neighbouring texels). The column's floor, fraction and
+// clamped taps are loaded once, and every tap of the run before any is
+// used, so a run waits on memory twice. Where each row's floor is the last
+// one's or one further (every step of a scale of at most 1), a row's top
+// lerp is the last one's top or bot, and only a new bot is computed (the
+// floor is the same in the whole warp, so the branch is too); otherwise (a
+// larger scale) each row computes both: the same values either way. Rows
+// outside the output (or the band) are computed as its nearest row and not
+// stored. Offsets within one image are 32-bit (the launchers refuse an
+// image where they could wrap: offsets_fit).
+template <int TW, int TH, bool kRoundTrip, bool kBand, class C>
+__device__ __forceinline__ void run_column(const Args<C>& a, const Band& band, int b, int tx,
+                                           int ty) {
+  using Texel = typename C::Texel;
+  static_assert(TH % kRun == 0, "a tile's column holds whole runs");
+  const int ox = tx * TW + static_cast<int>(threadIdx.x) % TW;
+  const int oy0 = ty * TH + static_cast<int>(threadIdx.x) / TW * kRun;
+  const int lo = kBand ? band.row0 : 0, hi = (kBand ? band.row1 : a.out_h) - 1;
+  if (ox >= a.out_w || oy0 > hi || oy0 + kRun <= lo) return;
+  const Texel* img = opaque(a.img + static_cast<size_t>(b) * a.in_rows * a.pitch);
+  const int x0 = a.x0[ox];
+  const float fx = a.fx[ox], gx = __fsub_rn(1.0f, fx);
+  const uint32_t sx0 = rgba8::clampi(x0, 0, a.in_w - 1), sx1 = rgba8::clampi(x0 + 1, 0, a.in_w - 1);
+  int y0[kRun];
+  float fy[kRun];
+  bool slides = true;
 #pragma unroll
   for (int j = 0; j < kRun; ++j) {
-    if (j >= n) break;
-    const int x0 = a.x0[ox + j];
-    const int sx0 = rgba8::clampi(x0, 0, a.in_w - 1), sx1 = rgba8::clampi(x0 + 1, 0, a.in_w - 1);
-    v[j] = texel<kRoundTrip, C>(r0[sx0], r0[sx1], r1[sx0], r1[sx1], a.fx[ox + j], fy, a.tint);
+    const int oy = rgba8::clampi(oy0 + j, lo, hi);
+    y0[j] = a.y0[oy];
+    fy[j] = a.fy[oy];
+    if (j > 0) slides = slides && static_cast<uint32_t>(y0[j] - y0[j - 1]) <= 1u;
   }
-  Texel* dst = a.out + (static_cast<size_t>(b) * (kBand ? band.rows : a.out_h) + oy) * a.out_w + ox;
-  if (n == kRun && (reinterpret_cast<uintptr_t>(dst) & 15u) == 0) {
-    C::store4(dst, v);
+  const uint32_t pitch = static_cast<uint32_t>(a.pitch);
+  const auto row = [&](int y) {
+    return static_cast<uint32_t>(rgba8::clampi(y, 0, a.in_h - 1)) * pitch;
+  };
+  Texel v[kRun];
+  if (slides) {
+    // t[0]: the first top row's taps; t[j + 1]: row j's bot row's
+    Texel t0[kRun + 1], t1[kRun + 1];
+#pragma unroll
+    for (int k = 0; k <= kRun; ++k) {
+      const uint32_t r = row(k == 0 ? y0[0] : y0[k - 1] + 1);
+      t0[k] = __ldg(img + (r + sx0));
+      t1[k] = __ldg(img + (r + sx1));
+    }
+    Lerp top = lerp_row<C>(t0[0], t1[0], fx, gx), bot = lerp_row<C>(t0[1], t1[1], fx, gx);
+    v[0] = exact_texel<kRoundTrip, C>(top, bot, fy[0], a.tint);
+#pragma unroll
+    for (int j = 1; j < kRun; ++j) {
+      if (y0[j] != y0[j - 1]) {
+        top = bot;
+        bot = lerp_row<C>(t0[j + 1], t1[j + 1], fx, gx);
+      }
+      v[j] = exact_texel<kRoundTrip, C>(top, bot, fy[j], a.tint);
+    }
   } else {
-    for (int j = 0; j < n; ++j) dst[j] = v[j];
+    Texel t[kRun][4];
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) {
+      const uint32_t r0 = row(y0[j]), r1 = row(y0[j] + 1);
+      t[j][0] = __ldg(img + (r0 + sx0));
+      t[j][1] = __ldg(img + (r0 + sx1));
+      t[j][2] = __ldg(img + (r1 + sx0));
+      t[j][3] = __ldg(img + (r1 + sx1));
+    }
+#pragma unroll
+    for (int j = 0; j < kRun; ++j)
+      v[j] = exact_texel<kRoundTrip, C>(lerp_row<C>(t[j][0], t[j][1], fx, gx),
+                                        lerp_row<C>(t[j][2], t[j][3], fx, gx), fy[j], a.tint);
   }
+  Texel* dst = a.out + static_cast<size_t>(b) * (kBand ? band.rows : a.out_h) * a.out_w + ox;
+#pragma unroll
+  for (int j = 0; j < kRun; ++j)
+    if (oy0 + j >= lo && oy0 + j <= hi) dst[static_cast<size_t>(oy0 + j) * a.out_w] = v[j];
 }
 
 // The body of a (TW x TH)-tile pass kernel: the caller's __global__ with
-// __launch_bounds__(kThreads) calls it with one CTA per tile of a.tiles
-// (kBand: with the band's rows).
+// __launch_bounds__(threads(TW, TH)) calls it with one CTA per tile of
+// a.tiles (kBand: with the band's rows).
 template <int TW, int TH, bool kRoundTrip, class C, bool kBand = false>
 __device__ __forceinline__ void run(const Args<C>& a, const Band& band = Band{}) {
-  static_assert(TW % kRun == 0, "a row of the tile holds whole runs");
-  constexpr int kRuns = TW * TH / kRun;
   const int id = a.tiles[blockIdx.x];
-  const int per = a.tiles_x * a.tiles_y;
-  const int b = id / per;
-  const int rem = id - b * per;
-  const int ty = rem / a.tiles_x;
-  const int tx = rem - ty * a.tiles_x;
-  if constexpr (kRuns == kThreads) {
-    run_outputs<TW, TH, kRoundTrip, kBand, C>(a, band, b, tx, ty, threadIdx.x);
-  } else {
-    for (int r = threadIdx.x; r < kRuns; r += kThreads)
-      run_outputs<TW, TH, kRoundTrip, kBand, C>(a, band, b, tx, ty, r);
-  }
+  const int b = a.per.div(id);
+  const int rem = id - b * a.per.d;
+  const int ty = a.cols.div(rem);
+  const int tx = rem - ty * a.cols.d;
+  run_column<TW, TH, kRoundTrip, kBand, C>(a, band, b, tx, ty);
+}
+
+// Host side of every launch (B1, B3, B5). Whether a tap's offset within one
+// image, the 32-bit row * pitch + column of run_column, cannot wrap: every
+// tap lies at a row below in_h (global, in a strip too) and a column below
+// in_w <= pitch, so below in_h * pitch texels.
+inline bool offsets_fit(int in_h, int pitch) {
+  return static_cast<uint64_t>(in_h) * static_cast<uint64_t>(pitch) <= (uint64_t{1} << 32);
 }
 
 // Host side of a strip launch (B1, B5). Whether the strip and the band are

@@ -25,8 +25,8 @@
 //     list (any group inside) and an outside list, as for the fused FSR
 //     kernel. No foveation test and no int64 arithmetic runs here.
 //   - cas_outside_kernel runs the outside list: the shared bilinear pass
-//     (bilinear_pass.cuh, no round trip): 4 outputs of one row per thread
-//     straight from device memory, 16-byte stores, no shared memory, no
+//     (bilinear_pass.cuh, no round trip): a run of 8 outputs down one
+//     column per thread straight from device memory, no shared memory, no
 //     barrier.
 //   - cas_inside_kernel runs the inside list, one CTA per tile: the tile's
 //     36x36 window (0 outside the image, so a CAS tap reads it as it is) is
@@ -237,12 +237,12 @@ auto band_inside_kernel() {
 // The outside list: the shared bilinear pass, no round trip, on every row or
 // on the band's.
 template <class C>
-__global__ void __launch_bounds__(bilinear_pass::kThreads)
+__global__ void __launch_bounds__(bilinear_pass::threads(kTile, kTile))
     cas_outside_kernel(bilinear_pass::Args<C> a) {
   bilinear_pass::run<kTile, kTile, false, C>(a);
 }
 template <class C>
-__global__ void __launch_bounds__(bilinear_pass::kThreads)
+__global__ void __launch_bounds__(bilinear_pass::threads(kTile, kTile))
     cas_band_outside_kernel(bilinear_pass::Args<C> a, Band band) {
   bilinear_pass::run<kTile, kTile, false, C, true>(a, band);
 }
@@ -251,7 +251,7 @@ template <class C, class P>
 int occupancy(int* outside, int* inside, int* inside_smem) {
   *inside_smem = static_cast<int>(sizeof(Smem));
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      outside, cas_outside_kernel<C>, bilinear_pass::kThreads, 0);
+      outside, cas_outside_kernel<C>, bilinear_pass::threads(kTile, kTile), 0);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, inside_kernel<C, P>(), kThreads,
                                                         0);
@@ -306,14 +306,19 @@ int launch(const void* img, void* out, const void* col_i, const void* col_f, con
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool band = out_row0 != 0 || out_row1 != out_h;
   if (n_outside > 0) {
+    if (!bilinear_pass::offsets_fit(in_h, pitch))
+      return static_cast<int>(cudaErrorInvalidValue);
     const bilinear_pass::Args<C> a = {p.img, p.out, p.col_i + out_w, p.col_f + out_w,
                                       p.row_i + out_h, p.row_f + out_h,
                                       static_cast<const int32_t*>(outside_tiles), in_h, in_w,
-                                      in_rows, pitch, out_h, out_w, p.tiles_x, p.tiles_y, tint};
+                                      in_rows, pitch, out_h, out_w, tint,
+                                      bilinear_pass::Divisor::of(p.tiles_x * p.tiles_y),
+                                      bilinear_pass::Divisor::of(p.tiles_x)};
+    constexpr int kPass = bilinear_pass::threads(kTile, kTile);
     if (band)
-      cas_band_outside_kernel<C><<<n_outside, bilinear_pass::kThreads, 0, s>>>(a, rows);
+      cas_band_outside_kernel<C><<<n_outside, kPass, 0, s>>>(a, rows);
     else
-      cas_outside_kernel<C><<<n_outside, bilinear_pass::kThreads, 0, s>>>(a);
+      cas_outside_kernel<C><<<n_outside, kPass, 0, s>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

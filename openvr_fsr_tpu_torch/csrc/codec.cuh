@@ -20,7 +20,9 @@
 // roundtrip(v) (the UNORM store and decode of the reference's intermediate
 // texture in the texture's own format), and load4 / store4: four
 // neighbouring texels through 16-byte operations (one for Rgba8, two for
-// Rgb10a2) at a 16-byte aligned address.
+// Rgb10a2) at a 16-byte aligned address; and the exact forms of the first
+// three that the bilinear pass takes (exact_channel, exact_roundtrip,
+// exact_pack: namespace exact below).
 #pragma once
 
 #include <cstdint>
@@ -30,6 +32,58 @@
 
 namespace codec {
 
+// The exact forms of the decode, saturate, round and encode, for the
+// bilinear pass outside the foveation circle (bilinear_pass.cuh): the bits
+// of channel, roundtrip and pack with no conversion instruction (I2F, F2I,
+// FRND) and no NaN-carrying select, each an identity on what the pass
+// gives it:
+//   decode    a channel's integer u < 2^23 permuted into the low bytes of
+//             2^23's bits (0x4B000000) is the float 2^23 + u; one FMA
+//             (2^23 + u) * inv - 2^23 * inv is u * inv before its single
+//             rounding (2^23 * inv is a float: a power of two times one),
+//             so it gives the plain decode's product
+//             static_cast<float>(u) * inv;
+//   saturate  __saturatef is ffx::sat but for a NaN (0, where sat keeps
+//             it) and maybe the sign of a zero. The pass holds no NaN:
+//             every operand is a decoded integer of at most 65,535, a host
+//             table's fraction in [0, 1] or the tint (0.7 or 1), so every
+//             value it forms is finite and bounded; a zero of either sign
+//             rounds to the same 0 below;
+//   round     y = sat(v) * scale lies in [0, 1023] (scale 255 or 1023), so
+//             y + 2^23 lies in [2^23, 2^24), where the floats are the
+//             integers: the add's round to nearest even is 2^23 + rint(y)
+//             (the bias is even, so a tie goes to the even integer, as
+//             rintf's does). Its bits are 2^23's with rint(y) in the low
+//             10 bits: the encode's integer, and the decode above of those
+//             bits is the round trip's rint(y) * inv. A bias 2^23 + m, m
+//             even and m + 1023 < 2^23, rounds the same and carries m in
+//             the bits above: kAlpha8Bias carries the RGBA8 alpha byte;
+//   encode    the encode of a round trip's value is the encode of the
+//             value: sat(rint(y) * inv) * scale rounds to rint(y) for every
+//             integer of [0, scale] (tests/test_torch_exact_codec.py tries
+//             each), so a channel whose round trip goes straight to the
+//             encode (B1's R) skips it;
+//   pack      byte permutes gather the low bits into the texel.
+// The __*_rn intrinsics keep every op as written (no contraction). The
+// inside kernels keep channel, roundtrip and pack: their operands may hold
+// a NaN.
+namespace exact {
+
+constexpr uint32_t kTwo23Bits = 0x4B000000u;   // the bits of 2^23
+constexpr float kTwo23 = 8388608.0f;
+constexpr float kAlpha8Bias = 8453888.0f;      // 2^23 + 0xFF00: 255 in bits 8-15
+
+// u * inv from 2^23's bits with u < 2^23 in their low bits
+__device__ __forceinline__ float decode(uint32_t bits, float inv) {
+  return __fmaf_rn(__uint_as_float(bits), inv, -kTwo23 * inv);
+}
+// the bits of bias + rint(sat(v) * scale), for scale at most 1023
+__device__ __forceinline__ uint32_t round_bits(float v, float scale, float bias = kTwo23) {
+  return __float_as_uint(__fadd_rn(__fmul_rn(__saturatef(v), scale), bias));
+}
+
+}  // namespace exact
+
 struct Rgba8 {
   using Texel = uint32_t;
   static __device__ __forceinline__ float channel(Texel t, int c) { return rgba8::channel(t, c); }
@@ -37,6 +91,20 @@ struct Rgba8 {
     return rgba8::pack(r, g, b, a);
   }
   static __device__ __forceinline__ float roundtrip(float v) { return ffx::unorm8_roundtrip(v); }
+  // channel(t, c) of an RGB channel: byte c in 2^23's bits
+  static __device__ __forceinline__ float exact_channel(Texel t, int c) {
+    return exact::decode(__byte_perm(t, exact::kTwo23Bits, 0x7440u | c), ffx::kInv255);
+  }
+  static __device__ __forceinline__ float exact_roundtrip(float v) {
+    return exact::decode(exact::round_bits(v, 255.0f), ffx::kInv255);
+  }
+  // pack(r, g, b, 1.0f): R's and G's low bytes, then B's low byte and the
+  // alpha 255 from B's sum (kAlpha8Bias)
+  static __device__ __forceinline__ Texel exact_pack(float r, float g, float b) {
+    const uint32_t rg =
+        __byte_perm(exact::round_bits(r, 255.0f), exact::round_bits(g, 255.0f), 0x0040u);
+    return __byte_perm(rg, exact::round_bits(b, 255.0f, exact::kAlpha8Bias), 0x5410u);
+  }
   static __device__ __forceinline__ void load4(const Texel* src, Texel v[4]) {
     const uint4 q = *reinterpret_cast<const uint4*>(src);
     v[0] = q.x;
@@ -64,6 +132,23 @@ struct Rgb10a2 {
             (static_cast<uint32_t>(ffx::unorm2_round(a)) << 16));
   }
   static __device__ __forceinline__ float roundtrip(float v) { return ffx::unorm10_roundtrip(v); }
+  // channel(t, c) of an RGB channel: the word's low or high 16 bits in
+  // 2^23's bits
+  static __device__ __forceinline__ float exact_channel(Texel t, int c) {
+    const uint32_t w = c < 2 ? t.x : t.y;
+    return exact::decode(__byte_perm(w, exact::kTwo23Bits, (c & 1) ? 0x7432u : 0x7410u),
+                         ffx::kInv1023);
+  }
+  static __device__ __forceinline__ float exact_roundtrip(float v) {
+    return exact::decode(exact::round_bits(v, 1023.0f), ffx::kInv1023);
+  }
+  // pack(r, g, b, 1.0f): each sum's low 16 bits (bits 10-15 are 0), and the
+  // alpha 3
+  static __device__ __forceinline__ Texel exact_pack(float r, float g, float b) {
+    return make_uint2(
+        __byte_perm(exact::round_bits(r, 1023.0f), exact::round_bits(g, 1023.0f), 0x5410u),
+        __byte_perm(exact::round_bits(b, 1023.0f), 3u, 0x5410u));
+  }
   static __device__ __forceinline__ void load4(const Texel* src, Texel v[4]) {
     const uint4 a = reinterpret_cast<const uint4*>(src)[0];
     const uint4 b = reinterpret_cast<const uint4*>(src)[1];

@@ -31,9 +31,18 @@
 // tile stores. The threads then gather 4 outputs of one row each from the
 // box and store them with one 16-byte store (where the output rows are not
 // whole 16-byte units, each warp stores 32 words of a tile row, 128
-// coalesced bytes). A span item (kind -n: n neighbouring outside tiles of
-// one tile row of the copy form) is a straight copy of its rows, 16 bytes
-// per load, a span in one batch: a copy needs no shared memory, and on
+// coalesced bytes). Where the grid would hold a CTA for every box item (a
+// strip, or any frame small enough), no CTA has a later box to overlap,
+// and the ring's set-up (the barriers, the tensor map, the one thread's
+// issue, the shared memory) is latency the compute kernel does not pay:
+// there a kernel of its own, dma_floor_one_kernel, takes a CTA per item,
+// no tensor map and no shared memory, and each thread gathers 4 outputs of
+// one row, their box words straight from the frame (0 outside it, as the
+// TMA fills them), every load in flight before its stores: the words the
+// compute kernel's tile reads, less the box words no output taps. A span
+// item (kind -n: n neighbouring outside tiles of one tile row of the copy
+// form) is a straight copy of its rows, 16 bytes per load, a span in one
+// batch: a copy needs no shared memory, and on
 // the card a row-major copy of a span moves the same words faster than one
 // box per tile in and out. Nothing is computed, so
 // only the card's memory system bounds it. TMA takes a row pitch of a
@@ -87,6 +96,7 @@ struct Params {
   const uint32_t* img;     // the frame, for the span copies
   int rows, pitch;
   int row0;                // the band form's grid row of output row 0 (else 0)
+  int in_h, in_w;          // the frame's words, (in_h, in_w) of (rows, pitch)
 };
 
 // ---- the asynchronous copy (TMA): the only inline PTX of this file ---------
@@ -295,6 +305,72 @@ __device__ __forceinline__ void floor_items(const BoxMap& map0, const BoxMap& ma
   }
 }
 
+// Every thread of a CTA that holds one box item (blockIdx.x): runs of 4
+// outputs of one row, each output word straight from the frame at its tap,
+// 0 outside it (the box word the ring's store gathers), kGather runs'
+// loads in flight before their stores; a run is one 16-byte store where
+// the output rows are whole 16-byte units, else 4 stores. No shared
+// memory, no barrier.
+template <int TW, bool kBand>
+__device__ __forceinline__ void gather_one(const Params& p, int tid) {
+  const int4 item = p.tiles[blockIdx.x];
+  const int c = item.w;
+  const int x0 = p.box_x0[c * p.tiles_x + item.z], y0 = p.box_y0[c * p.tiles_y + item.y];
+  const int32_t* rel_x = p.rel_x + (c * p.tiles_x + item.z) * TW;
+  const int32_t* rel_y = p.rel_y + (c * p.tiles_y + item.y) * p.tile_h;
+  const uint32_t* frame = p.img + static_cast<size_t>(item.x) * p.rows * p.pitch;
+  uint32_t* out = p.out + static_cast<size_t>(item.x) * p.out_h * p.out_w;
+  const auto word = [&](int ry, int rx) {
+    const int y = y0 + ry, x = x0 + rx;
+    return y >= 0 && y < p.in_h && x >= 0 && x < p.in_w
+               ? __ldg(frame + static_cast<size_t>(y) * p.pitch + x)
+               : 0u;
+  };
+  const auto keep = [&](int gy, int ox) {
+    const int oy = kBand ? gy - p.row0 : gy;
+    return (!kBand || oy >= 0) && oy < p.out_h && ox < p.out_w;
+  };
+  constexpr int kGather = 4, kPer = TW / kRun;
+  const bool vec = p.out_w % kRun == 0;   // whole 16-byte output runs
+  for (int r0 = tid; r0 < kPer * p.tile_h; r0 += kGather * kThreads) {
+    uint4 v[kGather];
+#pragma unroll
+    for (int u = 0; u < kGather; ++u) {
+      const int r = r0 + u * kThreads, ry = r / kPer, cx = r % kPer * kRun;
+      if (r < kPer * p.tile_h && keep(item.y * p.tile_h + ry, item.z * TW + cx)) {
+        const int4 rx = *reinterpret_cast<const int4*>(rel_x + cx);
+        const int by = rel_y[ry];
+        v[u] = make_uint4(word(by, rx.x), word(by, rx.y), word(by, rx.z), word(by, rx.w));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kGather; ++u) {
+      const int r = r0 + u * kThreads, ry = r / kPer, cx = r % kPer * kRun;
+      const int gy = item.y * p.tile_h + ry, ox = item.z * TW + cx;
+      if (r >= kPer * p.tile_h || !keep(gy, ox)) continue;
+      uint32_t* o = out + static_cast<size_t>(kBand ? gy - p.row0 : gy) * p.out_w + ox;
+      if (vec) {
+        *reinterpret_cast<uint4*>(o) = v[u];
+      } else {
+        const uint32_t w[kRun] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+        for (int k = 0; k < kRun; ++k)
+          if (ox + k < p.out_w) o[k] = w[k];
+      }
+    }
+  }
+}
+
+// The one-box form (a CTA per item): span items copy, box items gather.
+template <int TW, bool kBand>
+__global__ void __launch_bounds__(kThreads) dma_floor_one_kernel(const Params p) {
+  const int tid = threadIdx.x;
+  if (!kBand && static_cast<int>(blockIdx.x) < p.n_spans)
+    copy_span<TW>(p, p.tiles[blockIdx.x], tid);
+  else
+    gather_one<TW, kBand>(p, tid);
+}
+
 template <int TW>
 __global__ void __launch_bounds__(kThreads) dma_floor_kernel(const __grid_constant__ BoxMap map0,
                                                              const __grid_constant__ BoxMap map1,
@@ -368,12 +444,17 @@ int grid_ctas(size_t smem) {
 bool box_ok(int bw, int bh) { return bw >= 4 && bw % 4 == 0 && bw <= kMaxBox && bh >= 1 && bh <= kMaxBox; }
 
 // The launch of the TW-word-tile kernel (kBand: its band form): the span
-// items' CTAs, then the persistent CTAs over the box items.
+// items' CTAs, then the persistent CTAs over the box items; where those
+// would take one box item each, the one-box form, a CTA per item.
 template <int TW, bool kBand>
 int launch_tiles(const BoxMap& map0, const BoxMap& map1, const Params& p, size_t smem,
                  cudaStream_t stream) {
   const int ctas = grid_ctas<TW, kBand>(smem), boxes = p.n_tiles - p.n_spans;
   if (ctas <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (boxes <= ctas) {
+    dma_floor_one_kernel<TW, kBand><<<p.n_tiles, kThreads, 0, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int grid = p.n_spans + (boxes < ctas ? boxes : ctas);
   if (kBand)
     dma_floor_band_kernel<TW><<<grid, kThreads, smem, stream>>>(map0, map1, p);
@@ -431,6 +512,8 @@ extern "C" int dma_floor_launch(const void* img, void* out, const void* tiles, i
   p.rows = rows;
   p.pitch = pitch;
   p.row0 = row0;
+  p.in_h = in_h;
+  p.in_w = in_w;
   const int words = box_w0 * box_h0 > box_w1 * box_h1 ? box_w0 * box_h0 : box_w1 * box_h1;
   p.stage_words = (words + kAlign / 4 - 1) / (kAlign / 4) * (kAlign / 4);
   // the barriers, the ring, and the slack that aligns them

@@ -29,10 +29,10 @@
 //     tile's groups and of their neighbours from a per-group table.
 //   - fsr_outside_kernel runs the outside list: the shared bilinear pass
 //     (bilinear_pass.cuh, with the UNORM8 round trip): one CTA per tile,
-//     each thread 4 neighbouring outputs of one row, bilinear straight from
-//     device memory (four taps per output, which L1 serves), quantized,
-//     tinted and stored with one 16-byte store where the row start allows
-//     it. No shared memory, no barrier.
+//     each thread a run of 8 outputs down one column, bilinear straight
+//     from device memory (each input row's lerp shared down the run),
+//     quantized, tinted and stored through the codec's exact integer
+//     forms. No shared memory, no barrier.
 //   - fsr_inside_kernel walks the inside list with persistent CTAs (about
 //     SMs x CTAs per SM, tile i, i + grid, ...). Each tile's 40x40 input
 //     window, the sample maps of its 34 haloed columns and rows, and the
@@ -377,12 +377,12 @@ auto band_inside_kernel() {
 // The outside list: the shared bilinear pass with the UNORM round trip, on
 // every row or on the band's.
 template <class C>
-__global__ void __launch_bounds__(bilinear_pass::kThreads)
+__global__ void __launch_bounds__(bilinear_pass::threads(kTile, kTile))
     fsr_outside_kernel(bilinear_pass::Args<C> a) {
   bilinear_pass::run<kTile, kTile, true, C>(a);
 }
 template <class C>
-__global__ void __launch_bounds__(bilinear_pass::kThreads)
+__global__ void __launch_bounds__(bilinear_pass::threads(kTile, kTile))
     fsr_band_outside_kernel(bilinear_pass::Args<C> a, Band band) {
   bilinear_pass::run<kTile, kTile, true, C, true>(a, band);
 }
@@ -402,7 +402,7 @@ int occupancy(int* outside, int* inside) {
                                cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Smem<C>));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(outside, fsr_outside_kernel<C>,
-                                                        bilinear_pass::kThreads, 0);
+                                                        bilinear_pass::threads(kTile, kTile), 0);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, inside_kernel<C, P>(), kThreads,
                                                         sizeof(Smem<C>));
@@ -478,14 +478,19 @@ int launch(const void* img, void* out, const void* col_i, const void* col_f, con
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool band = out_row0 != 0 || out_row1 != out_h;
   if (n_outside > 0) {
+    if (!bilinear_pass::offsets_fit(in_h, pitch))
+      return static_cast<int>(cudaErrorInvalidValue);
     const bilinear_pass::Args<C> a = {p.img, p.out, p.col_i + out_w, p.col_f + out_w,
                                       p.row_i + out_h, p.row_f + out_h,
                                       static_cast<const int32_t*>(outside_tiles), in_h, in_w,
-                                      in_rows, pitch, out_h, out_w, p.tiles_x, p.tiles_y, tint};
+                                      in_rows, pitch, out_h, out_w, tint,
+                                      bilinear_pass::Divisor::of(p.tiles_x * p.tiles_y),
+                                      bilinear_pass::Divisor::of(p.tiles_x)};
+    constexpr int kPass = bilinear_pass::threads(kTile, kTile);
     if (band)
-      fsr_band_outside_kernel<C><<<n_outside, bilinear_pass::kThreads, 0, s>>>(a, rows);
+      fsr_band_outside_kernel<C><<<n_outside, kPass, 0, s>>>(a, rows);
     else
-      fsr_outside_kernel<C><<<n_outside, bilinear_pass::kThreads, 0, s>>>(a);
+      fsr_outside_kernel<C><<<n_outside, kPass, 0, s>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -420,7 +420,7 @@ auto inside_kernel() {
 
 // The outside list: the shared bilinear pass on the DirectCopy maps.
 template <class C>
-__global__ void __launch_bounds__(bilinear_pass::kThreads)
+__global__ void __launch_bounds__(bilinear_pass::threads(kTileW, kTileH))
     nis_outside_kernel(bilinear_pass::Args<C> a) {
   bilinear_pass::run<kTileW, kTileH, false, C>(a);
 }
@@ -429,7 +429,7 @@ template <class C, class P>
 int occupancy(int* outside, int* inside, int* inside_smem) {
   *inside_smem = static_cast<int>(sizeof(Smem));
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      outside, nis_outside_kernel<C>, bilinear_pass::kThreads, 0);
+      outside, nis_outside_kernel<C>, bilinear_pass::threads(kTileW, kTileH), 0);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(inside, inside_kernel<C, P>(), kThreads,
                                                         0);
@@ -478,11 +478,15 @@ int launch(const void* img, void* out, const void* col_i, const void* col_f, con
   p.tint = tint;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_outside > 0) {
+    if (!bilinear_pass::offsets_fit(in_h, pitch))
+      return static_cast<int>(cudaErrorInvalidValue);
     const bilinear_pass::Args<C> a = {p.img, p.out, p.col_i + 3 * out_w, p.col_f + 2 * out_w,
                                       p.row_i + 3 * out_h, p.row_f + 2 * out_h,
                                       static_cast<const int32_t*>(outside_tiles), in_h, in_w,
-                                      rows, pitch, out_h, out_w, p.tiles_x, p.tiles_y, tint};
-    nis_outside_kernel<C><<<n_outside, bilinear_pass::kThreads, 0, s>>>(a);
+                                      rows, pitch, out_h, out_w, tint,
+                                      bilinear_pass::Divisor::of(p.tiles_x * p.tiles_y),
+                                      bilinear_pass::Divisor::of(p.tiles_x)};
+    nis_outside_kernel<C><<<n_outside, bilinear_pass::threads(kTileW, kTileH), 0, s>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -9,7 +9,11 @@ overlap: per output tile the window of a tile the kernel stages, or what
 its outside pass reads there (the footprint of its four bilinear taps),
 loaded by TMA as one box by persistent CTAs, or its own texels, copied
 straight in spans of neighbouring tiles, a CTA each; every output word
-stored once.
+stored once. Where the persistent CTAs would take one box each (a strip,
+or a frame small enough), a kernel of its own takes a CTA per tile and
+gathers each output's word straight from the frame: at such sizes the
+compute kernel runs near a launch's floor, and the TMA's set-up would
+cost more than its loads save.
 Its time is the least time this card needs to move the kernel's exact
 words, so vs_sol = floor / kernel <= 1
 when both are timed in one process over the same frames (bench.py,
@@ -378,9 +382,10 @@ def build_dma_floor(geom):
       tiles         the item list (floor_tiles), its first n_spans items
                     the span items;
       boxes         each class's box (floor_boxes);
-      read_bytes    the bytes the floor loads, overlaps included
-                    (floor_loads; the JAX floor's read_bytes, sol.py:101,
-                    counts its band windows the same way);
+      read_bytes    the bytes the floor's TMA forms load, overlaps
+                    included (floor_loads; the JAX floor's read_bytes,
+                    sol.py:101, counts its band windows the same way; the
+                    one-box form loads the tapped words among them);
       write_bytes   B * out_h * out_w * 4 (out_w in words), as sol.py:102;
       hbm_bytes     the unique input plane plus the output: the bytes that
                     must cross device memory. Effective GB/s is taken over
