@@ -113,7 +113,7 @@ class DeviceTables:
 
 
 def kernel_fn(name, batch, shape, pad_to, reference, launch, geometry=None,
-              color_bits=8, precision="full"):
+              color_bits=8, precision="full", work=None):
     """The function a kernel build returns.
 
     fn(img) takes a contiguous (batch, *shape) int32 tensor of packed RGBA8
@@ -122,12 +122,17 @@ def kernel_fn(name, batch, shape, pad_to, reference, launch, geometry=None,
     (read in place). A CPU tensor runs `reference(img)`, the plain torch
     version; a CUDA tensor runs `launch(img)`, which returns (out,
     cudaError), and raises if the error is not 0. Nothing falls back.
-    Each launch is a `launch` span (utils/trace.py), cold on the first.
-    fn.launches counts CUDA launches; fn.reference, fn.pad_to,
-    fn.color_bits and fn.precision are published, and fn.dma_geometry when
-    `geometry` (kernels/_maps.py::dma_geometry, in 4-byte words:
-    word_geometry at 10 bits) is given: that dict with batch, in_h, in_w and the ring pitch hp,
-    wp added, in words, which kernels/sol.py::build_dma_floor consumes."""
+    Each launch is a `launch` span (utils/trace.py), cold on the first;
+    one that returned 0 puts `name` (`fn`) and `work` in its record's info
+    and counts them (utils/trace.py::count_launch). work
+    (kernels/_maps.py::launch_work) is what one call computes: the CUDA
+    kernels it enqueues (`kernels`) and its outputs inside and outside
+    the circle (`inside`, `outside`). fn.launches counts CUDA launches;
+    fn.reference, fn.pad_to, fn.color_bits and fn.precision are
+    published, and fn.dma_geometry when `geometry` (kernels/_maps.py::
+    dma_geometry, in 4-byte words: word_geometry at 10 bits) is given: that
+    dict with batch, in_h, in_w and the ring pitch hp, wp added, in words,
+    which kernels/sol.py::build_dma_floor consumes."""
     B, (H, W), pad_to = int(batch), tuple(shape), tuple(pad_to)
     ten = texel_words(color_bits) == 2
     dtype, texel = ((torch.uint16, (4,)) if ten else (torch.int32, ()))
@@ -164,9 +169,11 @@ def kernel_fn(name, batch, shape, pad_to, reference, launch, geometry=None,
             raise RuntimeError(f"{name}_launch failed: cudaError {err}")
         fn.launches += 1
         if sp is not None:
-            trace.bump("launches")
+            sp.info.update(info)
+            trace.count_launch(info)
         return out
 
+    info = dict(work or {}, fn=name)
     first = True     # the first launch binds, uploads and loads: a cold span
     fn.launches = 0
     fn.pad_to = pad_to
@@ -189,16 +196,18 @@ def _on_device(launch, img, dev):
 
 
 def band_fn(name, batch, strip, pad_to, reference, launch, geometry,
-            color_bits, precision, band_range, in_row_base, out_rows):
+            color_bits, precision, band_range, in_row_base, out_rows,
+            work=None):
     """kernel_fn of a row-band build (B1, B5 with band_range): fn(img)
     takes the input strip, (batch, *strip) with strip = (in_rows, in_w),
     or its width padded to the ring pitch pad_to's; publishes band_range,
     in_row_base, in_rows and out_rows (the JAX builders' meaning),
     precision, and the strip's DMA geometry (kernels/_maps.py::
-    band_geometry, in words), whose in_h is the strip's rows."""
+    band_geometry, in words), whose in_h is the strip's rows; work is
+    kernel_fn's, over the band's output rows."""
     rows, w = strip
     fn = kernel_fn(name, batch, (rows, w), (rows, pad_to[1]), reference,
-                   launch, geometry, color_bits, precision)
+                   launch, geometry, color_bits, precision, work)
     fn.band_range = tuple(int(g) for g in band_range)
     fn.in_row_base, fn.in_rows, fn.out_rows = (int(in_row_base), int(rows),
                                                int(out_rows))

@@ -64,8 +64,8 @@ __all__ = ["FsrMaps", "fsr_maps", "cas_upscale_maps", "band_strip",
            "NisMaps", "nvscaler_maps", "SharpenMaps", "sharpen_maps",
            "input_padding", "dma_geometry", "sharpen_geometry",
            "word_geometry", "band_geometry",
-           "group_classes", "tile_lists", "TILE", "FSR_TILE", "IN_TILE",
-           "CAS_IN_TILE", "NIS_TILE", "NIS_IN_TILE", "NIS_EDGE_TILE",
+           "group_classes", "tile_lists", "launch_work", "TILE", "FSR_TILE",
+           "IN_TILE", "CAS_IN_TILE", "NIS_TILE", "NIS_IN_TILE", "NIS_EDGE_TILE",
            "SHARPEN_TILE", "CAS_SHARPEN_IN_TILE", "NIS_SHARPEN_IN_TILE",
            "THREADS"]
 
@@ -197,6 +197,25 @@ def tile_lists(cls, out_h, out_w, tile=(FSR_TILE, FSR_TILE),
     inside = pad.reshape(b, ty, ky, tx, kx).any(axis=(2, 4)).ravel()
     return (np.flatnonzero(inside).astype(np.int32),
             np.flatnonzero(~inside).astype(np.int32))
+
+
+def launch_work(cls, group, out_h, out_w, n_inside, n_outside, rows=None):
+    """What one call of a class-kernel build computes, which kernels/
+    _common.py::kernel_fn publishes in its launch records: the CUDA kernels
+    its C entry point enqueues (one per non-empty tile list) and its
+    outputs by class, `inside` those of the (width, height) `group`s that
+    cls (group_classes) marks inside the circle, `outside` the rest (by
+    the bilinear or the copy pass), counted in the output rows
+    rows = (r0, r1) (a strip's; default every row) of the image."""
+    (gw, gh), oh, ow = group, int(out_h), int(out_w)
+    r0, r1 = (0, oh) if rows is None else (int(rows[0]), int(rows[1]))
+    gy = np.arange(r0, r1) // gh
+    cols = np.bincount(np.arange(ow) // gw, minlength=cls.shape[2])
+    per_row = np.asarray(cls, bool) @ cols           # (B, GY) outputs a row
+    inside = int(per_row[:, gy].sum())
+    return {"kernels": int(n_inside > 0) + int(n_outside > 0),
+            "inside": inside,
+            "outside": cls.shape[0] * (r1 - r0) * ow - inside}
 
 
 def _tile_flags(ids, shape):

@@ -50,8 +50,8 @@ from ._common import (DeviceTables, band_fn, circle_mask, debug_tint,
 from ._maps import (CAS_IN_TILE, CAS_SHARPEN_IN_TILE, FSR_TILE, SHARPEN_TILE,
                     TILE, band_geometry, band_layout, band_output_rows,
                     band_strip, cas_upscale_maps, dma_geometry,
-                    input_padding, sharpen_geometry, sharpen_maps,
-                    word_geometry)
+                    input_padding, launch_work, sharpen_geometry,
+                    sharpen_maps, word_geometry)
 
 __all__ = ["build_cas_upscale", "build_cas_sharpen", "cas_upscale_reference",
            "cas_sharpen_reference", "cas_band_layout", "UPSCALE_ARGTYPES",
@@ -235,13 +235,15 @@ def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
         tap_y=np.clip(m.row_i[0], 0, H - 1),
         quad_x=m.col_i[[1, 1]], quad_y=m.row_i[[1, 1]])
     geometry = word_geometry(geometry, texel_words(cb))
+    work = launch_work(m.group_cls, (TILE, TILE), OH, OW, n_inside,
+                       n_outside, (r0, r1))
     if band_range is not None:
         return band_fn("CAS upscale strip", B, (rows, W), input_padding(H, W),
                        reference, launch,
                        band_geometry(geometry, (r0, r1), base, rows), cb,
-                       precision, band_range, base, r1 - r0)
+                       precision, band_range, base, r1 - r0, work)
     return kernel_fn("CAS upscale", B, (H, W), input_padding(H, W),
-                     reference, launch, geometry, cb, precision)
+                     reference, launch, geometry, cb, precision, work)
 
 
 def build_cas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
@@ -302,4 +304,6 @@ def build_cas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
                          sharpen_geometry(H, W, SHARPEN_TILE, 1, m.centres,
                                           "zero", staged=m.tile_inside,
                                           group=(TILE, TILE)),
-                         texel_words(cb)), cb, precision)
+                         texel_words(cb)), cb, precision,
+                     launch_work(m.group_cls, (TILE, TILE), H, W, n_inside,
+                                 n_outside))

@@ -48,7 +48,7 @@ from ._common import (DeviceTables, band_fn, circle_mask, debug_tint,
                       tint_vector, unpack, working_type)
 from ._maps import (FSR_TILE, IN_TILE, TILE, band_geometry, band_layout,
                     band_output_rows, band_strip, dma_geometry, fsr_maps,
-                    input_padding, word_geometry)
+                    input_padding, launch_work, word_geometry)
 
 __all__ = ["build_fsr_fused", "fsr_fused_reference", "fsr_band_layout",
            "circle_mask", "FUSED_ARGTYPES"]
@@ -206,10 +206,12 @@ def build_fsr_fused(batch, in_h, in_w, out_w, out_h, *, sharpness, centres,
         tap_y=np.clip(m.row_i[0], 0, H - 1),
         quad_x=m.col_i[[1, 1]], quad_y=m.row_i[[1, 1]])
     geometry = word_geometry(geometry, texel_words(cb))
+    work = launch_work(m.group_cls, (TILE, TILE), OH, OW, n_inside,
+                       n_outside, (r0, r1))
     if band_range is not None:
         return band_fn("fused FSR strip", B, (rows, W), input_padding(H, W),
                        reference, launch,
                        band_geometry(geometry, (r0, r1), base, rows), cb,
-                       precision, band_range, base, r1 - r0)
+                       precision, band_range, base, r1 - r0, work)
     return kernel_fn("fused FSR", B, (H, W), input_padding(H, W), reference,
-                     launch, geometry, cb, precision)
+                     launch, geometry, cb, precision, work)

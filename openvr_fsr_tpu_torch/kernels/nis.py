@@ -49,8 +49,8 @@ from ._common import (DeviceTables, circle_mask, debug_tint, entry_args,
                       unpack, working_type)
 from ._maps import (NIS_EDGE_TILE, NIS_IN_TILE, NIS_SHARPEN_IN_TILE,
                     NIS_TILE, SHARPEN_TILE, dma_geometry, input_padding,
-                    nvscaler_maps, sharpen_geometry, sharpen_maps,
-                    word_geometry)
+                    launch_work, nvscaler_maps, sharpen_geometry,
+                    sharpen_maps, word_geometry)
 
 __all__ = ["build_nvsharpen", "build_nvscaler", "nvsharpen_reference",
            "nvscaler_reference"]
@@ -214,7 +214,9 @@ def build_nvsharpen(batch, h, w, *, nis_cfg: NisConfig, centres, debug=False,
                      launch, word_geometry(
                          sharpen_geometry(H, W, SHARPEN_TILE, 2, m.centres,
                                           "clamp", staged=m.tile_inside),
-                         texel_words(cb)), cb, precision)
+                         texel_words(cb)), cb, precision,
+                     launch_work(m.group_cls, TILE_NIS_SHARPEN, H, W,
+                                 n_inside, n_outside))
 
 
 def build_nvscaler(batch, in_h, in_w, out_w, out_h, *, nis_cfg: NisConfig,
@@ -286,4 +288,5 @@ def build_nvscaler(batch, in_h, in_w, out_w, out_h, *, nis_cfg: NisConfig,
         quad_x=m.col_i[2:4], quad_y=m.row_i[2:4])
     return kernel_fn("NVScaler", B, (H, W), input_padding(H, W), reference,
                      launch, word_geometry(geometry, texel_words(cb)), cb,
-                     precision)
+                     precision, launch_work(m.block_cls, TILE_NIS_SCALER, OH,
+                                            OW, n_inside, n_outside))

@@ -35,7 +35,8 @@ from ._common import (DeviceTables, circle_mask, debug_tint, entry_args,
                       entry_name, kernel_fn, pack, texel_words, tint_vector,
                       unpack, working_type)
 from ._maps import (CAS_SHARPEN_IN_TILE, SHARPEN_TILE, TILE, input_padding,
-                    sharpen_geometry, sharpen_maps, word_geometry)
+                    launch_work, sharpen_geometry, sharpen_maps,
+                    word_geometry)
 
 __all__ = ["build_rcas_sharpen", "rcas_sharpen_reference"]
 
@@ -140,4 +141,6 @@ def build_rcas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
                          sharpen_geometry(H, W, SHARPEN_TILE, 1, m.centres,
                                           "zero", staged=m.tile_inside,
                                           group=(TILE, TILE)),
-                         texel_words(cb)), cb, precision)
+                         texel_words(cb)), cb, precision,
+                     launch_work(m.group_cls, (TILE, TILE), H, W, n_inside,
+                                 n_outside))

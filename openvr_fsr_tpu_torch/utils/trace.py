@@ -27,12 +27,20 @@ span (one `process` call while a profiler runs), whether it was cold, and
 info (a dict). A thread-local stack supplies the parent. Once the buffer
 holds CAPACITY records, further spans are dropped and counted in `dropped`.
 
+A launch that returned 0 puts in its record's info what the built
+function published at its build (kernels/_common.py::kernel_fn): its name
+(`fn`), the CUDA kernels its C entry point enqueued (`kernels`) and the
+outputs the call computed inside the foveation circle and outside it
+(`inside`, `outside`; the outside ones by the bilinear or copy pass).
+
 Each counter counts at its boundary where its span records: `calls`
 (Pipeline.process calls) and `launches` (C entry-point calls that returned
 0) while a profiler runs, and `launches` on a first launch too; `builds`
-(build-cache misses) always. A counter that disagrees with the count of
-its spans says records were dropped, cleared or left open, or a launch
-failed.
+(build-cache misses) always. `kernels`, `inside_outputs` and
+`outside_outputs` add up the launch records' `kernels`, `inside` and
+`outside` where `launches` counts. A counter that disagrees with the count
+of its spans, or with the sum of their info, says records were dropped,
+cleared or left open, or a launch failed.
 
 To read them: run the program under torch.profiler, then read records()
 and counters(); clear() empties both.
@@ -46,13 +54,14 @@ from dataclasses import dataclass
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["span", "bump", "records", "counters", "clear", "Record",
-           "CAPACITY", "PREFIX"]
+__all__ = ["span", "bump", "count_launch", "records", "counters", "clear",
+           "Record", "CAPACITY", "PREFIX"]
 
 CAPACITY = 1 << 17     # records kept; past it spans are dropped and counted
 PREFIX = "ovrfsr."     # the record_function names' prefix
 
-_COUNTERS = ("calls", "builds", "launches", "dropped")
+_COUNTERS = ("calls", "builds", "launches", "kernels", "inside_outputs",
+             "outside_outputs", "dropped")
 _buf = []
 _counts = dict.fromkeys(_COUNTERS, 0)
 _lock = threading.Lock()
@@ -122,9 +131,20 @@ def span(name, cold=False):
 
 
 def bump(counter):
-    """Add one to `counter` (calls, builds or launches)."""
+    """Add one to `counter` (calls or builds; a launch: count_launch)."""
     with _lock:
         _counts[counter] += 1
+
+
+def count_launch(info):
+    """Count one launch that returned 0 (`launches`), with the CUDA kernels
+    and the outputs by class that its `info` names (0 where it names
+    none)."""
+    with _lock:
+        _counts["launches"] += 1
+        _counts["kernels"] += info.get("kernels", 0)
+        _counts["inside_outputs"] += info.get("inside", 0)
+        _counts["outside_outputs"] += info.get("outside", 0)
 
 
 def records():
@@ -134,7 +154,8 @@ def records():
 
 
 def counters():
-    """{calls, builds, launches, dropped}: a copy."""
+    """{calls, builds, launches, kernels, inside_outputs, outside_outputs,
+    dropped}: a copy."""
     with _lock:
         return dict(_counts)
 

@@ -60,7 +60,8 @@ def test_off_process_records_no_hot_span(plan, monkeypatch):
         pipe.process(x)
     assert _names(trace.records()) == ["build"]
     assert trace.counters() == {"calls": 0, "builds": 1, "launches": 0,
-                                "dropped": 0}
+                                "kernels": 0, "inside_outputs": 0,
+                                "outside_outputs": 0, "dropped": 0}
     assert trace.span("process") is None and trace.span("launch") is None
 
 
@@ -109,7 +110,9 @@ def test_profiled_process_spans_carry_call_ids_and_parents(plan, tmp_path):
     assert p3.start_ns < inner.start_ns < inner.end_ns < p3.end_ns
     assert p1.end_ns <= p2.start_ns
     counts = trace.counters()
-    assert counts == {"calls": 3, "builds": 2, "launches": 0, "dropped": 0}
+    assert counts == {"calls": 3, "builds": 2, "launches": 0, "kernels": 0,
+                      "inside_outputs": 0, "outside_outputs": 0,
+                      "dropped": 0}
     assert counts["calls"] == _names(recs).count("process")
     assert counts["builds"] == _names(recs).count("build")
     path = tmp_path / "trace.json"
@@ -208,7 +211,8 @@ def test_bounded_buffer_drops_and_counts(monkeypatch):
     trace.clear()
     assert trace.records() == []
     assert trace.counters() == dict.fromkeys(
-        ("calls", "builds", "launches", "dropped"), 0)
+        ("calls", "builds", "launches", "kernels", "inside_outputs",
+         "outside_outputs", "dropped"), 0)
     with trace.span("build", cold=True):
         pass
     assert _names(trace.records()) == ["build"]
