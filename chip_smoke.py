@@ -6,10 +6,10 @@ Run from the repository root, with no arguments (one card):
     python3 chip_smoke.py [--parent DIR]
 
 --parent DIR names a directory of earlier csrc sources (fsr_fused.cu,
-cas_upscale.cu, dma_floor.cu and the headers they were written with, e.g.
-`git archive <commit> openvr_fsr_tpu_torch/csrc` unpacked into an ignored
-directory); phase 1 then holds the current builds of those three kernels
-to it (below). The run builds the CUDA kernels from
+nis_scaler.cu, cas_upscale.cu, dma_floor.cu, rcas_sharpen.cu and the
+headers they were written with, e.g. `git archive <commit>
+openvr_fsr_tpu_torch/csrc` unpacked into an ignored directory); phase 1
+then holds the current builds of those kernels to it (below). The run builds the CUDA kernels from
 openvr_fsr_tpu_torch/csrc with nvcc (sm_90a), one nvcc per source, all at
 once, into openvr_fsr_tpu_torch/_build/. Phases, in order; any failure
 exits non-zero before the result lines:
@@ -30,10 +30,12 @@ exits non-zero before the result lines:
      FRND, F2F: the codec's exact forms leave none, else the run fails),
      FSETP and FSEL from its SASS (tools/sass.py); with --parent, the
      same counts of the parent's builds, and every other function of the
-     parent's fsr_fused, nis_scaler, cas_upscale and dma_floor libraries
-     (the inside kernels, full, half and band, the floor's TMA forms) must
-     have compiled to the same SASS in the current build
-     (tools/ab.py::same_sass), else the run fails;
+     parent's fsr_fused, nis_scaler, cas_upscale, dma_floor and
+     rcas_sharpen libraries (the inside kernels, full, half and band, the
+     floor's TMA forms, B2's copy pass) but those REDESIGNED names (B2's
+     RGBA8 inside kernel, on the texels' levels) must have compiled to the
+     same SASS in the current build (tools/ab.py::same_sass), else the run
+     fails;
   2. each kernel against its plain torch version on the card, at full
      size, on a zone-plate + noise set and a uniform-random set, both with
      alpha that is not all 255:
@@ -296,8 +298,13 @@ STRIPS = 3                   # row-band strips of the spatial path
 STRIP_ITERS = 200            # calls per graph timing each strip and its floor
 # the kernels whose parent SASS phase 1 compares with --parent: every
 # function but the bilinear pass's (PASS_KERNELS' outside kernels, held to
-# CONVERSIONS instead)
-PARENT_KERNELS = ("fsr_fused", "nis_scaler", "cas_upscale", "dma_floor")
+# CONVERSIONS instead) and the REDESIGNED ones
+PARENT_KERNELS = ("fsr_fused", "nis_scaler", "cas_upscale", "dma_floor",
+                  "rcas_sharpen")
+# (kernel function, texel bits) whose SASS the current source changed on
+# purpose: B2's inside kernel at RGBA8 (full precision), which computes
+# RCAS on the texels' 256 levels (csrc/rcas_sharpen.cu)
+REDESIGNED = (("rcas_sharpen_inside_kernel", 8),)
 # the libraries of the bilinear pass (csrc/bilinear_pass.cuh), and the
 # conversion instructions none of its instantiations may hold
 PASS_KERNELS = ("fsr_fused", "nis_scaler", "cas_upscale")
@@ -705,16 +712,21 @@ def main():
             for fn, ok in (fns or {}).items():
                 log(f"[setup] sass_same {lib} {fn}: {ok} (against "
                     f"{args.parent})")
+        def held(lib, fn):
+            return not (lib in PASS_KERNELS and "_outside_kernel" in fn
+                        or any(part in fn and sass.of_codec(fn, bits)
+                               for part, bits in REDESIGNED))
         changed = [f"{lib} {fn}" for lib, fns in same.items()
-                   for fn, ok in (fns or {None: None}).items()
-                   if ok is not True and "_outside_kernel" not in str(fn)]
+                   for fn, ok in (fns or {"": None}).items()
+                   if ok is not True and held(lib, fn)]
         if changed:
             fail(f"parent functions whose SASS changed, went or could not "
                  f"be read: {changed}")
-        kept = sum(1 for fns in same.values() for fn in fns
-                   if "_outside_kernel" not in fn)
+        kept = sum(1 for lib, fns in same.items() for fn in fns
+                   if held(lib, fn))
         log(f"[setup] sass_same: all {kept} functions of {list(same)} but "
-            f"the bilinear pass's as {args.parent} built them")
+            f"the bilinear pass's and {REDESIGNED} as {args.parent} built "
+            "them")
 
     def centres(ow, oh, radius, b=2, eyes=CENTRES):
         return C.centres_payload(ow, oh, radius, eyes,

@@ -136,11 +136,14 @@ def build_rcas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
     # an inside tile, from device memory: not counted, the floor stays below)
     m = tables.host
     n_inside, n_outside = len(m.inside_tiles), len(m.outside_tiles)
+    work = launch_work(m.group_cls, (TILE, TILE), H, W, n_inside, n_outside)
+    # the inside outputs computed on the texels' 256 levels: RGBA8 at full
+    # precision (csrc/rcas_sharpen.cu, the inside kernel's RGBA8
+    # specialization)
+    work["levels"] = work["inside"] if (cb, precision) == (8, "full") else 0
     return kernel_fn("RCAS sharpen", B, (H, W), input_padding(H, W),
                      reference, launch, word_geometry(
                          sharpen_geometry(H, W, SHARPEN_TILE, 1, m.centres,
                                           "zero", staged=m.tile_inside,
                                           group=(TILE, TILE)),
-                         texel_words(cb)), cb, precision,
-                     launch_work(m.group_cls, (TILE, TILE), H, W, n_inside,
-                                 n_outside))
+                         texel_words(cb)), cb, precision, work)

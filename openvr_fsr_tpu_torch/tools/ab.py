@@ -209,8 +209,8 @@ ABLATIONS = {
                              "for (int i = tid; i < 0; i += kThreads) {")]),
     },
     "rcas_sharpen": {
-        "noslide": (True, [("const bool reload = r == 0;",
-                            "const bool reload = true;")]),
+        "noslide": (True, [("const bool load_top = r == 0;",
+                            "const bool load_top = true;")]),
     },
     "vmem_rate": {
         "onegroup": (True, [("return kMaxThreads / th_e;", "return 1;")]),

@@ -90,14 +90,16 @@ SMEM_WORDS = {
     # f32 for RCAS; fallback: the outside pass (bilinear_pass.cuh) reads no
     # shared memory
     "fsr_fused": (68, 0),
-    # rcas_sharpen.cu, per output of a run of 4 in one column: :120-121 +
-    # :126-128 the 5 cross taps x 3 f32 planes at the first (15), at each
-    # later one only the new left, right and bottom taps (:126-128, 9; the
-    # top and centre slide down from the last row): 10.5; fallback: the
-    # copy pass reads device memory only (so does a run of an outside group
-    # in an inside tile, :106: not counted, so the floor stays a lower
-    # bound). 15 if every output reloaded (`--ablate noslide`)
-    "rcas_sharpen": (10.5, 0),
+    # rcas_sharpen.cu's RGBA8 kernel on the levels, per output of a run of
+    # 4 in one column: :333-334 + :343-345 the 5 cross taps, one packed
+    # word each, at the first (5), at each later one only the new left,
+    # right and bottom taps (:343-345, 3; the top and centre slide down
+    # from the last row): 3.5; and :234-235 per channel one float2 of each
+    # level table (12): 15.5; fallback: the copy pass reads device memory
+    # only (so does a run of an outside group in an inside tile, :319: not
+    # counted, so the floor stays a lower bound). 17 if every output
+    # reloaded (`--ablate noslide`)
+    "rcas_sharpen": (15.5, 0),
     # nis_scaler.cu, per output of a run of 6 in one column: :321 + :331
     # the two diagonal phases' COEF_SCALE / COEF_USM rows (24 words); per
     # run :244-245 the fx rows (12); on a reload :274 36 lumas (:158) and

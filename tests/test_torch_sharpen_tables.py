@@ -333,25 +333,34 @@ def _constant(text, name):
 @pytest.mark.parametrize("kernel,edge,first,later", [
     ("cas_sharpen", "kTile", (3, 3, 3), (1, 3, 3)),
     ("nis_sharpen", "kBlock", (5, 5, 1), (1, 5, 1)),
-    ("rcas_sharpen", "kTile", (1, 5, 3), (1, 3, 3))])
+    ("rcas_sharpen", "kTile", (1, 5, 1), (1, 3, 1))])
 def test_smem_words_recounted_from_the_sources(kernel, edge, first, later):
     """A thread's run of outputs down one column reads its taps at the
     first output, (rows, taps per row, planes): B6 3 rows of 3 taps x 3
-    f32 planes, B4 5 rows of 5 lumas, B2 the 5 taps of the cross x 3
-    planes; and at each later one only what slides in: B6 and B4 one new
-    row, B2 its new left, right and bottom taps (the top and centre are
-    the last row's centre and bottom). B4 also reads its staged centre
-    texel. The audit's words per inside pixel are that average: 13.5, 11
-    and 10.5."""
+    f32 planes, B4 5 rows of 5 lumas, B2 (on the levels, at RGBA8 and
+    full precision) the 5 taps of the cross, one packed word each; and at
+    each later one only what slides in: B6 and B4 one new row, B2 its new
+    left, right and bottom taps (the top and centre are the last row's
+    centre and bottom): 13.5, 10 and 3.5 words. B4 also reads its staged
+    centre texel, and B2 per channel one float2 of each of its two level
+    tables (4 words). The audit's words per inside pixel are that sum:
+    13.5, 11 and 15.5."""
     text = (_build.CSRC / f"{kernel}.cu").read_text()
     tile = _constant(text, edge)
     run = tile * tile // _constant(text, "kThreads")
     assert (tile, run) == (_maps.SHARPEN_TILE, 4)
-    words = (np.prod(first) + (run - 1) * np.prod(later)) / run
-    words += 1 if kernel == "nis_sharpen" else 0
+    taps = (np.prod(first) + (run - 1) * np.prod(later)) / run
+    assert taps == {"cas_sharpen": 13.5, "nis_sharpen": 10,
+                    "rcas_sharpen": 3.5}[kernel]
+    words = taps + (1 if kernel == "nis_sharpen" else 0)
+    if kernel == "rcas_sharpen":   # its loop over the 3 channels
+        reads = re.findall(r"const float2 \w+ = s\.(lo|hi)\[m[nx]\.level\(c\)\];",
+                           text)
+        assert sorted(reads) == ["hi", "lo"]
+        words += 3 * 2 * len(reads)
     assert A.SMEM_WORDS[kernel] == (words, 0)
     assert words == {"cas_sharpen": 13.5, "nis_sharpen": 11,
-                     "rcas_sharpen": 10.5}[kernel]
+                     "rcas_sharpen": 15.5}[kernel]
     # the slide is the one text the ablation edits
     old, new = ab.ABLATIONS[kernel]["noslide"][1][0]
     assert text.count(old) == 1

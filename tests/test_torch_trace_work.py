@@ -128,6 +128,8 @@ def _case(name, radius):
     expect = {"fn": NAMES[name], "kernels":
               int(len(m.inside_tiles) > 0) + int(len(m.outside_tiles) > 0),
               "inside": inside, "outside": B * (r1 - r0) * OW - inside}
+    if name == "rcas":      # RGBA8 at full precision: every inside output
+        expect["levels"] = inside      # on the texels' 256 levels
     return fn, shape, expect
 
 
