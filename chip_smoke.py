@@ -554,7 +554,7 @@ def parent_libraries(parent):
     """{kernel: the parent's library, built from parent/<kernel>.cu with its
     own headers first} for PARENT_KERNELS."""
     from openvr_fsr_tpu_torch.tools import ab
-    return {k: ab.build_parent(k, Path(parent) / f"{k}.cu", argtypes=())[2]
+    return {k: ab.compile_parent(k, Path(parent) / f"{k}.cu")[1]
             for k in PARENT_KERNELS}
 
 

@@ -5,17 +5,22 @@ library of its own with a plain C interface (no PyTorch headers, so a build
 takes seconds), loaded with ctypes. `build()` starts one nvcc per source,
 all at once, so the kernels build in parallel. The libraries land in the
 package's `_build/` directory (listed in .gitignore) under names keyed by a
-hash of the source, the shared headers (csrc/*.cuh) and the flags; a file
-lock makes concurrent processes build each once. The flags are the
-numerics contract: --fmad=false keeps every mul and add rounded on its own,
-as in the plain torch ops, and --use_fast_math is never passed (IEEE
-division and square root, no flush to zero).
+hash of the flags, the source and the csrc headers it includes (#include
+"...", transitively): an edit to a header renames only the libraries whose
+source reaches it. A file lock makes concurrent processes build each once.
+`entry_point` binds a library's C launch entry point with the argtypes of
+its prototype in the source (`argtypes`), the one place that does. The
+flags are the numerics contract: --fmad=false keeps every mul and add
+rounded on its own, as in the plain torch ops, and --use_fast_math is never
+passed (IEEE division and square root, no flush to zero).
 """
 
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -23,7 +28,8 @@ from pathlib import Path
 from ..utils import trace
 
 __all__ = ["build", "load_library", "library_path", "kernel_names",
-           "NVCC_FLAGS", "BUILD_DIR"]
+           "includes", "prototype", "argtypes", "entry_point", "NVCC_FLAGS",
+           "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -33,6 +39,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 NVCC_TIMEOUT_S = 600
 
 _LIBS = {}     # the load cache: library path -> loaded ctypes library
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+# a C parameter type -> its ctypes type; any pointer binds as c_void_p
+C_TYPES = {"int": ctypes.c_int, "unsigned": ctypes.c_uint,
+           "unsigned int": ctypes.c_uint, "float": ctypes.c_float}
 
 
 def kernel_names():
@@ -40,14 +50,64 @@ def kernel_names():
     return [f.stem for f in sorted(CSRC.glob("*.cu"))]
 
 
+def includes(source):
+    """The csrc headers the file `source` reaches through #include "...",
+    directly or through another header, sorted by name; angle-bracket
+    includes do not count."""
+    seen, todo = set(), [Path(source)]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop().read_text()):
+            header = CSRC / name
+            if header not in seen:
+                seen.add(header)
+                todo.append(header)
+    return sorted(seen)
+
+
 def library_path(name):
-    """Where the library of kernel `name` for the current sources and flags
-    lives."""
+    """Where the library of kernel `name` for the current flags, source and
+    the headers it includes lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    source = CSRC / f"{name}.cu"
+    for f in [source, *includes(source)]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def prototype(entry, text):
+    """[(type, name)] of the parameters of `extern "C" int <entry>(...)` in
+    the C source `text`, each type with its spaces normalised and its stars
+    bound to it ("const void*", "int"). Raises ValueError, naming the
+    entry, where the source has no such prototype or a parameter has no
+    name."""
+    m = re.search(rf'extern\s+"C"\s+int\s+{re.escape(entry)}\s*\(([^)]*)\)',
+                  text)
+    if m is None:
+        raise ValueError(f'no extern "C" int {entry}(...) in the source')
+    params = []
+    for p in m.group(1).split(","):
+        p = " ".join(p.split())
+        t = re.fullmatch(r"(.*?[ *])(\w+)", p)
+        if t is None:
+            raise ValueError(f"{entry}: parameter {p!r} has no name")
+        params.append((" ".join(t.group(1).replace("*", " * ").split())
+                       .replace(" *", "*"), t.group(2)))
+    return params
+
+
+def argtypes(entry, text):
+    """The ctypes types of <entry>'s parameters in the C source `text`
+    (prototype): a pointer c_void_p, int c_int, unsigned c_uint, float
+    c_float. Any other type raises ValueError naming the entry."""
+    types = []
+    for t, name in prototype(entry, text):
+        c = ctypes.c_void_p if t.endswith("*") else C_TYPES.get(t)
+        if c is None:
+            raise ValueError(f"{entry}: no ctypes type for parameter "
+                             f"{name}'s type {t!r}")
+        types.append(c)
+    return types
 
 
 def _nvcc():
@@ -115,3 +175,15 @@ def load_library(name):
             sp.info["built"] = bool(build([name]))
             lib = _LIBS[so] = ctypes.CDLL(str(so))
     return lib
+
+
+@functools.cache
+def entry_point(library, entry):
+    """The C entry point `entry` (an `extern "C" int` function) of kernel
+    library `library`, loaded (and built) through load_library and bound
+    once: restype c_int, argtypes from its prototype in csrc/<library>.cu
+    (argtypes)."""
+    f = getattr(load_library(library), entry)
+    f.argtypes = argtypes(entry, (CSRC / f"{library}.cu").read_text())
+    f.restype = ctypes.c_int
+    return f

@@ -1,5 +1,6 @@
 """What every kernel wrapper of the port shares: the texel codecs of the
-plain versions, the foveation circle test, and the launch wrapper.
+plain versions, the foveation circle test, the launch wrapper and the
+class kernels' launch binder.
 
 A frame is, at color_bits=8, a (B, H, W) int32 plane of packed RGBA8
 texels (little-endian, R in the low byte); at color_bits=10 (R10G10B10A2,
@@ -18,11 +19,12 @@ import torch
 
 from ..ops.common import HALF
 from ..utils import trace
+from . import _build
 
 __all__ = ["unpack", "pack", "circle_mask", "debug_tint", "tint_vector",
-           "DeviceTables", "kernel_fn", "band_fn", "occupancy",
-           "band_occupancy", "entry_name",
-           "entry_args", "texel_words", "working_type", "PRECISIONS"]
+           "DeviceTables", "kernel_fn", "band_fn", "class_launch",
+           "UPSCALE_TABLES", "pointers", "tile_lists", "occupancy",
+           "band_occupancy", "entry_name", "texel_words", "working_type", "PRECISIONS"]
 
 F32 = np.float32
 _INV255 = float(F32(1.0) / F32(255.0))
@@ -128,8 +130,8 @@ def kernel_fn(name, batch, shape, pad_to, reference, launch, geometry=None,
     (kernels/_maps.py::launch_work) is what one call computes: the CUDA
     kernels it enqueues (`kernels`) and its outputs inside and outside
     the circle (`inside`, `outside`). fn.launches counts CUDA launches;
-    fn.reference, fn.pad_to, fn.color_bits and fn.precision are
-    published, and fn.dma_geometry when `geometry` (kernels/_maps.py::
+    fn.launch, fn.reference, fn.pad_to, fn.color_bits and fn.precision
+    are published, and fn.dma_geometry when `geometry` (kernels/_maps.py::
     dma_geometry, in 4-byte words: word_geometry at 10 bits) is given: that
     dict with batch, in_h, in_w and the ring pitch hp, wp added, in words,
     which kernels/sol.py::build_dma_floor consumes."""
@@ -176,6 +178,7 @@ def kernel_fn(name, batch, shape, pad_to, reference, launch, geometry=None,
     info = dict(work or {}, fn=name)
     first = True     # the first launch binds, uploads and loads: a cold span
     fn.launches = 0
+    fn.launch = launch
     fn.pad_to = pad_to
     fn.reference = reference
     fn.color_bits = color_bits
@@ -193,6 +196,55 @@ def _on_device(launch, img, dev):
         return launch(img)
     with torch.cuda.device(dev):
         return launch(img)
+
+
+def class_launch(library, tables, out_shape, head, tail, color_bits,
+                 precision="full"):
+    """launch(img) -> (out, cudaError) of a class-kernel build (B1-B6): one
+    call of the entry point <library>_launch of color_bits and precision
+    (entry_name), entry(img, out, *head(m), rows, pitch, *tail, stream).
+
+    out is a new tensor of out_shape (a trailing 4 at color_bits 10) in
+    img's dtype on its device; rows and pitch are img.shape[1:3]; stream is
+    the device's current one. head(m) is the build's table pointers and
+    ints, from its DeviceTables `tables` on img's device m, taken once per
+    device at the first launch there; tail is its scalars, already in the
+    kernel's types. The entry point is looked up through
+    _build.entry_point (cached) at each call."""
+    entry = entry_name(f"{library}_launch", color_bits, precision)
+    shape = (*out_shape, 4) if color_bits == 10 else tuple(out_shape)
+    tail = tuple(tail)
+    heads = {}    # device -> head(m)
+
+    def launch(img):
+        dev = img.device
+        h = heads.get(dev)
+        if h is None:
+            h = heads[dev] = tuple(head(tables.on(dev)))
+        out = torch.empty(shape, dtype=img.dtype, device=dev)
+        return out, _build.entry_point(library, entry)(
+            img.data_ptr(), out.data_ptr(), *h, img.shape[1], img.shape[2],
+            *tail, torch.cuda.current_stream(dev).cuda_stream)
+    return launch
+
+
+# the tables an upscaler's class entry point (fsr_fused_launch,
+# cas_upscale_launch) takes before its tile lists: the four sample maps, the
+# window origins, group_cls
+UPSCALE_TABLES = ("col_i", "col_f", "row_i", "row_f", "tile_x0", "tile_y0",
+                  "group_cls")
+
+
+def pointers(m, *names):
+    """The device pointers of the tables `names` of m."""
+    return tuple(getattr(m, n).data_ptr() for n in names)
+
+
+def tile_lists(m):
+    """The inside tile list and its length, then the outside list and its
+    length: the arguments every class entry point takes for its lists."""
+    return (m.inside_tiles.data_ptr(), len(m.inside_tiles),
+            m.outside_tiles.data_ptr(), len(m.outside_tiles))
 
 
 def band_fn(name, batch, strip, pad_to, reference, launch, geometry,
@@ -245,16 +297,6 @@ def entry_name(entry, color_bits, precision="full"):
     return name + ("_h" if precision == "half" else "")
 
 
-def entry_args(color_bits, precision="full"):
-    """The arguments of a wrapper's cached entry-point getter
-    (`_launch_fn(*entry_args(...))`): none for RGBA8 at full precision,
-    (color_bits,) for R10G10B10A2, (color_bits, "half") for the half
-    instantiations."""
-    if precision == "half":
-        return color_bits, precision
-    return () if color_bits == 8 else (color_bits,)
-
-
 def occupancy(name, color_bits=8, precision="full"):
     """{"outside": n, "inside": n, "inside_smem": bytes} of the class
     kernels `name` (fsr_fused, nis_scaler, cas_upscale, nis_sharpen,
@@ -264,7 +306,6 @@ def occupancy(name, color_bits=8, precision="full"):
     CUDA device (cudaOccupancyMaxActiveBlocksPerMultiprocessor at 256
     threads) and the inside kernel's shared memory per CTA, from its
     <name>_occupancy entry point (entry_name)."""
-    from . import _build
     f = getattr(_build.load_library(name),
                 entry_name(f"{name}_occupancy", color_bits, precision))
     f.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
@@ -282,7 +323,6 @@ def band_occupancy(name, color_bits=8, precision="full"):
     cas_upscale: the row-band strips' instantiation) for `color_bits` and
     `precision` on the current CUDA device, from its <name>_band_occupancy
     entry point."""
-    from . import _build
     texel_words(color_bits)
     working_type(precision)
     f = getattr(_build.load_library(name), f"{name}_band_occupancy")

@@ -32,9 +32,6 @@ _launch10_h; build_cas_upscale's on the whole image or a strip); the
 fallbacks outside the circle are the same.
 """
 
-import ctypes
-import functools
-
 import numpy as np
 import torch
 
@@ -43,10 +40,10 @@ from ..ops.bilinear import bilinear_gather
 from ..ops.cas import (cas_core, cas_setup, cas_sharpen_taps,
                        cas_upscale_core, cas_upscale_gather)
 from ..ops.common import F32, lit
-from . import _build
-from ._common import (DeviceTables, band_fn, circle_mask, debug_tint,
-                      entry_args, entry_name, kernel_fn, pack, texel_words,
-                      tint_vector, unpack, working_type)
+from ._common import (UPSCALE_TABLES, DeviceTables, band_fn, circle_mask,
+                      class_launch, debug_tint, kernel_fn, pack, pointers,
+                      texel_words, tile_lists, tint_vector, unpack,
+                      working_type)
 from ._maps import (CAS_IN_TILE, CAS_SHARPEN_IN_TILE, FSR_TILE, SHARPEN_TILE,
                     TILE, band_geometry, band_layout, band_output_rows,
                     band_strip, cas_upscale_maps, dma_geometry,
@@ -54,8 +51,7 @@ from ._maps import (CAS_IN_TILE, CAS_SHARPEN_IN_TILE, FSR_TILE, SHARPEN_TILE,
                     sharpen_maps, word_geometry)
 
 __all__ = ["build_cas_upscale", "build_cas_sharpen", "cas_upscale_reference",
-           "cas_sharpen_reference", "cas_band_layout", "UPSCALE_ARGTYPES",
-           "SHARPEN_ARGTYPES"]
+           "cas_sharpen_reference", "cas_band_layout"]
 
 
 def cas_band_layout(out_w, out_h, band_rows=128, chunk=128):
@@ -114,47 +110,6 @@ def cas_sharpen_reference(img, centres, sharp, max_color_delta, tint,
     return pack(out_rgb, torch.where(inside, 1.0, alpha), color_bits)
 
 
-# csrc/cas_upscale.cu cas_upscale_launch: img, out, the four sample maps,
-# the window origins, group_cls, the inside list and its length, the outside
-# list and its length, batch, in_h, in_w, in_row_base, in_rows, pitch,
-# out_h, out_w, out_row0, out_row1, sharp, tint, tile, window, stream
-UPSCALE_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
-                    + [ctypes.c_int] * 11 + [ctypes.c_float] * 2
-                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-
-
-@functools.cache
-def _upscale_launch_fn(color_bits=8, precision="full"):
-    """The ctypes entry point of `color_bits` and `precision`
-    (cas_upscale_launch, cas_upscale_launch10, or either with the suffix
-    _h), bound (and built) at the first launch."""
-    f = getattr(_build.load_library("cas_upscale"),
-                entry_name("cas_upscale_launch", color_bits, precision))
-    f.argtypes = UPSCALE_ARGTYPES
-    f.restype = ctypes.c_int
-    return f
-
-
-# csrc/cas_sharpen.cu cas_sharpen_launch: img, out, group_cls, the inside
-# list and its length, the outside list and its length, batch, h, w, rows,
-# pitch, sharp, mcd, tint, tile, window, stream
-SHARPEN_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
-                    + [ctypes.c_int] * 6 + [ctypes.c_float] * 3
-                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-
-
-@functools.cache
-def _sharpen_launch_fn(color_bits=8, precision="full"):
-    """The ctypes entry point of `color_bits` and `precision`
-    (cas_sharpen_launch, cas_sharpen_launch10, or either with the suffix
-    _h), bound (and built) at the first launch."""
-    f = getattr(_build.load_library("cas_sharpen"),
-                entry_name("cas_sharpen_launch", color_bits, precision))
-    f.argtypes = SHARPEN_ARGTYPES
-    f.restype = ctypes.c_int
-    return f
-
-
 def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
                       centres, debug=False, color_bits=8, band_rows=128,
                       band_range=None, precision="full"):
@@ -206,22 +161,12 @@ def build_cas_upscale(batch, in_h, in_w, out_w, out_h, *, sharpness,
         return cas_upscale_reference(img, tables.on(img.device), sharp, tint,
                                      cb, (base, r0, r1), precision)
 
-    def launch(img):
-        dev = img.device
-        m = tables.on(dev)
-        out = torch.empty((B, r1 - r0, OW, 4) if cb == 10
-                          else (B, r1 - r0, OW), dtype=img.dtype, device=dev)
-        err = _upscale_launch_fn(*entry_args(cb, precision))(
-            img.data_ptr(), out.data_ptr(), m.col_i.data_ptr(),
-            m.col_f.data_ptr(), m.row_i.data_ptr(), m.row_f.data_ptr(),
-            m.tile_x0.data_ptr(), m.tile_y0.data_ptr(),
-            m.group_cls.data_ptr(), m.inside_tiles.data_ptr(), n_inside,
-            m.outside_tiles.data_ptr(), n_outside, B, H, W, base,
-            img.shape[1], img.shape[2], OH, OW, r0, r1, sharp_k, tint_k,
-            FSR_TILE, CAS_IN_TILE,
-            torch.cuda.current_stream(dev).cuda_stream)
-        return out, err
-
+    launch = class_launch(
+        "cas_upscale", tables, (B, r1 - r0, OW),
+        lambda d: (*pointers(d, *UPSCALE_TABLES), *tile_lists(d), B, H, W,
+                   base),
+        (OH, OW, r0, r1, sharp_k, tint_k, FSR_TILE, CAS_IN_TILE), cb,
+        precision)
     m = tables.host
     n_inside, n_outside = len(m.inside_tiles), len(m.outside_tiles)
     # the inside tiles stage their 36x36 window, which may start at -2, 0
@@ -281,19 +226,11 @@ def build_cas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
                                      tables.on(img.device).centres, sharp,
                                      mcd, tint, cb, precision)
 
-    def launch(img):
-        dev = img.device
-        m = tables.on(dev)
-        out = torch.empty((B, H, W, 4) if cb == 10 else (B, H, W),
-                          dtype=img.dtype, device=dev)
-        err = _sharpen_launch_fn(*entry_args(cb, precision))(
-            img.data_ptr(), out.data_ptr(), m.group_cls.data_ptr(),
-            m.inside_tiles.data_ptr(), n_inside, m.outside_tiles.data_ptr(),
-            n_outside, B, H, W, img.shape[1], img.shape[2], sharp_k,
-            mcd_k, tint_k, SHARPEN_TILE, CAS_SHARPEN_IN_TILE,
-            torch.cuda.current_stream(dev).cuda_stream)
-        return out, err
-
+    launch = class_launch(
+        "cas_sharpen", tables, (B, H, W),
+        lambda d: (*pointers(d, "group_cls"), *tile_lists(d), B, H, W),
+        (sharp_k, mcd_k, tint_k, SHARPEN_TILE, CAS_SHARPEN_IN_TILE), cb,
+        precision)
     # an inside tile stages its 34x34 window, 0 outside the image; the
     # outside tiles copy their texels (so does a run of an outside group in
     # an inside tile, from device memory: not counted, the floor stays below)

@@ -30,9 +30,6 @@ instantiations of the inside kernel (fsr_fused_launch_h, _launch10_h: the
 whole output's and a band's), on the whole image or a strip.
 """
 
-import ctypes
-import functools
-
 import numpy as np
 import torch
 
@@ -42,16 +39,16 @@ from ..ops.bilinear import bilinear_gather
 from ..ops.easu import easu_core, easu_gather
 from ..ops.rcas import rcas
 from ..ops.common import lit, unorm_quantize
-from . import _build
-from ._common import (DeviceTables, band_fn, circle_mask, debug_tint,
-                      entry_args, entry_name, kernel_fn, pack, texel_words,
-                      tint_vector, unpack, working_type)
+from ._common import (UPSCALE_TABLES, DeviceTables, band_fn, circle_mask,
+                      class_launch, debug_tint, kernel_fn, pack, pointers,
+                      texel_words, tile_lists, tint_vector, unpack,
+                      working_type)
 from ._maps import (FSR_TILE, IN_TILE, TILE, band_geometry, band_layout,
                     band_output_rows, band_strip, dma_geometry, fsr_maps,
                     input_padding, launch_work, word_geometry)
 
 __all__ = ["build_fsr_fused", "fsr_fused_reference", "fsr_band_layout",
-           "circle_mask", "FUSED_ARGTYPES"]
+           "circle_mask"]
 
 
 def fsr_band_layout(out_w, out_h, band_rows=128, chunk=128):
@@ -94,27 +91,6 @@ def fsr_fused_reference(img, maps, sharpness_linear, tint, color_bits=8,
     sharp = rcas(q, sharpness_linear, dt)
     out = torch.where(inside, sharp, q * tint_vector(tint, img.device))
     return pack(out[..., r0 - q0:r1 - q0, :], color_bits=color_bits)
-
-
-# csrc/fsr_fused.cu fsr_fused_launch: img, out, the four sample maps, the
-# window origins, group_cls, the inside list and its length, the outside
-# list and its length, batch, in_h, in_w, in_row_base, in_rows, pitch,
-# out_h, out_w, out_row0, out_row1, sharp, tint, tile, window, stream
-FUSED_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
-                  + [ctypes.c_int] * 11 + [ctypes.c_float] * 2
-                  + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-
-
-@functools.cache
-def _launch_fn(color_bits=8, precision="full"):
-    """The ctypes entry point of `color_bits` and `precision`
-    (fsr_fused_launch, fsr_fused_launch10, or either with the suffix _h),
-    bound (and built) at the first launch."""
-    f = getattr(_build.load_library("fsr_fused"),
-                entry_name("fsr_fused_launch", color_bits, precision))
-    f.argtypes = FUSED_ARGTYPES
-    f.restype = ctypes.c_int
-    return f
 
 
 def build_fsr_fused(batch, in_h, in_w, out_w, out_h, *, sharpness, centres,
@@ -177,22 +153,11 @@ def build_fsr_fused(batch, in_h, in_w, out_w, out_h, *, sharpness, centres,
         return fsr_fused_reference(img, tables.on(img.device), sharp, tint,
                                    cb, (base, r0, r1), precision)
 
-    def launch(img):
-        dev = img.device
-        m = tables.on(dev)
-        out = torch.empty((B, r1 - r0, OW, 4) if cb == 10
-                          else (B, r1 - r0, OW), dtype=img.dtype, device=dev)
-        err = _launch_fn(*entry_args(cb, precision))(
-            img.data_ptr(), out.data_ptr(), m.col_i.data_ptr(),
-            m.col_f.data_ptr(), m.row_i.data_ptr(), m.row_f.data_ptr(),
-            m.tile_x0.data_ptr(), m.tile_y0.data_ptr(),
-            m.group_cls.data_ptr(), m.inside_tiles.data_ptr(), n_inside,
-            m.outside_tiles.data_ptr(), n_outside, B, H, W, base,
-            img.shape[1], img.shape[2], OH, OW, r0, r1, sharp_k, tint_k,
-            FSR_TILE, IN_TILE,
-            torch.cuda.current_stream(dev).cuda_stream)
-        return out, err
-
+    launch = class_launch(
+        "fsr_fused", tables, (B, r1 - r0, OW),
+        lambda d: (*pointers(d, *UPSCALE_TABLES), *tile_lists(d), B, H, W,
+                   base),
+        (OH, OW, r0, r1, sharp_k, tint_k, FSR_TILE, IN_TILE), cb, precision)
     m = tables.host
     n_inside, n_outside = len(m.inside_tiles), len(m.outside_tiles)
     # the inside tiles stage their 40x40 window edge-clamped; an output's

@@ -32,9 +32,6 @@ USM), through the half instantiations of the inside kernels
 same.
 """
 
-import ctypes
-import functools
-
 import numpy as np
 import torch
 
@@ -43,10 +40,9 @@ from ..core.foveation import TILE_NIS_SCALER, TILE_NIS_SHARPEN
 from ..ops.bilinear import bilinear_fallback_fsr
 from ..ops.common import lit
 from ..ops.nis import KHDR_COMPRESSION, NIS_SCALE_FLOAT, nvscaler, nvsharpen
-from . import _build
-from ._common import (DeviceTables, circle_mask, debug_tint, entry_args,
-                      entry_name, kernel_fn, pack, texel_words, tint_vector,
-                      unpack, working_type)
+from ._common import (DeviceTables, circle_mask, class_launch, debug_tint,
+                      kernel_fn, pack, pointers, texel_words, tile_lists,
+                      tint_vector, unpack, working_type)
 from ._maps import (NIS_EDGE_TILE, NIS_IN_TILE, NIS_SHARPEN_IN_TILE,
                     NIS_TILE, SHARPEN_TILE, dma_geometry, input_padding,
                     launch_work, nvscaler_maps, sharpen_geometry,
@@ -120,41 +116,6 @@ def nvscaler_reference(img, centres, out_w, out_h, nis_cfg, tint,
     return pack(rgb, torch.where(inside, up[:, 3], 1.0), color_bits)
 
 
-# csrc/nis_sharpen.cu nis_sharpen_launch: img, out, the inside list and its
-# length, the outside list and its length, consts and their count, batch, h,
-# w, rows, pitch, hdr_mode, tint, tile, window, stream
-SHARPEN_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
-                                             ctypes.c_int, ctypes.c_void_p]
-                    + [ctypes.c_int] * 7 + [ctypes.c_float]
-                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-
-
-@functools.cache
-def _sharpen_fn(color_bits=8, precision="full"):
-    """NVSharpen's ctypes entry point of `color_bits` and `precision`
-    (nis_sharpen_launch, nis_sharpen_launch10, or either with the suffix
-    _h), bound (and built) at first launch."""
-    f = getattr(_build.load_library("nis_sharpen"),
-                entry_name("nis_sharpen_launch", color_bits, precision))
-    f.argtypes = SHARPEN_ARGTYPES
-    f.restype = ctypes.c_int
-    return f
-
-
-@functools.cache
-def _scaler_fn(color_bits=8, precision="full"):
-    """NVScaler's ctypes entry point of `color_bits` and `precision`
-    (nis_scaler_launch, nis_scaler_launch10, or either with the suffix
-    _h), bound (and built) at first launch."""
-    f = getattr(_build.load_library("nis_scaler"),
-                entry_name("nis_scaler_launch", color_bits, precision))
-    f.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int, ctypes.c_void_p]
-                  + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 9
-                  + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    f.restype = ctypes.c_int
-    return f
-
-
 def build_nvsharpen(batch, h, w, *, nis_cfg: NisConfig, centres, debug=False,
                     color_bits=8, precision="full"):
     """Build the NVSharpen kernel for a fixed shape/config.
@@ -193,19 +154,12 @@ def build_nvsharpen(batch, h, w, *, nis_cfg: NisConfig, centres, debug=False,
                                    tables.on(img.device).centres, nis_cfg,
                                    tint, cb, precision)
 
-    def launch(img):
-        dev = img.device
-        m = tables.on(dev)
-        out = torch.empty((B, H, W, 4) if cb == 10 else (B, H, W),
-                          dtype=img.dtype, device=dev)
-        err = _sharpen_fn(*entry_args(cb, precision))(
-            img.data_ptr(), out.data_ptr(), m.inside_tiles.data_ptr(),
-            n_inside, m.outside_tiles.data_ptr(), n_outside,
-            consts.ctypes.data, consts.size, B, H, W, img.shape[1],
-            img.shape[2], int(nis_cfg.hdr_mode), float(tint), SHARPEN_TILE,
-            NIS_SHARPEN_IN_TILE, torch.cuda.current_stream(dev).cuda_stream)
-        return out, err
-
+    # consts go by host pointer: the head lambda keeps the array alive
+    launch = class_launch(
+        "nis_sharpen", tables, (B, H, W),
+        lambda d: (*tile_lists(d), consts.ctypes.data, consts.size, B, H, W),
+        (int(nis_cfg.hdr_mode), float(tint), SHARPEN_TILE,
+         NIS_SHARPEN_IN_TILE), cb, precision)
     # a block inside the circle stages its 36x36 edge-clamped window; the
     # others copy their texels
     m = tables.host
@@ -257,23 +211,14 @@ def build_nvscaler(batch, in_h, in_w, out_w, out_h, *, nis_cfg: NisConfig,
                                   tables.on(img.device).centres, OW, OH,
                                   nis_cfg, tint, cb, precision)
 
-    def launch(img):
-        dev = img.device
-        m = tables.on(dev)
-        out = torch.empty((B, OH, OW, 4) if cb == 10 else (B, OH, OW),
-                          dtype=img.dtype, device=dev)
-        err = _scaler_fn(*entry_args(cb, precision))(
-            img.data_ptr(), out.data_ptr(), m.col_i.data_ptr(),
-            m.col_f.data_ptr(), m.row_i.data_ptr(), m.row_f.data_ptr(),
-            m.tile_x0.data_ptr(), m.tile_y0.data_ptr(), m.edge_x.data_ptr(),
-            m.edge_y.data_ptr(), m.block_cls.data_ptr(), m.coef.data_ptr(),
-            m.inside_tiles.data_ptr(), n_inside,
-            m.outside_tiles.data_ptr(), n_outside, consts.ctypes.data,
-            consts.size, B, H, W, img.shape[1], img.shape[2], OH, OW,
-            int(nis_cfg.hdr_mode), float(tint), *NIS_TILE, *NIS_IN_TILE,
-            *NIS_EDGE_TILE, torch.cuda.current_stream(dev).cuda_stream)
-        return out, err
-
+    launch = class_launch(
+        "nis_scaler", tables, (B, OH, OW),
+        lambda d: (*pointers(d, "col_i", "col_f", "row_i", "row_f", "tile_x0",
+                             "tile_y0", "edge_x", "edge_y", "block_cls",
+                             "coef"), *tile_lists(d), consts.ctypes.data,
+                   consts.size, B, H, W),
+        (OH, OW, int(nis_cfg.hdr_mode), float(tint), *NIS_TILE, *NIS_IN_TILE,
+         *NIS_EDGE_TILE), cb, precision)
     # a 32x48 tile with a block inside the circle stages its 40x56
     # edge-clamped luma window and loads each pixel's RGBA tap (its blocks
     # outside load the four DirectCopy taps instead: the same count); the

@@ -21,19 +21,15 @@ instantiation of the inside kernel (rcas_sharpen_launch_h, _launch10_h);
 the copy outside the circle is the same.
 """
 
-import ctypes
-import functools
-
 import torch
 
 from ..core import constants as C
 from ..core.foveation import TILE_FSR
 from ..ops.common import lit
 from ..ops.rcas import rcas
-from . import _build
-from ._common import (DeviceTables, circle_mask, debug_tint, entry_args,
-                      entry_name, kernel_fn, pack, texel_words, tint_vector,
-                      unpack, working_type)
+from ._common import (DeviceTables, circle_mask, class_launch, debug_tint,
+                      kernel_fn, pack, pointers, texel_words, tile_lists,
+                      tint_vector, unpack, working_type)
 from ._maps import (CAS_SHARPEN_IN_TILE, SHARPEN_TILE, TILE, input_padding,
                     launch_work, sharpen_geometry, sharpen_maps,
                     word_geometry)
@@ -57,26 +53,6 @@ def rcas_sharpen_reference(img, centres, sharpness_linear, tint,
     out_rgb = torch.where(inside[:, None], sharp,
                           rgb * tint_vector(tint, img.device))
     return pack(out_rgb, torch.where(inside, 1.0, alpha), color_bits)
-
-
-# csrc/rcas_sharpen.cu rcas_sharpen_launch: img, out, group_cls, the inside
-# list and its length, the outside list and its length, batch, h, w, rows,
-# pitch, sharp, tint, tile, window, stream
-SHARPEN_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
-                    + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
-                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-
-
-@functools.cache
-def _launch_fn(color_bits=8, precision="full"):
-    """The ctypes entry point of `color_bits` and `precision`
-    (rcas_sharpen_launch, rcas_sharpen_launch10, or either with the suffix
-    _h), bound (and built) at the first launch."""
-    f = getattr(_build.load_library("rcas_sharpen"),
-                entry_name("rcas_sharpen_launch", color_bits, precision))
-    f.argtypes = SHARPEN_ARGTYPES
-    f.restype = ctypes.c_int
-    return f
 
 
 def build_rcas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
@@ -118,19 +94,10 @@ def build_rcas_sharpen(batch, h, w, *, sharpness, centres, debug=False,
                                       tables.on(img.device).centres, sharp,
                                       tint, cb, precision)
 
-    def launch(img):
-        dev = img.device
-        m = tables.on(dev)
-        out = torch.empty((B, H, W, 4) if cb == 10 else (B, H, W),
-                          dtype=img.dtype, device=dev)
-        err = _launch_fn(*entry_args(cb, precision))(
-            img.data_ptr(), out.data_ptr(), m.group_cls.data_ptr(),
-            m.inside_tiles.data_ptr(), n_inside, m.outside_tiles.data_ptr(),
-            n_outside, B, H, W, img.shape[1], img.shape[2], sharp_k, tint_k,
-            SHARPEN_TILE, CAS_SHARPEN_IN_TILE,
-            torch.cuda.current_stream(dev).cuda_stream)
-        return out, err
-
+    launch = class_launch(
+        "rcas_sharpen", tables, (B, H, W),
+        lambda d: (*pointers(d, "group_cls"), *tile_lists(d), B, H, W),
+        (sharp_k, tint_k, SHARPEN_TILE, CAS_SHARPEN_IN_TILE), cb, precision)
     # an inside tile stages its 34x34 window, 0 outside the image; the
     # outside tiles copy their texels (so does a run of an outside group in
     # an inside tile, from device memory: not counted, the floor stays below)

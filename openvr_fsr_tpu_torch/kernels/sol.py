@@ -37,9 +37,7 @@ grid; here CTAs write partials that a second pass adds in a fixed order,
 which the plain versions repeat.
 """
 
-import ctypes
 import dataclasses
-import functools
 
 import numpy as np
 import torch
@@ -338,22 +336,6 @@ class _FloorTables(_Tables):
     _ARRAYS = ("tiles", "rel_x", "rel_y", "x0", "y0")
 
 
-# csrc/dma_floor.cu dma_floor_launch: img, out, tiles, n_tiles, n_spans,
-# rel_x, rel_y, box_x0, box_y0, 14 ints (the last the band's row0), stream
-FLOOR_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                  + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
-                  + [ctypes.c_void_p])
-
-
-@functools.cache
-def _launch_fn():
-    """The ctypes entry point, bound (and built) at the first launch."""
-    f = _build.load_library("dma_floor").dma_floor_launch
-    f.argtypes = FLOOR_ARGTYPES
-    f.restype = ctypes.c_int
-    return f
-
-
 def build_dma_floor(geom):
     """Build the DMA floor of one compute kernel from its published
     geometry (a kernel build's or Pipeline._build's fn.dma_geometry).
@@ -430,7 +412,7 @@ def build_dma_floor(geom):
         dev = img.device
         m = tables.on(dev)
         out = torch.empty((B, OH, OW), dtype=torch.int32, device=dev)
-        err = _launch_fn()(
+        err = _build.entry_point("dma_floor", "dma_floor_launch")(
             x.data_ptr(), out.data_ptr(), m.tiles.data_ptr(), len(tiles),
             n_spans, m.rel_x.data_ptr(), m.rel_y.data_ptr(), m.x0.data_ptr(),
             m.y0.data_ptr(), B, H, W, x.shape[1], x.shape[2], OH, OW, tw, th,
@@ -662,15 +644,6 @@ def _probe_fn(name, shapes, reference, launch):
     return fn
 
 
-@functools.cache
-def _probe_launch(name, n_ptr, n_int):
-    f = getattr(_build.load_library(name), f"{name}_launch")
-    f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                  + [ctypes.c_void_p])
-    f.restype = ctypes.c_int
-    return f
-
-
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
@@ -694,7 +667,7 @@ def build_vpu_rate(k, th_e=130, chunk=128, steps=256):
         parts = torch.empty((steps, 8, chunk), dtype=torch.float32,
                             device=x.device)
         out = torch.empty((8, chunk), dtype=torch.float32, device=x.device)
-        err = _probe_launch("vpu_rate", 3, 4)(
+        err = _build.entry_point("vpu_rate", "vpu_rate_launch")(
             x.data_ptr(), parts.data_ptr(), out.data_ptr(), th_e, chunk, k,
             steps, _stream(x.device))
         return out, err
@@ -739,7 +712,7 @@ def build_vmem_rate(k, th_e=130, chunk=128, steps=256, dtype=torch.float32,
         parts = torch.empty((shares, 8, chunk), dtype=torch.float32,
                             device=x.device)
         out = torch.empty((8, chunk), dtype=torch.float32, device=x.device)
-        err = _probe_launch("vmem_rate", 3, 5)(
+        err = _build.entry_point("vmem_rate", "vmem_rate_launch")(
             x.data_ptr(), parts.data_ptr(), out.data_ptr(), th_e, chunk, k,
             steps, shares, _stream(x.device))
         return out, err
@@ -773,7 +746,7 @@ def build_mxu_rate(k, tile=128, steps=64):
         parts = torch.empty((steps, 8, tile), dtype=torch.float32,
                             device=x.device)
         out = torch.empty((8, tile), dtype=torch.float32, device=x.device)
-        err = _probe_launch("mxu_rate", 4, 3)(
+        err = _build.entry_point("mxu_rate", "mxu_rate_launch")(
             x.data_ptr(), w.data_ptr(), parts.data_ptr(), out.data_ptr(),
             tile, k, steps, _stream(x.device))
         return out, err

@@ -13,14 +13,17 @@ HEAD~1:openvr_fsr_tpu_torch/csrc/<kernel>.cu`); a header of csrc/ that
 source needs in its earlier form goes beside it (its own directory is
 searched first: the earlier rcas_sharpen.cu needs the earlier rgba8.cuh,
 which still held the circle test). It is driven through the entry point
-that source was written for:
+that source was written for, bound with the argtypes of its prototype
+there (kernels/_build.py::argtypes):
   fsr_fused    the two class kernels' fsr_fused_launch as it was before
-               the row-band strips (CLASS_ARGTYPES: no strip base, no
-               band rows), with the current tables;
+               the row-band strips (the current prototype less
+               STRIP_PARAMS: no strip base, no band rows), with the
+               current tables; a parent with any other prototype is
+               refused;
   nis_scaler   one CTA per 32x24 block, nis_scaler_launch with 11 pointers
                and 40x32 luma windows;
   cas_upscale  where the source's cas_upscale_launch has the class kernels'
-               prototype before the strips (CLASS_ARGTYPES), that entry
+               prototype before the strips (class_parent), that entry
                point with the current tables, as fsr_fused's; otherwise
                one CTA per 16x16 tile, cas_upscale_launch with 9 pointers
                and 20x20 windows;
@@ -46,14 +49,15 @@ that source was written for:
                compute kernel's launch shape, its windows loaded word by
                word (parent_floor builds its tables from the geometry).
 A compute kernel's earlier source whose entry point has the current
-prototype (NVScaler's from PR 7 on) runs through the current wrapper
-instead. It is built with the port's nvcc flags into a temporary directory
-and driven with the tables it was written for, made from the same sample
-maps and centres as the current build's.
+prototype's types (NVScaler's since its class kernels) runs through the
+current wrapper instead. It is built with the port's nvcc flags into a temporary
+directory and driven with the tables it was written for, made from the same
+sample maps and centres as the current build's.
 
 NAME is one of ABLATIONS[KERNEL]: the current source with one edit, built
 the same way and driven through the current wrapper with its own entry
-point swapped in. It answers what a part of the kernel costs:
+point swapped in (kernels/_build.py::entry_point, the one binder). It
+answers what a part of the kernel costs:
   nis_scaler   noslide  the luma support and edge weights no longer slide
                         down a run: every new source row reloads them (the
                         same bits);
@@ -132,9 +136,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-__all__ = ["main", "build_parent", "parent_launcher", "ablated_source",
-           "class_parent", "CASES", "KERNELS", "PARENT_ARGTYPES",
-           "CLASS_ARGTYPES", "ABLATIONS"]
+__all__ = ["main", "build_parent", "compile_parent", "parent_launcher",
+           "ablated_source", "class_parent", "entry_argtypes", "CASES",
+           "KERNELS", "STRIP_PARAMS", "ABLATIONS"]
 
 KERNELS = ("fsr_fused", "nis_scaler", "cas_upscale", "nis_sharpen",
            "cas_sharpen", "rcas_sharpen", "vmem_rate", "mxu_rate",
@@ -161,24 +165,9 @@ CASES = {
                                  1.0)],
 }
 SHARPNESS = 0.9
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the upscalers' class-kernel entry point before the row-band strips
-# (fsr_fused_launch, cas_upscale_launch): img, out, the four sample maps,
-# the window origins, group_cls, the inside list and its length, the outside
-# list and its length, batch, in_h, in_w, rows, pitch, out_h, out_w, sharp,
-# tint, tile, window, stream
-CLASS_ARGTYPES = [_P] * 10 + [_I, _P] + [_I] * 8 + [_F] * 2 + [_I] * 2 + [_P]
-PARENT_ARGTYPES = {
-    "fsr_fused": CLASS_ARGTYPES,
-    "nis_scaler": [_P] * 11 + [_I] * 9 + [_F] + [_I] * 2 + [_P],
-    "cas_upscale": [_P] * 9 + [_I] * 7 + [_F] * 2 + [_I, _P],
-    "nis_sharpen": [_P] * 4 + [_I] * 7 + [_F, _P],
-    "cas_sharpen": [_P] * 3 + [_I] * 5 + [_F] * 3 + [_P],
-    "rcas_sharpen": [_P] * 3 + [_I] * 5 + [_F] * 2 + [_P],
-    "vmem_rate": [_P] * 3 + [_I] * 5 + [_P],
-    "mxu_rate": [_P] * 4 + [_I] * 3 + [_P],
-    "dma_floor": [_P] * 9 + [_I] * 15 + [ctypes.c_uint, _P],
-}
+# the parameters the row-band strips added to the upscalers' class-kernel
+# entry point (fsr_fused_launch, cas_upscale_launch)
+STRIP_PARAMS = ("in_row_base", "out_row0", "out_row1")
 # the earlier vmem_rate source's shares at the audit's k and steps: as many
 # 130-thread CTAs of one column (58 KB at k 112) as fit on 132 SMs at once
 PARENT_VMEM_SHARES = 3
@@ -222,26 +211,10 @@ ABLATIONS = {
         "nopersist": (True, [("(boxes < ctas ? boxes : ctas)", "boxes")]),
     },
 }
-# kernel -> the name of its wrapper module's entry-point getter
-_ENTRIES = {"fsr_fused": "_launch_fn", "nis_scaler": "_scaler_fn",
-            "cas_upscale": "_upscale_launch_fn",
-            "nis_sharpen": "_sharpen_fn", "cas_sharpen": "_sharpen_launch_fn",
-            "rcas_sharpen": "_launch_fn", "vmem_rate": "_probe_launch",
-            "mxu_rate": "_probe_launch", "dma_floor": "_launch_fn"}
-
-
-def _wrapper_module(kernel):
-    from ..kernels import cas, fsr, nis, rcas, sol
-    return {"fsr_fused": fsr, "rcas_sharpen": rcas, "vmem_rate": sol,
-            "mxu_rate": sol, "dma_floor": sol}.get(
-        kernel, cas if kernel.startswith("cas") else nis)
-
-
-def build_parent(kernel, source, argtypes=None):
-    """(the parent's ctypes entry point, its ptxas usage, the library's
-    path) from its source, built into a temporary directory with the port's
-    flags and headers; bound with `argtypes` (default: the earlier
-    source's, PARENT_ARGTYPES)."""
+def compile_parent(kernel, source):
+    """(its ptxas usage, the library's path) of a kernel's earlier source,
+    built into a temporary directory with the port's flags and headers;
+    nothing bound, for a comparison of SASS alone."""
     from ..kernels import _build
     from . import sass
 
@@ -252,36 +225,50 @@ def build_parent(kernel, source, argtypes=None):
                        timeout=_build.NVCC_TIMEOUT_S)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc exited {r.returncode}:\n{r.stdout}{r.stderr}")
+    return sass.ptxas_usage(r.stdout + r.stderr), lib
+
+
+def build_parent(kernel, source):
+    """(the parent's ctypes entry point <kernel>_launch, its ptxas usage,
+    the library's path) from its source (compile_parent), bound with the
+    argtypes of its prototype in that source (kernels/_build.py::argtypes)."""
+    from ..kernels import _build
+
+    types = _build.argtypes(f"{kernel}_launch", Path(source).read_text())
+    usage, lib = compile_parent(kernel, source)
     f = getattr(ctypes.CDLL(str(lib)), f"{kernel}_launch")
-    f.argtypes = PARENT_ARGTYPES[kernel] if argtypes is None else argtypes
+    f.argtypes = types
     f.restype = ctypes.c_int
-    return f, sass.ptxas_usage(r.stdout + r.stderr), lib
+    return f, usage, lib
 
 
-def entry_params(kernel, text):
-    """The number of parameters of <kernel>_launch in the source `text`, or
-    None where it has no such entry point."""
-    m = re.search(rf'extern "C" int {kernel}_launch\((.*?)\)\s*\{{', text,
-                  re.S)
-    return None if m is None else len(m.group(1).split(","))
+def entry_argtypes(kernel, text=None):
+    """The argtypes of <kernel>_launch's prototype in the source `text`
+    (default: csrc/<kernel>.cu), or None where it has no such entry
+    point."""
+    from ..kernels import _build
+    if text is None:
+        text = (_build.CSRC / f"{kernel}.cu").read_text()
+    try:
+        return _build.argtypes(f"{kernel}_launch", text)
+    except ValueError:
+        return None
 
 
 def class_parent(kernel, text):
     """Whether the earlier source `text` of an upscaler (fsr_fused,
     cas_upscale) exports <kernel>_launch with the class kernels' prototype
-    before the strips (CLASS_ARGTYPES' parameter count): B1's always has
-    it; B5's had it from the class kernels on, one CTA per 16x16 tile
-    before."""
-    if kernel == "fsr_fused":
-        return True
-    return kernel == "cas_upscale" and \
-        entry_params(kernel, text) == len(CLASS_ARGTYPES)
-
-
-def _current_entry(kernel):
-    """The current wrapper's ctypes entry point of `kernel` (built)."""
-    getter = getattr(_wrapper_module(kernel), _ENTRIES[kernel])
-    return getter("vmem_rate", 3, 5) if kernel == "vmem_rate" else getter()
+    before the strips: the types of the current one's parameters less
+    STRIP_PARAMS. B1's had it from the class kernels to the strips; B5's
+    too, with one CTA per 16x16 tile before."""
+    from ..kernels import _build
+    if kernel not in ("fsr_fused", "cas_upscale") or \
+            entry_argtypes(kernel, text) is None:
+        return False
+    current = _build.prototype(f"{kernel}_launch", (
+        _build.CSRC / f"{kernel}.cu").read_text())
+    return [t for t, _ in _build.prototype(f"{kernel}_launch", text)] == [
+        t for t, name in current if name not in STRIP_PARAMS]
 
 
 def same_sass(lib_a, lib_b):
@@ -315,29 +302,28 @@ def ablated_source(kernel, name, text):
 
 
 def _build_ablated(kernel, name):
-    """(the ablated build's entry point bound like the current one, its
-    ptxas usage, the library's path)."""
+    """(the ablated build's entry point, its ptxas usage, the library's
+    path)."""
     from ..kernels import _build
 
-    current = _current_entry(kernel)
     src = Path(tempfile.mkdtemp(prefix=f"{kernel}_{name}_")) / f"{kernel}.cu"
     src.write_text(ablated_source(kernel, name, (
         _build.CSRC / f"{kernel}.cu").read_text()))
-    return build_parent(kernel, src, current.argtypes)
+    return build_parent(kernel, src)
 
 
-def _through_entry(kernel, entry, fn):
-    """fn(*args) with the wrapper's entry point swapped for `entry` during
-    the call."""
-    module, getter = _wrapper_module(kernel), _ENTRIES[kernel]
+def _through_entry(entry, fn):
+    """fn(*args) with the wrappers' one binder (kernels/_build.py::
+    entry_point) handing out `entry` during the call."""
+    from ..kernels import _build
 
     def run(*args):
-        saved = getattr(module, getter)
-        setattr(module, getter, lambda *_: entry)
+        saved = _build.entry_point
+        _build.entry_point = lambda *_: entry
         try:
             return fn(*args)
         finally:
-            setattr(module, getter, saved)
+            _build.entry_point = saved
     return run
 
 
@@ -407,7 +393,7 @@ def parent_launcher(kernel, entry, maps, batch, device, sharp=None,
     """fn(img) running the parent kernel `entry` with the tables it was
     written for, made from `maps` (the current build's host tables).
     classes: an upscaler parent with the class kernels' entry point before
-    the strips (CLASS_ARGTYPES; default: B1's parent only)."""
+    the strips (class_parent; default: B1's parent only)."""
     from ..kernels._maps import CAS_IN_TILE, FSR_TILE, IN_TILE
 
     m = maps
@@ -439,6 +425,10 @@ def parent_launcher(kernel, entry, maps, batch, device, sharp=None,
 
     H, W, OH, OW = m.in_h, m.in_w, m.out_h, m.out_w
     classes = kernel == "fsr_fused" if classes is None else classes
+    if not classes and kernel == "fsr_fused":
+        raise ValueError("fsr_fused: only a parent with the class kernels' "
+                         "entry point before the strips (class_parent) has "
+                         "a launcher")
     if not classes:
         x0, y0 = (torch.as_tensor(o, device=device)
                   for o in _parent_origins(kernel, m))
@@ -544,7 +534,7 @@ def _probe_rates(kernel, entry, dev, iters, shares=None):
             return f.macs
 
     def through(fn):          # fn with its launch through `entry`
-        run = _through_entry(kernel, entry, fn)
+        run = _through_entry(entry, fn)
         run.k, run.steps, run.reference = fn.k, fn.steps, fn.reference
         run.bytes_per_step = getattr(fn, "bytes_per_step", None)
         run.macs = getattr(fn, "macs", None)
@@ -640,7 +630,7 @@ def _floor_ab(entry, dev, iters, ablated=False):
     for label, cfg, h, w in floor_cases():
         kernel = Pipeline(cfg, device=dev)._build(2, h, w, (0, 1), True)
         floor = build_dma_floor(kernel.dma_geometry)
-        old = (_through_entry("dma_floor", entry, floor) if ablated
+        old = (_through_entry(entry, floor) if ablated
                else parent_floor(entry, kernel.dma_geometry, dev))
         inputs = bench.ring_frames(h, w, kernel.pad_to, dev)
         want = floor.reference(inputs[0])
@@ -706,25 +696,26 @@ def main(argv=None):
     if args.ablate and args.ablate not in ABLATIONS.get(kernel, {}):
         ap.error(f"{kernel} has no ablation {args.ablate!r}")
     bench.require_gpu(["ab"])
+    classes, through = None, args.ablate is not None
+    if args.parent is not None:
+        text = Path(args.parent).read_text()
+        # a compute kernel's parent with the current prototype's types runs
+        # through the current wrapper, as an ablation does
+        through = kernel in CASES and entry_argtypes(
+            kernel, text) == entry_argtypes(kernel)
+        classes = not through and class_parent(kernel, text)
+        if kernel == "fsr_fused" and not (through or classes):
+            ap.error("fsr_fused: the parent's fsr_fused_launch has neither "
+                     "the current prototype's types nor the class kernels' "
+                     "before the strips")
     dev = torch.device("cuda", torch.cuda.current_device())
     card = bench.card()
     _build.build([kernel])
-    classes = through = None
     if args.ablate:
         entry, parent_usage, parent_lib = _build_ablated(kernel, args.ablate)
         exact = ABLATIONS[kernel][args.ablate][0]
-        through = True
     else:
-        text = Path(args.parent).read_text()
-        # a compute kernel's parent with the current prototype runs through
-        # the current wrapper, as an ablation does
-        through = kernel in CASES and entry_params(kernel, text) == len(
-            _current_entry(kernel).argtypes)
-        classes = not through and class_parent(kernel, text)
-        entry, parent_usage, parent_lib = build_parent(
-            kernel, args.parent,
-            _current_entry(kernel).argtypes if through
-            else CLASS_ARGTYPES if classes else None)
+        entry, parent_usage, parent_lib = build_parent(kernel, args.parent)
         exact = True
     usage = sass.ptxas_usage(
         _build.library_path(kernel).with_suffix(".log").read_text())
@@ -778,7 +769,7 @@ def main(argv=None):
                                 .eye_centers, (0, 1))
         new, maps, kw = _build_current(kernel, 2, h, w, ow, oh, cen, hdr,
                                        mcd)
-        old = (_through_entry(kernel, entry, new) if through else
+        old = (_through_entry(entry, new) if through else
                parent_launcher(kernel, entry, maps, 2, dev, classes=classes,
                                **kw))
         inputs = bench.ring_frames(h, w, new.pad_to, dev)

@@ -14,8 +14,6 @@ The CUDA kernels themselves run only on the card: `python3 chip_smoke.py`
 holds the 10-bit instantiations against these plain versions there.
 """
 
-import re
-
 import numpy as np
 import pytest
 
@@ -25,22 +23,19 @@ import openvr_fsr_tpu as J  # noqa: E402
 from openvr_fsr_tpu.utils import frames as JFR  # noqa: E402
 
 import openvr_fsr_tpu_torch as T  # noqa: E402
-from openvr_fsr_tpu_torch.kernels import _build, _common, cas, fsr  # noqa: E402
-from openvr_fsr_tpu_torch.kernels import nis, rcas, sol  # noqa: E402
+from openvr_fsr_tpu_torch.kernels import _build, _common, sol  # noqa: E402
 from openvr_fsr_tpu_torch.oracle.pipeline import pipeline_oracle  # noqa: E402
 
-# plan -> (Config kwargs, the kernel source, its wrapper module and
-# entry-point getter)
+from torch_entry_calls import entry_calls  # noqa: E402,F401
+
+# plan (the kernel source) -> its Config kwargs
 PLANS = {
-    "fsr_fused": (dict(render_scale=0.75), fsr, "_launch_fn"),
-    "rcas_sharpen": (dict(render_scale=1.0), rcas, "_launch_fn"),
-    "nis_scaler": (dict(render_scale=0.75, use_nis=True), nis, "_scaler_fn"),
-    "nis_sharpen": (dict(render_scale=1.0, use_nis=True), nis,
-                    "_sharpen_fn"),
-    "cas_upscale": (dict(render_scale=0.75, use_cas=True), cas,
-                    "_upscale_launch_fn"),
-    "cas_sharpen": (dict(render_scale=1.0, use_cas=True), cas,
-                    "_sharpen_launch_fn"),
+    "fsr_fused": dict(render_scale=0.75),
+    "rcas_sharpen": dict(render_scale=1.0),
+    "nis_scaler": dict(render_scale=0.75, use_nis=True),
+    "nis_sharpen": dict(render_scale=1.0, use_nis=True),
+    "cas_upscale": dict(render_scale=0.75, use_cas=True),
+    "cas_sharpen": dict(render_scale=1.0, use_cas=True),
 }
 OFF_CENTRE = ((0.3, 0.6), (0.7, 0.4))
 
@@ -59,7 +54,7 @@ def _sharpness(plan):
 
 def _config(cls, plan, radius=0.5, debug=False):
     return cls(enabled=True, sharpness=_sharpness(plan), radius=radius,
-               debug_mode=debug, **PLANS[plan][0])
+               debug_mode=debug, **PLANS[plan])
 
 
 def _pipe(plan, radius=0.5, debug=False, eye_centers=None, hdr_mode=0,
@@ -153,7 +148,7 @@ def test_plain_version_bit_exact_to_the_oracle(plan, radius, debug, eyes):
     pipe = _pipe(plan, radius, debug, eyes)
     got = pipe.process(frames).numpy()
     assert got.dtype == np.uint16 and pipe.kernels[0].color_bits == 10
-    kw = PLANS[plan][0]
+    kw = PLANS[plan]
     want = np.stack([pipeline_oracle(
         frames[i], kw["render_scale"], _sharpness(plan), radius=radius,
         debug=debug, use_nis=kw.get("use_nis", False),
@@ -169,7 +164,7 @@ def test_plain_version_options_bit_exact_to_the_oracle(plan, kw):
     """NIS hdr modes and CAS max_color_delta at 10 bits."""
     frames = _frames(40, 48, seed=1)
     got = _pipe(plan, 0.5, **kw).process(frames).numpy()
-    ckw = PLANS[plan][0]
+    ckw = PLANS[plan]
     want = np.stack([pipeline_oracle(
         frames[i], ckw["render_scale"], _sharpness(plan), radius=0.5,
         use_nis=ckw.get("use_nis", False), use_cas=ckw.get("use_cas", False),
@@ -307,17 +302,13 @@ def test_cache_key_holds_color_bits():
 # ---- the kernel wrappers' 10-bit entry points ---------------------------------
 
 def _prototype(kernel, entry):
-    text = (_build.CSRC / f"{kernel}.cu").read_text()
-    (params,) = re.findall(rf'extern "C" int {entry}\((.*?)\)\s*\{{', text,
-                           re.S)
-    return [" ".join(p.split()).rsplit(" ", 1)[0].replace(" *", "*")
-            for p in params.split(",")]
+    return _build.prototype(entry, (_build.CSRC / f"{kernel}.cu").read_text())
 
 
 @pytest.mark.parametrize("plan", list(PLANS))
 def test_ten_bit_entry_points_share_the_prototype(plan):
     """Each source has a 10-bit launch and occupancy entry point with the
-    8-bit one's parameters, so one argtypes list binds both."""
+    8-bit one's parameters, types and names."""
     assert _prototype(plan, f"{plan}_launch10") == _prototype(
         plan, f"{plan}_launch")
     assert _prototype(plan, f"{plan}_occupancy10") == _prototype(
@@ -325,42 +316,28 @@ def test_ten_bit_entry_points_share_the_prototype(plan):
 
 
 @pytest.mark.parametrize("plan", list(PLANS))
-def test_launch_takes_the_ten_bit_entry(plan, monkeypatch):
+def test_launch_takes_the_ten_bit_entry(plan, entry_calls):
     """On a CUDA tensor the 10-bit build would call <kernel>_launch10 with
     the frame's rows and pitch in texels and a uint16 output of the
-    kernel's shape: driven here through the launch closure with the entry
-    point swapped, on the unpadded frame and on the ring pitch."""
-    module, getter = PLANS[plan][1], PLANS[plan][2]
-    asked, seen = [], {}
-
-    def entry(*args):
-        seen["args"] = args
-        return 0
-
-    def get(color_bits=8):
-        asked.append(color_bits)
-        return entry
-    monkeypatch.setattr(module, getter, get)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: type(
-        "S", (), {"cuda_stream": 0})())
+    kernel's shape: driven here through fn.launch with the entry point
+    stubbed, on the unpadded frame and on the ring pitch."""
     pipe = _pipe(plan)
     h, w = 45, 61
     fn = pipe._build(2, h, w, (0, 1), False).kernel
-    cells = dict(zip(fn.__code__.co_freevars,
-                     (c.cell_contents for c in fn.__closure__)))
-    launch = cells["launch"]
+    names = [n for _, n in _prototype(plan, f"{plan}_launch10")]
     hp, wp = fn.pad_to
     for x in (torch.zeros((2, h, w, 4), dtype=torch.uint16),
               torch.zeros((2, hp, wp, 4), dtype=torch.uint16)):
-        out, err = launch(x)
+        out, err = fn.launch(x)
         ow, oh = pipe.output_size(w, h)
         assert err == 0 and out.dtype == torch.uint16
         assert out.shape == (2, oh, ow, 4)
-        args = seen["args"]
+        args = entry_calls[-1][2]
         assert args[0] == x.data_ptr() and args[1] == out.data_ptr()
-        assert (x.shape[1], x.shape[2]) in [
-            (args[i], args[i + 1]) for i in range(len(args) - 1)]
-    assert asked == [10, 10] and fn.launches == 0
+        assert (x.shape[1], x.shape[2]) == (args[names.index("pitch") - 1],
+                                            args[names.index("pitch")])
+    assert [c[:2] for c in entry_calls] == [(plan, f"{plan}_launch10")] * 2
+    assert fn.launches == 0
 
 
 @pytest.mark.parametrize("plan", list(PLANS))
@@ -467,32 +444,22 @@ def test_floor_spans_cover_the_same_tiles(plan):
 
 
 @pytest.mark.parametrize("plan", ["fsr_fused", "rcas_sharpen"])
-def test_floor_launch_runs_words(plan, monkeypatch):
+def test_floor_launch_runs_words(plan, entry_calls):
     """On a CUDA tensor the 10-bit floor would hand dma_floor_launch the
     frame as words: the word pitch, 64-word tiles, and it refuses a pitch
     TMA cannot take (the 61-texel rows: 122 words) before any launch."""
     _, g = _geometries(plan, 45, 61, 0.5)
     floor = sol.build_dma_floor(g)
-    cells = dict(zip(floor.__code__.co_freevars,
-                     (c.cell_contents for c in floor.__closure__)))
-    seen = {}
-
-    def entry(*args):
-        seen["args"] = args
-        return 0
-    monkeypatch.setattr(sol, "_launch_fn", lambda: entry)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: type(
-        "S", (), {"cuda_stream": 0})())
     with pytest.raises(ValueError, match="pitch"):
-        cells["launch"](torch.zeros((2, 45, 61, 4), dtype=torch.uint16))
-    assert not seen
+        floor.launch(torch.zeros((2, 45, 61, 4), dtype=torch.uint16))
+    assert not entry_calls
     hp, wp = floor.pad_to
-    out, err = cells["launch"](torch.zeros((2, hp, wp, 4),
-                                           dtype=torch.uint16))
+    out, err = floor.launch(torch.zeros((2, hp, wp, 4), dtype=torch.uint16))
     assert err == 0 and out.dtype == torch.uint16
     assert out.shape == (2, g["out_h"], g["out_w"] // 2, 4)
-    args = seen["args"]
-    assert len(args) == len(sol.FLOOR_ARGTYPES)
+    ((library, entry, args),) = entry_calls
+    assert (library, entry) == ("dma_floor", "dma_floor_launch")
+    assert len(args) == len(_prototype("dma_floor", entry))
     assert args[9:16] == (2, 45, 122, hp, 2 * wp, g["out_h"], g["out_w"])
     assert args[16] == 64
 

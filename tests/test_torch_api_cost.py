@@ -20,47 +20,43 @@ from openvr_fsr_tpu_torch.ops.common import HALF, lit  # noqa: E402
 from openvr_fsr_tpu_torch.tools import api_cost  # noqa: E402
 from openvr_fsr_tpu_torch.utils import frames as FR  # noqa: E402
 
-# kernel: (its module, the entry getter, the plan's config)
+from torch_entry_calls import entry_calls  # noqa: E402,F401
+
+# kernel: (its module, the plan's config)
 KERNELS = {
-    "fsr_fused": (KFSR, "_launch_fn", dict(render_scale=0.75)),
-    "rcas_sharpen": (KRCAS, "_launch_fn", dict(render_scale=1.0)),
-    "cas_upscale": (KCAS, "_upscale_launch_fn",
-                    dict(render_scale=0.75, use_cas=True)),
-    "cas_sharpen": (KCAS, "_sharpen_launch_fn",
-                    dict(render_scale=1.0, use_cas=True)),
+    "fsr_fused": (KFSR, dict(render_scale=0.75)),
+    "rcas_sharpen": (KRCAS, dict(render_scale=1.0)),
+    "cas_upscale": (KCAS, dict(render_scale=0.75, use_cas=True)),
+    "cas_sharpen": (KCAS, dict(render_scale=1.0, use_cas=True)),
 }
 
 
 @pytest.mark.parametrize("precision", ["full", "half"])
 @pytest.mark.parametrize("kernel", list(KERNELS))
-def test_launch_converts_no_scalar(kernel, precision, monkeypatch):
+def test_launch_converts_no_scalar(kernel, precision, monkeypatch,
+                                  entry_calls):
     """Each launch passes the sharpness (and CAS sharpen's max colour
     delta) in the kernel's working type, the same values on every call,
     with lit() taken out after the build: the conversion is the build's,
-    not the call's."""
-    module, getter, plan = KERNELS[kernel]
-    seen = []
-
-    def entry(*args):
-        seen.append(args)
-        return 0
-    monkeypatch.setattr(module, getter, lambda *a: entry)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: type(
-        "S", (), {"cuda_stream": 0})())
+    not the call's. The tables' pointers are taken at the first launch
+    on a device, not again."""
+    module, plan = KERNELS[kernel]
     pipe = T.Pipeline(T.Config(enabled=True, sharpness=0.9, **plan),
                       precision=precision, cas_max_color_delta=0.05,
                       device="cpu")
     fn = pipe._build(2, 45, 61, (0, 1), False).kernel
-    cells = dict(zip(fn.__code__.co_freevars,
-                     (c.cell_contents for c in fn.__closure__)))
 
     def no_lit(*a):
         raise AssertionError("lit() called by a launch")
     monkeypatch.setattr(module, "lit", no_lit)
     x = torch.zeros((2, 45, 61), dtype=torch.int32)
-    for _ in range(2):
-        out, err = cells["launch"](x)
-        assert err == 0
+    out, err = fn.launch(x)
+    assert err == 0
+    monkeypatch.setattr(torch.Tensor, "data_ptr", lambda t: 7)
+    out, err = fn.launch(x)
+    assert err == 0
+    seen = [args for _, _, args in entry_calls]
+    assert seen[1][:2] == (7, 7) and seen[0][2:] == seen[1][2:]
     dt = HALF if precision == "half" else torch.float32
     sharp = (cas_setup(0.9) if kernel.startswith("cas")
              else C.fsr_rcas_con(C.rcas_stops_from_slider(0.9)))

@@ -44,6 +44,8 @@ from openvr_fsr_tpu_torch.ops import rcas as TRCAS  # noqa: E402
 from openvr_fsr_tpu_torch.ops.common import HALF  # noqa: E402
 from openvr_fsr_tpu_torch.parallel.sharding import ShardedPipeline  # noqa: E402
 
+from torch_entry_calls import entry_calls  # noqa: E402,F401
+
 ROOT = Path(__file__).resolve().parent.parent
 BF16 = ml_dtypes.bfloat16
 SHAPE = (24, 40)
@@ -494,32 +496,25 @@ def test_unknown_precision_raises(precision):
 
 # ---- the CUDA half instantiations' entry points (driven without a card) -------
 
-# kernel -> (its Pipeline plan, its wrapper module and entry-point getter)
+# kernel -> its Pipeline plan
 HALF_KERNELS = {
-    "fsr_fused": (dict(render_scale=0.75), "fsr", "_launch_fn"),
-    "rcas_sharpen": (dict(render_scale=1.0), "rcas", "_launch_fn"),
-    "cas_upscale": (dict(render_scale=0.75, use_cas=True), "cas",
-                    "_upscale_launch_fn"),
-    "cas_sharpen": (dict(render_scale=1.0, use_cas=True), "cas",
-                    "_sharpen_launch_fn"),
+    "fsr_fused": dict(render_scale=0.75),
+    "rcas_sharpen": dict(render_scale=1.0),
+    "cas_upscale": dict(render_scale=0.75, use_cas=True),
+    "cas_sharpen": dict(render_scale=1.0, use_cas=True),
 }
 
 
 def _prototype(kernel, entry):
-    import re
     from openvr_fsr_tpu_torch.kernels import _build
-    text = (_build.CSRC / f"{kernel}.cu").read_text()
-    (params,) = re.findall(rf'extern "C" int {entry}\((.*?)\)\s*\{{', text,
-                           re.S)
-    return [" ".join(p.split()).rsplit(" ", 1)[0].replace(" *", "*")
-            for p in params.split(",")]
+    return _build.prototype(entry, (_build.CSRC / f"{kernel}.cu").read_text())
 
 
 @pytest.mark.parametrize("kernel", list(HALF_KERNELS))
 def test_half_entry_points_share_the_prototype(kernel):
     """Each source exports <kernel>_launch_h, _launch10_h, _occupancy_h
-    and _occupancy10_h with the full entry points' parameters, so one
-    argtypes list binds all."""
+    and _occupancy10_h with the full entry points' parameters, types and
+    names."""
     for entry in ("launch", "occupancy"):
         want = _prototype(kernel, f"{kernel}_{entry}")
         for suffix in ("_h", "10_h"):
@@ -528,38 +523,25 @@ def test_half_entry_points_share_the_prototype(kernel):
 
 @pytest.mark.parametrize("bits", [8, 10])
 @pytest.mark.parametrize("kernel", list(HALF_KERNELS))
-def test_launch_takes_the_half_entry(kernel, bits, monkeypatch):
+def test_launch_takes_the_half_entry(kernel, bits, entry_calls):
     """On a CUDA tensor a half build would call the half entry point of its
     texel format, with the sharpness (and CAS sharpen's maxColorDelta)
-    rounded to bf16 on the host: driven here through the launch closure
-    with the entry point swapped."""
-    import importlib
+    rounded to bf16 on the host: driven here through fn.launch with the
+    entry point stubbed."""
     from openvr_fsr_tpu_torch.ops.common import lit
-    plan, module, getter = HALF_KERNELS[kernel]
-    module = importlib.import_module(f"openvr_fsr_tpu_torch.kernels.{module}")
-    asked, seen = [], {}
-
-    def entry(*args):
-        seen["args"] = args
-        return 0
-
-    def get(*args):
-        asked.append(args)
-        return entry
-    monkeypatch.setattr(module, getter, get)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: type(
-        "S", (), {"cuda_stream": 0})())
-    pipe = T.Pipeline(T.Config(enabled=True, sharpness=0.9, **plan),
+    pipe = T.Pipeline(T.Config(enabled=True, sharpness=0.9,
+                               **HALF_KERNELS[kernel]),
                       color_bits=bits, precision="half",
                       cas_max_color_delta=0.05, device="cpu")
     fn = pipe._build(2, 45, 61, (0, 1), False).kernel
-    cells = dict(zip(fn.__code__.co_freevars,
-                     (c.cell_contents for c in fn.__closure__)))
     x = (torch.zeros((2, 45, 61, 4), dtype=torch.uint16) if bits == 10
          else torch.zeros((2, 45, 61), dtype=torch.int32))
-    out, err = cells["launch"](x)
-    assert err == 0 and asked == [(bits, "half")] and fn.launches == 0
-    floats = [a for a in seen["args"] if isinstance(a, float)]
+    out, err = fn.launch(x)
+    ((library, entry, args),) = entry_calls
+    assert err == 0 and fn.launches == 0
+    assert (library, entry) == (
+        kernel, f"{kernel}_launch{'10' if bits == 10 else ''}_h")
+    floats = [a for a in args if isinstance(a, float)]
     if kernel.startswith("cas"):
         from openvr_fsr_tpu_torch.ops.cas import cas_setup
         sharp = cas_setup(0.9)

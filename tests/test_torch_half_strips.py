@@ -35,16 +35,15 @@ from openvr_fsr_tpu_torch.ops.common import HALF, lit  # noqa: E402
 from openvr_fsr_tpu_torch.parallel import split_bands  # noqa: E402
 from openvr_fsr_tpu_torch.utils import frames as FR  # noqa: E402
 
+from torch_entry_calls import entry_calls  # noqa: E402,F401
+
 ROOT = Path(__file__).resolve().parent.parent
 OFF_CENTRE = ((0.3, 0.6), (0.7, 0.4))
-# kernel -> (builder, band layout, wrapper's entry-point getter, entry)
+# kernel -> (its build function, band layout)
 KERNELS = {
-    "fsr_fused": (fsr.build_fsr_fused, fsr.fsr_band_layout, "_launch_fn",
-                  "fsr_fused_launch"),
-    "cas_upscale": (cas.build_cas_upscale, cas.cas_band_layout,
-                    "_upscale_launch_fn", "cas_upscale_launch"),
+    "fsr_fused": (fsr.build_fsr_fused, fsr.fsr_band_layout),
+    "cas_upscale": (cas.build_cas_upscale, cas.cas_band_layout),
 }
-MODULES = {"fsr_fused": fsr, "cas_upscale": cas}
 
 
 def _frame(h, w, bits, seed=0):
@@ -242,36 +241,19 @@ def test_half_strips_build_and_publish_their_precision(kernel):
 
 @pytest.mark.parametrize("bits", [8, 10])
 @pytest.mark.parametrize("kernel", list(KERNELS))
-def test_half_strip_launches_the_half_entry(kernel, bits, monkeypatch):
+def test_half_strip_launches_the_half_entry(kernel, bits, entry_calls):
     """On a CUDA tensor a half strip would call the half entry point of its
     texel format (fsr_fused_launch_h, _launch10_h; cas_upscale_launch_h,
     _launch10_h) with its strip's base and rows and the band's out_row0 and
-    out_row1, the sharpness rounded to bf16: driven here through the launch
-    closure with the entry point swapped."""
-    _, getter, entry_name = KERNELS[kernel][1:]
-    module = MODULES[kernel]
-    asked, seen = [], {}
-
-    def entry(*args):
-        seen["args"] = args
-        return 0
-
-    def get(*args):
-        asked.append(args)
-        return entry
-    monkeypatch.setattr(module, getter, get)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: type(
-        "S", (), {"cuda_stream": 0})())
+    out_row1, the sharpness rounded to bf16: driven here through fn.launch
+    with the entry point stubbed."""
     _, strips = _builds(kernel, 72, 60, 24, 3, bits)
     fn = strips[1]                 # a middle strip: both edges cut tiles
-    cells = dict(zip(fn.__code__.co_freevars,
-                     (c.cell_contents for c in fn.__closure__)))
-    out, err = cells["launch"](_strip(_frame(72, 60, bits), fn))
-    assert err == 0 and asked == [(bits, "half")] and fn.launches == 0
-    from openvr_fsr_tpu_torch.kernels._common import entry_name as name_of
-    assert name_of(entry_name, *asked[0]) == (
-        f"{entry_name}{'10' if bits == 10 else ''}_h")
-    args = seen["args"]
+    out, err = fn.launch(_strip(_frame(72, 60, bits), fn))
+    ((library, entry, args),) = entry_calls
+    assert err == 0 and fn.launches == 0
+    assert (library, entry) == (
+        kernel, f"{kernel}_launch{'10' if bits == 10 else ''}_h")
     ints = list(args[13:23])
     # batch, in_h, in_w, in_row_base, in_rows, pitch, out_h, out_w,
     # out_row0, out_row1
@@ -408,27 +390,22 @@ def test_strip_loads_against_the_whole(kernel):
         assert total >= 0.99 * sol.floor_loads(gw)
 
 
-def test_floor_launch_takes_the_band_row(monkeypatch):
+def test_floor_launch_takes_the_band_row(entry_calls):
     """On a CUDA tensor a strip's floor would hand dma_floor_launch the
     band's row0 in the grid of its tile rows (the band form where it is
     above 0), and a whole image's floor row0 0; each with its strip's rows
     and the band's output rows."""
-    seen = []
-    monkeypatch.setattr(sol, "_launch_fn", lambda: lambda *a: seen.append(a)
-                        or 0)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: type(
-        "S", (), {"cuda_stream": 0})())
+    from openvr_fsr_tpu_torch.kernels import _build
     whole, strips = _builds("fsr_fused", 72, 60, 24, 3)
     for fn in (whole, strips[1]):
         floor = sol.build_dma_floor(fn.dma_geometry)
-        cells = dict(zip(floor.__code__.co_freevars,
-                         (c.cell_contents for c in floor.__closure__)))
         hp, wp = floor.pad_to
-        out, err = cells["launch"](torch.zeros((2, hp, wp),
-                                               dtype=torch.int32))
+        out, err = floor.launch(torch.zeros((2, hp, wp), dtype=torch.int32))
         assert err == 0 and out.shape[1] == fn.dma_geometry["out_h"]
-    (a, b) = seen
-    assert len(a) == len(b) == len(sol.FLOOR_ARGTYPES)
+    assert {c[:2] for c in entry_calls} == {("dma_floor", "dma_floor_launch")}
+    (a, b) = (c[2] for c in entry_calls)
+    assert len(a) == len(b) == len(_build.prototype(
+        "dma_floor_launch", (_build.CSRC / "dma_floor.cu").read_text()))
     assert a[22] == 0 and a[10] == 72 and a[14] == 96
     g = strips[1].dma_geometry
     assert b[22] == sol.band_rows(g)[0] > 0

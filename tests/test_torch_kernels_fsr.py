@@ -6,6 +6,8 @@ The CUDA kernel itself runs only on the card: `python3 chip_smoke.py`
 holds it against this plain version there, texel for texel.
 """
 
+import re
+
 import numpy as np
 import pytest
 
@@ -340,6 +342,30 @@ def test_ablations_edit_the_current_source(kernel, name):
         ab.ablated_source(kernel, name, src + edits[0][0])
 
 
+# the entry points of the earlier sources tools/ab.py drives as the parents:
+# B1's class kernels before the row-band strips, NVScaler's one CTA per
+# 32x24 block, CAS upscale's one CTA per 16x16 tile
+PARENT_PROTOTYPES = {
+    "fsr_fused": re.sub(r"int in_row_base, |int out_row0, int out_row1, ",
+                        "", (_build.CSRC / "fsr_fused.cu").read_text()),
+    "nis_scaler": """
+extern "C" int nis_scaler_launch(const void* img, void* out, const void* col_i, const void* col_f,
+                                 const void* row_i, const void* row_f, const void* tile_x0,
+                                 const void* tile_y0, const void* centres, const void* coef,
+                                 const float* consts, int n_consts, int batch, int in_h, int in_w,
+                                 int rows, int pitch, int out_h, int out_w, int hdr_mode,
+                                 float tint, int in_tile_w, int in_tile_h, void* stream) {
+""",
+    "cas_upscale": """
+extern "C" int cas_upscale_launch(const void* img, void* out, const void* col_i,
+                                  const void* col_f, const void* row_i, const void* row_f,
+                                  const void* tile_x0, const void* tile_y0, const void* centres,
+                                  int batch, int in_h, int in_w, int in_rows, int pitch, int out_h,
+                                  int out_w, float sharp, float tint, int in_tile, void* stream) {
+""",
+}
+
+
 def _parent_call(kernel, h, w, rs, monkeypatch):
     """(the arguments the A/B tool passes to the parent entry point, the
     current build's host tables) at one small shape."""
@@ -358,7 +384,8 @@ def _parent_call(kernel, h, w, rs, monkeypatch):
         "S", (), {"cuda_stream": 0})())
     out = run(torch.zeros((2, h, w), dtype=torch.int32))
     assert out.shape == (2, oh, ow)
-    assert len(seen["args"]) == len(ab.PARENT_ARGTYPES[kernel])
+    assert len(seen["args"]) == len(ab.entry_argtypes(
+        kernel, PARENT_PROTOTYPES[kernel]))
     return seen["args"], maps
 
 

@@ -45,6 +45,8 @@ from openvr_fsr_tpu_torch.ops import nis as TN  # noqa: E402
 from openvr_fsr_tpu_torch.ops.common import HALF, lit  # noqa: E402
 from openvr_fsr_tpu_torch.parallel.sharding import ShardedPipeline  # noqa: E402
 
+from torch_entry_calls import entry_calls  # noqa: E402,F401
+
 ROOT = Path(__file__).resolve().parent.parent
 BF16 = ml_dtypes.bfloat16
 SHAPE = (24, 40)
@@ -499,26 +501,21 @@ def test_half_build_keeps_the_geometry(path):
 
 # ---- the CUDA half instantiations' entry points (driven without a card) -------
 
-# kernel -> (its Pipeline plan, its entry-point getter in kernels/nis.py)
-NIS_KERNELS = {"nis_scaler": (NIS_PATHS["nvscaler"], "_scaler_fn"),
-               "nis_sharpen": (NIS_PATHS["nvsharpen"], "_sharpen_fn")}
+# kernel -> its Pipeline plan
+NIS_KERNELS = {"nis_scaler": NIS_PATHS["nvscaler"],
+               "nis_sharpen": NIS_PATHS["nvsharpen"]}
 
 
 def _prototype(kernel, entry):
-    import re
     from openvr_fsr_tpu_torch.kernels import _build
-    text = (_build.CSRC / f"{kernel}.cu").read_text()
-    (params,) = re.findall(rf'extern "C" int {entry}\((.*?)\)\s*\{{', text,
-                           re.S)
-    return [" ".join(p.split()).rsplit(" ", 1)[0].replace(" *", "*")
-            for p in params.split(",")]
+    return _build.prototype(entry, (_build.CSRC / f"{kernel}.cu").read_text())
 
 
 @pytest.mark.parametrize("kernel", list(NIS_KERNELS))
 def test_half_entry_points_share_the_prototype(kernel):
     """Each NIS source exports <kernel>_launch_h, _launch10_h,
     _occupancy_h and _occupancy10_h with the full entry points'
-    parameters, so one argtypes list binds all."""
+    parameters, types and names."""
     for entry in ("launch", "occupancy"):
         want = _prototype(kernel, f"{kernel}_{entry}")
         for suffix in ("_h", "10_h"):
@@ -527,41 +524,36 @@ def test_half_entry_points_share_the_prototype(kernel):
 
 @pytest.mark.parametrize("bits", [8, 10])
 @pytest.mark.parametrize("kernel", list(NIS_KERNELS))
-def test_launch_takes_the_half_entry(kernel, bits, monkeypatch):
+def test_launch_takes_the_half_entry(kernel, bits, entry_calls):
     """On a CUDA tensor a half NIS build would call the half entry point of
     its texel format, with the constants of the filters (nis::Consts 2-12,
     the JAX kernels' dt(cfg.k...)) rounded to bf16 on the host and the
-    edge map's and the corrections' constants f32: driven here through the
-    launch closure with the entry point swapped."""
-    from openvr_fsr_tpu_torch.kernels import nis
-    plan, getter = NIS_KERNELS[kernel]
-    asked, seen = [], {}
-
-    def entry(*args):
-        seen["args"] = args
-        return 0
-
-    def get(*args):
-        asked.append(args)
-        return entry
-    monkeypatch.setattr(nis, getter, get)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: type(
-        "S", (), {"cuda_stream": 0})())
+    edge map's and the corrections' constants f32: driven here through
+    fn.launch with the entry point stubbed, the constants read back from
+    the host pointer it passes."""
+    import ctypes
     fns = {}
     for prec in ("full", "half"):
-        pipe = T.Pipeline(T.Config(enabled=True, sharpness=0.9, **plan),
+        pipe = T.Pipeline(T.Config(enabled=True, sharpness=0.9,
+                                   **NIS_KERNELS[kernel]),
                           color_bits=bits, precision=prec, device="cpu")
         fns[prec] = pipe._build(2, 45, 61, (0, 1), False).kernel
-    def cells(f):
-        return dict(zip(f.__code__.co_freevars,
-                        (c.cell_contents for c in f.__closure__)))
-    launch = {p: cells(fn)["launch"] for p, fn in fns.items()}
     x = (torch.zeros((2, 45, 61, 4), dtype=torch.uint16) if bits == 10
          else torch.zeros((2, 45, 61), dtype=torch.int32))
-    out, err = launch["half"](x)
-    assert err == 0 and asked == [(bits, "half")] and fns["half"].launches == 0
-    full, half = (cells(launch[p])["consts"] for p in ("full", "half"))
-    assert half.ctypes.data in seen["args"] and half.dtype == np.float32
+    for prec in ("full", "half"):
+        out, err = fns[prec].launch(x)
+        assert err == 0 and fns[prec].launches == 0
+    suffix = "10" if bits == 10 else ""
+    assert [c[:2] for c in entry_calls] == [
+        (kernel, f"{kernel}_launch{suffix}"),
+        (kernel, f"{kernel}_launch{suffix}_h")]
+    names = [n for _, n in _prototype(kernel, f"{kernel}_launch_h")]
+
+    def consts(args):
+        ptr, n = (args[names.index(k)] for k in ("consts", "n_consts"))
+        return np.ctypeslib.as_array((ctypes.c_float * n).from_address(ptr))
+    full, half = (consts(c[2]) for c in entry_calls)
+    assert half.dtype == np.float32 and len(half) == 16
     assert np.array_equal(half[2:13], [lit(v, HALF) for v in full[2:13]])
     assert not np.array_equal(half[2:13], full[2:13])   # the rounding shows
     assert np.array_equal(half[:2], full[:2])

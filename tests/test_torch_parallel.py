@@ -325,9 +325,10 @@ def test_strips_match_the_jax_strip_kernels():
 
 # ---- the C entry points -------------------------------------------------------
 
-def _prototype_argtypes(kernel, entry):
-    """The ctypes types of the C prototype `entry` in csrc/<kernel>.cu."""
-    text = (_build.CSRC / f"{kernel}.cu").read_text()
+def _prototype_argtypes(kernel, entry, text=None):
+    """The ctypes types of the C prototype `entry` in csrc/<kernel>.cu (or
+    in `text`), read here apart from kernels/_build.py's parser."""
+    text = text or (_build.CSRC / f"{kernel}.cu").read_text()
     (params,) = re.findall(rf'extern "C" int {entry}\((.*?)\)\s*\{{', text,
                            re.S)
     return [ctypes.c_void_p if "*" in p else
@@ -335,34 +336,52 @@ def _prototype_argtypes(kernel, entry):
             for p in (" ".join(q.split()) for q in params.split(","))]
 
 
+def _before_strips(kernel):
+    """csrc/<kernel>.cu with the class entry point's prototype before the
+    row-band strips: no strip base, no band rows."""
+    return re.sub(r"int in_row_base, |int out_row0, int out_row1, ", "",
+                  (_build.CSRC / f"{kernel}.cu").read_text())
+
+
 @pytest.mark.parametrize("kernel,argtypes", [
-    ("fsr_fused", fsr.FUSED_ARGTYPES), ("cas_upscale", cas.UPSCALE_ARGTYPES)])
+    ("fsr_fused", _prototype_argtypes("fsr_fused", "fsr_fused_launch")),
+    ("cas_upscale", _prototype_argtypes("cas_upscale", "cas_upscale_launch"))])
 @pytest.mark.parametrize("suffix", ["", "10"])
 def test_argtypes_are_the_prototypes(kernel, argtypes, suffix):
-    """The wrappers bind both entry points with the types of their
+    """The parser reads both entry points with the types of their
     prototypes, the strip's base and band rows included (a pointer bound as
-    c_int would be cut to 32 bits)."""
-    assert argtypes == _prototype_argtypes(kernel, f"{kernel}_launch{suffix}")
+    c_int would be cut to 32 bits); the two upscalers' are one prototype."""
+    entry = f"{kernel}_launch{suffix}"
     text = (_build.CSRC / f"{kernel}.cu").read_text()
+    assert _build.argtypes(entry, text) == argtypes
+    assert _build.prototype(entry, text) == _build.prototype(
+        f"fsr_fused_launch{suffix}",
+        (_build.CSRC / "fsr_fused.cu").read_text())
     assert "int in_row_base, int in_rows" in text
     assert "int out_row0, int out_row1" in text
 
 
 def test_ab_parents_of_the_class_kernels(monkeypatch):
     """tools/ab.py drives an upscaler parent with the class kernels' entry
-    point before the strips (CLASS_ARGTYPES) where its source has that
-    prototype: B1's always, B5's from the class kernels on; the current
-    sources have the strip prototype."""
+    point before the strips where its source has that prototype (the
+    current one's less ab.STRIP_PARAMS): B1's and B5's from the class
+    kernels to the strips; the current sources have the strip prototype,
+    and run through the current wrapper."""
     fused = (_build.CSRC / "fsr_fused.cu").read_text()
     upscale = (_build.CSRC / "cas_upscale.cu").read_text()
-    before = re.sub(r"int in_row_base, |int out_row0, int out_row1, ", "",
-                    upscale)
-    assert ab.class_parent("fsr_fused", fused)
+    before = _before_strips("cas_upscale")
+    assert ab.class_parent("fsr_fused", _before_strips("fsr_fused"))
     assert ab.class_parent("cas_upscale", before)
+    assert not ab.class_parent("fsr_fused", fused)
     assert not ab.class_parent("cas_upscale", upscale)
     assert not ab.class_parent("nis_scaler", before)
-    assert len(ab.CLASS_ARGTYPES) == len(cas.UPSCALE_ARGTYPES) - 3
-    assert ab.PARENT_ARGTYPES["fsr_fused"] == ab.CLASS_ARGTYPES
+    assert not ab.class_parent("cas_upscale", "int main() {}")
+    classes = ab.entry_argtypes("cas_upscale", before)
+    assert classes == _prototype_argtypes("cas_upscale",
+                                          "cas_upscale_launch", before)
+    assert len(classes) == len(ab.entry_argtypes("cas_upscale")) - 3
+    assert ab.entry_argtypes("fsr_fused", _before_strips("fsr_fused")) == \
+        classes
     h, w = 96, 128
     ow, oh = _out_size(h, w, 0.75)
     cen = C.centres_payload(ow, oh, 0.5, CENTERS, (0, 1))
@@ -378,9 +397,37 @@ def test_ab_parents_of_the_class_kernels(monkeypatch):
                              classes=True, **kw)
     assert run(torch.zeros((2, h, w), dtype=torch.int32)).shape == (2, oh, ow)
     args = seen["args"]
-    assert len(args) == len(ab.CLASS_ARGTYPES)
+    assert len(args) == len(classes)
     assert args[13:20] == (2, h, w, h, w, oh, ow)
     assert args[-3:-1] == (FSR_TILE, CAS_IN_TILE)
+
+
+@pytest.mark.parametrize("form", ["launcher", "main"])
+def test_ab_refuses_other_b1_parents(form, tmp_path, capsys, monkeypatch):
+    """A B1 parent whose fsr_fused_launch has neither the current
+    prototype's types nor the class kernels' before the strips has no
+    launcher: parent_launcher refuses it rather than take CAS's earlier
+    layout, and the tool stops on it before it builds anything."""
+    if form == "launcher":
+        h, w = 96, 128
+        ow, oh = _out_size(h, w, 0.75)
+        cen = C.centres_payload(ow, oh, 0.5, CENTERS, (0, 1))
+        _, maps, kw = ab._build_current("fsr_fused", 2, h, w, ow, oh, cen, 0)
+        with pytest.raises(ValueError, match="fsr_fused"):
+            ab.parent_launcher("fsr_fused", lambda *a: 0, maps, 2, CPU,
+                               classes=False, **kw)
+        return
+    src = tmp_path / "fsr_fused.cu"
+    src.write_text('extern "C" int fsr_fused_launch(const void* img, '
+                   'void* out, int batch, int h, int w, void* stream) {}')
+    assert not ab.class_parent("fsr_fused", src.read_text())
+    from openvr_fsr_tpu_torch import bench
+    monkeypatch.setattr(bench, "require_gpu", lambda what: None)
+    monkeypatch.setattr(ab, "build_parent", lambda *a: pytest.fail("built"))
+    with pytest.raises(SystemExit) as e:
+        ab.main(["--kernel", "fsr_fused", "--parent", str(src)])
+    assert e.value.code == 2
+    assert "neither" in capsys.readouterr().err
 
 
 # ---- SpatialFsrPipeline ------------------------------------------------------
@@ -621,6 +668,7 @@ def test_ab_same_sass_matches_functions_across_builds(monkeypatch):
     monkeypatch.setattr(sass, "disassemble", lambda lib, nvcc: None)
     assert ab.same_sass("parent.so", "current.so") is None
     # the prototypes ab.py tells apart
-    assert ab.entry_params("fsr_fused", (_build.CSRC / "fsr_fused.cu")
-                           .read_text()) == len(fsr.FUSED_ARGTYPES)
-    assert ab.entry_params("fsr_fused", "int main() {}") is None
+    assert ab.entry_argtypes("fsr_fused", (_build.CSRC / "fsr_fused.cu")
+                             .read_text()) == _prototype_argtypes(
+        "fsr_fused", "fsr_fused_launch")
+    assert ab.entry_argtypes("fsr_fused", "int main() {}") is None

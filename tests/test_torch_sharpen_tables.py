@@ -13,8 +13,9 @@ over the others. Held here:
     tiles;
   - each geometry is a numpy statement of what the two kernels load and
     store, and the DMA floor's own check passes;
-  - the wrappers pass the lists to one C entry point whose ctypes argtypes
-    are its prototype in the source;
+  - the wrappers pass the lists to one C entry point, bound (kernels/
+    _build.py::entry_point) with the ctypes types of its prototype in the
+    source, which one parser reads for every launch entry point;
   - the shared words per inside pixel the audit prices are the sources'.
 
 The CUDA kernels run only on the card: `python3 chip_smoke.py` holds them
@@ -36,6 +37,8 @@ from openvr_fsr_tpu_torch.kernels._common import circle_mask  # noqa: E402
 from openvr_fsr_tpu_torch.tools import ab  # noqa: E402
 from openvr_fsr_tpu_torch.tools import vpu_audit as A  # noqa: E402
 
+from torch_entry_calls import entry_calls  # noqa: E402,F401
+
 CENTRED = ((0.5, 0.5), (0.5, 0.5))
 OFF_CENTRE = ((0.3, 0.6), (0.7, 0.4))
 SHAPES = [(45, 61), (96, 128), (2492, 2244)]
@@ -47,10 +50,6 @@ CIRCLE_IDS = [f"r{r}" for r, _ in CIRCLES]
 KERNELS = {"cas_sharpen": ((16, 16), 34, "zero"),
            "nis_sharpen": ((32, 32), 36, "clamp"),
            "rcas_sharpen": ((16, 16), 34, "zero")}
-# kernel -> (its wrapper module, the module's entry-point getter)
-ENTRIES = {"cas_sharpen": (cas, "_sharpen_launch_fn"),
-           "nis_sharpen": (nis, "_sharpen_fn"),
-           "rcas_sharpen": (rcas, "_launch_fn")}
 
 
 def _centres(h, w, radius, eyes, batch):
@@ -155,13 +154,26 @@ def test_geometry_is_the_two_kernels(kernel, h, w, radius, eyes, batch):
         == 4 * batch * h * w
 
 
-# the entry point of the earlier RCAS sharpen source (one CTA per 16x16
-# tile with its own circle test), which tools/ab.py drives as the parent
+# the entry points of the earlier sharpen sources (one CTA per tile with its
+# own circle test), which tools/ab.py drives as the parents
 PARENT_RCAS_PROTOTYPE = """
 extern "C" int rcas_sharpen_launch(const void* img, void* out, const void* centres, int batch,
                                    int h, int w, int rows, int pitch, float sharp, float tint,
                                    void* stream) {
 """
+PARENT_NIS_SHARPEN_PROTOTYPE = """
+extern "C" int nis_sharpen_launch(const void* img, void* out, const void* centres,
+                                  const float* consts, int n_consts, int batch, int h, int w,
+                                  int rows, int pitch, int hdr_mode, float tint, void* stream) {
+"""
+PARENT_CAS_SHARPEN_PROTOTYPE = """
+extern "C" int cas_sharpen_launch(const void* img, void* out, const void* centres, int batch,
+                                  int h, int w, int rows, int pitch, float sharp, float mcd,
+                                  float tint, void* stream) {
+"""
+PARENT_SHARPEN = {"rcas_sharpen": PARENT_RCAS_PROTOTYPE,
+                  "nis_sharpen": PARENT_NIS_SHARPEN_PROTOTYPE,
+                  "cas_sharpen": PARENT_CAS_SHARPEN_PROTOTYPE}
 
 
 # the entry points of the earlier tensor-core probe (mma.sync; the same
@@ -184,7 +196,8 @@ extern "C" int dma_floor_launch(const void* img, void* out, const void* tile_x0,
 
 def _prototype_argtypes(kernel, entry, text=None):
     """The ctypes types of the C prototype `entry` in csrc/<kernel>.cu (or
-    in `text`): pointers as c_void_p, int as c_int, float as c_float."""
+    in `text`), read here apart from kernels/_build.py's parser: pointers
+    as c_void_p, int as c_int, float as c_float, unsigned as c_uint."""
     if text is None:
         text = (_build.CSRC / f"{kernel}.cu").read_text()
     (params,) = re.findall(rf'extern "C" int {entry}\((.*?)\)\s*\{{', text,
@@ -198,14 +211,82 @@ def _prototype_argtypes(kernel, entry, text=None):
     return types
 
 
+def _bound(library, entry, monkeypatch):
+    """_build.entry_point(library, entry), uncached, on a stand-in
+    library: the function object with the argtypes and restype it set."""
+    lib = type("Lib", (), {entry: type("F", (), {})()})()
+    monkeypatch.setattr(_build, "load_library",
+                        lambda name: lib if name == library else None)
+    return _build.entry_point.__wrapped__(library, entry)
+
+
+# every `extern "C" int *_launch*` of csrc/*.cu: (library, entry)
+LAUNCH_ENTRIES = [(f.stem, e) for f in sorted(_build.CSRC.glob("*.cu"))
+                  for e in re.findall(r'extern "C" int (\w+_launch\w*)\(',
+                                      f.read_text())]
+# the earlier prototypes tools/ab.py builds: (library, the source's text)
+EARLIER = [("rcas_sharpen", PARENT_RCAS_PROTOTYPE),
+           ("nis_sharpen", PARENT_NIS_SHARPEN_PROTOTYPE),
+           ("cas_sharpen", PARENT_CAS_SHARPEN_PROTOTYPE),
+           ("mxu_rate", PARENT_MXU_PROTOTYPE),
+           ("dma_floor", PARENT_FLOOR_PROTOTYPE)]
+
+
+@pytest.mark.parametrize(
+    "library,entry,text",
+    [(lib, e, None) for lib, e in LAUNCH_ENTRIES]
+    + [(lib, f"{lib}_launch", t) for lib, t in EARLIER],
+    ids=[e for _, e in LAUNCH_ENTRIES]
+    + [f"earlier-{lib}" for lib, _ in EARLIER])
+def test_parser_reads_every_launch_prototype(library, entry, text,
+                                             monkeypatch):
+    """kernels/_build.py reads each launch entry point's C prototype, the
+    current sources' and the earlier ones tools/ab.py builds: one ctypes
+    type per parameter, every pointer c_void_p (a pointer bound as c_int
+    would be cut to 32 bits), the stream last; entry_point binds a current
+    one with exactly those and restype c_int."""
+    assert len(LAUNCH_ENTRIES) == 6 * 4 + 4
+    current = text is None
+    text = text or (_build.CSRC / f"{library}.cu").read_text()
+    types = _build.argtypes(entry, text)
+    assert types == _prototype_argtypes(library, entry, text)
+    params = _build.prototype(entry, text)
+    (raw,) = re.findall(rf'extern "C" int {entry}\((.*?)\)', text, re.S)
+    assert [n for _, n in params] == re.findall(r"(\w+)\s*(?:,|$)", raw)
+    assert params[0][0] == "const void*" and params[-1] == ("void*", "stream")
+    if entry == f"{library}_launch":
+        assert ab.entry_argtypes(library, text) == types
+    if current:
+        f = _bound(library, entry, monkeypatch)
+        assert f.argtypes == types and f.restype is ctypes.c_int
+
+
+@pytest.mark.parametrize("param", ["double sharp", "const int n",
+                                   "size_t n", "int"])
+def test_parser_refuses_an_unknown_parameter(param):
+    """A parameter the parser cannot map to a ctypes type (or one without a
+    name) raises, naming the entry point; so does a source without it."""
+    text = f'extern "C" int k_launch(const void* img, {param}, void* s) {{'
+    with pytest.raises(ValueError, match="k_launch"):
+        _build.argtypes("k_launch", text)
+    with pytest.raises(ValueError, match="k_launch"):
+        _build.argtypes("k_launch", "int main() {}")
+    assert ab.entry_argtypes("k", "int main() {}") is None
+
+
 @pytest.mark.parametrize("kernel,module", [("cas_sharpen", cas),
                                            ("nis_sharpen", nis),
                                            ("rcas_sharpen", rcas)])
-def test_argtypes_are_the_prototype(kernel, module):
-    """The wrapper binds the entry point with the types of its prototype,
-    one per parameter (a pointer bound as c_int would be cut to 32 bits)."""
-    assert module.SHARPEN_ARGTYPES == _prototype_argtypes(
-        kernel, f"{kernel}_launch")
+def test_argtypes_are_the_prototype(kernel, module, monkeypatch):
+    """The binder binds each of the wrapper's entry points (8- and 10-bit,
+    full and half) with the types of its prototype, one per parameter (a
+    pointer bound as c_int would be cut to 32 bits); the wrapper keeps no
+    list of its own."""
+    assert not [n for n in vars(module) if n.endswith("ARGTYPES")]
+    for suffix in ("", "10", "_h", "10_h"):
+        entry = f"{kernel}_launch{suffix}"
+        assert _bound(kernel, entry, monkeypatch).argtypes == \
+            _prototype_argtypes(kernel, entry)
 
 
 @pytest.mark.parametrize("kernel,text", [
@@ -215,16 +296,17 @@ def test_parent_argtypes_are_the_earlier_prototypes(kernel, text):
     """tools/ab.py binds each earlier entry point it drives with the types
     of that source's prototype; the tensor-core probe's is also the current
     source's, so the parent runs through the current wrapper."""
-    assert ab.PARENT_ARGTYPES[kernel] == _prototype_argtypes(
+    assert ab.entry_argtypes(kernel, text) == _prototype_argtypes(
         kernel, f"{kernel}_launch", text)
-    if kernel == "mxu_rate":
-        assert ab.PARENT_ARGTYPES[kernel] == _prototype_argtypes(
-            kernel, f"{kernel}_launch")
+    assert (ab.entry_argtypes(kernel, text) == ab.entry_argtypes(kernel)) \
+        == (kernel == "mxu_rate")
+    if kernel == "dma_floor":       # its mask
+        assert ab.entry_argtypes(kernel, text)[-2] is ctypes.c_uint
 
 
-def test_floor_argtypes_are_the_prototype():
-    assert sol.FLOOR_ARGTYPES == _prototype_argtypes("dma_floor",
-                                                     "dma_floor_launch")
+def test_floor_argtypes_are_the_prototype(monkeypatch):
+    assert _bound("dma_floor", "dma_floor_launch", monkeypatch).argtypes == \
+        _prototype_argtypes("dma_floor", "dma_floor_launch")
 
 
 def _conforms(args, argtypes):
@@ -239,15 +321,9 @@ def _conforms(args, argtypes):
             assert a is None or isinstance(a, int), (a, t)
 
 
-def _launch_closure(fn):
-    cells = dict(zip(fn.__code__.co_freevars,
-                     (c.cell_contents for c in fn.__closure__)))
-    return cells["launch"]
-
-
 @pytest.mark.parametrize("radius", [0.0, 0.5, 2.0])
 @pytest.mark.parametrize("kernel", list(KERNELS))
-def test_launch_passes_the_lists(kernel, radius, monkeypatch):
+def test_launch_passes_the_lists(kernel, radius, entry_calls):
     """The launch hands the entry point the inside and outside lists with
     their lengths, the 32x32 tile and the window edge, the frame's pitch,
     and nothing the prototype does not take."""
@@ -255,19 +331,11 @@ def test_launch_passes_the_lists(kernel, radius, monkeypatch):
     cen = _centres(h, w, radius, CENTRED, 2)
     fn = _build_kernel(kernel, 2, h, w, cen, hdr=2)
     m = _maps.sharpen_maps(2, h, w, cen, KERNELS[kernel][0])
-    seen = {}
-
-    def entry(*args):
-        seen["args"] = args
-        return 0
-    module, getter = ENTRIES[kernel]
-    monkeypatch.setattr(module, getter, lambda: entry)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: type(
-        "S", (), {"cuda_stream": 0})())
-    out, err = _launch_closure(fn)(torch.zeros((2, hp, wp), dtype=torch.int32))
+    out, err = fn.launch(torch.zeros((2, hp, wp), dtype=torch.int32))
     assert err == 0 and out.shape == (2, h, w)
-    args = seen["args"]
-    _conforms(args, module.SHARPEN_ARGTYPES)
+    ((library, entry, args),) = entry_calls
+    assert (library, entry) == (kernel, f"{kernel}_launch")
+    _conforms(args, _prototype_argtypes(kernel, entry))
     win = KERNELS[kernel][1]
     assert args[-3:-1] == (_maps.SHARPEN_TILE, win)
     n_in, n_out = len(m.inside_tiles), len(m.outside_tiles)
@@ -293,9 +361,6 @@ def test_parent_launchers_take_the_earlier_entry_points(kernel, case,
     """The A/B tool drives the earlier sharpen kernels (one CTA per tile
     with its own circle test) with the centres and the constants each case
     asks for, in the types of their argtypes."""
-    if kernel == "rcas_sharpen" and case == 0:
-        assert ab.PARENT_ARGTYPES[kernel] == _prototype_argtypes(
-            "rcas_sharpen", "rcas_sharpen_launch", PARENT_RCAS_PROTOTYPE)
     label, h, w, rs, radius, hdr, mcd = ab.CASES[kernel][case]
     assert (h, w, rs) == (2492, 2244, 1.0)
     h, w = 45, 61
@@ -312,7 +377,8 @@ def test_parent_launchers_take_the_earlier_entry_points(kernel, case,
                              **kw)
     assert run(torch.zeros((2, h, w), dtype=torch.int32)).shape == (2, h, w)
     args = seen["args"]
-    _conforms(args, ab.PARENT_ARGTYPES[kernel])
+    _conforms(args, _build.argtypes(f"{kernel}_launch",
+                                    PARENT_SHARPEN[kernel]))
     assert np.array_equal(maps.centres, np.asarray(cen).reshape(2, 5))
     if kernel == "cas_sharpen":
         assert args[3:8] == (2, h, w, h, w)
@@ -409,7 +475,8 @@ def test_parent_floor_takes_the_earlier_entry_point(plan, monkeypatch):
     assert run(torch.zeros((2, h, w), dtype=torch.int32)).shape == (
         2, g["out_h"], g["out_w"])
     args = seen["args"]
-    _conforms(args, ab.PARENT_ARGTYPES["dma_floor"])
+    _conforms(args, _build.argtypes("dma_floor_launch",
+                                    PARENT_FLOOR_PROTOTYPE))
     copy = g["stage"] == "copy"
     assert (args[4] is None) == (args[5] is None) == copy    # taps
     assert (args[6] is None) == (args[7] is None) == copy    # four-tap floors

@@ -16,6 +16,8 @@ The CUDA kernel itself runs only on the card: `python3 chip_smoke.py`
 holds it against dma_floor_reference there, word for word.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -27,8 +29,10 @@ from openvr_fsr_tpu.kernels import sol as jsol  # noqa: E402
 
 from openvr_fsr_tpu_torch import Config, Pipeline  # noqa: E402
 from openvr_fsr_tpu_torch.core import constants as C  # noqa: E402
-from openvr_fsr_tpu_torch.kernels import _maps  # noqa: E402
+from openvr_fsr_tpu_torch.kernels import _build, _maps  # noqa: E402
 from openvr_fsr_tpu_torch.kernels import sol  # noqa: E402
+
+from torch_entry_calls import entry_calls  # noqa: E402,F401
 
 PLANS = {
     "fsr_fused": dict(render_scale=0.75),
@@ -387,7 +391,7 @@ def test_full_size_boxes_fit_tma(name):
     assert floor.read_bytes == 4 * sol.floor_loads(g)
 
 
-def test_floor_refuses_a_pitch_tma_cannot_take(monkeypatch):
+def test_floor_refuses_a_pitch_tma_cannot_take(entry_calls):
     """On the card the floor's launch refuses a frame whose row pitch is not
     a multiple of 16 bytes (the upscalers' unpadded 1683-word rows) with a
     ValueError, before any launch; the ring pitch reaches the entry point
@@ -395,25 +399,18 @@ def test_floor_refuses_a_pitch_tma_cannot_take(monkeypatch):
     argtypes."""
     g = _geometry("fsr_fused", 45, 61, 0.5)
     floor = sol.build_dma_floor(g)
-    cells = dict(zip(floor.__code__.co_freevars,
-                     (c.cell_contents for c in floor.__closure__)))
-    launch = cells["launch"]
-    seen = {}
-
-    def entry(*args):
-        seen["args"] = args
-        return 0
-    monkeypatch.setattr(sol, "_launch_fn", lambda: entry)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: type(
-        "S", (), {"cuda_stream": 0})())
     with pytest.raises(ValueError, match="pitch"):
-        launch(torch.zeros((2, 45, 61), dtype=torch.int32))
-    assert not seen
+        floor.launch(torch.zeros((2, 45, 61), dtype=torch.int32))
+    assert not entry_calls
     hp, wp = floor.pad_to
-    out, err = launch(torch.zeros((2, hp, wp), dtype=torch.int32))
+    out, err = floor.launch(torch.zeros((2, hp, wp), dtype=torch.int32))
     assert err == 0 and out.shape == (2, g["out_h"], g["out_w"])
-    args = seen["args"]
-    assert len(args) == len(sol.FLOOR_ARGTYPES)
+    ((library, entry, args),) = entry_calls
+    assert (library, entry) == ("dma_floor", "dma_floor_launch")
+    types = _build.argtypes(entry, (_build.CSRC / "dma_floor.cu").read_text())
+    assert len(args) == len(types)
+    for a, t in zip(args, types):      # in the types of its argtypes
+        assert isinstance(a, float if t is ctypes.c_float else int), (a, t)
     assert args[3] == len(floor.tiles) == 2 * len(g["tile_y0"]) * len(
         g["tile_x0"])
     assert args[4] == floor.n_spans == 0        # the list form has no spans

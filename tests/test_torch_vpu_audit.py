@@ -555,15 +555,15 @@ def test_wt_swizzle_is_a_bijection():
 def test_ab_drives_the_tensor_probe_through_another_entry():
     """tools/ab.py --kernel mxu_rate runs the earlier build through the
     probe's own wrapper with its entry point swapped in for the call (the
-    prototype is unchanged), and restores it after."""
+    prototype is unchanged), and restores the binder after."""
+    from openvr_fsr_tpu_torch.kernels import _build
     from openvr_fsr_tpu_torch.tools import ab
-    original = sol._probe_launch
+    original = _build.entry_point
     seen = []
-    run = ab._through_entry("mxu_rate", "entry",
-                            lambda: seen.append(sol._probe_launch(
-                                "mxu_rate", 4, 3)))
+    run = ab._through_entry("entry", lambda: seen.append(_build.entry_point(
+        "mxu_rate", "mxu_rate_launch")))
     run()
-    assert seen == ["entry"] and sol._probe_launch is original
+    assert seen == ["entry"] and _build.entry_point is original
     assert "mxu_rate" in ab.PROBE_KERNELS and "dma_floor" in ab.KERNELS
 
 
@@ -592,14 +592,14 @@ def test_ab_drives_the_probe_through_another_entry():
     call (and restored after), at the shares the earlier source filled the
     card with: 130-thread CTAs of 58 KB at the audit's k, 3 per SM, on 132
     SMs over 128 columns."""
+    from openvr_fsr_tpu_torch.kernels import _build
     from openvr_fsr_tpu_torch.tools import ab
-    original = sol._probe_launch
+    original = _build.entry_point
     seen = []
-    run = ab._through_entry("vmem_rate", "entry",
-                            lambda x: seen.append(
-                                (x, sol._probe_launch("vmem_rate", 3, 5))))
+    run = ab._through_entry("entry", lambda x: seen.append(
+        (x, _build.entry_point("vmem_rate", "vmem_rate_launch"))))
     run(7)
-    assert seen == [(7, "entry")] and sol._probe_launch is original
+    assert seen == [(7, "entry")] and _build.entry_point is original
     k_lo, k_hi, steps = A.PROBES["vmem"][0]
     smem = (-(-k_hi // 4) * 4 * 130 + 130) * 4
     per_sm = min(sol.SM_SMEM // (smem + 1024), 2048 // (32 * 5), 32)
