@@ -33,7 +33,8 @@ exits non-zero before the result lines:
      parent's fsr_fused, nis_scaler, cas_upscale, dma_floor and
      rcas_sharpen libraries (the inside kernels, full, half and band, the
      floor's TMA forms, B2's copy pass) but those REDESIGNED names (B2's
-     RGBA8 inside kernel, on the texels' levels) must have compiled to the
+     RGBA8 inside kernel, on the texels' levels; B1's inside kernels, with
+     EASU's terms per window texel) must have compiled to the
      same SASS in the current build (tools/ab.py::same_sass), else the run
      fails;
   2. each kernel against its plain torch version on the card, at full
@@ -303,8 +304,13 @@ PARENT_KERNELS = ("fsr_fused", "nis_scaler", "cas_upscale", "dma_floor",
                   "rcas_sharpen")
 # (kernel function, texel bits) whose SASS the current source changed on
 # purpose: B2's inside kernel at RGBA8 (full precision), which computes
-# RCAS on the texels' 256 levels (csrc/rcas_sharpen.cu)
-REDESIGNED = (("rcas_sharpen_inside_kernel", 8),)
+# RCAS on the texels' 256 levels (csrc/rcas_sharpen.cu), and B1's inside
+# kernels (whole and band, full and half, both codecs), which compute
+# EASU's analysis terms once per window texel (csrc/fsr_fused.cu)
+REDESIGNED = (("rcas_sharpen_inside_kernel", 8),
+              *((f"fsr_{form}inside_kernel", bits)
+                for form in ("", "band_", "half_", "band_half_")
+                for bits in (8, 10)))
 # the libraries of the bilinear pass (csrc/bilinear_pass.cuh), and the
 # conversion instructions none of its instantiations may hold
 PASS_KERNELS = ("fsr_fused", "nis_scaler", "cas_upscale")

@@ -38,18 +38,29 @@
 //     window, the sample maps of its 34 haloed columns and rows, and the
 //     classes of the 4x4 groups around it are copied into a two-slot ring
 //     in shared memory with cp.async, so the next tile's copies are in
-//     flight while this one computes. The window is decoded once into f32
-//     RGB (one 16-byte load per tap afterwards, where each stage-1
-//     position would decode 12 texels). Stage 1 (EASU or bilinear by each
+//     flight while this one computes. The window texels the tile's
+//     positions read are decoded once into f32 RGB (one 16-byte load per
+//     tap afterwards, where each stage-1 position would decode 12 texels)
+//     and EASU's luma (a plane of its own: the terms pass reads it
+//     without bank conflicts). EASU's analysis of a
+//     quadrant centre (FsrEasuSetF but its weighting: dirX, dirY, lenX²,
+//     lenY² of the texel's 4-neighbour cross) depends on the texel alone,
+//     so a terms pass computes it once for every window texel the tile's
+//     positions take as a centre (26x26 at renderScale 0.75, where the
+//     positions would analyse 4 centres each: each texel's terms once
+//     instead of about 7 times, its luma once instead of about 16). Stage
+//     1 (EASU, its four sums from the centres' terms, or bilinear by each
 //     position's own group class, then UNORM) runs over the 34x34 haloed
 //     tile, 1156 positions spread evenly over 256 threads, into shared
 //     memory as f32; then each thread runs RCAS (or the tint) for 4 outputs
-//     of one column and stores them, a warp writing whole rows. Three
-//     barriers per tile; the loads of the next tile cross all three. A
+//     of one column and stores them, a warp writing whole rows. Four
+//     barriers per tile; the loads of the next tile cross all four. A
 //     slot holds 6.4 KB of window texels in RGBA8 and 12.8 KB in
-//     R10G10B10A2 (8-byte texels, one 8-byte cp.async each): the CTA's
-//     shared memory grows from about 53 KB to 66 KB, and two CTAs, the
-//     launch bound, still fit an SM (chip_smoke.py phase 1 prints both).
+//     R10G10B10A2 (8-byte texels, one 8-byte cp.async each); with the
+//     38x38 terms (23.1 KB) and the luma plane (6.4 KB) the CTA's shared
+//     memory is about 84.1 KB in RGBA8 and 96.9 KB in R10G10B10A2, and two
+//     CTAs, the launch bound, still fit an SM (chip_smoke.py phase 1
+//     prints both).
 // Both launch on the caller's stream; an empty list launches nothing.
 //
 // A window is staged edge-clamped (its origin may lie left of or above the
@@ -104,6 +115,7 @@ constexpr int kGroup = 16;            // the foveation group edge
 constexpr int kTile = 32;             // CTA output tile edge (kernels/_maps.py FSR_TILE)
 constexpr int kHalo = kTile + 2;      // stage-1 tile with the RCAS halo
 constexpr int kWin = 40;              // staged input window edge (kernels/_maps.py IN_TILE)
+constexpr int kTerms = kWin - 2;      // the window's interior, where every quadrant centre lies
 constexpr int kNbr = kTile / kGroup + 2;   // group neighbourhood edge of a haloed tile
 constexpr int kThreads = 256;
 constexpr int kRun = kTile * kTile / kThreads;   // outputs per thread (4)
@@ -182,7 +194,13 @@ struct Slot {
 template <class C>
 struct Smem {
   Slot<C> slot[2];            // the ring
-  float4 win[kWin][kWin];     // this tile's window decoded: R, G, B in [0, 1]
+  // this tile's window decoded (R, G, B in [0, 1]) and EASU's luma in P,
+  // written only over the tile's tap span (tile_spans)
+  float4 win[kWin][kWin];
+  float lum[kWin][kWin];
+  // EASU's analysis terms of window texel (1 + i, 1 + j) (easu_terms):
+  // dirX, dirY, lenX², lenY²; written only over the tile's terms span
+  float4 terms[kTerms][kTerms];
   float q[3][kHalo][kHalo];   // stage 1 of the haloed tile, UNORM-quantized
 };
 
@@ -217,22 +235,204 @@ __device__ __forceinline__ void stage_tile(const Params<C>& p, const Tile& t, Sl
   }
 }
 
+// ---- EASU split at FsrEasuSetF's weighting ----------------------------------
+// ffx::easu's four FsrEasuSetF calls each take the 4-neighbour cross of one
+// quadrant centre (f, g, j, k); all of a call but its weighting by the
+// quadrant's w and the sums is a function of that centre texel alone. So
+// the inside kernel computes it once per window texel (easu_terms, in the
+// terms pass) and each stage-1 position weights and sums its four centres'
+// terms (easu_from_terms): the same ops on the same values, so the same
+// bits as ffx::easu at either P.
+
+// A texel's EASU luma in P from its decoded channels, as ffx::easu computes
+// it for each tap (the channels rounded to P where they are read).
+template <class P>
+__device__ __forceinline__ float easu_luma(float r, float g, float b) {
+  return P::r(P::r(P::r(b) * 0.5f) + P::r(P::r(P::r(r) * 0.5f) + P::r(g)));
+}
+
+// The analysis terms of the texel whose luma is at c, in the window's luma
+// plane: ffx::easu_set's ops in its order, with the texel as the cross's
+// centre C and A, B, D, E its neighbours above, left, right and below.
+// Returns dirX, dirY, lenX², lenY² (the squares f32 at either P, as the
+// length sum takes them).
+template <class P>
+__device__ __forceinline__ float4 easu_terms(const float* c) {
+  const float lA = c[-kWin], lB = c[-1], lC = c[0], lD = c[1], lE = c[kWin];
+  const float dc = P::r(lD - lC);
+  const float cb = P::r(lC - lB);
+  float lenX = P::r(ffx::aprx_lo_rcp(ffx::max_nan(fabsf(dc), fabsf(cb))));
+  const float dirX = P::r(lD - lB);
+  lenX = ffx::sat(P::r(fabsf(dirX) * lenX));
+  const float ec = P::r(lE - lC);
+  const float ca = P::r(lC - lA);
+  float lenY = P::r(ffx::aprx_lo_rcp(ffx::max_nan(fabsf(ec), fabsf(ca))));
+  const float dirY = P::r(lE - lA);
+  lenY = ffx::sat(P::r(fabsf(dirY) * lenY));
+  return make_float4(dirX, dirY, lenX * lenX, lenY * lenY);
+}
+
+// ffx::easu from the terms of the four quadrant centres (term: centre f's,
+// in the terms array: g at + 1, j at + kTerms, k at + kTerms + 1) and the 12
+// taps t (in P; for the filter and the dering clamp): the four sets' weights
+// and sums in FsrEasuSetF's order, then ffx::easu after the sums, op for op.
+template <class P>
+__device__ __forceinline__ void easu_from_terms(const float t[12][3], const float4* term,
+                                                float ppx, float ppy, float out[3]) {
+  using namespace ffx;
+  const float nx = P::r(1.0f - ppx), ny = P::r(1.0f - ppy);
+  const float w[4] = {P::r(nx * ny), P::r(ppx * ny), P::r(nx * ppy), P::r(ppx * ppy)};
+  const int at[4] = {0, 1, kTerms, kTerms + 1};   // f, g, j, k
+  float dir_x = 0.0f, dir_y = 0.0f, len = 0.0f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 c = term[at[q]];
+    dir_x = P::r(dir_x + P::r(c.x * w[q]));
+    len = len + c.z * w[q];
+    dir_y = P::r(dir_y + P::r(c.y * w[q]));
+    len = len + c.w * w[q];
+  }
+
+  float dirR = P::r(P::r(dir_x * dir_x) + P::r(dir_y * dir_y));
+  const bool zro = dirR < 1.0f / 32768.0f;
+  dirR = P::r(aprx_lo_rsq(dirR));
+  dirR = zro ? 1.0f : dirR;
+  dir_x = zro ? 1.0f : dir_x;
+  dir_x = P::r(dir_x * dirR);
+  dir_y = P::r(dir_y * dirR);
+
+  len = len * 0.5f;
+  len = len * len;
+  const float stretch = P::r(P::r(P::r(dir_x * dir_x) + P::r(dir_y * dir_y)) *
+                             P::r(aprx_lo_rcp(max_nan(fabsf(dir_x), fabsf(dir_y)))));
+  const float len2_x = 1.0f + P::r(stretch - 1.0f) * len;
+  const float len2_y = 1.0f + -0.5f * len;
+  const float lob = 0.5f + P::kEasuLob * len;
+  const float clp = P::r(aprx_lo_rcp(lob));
+
+  // FsrEasuTapF (ffx_fsr1.h:239-272) with the per-offset products shared:
+  // vx = off_x*dir_x + off_y*dir_y, vy = off_x*(-dir_y) + off_y*dir_x.
+  const float ndir_y = -dir_y;
+  float pvx_x[4], pvx_y[4], pvy_x[4], pvy_y[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float offx = P::r(static_cast<float>(i - 1) - ppx);
+    const float offy = P::r(static_cast<float>(i - 1) - ppy);
+    pvx_x[i] = P::r(offx * dir_x);
+    pvx_y[i] = P::r(offy * dir_y);
+    pvy_x[i] = P::r(offx * ndir_y);
+    pvy_y[i] = P::r(offy * dir_x);
+  }
+
+  float aC[3] = {0.0f, 0.0f, 0.0f};
+  float aW = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 12; ++k) {
+    const int ix = tap_dx(k) + 1, iy = tap_dy(k) + 1;
+    float vx = P::r(pvx_x[ix] + pvx_y[iy]);
+    float vy = P::r(pvy_x[ix] + pvy_y[iy]);
+    vx = vx * len2_x;
+    vy = vy * len2_y;
+    const float d2 = min_nan(vx * vx + vy * vy, clp);
+    float wB = P::kEasuWB * d2 + -1.0f;
+    float wA = lob * d2 + -1.0f;
+    wB = wB * wB;
+    wA = wA * wA;
+    wB = static_cast<float>(25.0 / 16.0) * wB + static_cast<float>(-(25.0 / 16.0 - 1.0));
+    const float wk = wB * wA;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) aC[c] = aC[c] + t[k][c] * wk;
+    aW = aW + wk;
+  }
+  const float inv_w = P::r(rcp(aW));  // the resolve is aC * (1/aW) (ffx_fsr1.h:434)
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float mn4 = min_nan(min3(t[TF][c], t[TK][c], t[TJ][c]), t[TG][c]);
+    const float mx4 = max_nan(max3(t[TF][c], t[TK][c], t[TJ][c]), t[TG][c]);
+    out[c] = min_nan(mx4, max_nan(mn4, aC[c] * inv_w));
+  }
+}
+// -----------------------------------------------------------------------------
+
+// A rectangle of window or terms coordinates: first column and row, columns
+// and rows.
+struct Span {
+  int x0, y0, w, h;
+};
+
+// What tile t's stage 1 reads, from its slot s: the window texels of every
+// tap of its in-image haloed positions (taps, window coordinates: EASU's
+// floor - 1 to floor + 2, the bilinear floor to floor + 1) and the quadrant
+// centres whose terms it weights, floor + 0 and floor + 1 (terms, terms
+// coordinates: window - 1). The sample maps are nondecreasing, so the words
+// of the first and last in-image positions bound both (the words of
+// out-of-image positions are zero-filled: never read). kernels/fsr.py
+// counts the terms spans (launch work `analysed`).
+struct Spans {
+  Span taps, terms;
+};
+template <class C>
+__device__ __forceinline__ Spans tile_spans(const Params<C>& p, const Tile& t, const Slot<C>& s) {
+  // haloed column j is output column ox0 - 1 + j: in the image from
+  // j = 1 - ox0 (ox0 a multiple of kTile) to j = out_w - ox0
+  const int jx0 = t.ox0 > 0 ? 0 : 1, jx1 = min(kHalo - 1, p.out_w - t.ox0);
+  const int jy0 = t.oy0 > 0 ? 0 : 1, jy1 = min(kHalo - 1, p.out_h - t.oy0);
+  const int wx0 = p.tile_x0[t.tx], wy0 = p.tile_y0[t.ty];
+  const int fx0 = static_cast<int>(s.maps[0][jx0]), fx1 = static_cast<int>(s.maps[0][jx1]);
+  const int fy0 = static_cast<int>(s.maps[4][jy0]), fy1 = static_cast<int>(s.maps[4][jy1]);
+  const int bx0 = static_cast<int>(s.maps[1][jx0]), bx1 = static_cast<int>(s.maps[1][jx1]);
+  const int by0 = static_cast<int>(s.maps[5][jy0]), by1 = static_cast<int>(s.maps[5][jy1]);
+  Spans r;
+  r.taps.x0 = min(fx0 - 1, bx0) - wx0;
+  r.taps.y0 = min(fy0 - 1, by0) - wy0;
+  r.taps.w = max(fx1 + 2, bx1 + 1) - wx0 - r.taps.x0 + 1;
+  r.taps.h = max(fy1 + 2, by1 + 1) - wy0 - r.taps.y0 + 1;
+  r.terms = {fx0 - wx0 - 1, fy0 - wy0 - 1, fx1 - fx0 + 2, fy1 - fy0 + 2};
+  return r;
+}
+
+// Calls f(y, x) at every point of span r, the points spread evenly over the
+// CTA's threads row by row: thread tid takes points tid, tid + kThreads, ...
+// The row of point q is q / r.w, taken as the truncated product (q + 0.5) *
+// rcp(r.w): (q + 0.5) / r.w lies at least 0.5 / r.w from an integer, far
+// beyond the product's rounding error for q <= kThreads and r.w <= kWin, so
+// no thread waits on an integer division's chain at the start of a pass.
+template <class F>
+__device__ __forceinline__ void span_each(const Span& r, int tid, F&& f) {
+  const float inv = __frcp_rn(static_cast<float>(r.w));
+  int y = static_cast<int>((static_cast<float>(tid) + 0.5f) * inv), x = tid - y * r.w;
+  const int dy = static_cast<int>((static_cast<float>(kThreads) + 0.5f) * inv);
+  const int dx = kThreads - dy * r.w;
+  while (y < r.h) {
+    f(r.y0 + y, r.x0 + x);
+    x += dx;
+    y += dy;
+    if (x >= r.w) {
+      x -= r.w;
+      ++y;
+    }
+  }
+}
+
 // Stage 1 of haloed position (ly, lx) of tile t from its slot s and its
 // decoded window: EASU or the bilinear fallback by the position's own group
 // class, then the UNORM round trip; 0 outside the image (the RCAS Load()
 // rule). The window holds the edge-clamped texels of every unclamped tap
 // position, so a tap at a constant offset from the sample's floor needs no
-// clamp. EASU's taps and fractions are rounded to P, the bilinear's not.
+// clamp. EASU's taps and fractions are rounded to P, the bilinear's not;
+// its four sums take the quadrant centres' terms from the terms pass.
 template <class C, class P>
 __device__ __forceinline__ void stage1(const Params<C>& p, const Tile& t, const Slot<C>& s,
-                                       const float4 (*win)[kWin], int ly, int lx, float rgb[3]) {
+                                       const float4 (*win)[kWin], const float4 (*terms)[kTerms],
+                                       int ly, int lx, float rgb[3]) {
   rgb[0] = rgb[1] = rgb[2] = 0.0f;
   const int oy = t.oy0 - 1 + ly, ox = t.ox0 - 1 + lx;
   if (oy < 0 || oy >= p.out_h || ox < 0 || ox >= p.out_w) return;
   const int wx0 = p.tile_x0[t.tx], wy0 = p.tile_y0[t.ty];
   if (s.cls[(oy >> 4) - 2 * t.ty + 1][(ox >> 4) - 2 * t.tx + 1]) {
-    const float4* at =
-        &win[static_cast<int>(s.maps[4][ly]) - wy0][static_cast<int>(s.maps[0][lx]) - wx0];
+    const int fy = static_cast<int>(s.maps[4][ly]) - wy0;
+    const int fx = static_cast<int>(s.maps[0][lx]) - wx0;
+    const float4* at = &win[fy][fx];
     float tap[12][3];
 #pragma unroll
     for (int k = 0; k < 12; ++k) {
@@ -241,8 +441,8 @@ __device__ __forceinline__ void stage1(const Params<C>& p, const Tile& t, const 
       tap[k][1] = P::r(texel.y);
       tap[k][2] = P::r(texel.z);
     }
-    ffx::easu<P>(tap, P::r(__uint_as_float(s.maps[2][lx])), P::r(__uint_as_float(s.maps[6][ly])),
-                 rgb);
+    easu_from_terms<P>(tap, &terms[fy - 1][fx - 1], P::r(__uint_as_float(s.maps[2][lx])),
+                       P::r(__uint_as_float(s.maps[6][ly])), rgb);
   } else {
     const float4* at =
         &win[static_cast<int>(s.maps[5][ly]) - wy0][static_cast<int>(s.maps[1][lx]) - wx0];
@@ -283,25 +483,38 @@ __device__ __forceinline__ void inside_tiles(const Params<C>& p, const Band& ban
     }
     copy_commit();      // possibly empty: the wait below then still covers tile k
     copy_wait_prior();
-    __syncthreads();    // slot k & 1 has landed; RCAS of tile k - 1 is done with s_q
-
-    // decode the window once: stage 1 reads each texel up to 16 times
-    for (int j = tid; j < kWin * kWin; j += kThreads) {
-      const typename C::Texel texel = s.win[j / kWin][j % kWin];
-      sm.win[j / kWin][j % kWin] =
-          make_float4(C::channel(texel, 0), C::channel(texel, 1), C::channel(texel, 2), 0.0f);
-    }
+    // slot k & 1 has landed; stage 1 of tile k - 1 is done with sm.win and
+    // sm.terms, and the terms pass with sm.lum (since their own last
+    // barriers), RCAS of tile k - 1 with s_q
     __syncthreads();
+
+    // decode the texels stage 1 reads once, with each one's luma: stage 1
+    // reads each texel up to 16 times, the terms pass each luma up to 5
+    const Spans spans = tile_spans(p, cur, s);
+    span_each(spans.taps, tid, [&](int y, int x) {
+      const typename C::Texel texel = s.win[y][x];
+      const float r = C::channel(texel, 0), g = C::channel(texel, 1), b = C::channel(texel, 2);
+      sm.win[y][x] = make_float4(r, g, b, 0.0f);
+      sm.lum[y][x] = easu_luma<P>(r, g, b);
+    });
+    __syncthreads();    // ends the decode's writes: the terms pass reads the lumas
+
+    span_each(spans.terms, tid, [&](int y, int x) {
+      sm.terms[y][x] = easu_terms<P>(&sm.lum[y + 1][x + 1]);
+    });
+    __syncthreads();    // ends the terms pass's writes: stage 1 reads the terms
 
     for (int j = tid; j < kHalo * kHalo; j += kThreads) {
       const int ly = j / kHalo, lxh = j % kHalo;
       float rgb[3];
-      stage1<C, P>(p, cur, s, sm.win, ly, lxh, rgb);
+      stage1<C, P>(p, cur, s, sm.win, sm.terms, ly, lxh, rgb);
 #pragma unroll
       for (int c = 0; c < 3; ++c) s_q[c][ly][lxh] = rgb[c];
     }
     // the class of this thread's outputs, read before the slot is reused
     const bool inside = s.cls[(ly0 >> 4) + 1][(lx >> 4) + 1] != 0;
+    // ends stage 1's writes of s_q (RCAS reads them) and its reads of sm.win
+    // and sm.terms, before the next tile's decode and terms pass rewrite them
     __syncthreads();
 
     const int ox = cur.ox0 + lx;

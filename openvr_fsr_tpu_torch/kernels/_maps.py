@@ -64,7 +64,8 @@ __all__ = ["FsrMaps", "fsr_maps", "cas_upscale_maps", "band_strip",
            "NisMaps", "nvscaler_maps", "SharpenMaps", "sharpen_maps",
            "input_padding", "dma_geometry", "sharpen_geometry",
            "word_geometry", "band_geometry",
-           "group_classes", "tile_lists", "launch_work", "TILE", "FSR_TILE",
+           "group_classes", "tile_lists", "launch_work", "analysed_texels",
+           "TILE", "FSR_TILE",
            "IN_TILE", "CAS_IN_TILE", "NIS_TILE", "NIS_IN_TILE", "NIS_EDGE_TILE",
            "SHARPEN_TILE", "CAS_SHARPEN_IN_TILE", "NIS_SHARPEN_IN_TILE",
            "THREADS"]
@@ -216,6 +217,25 @@ def launch_work(cls, group, out_h, out_w, n_inside, n_outside, rows=None):
     return {"kernels": int(n_inside > 0) + int(n_outside > 0),
             "inside": inside,
             "outside": cls.shape[0] * (r1 - r0) * ow - inside}
+
+
+def analysed_texels(maps):
+    """The input positions whose EASU analysis terms one launch of a B1
+    build computes (its launch work's `analysed`): per inside tile, the
+    quadrant centres fi + 0 and fi + 1 (fi the EASU floor, row_i[0] and
+    col_i[0]) of its haloed outputs in the image, which csrc/fsr_fused.cu
+    (tile_spans) bounds by the floors of the first and last of them (a
+    floor map is nondecreasing): (last - first + 2) columns times as many
+    rows."""
+    def spans(fi, n_out):
+        t = np.arange(-(-n_out // FSR_TILE)) * FSR_TILE
+        fi = np.asarray(fi, np.int64)
+        last, first = np.minimum(t + FSR_TILE, n_out - 1), np.maximum(t - 1, 0)
+        return fi[last] - fi[first] + 2
+
+    sx, sy = spans(maps.col_i[0], maps.out_w), spans(maps.row_i[0], maps.out_h)
+    tile = np.asarray(maps.inside_tiles) % (len(sy) * len(sx))
+    return int((sy[tile // len(sx)] * sx[tile % len(sx)]).sum())
 
 
 def _tile_flags(ids, shape):

@@ -43,9 +43,9 @@ from ._common import (UPSCALE_TABLES, DeviceTables, band_fn, circle_mask,
                       class_launch, debug_tint, kernel_fn, pack, pointers,
                       texel_words, tile_lists, tint_vector, unpack,
                       working_type)
-from ._maps import (FSR_TILE, IN_TILE, TILE, band_geometry, band_layout,
-                    band_output_rows, band_strip, dma_geometry, fsr_maps,
-                    input_padding, launch_work, word_geometry)
+from ._maps import (FSR_TILE, IN_TILE, TILE, analysed_texels, band_geometry,
+                    band_layout, band_output_rows, band_strip, dma_geometry,
+                    fsr_maps, input_padding, launch_work, word_geometry)
 
 __all__ = ["build_fsr_fused", "fsr_fused_reference", "fsr_band_layout",
            "circle_mask"]
@@ -173,6 +173,9 @@ def build_fsr_fused(batch, in_h, in_w, out_w, out_h, *, sharpness, centres,
     geometry = word_geometry(geometry, texel_words(cb))
     work = launch_work(m.group_cls, (TILE, TILE), OH, OW, n_inside,
                        n_outside, (r0, r1))
+    # the input positions whose EASU analysis terms the inside kernel's
+    # terms pass computes, once per tile (csrc/fsr_fused.cu tile_spans)
+    work["analysed"] = analysed_texels(m)
     if band_range is not None:
         return band_fn("fused FSR strip", B, (rows, W), input_padding(H, W),
                        reference, launch,

@@ -14,7 +14,8 @@ import torch
 from .common import (aprx_lo_rcp, aprx_lo_rsq, lit, rcp, sat, min3, max3,
                      strip_rows, via_f32)
 
-__all__ = ["easu", "easu_core", "easu_index_maps", "TAP_ORDER"]
+__all__ = ["easu", "easu_core", "easu_resolve", "easu_index_maps",
+           "TAP_ORDER"]
 
 # exact FsrEasuF accumulation order (ffx_fsr1.h:423-434)
 TAP_ORDER = [
@@ -29,18 +30,17 @@ _K_W25M = -(25.0 / 16.0 - 1.0)
 _K_DIRMIN = 1.0 / 32768.0
 
 
-def _easu_weights(L, ppx, ppy, dt=torch.float32):
-    """Direction/anisotropy analysis from the luma dict L
-    (ffx_fsr1.h:368-421). Returns tap_w, the per-tap weight function.
+def _easu_direction(L, ppx, ppy, dt=torch.float32):
+    """The four FsrEasuSetF sums of the direction/anisotropy analysis from
+    the luma dict L (ffx_fsr1.h:368-404): (dir_x, dir_y, length).
 
     dt=bf16 is the half schedule of the JAX package's _easu_weights: the
     sums and products of lumas, weights and directions in bf16, the
     approximations through f32 (via_f32), and where the JAX package's f32
     literals lift a value to f32 (sat's, in lenX and lenY), everything that
-    follows from it in f32: the length sum, len2, lob and the tap weights."""
-    lo_rcp, lo_rsq = via_f32(aprx_lo_rcp, dt), via_f32(aprx_lo_rsq, dt)
-    k_lob = lit((1.0 / 4.0 - 0.04) - 0.5, dt)
-    k_wb = lit(2.0 / 5.0, dt)
+    follows from it in f32: the length sum here, and len2, lob and the tap
+    weights in easu_resolve."""
+    lo_rcp = via_f32(aprx_lo_rcp, dt)
     bL, cL = L[(0, -1)], L[(1, -1)]
     eL, fL, gL, hL = L[(-1, 0)], L[(0, 0)], L[(1, 0)], L[(2, 0)]
     iL, jL, kL, lL = L[(-1, 1)], L[(0, 1)], L[(1, 1)], L[(2, 1)]
@@ -69,8 +69,16 @@ def _easu_weights(L, ppx, ppy, dt=torch.float32):
     acc = easu_set(acc, (1.0 - ppx) * (1.0 - ppy), bL, eL, fL, gL, jL)
     acc = easu_set(acc, ppx * (1.0 - ppy), cL, fL, gL, hL, kL)
     acc = easu_set(acc, (1.0 - ppx) * ppy, fL, iL, jL, kL, nL)
-    acc = easu_set(acc, ppx * ppy, gL, jL, kL, lL, oL)
-    dir_x, dir_y, length = acc
+    return easu_set(acc, ppx * ppy, gL, jL, kL, lL, oL)
+
+
+def _easu_weights(direction, ppx, ppy, dt=torch.float32):
+    """The rest of the analysis after the sums `direction` (_easu_direction;
+    ffx_fsr1.h:405-421). Returns tap_w, the per-tap weight function."""
+    lo_rcp, lo_rsq = via_f32(aprx_lo_rcp, dt), via_f32(aprx_lo_rsq, dt)
+    k_lob = lit((1.0 / 4.0 - 0.04) - 0.5, dt)
+    k_wb = lit(2.0 / 5.0, dt)
+    dir_x, dir_y, length = direction
 
     dirR = dir_x * dir_x + dir_y * dir_y
     zro = dirR < _K_DIRMIN
@@ -134,14 +142,22 @@ def easu_core(taps, ppx, ppy, dt=torch.float32):
     for off, c in taps.items():
         r, g, b = c.unbind(-3)
         L[off] = b * 0.5 + (r * 0.5 + g)    # luma*2 (ffx_fsr1.h:363-366)
-    tap_w = _easu_weights(L, ppx, ppy, dt)
+    return easu_resolve(taps, _easu_direction(L, ppx, ppy, dt), ppx, ppy, dt)
+
+
+def easu_resolve(taps, direction, ppx, ppy, dt=torch.float32):
+    """FsrEasuF after the four FsrEasuSetF sums (ffx_fsr1.h:405-437): the
+    tap weights from `direction` ((dir_x, dir_y, length): the four sums),
+    the 12-tap filter and the dering clamp. taps, ppx and ppy as easu_core
+    has them, already in dt. Returns the (..., 3, h, w) RGB in f32."""
+    tap_w = _easu_weights(direction, ppx, ppy, dt)
 
     cf, cg, cj, ck = taps[(0, 0)], taps[(1, 0)], taps[(0, 1)], taps[(1, 1)]
     min4 = torch.minimum(min3(cf, ck, cj), cg)
     max4 = torch.maximum(max3(cf, ck, cj), cg)
 
     aC = torch.zeros_like(cf)
-    aW = torch.zeros_like(L[(0, 0)])
+    aW = torch.zeros_like(cf.select(-3, 0))   # a luma plane's shape and dt
     for dx, dy in TAP_ORDER:
         w = tap_w(dx, dy)
         aC = aC + taps[(dx, dy)] * w.unsqueeze(-3)

@@ -85,11 +85,14 @@ TENSOR_MACS_PER_SM_CLOCK = 2048
 # its source (staging stores and recomputed halos not counted), inside the
 # circle and on the fallback:
 SMEM_WORDS = {
-    # fsr_fused.cu:181 the group class, :183 + :192 4 map words and :187
-    # 12 decoded taps of 16 bytes (48 words) for EASU, :259 + :264-267 15
-    # f32 for RCAS; fallback: the outside pass (bilinear_pass.cuh) reads no
-    # shared memory
-    "fsr_fused": (68, 0),
+    # fsr_fused.cu:432 the group class, :433-434 + :444 4 map words, :439
+    # 12 decoded taps of 16 bytes (48 words) and :289 the 4 quadrant
+    # centres' terms of 16 bytes (16) for EASU, :530 + :535-539 15 f32 for
+    # RCAS: 84 (the terms pass's 5 lumas per analysed texel, :261, about 3
+    # words per position at renderScale 0.75, are not counted, as the
+    # staging is not: the floor stays a lower bound); fallback: the outside
+    # pass (bilinear_pass.cuh) reads no shared memory
+    "fsr_fused": (84, 0),
     # rcas_sharpen.cu's RGBA8 kernel on the levels, per output of a run of
     # 4 in one column: :333-334 + :343-345 the 5 cross taps, one packed
     # word each, at the first (5), at each later one only the new left,

@@ -130,6 +130,8 @@ def _case(name, radius):
               "inside": inside, "outside": B * (r1 - r0) * OW - inside}
     if name == "rcas":      # RGBA8 at full precision: every inside output
         expect["levels"] = inside      # on the texels' 256 levels
+    if name.startswith("fsr"):  # the texels whose EASU terms B1 computes
+        expect["analysed"] = _maps.analysed_texels(m)   # (its inside tiles')
     return fn, shape, expect
 
 

@@ -270,7 +270,8 @@ def test_path_ops_per_pixel(kernel):
 
 
 def test_smem_words_recounted_from_the_sources():
-    """The redesigned kernels' shared words per inside pixel: B5 reads its
+    """The redesigned kernels' shared words per inside pixel: B1 reads 4
+    quadrant centres' EASU terms (16 words) beside its 12 taps; B5 reads its
     12 taps from three f32 planes; B3 the two diagonal phases' table rows
     per output, the fx rows per run of 6, and on each reload / one-row
     step of the source row 52 / 14 words (lumas and edge weights). Its
@@ -279,7 +280,8 @@ def test_smem_words_recounted_from_the_sources():
     from openvr_fsr_tpu_torch.kernels._maps import nvscaler_maps
     assert A.SMEM_WORDS["nis_scaler"] == (44, 0)
     assert A.SMEM_WORDS["cas_upscale"] == (36, 0)
-    assert A.SMEM_WORDS["fsr_fused"] == (68, 0)
+    # B1: 1 class + 4 map words + 12 taps x 4 + 4 centres' terms x 4 + 15
+    assert A.SMEM_WORDS["fsr_fused"] == (1 + 4 + 48 + 16 + 15, 0) == (84, 0)
     cfg = C.nvscaler_update_config(A.NIS_SHARPNESS, 1683, 1869, 1683, 1869,
                                    2244, 2492, 2244, 2492)
     m = nvscaler_maps(2, 1869, 1683, 2244, 2492, cfg,
