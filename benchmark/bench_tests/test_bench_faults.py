@@ -26,6 +26,23 @@ def _run(small_cell, spec, name, hook=None, precision=None, seconds=0.4):
                     precision=precision, model_hook=hook)
 
 
+LONGEST_S = 12.8     # the longest window _run_until tries
+
+
+def _run_until(enough, small_cell, spec, name, hook=None):
+    """_run with a window that doubles from 0.4 s until the run has made
+    `enough(result)` of calls: a CPU shared with other test workers may
+    complete too few in 0.4 s for a fault to reach a sampled output."""
+    seconds = 0.4
+    while True:
+        r = _run(small_cell, spec, name, hook=hook, seconds=seconds)
+        ok = enough(r)
+        if ok or seconds >= LONGEST_S:
+            assert ok, f"too few calls in {seconds} s: {r['info']}"
+            return r
+        seconds *= 2
+
+
 def _altered(model):
     """An answer altered where it is produced: one texel of eye 1."""
     def call(x):
@@ -75,10 +92,25 @@ def test_control_half_precision_is_not_correct(spec, name, seed):
     assert c["value"] > c["limit"]
 
 
+INPUTS = 3       # every traffic mix's `inputs`
+
+
+def _stale_reaches_a_sample(r):
+    """A stale call serves the previous input from the second call on, and
+    a window samples a call on some input and the last call on that input:
+    past the first call once it has completed one call more than it has
+    inputs."""
+    return r["info"]["completed"] > INPUTS
+
+
 @pytest.mark.parametrize("name", RUNS)
 @pytest.mark.parametrize("fault", [_altered, _eye_left_out, _stale])
 def test_fault_is_not_correct(small_cell, spec, name, fault):
-    r = _run(small_cell, spec, name, hook=fault)
+    if fault is _stale:
+        r = _run_until(_stale_reaches_a_sample, small_cell, spec, name,
+                       hook=fault)
+    else:
+        r = _run(small_cell, spec, name, hook=fault)
     assert not r["correct"], r["checks"]
 
 
@@ -99,9 +131,12 @@ def test_stream_stale_eye_shows_in_tags(small_cell, spec, monkeypatch):
                     out[...] = got
             return None if got is None else out
 
+    def enough(r):
+        got, pops[0] = pops[0], 0      # the next window counts afresh
+        return got > 41
+
     monkeypatch.setattr(nrt, "FrameRing", LossyRing)
-    r = _run(small_cell, spec, "fsr_rs075_stream90")
-    assert pops[0] > 41
+    r = _run_until(enough, small_cell, spec, "fsr_rs075_stream90")
     assert r["checks"]["tag_errors"]["value"] > 0
     assert not r["correct"]
 

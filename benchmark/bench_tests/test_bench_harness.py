@@ -68,10 +68,10 @@ def test_percentile_counts_every_pair_and_failures():
                                              latencies_ms=dropped),
                           percentile=_percentile_nearest)
     spec = Spec()
-    assert spec.reader("paced_p95_ms")(ctx) == 15000.0
+    assert spec.reader("latency_p95_ms.paced")(ctx) == 15000.0
     four = lat[:96] + [math.inf] * 4
     ctx.window.latencies_ms = four
-    assert spec.reader("paced_p95_ms")(ctx) == 2.0
+    assert spec.reader("latency_p95_ms.paced")(ctx) == 2.0
 
 
 class _Stall:
@@ -107,7 +107,7 @@ def test_a_stall_moves_the_closed_rate():
 
 def test_a_stall_moves_the_paced_tail():
     traffic = {"source": "device", "arrivals": "paced", "rate_hz": 90}
-    p95 = Spec().reader("paced_p95_ms")
+    p95 = Spec().reader("latency_p95_ms.paced")
     ctx = lambda w: SimpleNamespace(window=w, percentile=_percentile_nearest)  # noqa: E731
     quick = _window(traffic, _Stall(0, 0), seconds=1.0)
     slow = _window(traffic, _Stall(3, 0.25), seconds=1.0)
@@ -121,7 +121,7 @@ def test_a_stall_moves_the_stream_and_drops_count():
     the producer drops pairs, each a failure beyond every latency."""
     traffic = {"source": "host_rings", "arrivals": "paced", "rate_hz": 90,
                "ring_slots": 6}
-    p95 = Spec().reader("paced_p95_ms")
+    p95 = Spec().reader("latency_p95_ms.paced")
     srcs = [np.zeros((2, 8, 8), np.int32) for _ in range(3)]
     rig = load.StreamRig(srcs, 6, torch.device("cpu"))
     try:
@@ -182,17 +182,18 @@ def test_new_files_alone_are_found_by_name(tmp_path):
                              "config": "fsr_rs050_x",
                              "traffic": "paced_device_144", "chips": 1,
                              "why": "x"})
-    next(m for m in doc["end_to_end"] if m["name"] == "paced_p95_ms")[
+    next(m for m in doc["end_to_end"] if m["name"] == "upscale_gpu_ms")[
         "workloads"].append("fsr_rs050_paced144")
     doc["per_layer"].append({"name": "late_share", "unit": "%",
                              "better": "lower", "source": "host_clock",
-                             "layer": "API", "moves": "paced_p95_ms"})
+                             "layer": "API", "moves": "upscale_gpu_ms"})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(doc))
     spec = Spec(tmp_path, bench)
     cell = spec.cell("fsr_rs050_paced144")
     assert cell.config["render_scale"] == 0.5
     assert cell.traffic["rate_hz"] == 144
-    assert [m["name"] for m in cell.end_to_end] == ["paced_p95_ms", "setup_s"]
+    assert [m["name"] for m in cell.end_to_end] == ["upscale_gpu_ms",
+                                                     "setup_s"]
     assert "late_share" in [m["name"] for m in cell.per_layer]
     # a metric without `workloads` is read in every cell reporting its moves
     assert "late_share" in [m["name"] for m in
@@ -200,3 +201,42 @@ def test_new_files_alone_are_found_by_name(tmp_path):
     assert "late_share" not in [m["name"] for m in
                                 spec.cell("fsr_rs075_device").per_layer]
     assert spec.reader("late_share")(None) == 42.0
+
+
+def test_gpu_ms_is_the_busy_time_per_pair():
+    """upscale_gpu_ms: the trace's busy time over the pairs completed;
+    nothing without a trace or where nothing ran on the device."""
+    read = Spec().reader("upscale_gpu_ms")
+    win = load.Window(seconds=30.0, attempted=2700, completed=2700, failed=0)
+    busy = SimpleNamespace(busy_s=0.41499, kernels=[])
+    assert read(SimpleNamespace(window=win, trace=busy)) == \
+        pytest.approx(0.41499e3 / 2700)
+    assert read(SimpleNamespace(window=win, trace=None)) is None
+    idle = SimpleNamespace(busy_s=0.0, kernels=[])
+    assert read(SimpleNamespace(window=win, trace=idle)) is None
+
+
+@pytest.mark.parametrize("name,traced", [("fsr_rs075_paced90", True),
+                                         ("fsr_rs075_device", False)])
+def test_untraced_run_traces_for_a_device_metric(small_cell, spec,
+                                                 monkeypatch, name, traced):
+    """A cell whose end-to-end metrics read the device trace runs its
+    window under the profiler with --trace 0 as well; its line keeps the
+    untraced form (no busy_s, no breakdown)."""
+    from fsrbench import harness
+
+    made = []
+
+    class Recording(Tracer):
+        def __init__(self, enabled, cuda=True):
+            super().__init__(enabled, cuda)
+            made.append(self.enabled)
+
+    monkeypatch.setattr(harness, "Tracer", Recording)
+    r = harness.run_cell(small_cell(name), 2**31 + 5, 0.3, False, spec=spec,
+                         device=torch.device("cpu"),
+                         t_process=time.perf_counter())
+    assert made[-1] is traced
+    assert r["correct"], r["checks"]
+    assert "busy_s" not in r["device"] and "breakdown" not in r
+    assert "setup_s" in r["metrics"]

@@ -59,7 +59,8 @@ def run_cell(cell, seed, seconds, trace, *, spec, device, t_process,
     call = model if model_hook is None else model_hook(model)
     iw, ih = config["eye_in_wh"]
     n_in = int(traffic.get("inputs", 3))
-    pairs = IN.make_pairs(seed, n_in, iw, ih, device)
+    pairs = IN.make_pairs(seed, n_in, iw, ih, device,
+                          color_bits=config["color_bits"])
     for _ in range(WARM_CALLS):
         for x in pairs:
             model(x)
@@ -77,13 +78,18 @@ def run_cell(cell, seed, seconds, trace, *, spec, device, t_process,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
-    tracer = Tracer(trace, cuda=device.type == "cuda")
+    # a cell whose end-to-end metrics read the device trace is traced in
+    # its untraced runs too; busy_s and the breakdown stay --trace 1's
+    tracer = Tracer(trace or any(m["source"] == "device_trace"
+                                 for m in cell.end_to_end),
+                    cuda=device.type == "cuda")
     if trace:
         seconds = min(seconds, float(traffic.get("trace_seconds", seconds)))
     win = run_window(call, traffic, feed, seconds, IN.seed_rng(seed, 1),
                      tracer, device)
     setup_s = win.t0 - t_process
     summary = tracer.summary
+    shown = summary if trace else None
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
     log(f"[window] {cell.name}: {win.completed}/{win.attempted} pairs in "
@@ -125,11 +131,11 @@ def run_cell(cell, seed, seconds, trace, *, spec, device, t_process,
         "attempted": int(win.attempted),
         "failed": int(win.failed),
         "metrics": metrics,
-        "device": _device(device, peak, summary),
+        "device": _device(device, peak, shown),
     }
-    if summary is not None:
-        result["breakdown"] = {"device_ops": summary.device_ops,
-                               "idle_gaps": summary.idle_gaps}
+    if shown is not None:
+        result["breakdown"] = {"device_ops": shown.device_ops,
+                               "idle_gaps": shown.idle_gaps}
     result["info"] = info
     result["checks"] = checks
     return result

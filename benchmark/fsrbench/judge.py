@@ -10,6 +10,12 @@ channel of any texel of the sampled outputs, both eyes, both foveation
 classes. Limits come from configs/<config>.json (`check_limits`); the
 stream's `tag_errors` (pairs the kernel read out of place, out of order,
 twice or never) is an exact comparison with the limit 0.
+
+The configuration's `color_bits` chooses the texel words (texels.py): the
+inputs and the program's outputs are decoded by that format, the reference
+is fed and read in its dtype, and every gap is in each channel's own units.
+At 8 bits (RGBA8) that is an LSB of 1/255 on all four channels; at 10
+(R10G10B10A2) an LSB of 1/1023 on R, G and B and of 1/3 on the 2-bit alpha.
 """
 
 import json
@@ -20,6 +26,7 @@ from pathlib import Path
 
 import numpy as np
 
+from .texels import texel_format
 from .work import eye_centers, inside_masks
 
 __all__ = ["reference_pair", "compare", "checks", "WORKER"]
@@ -41,11 +48,12 @@ def oracle_kwargs(config, eye):
 
 
 def reference_pair(pair, config):
-    """The reference's (2, out_h, out_w, 4) uint8 output of one packed
-    (2, h, w) int32 input pair, an eye per worker process."""
-    pair = np.ascontiguousarray(pair)
+    """The reference's (2, out_h, out_w, 4) output, in the channel dtype of
+    the configuration's texel format, of one packed (2, h, w) int32 input
+    pair, an eye per worker process."""
+    fmt = texel_format(config["color_bits"])
     _, h, w = pair.shape
-    texels = pair.view(np.uint8).reshape(2, h, w, 4)
+    texels = fmt.from_words(np.asarray(pair))
     env = dict(os.environ, OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1",
                MKL_NUM_THREADS="1")
     procs = []
@@ -62,12 +70,13 @@ def reference_pair(pair, config):
             p.stdin = None
         outs = []
         ow, oh = config["eye_out_wh"]
+        dtype = np.dtype(fmt.dtype)
         for p in procs:
             data, err = p.communicate(timeout=TIMEOUT_S)
-            if p.returncode != 0 or len(data) != oh * ow * 4:
+            if p.returncode != 0 or len(data) != oh * ow * 4 * dtype.itemsize:
                 raise RuntimeError(f"reference worker exited {p.returncode}: "
                                    f"{err.decode(errors='replace')[-2000:]}")
-            outs.append(np.frombuffer(data, np.uint8).reshape(oh, ow, 4))
+            outs.append(np.frombuffer(data, dtype).reshape(oh, ow, 4))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -76,12 +85,14 @@ def reference_pair(pair, config):
     return np.stack(outs)
 
 
-def compare(out, ref, masks):
-    """out: the program's packed (2, out_h, out_w) int32 output (numpy);
-    ref: the reference's (2, out_h, out_w, 4) uint8. Returns the widest
-    gap, the unequal texels, and the widest gap inside and outside."""
-    texels = np.ascontiguousarray(out).view(np.uint8).reshape(ref.shape)
-    gap = np.abs(texels.astype(np.int16) - ref.astype(np.int16)).max(axis=-1)
+def compare(out, ref, masks, color_bits=8):
+    """out: the program's packed (2, out_h, out_w) int32 output (numpy), in
+    the texel format of `color_bits`; ref: the reference's
+    (2, out_h, out_w, 4) channels. Returns the widest gap, the unequal
+    texels, and the widest gap inside and outside, in channel units."""
+    texels = texel_format(color_bits).from_words(
+        np.asarray(out)).reshape(ref.shape)
+    gap = np.abs(texels.astype(np.int32) - ref.astype(np.int32)).max(axis=-1)
     inside = np.stack(masks)
     return {"max_lsb": int(gap.max()),
             "unequal_texels": int((gap > 0).sum()),
@@ -104,7 +115,7 @@ def checks(samples, pairs_host, config, tag_errors=None):
             if tag is not None:
                 pair[:, 0, 0] = tag
             refs[key] = reference_pair(pair, config)
-        r = compare(out, refs[key], masks)
+        r = compare(out, refs[key], masks, config["color_bits"])
         if worst is None or r["max_lsb"] > worst["max_lsb"]:
             worst = r
     limits = config["check_limits"]

@@ -49,7 +49,8 @@ def main(argv=None):
     device = torch.device("cuda", 0)
     model = build_model(config, device)
     iw, ih = config["eye_in_wh"]
-    pairs = IN.make_pairs(args.seed, 3, iw, ih, device)
+    pairs = IN.make_pairs(args.seed, 3, iw, ih, device,
+                          color_bits=config["color_bits"])
     for x in pairs:
         model(x)
     rig = StreamRig([p.cpu().numpy() for p in pairs],
